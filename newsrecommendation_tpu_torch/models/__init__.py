@@ -1,0 +1,32 @@
+"""Model registry: name -> (init, news_encoder, user_encoder, forward)."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+from newsrecommendation_tpu_torch.models import nrms
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelDef:
+    name: str
+    init: Callable
+    news_encoder: Callable
+    user_encoder: Callable
+    forward: Callable
+
+
+REGISTRY = {
+    "NRMS": ModelDef("NRMS", nrms.init, nrms.news_encoder, nrms.user_encoder,
+                     nrms.forward),
+}
+
+
+def get_model(name: str) -> ModelDef:
+    if name == "NAML":
+        raise NotImplementedError("NAML is not yet ported to PyTorch")
+    try:
+        return REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"unknown model {name!r}; available: {sorted(REGISTRY)}")

@@ -1,0 +1,131 @@
+"""Attention blocks: additive attention pooling and exp-normalised
+multi-head self attention.
+
+The normalisation is NOT a masked softmax: scores are exponentiated, the
+0/1 mask multiplies in AFTER the exp, and the sum gets 1e-8 added
+(reference model_utils.py:21-29, 47-53). A fully masked row gives an
+all-zero distribution (output 0), not uniform attention.
+
+``masked_exp_normalize`` computes that stably: it shifts by the row max m
+(over all keys, masked ones included) and scales the epsilon by exp(-m),
+which is algebraically the same expression for any m.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from newsrecommendation_tpu_torch.ops.common import dropout as _dropout
+from newsrecommendation_tpu_torch.ops.common import linear
+from newsrecommendation_tpu_torch.utils import init as pinit
+
+_EPS = 1e-8
+
+
+def masked_exp_normalize(scores, mask=None, dim: int = -1,
+                         eps: float = _EPS):
+    """exp(scores)*mask / (sum(exp(scores)*mask) + eps), stably, in f32.
+
+    mask: broadcastable 0/1 float or None.
+    """
+    scores = scores.float()
+    m = torch.amax(scores, dim=dim, keepdim=True)
+    num = torch.exp(scores - m)
+    if mask is not None:
+        num = num * mask.to(num.dtype)
+    den = torch.sum(num, dim=dim, keepdim=True) + eps * torch.exp(-m)
+    # den can be +inf (all scores deeply negative) but never 0: guard anyway
+    return torch.where(den > 0, num / den, torch.zeros_like(num))
+
+
+# --------------------------------------------------------------------------
+# Additive attention pooling (reference model_utils.py:7-31)
+# --------------------------------------------------------------------------
+
+
+def init_attention_pooling(gen, emb_size: int, hidden_size: int):
+    return {
+        "fc1": pinit.torch_linear(gen, emb_size, hidden_size),
+        "fc2": pinit.torch_linear(gen, hidden_size, 1),
+    }
+
+
+def attention_pooling(params, x, mask=None):
+    """Weighted pooling over dim -2.
+
+    x: (..., S, D); mask: (..., S) or None. Returns (..., D).
+    alpha = exp_normalize(fc2(tanh(fc1(x)))), out = sum_s alpha_s * x_s.
+    """
+    e = torch.tanh(linear(params["fc1"], x))
+    a = linear(params["fc2"], e)[..., 0]  # (..., S)
+    alpha = masked_exp_normalize(a, mask, dim=-1)
+    return torch.einsum("...sd,...s->...d", x, alpha.to(x.dtype))
+
+
+# --------------------------------------------------------------------------
+# Multi-head self attention (reference model_utils.py:58-95)
+# --------------------------------------------------------------------------
+
+
+def init_multi_head_self_attention(gen, d_model: int, n_heads: int,
+                                   d_k: int, d_v: int | None = None):
+    """Q/K/V projections only: the reference has no output projection."""
+    d_v = d_k if d_v is None else d_v
+    return {
+        "wq": pinit.xavier_linear(gen, d_model, n_heads * d_k),
+        "wk": pinit.xavier_linear(gen, d_model, n_heads * d_k),
+        "wv": pinit.xavier_linear(gen, d_model, n_heads * d_v),
+    }
+
+
+def _fused_qkv(params, x):
+    """One (d_model, nq+nk+nv) projection instead of three.
+
+    Returns (qkv_2d, (n, s), bias, nq, nk, nv) with the bias NOT yet added:
+    the kernel adds it as it loads qkv, saving a pass over the (N, S, 3HD)
+    tensor.
+    """
+    wq, wk, wv = params["wq"], params["wk"], params["wv"]
+    w = torch.cat([wq["w"], wk["w"], wv["w"]], dim=1).to(x.dtype)
+    bias = torch.cat([wq["b"], wk["b"], wv["b"]]).to(x.dtype)
+    n, s, dm = x.shape
+    qkv_2d = torch.matmul(x.reshape(n * s, dm), w)
+    return (qkv_2d, (n, s), bias,
+            wq["w"].shape[1], wk["w"].shape[1], wv["w"].shape[1])
+
+
+def mhsa_dropout_pool(mhsa_params, pool_params, x, mask=None, *,
+                      n_heads: int, drop_rate: float = 0.0,
+                      generator: torch.Generator | None = None,
+                      deterministic: bool = True):
+    """The NRMS encoder tail: MHSA -> dropout -> additive attention pooling.
+
+    x: (B, S, d_model); mask: (B, S) over keys/positions or None.
+    Returns (B, n_heads*d_v).
+    """
+    qkv_2d, bs, bias, nq, nk, nv = _fused_qkv(mhsa_params, x)
+    ctx = _mhsa_from_qkv(qkv_2d, bs, bias, nq, nk, nv, mask, n_heads=n_heads)
+    ctx = _dropout(ctx, drop_rate, deterministic, generator)
+    return attention_pooling(pool_params, ctx, mask)
+
+
+def _mhsa_from_qkv(qkv_2d, bs, bias, nq, nk, nv, mask=None, *, n_heads: int):
+    """MHSA over the un-biased fused projection output (B*S, nq+nk+nv).
+
+    Equal q/k/v widths go to the fused-qkv wrappers, which run the CUDA
+    kernel on the card (raising for a sequence it does not take) and its
+    plain version on the CPU. Unequal widths need the separate-q/k/v
+    kernels, not ported yet, and raise on every device.
+    """
+    if not nq == nk == nv:
+        raise NotImplementedError(
+            f"q/k/v widths ({nq}, {nk}, {nv}): the separate-q/k/v kernels "
+            "(exp_mhsa) are not ported")
+    b, s = bs
+    qkv_raw = qkv_2d.reshape(b, s, qkv_2d.shape[-1])
+    from newsrecommendation_tpu_torch.ops import fused_attention as fa
+
+    if mask is None:
+        return fa.exp_mhsa_qkv_bias(qkv_raw, bias, n_heads)
+    return fa.exp_mhsa_qkv_bias_masked(qkv_raw, bias,
+                                       mask.float().contiguous(), n_heads)
