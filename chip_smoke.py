@@ -1,30 +1,51 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (newsrecommendation_tpu_torch) on one
-NVIDIA GPU: builds the CUDA kernel, holds it against its plain PyTorch
-version, then serves NRMS at its published width over HTTP.
+NVIDIA GPU: builds the CUDA kernels, holds each against its plain PyTorch
+version, serves NRMS at its published width over HTTP, then trains it at
+its published width.
 
     python3 chip_smoke.py        # from the repo root, on a machine with
                                  # one CUDA card and nvcc
 
 Phases, each printing one line with its elapsed seconds:
   device   nvidia-smi name and power limit; TF32 off for matmuls and convs
-  build    nvcc builds csrc/qkv_fwd.cu for sm_90a (skipped if built)
-  kernel   both kernel variants vs the plain version, f32 and bf16, at the
-           shapes the serving path gives them, with the count of elements
-           that differ at all; controls with a planted fault (bias dropped,
-           inputs scaled, mask dropped) that the comparison must reject;
-           kernel / plain / scaled_dot_product_attention times and the
-           memory/flop bound
-  serve    a 65,536-news synthetic corpus, full-width NRMS params from a
-           seed, Recommender.from_state on cuda, the HTTP server on a free
+  build    one nvcc per kernel source (csrc/qkv_fwd.cu, csrc/qkv_bwd_probs.cu)
+           for sm_90a, all started together (skipped if built)
+  kernel   row 1 (the forward without probs), both variants vs the plain
+           version, f32 and bf16, at the shapes the serving path gives it,
+           with the count of elements that differ at all; controls with a
+           planted fault (bias dropped, inputs scaled, mask dropped) that
+           the comparison must reject; kernel / plain /
+           scaled_dot_product_attention times and the memory/flop bound
+  kernel-train  rows 2 (the forward that writes probs) and 3 (the backward
+           from probs) vs their plain versions, f32 and bf16, at the
+           training path's shapes (news encoder 7040 x 20, user encoder
+           128 x 50, masked 128 x 50 with fully masked rows): row 2's
+           context bit-equal to row 1's, its probs, row 3's dqkv; controls
+           (probs transposed per head, ds without its row-sum term, and in
+           bf16 dv from the unrounded a); kernel / plain times and bounds
+  corpus   a 65,536-news synthetic corpus, full-width NRMS params from a
+           seed, and its behaviors prepared into training samples
+  serve    Recommender.from_state on cuda, the HTTP server on a free
            localhost port, /score (C up to 300) and /recommend (k=10)
            requests, once with user_log_mask False and once True; served
            scores checked against the same params run on the CPU through
            the plain versions; launch counts read around both runs
+  train-check  one f32 train step (dropout off, B=16, full width) on the
+           card and on the CPU from the same params and batch, for
+           user_log_mask False and True: loss, every leaf's gradient, the
+           frozen table unchanged
+  train    fit() at the headline training step (bf16 over f32 params,
+           B=128, 1+4 candidates, 50-news history, dropout 0.2, Adam lr
+           3e-4, frozen table, device gather, prefetch depth 2) for one
+           epoch of at least 30 steps: step ms and ex/s after the first
+           step, finite losses, exactly 2 row-2 and 2 row-3 launches per
+           step and no row-1 launch; then 20 steps on one batch with
+           dropout off, whose loss must fall
   profile  device time, top kernels and device busy share (torch.profiler
            against an unprofiled wall clock) of one served batch of 64
-           users x 300 candidates, of a 64-user corpus top-10, and of one
-           1024-row news-encoder chunk
+           users x 300 candidates, of a 64-user corpus top-10, of one
+           1024-row news-encoder chunk and of one headline train step
 Then one JSON line of per-kernel numbers, and last the line
 {"ok": true, "device": {...}}. Any failed phase raises: the exit code is
 then not 0 and no result line is printed. Without CUDA it exits 1 at once.
@@ -51,10 +72,33 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (5e-2, 5e-2)}  # (rtol, atol)
 # Served scores vs the same params on the CPU (f32, two devices' orders).
 SERVE_TOL = (1e-4, 1e-4)
-REPLACES = "newsrecommendation_tpu/ops/pallas/fused_attention.py:199"
+# Kernel rows 2-3 vs their plain versions: (forward, backward) tolerances.
+TRAIN_TOL = {"float32": ((1e-5, 1e-5), (1e-4, 1e-4)),
+             "bfloat16": ((5e-2, 5e-2), (5e-2, 5e-2))}
+# Train step on the card vs the CPU (f32): loss rtol; each leaf's gradient
+# within this share of that leaf's largest |gradient|.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_SHARE = 1e-4
+# ... or within this share of the largest gradient of any leaf, whichever
+# is larger. Some leaves' gradients nearly cancel: the key bias of each
+# MHSA and the score bias of each pooling are 0 analytically (they shift
+# all scores of a row alike), and on near-uniform attention the news
+# pooling's gradients are tiny too. What is left of them is f32 rounding
+# noise of two summation orders, about 1e-9 of the largest gradient.
+TRAIN_GRAD_FLOOR = 1e-6
+TPU_KERNELS = "newsrecommendation_tpu/ops/pallas/fused_attention.py"
+REPLACES = f"{TPU_KERNELS}:199"
 SOURCE = "newsrecommendation_tpu_torch/csrc/qkv_fwd.cu"
+BWD_SOURCE = "newsrecommendation_tpu_torch/csrc/qkv_bwd_probs.cu"
 NUM_NEWS = 65536
 MAX_BATCH = 64
+# Impressions of the synthetic corpus: about 2.4 training samples each,
+# enough for one epoch of more than 30 steps at batch 128.
+TRAIN_IMPRESSIONS = 2400
+TRAIN_STEPS_MIN = 30
+# The device the training phases run on; a rehearsal without a card sets
+# it to "cpu" (the plain versions then stand in for the kernels).
+DEVICE = "cuda"
 
 _T0 = time.perf_counter()
 
@@ -115,7 +159,7 @@ def profile_device(fn, reps: int = 10) -> dict:
         fail("the profiler saw no device time")
     return {"wall_ms": wall_s * 1e3, "device_ms": device_ms,
             "busy_share": device_ms / (wall_s * 1e3),
-            "top_ms": [[k[:60], ms] for k, ms in dev[:5]]}
+            "top_ms": [[k[:60], ms] for k, ms in dev[:8]]}
 
 
 def n_outside(out, ref, rtol, atol) -> int:
@@ -194,6 +238,271 @@ def kernel_case(fa, variant, n, t, heads, d, dtype, seed):
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
     }
+
+
+def n_differ(a, b) -> int:
+    return int((a.float() != b.float()).sum().item())
+
+
+def bwd_plain_with_fault(qkv, bias, probs, g, heads, *, rowsum=True,
+                         round_a=True):
+    """The plain backward of row 3 with a planted fault: the ds row-sum
+    term dropped, or dv computed from the f32 a instead of a rounded to
+    g's dtype."""
+    import torch
+
+    n, t, w3 = qkv.shape
+    d = w3 // (3 * heads)
+    x = (qkv + bias).view(n, t, 3, heads, d).float()
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    gh = g.view(n, t, heads, d).float()
+    a = probs.view(n, t, heads, t).permute(0, 2, 1, 3)
+    al = a.to(g.dtype).float() if round_a else a
+    dv = torch.einsum("bhqk,bqhd->bkhd", al, gh)
+    da = torch.einsum("bqhd,bkhd->bhqk", gh, v)
+    r = (da * a).sum(-1, keepdim=True) if rowsum else 0.0
+    ds = ((da - r) * a * (1.0 / d ** 0.5)).to(qkv.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
+    return torch.cat([y.reshape(n, t, heads * d) for y in (dq, dk, dv)],
+                     -1).to(qkv.dtype)
+
+
+def train_kernel_case(fa, variant, n, t, heads, d, dtype, seed):
+    """Rows 2 and 3 against their plain versions on the card, with planted
+    faults, timings and bounds."""
+    import torch
+
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=DEVICE).manual_seed(100 + seed)
+    hd = heads * d
+    qkv = torch.randn((n, t, 3 * hd), generator=gen, device=DEVICE).to(tdt)
+    bias = (0.5 * torch.randn((3 * hd,), generator=gen, device=DEVICE)).to(tdt)
+    g = torch.randn((n, t, hd), generator=gen, device=DEVICE).to(tdt)
+    mask = None
+    if variant == "bias_masked":
+        mask = (torch.rand((n, t), generator=gen, device=DEVICE) > 0.3).float()
+        mask[:, -1] = 1.0
+        mask[::7] = 0.0  # every 7th row fully masked: probs and output 0
+    (f_rtol, f_atol), (b_rtol, b_atol) = TRAIN_TOL[dtype]
+    where = f"{variant} {dtype} N={n} T={t}"
+
+    ctx, probs = fa.qkv_fwd_probs(qkv, bias, mask, heads)
+    row1 = (fa.exp_mhsa_qkv_bias(qkv, bias, heads) if mask is None
+            else fa.exp_mhsa_qkv_bias_masked(qkv, bias, mask, heads))
+    ref_ctx, ref_probs = fa.exp_mhsa_qkv_bias_probs_reference(qkv, bias,
+                                                              mask, heads)
+    dqkv = fa.qkv_bwd_probs(qkv, bias, ref_probs, g, heads)
+    ref_dqkv = fa.qkv_bwd_probs_reference(qkv, bias, ref_probs, g, heads)
+    dqkv.sum().item()  # waits for the kernels
+    if not torch.equal(ctx, row1):
+        fail(f"{where}: row 2's context is not row 1's bit for bit")
+    checks = {"ctx": (ctx, ref_ctx, f_rtol, f_atol),
+              "probs": (probs, ref_probs, *TRAIN_TOL["float32"][0]),
+              "dqkv": (dqkv, ref_dqkv, b_rtol, b_atol)}
+    out = {"variant": variant, "shape": [n, t, heads, d], "dtype": dtype}
+    for name, (got, want, rtol, atol) in checks.items():
+        if not torch.isfinite(got.float()).all():
+            fail(f"{where}: non-finite {name}")
+        if n_outside(got, want, rtol, atol):
+            fail(f"{where}: {name} max |kernel - plain| "
+                 f"{(got.float() - want.float()).abs().max().item():.3e} "
+                 f"over rtol {rtol} atol {atol}")
+        out[name] = {"max_abs_err": (got.float() - want.float()).abs()
+                     .max().item(), "n_differ": n_differ(got, want),
+                     "n_elems": got.numel(),
+                     "max_abs_ref": want.float().abs().max().item(),
+                     "rtol": rtol, "atol": atol}
+    if mask is not None and (probs[::7].abs().max().item() != 0.0
+                             or dqkv[::7].abs().max().item() != 0.0):
+        fail(f"{where}: fully masked rows have probs or dqkv not 0")
+    # controls: the same comparisons must reject plain versions with a
+    # planted fault. A fault that moves bf16 results by less than the bf16
+    # tolerance (dv from the unrounded a) is rejected when it differs from
+    # the kernel in more than 10x as many elements as the plain version
+    # does: a kernel that lacked that rounding would differ as much.
+    transposed = ref_probs.view(n, t, heads, t).permute(0, 3, 2, 1).reshape(
+        n, t, heads * t)
+    caught = {"probs transposed per head": n_outside(
+        probs, transposed, *TRAIN_TOL["float32"][0])}
+    no_rowsum = bwd_plain_with_fault(qkv, bias, ref_probs, g, heads,
+                                     rowsum=False)
+    caught["ds without its row-sum term"] = n_outside(dqkv, no_rowsum,
+                                                      b_rtol, b_atol)
+    if dtype == "bfloat16":
+        f32_a = bwd_plain_with_fault(qkv, bias, ref_probs, g, heads,
+                                     round_a=False)
+        base = out["dqkv"]["n_differ"]
+        fault_differ = n_differ(dqkv, f32_a)
+        caught["dv from the f32 a (differing elements)"] = (
+            fault_differ if n_outside(dqkv, f32_a, b_rtol, b_atol)
+            or fault_differ > 10 * max(base, 1) else 0)
+    for name, count in caught.items():
+        if not count:
+            fail(f"{where}: a plain version with {name} passed the "
+                 "comparison")
+    out["faults_caught"] = caught
+
+    item = qkv.element_size()
+    mask_bytes = 0 if mask is None else 4 * n * t
+    fwd_bytes = (item * (n * t * 3 * hd + 3 * hd + n * t * hd)
+                 + 4 * n * t * heads * t + mask_bytes)
+    bwd_bytes = (item * (2 * n * t * 3 * hd + 3 * hd + n * t * hd)
+                 + 4 * n * t * heads * t)
+    for name, fn, plain, n_bytes, flops in (
+            ("fwd", lambda: fa.qkv_fwd_probs(qkv, bias, mask, heads),
+             lambda: fa.exp_mhsa_qkv_bias_probs_reference(qkv, bias, mask,
+                                                          heads),
+             fwd_bytes, 4 * n * heads * t * t * d),
+            ("bwd", lambda: fa.qkv_bwd_probs(qkv, bias, ref_probs, g, heads),
+             lambda: fa.qkv_bwd_probs_reference(qkv, bias, ref_probs, g,
+                                                heads),
+             bwd_bytes, 8 * n * heads * t * t * d)):
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        out[name] = {"ms": time_ms(fn), "plain_ms": time_ms(plain),
+                     "library_ms": None, "bytes": n_bytes, "flops": flops,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations"}
+    return out
+
+
+def train_setup(cfg, table, seed, device):
+    from newsrecommendation_tpu_torch.models import get_model, nrms
+    from newsrecommendation_tpu_torch.train import create_train_state
+
+    params = nrms.init(cfg, table, seed=seed, device=device)
+    return get_model("NRMS"), create_train_state(cfg, params)
+
+
+def train_check(ctx, user_log_mask):
+    """One f32 step with dropout off on the card and on the CPU from the
+    same params and batch: loss, every leaf's gradient, the frozen table."""
+    import torch
+
+    from newsrecommendation_tpu_torch.train import make_train_step
+
+    cfg = ctx["cfg"].replace(batch_size=16, deterministic=True, lr=3e-4,
+                             freeze_embedding=True,
+                             user_log_mask=user_log_mask)
+    host = next(ctx["samples"].iter_batches(ctx["feats"], cfg.batch_size,
+                                            epoch=0, seed=0))
+    results = {}
+    for device in (DEVICE, "cpu"):
+        model, state = train_setup(cfg, ctx["table"], 1, device)
+        batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+        state, metrics = make_train_step(cfg, model)(state, batch, 0)
+        results[device] = (float(metrics["loss"]), state.params)
+    (loss, params), (cpu_loss, cpu_params) = results[DEVICE], results["cpu"]
+    if not abs(loss - cpu_loss) <= TRAIN_LOSS_RTOL * abs(cpu_loss):
+        fail(f"train-check: loss {loss} on the card, {cpu_loss} on the CPU")
+    table = params["embedding_table"]
+    if table.grad is not None or not torch.equal(
+            table.cpu(), torch.from_numpy(ctx["table"])):
+        fail("train-check: the frozen table took a gradient or moved")
+    grads = {}
+
+    def walk(a, b, path):
+        if isinstance(a, dict):
+            for key in a:
+                walk(a[key], b[key], path + (key,))
+            return
+        if path == ("embedding_table",):
+            return
+        if (a.grad is None) != (b.grad is None):
+            fail(f"train-check: {path} has a gradient on one device only")
+        if a.grad is not None:
+            grads[path] = (a.grad.cpu(), b.grad)
+
+    walk(params, cpu_params, ())
+    largest = max(g.abs().max().item() for _, g in grads.values())
+    floor = TRAIN_GRAD_FLOOR * largest
+    worst, under_floor = {}, {}
+    for path, (g, cpu_g) in grads.items():
+        scale = cpu_g.abs().max().item()
+        err = (g - cpu_g).abs().max().item()
+        if TRAIN_GRAD_SHARE * scale < floor:
+            under_floor["/".join(path)] = [scale, err]
+        else:
+            worst["/".join(path)] = err / scale
+        if not err <= max(TRAIN_GRAD_SHARE * scale, floor):
+            fail(f"train-check: {path} gradient differs by {err:.3e}, "
+                 f"over {TRAIN_GRAD_SHARE} of its max {scale:.3e} and "
+                 f"over {TRAIN_GRAD_FLOOR} of the largest {largest:.3e}")
+    return {"loss": loss, "cpu_loss": cpu_loss,
+            "worst_grad_share": max(worst.values()),
+            "worst_leaf": max(worst, key=worst.get),
+            "largest_grad": largest,
+            "under_floor_max_and_err": under_floor}
+
+
+def train_run(ctx, fa):
+    """The headline training step through fit(), then 20 steps on one
+    batch with dropout off. Launch counts are reset just before fit and
+    read just after."""
+    import torch
+
+    from newsrecommendation_tpu_torch.train import fit, make_train_step
+
+    cfg = ctx["cfg"].replace(
+        compute_dtype="bfloat16", batch_size=128, npratio=4, lr=3e-4,
+        drop_rate=0.2, freeze_embedding=True, device_gather=True,
+        prefetch_depth=2, log_steps=10, epochs=1, seed=0,
+        deterministic=False)
+    samples, feats = ctx["samples"], ctx["feats"]
+    model, state = train_setup(cfg, ctx["table"], 2, DEVICE)
+    step = make_train_step(cfg, model, device_gather=True)
+    losses = []
+
+    def recorded(*args):
+        st, metrics = step(*args)
+        losses.append(metrics["loss"])  # stays on the card
+        return st, metrics
+
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, stats = fit(cfg, model, state, samples, feats,
+                       train_step=recorded, device_gather=True)
+    float(losses[-1])  # waits for the last step
+    wall_s = time.perf_counter() - t0
+    launches = {k: fa.launch_counts(k) for k in fa.KERNELS}
+    steps = stats["steps"]
+    if steps < TRAIN_STEPS_MIN or steps != len(losses):
+        fail(f"train: {steps} steps ({len(losses)} recorded), fewer than "
+             f"{TRAIN_STEPS_MIN}")
+    if not torch.isfinite(torch.stack(losses)).all():
+        fail("train: a non-finite loss")
+    want = {"qkv_fwd": {"bias": 0, "bias_masked": 0},
+            "qkv_fwd_probs": {"bias_probs": 2 * steps,
+                              "bias_masked_probs": 0},
+            "qkv_bwd_probs": {"bwd_probs": 2 * steps}}
+    if launches != want:
+        fail(f"train: launches {launches}, expected {want}")
+
+    fixed_cfg = cfg.replace(deterministic=True)
+    _, fixed = train_setup(fixed_cfg, ctx["table"], 3, DEVICE)
+    fixed_step = make_train_step(fixed_cfg, model, device_gather=True)
+    feats_dev = torch.from_numpy(feats).to(DEVICE)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in next(
+        samples.iter_index_batches(cfg.batch_size, epoch=0, seed=1)).items()}
+    fixed_losses = []
+    for _ in range(20):
+        fixed, metrics = fixed_step(fixed, batch, 0, feats_dev)
+        fixed_losses.append(metrics["loss"])
+    fixed_losses = [float(x) for x in fixed_losses]
+    if not (np.isfinite(fixed_losses).all()
+            and fixed_losses[-1] < fixed_losses[0]):
+        fail(f"train: fixed-batch loss did not fall: {fixed_losses}")
+    ex_s = stats["examples_per_sec"]
+    return {"steps": steps, "samples": samples.num_samples,
+            "examples_per_sec": ex_s,
+            "step_ms": 1e3 * cfg.batch_size / ex_s if ex_s else None,
+            "fit_wall_s": wall_s, "first_loss": float(losses[0]),
+            "final_loss": stats["final_loss"],
+            "final_acc": stats["final_acc"],
+            "fixed_batch_loss": [fixed_losses[0], fixed_losses[-1]],
+            "launches": launches}, (cfg, model, state, step)
 
 
 def http_call(port, method, path, payload=None):
@@ -363,8 +672,8 @@ def main() -> int:
 
     # ---- build -----------------------------------------------------------
     t = time.perf_counter()
-    so = fa.build()
-    phase("build", t, so=os.path.relpath(so))
+    sos = fa.build()  # one nvcc per source, all started together
+    phase("build", t, **{k: os.path.relpath(v) for k, v in sos.items()})
 
     # ---- kernel vs plain -------------------------------------------------
     t = time.perf_counter()
@@ -378,12 +687,27 @@ def main() -> int:
             print("  kernel " + json.dumps(c), flush=True)
     phase("kernel", t, cases=len(cases))
 
+    # ---- kernel rows 2-3 vs plain ------------------------------------------
+    t = time.perf_counter()
+    train_cases = []
+    for i, (variant, n, tl) in enumerate([("bias", 7040, 20), ("bias", 128, 50),
+                                          ("bias_masked", 128, 50)]):
+        for dtype in ("float32", "bfloat16"):
+            c = train_kernel_case(fa, variant, n, tl, 20, 20, dtype, seed=i)
+            train_cases.append(c)
+            print("  kernel-train " + json.dumps(c), flush=True)
+    phase("kernel-train", t, cases=len(train_cases))
+
     # ---- serve at NRMS's published width ----------------------------------
     from newsrecommendation_tpu_torch.config import Config
     from newsrecommendation_tpu_torch.data import (
         build_news_features,
         random_word_embeddings,
         read_news,
+    )
+    from newsrecommendation_tpu_torch.data.loader import TrainSamples
+    from newsrecommendation_tpu_torch.data.prepare import (
+        prepare_training_data,
     )
     from newsrecommendation_tpu_torch.data.synthetic import generate_corpus
     from newsrecommendation_tpu_torch.models import nrms
@@ -393,16 +717,22 @@ def main() -> int:
     cfg = Config()  # 300-d words, 400-d news, 20 heads x 20, T=20, L=50
     with tempfile.TemporaryDirectory() as tmp:
         generate_corpus(tmp, num_news=NUM_NEWS, num_users=100,
-                        num_impressions=10, title_len=cfg.num_words_title,
+                        num_impressions=TRAIN_IMPRESSIONS,
+                        title_len=cfg.num_words_title, max_history=80,
                         seed=0)
         corpus = read_news(os.path.join(tmp, "news.tsv"), cfg)
+        prepare_training_data(tmp, 1, cfg.npratio, seed=0)
+        samples = TrainSamples.from_file(
+            os.path.join(tmp, f"behaviors_np{cfg.npratio}_0.tsv"),
+            corpus.news_index, cfg)
     feats = build_news_features(corpus, cfg)
     table = random_word_embeddings(corpus.word_dict, cfg.word_embedding_dim)
     params = nrms.init(cfg, table, seed=0, device="cuda")
     ctx = {"cfg": cfg, "params": params, "feats": feats, "nrms": nrms,
-           "news_index": corpus.news_index,
-           "cpu_params": to_device(params, "cpu")}
-    phase("corpus", t, news=corpus.num_news, vocab=len(corpus.word_dict))
+           "news_index": corpus.news_index, "table": table,
+           "samples": samples, "cpu_params": to_device(params, "cpu")}
+    phase("corpus", t, news=corpus.num_news, vocab=len(corpus.word_dict),
+          train_samples=samples.num_samples)
 
     fa.reset_launch_counts()
     runs = {}
@@ -415,12 +745,22 @@ def main() -> int:
                                            for k in after}
         phase(f"serve user_log_mask={user_log_mask}", t,
               **{k: json.dumps(v) for k, v in runs[user_log_mask].items()})
-    launches = fa.launch_counts()
+    launches = fa.launch_counts("qkv_fwd")
     if min(launches.values()) < 1:
         fail(f"a kernel of the serving path never launched: {launches}")
     if runs[False]["launches"]["bias_masked"] or not (
             runs[True]["launches"]["bias_masked"]):
         fail(f"masked kernel launches do not follow user_log_mask: {runs}")
+
+    # ---- training ------------------------------------------------------------
+    for user_log_mask in (False, True):
+        t = time.perf_counter()
+        res = train_check(ctx, user_log_mask)
+        phase(f"train-check user_log_mask={user_log_mask}", t,
+              **{k: json.dumps(v) for k, v in res.items()})
+    t = time.perf_counter()
+    train, (tcfg, tmodel, tstate, tstep) = train_run(ctx, fa)
+    phase("train", t, **{k: json.dumps(v) for k, v in train.items()})
 
     # ---- where the device time goes (after the counts were read) ----------
     t = time.perf_counter()
@@ -436,11 +776,20 @@ def main() -> int:
         with torch.inference_mode():
             nrms.news_encoder(rec.params, cfg, chunk)
 
+    train_feats = torch.from_numpy(feats).cuda()
+    train_batch = {k: torch.from_numpy(v).cuda() for k, v in next(
+        ctx["samples"].iter_index_batches(tcfg.batch_size, epoch=0,
+                                          seed=2)).items()}
+
+    def train_step():
+        tstep(tstate, train_batch, tcfg.seed, train_feats)
+
     prof = {"score_batch_64x300": profile_device(
                 lambda: rec.score_batch(hists, cands)),
             "recommend_batch_64_k10": profile_device(
                 lambda: rec.recommend_batch(hists, k=10)),
-            "news_encoder_chunk_1024": profile_device(encode_chunk)}
+            "news_encoder_chunk_1024": profile_device(encode_chunk),
+            "train_step_b128_bf16": profile_device(train_step)}
     phase("profile", t, **{k: json.dumps(v) for k, v in prof.items()})
 
     # ---- summary -----------------------------------------------------------
@@ -461,6 +810,25 @@ def main() -> int:
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"], "shape": c["shape"],
             "dtype": c["dtype"]})
+    # rows 2-3 at the news encoder's shape in the headline step (bf16)
+    c = next(c for c in train_cases if (c["variant"], c["shape"][0],
+                                        c["dtype"]) == ("bias", 7040,
+                                                        "bfloat16"))
+    rows = [("exp_mhsa_qkv_bias_probs", SOURCE, f"{TPU_KERNELS}:601",
+             train["launches"]["qkv_fwd_probs"]["bias_probs"], "fwd",
+             c["probs"]),
+            ("qkv_bwd_probs", BWD_SOURCE, f"{TPU_KERNELS}:642",
+             train["launches"]["qkv_bwd_probs"]["bwd_probs"], "bwd",
+             c["dqkv"])]
+    for name, source, replaces, n_launch, half, err in rows:
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": n_launch,
+            "max_abs_err": err["max_abs_err"], "n_differ": err["n_differ"],
+            "n_elems": err["n_elems"], "max_abs_ref": err["max_abs_ref"],
+            "ms": c[half]["ms"], "plain_ms": c[half]["plain_ms"],
+            "bound_ms": c[half]["bound_ms"], "bound_by": c[half]["bound_by"],
+            "library_ms": None, "shape": c["shape"], "dtype": c["dtype"]})
     print(json.dumps({"kernels": kernels, "card": card,
                       "total_s": time.perf_counter() - _T0}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,15 @@
 """Frozen dataclass configuration for the PyTorch port.
 
-The fields NRMS serving reads, under the JAX package's names and with its
-defaults, so one set of keyword arguments builds a config for either side.
-Fields of slices not yet ported (training, checkpoints and the CLI's serve
-settings, NAML, sharding) are left out until those slices land.
+The fields NRMS serving and training read, under the JAX package's names
+and with its defaults, so one set of keyword arguments builds a config for
+either side. Fields of slices not yet ported (checkpoints and the CLI's
+settings, eval, NAML, sharding) are left out until those slices land.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +34,25 @@ class Config:
     user_log_mask: bool = False
     drop_rate: float = 0.2
     freeze_embedding: bool = False
+
+    # ---- training ----------------------------------------------------------
+    batch_size: int = 32
+    npratio: int = 4  # negatives per positive: 1+npratio candidate slots
+    epochs: int = 1
+    lr: float = 1e-4
+    seed: int = 0  # data order, positive slots and dropout draws
+    start_epoch: int = 0
+    log_steps: int = 100
+    save_steps: int = 10000
+    steps_per_call: int = 1  # k>1: k optimizer steps per make_multi_step call
+    # Host batches staged ahead of the step by a background thread
+    # (train/prefetch.py). 0: inline, no thread.
+    prefetch_depth: int = 2
+    # Keep the news-feature matrix on the device and gather rows in the
+    # step; the host ships only (B, L) int32 news indices per step.
+    device_gather: bool = True
+    deterministic: bool = False  # dropout off everywhere
+    profile_dir: Optional[str] = None  # torch.profiler trace output dir
 
     # ---- data --------------------------------------------------------------
     filter_num: int = 3  # min word count for the word vocab
@@ -59,6 +79,12 @@ class Config:
             raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
         if self.tokenizer not in ("treebank", "regex"):
             raise ValueError(f"unknown tokenizer {self.tokenizer!r}")
+        if self.steps_per_call < 1:
+            raise ValueError(f"steps_per_call must be >= 1, "
+                             f"got {self.steps_per_call}")
+        if self.prefetch_depth < 0:
+            raise ValueError(f"prefetch_depth must be >= 0, "
+                             f"got {self.prefetch_depth}")
 
     @property
     def dim_per_head(self) -> int:

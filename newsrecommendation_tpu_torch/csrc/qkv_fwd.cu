@@ -1,15 +1,20 @@
 // Exp-normalised multi-head self-attention forward over a fused [q|k|v]
-// projection, with the projection bias added in the kernel and an optional
-// key mask.
+// projection, with the projection bias added in the kernel, an optional
+// key mask and, for training, an optional f32 probs output.
 //
 // Replaces the TPU kernel newsrecommendation_tpu/ops/pallas/fused_attention.py
-// :_qkv_fwd_kernel (bias and bias+mask variants, forward only).
+// :_qkv_fwd_kernel in two of its calls: _qkv_fwd_call (bias and bias+mask,
+// no probs: serving and eval) and _qkv_fwd_probs_call (the same with
+// probs_ref: the forward under differentiation, whose probs feed the
+// backward in qkv_bwd_probs.cu).
 //
 // Contract (same as the TPU kernel):
 //   qkv  (N, T, 3*H*D), head h's q/k/v at lanes h*D, H*D + h*D, 2*H*D + h*D
 //   bias (3*H*D,) added to qkv at the input dtype before anything else
 //   mask (N, T) f32 over keys, or null
 //   out  (N, T, H*D), head h at lanes h*D
+//   probs (N, T, H*T) f32 or null: a of head h at lanes [h*T, (h+1)*T),
+//        written before a is rounded for a@v (0 on a fully masked row)
 //   s = (q_h . k_h) * (1/sqrt(D))             f32 accumulate, scale after
 //   m = max_j s_j                              over ALL keys, masked included
 //   e = exp(s - m) * mask                      mask after the exp
@@ -20,7 +25,8 @@
 // Bound: memory. One call reads qkv once and writes out once, 4*N*H*T*T*D
 // flops against 4*T*D bytes per output row in f32 -- at N=1024, T=20,
 // H*D=400 that is 131 MB, about 39 us at 3.35 TB/s, while the 0.66 GFLOP
-// take about 10 us at the 67 TFLOP/s f32 rate.
+// take about 10 us at the 67 TFLOP/s f32 rate. With probs the call also
+// writes 4*H*T bytes per row: at N=7040, T=20 in bf16, 676 MB in all.
 //
 // Design (simple, correct first): one block of 4 warps per (row n, head h).
 // The block stages q_h, k_h, v_h (T x D each, biased and rounded at the
@@ -82,8 +88,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 qkv_fwd_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
-               const float* __restrict__ mask, T* __restrict__ out, int n_heads,
-               int t_len, int d_head, int stride) {
+               const float* __restrict__ mask, T* __restrict__ out,
+               float* __restrict__ probs, int n_heads, int t_len, int d_head,
+               int stride) {
   extern __shared__ float smem[];
   const int row = blockIdx.x / n_heads;
   const int h = blockIdx.x % n_heads;
@@ -137,8 +144,14 @@ qkv_fwd_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
       sum += e;
     }
     const float den = warp_sum(sum) + kEps * expf(-m);
-    for (int j = lane; j < t_len; j += 32)
-      p[j] = den > 0.f ? round_to<T>(p[j] / den) : 0.f;  // a in v's dtype
+    // probs[row, i, h*T + j]: this query's row of head h
+    const int64_t at = (((int64_t)row * t_len + i) * n_heads + h) * t_len;
+    float* arow = probs ? probs + at : nullptr;
+    for (int j = lane; j < t_len; j += 32) {
+      const float a = den > 0.f ? p[j] / den : 0.f;
+      if (arow) arow[j] = a;  // f32, before the rounding for a@v
+      p[j] = round_to<T>(a);  // a in v's dtype
+    }
     __syncwarp();
     for (int d = lane; d < d_head; d += 32) {
       float acc = 0.f;
@@ -151,7 +164,8 @@ qkv_fwd_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
 
 template <typename T>
 int launch(const void* qkv, const void* bias, const void* mask, void* out,
-           int n, int t_len, int n_heads, int d_head, void* stream) {
+           void* probs, int n, int t_len, int n_heads, int d_head,
+           void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   const int stride = d_head | 1;  // odd row stride: no bank conflicts
   const size_t smem =
@@ -165,8 +179,8 @@ int launch(const void* qkv, const void* bias, const void* mask, void* out,
   qkv_fwd_kernel<T><<<(unsigned)blocks, kThreads, smem,
                       (cudaStream_t)stream>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(bias),
-      static_cast<const float*>(mask), static_cast<T*>(out), n_heads, t_len,
-      d_head, stride);
+      static_cast<const float*>(mask), static_cast<T*>(out),
+      static_cast<float*>(probs), n_heads, t_len, d_head, stride);
   return (int)cudaGetLastError();
 }
 
@@ -179,15 +193,30 @@ extern "C" {
 int qkv_fwd_f32(const void* qkv, const void* bias, const void* mask,
                 void* out, int n, int t_len, int n_heads, int d_head,
                 void* stream) {
-  return launch<float>(qkv, bias, mask, out, n, t_len, n_heads, d_head,
-                       stream);
+  return launch<float>(qkv, bias, mask, out, nullptr, n, t_len, n_heads,
+                       d_head, stream);
 }
 
 int qkv_fwd_bf16(const void* qkv, const void* bias, const void* mask,
                  void* out, int n, int t_len, int n_heads, int d_head,
                  void* stream) {
-  return launch<__nv_bfloat16>(qkv, bias, mask, out, n, t_len, n_heads,
-                               d_head, stream);
+  return launch<__nv_bfloat16>(qkv, bias, mask, out, nullptr, n, t_len,
+                               n_heads, d_head, stream);
+}
+
+// The same forward that also writes the f32 probs (N, T, H*T).
+int qkv_fwd_probs_f32(const void* qkv, const void* bias, const void* mask,
+                      void* out, void* probs, int n, int t_len, int n_heads,
+                      int d_head, void* stream) {
+  return launch<float>(qkv, bias, mask, out, probs, n, t_len, n_heads,
+                       d_head, stream);
+}
+
+int qkv_fwd_probs_bf16(const void* qkv, const void* bias, const void* mask,
+                       void* out, void* probs, int n, int t_len, int n_heads,
+                       int d_head, void* stream) {
+  return launch<__nv_bfloat16>(qkv, bias, mask, out, probs, n, t_len,
+                               n_heads, d_head, stream);
 }
 
 int qkv_fwd_smem_bytes(int t_len, int d_head) {

@@ -1,9 +1,20 @@
-"""History and candidate index helpers shared by serving and (later) the
-training loader."""
+"""Host-side input: history and candidate index helpers shared by serving
+and training, and the training shards parsed once into dense numpy arrays
+(``TrainSamples``) with fixed-shape padded batches built by vectorised ops.
+
+  - id -> index mapping with 0 for unknown news,
+  - FRONT-padded, most-recent-L click history with a 0/1 float mask,
+  - a fresh uniformly random positive slot among the npratio negatives per
+    sample and epoch, the slot index being the label,
+  - the final partial batch padded, with a 0/1 ``weight`` per sample so a
+    step sees one shape while the loss equals that of the ragged batch.
+Same arrays as the JAX package's loader for the same files and seeds.
+"""
 
 from __future__ import annotations
 
-from typing import Dict, List
+import dataclasses
+from typing import Dict, Iterator, List
 
 import numpy as np
 
@@ -24,3 +35,106 @@ def pad_to_fix_len(x: List[int], fix_length: int, padding_front: bool = True,
         pad_x = x[-fix_length:] + [padding_value] * (fix_length - len(x))
         mask = [1] * min(fix_length, len(x)) + [0] * (fix_length - len(x))
     return pad_x, np.asarray(mask, dtype=np.float32)
+
+
+def _pad_rows(x: np.ndarray, n: int) -> np.ndarray:
+    """x with zero rows appended up to n rows (x itself when it has n)."""
+    if x.shape[0] == n:
+        return x
+    return np.concatenate([x, np.zeros((n - x.shape[0],) + x.shape[1:],
+                                       x.dtype)])
+
+
+@dataclasses.dataclass
+class TrainSamples:
+    """One training shard (behaviors_np{K}_{r}.tsv) as dense arrays."""
+
+    history: np.ndarray       # (N, L) int32 news indices, front-padded with 0
+    history_mask: np.ndarray  # (N, L) float32
+    pos: np.ndarray           # (N,) int32 positive news index
+    neg: np.ndarray           # (N, K) int32 negative news indices
+
+    @property
+    def num_samples(self) -> int:
+        return self.history.shape[0]
+
+    @property
+    def npratio(self) -> int:
+        return self.neg.shape[1]
+
+    @classmethod
+    def from_file(cls, path: str, news_index: Dict[str, int],
+                  cfg) -> "TrainSamples":
+        """Parse a prepared shard (iid, uid, time, history, pos, negs)."""
+        hist, mask, pos, neg = [], [], [], []
+        with open(path, "r", encoding="utf-8") as f:
+            for line in f:
+                parts = line.rstrip("\n").split("\t")
+                h, m = pad_to_fix_len(
+                    trans_to_nindex(parts[3].split(), news_index),
+                    cfg.user_log_length)
+                hist.append(h)
+                mask.append(m)
+                pos.append(trans_to_nindex(parts[4].split(), news_index)[0])
+                neg.append(trans_to_nindex(parts[5].split(), news_index))
+        return cls(history=np.asarray(hist, dtype=np.int32),
+                   history_mask=np.asarray(mask, dtype=np.float32),
+                   pos=np.asarray(pos, dtype=np.int32),
+                   neg=np.asarray(neg, dtype=np.int32))
+
+    def epoch_arrays(self, epoch: int, seed: int, shuffle: bool = False):
+        """(history, history_mask, candidate (N, 1+K), label (N,)) with a
+        fresh uniformly random positive slot per sample, drawn from
+        (seed, epoch). shuffle=True also permutes the sample order."""
+        n, k = self.num_samples, self.npratio
+        rng = np.random.default_rng(np.random.SeedSequence([seed, epoch]))
+        label = rng.integers(0, k + 1, size=n).astype(np.int32)
+        # candidate[:, j] = neg[:, j] for j < label, pos at j == label,
+        # neg[:, j-1] for j > label: pos inserted at the label slot
+        j = np.arange(k + 1)[None, :]
+        lab = label[:, None]
+        neg_shifted = np.take_along_axis(
+            self.neg, np.clip(j - (j > lab), 0, k - 1), axis=1)
+        candidate = np.where(j == lab, self.pos[:, None],
+                             neg_shifted).astype(np.int32)
+        if shuffle:
+            perm = rng.permutation(n)
+            return (self.history[perm], self.history_mask[perm],
+                    candidate[perm], label[perm])
+        return self.history, self.history_mask, candidate, label
+
+    def _iter(self, news_features, batch_size, epoch, seed, shuffle,
+              pad_final):
+        hist, mask, cand, label = self.epoch_arrays(epoch, seed, shuffle)
+        n = hist.shape[0]
+        for start in range(0, n, batch_size):
+            end = min(start + batch_size, n)
+            if end - start < batch_size and not pad_final:
+                continue
+            h, c = hist[start:end], cand[start:end]
+            if news_features is None:
+                batch = {"history_idx": h, "candidate_idx": c}
+            else:
+                batch = {"history": news_features[h],
+                         "candidate": news_features[c]}
+            batch.update(history_mask=mask[start:end],
+                         label=label[start:end],
+                         weight=np.ones(end - start, dtype=np.float32))
+            yield {k: _pad_rows(v, batch_size) for k, v in batch.items()}
+
+    def iter_batches(self, news_features: np.ndarray, batch_size: int,
+                     epoch: int, seed: int, shuffle: bool = False,
+                     pad_final: bool = True) -> Iterator[dict]:
+        """Fixed-shape batches of gathered feature rows: history (B,L,F)
+        int32, history_mask (B,L) f32, candidate (B,1+K,F) int32, label (B,)
+        int32, weight (B,) f32 (0 on the padded rows of a final batch)."""
+        return self._iter(news_features, batch_size, epoch, seed, shuffle,
+                          pad_final)
+
+    def iter_index_batches(self, batch_size: int, epoch: int, seed: int,
+                           shuffle: bool = False,
+                           pad_final: bool = True) -> Iterator[dict]:
+        """Like iter_batches without the host gather: history_idx (B,L) and
+        candidate_idx (B,1+K) int32 news indices, for a gather on the
+        device (train/step.py:with_device_gather)."""
+        return self._iter(None, batch_size, epoch, seed, shuffle, pad_final)

@@ -1,9 +1,10 @@
-"""Shared model pieces: title-embedding lookup (both input formats) and the
-user-history pad-doc path."""
+"""Shared model pieces: title-embedding lookup (both input formats), the
+user-history pad-doc path, and the training objective."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def default_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -19,7 +20,7 @@ def frozen_table(table: torch.Tensor, cfg) -> torch.Tensor:
     bf16 gather moves half the bytes.
     """
     if cfg.freeze_embedding:
-        table = table.detach()
+        table = table.detach()  # no gradient, not even a zero one
     return table.to(getattr(torch, cfg.compute_dtype))
 
 
@@ -45,3 +46,17 @@ def apply_pad_doc(news_vecs, log_mask, pad_doc):
     user_log_mask=False path: attention then runs unmasked)."""
     m = log_mask[..., None].to(news_vecs.dtype)
     return news_vecs * m + pad_doc.to(news_vecs.dtype) * (1.0 - m)
+
+
+def slot_cross_entropy(scores, labels, weights=None):
+    """Softmax cross entropy over the 1+K candidate slots, in f32.
+
+    weights: optional (B,) 0/1 per-sample weights for a padded final batch;
+    the weighted mean divides by max(sum(w), 1), so an all-padding batch
+    gives 0 rather than NaN.
+    """
+    ce = F.cross_entropy(scores.float(), labels.long(), reduction="none")
+    if weights is None:
+        return ce.mean()
+    w = weights.float()
+    return (ce * w).sum() / torch.clamp(w.sum(), min=1.0)

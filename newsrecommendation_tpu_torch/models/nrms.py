@@ -10,7 +10,6 @@ out as the JAX package's param pytree (bridge.py converts between them).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from newsrecommendation_tpu_torch.models import common
 from newsrecommendation_tpu_torch.ops import (
@@ -37,8 +36,9 @@ def init(cfg, embedding_table, *, seed: int = 0, device="cuda"):
     gen = torch.Generator().manual_seed(seed)
     d = cfg.dim_per_head
     params = {
+        # a copy: training updates params in place
         "embedding_table": torch.as_tensor(embedding_table,
-                                           dtype=torch.float32),
+                                           dtype=torch.float32).clone(),
         "news_encoder": {
             "mhsa": init_multi_head_self_attention(
                 gen, cfg.word_embedding_dim, cfg.num_attention_heads, d),
@@ -81,29 +81,26 @@ def user_encoder(params, cfg, news_vecs, log_mask):
                              n_heads=cfg.num_attention_heads)
 
 
-def forward(params, cfg, batch):
-    """Deterministic forward (no dropout): (loss, scores).
+def forward(params, cfg, batch, *, generator=None, deterministic=True):
+    """Training forward: (loss, scores).
 
     batch: history (B,L,F) int, history_mask (B,L) f32, candidate
     (B,1+K,F) int, label (B,) int, optional weight (B,) f32. Candidates and
     history are encoded in one news-encoder call, as in the JAX package.
+    deterministic=False applies the news encoder's two dropouts, drawing
+    from ``generator`` (on the batch's device; None: torch's default).
     """
     b, n_slots, feat = batch["candidate"].shape
     n_cand = b * n_slots
     all_flat = torch.cat([batch["candidate"].reshape(-1, feat),
                           batch["history"].reshape(-1, feat)], dim=0)
-    all_vecs = news_encoder(params, cfg, all_flat)
+    all_vecs = news_encoder(params, cfg, all_flat, generator=generator,
+                            deterministic=deterministic)
     cand_vecs = all_vecs[:n_cand].reshape(b, n_slots, cfg.news_dim)
     hist_vecs = all_vecs[n_cand:].reshape(b, cfg.user_log_length,
                                           cfg.news_dim)
     user_vec = user_encoder(params, cfg, hist_vecs, batch["history_mask"])
     scores = score_candidates(cand_vecs, user_vec)
-    ce = F.cross_entropy(scores.float(), batch["label"].long(),
-                         reduction="none")
-    w = batch.get("weight")
-    if w is None:
-        loss = ce.mean()
-    else:
-        w = w.float()
-        loss = (ce * w).sum() / torch.clamp(w.sum(), min=1.0)
+    loss = common.slot_cross_entropy(scores, batch["label"],
+                                     batch.get("weight"))
     return loss, scores

@@ -29,7 +29,10 @@ def masked_exp_normalize(scores, mask=None, dim: int = -1,
     mask: broadcastable 0/1 float or None.
     """
     scores = scores.float()
-    m = torch.amax(scores, dim=dim, keepdim=True)
+    # m only shifts the exponent and cancels in the quotient: no gradient
+    # flows through it (with ties, amax would split one between the tied
+    # entries and leave rounding residue where the true term is 0)
+    m = torch.amax(scores, dim=dim, keepdim=True).detach()
     num = torch.exp(scores - m)
     if mask is not None:
         num = num * mask.to(num.dtype)

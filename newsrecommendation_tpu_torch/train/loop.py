@@ -1,0 +1,190 @@
+"""Host-side training loop: epochs over the batch iterator, train steps,
+logging with throughput counters.
+
+As the JAX package's loop: per-epoch iteration, loss/accuracy logging
+every log_steps (the only points where they are read to the host),
+examples/s counted from the end of the first step, an optional profiler
+trace, and batches built and copied to the device on a background thread
+(train/prefetch.py; cfg.prefetch_depth). Checkpoints are not ported yet.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from newsrecommendation_tpu_torch.train.prefetch import stage_ahead
+from newsrecommendation_tpu_torch.train.step import (
+    make_multi_step,
+    make_train_step,
+)
+
+
+def _device_of(params) -> torch.device:
+    while isinstance(params, dict):
+        params = next(iter(params.values()))
+    return params.device
+
+
+def _to_device(batch: dict, device) -> dict:
+    # A plain copy on the worker's current stream, which is the default
+    # stream the step runs on: the copy is ordered after the work queued
+    # there and returns when done, so the step never reads a half-copied
+    # batch and the allocator never hands its memory to another stream.
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+def fit(cfg, model, state, samples, news_features, *, train_step=None,
+        multi_step=None, save_dir: Optional[str] = None,
+        device_gather: Optional[bool] = None) -> Dict[str, float]:
+    """Train for cfg.epochs over `samples`; returns (state, stats).
+
+    samples: data.loader.TrainSamples; news_features: the combined feature
+    matrix. The device is that of the state's params. train_step /
+    multi_step: optional pre-built steps (a custom train_step without a
+    multi_step runs one step per call). device_gather: gather feature
+    rows on the device from a resident copy of news_features, shipping
+    only int32 news indices per step; defaults to cfg.device_gather for
+    the built-in step.
+    """
+    if save_dir is not None:
+        raise NotImplementedError(
+            "checkpoints are not ported yet: fit(save_dir=...) waits for "
+            "the checkpoint slice")
+    custom_step = train_step is not None
+    if device_gather is None:
+        device_gather = not custom_step and bool(cfg.device_gather)
+    if train_step is None:
+        train_step = make_train_step(cfg, model, device_gather=device_gather)
+    device = _device_of(state.params)
+    base_seed = cfg.seed
+
+    total_examples = 0
+    total_steps = 0
+    t_start = None  # set after the first step: set-up is not throughput
+    t0_examples = 0
+    prof = None
+    if cfg.profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+
+    metrics = {"loss": torch.zeros(()), "acc": torch.zeros(())}
+    k = cfg.steps_per_call
+    if k > 1 and multi_step is None:
+        if custom_step:
+            logging.warning(
+                "steps_per_call=%d ignored: a custom train_step was supplied "
+                "without a matching multi_step", k)
+            k = 1
+        else:
+            multi_step = make_multi_step(cfg, model, k,
+                                         device_gather=device_gather)
+    feats = ()
+    if device_gather:
+        # one copy for the whole run; every step gathers from it
+        feats = (torch.from_numpy(np.asarray(news_features)).to(device),)
+
+    def after_step(ep, cnt, loss_a, acc_a, n_examples):
+        """loss_a/acc_a: zero-arg callables returning host floats, called
+        only at log points, so other steps never wait for the device."""
+        nonlocal total_steps, total_examples, t_start, t0_examples
+        total_steps += 1
+        total_examples += n_examples
+        if cnt % cfg.log_steps == 0:
+            loss_v, acc_v = loss_a(), acc_a()
+            if t_start is None:
+                t_start = time.perf_counter()
+                t0_examples = total_examples
+            elapsed = max(time.perf_counter() - t_start, 1e-9)
+            eps = (total_examples - t0_examples) / elapsed
+            logging.info("[%d] Ed: %d, train_loss: %.5f, acc: %.5f, "
+                         "ex/s: %.1f", ep, cnt * cfg.batch_size, loss_v,
+                         acc_v, eps)
+
+    def iter_host_batches(ep):
+        if device_gather:
+            return samples.iter_index_batches(cfg.batch_size, epoch=ep,
+                                              seed=cfg.seed)
+        return samples.iter_batches(news_features, cfg.batch_size,
+                                    epoch=ep, seed=cfg.seed)
+
+    def grouped():
+        """All epochs' host batches, k-stacked, with epoch-end markers, in
+        one generator: the worker builds epoch N+1's first batches while
+        the device still trains on epoch N's tail."""
+        for ep in range(cfg.start_epoch, cfg.epochs):
+            pending = []
+            for batch in iter_host_batches(ep):
+                if k == 1:
+                    yield "single", ep, [batch]
+                    continue
+                pending.append(batch)
+                if len(pending) == k:
+                    yield "stack", ep, pending
+                    pending = []
+            for batch in pending:  # < k leftovers at epoch end: 1 step each
+                yield "single", ep, [batch]
+            yield "epoch_end", ep, None
+
+    def stage(item):
+        """On the worker thread: stack and copy to the device."""
+        kind, ep, batches = item
+        if kind == "epoch_end":
+            return kind, ep, None, None
+        n_examples = [int(b["weight"].sum()) for b in batches]
+        if kind == "stack":
+            stacked = {key: np.stack([b[key] for b in batches])
+                       for key in batches[0]}
+            return kind, ep, _to_device(stacked, device), n_examples
+        return kind, ep, _to_device(batches[0], device), n_examples
+
+    try:
+        cnt = -1
+        for kind, ep, dev, n_examples in stage_ahead(
+                grouped(), stage, depth=cfg.prefetch_depth):
+            if kind == "epoch_end":
+                logging.info("epoch %d finished", ep)
+                cnt = -1
+                continue
+            if kind == "single":
+                cnt += 1
+                state, metrics = train_step(state, dev, base_seed, *feats)
+                after_step(ep, cnt, lambda: float(metrics["loss"]),
+                           lambda: float(metrics["acc"]), n_examples[0])
+                continue
+            state, ms = multi_step(state, dev, base_seed, *feats)
+            metrics = {"loss": ms["loss"][-1], "acc": ms["acc"][-1]}
+            for j, n in enumerate(n_examples):
+                cnt += 1
+                after_step(ep, cnt, lambda j=j: float(ms["loss"][j]),
+                           lambda j=j: float(ms["acc"][j]), n)
+    finally:
+        if prof is not None:
+            prof.stop()
+            os.makedirs(cfg.profile_dir, exist_ok=True)
+            prof.export_chrome_trace(
+                os.path.join(cfg.profile_dir, "trace.json"))
+
+    final_loss = float(metrics["loss"])  # waits for the last step
+    elapsed = (time.perf_counter() - t_start) if t_start else 0.0
+    stats = {
+        "steps": total_steps,
+        "examples": total_examples,
+        "examples_per_sec": (
+            (total_examples - t0_examples) / elapsed if t_start and elapsed > 0
+            else 0.0),
+        "final_loss": final_loss,
+        "final_acc": float(metrics["acc"]),
+    }
+    return state, stats
