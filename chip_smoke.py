@@ -2,15 +2,15 @@
 """Smoke run of the PyTorch port (newsrecommendation_tpu_torch) on one
 NVIDIA GPU: builds the CUDA kernels, holds each against its plain PyTorch
 version, serves NRMS at its published width over HTTP, then trains it at
-its published width.
+its published width, with 50- and 512-news histories.
 
     python3 chip_smoke.py        # from the repo root, on a machine with
                                  # one CUDA card and nvcc
 
 Phases, each printing one line with its elapsed seconds:
   device   nvidia-smi name and power limit; TF32 off for matmuls and convs
-  build    one nvcc per kernel source (csrc/qkv_fwd.cu, csrc/qkv_bwd_probs.cu)
-           for sm_90a, all started together (skipped if built)
+  build    one nvcc per kernel source (csrc/*.cu) for sm_90a, all started
+           together (skipped if built)
   kernel   row 1 (the forward without probs), both variants vs the plain
            version, f32 and bf16, at the shapes the serving path gives it,
            with the count of elements that differ at all; controls with a
@@ -20,32 +20,53 @@ Phases, each printing one line with its elapsed seconds:
   kernel-train  rows 2 (the forward that writes probs) and 3 (the backward
            from probs) vs their plain versions, f32 and bf16, at the
            training path's shapes (news encoder 7040 x 20, user encoder
-           128 x 50, masked 128 x 50 with fully masked rows): row 2's
-           context bit-equal to row 1's, its probs, row 3's dqkv; controls
-           (probs transposed per head, ds without its row-sum term, and in
-           bf16 dv from the unrounded a); kernel / plain times and bounds
+           128 x 50, masked 128 x 50 with fully masked rows) and at
+           64 x T for T in 202, 300, 511: row 2's context bit-equal to row
+           1's, its probs, row 3's dqkv; controls (probs transposed per
+           head, ds without its row-sum term, and in bf16 dv from the
+           unrounded a); kernel / plain times and bounds
+  kernel-recompute  row 4 (the backward that recomputes the probs) vs its
+           plain version at 7040 x 20, 128 x 50 and 64 x 511, masked and
+           not, f32 and bf16, with the count of elements that differ from
+           row 3's dqkv fed row 2's probs; controls (ds without its
+           row-sum term, mask dropped, in bf16 dv from the unrounded a)
+  kernel-flash  rows 9-10 (the key-blocked forward and backward) vs their
+           plain versions at 128 x 512, 128 x 1000 (not a multiple of the
+           key block) and 32 x 2048, masked and not, f32 and bf16, on q, k,
+           v cut from one projection; controls (the forward without the
+           running-max rescale, in bf16 dv from the unrounded a)
   corpus   a 65,536-news synthetic corpus, full-width NRMS params from a
-           seed, and its behaviors prepared into training samples
+           seed, and two draws of its behaviors prepared into training
+           samples: histories of up to 80 news cut to 50, and of up to 600
+           news cut to 512
   serve    Recommender.from_state on cuda, the HTTP server on a free
            localhost port, /score (C up to 300) and /recommend (k=10)
            requests, once with user_log_mask False and once True; served
            scores checked against the same params run on the CPU through
            the plain versions; launch counts read around both runs
+  serve-long  the same with user_log_length 512: the user encoder takes
+           the flash forward (row 9), whose launches are counted
   train-check  one f32 train step (dropout off, B=16, full width) on the
-           card and on the CPU from the same params and batch, for
-           user_log_mask False and True: loss, every leaf's gradient, the
-           frozen table unchanged
+           card and on the CPU from the same params and batch: loss, every
+           leaf's gradient, the frozen table unchanged; for user_log_mask
+           False and True, with bwd_residuals "recompute", with the word
+           table trained, and at a 512-news history (B=8, 5 heads of 20)
   train    fit() at the headline training step (bf16 over f32 params,
            B=128, 1+4 candidates, 50-news history, dropout 0.2, Adam lr
            3e-4, frozen table, device gather, prefetch depth 2) for one
            epoch of at least 30 steps: step ms and ex/s after the first
-           step, finite losses, exactly 2 row-2 and 2 row-3 launches per
-           step and no row-1 launch; then 20 steps on one batch with
-           dropout off, whose loss must fall
+           step, finite losses, the launches each kernel must have (2
+           row-2 and 2 row-3 launches per step and no other) and none
+           else; then 20 steps on one batch with dropout off, whose loss
+           must fall. Again with bwd_residuals "recompute" (2 row-1 and 2
+           row-4 launches per step), with the word table trained, and for
+           12 steps with 512-news histories (one row-9 and one row-10
+           launch per step, rows 2-3 once per step for the news encoder)
   profile  device time, top kernels and device busy share (torch.profiler
            against an unprofiled wall clock) of one served batch of 64
            users x 300 candidates, of a 64-user corpus top-10, of one
-           1024-row news-encoder chunk and of one headline train step
+           1024-row news-encoder chunk and of the headline, recompute,
+           trained-table and 512-history train steps
 Then one JSON line of per-kernel numbers, and last the line
 {"ok": true, "device": {...}}. Any failed phase raises: the exit code is
 then not 0 and no result line is printed. Without CUDA it exits 1 at once.
@@ -67,14 +88,25 @@ import numpy as np
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s by type.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-# Kernel vs plain version on the card. f32: the two sum in another order;
-# bf16: a rounds to bf16 before a@v, so one ulp of a shows in the context.
-TOL = {"float32": (1e-5, 1e-5), "bfloat16": (5e-2, 5e-2)}  # (rtol, atol)
+# A bf16 kernel against its plain version (rtol, atol). Both round at the
+# same points (a or e, ds, the output) and differ only in the f32 order of
+# their sums, which can flip one rounding: an output moves by one ulp (at
+# most 2^-7 of it), or dq / dk by one ulp of a rounded ds times k. On the
+# card the largest difference was 1.95e-3 in most cases and 3.9e-3 (2^-8)
+# in the worst, over outputs that reach 1-9. rtol is two ulps, atol that
+# worst difference: a kernel 10% off fails on every element above 0.05
+# (outputs at T = 512 are about 0.07 typical, and up to 1.5).
+BF16_TOL = (2 ** -6, 2 ** -8)
+# Kernel vs plain version on the card. f32: the two sum in another order.
+TOL = {"float32": (1e-5, 1e-5), "bfloat16": BF16_TOL}  # (rtol, atol)
 # Served scores vs the same params on the CPU (f32, two devices' orders).
 SERVE_TOL = (1e-4, 1e-4)
-# Kernel rows 2-3 vs their plain versions: (forward, backward) tolerances.
+# Kernel rows 2-4 and 9-10 vs their plain versions: (forward, backward).
 TRAIN_TOL = {"float32": ((1e-5, 1e-5), (1e-4, 1e-4)),
-             "bfloat16": ((5e-2, 5e-2), (5e-2, 5e-2))}
+             "bfloat16": (BF16_TOL, BF16_TOL)}
+# Every comparison also runs against the plain result scaled by this
+# factor, a kernel a few percent off, and must reject it on many elements.
+OFF_SCALE = 1.0 + 2 ** -4
 # Train step on the card vs the CPU (f32): loss rtol; each leaf's gradient
 # within this share of that leaf's largest |gradient|.
 TRAIN_LOSS_RTOL = 1e-5
@@ -87,9 +119,26 @@ TRAIN_GRAD_SHARE = 1e-4
 # noise of two summation orders, about 1e-9 of the largest gradient.
 TRAIN_GRAD_FLOOR = 1e-6
 TPU_KERNELS = "newsrecommendation_tpu/ops/pallas/fused_attention.py"
+FLASH_KERNELS = "newsrecommendation_tpu/ops/pallas/blockwise.py"
 REPLACES = f"{TPU_KERNELS}:199"
-SOURCE = "newsrecommendation_tpu_torch/csrc/qkv_fwd.cu"
-BWD_SOURCE = "newsrecommendation_tpu_torch/csrc/qkv_bwd_probs.cu"
+CSRC = "newsrecommendation_tpu_torch/csrc"
+SOURCE = f"{CSRC}/qkv_fwd.cu"
+BWD_PROBS_SOURCE = f"{CSRC}/qkv_bwd_probs.cu"
+BWD_SOURCE = f"{CSRC}/qkv_bwd.cu"
+FLASH_FWD_SOURCE = f"{CSRC}/flash_fwd.cu"
+FLASH_BWD_SOURCE = f"{CSRC}/flash_bwd.cu"
+# Row 3 at the lengths its first design refused (T > 201 at D = 20).
+LONG_T = (202, 300, 511)
+# A long user history: flash_min_seq keys, so MHSA takes rows 9-10.
+LONG_L = 512
+LONG_STEPS = 12  # train steps at LONG_L
+# The long train-check's reduced width (heads of 20 as published).
+LONG_CHECK = {"news_dim": 100, "num_attention_heads": 5,
+              "news_query_vector_dim": 50, "user_query_vector_dim": 50,
+              "batch_size": 8}
+# Longest synthetic history of the long phases' behaviors: past LONG_L, so
+# some histories fill it.
+MAX_HISTORY = 600
 NUM_NEWS = 65536
 MAX_BATCH = 64
 # Impressions of the synthetic corpus: about 2.4 training samples each,
@@ -245,10 +294,11 @@ def n_differ(a, b) -> int:
 
 
 def bwd_plain_with_fault(qkv, bias, probs, g, heads, *, rowsum=True,
-                         round_a=True):
+                         round_a=True, round_ds=True):
     """The plain backward of row 3 with a planted fault: the ds row-sum
-    term dropped, or dv computed from the f32 a instead of a rounded to
-    g's dtype."""
+    term dropped, dv computed from the f32 a instead of a rounded to g's
+    dtype, or dq and dk from the f32 ds instead of ds rounded to k's
+    dtype."""
     import torch
 
     n, t, w3 = qkv.shape
@@ -261,11 +311,25 @@ def bwd_plain_with_fault(qkv, bias, probs, g, heads, *, rowsum=True,
     dv = torch.einsum("bhqk,bqhd->bkhd", al, gh)
     da = torch.einsum("bqhd,bkhd->bhqk", gh, v)
     r = (da * a).sum(-1, keepdim=True) if rowsum else 0.0
-    ds = ((da - r) * a * (1.0 / d ** 0.5)).to(qkv.dtype).float()
+    ds = (da - r) * a * (1.0 / d ** 0.5)
+    if round_ds:
+        ds = ds.to(qkv.dtype).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
     return torch.cat([y.reshape(n, t, heads * d) for y in (dq, dk, dv)],
                      -1).to(qkv.dtype)
+
+
+def bwd_rounding_faults(dqkv, qkv, bias, probs, g, heads, base_differ,
+                        tol) -> dict:
+    """The bf16 rounding faults of rows 3-4: dv from the f32 a, dq and dk
+    from the f32 ds. Each moves the result by less than an ulp, so each is
+    rejected by its count of differing elements (rounding_fault)."""
+    return {f"{name} (differing elements)": rounding_fault(
+                dqkv, bwd_plain_with_fault(qkv, bias, probs, g, heads, **kw),
+                base_differ, *tol)
+            for name, kw in (("dv from the f32 a", {"round_a": False}),
+                             ("dq, dk from the f32 ds", {"round_ds": False}))}
 
 
 def train_kernel_case(fa, variant, n, t, heads, d, dtype, seed):
@@ -297,30 +361,16 @@ def train_kernel_case(fa, variant, n, t, heads, d, dtype, seed):
     dqkv.sum().item()  # waits for the kernels
     if not torch.equal(ctx, row1):
         fail(f"{where}: row 2's context is not row 1's bit for bit")
-    checks = {"ctx": (ctx, ref_ctx, f_rtol, f_atol),
-              "probs": (probs, ref_probs, *TRAIN_TOL["float32"][0]),
-              "dqkv": (dqkv, ref_dqkv, b_rtol, b_atol)}
-    out = {"variant": variant, "shape": [n, t, heads, d], "dtype": dtype}
-    for name, (got, want, rtol, atol) in checks.items():
-        if not torch.isfinite(got.float()).all():
-            fail(f"{where}: non-finite {name}")
-        if n_outside(got, want, rtol, atol):
-            fail(f"{where}: {name} max |kernel - plain| "
-                 f"{(got.float() - want.float()).abs().max().item():.3e} "
-                 f"over rtol {rtol} atol {atol}")
-        out[name] = {"max_abs_err": (got.float() - want.float()).abs()
-                     .max().item(), "n_differ": n_differ(got, want),
-                     "n_elems": got.numel(),
-                     "max_abs_ref": want.float().abs().max().item(),
-                     "rtol": rtol, "atol": atol}
+    out = {"variant": variant, "shape": [n, t, heads, d], "dtype": dtype,
+           "ctx": compare(where, "ctx", ctx, ref_ctx, f_rtol, f_atol),
+           "probs": compare(where, "probs", probs, ref_probs,
+                            *TRAIN_TOL["float32"][0]),
+           "dqkv": compare(where, "dqkv", dqkv, ref_dqkv, b_rtol, b_atol)}
     if mask is not None and (probs[::7].abs().max().item() != 0.0
                              or dqkv[::7].abs().max().item() != 0.0):
         fail(f"{where}: fully masked rows have probs or dqkv not 0")
     # controls: the same comparisons must reject plain versions with a
-    # planted fault. A fault that moves bf16 results by less than the bf16
-    # tolerance (dv from the unrounded a) is rejected when it differs from
-    # the kernel in more than 10x as many elements as the plain version
-    # does: a kernel that lacked that rounding would differ as much.
+    # planted fault
     transposed = ref_probs.view(n, t, heads, t).permute(0, 3, 2, 1).reshape(
         n, t, heads * t)
     caught = {"probs transposed per head": n_outside(
@@ -330,17 +380,10 @@ def train_kernel_case(fa, variant, n, t, heads, d, dtype, seed):
     caught["ds without its row-sum term"] = n_outside(dqkv, no_rowsum,
                                                       b_rtol, b_atol)
     if dtype == "bfloat16":
-        f32_a = bwd_plain_with_fault(qkv, bias, ref_probs, g, heads,
-                                     round_a=False)
-        base = out["dqkv"]["n_differ"]
-        fault_differ = n_differ(dqkv, f32_a)
-        caught["dv from the f32 a (differing elements)"] = (
-            fault_differ if n_outside(dqkv, f32_a, b_rtol, b_atol)
-            or fault_differ > 10 * max(base, 1) else 0)
-    for name, count in caught.items():
-        if not count:
-            fail(f"{where}: a plain version with {name} passed the "
-                 "comparison")
+        caught.update(bwd_rounding_faults(dqkv, qkv, bias, ref_probs, g,
+                                          heads, out["dqkv"]["n_differ"],
+                                          (b_rtol, b_atol)))
+    check_caught(where, caught)
     out["faults_caught"] = caught
 
     item = qkv.element_size()
@@ -349,23 +392,285 @@ def train_kernel_case(fa, variant, n, t, heads, d, dtype, seed):
                  + 4 * n * t * heads * t + mask_bytes)
     bwd_bytes = (item * (2 * n * t * 3 * hd + 3 * hd + n * t * hd)
                  + 4 * n * t * heads * t)
-    for name, fn, plain, n_bytes, flops in (
-            ("fwd", lambda: fa.qkv_fwd_probs(qkv, bias, mask, heads),
-             lambda: fa.exp_mhsa_qkv_bias_probs_reference(qkv, bias, mask,
-                                                          heads),
-             fwd_bytes, 4 * n * heads * t * t * d),
-            ("bwd", lambda: fa.qkv_bwd_probs(qkv, bias, ref_probs, g, heads),
-             lambda: fa.qkv_bwd_probs_reference(qkv, bias, ref_probs, g,
+    out["fwd"] = timed(lambda: fa.qkv_fwd_probs(qkv, bias, mask, heads),
+                       lambda: fa.exp_mhsa_qkv_bias_probs_reference(
+                           qkv, bias, mask, heads),
+                       fwd_bytes, 4 * n * heads * t * t * d, dtype)
+    out["bwd"] = timed(lambda: fa.qkv_bwd_probs(qkv, bias, ref_probs, g,
                                                 heads),
-             bwd_bytes, 8 * n * heads * t * t * d)):
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-        out[name] = {"ms": time_ms(fn), "plain_ms": time_ms(plain),
-                     "library_ms": None, "bytes": n_bytes, "flops": flops,
-                     "bound_ms": max(t_bytes, t_ops),
-                     "bound_by": "bytes" if t_bytes >= t_ops
-                     else "operations"}
+                       lambda: fa.qkv_bwd_probs_reference(qkv, bias,
+                                                          ref_probs, g,
+                                                          heads),
+                       bwd_bytes, 8 * n * heads * t * t * d, dtype)
     return out
+
+
+def recompute_kernel_case(fa, variant, n, t, heads, d, dtype, seed):
+    """Row 4 (the backward that recomputes the probs) against its plain
+    version on the card, with planted faults, the count of elements that
+    differ from row 3's dqkv fed row 2's probs, timings and the bound."""
+    import torch
+
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=DEVICE).manual_seed(200 + seed)
+    hd = heads * d
+    qkv = torch.randn((n, t, 3 * hd), generator=gen, device=DEVICE).to(tdt)
+    bias = (0.5 * torch.randn((3 * hd,), generator=gen, device=DEVICE)).to(tdt)
+    g = torch.randn((n, t, hd), generator=gen, device=DEVICE).to(tdt)
+    mask = None
+    if variant == "bwd_masked":
+        mask = (torch.rand((n, t), generator=gen, device=DEVICE) > 0.3).float()
+        mask[:, -1] = 1.0
+        mask[::7] = 0.0  # every 7th row fully masked: its dqkv is 0
+    _, b_tol = TRAIN_TOL[dtype]
+    where = f"{variant} {dtype} N={n} T={t}"
+
+    dqkv = fa.qkv_bwd(qkv, bias, mask, g, heads)
+    ref = fa.qkv_bwd_reference(qkv, bias, mask, g, heads)
+    _, probs = fa.qkv_fwd_probs(qkv, bias, mask, heads)
+    row3 = fa.qkv_bwd_probs(qkv, bias, probs, g, heads)
+    dqkv.sum().item()  # waits for the kernels
+    out = {"variant": variant, "shape": [n, t, heads, d], "dtype": dtype,
+           "dqkv": compare(where, "dqkv", dqkv, ref, *b_tol),
+           "n_differ_from_row3": n_differ(dqkv, row3)}
+    if mask is not None and dqkv[::7].abs().max().item() != 0.0:
+        fail(f"{where}: fully masked rows have dqkv not 0")
+    _, ref_probs = fa.exp_mhsa_qkv_bias_probs_reference(qkv, bias, mask,
+                                                        heads)
+    caught = {"ds without its row-sum term": n_outside(
+        dqkv, bwd_plain_with_fault(qkv, bias, ref_probs, g, heads,
+                                   rowsum=False), *b_tol)}
+    if mask is not None:
+        caught["mask dropped"] = n_outside(
+            dqkv, fa.qkv_bwd_reference(qkv, bias, None, g, heads), *b_tol)
+    if dtype == "bfloat16":
+        caught.update(bwd_rounding_faults(dqkv, qkv, bias, ref_probs, g,
+                                          heads, out["dqkv"]["n_differ"],
+                                          b_tol))
+    check_caught(where, caught)
+    out["faults_caught"] = caught
+    item = qkv.element_size()
+    n_bytes = (item * (2 * n * t * 3 * hd + 3 * hd + n * t * hd)
+               + (0 if mask is None else 4 * n * t))
+    out["bwd"] = timed(lambda: fa.qkv_bwd(qkv, bias, mask, g, heads),
+                       lambda: fa.qkv_bwd_reference(qkv, bias, mask, g,
+                                                    heads),
+                       n_bytes, 10 * n * heads * t * t * d, dtype)
+    return out
+
+
+def flash_fwd_plain_without_rescale(q, k, v, key_mask, heads, block_kv):
+    """Row 9's plain version with a planted fault: the accumulator of the
+    earlier key blocks is not rescaled when the running max grows."""
+    import torch
+
+    from newsrecommendation_tpu_torch.ops import blockwise as bw
+
+    n, t, hd = q.shape
+    d = hd // heads
+    bkv = bw.kv_block(t, block_kv)
+    qh, kh = (x.reshape(n, t, heads, d).float() for x in (q, k))
+    vh = v.reshape(n, t, heads, d)
+    m = q.new_full((n, heads, t), -1e30, dtype=torch.float32)
+    l = torch.zeros_like(m)
+    acc = q.new_zeros((n, heads, t, d), dtype=torch.float32)
+    for b0 in range(0, t, bkv):
+        s = torch.einsum("nqhd,nkhd->nhqk", qh, kh[:, b0:b0 + bkv]) * (
+            1.0 / d ** 0.5)
+        m_new = torch.maximum(m, s.amax(-1))
+        scale = torch.exp(m - m_new)
+        e = torch.exp(s - m_new[..., None])
+        if key_mask is not None:
+            e = e * key_mask[:, None, None, b0:b0 + bkv]
+        l = l * scale + e.sum(-1)
+        acc = acc + torch.einsum("nhqk,nkhd->nhqd", e.to(v.dtype).float(),
+                                 vh[:, b0:b0 + bkv].float())
+        m = m_new
+    den = l + 1e-8 * torch.exp(-m)
+    o = torch.where(den[..., None] > 0, acc / den[..., None],
+                    torch.zeros_like(acc))
+    return o.permute(0, 2, 1, 3).reshape(n, t, hd).to(q.dtype)
+
+
+def flash_bwd_plain_with_fault(q, k, v, key_mask, g, m, den, delta, heads,
+                               *, round_a=True, use_delta=True,
+                               round_ds=True):
+    """Row 10's plain version with a planted fault: dv from the f32 a, not
+    from a rounded to g's dtype; ds without delta; or dq and dk from the
+    f32 ds, not from ds rounded to k's dtype. Returns (dq, dk, dv)."""
+    import torch
+
+    from newsrecommendation_tpu_torch.ops import blockwise as bw
+
+    n, t, hd = q.shape
+    d = hd // heads
+    bkv = bw.kv_block(t)
+    inv = 1.0 / d ** 0.5
+    qh, kh, vh = (x.reshape(n, t, heads, d).float() for x in (q, k, v))
+    gh = g.reshape(n, t, heads, d).float()
+    mt, dent, deltat = (x.permute(0, 2, 1)[..., None] for x in (m, den,
+                                                                 delta))
+    dq = torch.zeros_like(qh)
+    dks, dvs = [], []
+    for b0 in range(0, t, bkv):
+        kb, vb = kh[:, b0:b0 + bkv], vh[:, b0:b0 + bkv]
+        e = torch.exp(torch.einsum("nqhd,nkhd->nhqk", qh, kb) * inv - mt)
+        if key_mask is not None:
+            e = e * key_mask[:, None, None, b0:b0 + bkv]
+        a = torch.where(dent > 0, e / dent, torch.zeros_like(e))
+        al = a.to(g.dtype).float() if round_a else a
+        dvs.append(torch.einsum("nhqk,nqhd->nkhd", al, gh))
+        da = torch.einsum("nqhd,nkhd->nhqk", gh, vb)
+        ds = (da - (deltat if use_delta else 0.0)) * a * inv
+        if round_ds:
+            ds = ds.to(k.dtype).float()
+        dq = dq + torch.einsum("nhqk,nkhd->nqhd", ds, kb)
+        dks.append(torch.einsum("nhqk,nqhd->nkhd", ds, qh))
+    return tuple(x.reshape(n, t, hd).to(q.dtype)
+                 for x in (dq, torch.cat(dks, 1), torch.cat(dvs, 1)))
+
+
+def flash_kernel_case(bw, masked, n, t, heads, d, dtype, seed):
+    """Rows 9 and 10 against their plain versions on the card, on q, k, v
+    cut from one fused projection as the model cuts them, with planted
+    faults, timings (row 9's beside scaled_dot_product_attention) and
+    bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=DEVICE).manual_seed(300 + seed)
+    hd = heads * d
+    qkv = torch.randn((n, t, 3 * hd), generator=gen, device=DEVICE).to(tdt)
+    q, k, v = torch.split(qkv, hd, dim=-1)
+    g = torch.randn((n, t, hd), generator=gen, device=DEVICE).to(tdt)
+    mask = None
+    if masked:
+        mask = (torch.rand((n, t), generator=gen, device=DEVICE) > 0.3).float()
+        mask[:, -1] = 1.0
+        mask[::7] = 0.0  # every 7th row fully masked: o and grads 0
+    (f_rtol, f_atol), (b_rtol, b_atol) = TRAIN_TOL[dtype]
+    where = f"flash{'_masked' if masked else ''} {dtype} N={n} T={t}"
+    bkv = bw.kv_block(t)
+
+    o, m, den = bw.flash_fwd(q, k, v, mask, heads)
+    ro, rm, rden = bw.flash_fwd_reference(q, k, v, mask, heads)
+    delta = bw.delta_of(g, ro, heads)
+    grads = bw.flash_bwd(q, k, v, mask, g, rm, rden, delta, heads)
+    refs = bw.flash_bwd_reference(q, k, v, mask, g, rm, rden, delta, heads)
+    grads[0].sum().item()  # waits for the kernels
+    stat_tol = TRAIN_TOL["float32"][0]
+    out = {"variant": "flash_masked" if masked else "flash",
+           "shape": [n, t, heads, d], "dtype": dtype, "block_kv": bkv,
+           "o": compare(where, "o", o, ro, f_rtol, f_atol),
+           "m": compare(where, "m", m, rm, *stat_tol),
+           "den": compare(where, "den", den, rden, *stat_tol)}
+    for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
+        out[name] = compare(where, name, got, want, b_rtol, b_atol)
+    if mask is not None and (o[::7].abs().max().item() != 0.0 or any(
+            x[::7].abs().max().item() != 0.0 for x in grads)):
+        fail(f"{where}: fully masked rows have o or grads not 0")
+    caught = {"acc not rescaled by the running max": n_outside(
+        o, flash_fwd_plain_without_rescale(q, k, v, mask, heads, bkv),
+        f_rtol, f_atol)}
+    no_delta = flash_bwd_plain_with_fault(q, k, v, mask, g, rm, rden, delta,
+                                          heads, use_delta=False)
+    for i, name in ((0, "dq"), (1, "dk")):
+        caught[f"ds without delta ({name})"] = n_outside(
+            grads[i], no_delta[i], b_rtol, b_atol)
+    if dtype == "bfloat16":
+        caught["dv from the f32 a (differing elements)"] = rounding_fault(
+            grads[2], flash_bwd_plain_with_fault(
+                q, k, v, mask, g, rm, rden, delta, heads, round_a=False)[2],
+            out["dv"]["n_differ"], b_rtol, b_atol)
+        f32_ds = flash_bwd_plain_with_fault(q, k, v, mask, g, rm, rden, delta,
+                                            heads, round_ds=False)
+        for i, name in ((0, "dq"), (1, "dk")):
+            caught[f"{name} from the f32 ds (differing elements)"] = (
+                rounding_fault(grads[i], f32_ds[i], out[name]["n_differ"],
+                               b_rtol, b_atol))
+    check_caught(where, caught)
+    out["faults_caught"] = caught
+    item = q.element_size()
+    q_bytes = item * n * t * hd
+    stat_bytes = 4 * n * t * heads
+    mask_bytes = 0 if mask is None else 4 * n * t
+    flops = n * heads * t * t * d
+    iters = 10 if t * t * n > 2 ** 25 else 20
+    # library: softmax attention on the same q, k, v, equal to this
+    # function on rows with a key left (up to its 1e-8 term); timed as a
+    # yardstick, never called by the port
+    qh, kh, vh = (x.view(n, t, heads, d).transpose(1, 2) for x in (q, k, v))
+    attn_mask = None if mask is None else mask.bool()[:, None, None, :]
+    out["fwd"] = timed(lambda: bw.flash_fwd(q, k, v, mask, heads),
+                       lambda: bw.flash_fwd_reference(q, k, v, mask, heads),
+                       4 * q_bytes + 2 * stat_bytes + mask_bytes, 4 * flops,
+                       dtype, iters,
+                       library=lambda: F.scaled_dot_product_attention(
+                           qh, kh, vh, attn_mask=attn_mask))
+    out["bwd"] = timed(
+        lambda: bw.flash_bwd(q, k, v, mask, g, rm, rden, delta, heads),
+        lambda: bw.flash_bwd_reference(q, k, v, mask, g, rm, rden, delta,
+                                       heads),
+        7 * q_bytes + 3 * stat_bytes + mask_bytes, 10 * flops, dtype, iters)
+    return out
+
+
+def compare(where, name, got, want, rtol, atol):
+    """got against want: fails on a non-finite value or an element outside
+    atol + rtol * |want|, and unless the same comparison rejects want
+    scaled by OFF_SCALE; returns the numbers a kernel case prints
+    (tol_share: the largest |got - want| over its allowance)."""
+    import torch
+
+    if not torch.isfinite(got.float()).all():
+        fail(f"{where}: non-finite {name}")
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    if n_outside(got, want, rtol, atol):
+        fail(f"{where}: {name} max |kernel - plain| {err:.3e} over rtol "
+             f"{rtol} atol {atol}")
+    off = n_outside(got, want.float() * OFF_SCALE, rtol, atol)
+    if not off:
+        fail(f"{where}: {name}'s comparison passes the plain version "
+             f"scaled by {OFF_SCALE}")
+    share = (diff / (atol + rtol * want.float().abs())).max().item()
+    return {"max_abs_err": err, "tol_share": share,
+            "n_differ": n_differ(got, want), "n_elems": got.numel(),
+            "max_abs_ref": want.float().abs().max().item(),
+            "rtol": rtol, "atol": atol, "off_scale_caught": off}
+
+
+def rounding_fault(got, fault, base_differ, rtol, atol) -> int:
+    """A planted rounding fault that moves bf16 results by less than the
+    tolerance is rejected when it differs from the kernel in more than 10x
+    as many elements as the plain version does: a kernel that lacked the
+    rounding would differ as much. Returns the count that rejects it, or
+    0."""
+    count = n_differ(got, fault)
+    return count if (n_outside(got, fault, rtol, atol)
+                     or count > 10 * max(base_differ, 1)) else 0
+
+
+def check_caught(where, caught) -> None:
+    for name, count in caught.items():
+        if not count:
+            fail(f"{where}: a plain version with {name} passed the "
+                 "comparison")
+
+
+def timed(fn, plain, n_bytes, flops, dtype, iters=20, library=None) -> dict:
+    """Kernel, plain and (where one PyTorch call computes the same
+    function) library times, and the bound: the larger of the bytes over
+    the memory rate and the flops over the dtype's peak."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return {"ms": time_ms(fn, iters), "plain_ms": time_ms(plain, iters),
+            "library_ms": None if library is None else time_ms(library,
+                                                               iters),
+            "bytes": n_bytes, "flops": flops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def train_setup(cfg, table, seed, device):
@@ -376,9 +681,12 @@ def train_setup(cfg, table, seed, device):
     return get_model("NRMS"), create_train_state(cfg, params)
 
 
-def train_check(ctx, user_log_mask):
+def train_check(ctx, user_log_mask, samples="samples", **overrides):
     """One f32 step with dropout off on the card and on the CPU from the
-    same params and batch: loss, every leaf's gradient, the frozen table."""
+    same params and batch: loss, every leaf's gradient (the word table's
+    too when it trains), the frozen table unchanged. ``overrides`` change
+    the config (bwd_residuals, freeze_embedding, a long history at a
+    reduced width); ``samples`` names the context's samples to batch."""
     import torch
 
     from newsrecommendation_tpu_torch.train import make_train_step
@@ -386,8 +694,9 @@ def train_check(ctx, user_log_mask):
     cfg = ctx["cfg"].replace(batch_size=16, deterministic=True, lr=3e-4,
                              freeze_embedding=True,
                              user_log_mask=user_log_mask)
-    host = next(ctx["samples"].iter_batches(ctx["feats"], cfg.batch_size,
-                                            epoch=0, seed=0))
+    cfg = cfg.replace(**overrides)
+    host = next(ctx[samples].iter_batches(ctx["feats"], cfg.batch_size,
+                                          epoch=0, seed=0))
     results = {}
     for device in (DEVICE, "cpu"):
         model, state = train_setup(cfg, ctx["table"], 1, device)
@@ -398,8 +707,8 @@ def train_check(ctx, user_log_mask):
     if not abs(loss - cpu_loss) <= TRAIN_LOSS_RTOL * abs(cpu_loss):
         fail(f"train-check: loss {loss} on the card, {cpu_loss} on the CPU")
     table = params["embedding_table"]
-    if table.grad is not None or not torch.equal(
-            table.cpu(), torch.from_numpy(ctx["table"])):
+    if cfg.freeze_embedding and (table.grad is not None or not torch.equal(
+            table.cpu(), torch.from_numpy(ctx["table"]))):
         fail("train-check: the frozen table took a gradient or moved")
     grads = {}
 
@@ -408,14 +717,15 @@ def train_check(ctx, user_log_mask):
             for key in a:
                 walk(a[key], b[key], path + (key,))
             return
-        if path == ("embedding_table",):
-            return
         if (a.grad is None) != (b.grad is None):
             fail(f"train-check: {path} has a gradient on one device only")
         if a.grad is not None:
             grads[path] = (a.grad.cpu(), b.grad)
 
     walk(params, cpu_params, ())
+    if (("embedding_table",) in grads) == cfg.freeze_embedding:
+        fail("train-check: the word table's gradient does not follow "
+             "freeze_embedding")
     largest = max(g.abs().max().item() for _, g in grads.values())
     floor = TRAIN_GRAD_FLOOR * largest
     worst, under_floor = {}, {}
@@ -437,12 +747,39 @@ def train_check(ctx, user_log_mask):
             "under_floor_max_and_err": under_floor}
 
 
-def train_run(ctx, fa):
-    """The headline training step through fit(), then 20 steps on one
-    batch with dropout off. Launch counts are reset just before fit and
-    read just after."""
+def expected_launches(steps, cfg):
+    """Launches per kernel variant of an epoch of ``steps`` train steps
+    with user_log_mask off: the news encoder (20-word titles) and the user
+    encoder each run one forward and one backward per step, through rows
+    2-3 ("probs") or rows 1 and 4 ("recompute"), or, for a history of
+    flash_min_seq keys or more, through rows 9-10."""
+    from newsrecommendation_tpu_torch.ops import kernel_config, kernels
+
+    want = {k: {v: 0 for v in variants}
+            for k, variants in kernels.KERNELS.items()}
+    fused = 1 + int(cfg.user_log_length < kernel_config.flash_min_seq())
+    if cfg.bwd_residuals == "probs":
+        want["qkv_fwd_probs"]["bias_probs"] = fused * steps
+        want["qkv_bwd_probs"]["bwd_probs"] = fused * steps
+    else:
+        want["qkv_fwd"]["bias"] = fused * steps
+        want["qkv_bwd"]["bwd"] = fused * steps
+    if fused == 1:
+        want["flash_fwd"]["flash"] = steps
+        want["flash_bwd"]["flash_bwd"] = steps
+    return want
+
+
+def train_run(ctx, fa, samples="samples", fixed_batch=True, max_steps=None,
+              **overrides):
+    """The headline training step through fit(), with launch counts reset
+    just before fit and read just after; then, with ``fixed_batch``, 20
+    steps on one batch with dropout off. ``overrides`` change the config;
+    ``samples`` names the context's samples, ``max_steps`` cuts them to
+    that many batches."""
     import torch
 
+    from newsrecommendation_tpu_torch.data.loader import TrainSamples
     from newsrecommendation_tpu_torch.train import fit, make_train_step
 
     cfg = ctx["cfg"].replace(
@@ -450,7 +787,13 @@ def train_run(ctx, fa):
         drop_rate=0.2, freeze_embedding=True, device_gather=True,
         prefetch_depth=2, log_steps=10, epochs=1, seed=0,
         deterministic=False)
-    samples, feats = ctx["samples"], ctx["feats"]
+    cfg = cfg.replace(**overrides)
+    samples, feats = ctx[samples], ctx["feats"]
+    if max_steps is not None:
+        cut = max_steps * cfg.batch_size
+        samples = TrainSamples(history=samples.history[:cut],
+                               history_mask=samples.history_mask[:cut],
+                               pos=samples.pos[:cut], neg=samples.neg[:cut])
     model, state = train_setup(cfg, ctx["table"], 2, DEVICE)
     step = make_train_step(cfg, model, device_gather=True)
     losses = []
@@ -460,6 +803,9 @@ def train_run(ctx, fa):
         losses.append(metrics["loss"])  # stays on the card
         return st, metrics
 
+    on_card = DEVICE == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     t0 = time.perf_counter()
     state, stats = fit(cfg, model, state, samples, feats,
@@ -468,41 +814,47 @@ def train_run(ctx, fa):
     wall_s = time.perf_counter() - t0
     launches = {k: fa.launch_counts(k) for k in fa.KERNELS}
     steps = stats["steps"]
-    if steps < TRAIN_STEPS_MIN or steps != len(losses):
+    min_steps = TRAIN_STEPS_MIN if max_steps is None else max_steps
+    if steps < min_steps or steps != len(losses):
         fail(f"train: {steps} steps ({len(losses)} recorded), fewer than "
-             f"{TRAIN_STEPS_MIN}")
+             f"{min_steps}")
     if not torch.isfinite(torch.stack(losses)).all():
         fail("train: a non-finite loss")
-    want = {"qkv_fwd": {"bias": 0, "bias_masked": 0},
-            "qkv_fwd_probs": {"bias_probs": 2 * steps,
-                              "bias_masked_probs": 0},
-            "qkv_bwd_probs": {"bwd_probs": 2 * steps}}
+    want = expected_launches(steps, cfg)
     if launches != want:
         fail(f"train: launches {launches}, expected {want}")
-
-    fixed_cfg = cfg.replace(deterministic=True)
-    _, fixed = train_setup(fixed_cfg, ctx["table"], 3, DEVICE)
-    fixed_step = make_train_step(fixed_cfg, model, device_gather=True)
-    feats_dev = torch.from_numpy(feats).to(DEVICE)
-    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in next(
-        samples.iter_index_batches(cfg.batch_size, epoch=0, seed=1)).items()}
-    fixed_losses = []
-    for _ in range(20):
-        fixed, metrics = fixed_step(fixed, batch, 0, feats_dev)
-        fixed_losses.append(metrics["loss"])
-    fixed_losses = [float(x) for x in fixed_losses]
-    if not (np.isfinite(fixed_losses).all()
-            and fixed_losses[-1] < fixed_losses[0]):
-        fail(f"train: fixed-batch loss did not fall: {fixed_losses}")
     ex_s = stats["examples_per_sec"]
-    return {"steps": steps, "samples": samples.num_samples,
-            "examples_per_sec": ex_s,
-            "step_ms": 1e3 * cfg.batch_size / ex_s if ex_s else None,
-            "fit_wall_s": wall_s, "first_loss": float(losses[0]),
-            "final_loss": stats["final_loss"],
-            "final_acc": stats["final_acc"],
-            "fixed_batch_loss": [fixed_losses[0], fixed_losses[-1]],
-            "launches": launches}, (cfg, model, state, step)
+    out = {"steps": steps, "samples": samples.num_samples,
+           "user_log_length": cfg.user_log_length,
+           "bwd_residuals": cfg.bwd_residuals,
+           "freeze_embedding": cfg.freeze_embedding,
+           "examples_per_sec": ex_s,
+           "step_ms": 1e3 * cfg.batch_size / ex_s if ex_s else None,
+           "fit_wall_s": wall_s, "first_loss": float(losses[0]),
+           "final_loss": stats["final_loss"],
+           "final_acc": stats["final_acc"],
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 2 ** 30 if on_card
+               else None,
+           "launches": {k: v for k, v in launches.items() if any(v.values())}}
+    if fixed_batch:
+        fixed_cfg = cfg.replace(deterministic=True)
+        _, fixed = train_setup(fixed_cfg, ctx["table"], 3, DEVICE)
+        fixed_step = make_train_step(fixed_cfg, model, device_gather=True)
+        feats_dev = torch.from_numpy(feats).to(DEVICE)
+        batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in next(
+            samples.iter_index_batches(cfg.batch_size, epoch=0,
+                                       seed=1)).items()}
+        fixed_losses = []
+        for _ in range(20):
+            fixed, metrics = fixed_step(fixed, batch, 0, feats_dev)
+            fixed_losses.append(metrics["loss"])
+        fixed_losses = [float(x) for x in fixed_losses]
+        if not (np.isfinite(fixed_losses).all()
+                and fixed_losses[-1] < fixed_losses[0]):
+            fail(f"train: fixed-batch loss did not fall: {fixed_losses}")
+        out["fixed_batch_loss"] = [fixed_losses[0], fixed_losses[-1]]
+    return out, (cfg, model, state, step)
 
 
 def http_call(port, method, path, payload=None):
@@ -557,15 +909,22 @@ def check_close(name, got, want):
     return float(err.max())
 
 
-def serve_run(ctx, user_log_mask):
+def serve_run(ctx, user_log_mask, user_log_length=None):
     """One serving run: build the Recommender on the card, start the HTTP
-    server, answer requests, check two against the CPU."""
+    server, answer requests, check some against the CPU. With
+    user_log_length, the model takes histories that long (the requests'
+    histories are scaled by user_log_length / 50 from the ones of the
+    published length)."""
     import torch
 
     from newsrecommendation_tpu_torch.serve import Recommender
     from newsrecommendation_tpu_torch.server import serve
 
     cfg = ctx["cfg"].replace(user_log_mask=user_log_mask)
+    hist_scale = 1.0
+    if user_log_length is not None:
+        cfg = cfg.replace(user_log_length=user_log_length)
+        hist_scale = user_log_length / 50
     t0 = time.perf_counter()
     rec = Recommender.from_state(cfg, ctx["params"], ctx["news_index"],
                                  ctx["feats"], device="cuda")
@@ -581,6 +940,7 @@ def serve_run(ctx, user_log_mask):
         ids = [f"N{i}" for i in range(1, NUM_NEWS + 1)]
 
         def request(c, h):
+            h = int(h * hist_scale)
             return ([ids[j] for j in rng.integers(0, NUM_NEWS, h)],
                     [ids[j] for j in rng.choice(NUM_NEWS, c, replace=False)])
 
@@ -668,6 +1028,7 @@ def main() -> int:
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda)
 
+    from newsrecommendation_tpu_torch.ops import blockwise as bw
     from newsrecommendation_tpu_torch.ops import fused_attention as fa
 
     # ---- build -----------------------------------------------------------
@@ -687,16 +1048,43 @@ def main() -> int:
             print("  kernel " + json.dumps(c), flush=True)
     phase("kernel", t, cases=len(cases))
 
-    # ---- kernel rows 2-3 vs plain ------------------------------------------
+    # ---- kernel rows 2-3 vs plain (row 3 at every T row 2 takes) ----------
     t = time.perf_counter()
     train_cases = []
-    for i, (variant, n, tl) in enumerate([("bias", 7040, 20), ("bias", 128, 50),
-                                          ("bias_masked", 128, 50)]):
+    shapes = [("bias", 7040, 20), ("bias", 128, 50), ("bias_masked", 128, 50)]
+    shapes += [(v, 64, tl) for tl in LONG_T for v in ("bias", "bias_masked")]
+    for i, (variant, n, tl) in enumerate(shapes):
         for dtype in ("float32", "bfloat16"):
             c = train_kernel_case(fa, variant, n, tl, 20, 20, dtype, seed=i)
             train_cases.append(c)
             print("  kernel-train " + json.dumps(c), flush=True)
     phase("kernel-train", t, cases=len(train_cases))
+
+    # ---- kernel row 4 vs plain ---------------------------------------------
+    t = time.perf_counter()
+    recompute_cases = []
+    for i, (n, tl) in enumerate([(7040, 20), (128, 50), (64, 511)]):
+        for variant in ("bwd", "bwd_masked"):
+            for dtype in ("float32", "bfloat16"):
+                c = recompute_kernel_case(fa, variant, n, tl, 20, 20, dtype,
+                                          seed=i)
+                recompute_cases.append(c)
+                print("  kernel-recompute " + json.dumps(c), flush=True)
+    phase("kernel-recompute", t, cases=len(recompute_cases),
+          n_differ_from_row3=sum(c["n_differ_from_row3"]
+                                 for c in recompute_cases))
+
+    # ---- kernel rows 9-10 vs plain -----------------------------------------
+    t = time.perf_counter()
+    flash_cases = []
+    for i, (n, tl) in enumerate([(128, 512), (128, 1000), (32, 2048)]):
+        for masked in (False, True):
+            for dtype in ("float32", "bfloat16"):
+                c = flash_kernel_case(bw, masked, n, tl, 20, 20, dtype,
+                                      seed=i)
+                flash_cases.append(c)
+                print("  kernel-flash " + json.dumps(c), flush=True)
+    phase("kernel-flash", t, cases=len(flash_cases))
 
     # ---- serve at NRMS's published width ----------------------------------
     from newsrecommendation_tpu_torch.config import Config
@@ -711,28 +1099,46 @@ def main() -> int:
     )
     from newsrecommendation_tpu_torch.data.synthetic import generate_corpus
     from newsrecommendation_tpu_torch.models import nrms
+    from newsrecommendation_tpu_torch.train import make_train_step
     from newsrecommendation_tpu_torch.utils import to_device
 
     t = time.perf_counter()
     cfg = Config()  # 300-d words, 400-d news, 20 heads x 20, T=20, L=50
     with tempfile.TemporaryDirectory() as tmp:
-        generate_corpus(tmp, num_news=NUM_NEWS, num_users=100,
-                        num_impressions=TRAIN_IMPRESSIONS,
-                        title_len=cfg.num_words_title, max_history=80,
-                        seed=0)
-        corpus = read_news(os.path.join(tmp, "news.tsv"), cfg)
-        prepare_training_data(tmp, 1, cfg.npratio, seed=0)
-        samples = TrainSamples.from_file(
-            os.path.join(tmp, f"behaviors_np{cfg.npratio}_0.tsv"),
-            corpus.news_index, cfg)
+        # the same seed draws the same news first, then behaviors whose
+        # histories run up to max_history: 80 for the 50-news phases, 600
+        # (past LONG_L) for the long ones
+        shards = {}
+        for key, max_history in (("samples", 80),
+                                 ("samples_long", MAX_HISTORY)):
+            out = os.path.join(tmp, key)
+            generate_corpus(out, num_news=NUM_NEWS, num_users=100,
+                            num_impressions=TRAIN_IMPRESSIONS,
+                            title_len=cfg.num_words_title,
+                            max_history=max_history, seed=0)
+            prepare_training_data(out, 1, cfg.npratio, seed=0)
+            shards[key] = os.path.join(out, f"behaviors_np{cfg.npratio}_0.tsv")
+        news = [os.path.join(tmp, key, "news.tsv") for key in shards]
+        with open(news[0], "rb") as a, open(news[1], "rb") as b:
+            if a.read() != b.read():
+                fail("the two draws of the corpus differ in their news")
+        corpus = read_news(news[0], cfg)
+        samples = TrainSamples.from_file(shards["samples"],
+                                         corpus.news_index, cfg)
+        samples_long = TrainSamples.from_file(
+            shards["samples_long"], corpus.news_index,
+            cfg.replace(user_log_length=LONG_L))
     feats = build_news_features(corpus, cfg)
     table = random_word_embeddings(corpus.word_dict, cfg.word_embedding_dim)
     params = nrms.init(cfg, table, seed=0, device="cuda")
     ctx = {"cfg": cfg, "params": params, "feats": feats, "nrms": nrms,
            "news_index": corpus.news_index, "table": table,
-           "samples": samples, "cpu_params": to_device(params, "cpu")}
+           "samples": samples, "samples_long": samples_long,
+           "cpu_params": to_device(params, "cpu")}
     phase("corpus", t, news=corpus.num_news, vocab=len(corpus.word_dict),
-          train_samples=samples.num_samples)
+          train_samples=samples.num_samples,
+          full_long_histories=int((samples_long.history_mask.sum(1)
+                                   == LONG_L).sum()))
 
     fa.reset_launch_counts()
     runs = {}
@@ -752,15 +1158,51 @@ def main() -> int:
             runs[True]["launches"]["bias_masked"]):
         fail(f"masked kernel launches do not follow user_log_mask: {runs}")
 
-    # ---- training ------------------------------------------------------------
+    # ---- serve with a history of LONG_L news: the flash forward ------------
     for user_log_mask in (False, True):
         t = time.perf_counter()
-        res = train_check(ctx, user_log_mask)
-        phase(f"train-check user_log_mask={user_log_mask}", t,
+        fa.reset_launch_counts()
+        run, _ = serve_run(ctx, user_log_mask, user_log_length=LONG_L)
+        run["launches"] = {k: fa.launch_counts(k)
+                           for k in ("qkv_fwd", "flash_fwd")}
+        flash = run["launches"]["flash_fwd"]
+        if not flash["flash_masked" if user_log_mask else "flash"] or (
+                flash["flash" if user_log_mask else "flash_masked"]):
+            fail(f"serve-long: flash launches {flash} do not follow "
+                 f"user_log_mask={user_log_mask}")
+        phase(f"serve-long user_log_mask={user_log_mask}", t,
+              **{k: json.dumps(v) for k, v in run.items()})
+
+    # ---- training ------------------------------------------------------------
+    checks = [({"user_log_mask": False}, {}), ({"user_log_mask": True}, {}),
+              ({"user_log_mask": False}, {"bwd_residuals": "recompute"}),
+              ({"user_log_mask": True}, {"bwd_residuals": "recompute"}),
+              ({"user_log_mask": False}, {"freeze_embedding": False}),
+              ({"user_log_mask": False, "samples": "samples_long"},
+               dict(LONG_CHECK, user_log_length=LONG_L)),
+              ({"user_log_mask": True, "samples": "samples_long"},
+               dict(LONG_CHECK, user_log_length=LONG_L))]
+    for args, overrides in checks:
+        t = time.perf_counter()
+        res = train_check(ctx, **args, **overrides)
+        label = " ".join(f"{k}={v}" for k, v in {**args, **overrides}.items()
+                         if k not in LONG_CHECK)
+        phase(f"train-check {label}", t,
               **{k: json.dumps(v) for k, v in res.items()})
-    t = time.perf_counter()
-    train, (tcfg, tmodel, tstate, tstep) = train_run(ctx, fa)
-    phase("train", t, **{k: json.dumps(v) for k, v in train.items()})
+    trains = {}
+    for name, kw in [("probs", {}),
+                     ("recompute", {"bwd_residuals": "recompute"}),
+                     ("trainable", {"freeze_embedding": False,
+                                    "fixed_batch": False}),
+                     ("long", {"user_log_length": LONG_L,
+                               "samples": "samples_long",
+                               "max_steps": LONG_STEPS,
+                               "fixed_batch": False})]:
+        t = time.perf_counter()
+        trains[name] = train_run(ctx, fa, **kw)
+        phase(f"train {name}", t,
+              **{k: json.dumps(v) for k, v in trains[name][0].items()})
+    train = trains["probs"][0]
 
     # ---- where the device time goes (after the counts were read) ----------
     t = time.perf_counter()
@@ -777,58 +1219,86 @@ def main() -> int:
             nrms.news_encoder(rec.params, cfg, chunk)
 
     train_feats = torch.from_numpy(feats).cuda()
-    train_batch = {k: torch.from_numpy(v).cuda() for k, v in next(
-        ctx["samples"].iter_index_batches(tcfg.batch_size, epoch=0,
-                                          seed=2)).items()}
 
-    def train_step():
-        tstep(tstate, train_batch, tcfg.seed, train_feats)
+    def step_of(name):
+        # built again: building a step sets the kernel switches its config
+        # carries (kernel_config.apply), which the later runs have changed
+        tcfg, tmodel, tstate, _ = trains[name][1]
+        tstep = make_train_step(tcfg, tmodel, device_gather=True)
+        key = "samples_long" if tcfg.user_log_length == LONG_L else "samples"
+        batch = {k: torch.from_numpy(v).cuda() for k, v in next(
+            ctx[key].iter_index_batches(tcfg.batch_size, epoch=0,
+                                        seed=2)).items()}
+        return lambda: tstep(tstate, batch, tcfg.seed, train_feats)
 
     prof = {"score_batch_64x300": profile_device(
                 lambda: rec.score_batch(hists, cands)),
             "recommend_batch_64_k10": profile_device(
                 lambda: rec.recommend_batch(hists, k=10)),
             "news_encoder_chunk_1024": profile_device(encode_chunk),
-            "train_step_b128_bf16": profile_device(train_step)}
+            "train_step_b128_bf16": profile_device(step_of("probs")),
+            "train_step_recompute_b128_bf16": profile_device(
+                step_of("recompute")),
+            "train_step_trainable_b128_bf16": profile_device(
+                step_of("trainable")),
+            f"train_step_l{LONG_L}_b128_bf16": profile_device(
+                step_of("long"), reps=3)}
     phase("profile", t, **{k: json.dumps(v) for k, v in prof.items()})
 
     # ---- summary -----------------------------------------------------------
-    main_path = {"bias": ("bias", 1024, 20, "float32"),
-                 "bias_masked": ("bias_masked", MAX_BATCH, 50, "float32")}
+    def find(found_in, **key):
+        return next(c for c in found_in if all(
+            (c["shape"][:2] if k == "shape" else c[k]) == v
+            for k, v in key.items()))
+
+    def row(name, source, replaces, n_launch, err, timing, c):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n_launch,
+                "max_abs_err": err["max_abs_err"],
+                "n_differ": err["n_differ"], "n_elems": err["n_elems"],
+                "max_abs_ref": err["max_abs_ref"], "ms": timing["ms"],
+                "plain_ms": timing["plain_ms"],
+                "bound_ms": timing["bound_ms"],
+                "bound_by": timing["bound_by"],
+                "library_ms": timing["library_ms"], "shape": c["shape"],
+                "dtype": c["dtype"]}
+
     kernels = []
-    for variant, (v, n, tl, dtype) in main_path.items():
-        c = next(c for c in cases if (c["variant"], c["shape"][0],
-                                      c["shape"][1], c["dtype"])
-                 == (v, n, tl, dtype))
-        kernels.append({
-            "name": f"exp_mhsa_qkv_{variant}", "route": "cuda",
-            "source": SOURCE, "replaces": REPLACES,
-            "launches": launches[variant],
-            "max_abs_err": c["max_abs_err"], "n_differ": c["n_differ"],
-            "n_elems": c["n_elems"], "max_abs_ref": c["max_abs_ref"],
-            "ms": c["ms"], "plain_ms": c["plain_ms"],
-            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-            "library_ms": c["library_ms"], "shape": c["shape"],
-            "dtype": c["dtype"]})
-    # rows 2-3 at the news encoder's shape in the headline step (bf16)
-    c = next(c for c in train_cases if (c["variant"], c["shape"][0],
-                                        c["dtype"]) == ("bias", 7040,
-                                                        "bfloat16"))
-    rows = [("exp_mhsa_qkv_bias_probs", SOURCE, f"{TPU_KERNELS}:601",
-             train["launches"]["qkv_fwd_probs"]["bias_probs"], "fwd",
-             c["probs"]),
-            ("qkv_bwd_probs", BWD_SOURCE, f"{TPU_KERNELS}:642",
-             train["launches"]["qkv_bwd_probs"]["bwd_probs"], "bwd",
-             c["dqkv"])]
-    for name, source, replaces, n_launch, half, err in rows:
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": n_launch,
-            "max_abs_err": err["max_abs_err"], "n_differ": err["n_differ"],
-            "n_elems": err["n_elems"], "max_abs_ref": err["max_abs_ref"],
-            "ms": c[half]["ms"], "plain_ms": c[half]["plain_ms"],
-            "bound_ms": c[half]["bound_ms"], "bound_by": c[half]["bound_by"],
-            "library_ms": None, "shape": c["shape"], "dtype": c["dtype"]})
+    for variant, (n, tl) in {"bias": (1024, 20),
+                             "bias_masked": (MAX_BATCH, 50)}.items():
+        c = find(cases, variant=variant, shape=[n, tl], dtype="float32")
+        kernels.append(row(f"exp_mhsa_qkv_{variant}", SOURCE, REPLACES,
+                           launches[variant], c, c, c))
+    # rows 2-4 at the news encoder's shape in the headline step, rows 9-10
+    # at a user encoder over a LONG_L-news history (bf16)
+    c = find(train_cases, variant="bias", shape=[7040, 20], dtype="bfloat16")
+    kernels.append(row("exp_mhsa_qkv_bias_probs", SOURCE,
+                       f"{TPU_KERNELS}:601",
+                       train["launches"]["qkv_fwd_probs"]["bias_probs"],
+                       c["probs"], c["fwd"], c))
+    kernels.append(row("qkv_bwd_probs", BWD_PROBS_SOURCE,
+                       f"{TPU_KERNELS}:642",
+                       train["launches"]["qkv_bwd_probs"]["bwd_probs"],
+                       c["dqkv"], c["bwd"], c))
+    c = find(recompute_cases, variant="bwd", shape=[7040, 20],
+             dtype="bfloat16")
+    n_launch = sum(trains["recompute"][0]["launches"]["qkv_bwd"].values())
+    kernels.append(row("qkv_bwd", BWD_SOURCE, f"{TPU_KERNELS}:712", n_launch,
+                       c["dqkv"], c["bwd"], c))
+    c = find(flash_cases, variant="flash", shape=[128, LONG_L],
+             dtype="bfloat16")
+    long_launches = trains["long"][0]["launches"]
+    kernels.append(row("flash_exp_mhsa_fwd", FLASH_FWD_SOURCE,
+                       f"{FLASH_KERNELS}:156",
+                       sum(long_launches["flash_fwd"].values()), c["o"],
+                       c["fwd"], c))
+    kernels.append(row("flash_exp_mhsa_bwd", FLASH_BWD_SOURCE,
+                       f"{FLASH_KERNELS}:215",
+                       sum(long_launches["flash_bwd"].values()), c["dq"],
+                       c["bwd"], c))
+    idle = [k["name"] for k in kernels if k["launches"] < 1]
+    if idle:
+        fail(f"kernels never launched on their main path: {idle}")
     print(json.dumps({"kernels": kernels, "card": card,
                       "total_s": time.perf_counter() - _T0}), flush=True)
     print(json.dumps({"ok": True, "device": {

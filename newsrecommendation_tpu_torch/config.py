@@ -60,6 +60,10 @@ class Config:
 
     # ---- execution ---------------------------------------------------------
     compute_dtype: str = "float32"  # "float32" | "bfloat16" activations
+    # What the attention forward saves for its backward: "probs" (the f32
+    # attention probs; kernel rows 2-3) or "recompute" (nothing; the
+    # backward recomputes them, rows 1 and 4). Same gradients.
+    bwd_residuals: str = "probs"
     eval_news_chunk: int = 1024  # corpus rows per news-encoder call
     # Recommender's "auto" scorer: dense (whole-corpus matmul) while the
     # cache has at most this many rows, gather (candidate rows only) above.
@@ -77,6 +81,9 @@ class Config:
             )
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
+        if self.bwd_residuals not in ("recompute", "probs"):
+            raise ValueError(
+                f"unknown bwd_residuals {self.bwd_residuals!r}")
         if self.tokenizer not in ("treebank", "regex"):
             raise ValueError(f"unknown tokenizer {self.tokenizer!r}")
         if self.steps_per_call < 1:

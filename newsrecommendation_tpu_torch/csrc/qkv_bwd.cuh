@@ -1,0 +1,450 @@
+// Backward of the exp-normalised multi-head self-attention over a fused
+// [q|k|v] projection: one kernel template for two TPU kernels of
+// newsrecommendation_tpu/ops/pallas/fused_attention.py,
+//   _qkv_bwd_probs_kernel (row 3, _qkv_bwd_probs_call): a read from the f32
+//       probs the forward saved (qkv_bwd_probs.cu, kRecompute = false);
+//   _qkv_bwd_kernel (row 4, _qkv_bwd_call): a recomputed from qkv, bias
+//       and the key mask as the forward computes it (qkv_bwd.cu,
+//       kRecompute = true).
+//
+// Contract (same as the TPU kernels):
+//   qkv   (N, T, 3*H*D) un-biased projection; bias (3*H*D,) added at the
+//         input dtype, as in the forward
+//   probs (N, T, H*T) f32 (row 3): a of head h at lanes [h*T, (h+1)*T); it
+//         carries the mask (a masked key's a is 0)
+//   mask  (N, T) f32 over keys, or null (row 4)
+//   g     (N, T, H*D) incoming gradient of the context, in qkv's dtype
+//   dqkv  (N, T, 3*H*D) in qkv's dtype: dq, dk, dv of head h at lanes h*D,
+//         H*D + h*D, 2*H*D + h*D
+// Per head, with f32 accumulation everywhere:
+//   a  = exp(s - m) * mask / (sum_j exp(s - m) * mask + 1e-8 exp(-m))
+//        (row 4: s = (q.k) / sqrt(D), m over ALL keys, as the forward)
+//   dv = round(a)^T g                 a rounded to g's dtype first
+//   da = g v^T
+//   ds = (da - rowsum(da * a)) * a * (1/sqrt(D))    with the f32 a
+//   dq = round(ds) k,  dk = round(ds)^T q           ds rounded to k's dtype
+// d(bias) is the sum of dqkv over (N, T), a plain reduce left to the caller.
+//
+// Bound: memory. Row 3 reads qkv, probs and g once and writes dqkv once:
+// at N=7040, T=20, H=20, D=20 in bf16 that is 338 + 225 + 113 + 338 MB,
+// 1,014 MB, about 0.30 ms at 3.35 TB/s, against 8*N*H*T*T*D = 9.0 GFLOP.
+// Row 4 moves no probs (789 MB, 0.24 ms) and does 10*N*H*T*T*D flops.
+//
+// Design (simple, correct first): one block per (row n, head h), two
+// kernels chosen by T.
+//   Resident (the T x T block of a fits: T up to 201 at D = 20, the NRMS
+//     shapes, where the time goes; block size fixed at compile time): 4
+//     warps stage q_h, k_h, v_h and g_h (T x D each, rounded to the input
+//     dtype and held as f32, odd row stride) and a (T x T f32, odd stride;
+//     staged from probs, or recomputed one warp per row exactly as the
+//     forward's warp computes it) in shared memory. Threads over (j, d)
+//     write dv; one warp per row computes da (in its own row buffer), the
+//     row sum r by warp shuffles and ds over a in place; then threads over
+//     (x, d) write dq and dk.
+//   Tiled (longer T; 8 warps): the same q, k, v, g and a tile of R rows of
+//     T floats, R as large as the rest of the 227 KB allows (18 at T = 511,
+//     D = 20). Query tiles of R rows: one warp per query makes a's row in
+//     its buffer and ds's row in the tile, then threads over (i, d) write
+//     dq; then key tiles of R/2 keys: threads over (key j, query i) pairs
+//     compute a_ij (probs read with a stride, L1/L2 resident; or recomputed
+//     from the row's m_i and den_i), da_ij and ds_ij into two tiles, and
+//     threads over (j, d) write dv and dk. ds is computed twice there, by
+//     the same expression on the same operands. At D = 20 every T up to
+//     599 fits.
+// Two kernels, not one with two paths: in one kernel with the tiled path
+// (more registers, a run-time block size) the resident path ran 1.5-11%
+// slower on the card. Every dot runs in index order, so both kernels give
+// the same values, and row 3 and row 4 give the same dqkv bit for bit when
+// row 4's recomputed a equals the probs row 2 wrote. Left on the table:
+// 2*D-byte runs instead of 16-byte loads, da computed twice on the tiled
+// path, a tiled row 4 that spills, and no tensor cores.
+#pragma once
+
+#include "common.cuh"
+
+namespace nrk {
+
+constexpr int kMaxSmemFloats = 232448 / 4;  // what a block may use
+constexpr int kResidentWarps = 4;
+constexpr int kTiledWarps = 8;
+
+// shared floats of the resident kernel: q, k, v, g, the T x T block of a,
+// one row buffer per warp
+inline size_t qkv_bwd_resident_floats(int t_len, int d_head) {
+  return 4 * (size_t)t_len * (d_head | 1) + (size_t)t_len * (t_len | 1) +
+         (size_t)kResidentWarps * t_len;
+}
+
+inline bool qkv_bwd_resident(int t_len, int d_head) {
+  return qkv_bwd_resident_floats(t_len, d_head) <= (size_t)kMaxSmemFloats;
+}
+
+// rows of the tiled kernel's tile: as many as fit beside q, k, v, g, the
+// row buffers and the row stats (r, m, den: 3T floats); 2 at the least (a
+// launch that needs more shared memory than a block has is refused)
+inline int qkv_bwd_tile_rows(int t_len, int d_head) {
+  const size_t used = 4 * (size_t)t_len * (d_head | 1) +
+                      (size_t)(kTiledWarps + 3) * t_len;
+  const size_t rows = used < (size_t)kMaxSmemFloats
+                          ? (kMaxSmemFloats - used) / (size_t)(t_len | 1)
+                          : 0;
+  return (int)(rows < 2 ? 2 : rows);
+}
+
+inline size_t qkv_bwd_smem_bytes_for(int t_len, int d_head) {
+  if (qkv_bwd_resident(t_len, d_head))
+    return sizeof(float) * qkv_bwd_resident_floats(t_len, d_head);
+  return sizeof(float) *
+         (4 * (size_t)t_len * (d_head | 1) +
+          (size_t)(kTiledWarps + 3) * t_len +
+          (size_t)qkv_bwd_tile_rows(t_len, d_head) * (t_len | 1));
+}
+
+// One warp: a's row i into `a` (f32), as the forward's warp computes it
+// (qkv_fwd.cu, step for step), with the row's m and den kept (unless
+// m_out is null).
+__device__ __forceinline__ void recompute_a_row(
+    float* a, const float* qi, const float* k, const float* mrow, int t_len,
+    int d_head, int stride, float inv_s, float* m_out, float* den_out,
+    int lane) {
+  float mx = -INFINITY;
+  for (int j = lane; j < t_len; j += 32) {
+    const float* kj = k + j * stride;
+    float acc = 0.f;
+    for (int d = 0; d < d_head; ++d) acc = fmaf(qi[d], kj[d], acc);
+    const float s = __fmul_rn(acc, inv_s);
+    a[j] = s;
+    mx = fmaxf(mx, s);
+  }
+  const float m = warp_max(mx);
+  float sum = 0.f;
+  for (int j = lane; j < t_len; j += 32) {
+    float e = expf(a[j] - m);
+    if (mrow) e *= mrow[j];
+    a[j] = e;
+    sum += e;
+  }
+  const float den = warp_sum(sum) + kEps * expf(-m);
+  for (int j = lane; j < t_len; j += 32) a[j] = den > 0.f ? a[j] / den : 0.f;
+  if (lane == 0 && m_out) {
+    *m_out = m;
+    *den_out = den;
+  }
+}
+
+// One warp: da's row i into `da`, r_i = rowsum(da * a) into *r_out (unless
+// it is null), then
+// ds's row, rounded to T, into `out` (which may be `a` or `da`: each lane
+// rewrites only the entries it read).
+template <typename T>
+__device__ __forceinline__ void ds_row(float* out, const float* a, float* da,
+                                       const float* gi, const float* v,
+                                       int t_len, int d_head, int stride,
+                                       float inv, float* r_out, int lane) {
+  float part = 0.f;
+  for (int j = lane; j < t_len; j += 32) {
+    const float* vj = v + j * stride;
+    float acc = 0.f;
+    for (int d = 0; d < d_head; ++d) acc = fmaf(gi[d], vj[d], acc);
+    da[j] = acc;
+    part += acc * a[j];
+  }
+  const float r = warp_sum(part);
+  if (lane == 0 && r_out) *r_out = r;
+  for (int j = lane; j < t_len; j += 32)
+    out[j] = round_to<T>((da[j] - r) * a[j] * inv);
+}
+
+// The resident kernel (row 4 recomputes a where row 3 stages it).
+template <typename T, bool kRecompute>
+__global__ void __launch_bounds__(32 * kResidentWarps)
+qkv_bwd_resident_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
+                        const float* __restrict__ probs,
+                        const float* __restrict__ mask,
+                        const T* __restrict__ g, T* __restrict__ dqkv,
+                        int n_heads, int t_len, int d_head, float inv) {
+  constexpr int kThreads = 32 * kResidentWarps;
+  extern __shared__ float smem[];
+  const int row = blockIdx.x / n_heads;
+  const int h = blockIdx.x % n_heads;
+  const int hd = n_heads * d_head;
+  const int w3 = 3 * hd;
+  const int stride = d_head | 1;  // odd row strides: no bank conflicts
+  const int astride = t_len | 1;
+
+  float* q = smem;                   // (T, stride), then k, v, g
+  float* k = q + t_len * stride;
+  float* v = k + t_len * stride;
+  float* gs = v + t_len * stride;
+  float* a = gs + t_len * stride;    // (T, astride): a, then ds
+  float* darow = a + t_len * astride;  // (kResidentWarps, T) da rows
+
+  const T* src = qkv + (int64_t)row * t_len * w3;
+  const int per_part = t_len * d_head;
+  for (int idx = threadIdx.x; idx < 3 * per_part; idx += kThreads) {
+    const int part = idx / per_part;
+    const int rem = idx - part * per_part;
+    const int t = rem / d_head;
+    const int d = rem - t * d_head;
+    const int lane = part * hd + h * d_head + d;
+    // the bias add happens at the input dtype, as in the forward
+    smem[part * t_len * stride + t * stride + d] = round_to<T>(
+        to_f32(src[(int64_t)t * w3 + lane]) + to_f32(bias[lane]));
+  }
+  const T* gsrc = g + (int64_t)row * t_len * hd + h * d_head;
+  for (int idx = threadIdx.x; idx < per_part; idx += kThreads) {
+    const int t = idx / d_head;
+    const int d = idx - t * d_head;
+    gs[t * stride + d] = to_f32(gsrc[(int64_t)t * hd + d]);
+  }
+  if constexpr (kRecompute) {
+    __syncthreads();
+    const float* mrow = mask ? mask + (int64_t)row * t_len : nullptr;
+    // the forward's scale of the scores, computed as the forward does
+    const float inv_s = 1.0f / sqrtf((float)d_head);
+    for (int i = threadIdx.x / 32; i < t_len; i += kResidentWarps)
+      recompute_a_row(a + i * astride, q + i * stride, k, mrow, t_len,
+                      d_head, stride, inv_s, nullptr, nullptr,
+                      threadIdx.x % 32);
+  } else {
+    // probs[row, i, h*T + j] = a[i, j]
+    const float* psrc = probs + (int64_t)row * t_len * n_heads * t_len +
+                        h * t_len;
+    for (int idx = threadIdx.x; idx < t_len * t_len; idx += kThreads) {
+      const int i = idx / t_len;
+      const int j = idx - i * t_len;
+      a[i * astride + j] = psrc[(int64_t)i * n_heads * t_len + j];
+    }
+  }
+  __syncthreads();
+
+  T* dst = dqkv + (int64_t)row * t_len * w3 + h * d_head;
+  // dv[j, d] = sum_i round(a[i, j]) * g[i, d]
+  for (int idx = threadIdx.x; idx < per_part; idx += kThreads) {
+    const int j = idx / d_head;
+    const int d = idx - j * d_head;
+    float acc = 0.f;
+    for (int i = 0; i < t_len; ++i)
+      acc = fmaf(round_to<T>(a[i * astride + j]), gs[i * stride + d], acc);
+    dst[(int64_t)j * w3 + 2 * hd + d] = from_f32<T>(acc);
+  }
+  __syncthreads();  // a is overwritten with ds below
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  float* da = darow + warp * t_len;
+  for (int i = warp; i < t_len; i += kResidentWarps) {
+    // ds_row's arithmetic, written out: through the helper this kernel
+    // ran slower on the card at the NRMS shapes
+    const float* gi = gs + i * stride;
+    float* ai = a + i * astride;
+    float part = 0.f;
+    for (int j = lane; j < t_len; j += 32) {
+      const float* vj = v + j * stride;
+      float acc = 0.f;
+      for (int d = 0; d < d_head; ++d) acc = fmaf(gi[d], vj[d], acc);
+      da[j] = acc;
+      part += acc * ai[j];
+    }
+    const float r = warp_sum(part);
+    // each lane rewrites only the entries it read: no sync within the warp
+    for (int j = lane; j < t_len; j += 32)
+      ai[j] = round_to<T>((da[j] - r) * ai[j] * inv);
+  }
+  __syncthreads();
+
+  // dq[i, d] = sum_j ds[i, j] k[j, d];  dk[i, d] = sum_j ds[j, i] q[j, d]
+  for (int idx = threadIdx.x; idx < per_part; idx += kThreads) {
+    const int i = idx / d_head;
+    const int d = idx - i * d_head;
+    float dq = 0.f, dk = 0.f;
+    for (int j = 0; j < t_len; ++j) {
+      dq = fmaf(a[i * astride + j], k[j * stride + d], dq);
+      dk = fmaf(a[j * astride + i], q[j * stride + d], dk);
+    }
+    dst[(int64_t)i * w3 + d] = from_f32<T>(dq);
+    dst[(int64_t)i * w3 + hd + d] = from_f32<T>(dk);
+  }
+}
+
+// The tiled kernel: T past what the resident kernel holds.
+template <typename T, bool kRecompute>
+__global__ void __launch_bounds__(32 * kTiledWarps)
+qkv_bwd_tiled_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
+                     const float* __restrict__ probs,
+                     const float* __restrict__ mask, const T* __restrict__ g,
+                     T* __restrict__ dqkv, int n_heads, int t_len,
+                     int d_head, int tile_rows, float inv) {
+  constexpr int warps = kTiledWarps;
+  constexpr int kThreads = 32 * kTiledWarps;
+  extern __shared__ float smem[];
+  const int row = blockIdx.x / n_heads;
+  const int h = blockIdx.x % n_heads;
+  const int hd = n_heads * d_head;
+  const int w3 = 3 * hd;
+  const int stride = d_head | 1;  // odd row strides: no bank conflicts
+  const int tstride = t_len | 1;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  float* q = smem;  // (T, stride), then k, v, g
+  float* k = q + t_len * stride;
+  float* v = k + t_len * stride;
+  float* gs = v + t_len * stride;
+  float* wrow = gs + t_len * stride + warp * t_len;  // this warp's buffer
+  float* tile = gs + t_len * stride + warps * t_len;  // (tile_rows, tstride)
+  // the row stats, after the tile: rowsum(da * a), and (row 4) the row's
+  // max and denominator
+  float* rs = tile + tile_rows * tstride;
+  float* ms = rs + t_len;
+  float* dens = ms + t_len;
+
+  // staging: all threads over (t, d) of each operand, loads unrolled so
+  // that several are in flight at once
+  const T* src = qkv + (int64_t)row * t_len * w3 + h * d_head;
+  const T* gsrc = g + (int64_t)row * t_len * hd + h * d_head;
+  const int per_part = t_len * d_head;
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < 4 * per_part; idx += kThreads) {
+    const int part = idx / per_part;  // q, k, v, then g
+    const int rem = idx - part * per_part;
+    const int t = rem / d_head;
+    const int d = rem - t * d_head;
+    // the bias add happens at the input dtype, as in the forward
+    smem[(part * t_len + t) * stride + d] =
+        part < 3 ? round_to<T>(to_f32(src[(int64_t)t * w3 + part * hd + d]) +
+                               to_f32(bias[part * hd + h * d_head + d]))
+                 : to_f32(gsrc[(int64_t)t * hd + d]);
+  }
+  // probs[row, i, h*T + j] = a[i, j]
+  const int64_t pstride = (int64_t)n_heads * t_len;
+  const float* prow0 = kRecompute ? nullptr
+                                  : probs + (int64_t)row * t_len * pstride +
+                                        h * t_len;
+  __syncthreads();
+
+  const float* mrow = mask ? mask + (int64_t)row * t_len : nullptr;
+  // the forward's scale of the scores, computed as the forward does
+  const float inv_s = 1.0f / sqrtf((float)d_head);
+  T* dst = dqkv + (int64_t)row * t_len * w3 + h * d_head;
+
+  // ---- query tiles: ds's rows, then dq --------------------------------
+  for (int i0 = 0; i0 < t_len; i0 += tile_rows) {
+    const int nq = min(tile_rows, t_len - i0);
+    for (int ii = warp; ii < nq; ii += warps) {
+      const int i = i0 + ii;
+      if constexpr (kRecompute) {
+        recompute_a_row(wrow, q + i * stride, k, mrow, t_len, d_head, stride,
+                        inv_s, ms + i, dens + i, lane);
+      } else {
+        for (int j = lane; j < t_len; j += 32) wrow[j] = prow0[i * pstride + j];
+      }
+      float* dsi = tile + ii * tstride;  // da's row, then ds's
+      ds_row<T>(dsi, wrow, dsi, gs + i * stride, v, t_len, d_head, stride,
+                inv, rs + i, lane);
+      __syncwarp();  // the next query overwrites wrow
+    }
+    __syncthreads();
+    // dq[i, d] = sum_j ds[i, j] k[j, d]
+    for (int idx = threadIdx.x; idx < nq * d_head; idx += kThreads) {
+      const int ii = idx / d_head;
+      const int d = idx - ii * d_head;
+      const float* dsi = tile + ii * tstride;
+      float acc = 0.f;
+      for (int j = 0; j < t_len; ++j) acc = fmaf(dsi[j], k[j * stride + d], acc);
+      dst[(int64_t)(i0 + ii) * w3 + d] = from_f32<T>(acc);
+    }
+    __syncthreads();  // the next tile overwrites this one
+  }
+
+  // ---- key tiles: a's and ds's columns, then dv and dk -----------------
+  const int tk = tile_rows / 2;
+  float* a_cols = tile;                  // (tk, tstride) round(a)
+  float* ds_cols = tile + tk * tstride;  // (tk, tstride) ds
+  for (int j0 = 0; j0 < t_len; j0 += tk) {
+    const int nk = min(tk, t_len - j0);
+    for (int idx = threadIdx.x; idx < nk * t_len; idx += kThreads) {
+      const int jj = idx / t_len;
+      const int i = idx - jj * t_len;
+      const int j = j0 + jj;
+      float a;
+      if constexpr (kRecompute) {
+        const float* qi = q + i * stride;
+        const float* kj = k + j * stride;
+        float acc = 0.f;
+        for (int d = 0; d < d_head; ++d) acc = fmaf(qi[d], kj[d], acc);
+        float e = expf(__fmul_rn(acc, inv_s) - ms[i]);
+        if (mrow) e *= mrow[j];
+        a = dens[i] > 0.f ? e / dens[i] : 0.f;
+      } else {
+        a = prow0[i * pstride + j];
+      }
+      const float* gi = gs + i * stride;
+      const float* vj = v + j * stride;
+      float da = 0.f;
+      for (int d = 0; d < d_head; ++d) da = fmaf(gi[d], vj[d], da);
+      a_cols[jj * tstride + i] = round_to<T>(a);  // a in g's dtype, for dv
+      ds_cols[jj * tstride + i] = round_to<T>((da - rs[i]) * a * inv);
+    }
+    __syncthreads();
+    // dv[j, d] = sum_i round(a[i, j]) g[i, d];  dk[j, d] = sum_i ds[i, j] q[i, d]
+    for (int idx = threadIdx.x; idx < nk * d_head; idx += kThreads) {
+      const int jj = idx / d_head;
+      const int d = idx - jj * d_head;
+      const float* aj = a_cols + jj * tstride;
+      const float* dsj = ds_cols + jj * tstride;
+      float dv = 0.f, dk = 0.f;
+      for (int i = 0; i < t_len; ++i) {
+        dv = fmaf(aj[i], gs[i * stride + d], dv);
+        dk = fmaf(dsj[i], q[i * stride + d], dk);
+      }
+      const int64_t o = (int64_t)(j0 + jj) * w3 + d;
+      dst[o + hd] = from_f32<T>(dk);
+      dst[o + 2 * hd] = from_f32<T>(dv);
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T, bool kRecompute>
+int qkv_bwd_launch(const void* qkv, const void* bias, const void* probs,
+                   const void* mask, const void* g, void* dqkv, int n,
+                   int t_len, int n_heads, int d_head, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  const int64_t blocks = (int64_t)n * n_heads;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  const size_t smem = qkv_bwd_smem_bytes_for(t_len, d_head);
+  // 1/sqrt(D) for ds, rounded once from double, as the plain version's
+  // scalar is
+  const float inv = (float)(1.0 / sqrt((double)d_head));
+  const auto* x = static_cast<const T*>(qkv);
+  const auto* b = static_cast<const T*>(bias);
+  const auto* p = static_cast<const float*>(probs);
+  const auto* m = static_cast<const float*>(mask);
+  const auto* gg = static_cast<const T*>(g);
+  auto* out = static_cast<T*>(dqkv);
+  cudaError_t err;
+  if (qkv_bwd_resident(t_len, d_head)) {
+    err = cudaFuncSetAttribute(qkv_bwd_resident_kernel<T, kRecompute>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    qkv_bwd_resident_kernel<T, kRecompute>
+        <<<(unsigned)blocks, 32 * kResidentWarps, smem,
+           (cudaStream_t)stream>>>(x, b, p, m, gg, out, n_heads, t_len,
+                                   d_head, inv);
+  } else {
+    err = cudaFuncSetAttribute(qkv_bwd_tiled_kernel<T, kRecompute>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    qkv_bwd_tiled_kernel<T, kRecompute>
+        <<<(unsigned)blocks, 32 * kTiledWarps, smem,
+           (cudaStream_t)stream>>>(x, b, p, m, gg, out, n_heads, t_len,
+                                   d_head, qkv_bwd_tile_rows(t_len, d_head),
+                                   inv);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace nrk

@@ -38,52 +38,14 @@
 // 16-byte vector loads, T=20 keeps 12 of 32 lanes idle, nothing overlaps
 // loads with math, and no tensor cores (mma/wgmma) are used.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
+using namespace nrk;
+
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr float kEps = 1e-8f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// Round a float to the storage type T and back (identity for f32).
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)

@@ -112,13 +112,23 @@ def mhsa_dropout_pool(mhsa_params, pool_params, x, mask=None, *,
     return attention_pooling(pool_params, ctx, mask)
 
 
-def _mhsa_from_qkv(qkv_2d, bs, bias, nq, nk, nv, mask=None, *, n_heads: int):
-    """MHSA over the un-biased fused projection output (B*S, nq+nk+nv).
+def multi_head_self_attention(params, x, mask=None, *, n_heads: int):
+    """Self-attention over x (B, S, d_model); mask (B, S) over keys or
+    None. Returns (B, S, n_heads*d_v)."""
+    qkv_2d, bs, bias, nq, nk, nv = _fused_qkv(params, x)
+    return _mhsa_from_qkv(qkv_2d, bs, bias, nq, nk, nv, mask,
+                          n_heads=n_heads)
 
-    Equal q/k/v widths go to the fused-qkv wrappers, which run the CUDA
-    kernel on the card (raising for a sequence it does not take) and its
-    plain version on the CPU. Unequal widths need the separate-q/k/v
-    kernels, not ported yet, and raise on every device.
+
+def _mhsa_from_qkv(qkv_2d, bs, bias, nq, nk, nv, mask=None, *, n_heads: int):
+    """MHSA over the un-biased fused projection output (B*S, nq+nk+nv),
+    routed as the JAX package routes it: a sequence of at least
+    ``kernel_config.flash_min_seq()`` keys goes to the key-blocked flash
+    kernels on q, k, v cut from the biased projection; a shorter one to the
+    fused-qkv kernels, which add the bias themselves. The route is the same
+    on every device; the device picks kernel (CUDA) or plain version (CPU).
+    Unequal widths need the separate-q/k/v kernels, not ported yet, and
+    raise on every device.
     """
     if not nq == nk == nv:
         raise NotImplementedError(
@@ -126,9 +136,16 @@ def _mhsa_from_qkv(qkv_2d, bs, bias, nq, nk, nv, mask=None, *, n_heads: int):
             "(exp_mhsa) are not ported")
     b, s = bs
     qkv_raw = qkv_2d.reshape(b, s, qkv_2d.shape[-1])
+    from newsrecommendation_tpu_torch.ops import blockwise, kernel_config
     from newsrecommendation_tpu_torch.ops import fused_attention as fa
 
+    if mask is not None:
+        mask = mask.float().contiguous()
+    if s >= kernel_config.flash_min_seq():
+        q, k, v = torch.split(qkv_raw + bias, [nq, nk, nv], dim=-1)
+        if mask is None:
+            return blockwise.flash_exp_mhsa(q, k, v, n_heads)
+        return blockwise.flash_exp_mhsa_masked(q, k, v, mask, n_heads)
     if mask is None:
         return fa.exp_mhsa_qkv_bias(qkv_raw, bias, n_heads)
-    return fa.exp_mhsa_qkv_bias_masked(qkv_raw, bias,
-                                       mask.float().contiguous(), n_heads)
+    return fa.exp_mhsa_qkv_bias_masked(qkv_raw, bias, mask, n_heads)

@@ -1,0 +1,246 @@
+"""Key-blocked ("flash") exp-normalised MHSA for long sequences: two CUDA
+kernels behind an autograd Function, and their plain PyTorch versions.
+
+Replaces, in ``newsrecommendation_tpu/ops/pallas/blockwise.py``:
+  - ``_fwd_call`` (``_flash_fwd_kernel``): online max and sum over key
+    blocks; writes o (N, T, H*D) and the per-row m and den (N, T, H) f32
+    -> ``csrc/flash_fwd.cu``, kernel "flash_fwd" (row 9);
+  - ``_bwd_call`` (``_flash_bwd_kernel``): dq, dk and dv from o, m, den
+    and delta = sum_d g * o -> ``csrc/flash_bwd.cu``, kernel "flash_bwd"
+    (row 10).
+``ops/attention.py`` sends a sequence here when it has at least
+``kernel_config.flash_min_seq()`` keys (512 by default), as the JAX
+package's dispatch does. The math is the exp-normalise of the other
+attention kernels (max over all keys, mask after the exp, 1e-8 exp(-m)
+in the denominator, a fully masked row gives 0); only the bf16 rounding
+point differs: the un-normalised e against the running max meets v, so the
+key block (JAX's ``_block_rows(t, block_kv)``) is part of the contract.
+
+q, k and v are (N, T, H*D) and may be views of one fused projection: their
+lanes must be contiguous and their rows a common stride apart. A CPU tensor
+takes the plain versions, a CUDA tensor launches the kernels or raises.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from newsrecommendation_tpu_torch.ops import kernels
+
+_EPS = 1e-8
+_NEG_BIG = -1e30
+BLOCK_KV = 256  # the JAX package's default key block
+MAX_HEAD = 64  # widest head the kernels take
+
+
+def kv_block(t: int, target: int = BLOCK_KV) -> int:
+    """The JAX package's key block for a sequence of t keys: the largest
+    divisor of t that is <= target and divisible by 8, else t itself."""
+    b = min(t, target)
+    while b >= 8:
+        if t % b == 0 and b % 8 == 0:
+            return b
+        b -= 1
+    return t
+
+
+def _check(q, k, v, key_mask, n_heads):
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must be one (N, T, H*D) shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    n, t, hd = q.shape
+    if n_heads < 1 or hd % n_heads != 0:
+        raise ValueError(f"width {hd} is not n_heads({n_heads}) * D")
+    if key_mask is not None and key_mask.shape != (n, t):
+        raise ValueError(f"key_mask must be ({n}, {t}), "
+                         f"got {tuple(key_mask.shape)}")
+    return n, t, hd // n_heads
+
+
+def _heads(x, n_heads):
+    n, t, hd = x.shape
+    return x.reshape(n, t, n_heads, hd // n_heads)
+
+
+def flash_fwd_reference(q, k, v, key_mask, n_heads: int,
+                        block_kv: int = BLOCK_KV):
+    """Plain PyTorch version of row 9, block for block: returns (o in q's
+    dtype, m, den (N, T, H) f32). key_mask may be None."""
+    n, t, d = _check(q, k, v, key_mask, n_heads)
+    bkv = kv_block(t, block_kv)
+    inv = 1.0 / math.sqrt(d)
+    qh, kh = _heads(q, n_heads).float(), _heads(k, n_heads).float()
+    vh = _heads(v, n_heads)
+    m = q.new_full((n, n_heads, t), _NEG_BIG, dtype=torch.float32)
+    l = torch.zeros_like(m)
+    acc = q.new_zeros((n, n_heads, t, d), dtype=torch.float32)
+    for b0 in range(0, t, bkv):
+        s = torch.einsum("nqhd,nkhd->nhqk", qh, kh[:, b0:b0 + bkv]) * inv
+        m_new = torch.maximum(m, s.amax(-1))
+        scale = torch.exp(m - m_new)
+        e = torch.exp(s - m_new[..., None])
+        if key_mask is not None:
+            e = e * key_mask[:, None, None, b0:b0 + bkv].float()
+        l = l * scale + e.sum(-1)
+        pv = torch.einsum("nhqk,nkhd->nhqd", e.to(v.dtype).float(),
+                          vh[:, b0:b0 + bkv].float())
+        acc = acc * scale[..., None] + pv
+        m = m_new
+    den = l + _EPS * torch.exp(-m)
+    o = torch.where(den[..., None] > 0, acc / den[..., None],
+                    torch.zeros_like(acc))
+    return (o.permute(0, 2, 1, 3).reshape(n, t, n_heads * d).to(q.dtype),
+            m.permute(0, 2, 1).contiguous(), den.permute(0, 2, 1).contiguous())
+
+
+def flash_bwd_reference(q, k, v, key_mask, g, m, den, delta, n_heads: int,
+                        block_kv: int = BLOCK_KV):
+    """Plain PyTorch version of row 10: (dq, dk, dv) in q's dtype from the
+    forward's m and den (N, T, H) and delta = sum_d g * o (N, T, H), all
+    f32; g in q's dtype. a rounded to g's dtype for dv, ds rounded to k's
+    dtype before dq and dk, dq summed over key blocks in f32."""
+    n, t, d = _check(q, k, v, key_mask, n_heads)
+    bkv = kv_block(t, block_kv)
+    inv = 1.0 / math.sqrt(d)
+    qh, kh, vh = (_heads(x, n_heads).float() for x in (q, k, v))
+    gh = _heads(g, n_heads)
+    mt, dent, deltat = (x.permute(0, 2, 1)[..., None] for x in (m, den,
+                                                                 delta))
+    dq = torch.zeros_like(qh)
+    dks, dvs = [], []
+    for b0 in range(0, t, bkv):
+        kb, vb = kh[:, b0:b0 + bkv], vh[:, b0:b0 + bkv]
+        s = torch.einsum("nqhd,nkhd->nhqk", qh, kb) * inv
+        e = torch.exp(s - mt)
+        if key_mask is not None:
+            e = e * key_mask[:, None, None, b0:b0 + bkv].float()
+        a = torch.where(dent > 0, e / dent, torch.zeros_like(e))
+        dvs.append(torch.einsum("nhqk,nqhd->nkhd", a.to(g.dtype).float(),
+                                gh.float()))
+        da = torch.einsum("nqhd,nkhd->nhqk", gh.float(), vb)
+        ds = ((da - deltat) * a * inv).to(k.dtype).float()
+        dq = dq + torch.einsum("nhqk,nkhd->nqhd", ds, kb)
+        dks.append(torch.einsum("nhqk,nqhd->nkhd", ds, qh))
+    return tuple(x.reshape(n, t, n_heads * d).to(q.dtype)
+                 for x in (dq, torch.cat(dks, 1), torch.cat(dvs, 1)))
+
+
+def delta_of(g, o, n_heads: int):
+    """delta = sum_d g * o per (row, query, head) in f32, as the JAX
+    package computes it outside its backward kernel."""
+    return (_heads(g.float(), n_heads) * _heads(o.float(), n_heads)).sum(-1)
+
+
+def _check_launch(q, k, v, key_mask, d, *more):
+    """What the flash kernels need; returns the row stride of q, k, v."""
+    kernels.check_operands(q, k, v, key_mask, *more, contiguous=False)
+    for x in (key_mask, *more):
+        if x is not None and not x.is_contiguous():
+            raise ValueError("operands must be contiguous")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v dtypes {q.dtype}, {k.dtype}, {v.dtype}")
+    if key_mask is not None and key_mask.dtype != torch.float32:
+        raise TypeError(f"key_mask must be float32, got {key_mask.dtype}")
+    if d > MAX_HEAD:
+        raise NotImplementedError(f"D={d}: the flash kernels take heads of "
+                                  f"at most {MAX_HEAD}")
+    n, t, _ = q.shape
+    ld = q.stride(1)
+    for x in (q, k, v):
+        if x.stride() != (t * ld, ld, 1):
+            raise ValueError("q, k, v must have contiguous lanes and one "
+                             f"row stride; got strides {x.stride()} and "
+                             f"{q.stride()}")
+    return ld
+
+
+def flash_fwd(q, k, v, key_mask, n_heads: int, block_kv: int = BLOCK_KV):
+    """Kernel row 9 on CUDA tensors: (o, m, den) as flash_fwd_reference.
+    Raises for other devices."""
+    n, t, d = _check(q, k, v, key_mask, n_heads)
+    ld = _check_launch(q, k, v, key_mask, d)
+    o = torch.empty((n, t, n_heads * d), dtype=q.dtype, device=q.device)
+    m = torch.empty((n, t, n_heads), dtype=torch.float32, device=q.device)
+    den = torch.empty_like(m)
+    kernels.call("flash" if key_mask is None else "flash_masked",
+                 kernels.entry("flash_fwd", "flash_fwd", q.dtype), q.device,
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 kernels.ptr(key_mask), o.data_ptr(), m.data_ptr(),
+                 den.data_ptr(), n, t, n_heads, d, ld, kv_block(t, block_kv))
+    return o, m, den
+
+
+def flash_bwd(q, k, v, key_mask, g, m, den, delta, n_heads: int):
+    """Kernel row 10 on CUDA tensors: (dq, dk, dv) as flash_bwd_reference
+    (whose result does not depend on the key block). Raises for other
+    devices."""
+    n, t, d = _check(q, k, v, key_mask, n_heads)
+    if g.shape != (n, t, n_heads * d) or g.dtype != q.dtype:
+        raise ValueError(f"g must be {q.dtype} ({n}, {t}, {n_heads * d}), "
+                         f"got {g.dtype} {tuple(g.shape)}")
+    for name, x in (("m", m), ("den", den), ("delta", delta)):
+        if x.shape != (n, t, n_heads) or x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 ({n}, {t}, {n_heads}),"
+                             f" got {x.dtype} {tuple(x.shape)}")
+    ld = _check_launch(q, k, v, key_mask, d, g, m, den, delta)
+    dq, dk, dv = (torch.empty((n, t, n_heads * d), dtype=q.dtype,
+                              device=q.device) for _ in range(3))
+    kernels.call("flash_bwd" if key_mask is None else "flash_bwd_masked",
+                 kernels.entry("flash_bwd", "flash_bwd", q.dtype), q.device,
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 kernels.ptr(key_mask), g.data_ptr(), m.data_ptr(),
+                 den.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), n, t, n_heads, d, ld)
+    return dq, dk, dv
+
+
+class _FlashExpMhsa(torch.autograd.Function):
+    """Row 9 forward (saves q, k, v, the mask, o, m and den; no probs), row
+    10 backward; their plain versions for CPU tensors. The mask gets no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, n_heads, block_kv):
+        fwd = flash_fwd_reference if q.device.type == "cpu" else flash_fwd
+        o, m, den = fwd(q, k, v, key_mask, n_heads, block_kv)
+        ctx.save_for_backward(q, k, v, key_mask, o, m, den)
+        ctx.n_heads, ctx.block_kv = n_heads, block_kv
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        q, k, v, key_mask, o, m, den = ctx.saved_tensors
+        delta = delta_of(g, o, ctx.n_heads)
+        g = g.to(q.dtype).contiguous()
+        if q.device.type == "cpu":
+            grads = flash_bwd_reference(q, k, v, key_mask, g, m, den, delta,
+                                        ctx.n_heads, ctx.block_kv)
+        else:
+            grads = flash_bwd(q, k, v, key_mask, g, m, den, delta,
+                              ctx.n_heads)
+        return (*grads, None, None, None)
+
+
+def _attend(q, k, v, key_mask, n_heads, block_kv):
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _FlashExpMhsa.apply(q, k, v, key_mask, n_heads, block_kv)
+    fwd = flash_fwd_reference if q.device.type == "cpu" else flash_fwd
+    return fwd(q, k, v, key_mask, n_heads, block_kv)[0]
+
+
+def flash_exp_mhsa(q, k, v, n_heads: int, block_kv: int = BLOCK_KV):
+    """Key-blocked exp-MHSA over q, k, v (N, T, H*D); returns (N, T, H*D),
+    differentiable in q, k and v."""
+    return _attend(q, k, v, None, n_heads, block_kv)
+
+
+def flash_exp_mhsa_masked(q, k, v, key_mask, n_heads: int,
+                          block_kv: int = BLOCK_KV):
+    """Key-masked flash_exp_mhsa; key_mask (N, T) float32 0/1 over keys. A
+    row whose keys are all masked gives 0."""
+    return _attend(q, k, v, key_mask, n_heads, block_kv)

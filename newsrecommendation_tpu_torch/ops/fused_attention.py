@@ -1,161 +1,47 @@
-"""Exp-MHSA over a fused [q|k|v] projection: three CUDA kernels behind
-two autograd-aware wrappers, and their plain PyTorch versions.
+"""Exp-MHSA over a fused [q|k|v] projection: four CUDA kernels behind two
+autograd-aware wrappers, and their plain PyTorch versions.
 
 Replaces, in ``newsrecommendation_tpu/ops/pallas/fused_attention.py``:
-  - ``_qkv_fwd_call`` (``_qkv_fwd_kernel``): the forward, for serving and
-    eval -> ``csrc/qkv_fwd.cu``, kernel "qkv_fwd";
+  - ``_qkv_fwd_call`` (``_qkv_fwd_kernel``): the forward, for serving,
+    eval and training with bwd_residuals "recompute" -> ``csrc/qkv_fwd.cu``,
+    kernel "qkv_fwd" (row 1);
   - ``_qkv_fwd_probs_call``: the same forward that also writes the f32
-    probs (N, T, H*T), under differentiation -> ``csrc/qkv_fwd.cu`` with a
-    probs pointer, kernel "qkv_fwd_probs";
+    probs (N, T, H*T), under differentiation with bwd_residuals "probs" ->
+    ``csrc/qkv_fwd.cu`` with a probs pointer, kernel "qkv_fwd_probs"
+    (row 2);
   - ``_qkv_bwd_probs_call`` (``_qkv_bwd_probs_kernel``): the backward from
-    those probs -> ``csrc/qkv_bwd_probs.cu``, kernel "qkv_bwd_probs".
+    those probs -> ``csrc/qkv_bwd_probs.cu``, kernel "qkv_bwd_probs"
+    (row 3);
+  - ``_qkv_bwd_call`` (``_qkv_bwd_kernel``): the backward that recomputes
+    the probs from qkv, bias and the mask -> ``csrc/qkv_bwd.cu``, kernel
+    "qkv_bwd" (row 4). Rows 3 and 4 share one kernel template
+    (``csrc/qkv_bwd.cuh``) and give the same gradients.
 The entry points ``exp_mhsa_qkv_bias`` and ``exp_mhsa_qkv_bias_masked``
 choose as the JAX package's custom_vjp does: with grad mode on and qkv or
-bias requiring grad, the forward writes probs and the backward reads them;
-otherwise (serving under inference_mode) the forward writes none.
+bias requiring grad, the forward and backward follow
+``kernel_config.bwd_residuals()``; otherwise (serving under
+inference_mode) the forward is row 1.
 
 Dispatch is by the tensor's device alone: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises. Nothing falls back.
-
-Build: at first use ``nvcc`` compiles each source for sm_90a into a shared
-library with a plain C interface under ``_build/<hash of source and
-flags>/`` beside this package, loaded with ctypes. ``build()`` starts one
-``nvcc`` per source that is not built yet, all at once. A rerun with the
-same source reuses the library; a failed build raises.
+Builds and launch counts: ``ops/kernels.py``.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import threading
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from newsrecommendation_tpu_torch.ops import kernel_config, kernels
 from newsrecommendation_tpu_torch.ops.attention import masked_exp_normalize
-
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCES = {name: os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
-            for name in ("qkv_fwd", "qkv_bwd_probs")}
-_BUILD_ROOT = os.path.join(_PKG_DIR, "_build")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-
-# Sequences from this length on go to the key-blocked flash kernel in the
-# JAX package (ops/pallas/config.py: flash_min_seq), not yet ported.
-MAX_SEQ = 511
-# Shared memory one block may use on sm_90 (opt-in, dynamic).
-_MAX_SMEM = 232448
-
-# Each kernel's variants, counted apart: row 1 of the kernel table
-# ("qkv_fwd"), row 2 ("qkv_fwd_probs") and row 3 ("qkv_bwd_probs").
-KERNELS = {"qkv_fwd": ("bias", "bias_masked"),
-           "qkv_fwd_probs": ("bias_probs", "bias_masked_probs"),
-           "qkv_bwd_probs": ("bwd_probs",)}
-
-_lock = threading.Lock()  # guards the launch counts
-_build_lock = threading.Lock()
-_libs = {}
-_launches = {v: 0 for variants in KERNELS.values() for v in variants}
-
-
-def launch_counts(kernel: str = "qkv_fwd") -> dict:
-    """Launches per variant of one kernel of ``KERNELS`` since the last
-    reset_launch_counts()."""
-    with _lock:
-        return {v: _launches[v] for v in KERNELS[kernel]}
-
-
-def reset_launch_counts() -> None:
-    with _lock:
-        for k in _launches:
-            _launches[k] = 0
-
-
-def _count(variant: str) -> None:
-    with _lock:
-        _launches[variant] += 1
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: no CUDA toolkit on PATH or "
-                           "CUDA_HOME")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def _so_path(name: str) -> str:
-    with open(_SOURCES[name], "rb") as f:
-        src = f.read()
-    key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(_BUILD_ROOT, key[:16], f"lib{name}.so")
-
-
-def build(names=None) -> dict:
-    """Compile the kernels' sources (all of ``KERNELS``' sources by default)
-    that are not built yet, one ``nvcc`` each, all started together.
-    Returns {source name: .so path}; raises if any build failed, after
-    every ``nvcc`` it started has ended."""
-    names = list(_SOURCES) if names is None else list(names)
-    out, running = {}, {}
-    for name in names:
-        so = _so_path(name)
-        if os.path.exists(so):
-            out[name] = so
-            continue
-        os.makedirs(os.path.dirname(so), exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        proc = subprocess.Popen(
-            [_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SOURCES[name]],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, tmp, so)
-    failed = []
-    for name, (proc, tmp, so) in running.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}) on "
-                          f"{_SOURCES[name]}:\n{log}")
-            continue
-        os.replace(tmp, so)  # atomic: a concurrent build never sees half
-        out[name] = so
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return out
-
-
-# Each source's C entry points (each in an _f32 and a _bf16 form) with
-# their count of pointer arguments; then come n, t_len, n_heads, d_head
-# and the stream.
-_ENTRY_POINTS = {"qkv_fwd": {"qkv_fwd": 4, "qkv_fwd_probs": 5},
-                 "qkv_bwd_probs": {"qkv_bwd_probs": 5}}
-
-
-def _library(name: str):
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    with _build_lock:
-        lib = _libs.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(build([name])[name])
-            for entry, n_ptrs in _ENTRY_POINTS[name].items():
-                for suffix in ("f32", "bf16"):
-                    fn = getattr(lib, f"{entry}_{suffix}")
-                    fn.argtypes = [ptr] * n_ptrs + [i32] * 4 + [ptr]
-                    fn.restype = i32
-            smem = getattr(lib, f"{name}_smem_bytes")
-            smem.argtypes = [i32, i32]
-            smem.restype = i32
-            _libs[name] = lib
-        return lib
+from newsrecommendation_tpu_torch.ops.kernels import (  # noqa: F401
+    KERNELS,
+    build,
+    launch_counts,
+    reset_launch_counts,
+)
 
 
 def _check(qkv, bias, key_mask, n_heads):
@@ -177,70 +63,38 @@ def _check_bwd(qkv, bias, probs, g, n_heads):
     if probs.shape != (n, t, n_heads * t) or probs.dtype != torch.float32:
         raise ValueError(f"probs must be float32 ({n}, {t}, {n_heads * t}), "
                          f"got {probs.dtype} {tuple(probs.shape)}")
-    if g.shape != (n, t, n_heads * d) or g.dtype != qkv.dtype:
-        raise ValueError(f"g must be {qkv.dtype} ({n}, {t}, {n_heads * d}), "
-                         f"got {g.dtype} {tuple(g.shape)}")
+    _check_grad(g, qkv, n, t, n_heads * d)
     return n, t, d
 
 
-def _check_launch(qkv, bias, key_mask, t, d, lib, *more):
+def _check_launch(lib, t, d, qkv, bias, key_mask, *more):
     """What every kernel of library ``lib`` needs of its operands; raises
     on the rest."""
-    if qkv.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"qkv dtype {qkv.dtype} not supported "
-                        "(float32, bfloat16)")
-    if t > MAX_SEQ:
-        raise NotImplementedError(
-            f"T={t} > {MAX_SEQ}: long sequences need the key-blocked flash "
-            "kernel, which is not ported yet")
-    if qkv.device.type != "cuda":
-        raise ValueError(f"no kernel for device {qkv.device}")
-    tensors = [qkv, bias, *more] + ([] if key_mask is None else [key_mask])
-    for x in tensors:
-        if x.device != qkv.device:
-            raise ValueError(f"operands on {x.device} and {qkv.device}")
-        if not x.is_contiguous():
-            raise ValueError("operands must be contiguous")
+    kernels.check_operands(qkv, bias, key_mask, *more)
     if bias.dtype != qkv.dtype:
         raise TypeError(f"bias dtype {bias.dtype} != qkv dtype {qkv.dtype}")
     if key_mask is not None and key_mask.dtype != torch.float32:
         raise TypeError(f"key_mask must be float32, got {key_mask.dtype}")
-    smem = getattr(_library(lib), f"{lib}_smem_bytes")(t, d)
-    if smem > _MAX_SMEM:
-        raise NotImplementedError(
-            f"T={t}, D={d} needs {smem} bytes of shared memory per block in "
-            f"{lib}; the kernel takes at most {_MAX_SMEM}")
-
-
-def _call(variant, fn, device, *args):
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{variant} kernel launch failed: CUDA error {err}")
-    _count(variant)
-
-
-def _ptr(x):
-    return None if x is None else x.data_ptr()
+    kernels.check_smem(lib, t, d)
 
 
 def _launch(variant, qkv, bias, key_mask, n_heads, with_probs=False):
     """Row 1 (returns ctx) or, with_probs, row 2 (returns ctx, probs)."""
     n, t, d = _check(qkv, bias, key_mask, n_heads)
-    _check_launch(qkv, bias, key_mask, t, d, "qkv_fwd")
-    lib = _library("qkv_fwd")
+    _check_launch("qkv_fwd", t, d, qkv, bias, key_mask)
     out = torch.empty((n, t, n_heads * d), dtype=qkv.dtype,
                       device=qkv.device)
-    suffix = "f32" if qkv.dtype == torch.float32 else "bf16"
-    ptrs = (qkv.data_ptr(), bias.data_ptr(), _ptr(key_mask), out.data_ptr())
+    ptrs = (qkv.data_ptr(), bias.data_ptr(), kernels.ptr(key_mask),
+            out.data_ptr())
     if not with_probs:
-        _call(variant, getattr(lib, f"qkv_fwd_{suffix}"), qkv.device, *ptrs,
-              n, t, n_heads, d)
+        kernels.call(variant, kernels.entry("qkv_fwd", "qkv_fwd", qkv.dtype),
+                     qkv.device, *ptrs, n, t, n_heads, d)
         return out
     probs = torch.empty((n, t, n_heads * t), dtype=torch.float32,
                         device=qkv.device)
-    _call(variant, getattr(lib, f"qkv_fwd_probs_{suffix}"), qkv.device,
-          *ptrs, probs.data_ptr(), n, t, n_heads, d)
+    kernels.call(variant,
+                 kernels.entry("qkv_fwd", "qkv_fwd_probs", qkv.dtype),
+                 qkv.device, *ptrs, probs.data_ptr(), n, t, n_heads, d)
     return out, probs
 
 
@@ -256,13 +110,29 @@ def qkv_bwd_probs(qkv, bias, probs, g, n_heads: int):
     the probs row 2 saved and the context's gradient g (N, T, HD) in qkv's
     dtype. Raises for other devices."""
     n, t, d = _check_bwd(qkv, bias, probs, g, n_heads)
-    _check_launch(qkv, bias, None, t, d, "qkv_bwd_probs", probs, g)
-    lib = _library("qkv_bwd_probs")
+    _check_launch("qkv_bwd_probs", t, d, qkv, bias, None, probs, g)
     dqkv = torch.empty_like(qkv)
-    suffix = "f32" if qkv.dtype == torch.float32 else "bf16"
-    _call("bwd_probs", getattr(lib, f"qkv_bwd_probs_{suffix}"), qkv.device,
-          qkv.data_ptr(), bias.data_ptr(), probs.data_ptr(), g.data_ptr(),
-          dqkv.data_ptr(), n, t, n_heads, d)
+    kernels.call("bwd_probs",
+                 kernels.entry("qkv_bwd_probs", "qkv_bwd_probs", qkv.dtype),
+                 qkv.device, qkv.data_ptr(), bias.data_ptr(),
+                 probs.data_ptr(), g.data_ptr(), dqkv.data_ptr(), n, t,
+                 n_heads, d)
+    return dqkv
+
+
+def qkv_bwd(qkv, bias, key_mask, g, n_heads: int):
+    """Kernel row 4 on CUDA tensors: dqkv (N, T, 3HD) in qkv's dtype from
+    qkv, bias, the key mask (or None) and the context's gradient g
+    (N, T, HD) in qkv's dtype, recomputing the probs as row 1 computes
+    them. Raises for other devices."""
+    n, t, d = _check(qkv, bias, key_mask, n_heads)
+    _check_grad(g, qkv, n, t, n_heads * d)
+    _check_launch("qkv_bwd", t, d, qkv, bias, key_mask, g)
+    dqkv = torch.empty_like(qkv)
+    kernels.call("bwd" if key_mask is None else "bwd_masked",
+                 kernels.entry("qkv_bwd", "qkv_bwd", qkv.dtype), qkv.device,
+                 qkv.data_ptr(), bias.data_ptr(), kernels.ptr(key_mask),
+                 g.data_ptr(), dqkv.data_ptr(), n, t, n_heads, d)
     return dqkv
 
 
@@ -316,32 +186,62 @@ def qkv_bwd_probs_reference(qkv, bias, probs, g, n_heads: int):
                      dim=-1).to(qkv.dtype)
 
 
+def qkv_bwd_reference(qkv, bias, key_mask, g, n_heads: int):
+    """Plain PyTorch version of row 4: the probs recomputed as rows 1-2's
+    plain version computes them, then row 3's plain version. The JAX
+    package states the two backwards equal bit for bit; here they are one
+    computation."""
+    probs = exp_mhsa_qkv_bias_probs_reference(qkv, bias, key_mask,
+                                              n_heads)[1]
+    return qkv_bwd_probs_reference(qkv, bias, probs, g, n_heads)
+
+
+def _check_grad(g, like, n, t, width):
+    if g.shape != (n, t, width) or g.dtype != like.dtype:
+        raise ValueError(f"g must be {like.dtype} ({n}, {t}, {width}), "
+                         f"got {g.dtype} {tuple(g.shape)}")
+
+
 class _ExpMhsaQkvBias(torch.autograd.Function):
-    """Row 2 forward (saves qkv, bias and the f32 probs), row 3 backward;
-    their plain versions for CPU tensors. The mask gets no gradient."""
+    """The fused-qkv attention under differentiation, as
+    ``kernel_config.bwd_residuals()`` says when the forward runs: "probs",
+    row 2 forward (saves qkv, bias and the f32 probs) and row 3 backward;
+    "recompute", row 1 forward (saves qkv, bias and the mask) and row 4
+    backward. Their plain versions for CPU tensors. The mask gets no
+    gradient."""
 
     @staticmethod
     def forward(ctx, qkv, bias, key_mask, n_heads):
-        if qkv.device.type == "cpu":
+        cpu = qkv.device.type == "cpu"
+        ctx.n_heads = n_heads
+        ctx.recompute = kernel_config.bwd_residuals() == "recompute"
+        if ctx.recompute:
+            variant = "bias" if key_mask is None else "bias_masked"
+            out = (exp_mhsa_qkv_bias_reference(qkv, bias, key_mask, n_heads)
+                   if cpu else _launch(variant, qkv, bias, key_mask, n_heads))
+            ctx.save_for_backward(qkv, bias, key_mask)
+            return out
+        if cpu:
             out, probs = exp_mhsa_qkv_bias_probs_reference(qkv, bias,
                                                            key_mask, n_heads)
         else:
             out, probs = qkv_fwd_probs(qkv, bias, key_mask, n_heads)
         ctx.save_for_backward(qkv, bias, probs)
-        ctx.n_heads = n_heads
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        qkv, bias, probs = ctx.saved_tensors
+        qkv, bias, saved = ctx.saved_tensors
         # the gradient arrives in any layout and, under bf16 autocasts, in
         # any float type: the kernel takes it contiguous in qkv's dtype
         g = g.to(qkv.dtype).contiguous()
-        if qkv.device.type == "cpu":
-            dqkv = qkv_bwd_probs_reference(qkv, bias, probs, g, ctx.n_heads)
+        cpu = qkv.device.type == "cpu"
+        if ctx.recompute:
+            bwd = qkv_bwd_reference if cpu else qkv_bwd
         else:
-            dqkv = qkv_bwd_probs(qkv, bias, probs, g, ctx.n_heads)
+            bwd = qkv_bwd_probs_reference if cpu else qkv_bwd_probs
+        dqkv = bwd(qkv, bias, saved, g, ctx.n_heads)
         dbias = (dqkv.sum((0, 1)).to(bias.dtype) if ctx.needs_input_grad[1]
                  else None)
         return dqkv, dbias, None, None

@@ -1,0 +1,89 @@
+"""Process-wide switches of the attention kernels: the counterpart of
+``newsrecommendation_tpu/ops/pallas/config.py``, under its names and with
+its defaults.
+
+The switches are read when a forward runs (the JAX package reads them when
+a step is traced). ``pallas_mode`` has no counterpart: a tensor's device
+decides between a kernel (CUDA) and its plain version (CPU). A value whose
+kernel is not ported yet raises ``NotImplementedError`` when it is set, so
+it is never accepted and then ignored.
+"""
+
+from __future__ import annotations
+
+_BWD_RESIDUALS = "probs"  # "probs" | "recompute"
+_FLASH_MIN_SEQ = 512
+
+
+def set_bwd_residuals(mode: str) -> None:
+    """What the fused-qkv attention saves for its backward: "probs" (the
+    forward writes the f32 probs; kernel rows 2 and 3) or "recompute" (the
+    backward recomputes them from qkv; rows 1 and 4). Both give the same
+    gradients."""
+    global _BWD_RESIDUALS
+    if mode not in ("recompute", "probs"):
+        raise ValueError(f"unknown bwd_residuals mode {mode!r}")
+    _BWD_RESIDUALS = mode
+
+
+def bwd_residuals() -> str:
+    return _BWD_RESIDUALS
+
+
+def set_flash_min_seq(t: int) -> None:
+    """Sequences of at least ``t`` keys go to the key-blocked flash kernels
+    (rows 9-10); shorter ones to the fused-qkv kernels (rows 1-4)."""
+    global _FLASH_MIN_SEQ
+    if t < 1:
+        raise ValueError(f"flash_min_seq must be >= 1, got {t}")
+    _FLASH_MIN_SEQ = t
+
+
+def flash_min_seq() -> int:
+    return _FLASH_MIN_SEQ
+
+
+# The switches below choose kernels that are not ported yet. Their setters
+# take the values that keep the ported kernels (and hold no state, since
+# that is the only path there is) and raise on the rest.
+
+
+def set_fused_tail(mode) -> None:
+    """"off" and "auto" (which is off outside the JAX package's interpret
+    mode), or False; "on" (or True) needs the fused encoder-tail kernel
+    (rows 13-14), not ported yet."""
+    if isinstance(mode, bool):
+        mode = "on" if mode else "off"
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"unknown fused_tail mode {mode!r}")
+    if mode == "on":
+        raise NotImplementedError(
+            "fused_tail='on' needs the fused encoder-tail kernel, not ported")
+
+
+def set_attention_layout(layout: str) -> None:
+    """"headloop" only: "blanes" needs its kernels (rows 15-16), not
+    ported yet."""
+    if layout not in ("headloop", "blanes"):
+        raise ValueError(f"unknown attention layout {layout!r}")
+    if layout == "blanes":
+        raise NotImplementedError(
+            "attention_layout='blanes' needs its kernels, not ported")
+
+
+def set_attention_io(mode: str) -> None:
+    """"3d" only: "2d" needs its kernels (rows 11-12), not ported yet."""
+    if mode not in ("3d", "2d"):
+        raise ValueError(f"unknown attention io {mode!r}")
+    if mode == "2d":
+        raise NotImplementedError(
+            "attention_io='2d' needs its kernels, not ported")
+
+
+def apply(cfg) -> None:
+    """Set the switches a Config carries, as the JAX package's CLI does
+    before it builds a step (cli.py: set_bwd_residuals(cfg.bwd_residuals)
+    and its siblings), so that a Config alone picks the kernels. The train
+    step's builder and ``Recommender.from_state`` call it; the switches are
+    process-wide, so the step built last decides."""
+    set_bwd_residuals(cfg.bwd_residuals)

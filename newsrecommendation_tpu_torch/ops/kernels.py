@@ -1,0 +1,205 @@
+"""Build, load, launch and count the port's CUDA kernels.
+
+Every kernel source is ``csrc/<name>.cu`` beside this package, with a plain
+C interface. At first use ``nvcc`` compiles it for sm_90a into a shared
+library under ``_build/<hash>/`` (the hash covers the source, every
+``csrc/*.cuh`` header and the flags), loaded with ctypes. ``build()``
+starts one ``nvcc`` per source that is not built yet, all at once. A rerun
+with the same sources reuses the libraries; a failed build raises.
+
+Each wrapper counts its launches per variant (``KERNELS``), so a run can
+show which kernels its path went through. A CPU tensor takes a kernel's
+plain PyTorch version and counts nothing; a CUDA tensor launches the
+kernel or raises; any other device raises ``NoKernelError``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG_DIR, "csrc")
+_BUILD_ROOT = os.path.join(_PKG_DIR, "_build")
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+# Each source's C entry points, each in an _f32 and a _bf16 form, with
+# their count of pointer and of int arguments; the stream comes last.
+_ENTRY_POINTS = {
+    "qkv_fwd": {"qkv_fwd": (4, 4), "qkv_fwd_probs": (5, 4)},
+    "qkv_bwd_probs": {"qkv_bwd_probs": (5, 4)},
+    "qkv_bwd": {"qkv_bwd": (5, 4)},
+    "flash_fwd": {"flash_fwd": (7, 6)},
+    "flash_bwd": {"flash_bwd": (11, 5)},
+}
+# Sources whose block stages whole (T, D) operands in shared memory export
+# <name>_smem_bytes(t, d), checked against what a block may use.
+_SMEM_CHECKED = ("qkv_fwd", "qkv_bwd_probs", "qkv_bwd")
+# Shared memory one block may use on sm_90 (opt-in, dynamic).
+MAX_SMEM = 232448
+
+# Each kernel's variants, counted apart. Rows of PERF.md's kernel table:
+# 1 "qkv_fwd", 2 "qkv_fwd_probs", 3 "qkv_bwd_probs", 4 "qkv_bwd",
+# 9 "flash_fwd", 10 "flash_bwd".
+KERNELS = {"qkv_fwd": ("bias", "bias_masked"),
+           "qkv_fwd_probs": ("bias_probs", "bias_masked_probs"),
+           "qkv_bwd_probs": ("bwd_probs",),
+           "qkv_bwd": ("bwd", "bwd_masked"),
+           "flash_fwd": ("flash", "flash_masked"),
+           "flash_bwd": ("flash_bwd", "flash_bwd_masked")}
+
+_lock = threading.Lock()  # guards the launch counts
+_build_lock = threading.Lock()
+_libs = {}
+_launches = {v: 0 for variants in KERNELS.values() for v in variants}
+
+
+class NoKernelError(NotImplementedError, ValueError):
+    """A tensor on a device that has neither a kernel (CUDA) nor the plain
+    version (CPU)."""
+
+
+def launch_counts(kernel: str = "qkv_fwd") -> dict:
+    """Launches per variant of one kernel of ``KERNELS`` since the last
+    reset_launch_counts()."""
+    with _lock:
+        return {v: _launches[v] for v in KERNELS[kernel]}
+
+
+def reset_launch_counts() -> None:
+    with _lock:
+        for k in _launches:
+            _launches[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: no CUDA toolkit on PATH or "
+                           "CUDA_HOME")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _source(name: str) -> str:
+    return os.path.join(_CSRC, f"{name}.cu")
+
+
+def _so_path(name: str) -> str:
+    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for path in [_source(name), *sorted(glob.glob(os.path.join(_CSRC,
+                                                               "*.cuh")))]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(_BUILD_ROOT, h.hexdigest()[:16], f"lib{name}.so")
+
+
+def build(names=None) -> dict:
+    """Compile the kernels' sources (all of them by default) that are not
+    built yet, one ``nvcc`` each, all started together. Returns {source
+    name: .so path}; raises if any build failed, after every ``nvcc`` it
+    started has ended."""
+    names = list(_ENTRY_POINTS) if names is None else list(names)
+    out, running = {}, {}
+    for name in names:
+        so = _so_path(name)
+        if os.path.exists(so):
+            out[name] = so
+            continue
+        os.makedirs(os.path.dirname(so), exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        proc = subprocess.Popen(
+            [_nvcc(), *_NVCC_FLAGS, "-o", tmp, _source(name)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, so)
+    failed = []
+    for name, (proc, tmp, so) in running.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) on "
+                          f"{_source(name)}:\n{log}")
+            continue
+        os.replace(tmp, so)  # atomic: a concurrent build never sees half
+        out[name] = so
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
+def library(name: str):
+    """The loaded library of source ``name``, built first if need be."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    with _build_lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(build([name])[name])
+            for entry, (n_ptrs, n_ints) in _ENTRY_POINTS[name].items():
+                for suffix in ("f32", "bf16"):
+                    fn = getattr(lib, f"{entry}_{suffix}")
+                    fn.argtypes = [ptr] * n_ptrs + [i32] * n_ints + [ptr]
+                    fn.restype = i32
+            if name in _SMEM_CHECKED:
+                smem = getattr(lib, f"{name}_smem_bytes")
+                smem.argtypes = [i32, i32]
+                smem.restype = i32
+            _libs[name] = lib
+        return lib
+
+
+def entry(name: str, fn: str, dtype: torch.dtype):
+    """The C function ``fn`` of source ``name`` for ``dtype``."""
+    suffix = "f32" if dtype == torch.float32 else "bf16"
+    return getattr(library(name), f"{fn}_{suffix}")
+
+
+def check_operands(lead, *others, contiguous=True,
+                   dtypes=(torch.float32, torch.bfloat16)):
+    """What every kernel needs of its operands: ``lead`` on CUDA in one of
+    ``dtypes`` and every operand on its device (None skipped); with
+    ``contiguous``, every operand contiguous. Raises on the rest."""
+    if lead.device.type != "cuda":
+        raise NoKernelError(f"no kernel for device {lead.device}")
+    if lead.dtype not in dtypes:
+        raise TypeError(f"dtype {lead.dtype} not supported (float32, "
+                        "bfloat16)")
+    for x in (lead, *others):
+        if x is None:
+            continue
+        if x.device != lead.device:
+            raise ValueError(f"operands on {x.device} and {lead.device}")
+        if contiguous and not x.is_contiguous():
+            raise ValueError("operands must be contiguous")
+
+
+def check_smem(name: str, t: int, d: int) -> None:
+    smem = getattr(library(name), f"{name}_smem_bytes")(t, d)
+    if smem > MAX_SMEM:
+        raise NotImplementedError(
+            f"T={t}, D={d} needs {smem} bytes of shared memory per block in "
+            f"{name}; the kernel takes at most {MAX_SMEM}")
+
+
+def call(variant: str, fn, device, *args) -> None:
+    """Launch ``fn(*args, stream)`` on ``device``'s current stream, raise if
+    the launch was refused, and count it."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{variant} kernel launch failed: CUDA error {err}")
+    with _lock:
+        _launches[variant] += 1
+
+
+def ptr(x):
+    return None if x is None else x.data_ptr()

@@ -22,6 +22,7 @@ from newsrecommendation_tpu_torch.data.loader import (
 )
 from newsrecommendation_tpu_torch.eval.pipeline import compute_news_scoring
 from newsrecommendation_tpu_torch.models import get_model
+from newsrecommendation_tpu_torch.ops import kernel_config
 from newsrecommendation_tpu_torch.ops.scoring import (
     score_cached_impressions,
     score_cached_impressions_dense,
@@ -93,8 +94,10 @@ class Recommender:
                    news_features: np.ndarray, *, device="cuda",
                    **kw) -> "Recommender":
         """Encode the corpus with ``params`` on ``device`` and build the
-        recommender (raises if ``device`` is "cuda" and CUDA is missing)."""
+        recommender (raises if ``device`` is "cuda" and CUDA is missing).
+        Sets the kernel switches cfg carries (kernel_config.apply)."""
         dev = resolve_device(device)
+        kernel_config.apply(cfg)
         model = get_model(cfg.model)
         params = to_device(params, dev)
         cache = compute_news_scoring(model, params, cfg, news_features)

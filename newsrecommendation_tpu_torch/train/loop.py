@@ -51,7 +51,8 @@ def fit(cfg, model, state, samples, news_features, *, train_step=None,
     multi_step runs one step per call). device_gather: gather feature
     rows on the device from a resident copy of news_features, shipping
     only int32 news indices per step; defaults to cfg.device_gather for
-    the built-in step.
+    the built-in step. The kernel switches cfg carries are set where the
+    step is built (make_train_step).
     """
     if save_dir is not None:
         raise NotImplementedError(

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from newsrecommendation_tpu_torch.ops import kernel_config
+
 
 def weighted_accuracy(labels, scores, weights):
     hit = (torch.argmax(scores, dim=-1) == labels.long()).float()
@@ -62,7 +64,10 @@ def with_device_gather(body):
 
 def make_train_step(cfg, model, device_gather: bool = False):
     """train_step(state, batch, base_seed) -> (state, metrics); with
-    device_gather, train_step(state, batch, base_seed, news_feats)."""
+    device_gather, train_step(state, batch, base_seed, news_feats). Sets
+    the kernel switches cfg carries (kernel_config.apply) once, here, as
+    the JAX package's CLI sets them before it builds its step."""
+    kernel_config.apply(cfg)
     body = _make_step_body(cfg, model)
     return with_device_gather(body) if device_gather else body
 
