@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port (newsrecommendation_tpu_torch) on one
 NVIDIA GPU: builds the CUDA kernels, holds each against its plain PyTorch
 version, serves NRMS at its published width over HTTP, then trains it at
-its published width, with 50- and 512-news histories.
+its published width, with 50- and 512-news histories, and with the fused
+encoder tail and the 2-D-I/O attention.
 
     python3 chip_smoke.py        # from the repo root, on a machine with
                                  # one CUDA card and nvcc
@@ -35,6 +36,16 @@ Phases, each printing one line with its elapsed seconds:
            key block) and 32 x 2048, masked and not, f32 and bf16, on q, k,
            v cut from one projection; controls (the forward without the
            running-max rescale, in bf16 dv from the unrounded a)
+  kernel-2d  rows 11-12 (the 2-D-I/O forward and backward) at 7040 x 20
+           and 128 x 50, f32 and bf16: equal to rows 2-3 on the 3-D view in
+           every element, and vs their plain versions; times and bounds
+  kernel-fused-tail  rows 13-14 (the fused encoder tail) vs their plain
+           versions at 7040 x 20 and 128 x 50 (masked and not), f32 and
+           bf16, dropout off and 0.2; the pooling gradients held to a share
+           of their largest element and equal bit for bit over two runs;
+           controls (keep mask from another hash constant or a per-block
+           index, dropout scale left out, alpha without the key mask, and
+           in bf16 dw1 from the rounded ctx and d_z unrounded before w1^T)
   corpus   a 65,536-news synthetic corpus, full-width NRMS params from a
            seed, and two draws of its behaviors prepared into training
            samples: histories of up to 80 news cut to 50, and of up to 600
@@ -44,13 +55,16 @@ Phases, each printing one line with its elapsed seconds:
            requests, once with user_log_mask False and once True; served
            scores checked against the same params run on the CPU through
            the plain versions; launch counts read around both runs
+  serve fused_tail  the same once with fused_tail "on" and user_log_mask
+           True: row 13 only, both variants
   serve-long  the same with user_log_length 512: the user encoder takes
            the flash forward (row 9), whose launches are counted
   train-check  one f32 train step (dropout off, B=16, full width) on the
            card and on the CPU from the same params and batch: loss, every
            leaf's gradient, the frozen table unchanged; for user_log_mask
-           False and True, with bwd_residuals "recompute", with the word
-           table trained, and at a 512-news history (B=8, 5 heads of 20)
+           False and True, with bwd_residuals "recompute", with fused_tail
+           "on" (both masks), with the word table trained, and at a
+           512-news history (B=8, 5 heads of 20)
   train    fit() at the headline training step (bf16 over f32 params,
            B=128, 1+4 candidates, 50-news history, dropout 0.2, Adam lr
            3e-4, frozen table, device gather, prefetch depth 2) for one
@@ -59,14 +73,16 @@ Phases, each printing one line with its elapsed seconds:
            row-2 and 2 row-3 launches per step and no other) and none
            else; then 20 steps on one batch with dropout off, whose loss
            must fall. Again with bwd_residuals "recompute" (2 row-1 and 2
-           row-4 launches per step), with the word table trained, and for
-           12 steps with 512-news histories (one row-9 and one row-10
+           row-4 launches per step), with the word table trained, with
+           fused_tail "on" (2 row-13 and 2 row-14 launches per step), with
+           attention_io "2d" (2 row-11 and 2 row-12 launches per step), and
+           for 12 steps with 512-news histories (one row-9 and one row-10
            launch per step, rows 2-3 once per step for the news encoder)
   profile  device time, top kernels and device busy share (torch.profiler
            against an unprofiled wall clock) of one served batch of 64
            users x 300 candidates, of a 64-user corpus top-10, of one
            1024-row news-encoder chunk and of the headline, recompute,
-           trained-table and 512-history train steps
+           trained-table, fused-tail, 2-D-I/O and 512-history train steps
 Then one JSON line of per-kernel numbers, and last the line
 {"ok": true, "device": {...}}. Any failed phase raises: the exit code is
 then not 0 and no result line is printed. Without CUDA it exits 1 at once.
@@ -74,6 +90,7 @@ then not 0 and no result line is printed. Without CUDA it exits 1 at once.
 
 from __future__ import annotations
 
+import contextlib
 import http.client
 import json
 import os
@@ -82,6 +99,7 @@ import sys
 import tempfile
 import threading
 import time
+from unittest import mock
 
 import numpy as np
 
@@ -127,6 +145,12 @@ BWD_PROBS_SOURCE = f"{CSRC}/qkv_bwd_probs.cu"
 BWD_SOURCE = f"{CSRC}/qkv_bwd.cu"
 FLASH_FWD_SOURCE = f"{CSRC}/flash_fwd.cu"
 FLASH_BWD_SOURCE = f"{CSRC}/flash_bwd.cu"
+QKV2D_KERNELS = "newsrecommendation_tpu/ops/pallas/experimental_qkv2d.py"
+TAIL_KERNELS = ("newsrecommendation_tpu/ops/pallas/"
+                "experimental_fused_encoder.py")
+QKV2D_SOURCE = f"{CSRC}/qkv2d.cu"
+TAIL_FWD_SOURCE = f"{CSRC}/fused_tail_fwd.cu"
+TAIL_BWD_SOURCE = f"{CSRC}/fused_tail_bwd.cu"
 # Row 3 at the lengths its first design refused (T > 201 at D = 20).
 LONG_T = (202, 300, 511)
 # A long user history: flash_min_seq keys, so MHSA takes rows 9-10.
@@ -616,6 +640,200 @@ def flash_kernel_case(bw, masked, n, t, heads, d, dtype, seed):
     return out
 
 
+def qkv2d_kernel_case(q2, fa, n, t, heads, d, dtype, seed):
+    """Rows 11 and 12 (the 2-D-I/O forward and backward) against rows 2-3
+    on the (N, T, 3HD) view, element for element, and against their plain
+    versions, with timings and bounds."""
+    import torch
+
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=DEVICE).manual_seed(400 + seed)
+    hd = heads * d
+    qkv2d = torch.randn((n * t, 3 * hd), generator=gen,
+                        device=DEVICE).to(tdt)
+    bias = (0.5 * torch.randn((3 * hd,), generator=gen, device=DEVICE)).to(tdt)
+    g = torch.randn((n, t, hd), generator=gen, device=DEVICE).to(tdt)
+    (f_rtol, f_atol), (b_rtol, b_atol) = TRAIN_TOL[dtype]
+    where = f"qkv2d {dtype} N={n} T={t}"
+
+    out, probs = q2.qkv2d_fwd(qkv2d, bias, heads, t)
+    dqkv = q2.qkv2d_bwd(qkv2d, bias, probs, g, heads, t)
+    out3, probs3 = fa.qkv_fwd_probs(qkv2d.view(n, t, -1), bias, None, heads)
+    dqkv3 = fa.qkv_bwd_probs(qkv2d.view(n, t, -1), bias, probs3, g, heads)
+    ref, ref_probs = q2.qkv2d_fwd_reference(qkv2d, bias, heads, t)
+    ref_dqkv = q2.qkv2d_bwd_reference(qkv2d, bias, ref_probs, g, heads, t)
+    dqkv.sum().item()  # waits for the kernels
+    differ = {"ctx": n_differ(out, out3), "probs": n_differ(probs, probs3),
+              "dqkv": n_differ(dqkv.view_as(dqkv3), dqkv3)}
+    if any(differ.values()):
+        fail(f"{where}: rows 11-12 differ from rows 2-3 in {differ} elements")
+    out_case = {"shape": [n, t, heads, d], "dtype": dtype,
+                "n_differ_from_rows_2_3": differ,
+                "ctx": compare(where, "ctx", out, ref, f_rtol, f_atol),
+                "probs": compare(where, "probs", probs, ref_probs,
+                                 *TRAIN_TOL["float32"][0]),
+                "dqkv": compare(where, "dqkv", dqkv, ref_dqkv, b_rtol,
+                                b_atol)}
+    item = qkv2d.element_size()
+    out_case["fwd"] = timed(
+        lambda: q2.qkv2d_fwd(qkv2d, bias, heads, t),
+        lambda: q2.qkv2d_fwd_reference(qkv2d, bias, heads, t),
+        item * (n * t * 3 * hd + 3 * hd + n * t * hd) + 4 * n * t * heads * t,
+        4 * n * heads * t * t * d, dtype)
+    out_case["bwd"] = timed(
+        lambda: q2.qkv2d_bwd(qkv2d, bias, probs, g, heads, t),
+        lambda: q2.qkv2d_bwd_reference(qkv2d, bias, ref_probs, g, heads, t),
+        item * (2 * n * t * 3 * hd + 3 * hd + n * t * hd)
+        + 4 * n * t * heads * t, 8 * n * heads * t * t * d, dtype)
+    return out_case
+
+
+# The summed pooling gradients (dw1, db1, dw2, db2 of row 14) against the
+# plain version's: each element within this share of the largest element
+# of the four, plus rtol. They are sums over every position (140,800 at the
+# news encoder), so an element near 0 is a difference of large terms, and
+# db2 is 0 analytically (alpha sums to 1 on a row, or is 0): a relative
+# bound per element would hold noise to itself. f32: two summation orders;
+# bf16: also a rounding flip of a bf16 operand (ctx for fc1, e for fc2,
+# d_z for w1^T) in a term.
+POOL_GRAD_SHARE = {"float32": (1e-4, 1e-4), "bfloat16": (2 ** -6, 2 ** -8)}
+TAIL_BLOCK = 64  # rows per block of the planted per-block keep mask
+
+
+def tail_inputs(n, t, heads, d, q, dtype, masked, seed):
+    """Biased qkv, the key mask (every 7th row fully masked) or None, the
+    pooling params as the model feeds them (w1, w2 in the input dtype, b1,
+    b2 f32) and the output's gradient g, on DEVICE."""
+    import torch
+
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=DEVICE).manual_seed(500 + seed)
+    hd = heads * d
+
+    def rnd(shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=DEVICE)
+
+    qkv = rnd((n, t, 3 * hd)).to(tdt)
+    pool = (rnd((hd, q), (6.0 / (hd + q)) ** 0.5).to(tdt), rnd((1, q), 0.1),
+            rnd((q, 1), (6.0 / (q + 1)) ** 0.5).to(tdt), rnd((1, 1), 0.1))
+    g = rnd((n, hd)).to(tdt)
+    mask = None
+    if masked:
+        mask = (torch.rand((n, t), generator=gen, device=DEVICE) > 0.3).float()
+        mask[:, -1] = 1.0
+        mask[::7] = 0.0
+    return qkv, mask, pool, g
+
+
+def tail_faults(fe, dropout, masked):
+    """Planted faults of row 13's plain version: {name: patches of the
+    module's functions or constants}, each to be rejected by the forward's
+    comparison."""
+    import torch
+
+    keep = fe.keep_mask
+
+    def per_block(shape, rate, seed, row0=0):
+        n, t, hd = shape
+        return torch.cat([keep((min(TAIL_BLOCK, n - r), t, hd), rate, seed)
+                          for r in range(0, n, TAIL_BLOCK)])
+
+    faults = {}
+    if dropout:
+        faults["keep mask from another hash constant"] = {
+            "_MIX1": fe._MIX1 ^ 0x10}
+        faults["keep mask from a per-block index"] = {"keep_mask": per_block}
+        faults["dropout scale left out"] = {
+            "keep_mask": lambda *a, **k: (keep(*a, **k) > 0).float()}
+    if masked:
+        pool_fwd = fe._pool_fwd
+        faults["alpha without the key mask"] = {
+            "_pool_fwd": lambda ctx, key_mask, *p: pool_fwd(ctx, None, *p)}
+    return faults
+
+
+def tail_kernel_case(fe, masked, n, t, heads, d, q, dtype, dropout, seed):
+    """Rows 13 and 14 (the fused encoder tail) against their plain versions
+    on the card, row 14's outputs equal over two runs, planted faults,
+    timings and bounds."""
+    import torch
+
+    qkv, mask, pool, g = tail_inputs(n, t, heads, d, q, dtype, masked, seed)
+    rate = 0.2
+    sd = torch.tensor([1234567 + seed], dtype=torch.int32, device=DEVICE)
+    args = (qkv, mask, *pool, sd, heads, rate, not dropout)
+    bargs = (*args[:7], g, *args[7:])
+    (f_rtol, f_atol), (b_rtol, b_atol) = TRAIN_TOL[dtype]
+    where = (f"tail{'_masked' if masked else ''} {dtype} N={n} T={t} "
+             f"dropout={dropout}")
+
+    out = fe.fused_tail_fwd(*args)
+    grads = fe.fused_tail_bwd(*bargs)
+    again = fe.fused_tail_bwd(*bargs)
+    ref = fe.fused_tail_fwd_reference(*args)
+    refs = fe.fused_tail_bwd_reference(*bargs)
+    out.sum().item()  # waits for the kernels
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        fail(f"{where}: two runs of row 14 differ")
+    flat = torch.cat([x.reshape(-1) for x in grads[1:]])
+    ref_flat = torch.cat([x.reshape(-1) for x in refs[1:]])
+    p_rtol, share = POOL_GRAD_SHARE[dtype]
+    largest = ref_flat.abs().max().item()
+    case = {"variant": "tail_masked" if masked else "tail",
+            "shape": [n, t, heads, d, q], "dtype": dtype,
+            "dropout": rate if dropout else 0.0,
+            "out": compare(where, "out", out, ref, f_rtol, f_atol),
+            "dqkv": compare(where, "dqkv", grads[0], refs[0], b_rtol, b_atol),
+            "pool_grads": compare(where, "pool grads", flat, ref_flat, p_rtol,
+                                  share * largest),
+            "repeat_equal": True}
+    if mask is not None and (out[::7].abs().max().item() != 0.0
+                             or grads[0][::7].abs().max().item() != 0.0):
+        fail(f"{where}: fully masked rows have out or dqkv not 0")
+    caught = {}
+    for name, attrs in tail_faults(fe, dropout, masked).items():
+        with mock.patch.multiple(fe, **attrs):
+            caught[name] = n_outside(out, fe.fused_tail_fwd_reference(*args),
+                                     f_rtol, f_atol)
+    if dtype == "bfloat16":
+        dw1 = fe._dw1
+        with mock.patch.multiple(fe, _dw1=lambda ctx, d_z: dw1(
+                ctx.to(torch.bfloat16).float(), d_z)):
+            fault = fe.fused_tail_bwd_reference(*bargs)[1]
+        # dw1 reaches the bf16 weights rounded to bf16, as the Function
+        # returns it: count the elements that differ there
+        got16, ref16 = grads[1].bfloat16(), refs[1].bfloat16()
+        caught["dw1 from the bf16-rounded ctx (differing elements)"] = (
+            rounding_fault(got16, fault.bfloat16(), n_differ(got16, ref16),
+                           p_rtol, share * largest))
+        with mock.patch.multiple(fe, _dctx_of_dz=lambda d_z, w1: torch.matmul(
+                d_z, w1.float().t())):
+            fault = fe.fused_tail_bwd_reference(*bargs)[0]
+        caught["d_z not rounded before w1^T (differing elements)"] = (
+            rounding_fault(grads[0], fault, case["dqkv"]["n_differ"], b_rtol,
+                           b_atol))
+    check_caught(where, caught)
+    case["faults_caught"] = caught
+
+    item = qkv.element_size()
+    hd = heads * d
+    param_bytes = item * (hd * q + q) + 4 * (q + 1)
+    mask_bytes = 0 if mask is None else 4 * n * t
+    attn = n * heads * t * t * d
+    pool_flops = n * t * hd * q
+    iters = 10 if n * t > 50000 else 20
+    case["fwd"] = timed(
+        lambda: fe.fused_tail_fwd(*args),
+        lambda: fe.fused_tail_fwd_reference(*args),
+        item * (n * t * 3 * hd + n * hd) + param_bytes + mask_bytes + 4,
+        4 * attn + 2 * pool_flops + 2 * n * t * (q + hd), dtype, iters)
+    case["bwd"] = timed(
+        lambda: fe.fused_tail_bwd(*bargs),
+        lambda: fe.fused_tail_bwd_reference(*bargs),
+        item * (2 * n * t * 3 * hd + n * hd) + param_bytes + mask_bytes + 4
+        + 4 * (hd * q + 2 * q + 1), 10 * attn + 6 * pool_flops, dtype, iters)
+    return case
+
 def compare(where, name, got, want, rtol, atol):
     """got against want: fails on a non-finite value or an element outside
     atol + rtol * |want|, and unless the same comparison rejects want
@@ -747,18 +965,27 @@ def train_check(ctx, user_log_mask, samples="samples", **overrides):
             "under_floor_max_and_err": under_floor}
 
 
-def expected_launches(steps, cfg):
+def expected_launches(steps, cfg, attention_io="3d"):
     """Launches per kernel variant of an epoch of ``steps`` train steps
     with user_log_mask off: the news encoder (20-word titles) and the user
-    encoder each run one forward and one backward per step, through rows
-    2-3 ("probs") or rows 1 and 4 ("recompute"), or, for a history of
-    flash_min_seq keys or more, through rows 9-10."""
+    encoder each run one forward and one backward per step: with
+    fused_tail "on" through rows 13-14 (the whole tail); else, for a
+    history of flash_min_seq keys or more, the user encoder through rows
+    9-10, and each shorter sequence through rows 11-12 (attention_io
+    "2d"), rows 2-3 ("probs") or rows 1 and 4 ("recompute")."""
     from newsrecommendation_tpu_torch.ops import kernel_config, kernels
 
     want = {k: {v: 0 for v in variants}
             for k, variants in kernels.KERNELS.items()}
+    if cfg.fused_tail == "on":
+        want["fused_tail_fwd"]["tail"] = 2 * steps
+        want["fused_tail_bwd"]["tail_bwd"] = 2 * steps
+        return want
     fused = 1 + int(cfg.user_log_length < kernel_config.flash_min_seq())
-    if cfg.bwd_residuals == "probs":
+    if attention_io == "2d":
+        want["qkv2d_fwd"]["fwd2d"] = fused * steps
+        want["qkv2d_bwd"]["bwd2d"] = fused * steps
+    elif cfg.bwd_residuals == "probs":
         want["qkv_fwd_probs"]["bias_probs"] = fused * steps
         want["qkv_bwd_probs"]["bwd_probs"] = fused * steps
     else:
@@ -770,13 +997,26 @@ def expected_launches(steps, cfg):
     return want
 
 
+@contextlib.contextmanager
+def attention_io(mode):
+    """kernel_config's attention_io set to ``mode`` inside, "3d" after: it
+    is no Config field, so no entry point sets it."""
+    from newsrecommendation_tpu_torch.ops import kernel_config
+
+    kernel_config.set_attention_io(mode)
+    try:
+        yield
+    finally:
+        kernel_config.set_attention_io("3d")
+
+
 def train_run(ctx, fa, samples="samples", fixed_batch=True, max_steps=None,
-              **overrides):
+              io="3d", **overrides):
     """The headline training step through fit(), with launch counts reset
     just before fit and read just after; then, with ``fixed_batch``, 20
     steps on one batch with dropout off. ``overrides`` change the config;
     ``samples`` names the context's samples, ``max_steps`` cuts them to
-    that many batches."""
+    that many batches; ``io`` is the attention_io of the run."""
     import torch
 
     from newsrecommendation_tpu_torch.data.loader import TrainSamples
@@ -806,13 +1046,14 @@ def train_run(ctx, fa, samples="samples", fixed_batch=True, max_steps=None,
     on_card = DEVICE == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
-    t0 = time.perf_counter()
-    state, stats = fit(cfg, model, state, samples, feats,
-                       train_step=recorded, device_gather=True)
-    float(losses[-1])  # waits for the last step
-    wall_s = time.perf_counter() - t0
-    launches = {k: fa.launch_counts(k) for k in fa.KERNELS}
+    with attention_io(io):
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, stats = fit(cfg, model, state, samples, feats,
+                           train_step=recorded, device_gather=True)
+        float(losses[-1])  # waits for the last step
+        wall_s = time.perf_counter() - t0
+        launches = {k: fa.launch_counts(k) for k in fa.KERNELS}
     steps = stats["steps"]
     min_steps = TRAIN_STEPS_MIN if max_steps is None else max_steps
     if steps < min_steps or steps != len(losses):
@@ -820,13 +1061,14 @@ def train_run(ctx, fa, samples="samples", fixed_batch=True, max_steps=None,
              f"{min_steps}")
     if not torch.isfinite(torch.stack(losses)).all():
         fail("train: a non-finite loss")
-    want = expected_launches(steps, cfg)
+    want = expected_launches(steps, cfg, io)
     if launches != want:
         fail(f"train: launches {launches}, expected {want}")
     ex_s = stats["examples_per_sec"]
     out = {"steps": steps, "samples": samples.num_samples,
            "user_log_length": cfg.user_log_length,
            "bwd_residuals": cfg.bwd_residuals,
+           "fused_tail": cfg.fused_tail, "attention_io": io,
            "freeze_embedding": cfg.freeze_embedding,
            "examples_per_sec": ex_s,
            "step_ms": 1e3 * cfg.batch_size / ex_s if ex_s else None,
@@ -909,18 +1151,18 @@ def check_close(name, got, want):
     return float(err.max())
 
 
-def serve_run(ctx, user_log_mask, user_log_length=None):
+def serve_run(ctx, user_log_mask, user_log_length=None, **overrides):
     """One serving run: build the Recommender on the card, start the HTTP
     server, answer requests, check some against the CPU. With
     user_log_length, the model takes histories that long (the requests'
     histories are scaled by user_log_length / 50 from the ones of the
-    published length)."""
+    published length); ``overrides`` change the config (fused_tail)."""
     import torch
 
     from newsrecommendation_tpu_torch.serve import Recommender
     from newsrecommendation_tpu_torch.server import serve
 
-    cfg = ctx["cfg"].replace(user_log_mask=user_log_mask)
+    cfg = ctx["cfg"].replace(user_log_mask=user_log_mask, **overrides)
     hist_scale = 1.0
     if user_log_length is not None:
         cfg = cfg.replace(user_log_length=user_log_length)
@@ -1029,6 +1271,10 @@ def main() -> int:
           cuda=torch.version.cuda)
 
     from newsrecommendation_tpu_torch.ops import blockwise as bw
+    from newsrecommendation_tpu_torch.ops import (
+        experimental_fused_encoder as fe,
+    )
+    from newsrecommendation_tpu_torch.ops import experimental_qkv2d as q2
     from newsrecommendation_tpu_torch.ops import fused_attention as fa
 
     # ---- build -----------------------------------------------------------
@@ -1085,6 +1331,29 @@ def main() -> int:
                 flash_cases.append(c)
                 print("  kernel-flash " + json.dumps(c), flush=True)
     phase("kernel-flash", t, cases=len(flash_cases))
+
+    # ---- kernel rows 11-12 vs rows 2-3 and plain ----------------------------
+    t = time.perf_counter()
+    qkv2d_cases = []
+    for i, (n, tl) in enumerate([(7040, 20), (128, 50)]):
+        for dtype in ("float32", "bfloat16"):
+            c = qkv2d_kernel_case(q2, fa, n, tl, 20, 20, dtype, seed=i)
+            qkv2d_cases.append(c)
+            print("  kernel-2d " + json.dumps(c), flush=True)
+    phase("kernel-2d", t, cases=len(qkv2d_cases))
+
+    # ---- kernel rows 13-14 vs plain -----------------------------------------
+    t = time.perf_counter()
+    tail_cases = []
+    shapes = [(False, 7040, 20), (False, 128, 50), (True, 128, 50)]
+    for i, (masked, n, tl) in enumerate(shapes):
+        for dtype in ("float32", "bfloat16"):
+            for dropout in (False, True):
+                c = tail_kernel_case(fe, masked, n, tl, 20, 20, 200, dtype,
+                                     dropout, seed=i)
+                tail_cases.append(c)
+                print("  kernel-fused-tail " + json.dumps(c), flush=True)
+    phase("kernel-fused-tail", t, cases=len(tail_cases))
 
     # ---- serve at NRMS's published width ----------------------------------
     from newsrecommendation_tpu_torch.config import Config
@@ -1158,6 +1427,20 @@ def main() -> int:
             runs[True]["launches"]["bias_masked"]):
         fail(f"masked kernel launches do not follow user_log_mask: {runs}")
 
+    # ---- serve with the fused encoder tail: row 13 only ---------------------
+    t = time.perf_counter()
+    fa.reset_launch_counts()
+    serve_tail, _ = serve_run(ctx, True, fused_tail="on")
+    serve_tail["launches"] = {k: fa.launch_counts(k) for k in fa.KERNELS
+                              if any(fa.launch_counts(k).values())}
+    tail_fwd = serve_tail["launches"].get("fused_tail_fwd", {})
+    if set(serve_tail["launches"]) != {"fused_tail_fwd"} or not (
+            tail_fwd["tail"] and tail_fwd["tail_masked"]):
+        fail(f"serve fused_tail: launches {serve_tail['launches']}, expected "
+             "row 13 only, both variants")
+    phase("serve fused_tail=on user_log_mask=True", t,
+          **{k: json.dumps(v) for k, v in serve_tail.items()})
+
     # ---- serve with a history of LONG_L news: the flash forward ------------
     for user_log_mask in (False, True):
         t = time.perf_counter()
@@ -1178,6 +1461,8 @@ def main() -> int:
               ({"user_log_mask": False}, {"bwd_residuals": "recompute"}),
               ({"user_log_mask": True}, {"bwd_residuals": "recompute"}),
               ({"user_log_mask": False}, {"freeze_embedding": False}),
+              ({"user_log_mask": False}, {"fused_tail": "on"}),
+              ({"user_log_mask": True}, {"fused_tail": "on"}),
               ({"user_log_mask": False, "samples": "samples_long"},
                dict(LONG_CHECK, user_log_length=LONG_L)),
               ({"user_log_mask": True, "samples": "samples_long"},
@@ -1194,6 +1479,8 @@ def main() -> int:
                      ("recompute", {"bwd_residuals": "recompute"}),
                      ("trainable", {"freeze_embedding": False,
                                     "fixed_batch": False}),
+                     ("fused_tail", {"fused_tail": "on"}),
+                     ("2d", {"io": "2d", "fixed_batch": False}),
                      ("long", {"user_log_length": LONG_L,
                                "samples": "samples_long",
                                "max_steps": LONG_STEPS,
@@ -1220,7 +1507,7 @@ def main() -> int:
 
     train_feats = torch.from_numpy(feats).cuda()
 
-    def step_of(name):
+    def step_of(name, io="3d"):
         # built again: building a step sets the kernel switches its config
         # carries (kernel_config.apply), which the later runs have changed
         tcfg, tmodel, tstate, _ = trains[name][1]
@@ -1229,7 +1516,12 @@ def main() -> int:
         batch = {k: torch.from_numpy(v).cuda() for k, v in next(
             ctx[key].iter_index_batches(tcfg.batch_size, epoch=0,
                                         seed=2)).items()}
-        return lambda: tstep(tstate, batch, tcfg.seed, train_feats)
+
+        def run():
+            with attention_io(io):
+                return tstep(tstate, batch, tcfg.seed, train_feats)
+
+        return run
 
     prof = {"score_batch_64x300": profile_device(
                 lambda: rec.score_batch(hists, cands)),
@@ -1241,6 +1533,9 @@ def main() -> int:
                 step_of("recompute")),
             "train_step_trainable_b128_bf16": profile_device(
                 step_of("trainable")),
+            "train_step_fused_tail_b128_bf16": profile_device(
+                step_of("fused_tail")),
+            "train_step_2d_b128_bf16": profile_device(step_of("2d", "2d")),
             f"train_step_l{LONG_L}_b128_bf16": profile_device(
                 step_of("long"), reps=3)}
     phase("profile", t, **{k: json.dumps(v) for k, v in prof.items()})
@@ -1296,6 +1591,29 @@ def main() -> int:
                        f"{FLASH_KERNELS}:215",
                        sum(long_launches["flash_bwd"].values()), c["dq"],
                        c["bwd"], c))
+    # rows 11-12 and 13-14 at the news encoder's shape in the headline step,
+    # launched on their own paths (attention_io "2d", fused_tail "on")
+    c = find(qkv2d_cases, shape=[7040, 20], dtype="bfloat16")
+    io_launches = trains["2d"][0]["launches"]
+    kernels.append(row("exp_mhsa_qkv_bias_2d_fwd", QKV2D_SOURCE,
+                       f"{QKV2D_KERNELS}:145",
+                       sum(io_launches["qkv2d_fwd"].values()), c["ctx"],
+                       c["fwd"], c))
+    kernels.append(row("exp_mhsa_qkv_bias_2d_bwd", QKV2D_SOURCE,
+                       f"{QKV2D_KERNELS}:193",
+                       sum(io_launches["qkv2d_bwd"].values()), c["dqkv"],
+                       c["bwd"], c))
+    c = find(tail_cases, variant="tail", shape=[7040, 20], dtype="bfloat16",
+             dropout=0.2)
+    tail_launches = trains["fused_tail"][0]["launches"]
+    kernels.append(row("exp_mhsa_pool_fwd", TAIL_FWD_SOURCE,
+                       f"{TAIL_KERNELS}:257",
+                       sum(tail_launches["fused_tail_fwd"].values()), c["out"],
+                       c["fwd"], c))
+    kernels.append(row("exp_mhsa_pool_bwd", TAIL_BWD_SOURCE,
+                       f"{TAIL_KERNELS}:309",
+                       sum(tail_launches["fused_tail_bwd"].values()),
+                       c["dqkv"], c["bwd"], c))
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         fail(f"kernels never launched on their main path: {idle}")

@@ -64,6 +64,10 @@ class Config:
     # attention probs; kernel rows 2-3) or "recompute" (nothing; the
     # backward recomputes them, rows 1 and 4). Same gradients.
     bwd_residuals: str = "probs"
+    # "on": each NRMS encoder tail (MHSA -> dropout -> pooling) runs as one
+    # kernel (rows 13-14); "auto" and "off" compose it from rows 1-4.
+    fused_tail: str = "auto"  # "auto" | "on" | "off"
+    attention_layout: str = "headloop"  # "blanes" is not ported
     eval_news_chunk: int = 1024  # corpus rows per news-encoder call
     # Recommender's "auto" scorer: dense (whole-corpus matmul) while the
     # cache has at most this many rows, gather (candidate rows only) above.
@@ -81,6 +85,11 @@ class Config:
             )
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
+        if self.fused_tail not in ("auto", "on", "off"):
+            raise ValueError(f"unknown fused_tail {self.fused_tail!r}")
+        if self.attention_layout not in ("headloop", "blanes"):
+            raise ValueError(
+                f"unknown attention_layout {self.attention_layout!r}")
         if self.bwd_residuals not in ("recompute", "probs"):
             raise ValueError(
                 f"unknown bwd_residuals {self.bwd_residuals!r}")

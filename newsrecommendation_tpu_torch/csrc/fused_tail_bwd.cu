@@ -1,0 +1,374 @@
+// Kernel row 14: the fused NRMS encoder tail backward. It recomputes the
+// whole tail of each row from qkv (nothing is saved between the passes),
+// then writes dqkv and sums the pooling parameters' gradients over every
+// row and position.
+//
+// Replaces the TPU kernels newsrecommendation_tpu/ops/pallas/
+// experimental_fused_encoder.py:_bwd_kernel and :_masked_bwd_kernel
+// (called by _bwd_call). Contract of the forward: fused_tail.cuh. Inputs
+// as the forward's, plus g (N, HD) in qkv's dtype; outputs dqkv (N, T, 3HD)
+// in qkv's dtype and f32 dw1 (HD, Q), db1 (1, Q), dw2 (Q, 1), db2 (1, 1).
+// Rounding points (the TPU kernel's): g in qkv's dtype, read as f32;
+//   d_alpha = ctx . g,  d_ctx = alpha g,  r = sum(d_alpha alpha),
+//   d_a = (d_alpha - r) alpha;  dw2 += e d_a,  d_z = d_a w2 (1 - e^2),
+//   db1 += d_z;
+//   dw1 += ctx^T d_z from the f32 ctx;  d_ctx += round(d_z) w1^T, d_z rounded
+//   to w1's dtype;  d_ctx *= keep;  d_ctx rounded to qkv's dtype; then row
+//   4's backward per head (qkv_bwd.cuh) with a recomputed as the forward
+//   computes it: dv = round(a)^T g, ds = round((g v^T - rowsum) a / sqrt(D)),
+//   dq = ds k, dk = ds^T q.
+// One departure: db2 is sum(d_a) = r (1 - sum(alpha)), which is 0 but for
+// the 1e-8 term of the normalisation. The TPU kernel sums the f32 d_a,
+// which leaves rounding noise (at chip_smoke.py's train-check, on an
+// H100: -8.0e-9 from this kernel summing d_a, 7.7e-9 from the plain
+// version on the CPU, against an exact -7.9e-12); here each row adds
+// r * 1e-8 exp(-m) / den, the exact value of its sum, as the plain
+// version does.
+//
+// Bound: at N = 7040, T = 20, H = D = 20, Q = 200 in bf16 the call reads qkv
+// and g (344 MB) and writes dqkv (338 MB): 0.20 ms at 3.35 TB/s. Its
+// products, 10*N*H*T*T*D + 6*N*T*HD*Q (11 + 68 GFLOP), take 0.08 ms at the
+// bf16 tensor-core peak; here they are f32 FMAs on the CUDA cores (1.2 ms
+// at 67 TFLOP/s), which bound it.
+//
+// Design, five launches:
+//   1. one block of 8 warps per row (fused_tail.cuh's phases): the forward
+//      again, the pooling backward and d_ctx. It writes d_ctx (T, HD) in
+//      qkv's dtype, the row's sums of db1, dw2, db2 (N, 2Q + 1), and, for
+//      dw1, the row's f32 ctx (T, HD) and d_z (T, Q) to scratch;
+//   2. the attention backward: row 4's kernel (qkv_bwd.cuh) on the biased
+//      qkv with a zero bias and d_ctx as its g, which recomputes the probs
+//      as row 1 computes them: the TPU kernel's arithmetic, in blocks per
+//      (row, head);
+//   3. dw1 = ctx^T d_z over all N*T positions as a tiled product: blocks
+//      of 64 x 128 outputs (8 x 4 per thread) times a split of the
+//      positions, staged 32 positions at a time in shared memory; each
+//      block writes its partial;
+//   4. the partials of dw1 added in split order;
+//   5. the row sums of db1, dw2, db2 added per column, each thread over a
+//      fixed set of rows and then a fixed tree.
+// Blocks run in parallel and in no order; every sum here has a fixed order
+// and no atomics, so two runs give the same bits. The TPU kernel keeps
+// ctx and d_z in VMEM and its sums in revisited output blocks; here ctx,
+// d_z and d_ctx make one round trip through device memory
+// (N*T*(HD*(4 + 2) + Q*4) bytes in bf16, 450 MB at the headline width):
+// a persistent block per SM that kept its dw1 sum (HD*Q floats, 320 KB) in
+// global memory and updated it per row took 25.6 ms on the card at the
+// headline width in bf16.
+
+#include "fused_tail.cuh"
+
+namespace {
+
+using namespace nrk;
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// the dw1 product: outputs per block (kDw1C x kDw1Q), positions staged
+// per step
+constexpr int kDw1C = 64;
+constexpr int kDw1Q = 128;
+constexpr int kDw1Rows = 32;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fused_tail_bwd_kernel(const T* __restrict__ qkv,
+                      const float* __restrict__ mask,
+                      const T* __restrict__ w1, const T* __restrict__ w1t,
+                      const float* __restrict__ b1, const T* __restrict__ w2,
+                      const float* __restrict__ b2,
+                      const int* __restrict__ seed, const T* __restrict__ g,
+                      T* __restrict__ dctx, float* __restrict__ ctxs,
+                      float* __restrict__ dzs, float* __restrict__ rowpart,
+                      int n_heads, int t_len, int d_head, int q_dim,
+                      float inv, int use_dropout, uint32_t thr, float scale) {
+  extern __shared__ float smem[];
+  const int64_t row = blockIdx.x;
+  const int hd = n_heads * d_head;
+  const int w3 = 3 * hd;
+  const int stride = d_head | 1;  // odd row stride: no bank conflicts
+  float* ctx = smem;                      // (T, HD) ctx
+  float* e = ctx + t_len * hd;            // (T, Q) e, then d_z
+  float* qs = e + t_len * q_dim;          // (3, T, stride) q, k, v
+  float* rows = qs + 3 * t_len * stride;  // (kWarps, T) row buffers
+  float* alpha = rows + kWarps * t_len;   // (T)
+  float* dal = alpha + t_len;             // (T) d_alpha, then d_a
+  float* gv = dal + t_len;                // (HD) this row's g
+  float* rest = gv + hd;                  // 1 - sum(alpha), exactly
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const TailDropout drop{use_dropout != 0,
+                         use_dropout ? (uint32_t)seed[0] : 0u, thr, scale};
+  const T* src = qkv + row * t_len * w3;
+  const float* mrow = mask ? mask + row * t_len : nullptr;
+  for (int c = threadIdx.x; c < hd; c += kThreads)
+    gv[c] = to_f32(g[row * hd + c]);
+
+  // ---- the forward again, up to the pooling weights ----------------------
+  tail_context<T, kThreads>(ctx, qs, rows, src, mrow, row, n_heads, t_len,
+                            d_head, stride, inv, drop);
+  tail_pool_scores<T, kThreads>(e, alpha, ctx, w1, b1, w2, b2, mrow, t_len,
+                                hd, q_dim, rest);
+
+  // ---- pooling backward ----------------------------------------------------
+  float* ctx_out = ctxs + row * t_len * hd;
+  for (int idx = threadIdx.x; idx < t_len * hd; idx += kThreads)
+    ctx_out[idx] = ctx[idx];
+  for (int i = warp; i < t_len; i += kWarps) {
+    float s = 0.f;
+    for (int c = lane; c < hd; c += 32) s = fmaf(ctx[i * hd + c], gv[c], s);
+    s = warp_sum(s);
+    if (lane == 0) dal[i] = s;
+  }
+  __syncthreads();
+  float* part = rowpart + row * (2 * q_dim + 1);
+  if (warp == 0) {
+    float s = 0.f;
+    for (int i = lane; i < t_len; i += 32) s = fmaf(dal[i], alpha[i], s);
+    const float r = warp_sum(s);
+    for (int i = lane; i < t_len; i += 32) dal[i] = (dal[i] - r) * alpha[i];
+    // this row's db2 = sum_i d_a_i = r (1 - sum(alpha)), 0 analytically up
+    // to the 1e-8 term: summed from the f32 d_a it is rounding noise
+    if (lane == 0) part[2 * q_dim] = r * *rest;
+  }
+  __syncthreads();
+  // this row's sums of db1 and dw2 per column q, and d_z over e
+  for (int q = threadIdx.x; q < q_dim; q += kThreads) {
+    const float w2q = to_f32(w2[q]);
+    float s2 = 0.f, s1 = 0.f;
+    for (int i = 0; i < t_len; ++i) {
+      const float ei = e[i * q_dim + q];
+      s2 = fmaf(ei, dal[i], s2);
+      const float dz = __fmul_rn(__fmul_rn(dal[i], w2q),
+                                 __fsub_rn(1.f, __fmul_rn(ei, ei)));
+      e[i * q_dim + q] = dz;
+      s1 += dz;
+    }
+    part[q] = s1;
+    part[q_dim + q] = s2;
+  }
+  __syncthreads();
+  float* dz_out = dzs + row * t_len * q_dim;
+  for (int idx = threadIdx.x; idx < t_len * q_dim; idx += kThreads)
+    dz_out[idx] = e[idx];
+  // d_ctx = (alpha g + round(d_z) w1^T) * keep, rounded to T, for row 4
+  T* dctx_out = dctx + row * t_len * hd;
+  tile_product<kThreads>(
+      t_len, hd, q_dim,
+      [&](int i, int q) { return round_to<T>(e[i * q_dim + q]); },
+      [&](int q, int c) { return to_f32(w1t[(int64_t)q * hd + c]); },
+      [&](int i, int c, float x) {
+        float d = __fadd_rn(__fmul_rn(alpha[i], gv[c]), x);
+        if (drop.on) d *= drop.keep(row, i, c, t_len, hd);
+        dctx_out[i * hd + c] = from_f32<T>(d);
+      });
+}
+
+// part[split] (HD, Q) = sum over this split's positions r of
+// ctx[r, c] * dz[r, q], positions in order, for the block's kDw1C x kDw1Q
+// outputs; thread (cg, lane) owns c = c0 + 8*cg .. +7, q = q0 + lane + 32j.
+__global__ void __launch_bounds__(kThreads)
+fused_tail_dw1_kernel(const float* __restrict__ ctxs,
+                      const float* __restrict__ dzs, float* __restrict__ part,
+                      int64_t n_pos, int hd, int q_dim, int64_t per_split) {
+  __shared__ float as[kDw1Rows][kDw1C];
+  __shared__ float bs[kDw1Rows][kDw1Q];
+  const int c0 = blockIdx.x * kDw1C;
+  const int q0 = blockIdx.y * kDw1Q;
+  const int64_t r0 = blockIdx.z * per_split;
+  const int64_t r1 = min(n_pos, r0 + per_split);
+  const int cg = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int64_t rb = r0; rb < r1; rb += kDw1Rows) {
+    __syncthreads();  // the previous step's readers are done
+    for (int idx = threadIdx.x; idx < kDw1Rows * kDw1C; idx += kThreads) {
+      const int r = idx / kDw1C;
+      const int c = idx - r * kDw1C;
+      as[r][c] = (rb + r < r1 && c0 + c < hd)
+                     ? ctxs[(rb + r) * hd + c0 + c] : 0.f;
+    }
+    for (int idx = threadIdx.x; idx < kDw1Rows * kDw1Q; idx += kThreads) {
+      const int r = idx / kDw1Q;
+      const int q = idx - r * kDw1Q;
+      bs[r][q] = (rb + r < r1 && q0 + q < q_dim)
+                     ? dzs[(rb + r) * q_dim + q0 + q] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int r = 0; r < kDw1Rows; ++r) {
+      float x[8], y[4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) x[i] = as[r][cg * 8 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) y[j] = bs[r][lane + 32 * j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
+    }
+  }
+  float* out = part + (int64_t)blockIdx.z * hd * q_dim;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + cg * 8 + i;
+      const int q = q0 + lane + 32 * j;
+      if (c < hd && q < q_dim) out[(int64_t)c * q_dim + q] = acc[i][j];
+    }
+}
+
+// dw1[j] = sum over splits s, in order, of part[s, j].
+__global__ void __launch_bounds__(kThreads)
+fused_tail_sum_splits_kernel(const float* __restrict__ part, int n_splits,
+                             int len, float* __restrict__ dw1) {
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  if (j >= len) return;
+  float s = 0.f;
+  for (int p = 0; p < n_splits; ++p) s += part[(int64_t)p * len + j];
+  dw1[j] = s;
+}
+
+// Column sums of rowpart (N, 2Q + 1) into db1 | dw2 | db2, one block per
+// column: each thread adds rows tid, tid + kThreads, ... in order, then a
+// fixed tree over the threads.
+__global__ void __launch_bounds__(kThreads)
+fused_tail_sum_rows_kernel(const float* __restrict__ rowpart, int n,
+                           int q_dim, float* __restrict__ db1,
+                           float* __restrict__ dw2, float* __restrict__ db2) {
+  __shared__ float red[kThreads];
+  const int col = blockIdx.x;
+  const int width = 2 * q_dim + 1;
+  float s = 0.f;
+  for (int r = threadIdx.x; r < n; r += kThreads)
+    s += rowpart[(int64_t)r * width + col];
+  red[threadIdx.x] = s;
+  __syncthreads();
+  for (int half = kThreads / 2; half > 0; half /= 2) {
+    if (threadIdx.x < half) red[threadIdx.x] += red[threadIdx.x + half];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    if (col < q_dim)
+      db1[col] = red[0];
+    else if (col < 2 * q_dim)
+      dw2[col - q_dim] = red[0];
+    else
+      db2[0] = red[0];
+  }
+}
+
+template <typename T>
+int launch(const void* qkv, const void* mask, const void* w1, const void* w1t,
+           const void* b1, const void* w2, const void* b2, const void* seed,
+           const void* g, const void* zero_bias, void* dqkv, void* dctx,
+           void* ctxs, void* dzs, void* rowpart, void* part, void* dw1,
+           void* db1, void* dw2, void* db2, int n, int t_len, int n_heads,
+           int d_head, int q_dim, int n_splits, int use_dropout, unsigned thr,
+           float scale, void* stream) {
+  if (n <= 0 || n_splits <= 0) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      sizeof(float) * tail_bwd_floats(t_len, n_heads, d_head, q_dim, kWarps);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_tail_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const float inv = (float)(1.0 / sqrt((double)d_head));
+  auto* cs = (cudaStream_t)stream;
+  auto* f_ctxs = static_cast<float*>(ctxs);
+  auto* f_dzs = static_cast<float*>(dzs);
+  auto* f_rowpart = static_cast<float*>(rowpart);
+  fused_tail_bwd_kernel<T><<<(unsigned)n, kThreads, smem, cs>>>(
+      static_cast<const T*>(qkv), static_cast<const float*>(mask),
+      static_cast<const T*>(w1), static_cast<const T*>(w1t),
+      static_cast<const float*>(b1), static_cast<const T*>(w2),
+      static_cast<const float*>(b2), static_cast<const int*>(seed),
+      static_cast<const T*>(g), static_cast<T*>(dctx), f_ctxs, f_dzs,
+      f_rowpart, n_heads, t_len, d_head, q_dim, inv, use_dropout, thr,
+      scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // the attention backward: row 4's kernel on the biased qkv (a zero bias)
+  // and d_ctx, the probs recomputed as the forward computes them
+  const int row4 = qkv_bwd_launch<T, true>(qkv, zero_bias, nullptr, mask,
+                                           dctx, dqkv, n, t_len, n_heads,
+                                           d_head, stream);
+  if (row4 != (int)cudaSuccess) return row4;
+
+  const int hd = n_heads * d_head;
+  const int64_t n_pos = (int64_t)n * t_len;
+  // positions per split, a whole number of staging steps
+  int64_t per_split = (n_pos + n_splits - 1) / n_splits;
+  per_split = (per_split + kDw1Rows - 1) / kDw1Rows * kDw1Rows;
+  const dim3 grid((hd + kDw1C - 1) / kDw1C, (q_dim + kDw1Q - 1) / kDw1Q,
+                  n_splits);
+  fused_tail_dw1_kernel<<<grid, kThreads, 0, cs>>>(
+      f_ctxs, f_dzs, static_cast<float*>(part), n_pos, hd, q_dim, per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int len = hd * q_dim;
+  fused_tail_sum_splits_kernel<<<(len + kThreads - 1) / kThreads, kThreads, 0,
+                                 cs>>>(static_cast<const float*>(part),
+                                       n_splits, len,
+                                       static_cast<float*>(dw1));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fused_tail_sum_rows_kernel<<<2 * q_dim + 1, kThreads, 0, cs>>>(
+      f_rowpart, n, q_dim, static_cast<float*>(db1),
+      static_cast<float*>(dw2), static_cast<float*>(db2));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// w1t: w1 transposed, (Q, HD) contiguous; zero_bias: 3HD zeros in qkv's
+// dtype. Scratch: dctx (N, T, HD) in qkv's dtype, ctxs (N, T, HD) f32,
+// dzs (N, T, Q) f32, rowpart (N, 2Q + 1) f32, part (n_splits, HD, Q) f32.
+// mask may be null (the unmasked variant). Launches the five kernels on
+// the stream; returns cudaGetLastError() after them: 0 when all were
+// queued.
+int fused_tail_bwd_f32(const void* qkv, const void* mask, const void* w1,
+                       const void* w1t, const void* b1, const void* w2,
+                       const void* b2, const void* seed, const void* g,
+                       const void* zero_bias, void* dqkv, void* dctx,
+                       void* ctxs, void* dzs, void* rowpart, void* part,
+                       void* dw1, void* db1, void* dw2, void* db2, int n,
+                       int t_len, int n_heads, int d_head, int q_dim,
+                       int n_splits, int use_dropout, unsigned thr,
+                       float scale, void* stream) {
+  return launch<float>(qkv, mask, w1, w1t, b1, w2, b2, seed, g, zero_bias,
+                       dqkv, dctx, ctxs, dzs, rowpart, part, dw1, db1, dw2,
+                       db2, n, t_len, n_heads, d_head, q_dim, n_splits,
+                       use_dropout, thr, scale, stream);
+}
+
+int fused_tail_bwd_bf16(const void* qkv, const void* mask, const void* w1,
+                        const void* w1t, const void* b1, const void* w2,
+                        const void* b2, const void* seed, const void* g,
+                        const void* zero_bias, void* dqkv, void* dctx,
+                        void* ctxs, void* dzs, void* rowpart, void* part,
+                        void* dw1, void* db1, void* dw2, void* db2, int n,
+                        int t_len, int n_heads, int d_head, int q_dim,
+                        int n_splits, int use_dropout, unsigned thr,
+                        float scale, void* stream) {
+  return launch<__nv_bfloat16>(qkv, mask, w1, w1t, b1, w2, b2, seed, g,
+                               zero_bias, dqkv, dctx, ctxs, dzs, rowpart,
+                               part, dw1, db1, dw2, db2, n, t_len, n_heads,
+                               d_head, q_dim, n_splits, use_dropout, thr,
+                               scale, stream);
+}
+
+int fused_tail_bwd_smem_bytes(int t_len, int n_heads, int d_head, int q_dim) {
+  return (int)(sizeof(float) *
+               tail_bwd_floats(t_len, n_heads, d_head, q_dim, kWarps));
+}
+
+}  // extern "C"

@@ -1,0 +1,116 @@
+// Kernel row 13: the fused NRMS encoder tail forward, exp-MHSA -> dropout
+// -> additive attention pooling in one kernel, (N, T, 3HD) in, (N, HD) out.
+//
+// Replaces the TPU kernels newsrecommendation_tpu/ops/pallas/
+// experimental_fused_encoder.py:_fwd_kernel and :_masked_fwd_kernel
+// (called by _fwd_call). Contract and rounding points: fused_tail.cuh.
+//
+// Bound: at the news encoder of the headline step (N = 7040, T = 20,
+// H = D = 20, Q = 200, bf16) the call reads qkv once (338 MB) and writes
+// the pooled rows (5.6 MB): 0.10 ms at 3.35 TB/s. Its products are
+// 4*N*H*T*T*D (4.5 GFLOP, attention) + 2*N*T*HD*Q (22.5 GFLOP, fc1), 0.03
+// ms at the bf16 tensor-core peak: bytes bound it. This kernel runs every
+// product as f32 FMAs on the CUDA cores (67 TFLOP/s peak), which puts its
+// floor near 0.4 ms; the context never leaves the block, so its traffic is
+// the bound's.
+//
+// Design: one block of 8 warps per row; fused_tail.cuh has the phases.
+
+#include "fused_tail.cuh"
+
+namespace {
+
+using namespace nrk;
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fused_tail_fwd_kernel(const T* __restrict__ qkv,
+                      const float* __restrict__ mask,
+                      const T* __restrict__ w1, const float* __restrict__ b1,
+                      const T* __restrict__ w2, const float* __restrict__ b2,
+                      const int* __restrict__ seed, T* __restrict__ out,
+                      int n_heads, int t_len, int d_head, int q_dim,
+                      float inv, int use_dropout, uint32_t thr, float scale) {
+  extern __shared__ float smem[];
+  const int64_t row = blockIdx.x;
+  const int hd = n_heads * d_head;
+  const int stride = d_head | 1;  // odd row stride: no bank conflicts
+  float* ctx = smem;                         // (T, HD) f32 context
+  float* e = ctx + t_len * hd;               // (T, Q) tanh(z)
+  float* qs = e + t_len * q_dim;             // (3, T, stride) q, k, v
+  float* rows = qs + 3 * t_len * stride;     // (kWarps, T) probs rows
+  float* alpha = rows + kWarps * t_len;      // (T) pooling weights
+
+  const TailDropout drop{use_dropout != 0,
+                         use_dropout ? (uint32_t)seed[0] : 0u, thr, scale};
+  const float* mrow = mask ? mask + row * t_len : nullptr;
+  tail_context<T, kThreads>(ctx, qs, rows, qkv + row * t_len * 3 * hd, mrow,
+                            row, n_heads, t_len, d_head, stride, inv, drop);
+  tail_pool_scores<T, kThreads>(e, alpha, ctx, w1, b1, w2, b2, mrow, t_len,
+                                hd, q_dim);
+  for (int c = threadIdx.x; c < hd; c += kThreads) {
+    float acc = 0.f;
+    for (int i = 0; i < t_len; ++i) acc = fmaf(alpha[i], ctx[i * hd + c], acc);
+    out[row * hd + c] = from_f32<T>(acc);
+  }
+}
+
+template <typename T>
+int launch(const void* qkv, const void* mask, const void* w1, const void* b1,
+           const void* w2, const void* b2, const void* seed, void* out, int n,
+           int t_len, int n_heads, int d_head, int q_dim, int use_dropout,
+           unsigned thr, float scale, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  const size_t smem =
+      sizeof(float) * tail_fwd_floats(t_len, n_heads, d_head, q_dim, kWarps);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_tail_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const float inv = (float)(1.0 / sqrt((double)d_head));
+  fused_tail_fwd_kernel<T><<<(unsigned)n, kThreads, smem,
+                             (cudaStream_t)stream>>>(
+      static_cast<const T*>(qkv), static_cast<const float*>(mask),
+      static_cast<const T*>(w1), static_cast<const float*>(b1),
+      static_cast<const T*>(w2), static_cast<const float*>(b2),
+      static_cast<const int*>(seed), static_cast<T*>(out), n_heads, t_len,
+      d_head, q_dim, inv, use_dropout, thr, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// mask may be null (the unmasked variant). With use_dropout 0, thr and
+// scale are not read. Returns cudaGetLastError() after the launch: 0 when
+// the kernel was queued.
+int fused_tail_fwd_f32(const void* qkv, const void* mask, const void* w1,
+                       const void* b1, const void* w2, const void* b2,
+                       const void* seed, void* out, int n, int t_len,
+                       int n_heads, int d_head, int q_dim, int use_dropout,
+                       unsigned thr, float scale, void* stream) {
+  return launch<float>(qkv, mask, w1, b1, w2, b2, seed, out, n, t_len,
+                       n_heads, d_head, q_dim, use_dropout, thr, scale,
+                       stream);
+}
+
+int fused_tail_fwd_bf16(const void* qkv, const void* mask, const void* w1,
+                        const void* b1, const void* w2, const void* b2,
+                        const void* seed, void* out, int n, int t_len,
+                        int n_heads, int d_head, int q_dim, int use_dropout,
+                        unsigned thr, float scale, void* stream) {
+  return launch<__nv_bfloat16>(qkv, mask, w1, b1, w2, b2, seed, out, n, t_len,
+                               n_heads, d_head, q_dim, use_dropout, thr,
+                               scale, stream);
+}
+
+int fused_tail_fwd_smem_bytes(int t_len, int n_heads, int d_head, int q_dim) {
+  return (int)(sizeof(float) *
+               tail_fwd_floats(t_len, n_heads, d_head, q_dim, kWarps));
+}
+
+}  // extern "C"

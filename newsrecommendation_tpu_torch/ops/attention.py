@@ -104,12 +104,48 @@ def mhsa_dropout_pool(mhsa_params, pool_params, x, mask=None, *,
     """The NRMS encoder tail: MHSA -> dropout -> additive attention pooling.
 
     x: (B, S, d_model); mask: (B, S) over keys/positions or None.
-    Returns (B, n_heads*d_v).
+    Returns (B, n_heads*d_v). With ``kernel_config.fused_tail_enabled()``
+    and equal q/k/v widths the tail is one kernel per direction
+    (``_fused_tail``); otherwise it is composed of the attention kernels,
+    dropout and the pooling's products.
     """
+    from newsrecommendation_tpu_torch.ops import kernel_config
+
     qkv_2d, bs, bias, nq, nk, nv = _fused_qkv(mhsa_params, x)
+    if (nq == nk == nv and nq % n_heads == 0
+            and kernel_config.fused_tail_enabled(n_heads)):
+        return _fused_tail(qkv_2d, bs, bias, pool_params, x, mask, n_heads,
+                           drop_rate, generator, deterministic)
     ctx = _mhsa_from_qkv(qkv_2d, bs, bias, nq, nk, nv, mask, n_heads=n_heads)
     ctx = _dropout(ctx, drop_rate, deterministic, generator)
     return attention_pooling(pool_params, ctx, mask)
+
+
+def _fused_tail(qkv_2d, bs, bias, pool_params, x, mask, n_heads, drop_rate,
+                generator, deterministic):
+    """The whole tail as one kernel per direction (rows 13-14), whatever
+    flash_min_seq and attention_io say, fed as the JAX package feeds it:
+    qkv biased in the input dtype, w1 and w2 cast to it, b1 and b2 in f32,
+    and a seed in [0, 2**31 - 1) drawn on the device from the step's
+    generator when dropout is on (zeros otherwise)."""
+    from newsrecommendation_tpu_torch.ops import experimental_fused_encoder
+
+    qkv = qkv_2d.reshape(*bs, qkv_2d.shape[-1]) + bias
+    use_dropout = not deterministic and drop_rate > 0.0
+    if use_dropout:
+        seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                             device=x.device, dtype=torch.int32)
+    else:
+        seed = torch.zeros((1,), dtype=torch.int32, device=x.device)
+    w1 = pool_params["fc1"]["w"].to(x.dtype)
+    b1 = pool_params["fc1"]["b"][None, :].float()
+    w2 = pool_params["fc2"]["w"].to(x.dtype)
+    b2 = pool_params["fc2"]["b"][None, :].float()
+    args = (w1, b1, w2, b2, seed, n_heads, float(drop_rate), not use_dropout)
+    if mask is None:
+        return experimental_fused_encoder.exp_mhsa_pool(qkv, *args)
+    return experimental_fused_encoder.exp_mhsa_pool_masked(
+        qkv, mask.float().contiguous(), *args)
 
 
 def multi_head_self_attention(params, x, mask=None, *, n_heads: int):
@@ -125,7 +161,9 @@ def _mhsa_from_qkv(qkv_2d, bs, bias, nq, nk, nv, mask=None, *, n_heads: int):
     routed as the JAX package routes it: a sequence of at least
     ``kernel_config.flash_min_seq()`` keys goes to the key-blocked flash
     kernels on q, k, v cut from the biased projection; a shorter one to the
-    fused-qkv kernels, which add the bias themselves. The route is the same
+    fused-qkv kernels, which add the bias themselves: unmasked with
+    ``attention_io() == "2d"`` to rows 11-12 on the 2-D product, else to
+    rows 1-4 on its (B, S, 3HD) view. The route is the same
     on every device; the device picks kernel (CUDA) or plain version (CPU).
     Unequal widths need the separate-q/k/v kernels, not ported yet, and
     raise on every device.
@@ -147,5 +185,11 @@ def _mhsa_from_qkv(qkv_2d, bs, bias, nq, nk, nv, mask=None, *, n_heads: int):
             return blockwise.flash_exp_mhsa(q, k, v, n_heads)
         return blockwise.flash_exp_mhsa_masked(q, k, v, mask, n_heads)
     if mask is None:
+        if kernel_config.attention_io() == "2d":
+            # the (B*S, 3HD) product as it is: rows 11-12
+            from newsrecommendation_tpu_torch.ops import experimental_qkv2d
+
+            return experimental_qkv2d.exp_mhsa_qkv_bias_2d(qkv_2d, bias,
+                                                           n_heads, s)
         return fa.exp_mhsa_qkv_bias(qkv_raw, bias, n_heads)
     return fa.exp_mhsa_qkv_bias_masked(qkv_raw, bias, mask, n_heads)

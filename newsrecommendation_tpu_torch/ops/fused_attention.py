@@ -150,6 +150,13 @@ def exp_mhsa_qkv_bias_probs_reference(qkv, bias, key_mask, n_heads: int):
     f32 accumulate, output in the input dtype). key_mask may be None.
     Returns (ctx (N, T, H*D), probs (N, T, H*T) f32, head h's a at lanes
     [h*T, (h+1)*T))."""
+    ctx, probs = attend_f32(qkv, bias, key_mask, n_heads)
+    return ctx.to(qkv.dtype), probs
+
+
+def attend_f32(qkv, bias, key_mask, n_heads: int):
+    """Rows 1-2's plain arithmetic up to the context's f32 accumulate:
+    (ctx (N, T, H*D) f32, not yet rounded to the input dtype, probs)."""
     n, t, d = _check(qkv, bias, key_mask, n_heads)
     q, k, v = _split_heads(qkv, bias, n_heads, d)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (
@@ -158,7 +165,7 @@ def exp_mhsa_qkv_bias_probs_reference(qkv, bias, key_mask, n_heads: int):
     a = masked_exp_normalize(s, m, dim=-1)
     ctx = torch.einsum("bhqk,bkhd->bqhd", a.to(v.dtype).float(), v.float())
     probs = a.permute(0, 2, 1, 3).reshape(n, t, n_heads * t)
-    return ctx.reshape(n, t, n_heads * d).to(qkv.dtype), probs
+    return ctx.reshape(n, t, n_heads * d), probs
 
 
 def exp_mhsa_qkv_bias_reference(qkv, bias, key_mask, n_heads: int):

@@ -5,14 +5,16 @@ its defaults.
 The switches are read when a forward runs (the JAX package reads them when
 a step is traced). ``pallas_mode`` has no counterpart: a tensor's device
 decides between a kernel (CUDA) and its plain version (CPU). A value whose
-kernel is not ported yet raises ``NotImplementedError`` when it is set, so
-it is never accepted and then ignored.
+kernel is not ported yet ("blanes") raises ``NotImplementedError`` when it
+is set, so it is never accepted and then ignored.
 """
 
 from __future__ import annotations
 
 _BWD_RESIDUALS = "probs"  # "probs" | "recompute"
 _FLASH_MIN_SEQ = 512
+_FUSED_TAIL = "auto"  # "auto" | "on" | "off"
+_ATTN_IO = "3d"  # "3d" | "2d"
 
 
 def set_bwd_residuals(mode: str) -> None:
@@ -43,41 +45,47 @@ def flash_min_seq() -> int:
     return _FLASH_MIN_SEQ
 
 
-# The switches below choose kernels that are not ported yet. Their setters
-# take the values that keep the ported kernels (and hold no state, since
-# that is the only path there is) and raise on the rest.
-
-
 def set_fused_tail(mode) -> None:
-    """"off" and "auto" (which is off outside the JAX package's interpret
-    mode), or False; "on" (or True) needs the fused encoder-tail kernel
-    (rows 13-14), not ported yet."""
+    """"on" (or True): each NRMS encoder tail, MHSA -> dropout -> pooling,
+    runs as one kernel (rows 13-14). "off" (or False) and "auto" compose it
+    from the attention kernels: the JAX package's "auto" fuses only in its
+    Pallas interpret mode, which the port does not have."""
+    global _FUSED_TAIL
     if isinstance(mode, bool):
         mode = "on" if mode else "off"
     if mode not in ("auto", "on", "off"):
         raise ValueError(f"unknown fused_tail mode {mode!r}")
-    if mode == "on":
-        raise NotImplementedError(
-            "fused_tail='on' needs the fused encoder-tail kernel, not ported")
+    _FUSED_TAIL = mode
+
+
+def fused_tail_enabled(n_heads: int | None = None) -> bool:
+    """True for "on" only (``n_heads`` is taken, as the JAX package's
+    getter takes it, and not read)."""
+    return _FUSED_TAIL == "on"
+
+
+def set_attention_io(mode: str) -> None:
+    """How the unmasked fused-qkv attention takes the projection: "3d"
+    (an (N, T, 3HD) view; rows 1-4) or "2d" (the (N*T, 3HD) product as it
+    is; rows 11-12). Masked attention keeps the 3-D kernels."""
+    global _ATTN_IO
+    if mode not in ("3d", "2d"):
+        raise ValueError(f"unknown attention io {mode!r}")
+    _ATTN_IO = mode
+
+
+def attention_io() -> str:
+    return _ATTN_IO
 
 
 def set_attention_layout(layout: str) -> None:
     """"headloop" only: "blanes" needs its kernels (rows 15-16), not
-    ported yet."""
+    ported yet, and raises."""
     if layout not in ("headloop", "blanes"):
         raise ValueError(f"unknown attention layout {layout!r}")
     if layout == "blanes":
         raise NotImplementedError(
             "attention_layout='blanes' needs its kernels, not ported")
-
-
-def set_attention_io(mode: str) -> None:
-    """"3d" only: "2d" needs its kernels (rows 11-12), not ported yet."""
-    if mode not in ("3d", "2d"):
-        raise ValueError(f"unknown attention io {mode!r}")
-    if mode == "2d":
-        raise NotImplementedError(
-            "attention_io='2d' needs its kernels, not ported")
 
 
 def apply(cfg) -> None:
@@ -87,3 +95,5 @@ def apply(cfg) -> None:
     step's builder and ``Recommender.from_state`` call it; the switches are
     process-wide, so the step built last decides."""
     set_bwd_residuals(cfg.bwd_residuals)
+    set_fused_tail(cfg.fused_tail)
+    set_attention_layout(cfg.attention_layout)

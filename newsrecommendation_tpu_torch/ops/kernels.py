@@ -31,30 +31,51 @@ _BUILD_ROOT = os.path.join(_PKG_DIR, "_build")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-# Each source's C entry points, each in an _f32 and a _bf16 form, with
-# their count of pointer and of int arguments; the stream comes last.
+# Each source's C entry points, each in an _f32 and a _bf16 form, with the
+# types of their arguments ("p" a pointer, "i" an int, "u" an unsigned
+# 32-bit int, "f" a float); the stream comes last.
 _ENTRY_POINTS = {
-    "qkv_fwd": {"qkv_fwd": (4, 4), "qkv_fwd_probs": (5, 4)},
-    "qkv_bwd_probs": {"qkv_bwd_probs": (5, 4)},
-    "qkv_bwd": {"qkv_bwd": (5, 4)},
-    "flash_fwd": {"flash_fwd": (7, 6)},
-    "flash_bwd": {"flash_bwd": (11, 5)},
+    "qkv_fwd": {"qkv_fwd": "p" * 4 + "i" * 4,
+                "qkv_fwd_probs": "p" * 5 + "i" * 4},
+    "qkv_bwd_probs": {"qkv_bwd_probs": "p" * 5 + "i" * 4},
+    "qkv_bwd": {"qkv_bwd": "p" * 5 + "i" * 4},
+    "flash_fwd": {"flash_fwd": "p" * 7 + "i" * 6},
+    "flash_bwd": {"flash_bwd": "p" * 11 + "i" * 5},
+    "qkv2d": {"qkv2d_fwd": "p" * 4 + "i" * 4,
+              "qkv2d_bwd": "p" * 5 + "i" * 4},
+    "fused_tail_fwd": {"fused_tail_fwd": "p" * 8 + "i" * 6 + "uf"},
+    "fused_tail_bwd": {"fused_tail_bwd": "p" * 20 + "i" * 7 + "uf"},
 }
-# Sources whose block stages whole (T, D) operands in shared memory export
-# <name>_smem_bytes(t, d), checked against what a block may use.
-_SMEM_CHECKED = ("qkv_fwd", "qkv_bwd_probs", "qkv_bwd")
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "u": ctypes.c_uint32,
+           "f": ctypes.c_float}
+# Sources whose block stages whole rows or (T, D) operands in shared memory
+# export size functions (no dtype suffix), checked against what a block
+# may use: {source: {function: count of int arguments}}.
+_SMEM_CHECKED = {
+    "qkv_fwd": {"qkv_fwd_smem_bytes": 2},
+    "qkv_bwd_probs": {"qkv_bwd_probs_smem_bytes": 2},
+    "qkv_bwd": {"qkv_bwd_smem_bytes": 2},
+    "qkv2d": {"qkv2d_fwd_smem_bytes": 2, "qkv2d_bwd_smem_bytes": 2},
+    "fused_tail_fwd": {"fused_tail_fwd_smem_bytes": 4},
+    "fused_tail_bwd": {"fused_tail_bwd_smem_bytes": 4},
+}
 # Shared memory one block may use on sm_90 (opt-in, dynamic).
 MAX_SMEM = 232448
 
 # Each kernel's variants, counted apart. Rows of PERF.md's kernel table:
 # 1 "qkv_fwd", 2 "qkv_fwd_probs", 3 "qkv_bwd_probs", 4 "qkv_bwd",
-# 9 "flash_fwd", 10 "flash_bwd".
+# 9 "flash_fwd", 10 "flash_bwd", 11 "qkv2d_fwd", 12 "qkv2d_bwd",
+# 13 "fused_tail_fwd", 14 "fused_tail_bwd".
 KERNELS = {"qkv_fwd": ("bias", "bias_masked"),
            "qkv_fwd_probs": ("bias_probs", "bias_masked_probs"),
            "qkv_bwd_probs": ("bwd_probs",),
            "qkv_bwd": ("bwd", "bwd_masked"),
            "flash_fwd": ("flash", "flash_masked"),
-           "flash_bwd": ("flash_bwd", "flash_bwd_masked")}
+           "flash_bwd": ("flash_bwd", "flash_bwd_masked"),
+           "qkv2d_fwd": ("fwd2d",),
+           "qkv2d_bwd": ("bwd2d",),
+           "fused_tail_fwd": ("tail", "tail_masked"),
+           "fused_tail_bwd": ("tail_bwd", "tail_bwd_masked")}
 
 _lock = threading.Lock()  # guards the launch counts
 _build_lock = threading.Lock()
@@ -144,14 +165,14 @@ def library(name: str):
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(build([name])[name])
-            for entry, (n_ptrs, n_ints) in _ENTRY_POINTS[name].items():
+            for entry, sig in _ENTRY_POINTS[name].items():
                 for suffix in ("f32", "bf16"):
                     fn = getattr(lib, f"{entry}_{suffix}")
-                    fn.argtypes = [ptr] * n_ptrs + [i32] * n_ints + [ptr]
+                    fn.argtypes = [_CTYPES[c] for c in sig] + [ptr]
                     fn.restype = i32
-            if name in _SMEM_CHECKED:
-                smem = getattr(lib, f"{name}_smem_bytes")
-                smem.argtypes = [i32, i32]
+            for fn_name, n_ints in _SMEM_CHECKED.get(name, {}).items():
+                smem = getattr(lib, fn_name)
+                smem.argtypes = [i32] * n_ints
                 smem.restype = i32
             _libs[name] = lib
         return lib
@@ -182,12 +203,18 @@ def check_operands(lead, *others, contiguous=True,
             raise ValueError("operands must be contiguous")
 
 
-def check_smem(name: str, t: int, d: int) -> None:
-    smem = getattr(library(name), f"{name}_smem_bytes")(t, d)
+def smem_bytes(name: str, *dims, fn: str | None = None) -> int:
+    """Shared memory one block of source ``name`` needs at ``dims``, from
+    its size function ``fn`` (default ``<name>_smem_bytes``)."""
+    return getattr(library(name), fn or f"{name}_smem_bytes")(*dims)
+
+
+def check_smem(name: str, t: int, d: int, fn: str | None = None) -> None:
+    smem = smem_bytes(name, t, d, fn=fn)
     if smem > MAX_SMEM:
         raise NotImplementedError(
             f"T={t}, D={d} needs {smem} bytes of shared memory per block in "
-            f"{name}; the kernel takes at most {MAX_SMEM}")
+            f"{fn or name}; the kernel takes at most {MAX_SMEM}")
 
 
 def call(variant: str, fn, device, *args) -> None:

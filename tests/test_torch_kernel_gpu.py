@@ -1,6 +1,8 @@
 """The CUDA kernels (csrc/qkv_fwd.cu, rows 1 and 2; csrc/qkv_bwd_probs.cu,
 row 3; csrc/qkv_bwd.cu, row 4; csrc/flash_fwd.cu and csrc/flash_bwd.cu,
-rows 9 and 10) against their plain PyTorch versions, on the card. Imports
+rows 9 and 10; csrc/qkv2d.cu, rows 11 and 12; csrc/fused_tail_fwd.cu and
+csrc/fused_tail_bwd.cu, rows 13 and 14) against their plain PyTorch
+versions, on the card. Imports
 no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernel_gpu.py
@@ -13,8 +15,10 @@ import pytest
 import torch
 
 from newsrecommendation_tpu_torch.ops import blockwise as bw
+from newsrecommendation_tpu_torch.ops import experimental_fused_encoder as fe
+from newsrecommendation_tpu_torch.ops import experimental_qkv2d as q2
 from newsrecommendation_tpu_torch.ops import fused_attention as fa
-from newsrecommendation_tpu_torch.ops import kernel_config
+from newsrecommendation_tpu_torch.ops import kernel_config, kernels
 
 pytestmark = pytest.mark.gpu
 
@@ -365,3 +369,256 @@ def test_flash_raises_on_what_it_does_not_take():
     k = torch.zeros((1, 512, 8), device="cuda")
     with pytest.raises(ValueError, match="row stride"):
         bw.flash_exp_mhsa(q, k, k, 2)
+
+
+# ---- rows 11-12: the 2-D-I/O attention --------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n, t, heads, d", [(64, 20, 20, 20), (33, 50, 20, 20),
+                                            (7, 5, 3, 4), (3, 97, 2, 33)])
+def test_qkv2d_kernels_equal_rows_2_3(dtype, n, t, heads, d):
+    """Row 11's context and probs and row 12's dqkv equal rows 2-3's on the
+    (N, T, 3HD) view in every element, and the plain versions within the
+    tolerance."""
+    qkv, bias, _ = _inputs(n, t, heads, d, dtype, seed=8)
+    qkv2d = qkv.view(n * t, -1)
+    g = torch.randn((n, t, heads * d), device="cuda").to(qkv.dtype)
+    fa.reset_launch_counts()
+    out, probs = q2.qkv2d_fwd(qkv2d, bias, heads, t)
+    dqkv = q2.qkv2d_bwd(qkv2d, bias, probs, g, heads, t)
+    out3, probs3 = fa.qkv_fwd_probs(qkv, bias, None, heads)
+    dqkv3 = fa.qkv_bwd_probs(qkv, bias, probs3, g, heads)
+    ref, ref_probs = q2.qkv2d_fwd_reference(qkv2d, bias, heads, t)
+    ref_dqkv = q2.qkv2d_bwd_reference(qkv2d, bias, ref_probs, g, heads, t)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out3) and torch.equal(probs, probs3)
+    assert dqkv.shape == qkv2d.shape and torch.equal(dqkv.view_as(qkv),
+                                                     dqkv3)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), **TOL[dtype])
+    np.testing.assert_allclose(probs.cpu().numpy(), ref_probs.cpu().numpy(),
+                               **TOL["float32"])
+    np.testing.assert_allclose(dqkv.float().cpu().numpy(),
+                               ref_dqkv.float().cpu().numpy(),
+                               **BWD_TOL[dtype])
+    assert fa.launch_counts("qkv2d_fwd") == {"fwd2d": 1}
+    assert fa.launch_counts("qkv2d_bwd") == {"bwd2d": 1}
+
+
+def test_attention_io_2d_launches_rows_11_12():
+    """With attention_io "2d", unmasked attention under grad launches rows
+    11-12 and no row 1-4; masked attention keeps rows 2-3. A strided
+    gradient is made contiguous for row 12."""
+    from newsrecommendation_tpu_torch.ops import attention
+
+    rng = np.random.default_rng(1)
+    heads, d, t = 4, 8, 20
+    params = {name: {"w": torch.from_numpy(rng.normal(
+                         scale=0.2, size=(32, heads * d)).astype(np.float32))
+                     .cuda().requires_grad_(),
+                     "b": torch.zeros(heads * d, device="cuda",
+                                      requires_grad=True)}
+              for name in ("wq", "wk", "wv")}
+    x = torch.randn((6, t, 32), device="cuda", requires_grad=True)
+    mask = torch.ones((6, t), device="cuda")
+    mask[0, 5:] = 0.0
+    kernel_config.set_attention_io("2d")
+    try:
+        fa.reset_launch_counts()
+        out = attention.multi_head_self_attention(params, x, n_heads=heads)
+        out.backward(torch.randn((t, 6, heads * d),
+                                 device="cuda").transpose(0, 1))
+        masked = attention.multi_head_self_attention(params, x, mask,
+                                                     n_heads=heads)
+        masked.sum().backward()
+        torch.cuda.synchronize()
+    finally:
+        kernel_config.set_attention_io("3d")
+    assert fa.launch_counts("qkv2d_fwd") == {"fwd2d": 1}
+    assert fa.launch_counts("qkv2d_bwd") == {"bwd2d": 1}
+    assert fa.launch_counts("qkv_fwd_probs") == {"bias_probs": 0,
+                                                 "bias_masked_probs": 1}
+    assert fa.launch_counts("qkv_bwd_probs") == {"bwd_probs": 1}
+    assert not any(fa.launch_counts().values())
+
+
+# ---- rows 13-14: the fused encoder tail -------------------------------------
+
+
+def _tail_inputs(n, t, heads, d, q, dtype, seed=0):
+    qkv, _, mask = _inputs(n, t, heads, d, dtype, seed)
+    rng = np.random.default_rng(seed + 100)
+    tdt = getattr(torch, dtype)
+    hd = heads * d
+
+    def arr(shape, scale, to=torch.float32):
+        return torch.from_numpy(rng.normal(scale=scale, size=shape).astype(
+            np.float32)).to(to).cuda()
+
+    pool = (arr((hd, q), 0.1, tdt), arr((1, q), 0.5), arr((q, 1), 1.0, tdt),
+            arr((1, 1), 1.0))
+    g = arr((n, hd), 1.0, tdt)
+    return qkv, mask, pool, g
+
+
+def _summed_tol(refs, dtype):
+    """The pooling gradients are sums over all N*T positions, so an element
+    near 0 is a difference of large terms, and db2 is 0 analytically (alpha
+    sums to 1 on a row, or is 0): each element is held within a share of
+    the largest element of them all (f32: 1e-5, the order of the sums
+    alone; bf16: 2^-8, a rounding flip of a bf16 operand in one term)."""
+    share = 1e-5 if dtype == "float32" else 2 ** -8
+    rtol = 1e-4 if dtype == "float32" else 2 ** -6
+    largest = max(r.abs().max().item() for r in refs)
+    return dict(rtol=rtol, atol=share * largest)
+
+
+@pytest.mark.parametrize("dropout", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n, t, heads, d, q", [
+    (16, 20, 20, 20, 200), (33, 50, 20, 20, 200), (7, 5, 3, 4, 7),
+    (5, 13, 2, 33, 9)])
+def test_fused_tail_kernels_match_plain(n, t, heads, d, q, dtype, masked,
+                                        dropout):
+    """Rows 13-14 against their plain versions, dropout off and at 0.2;
+    row 14's outputs equal bit for bit over two runs."""
+    qkv, mask, pool, g = _tail_inputs(n, t, heads, d, q, dtype, seed=9)
+    km = mask if masked else None
+    seed = torch.tensor([2 ** 31 - 7], dtype=torch.int32, device="cuda")
+    args = (qkv, km, *pool, seed, heads, 0.2, not dropout)
+    kernels.reset_launch_counts()
+    out = fe.fused_tail_fwd(*args)
+    ref = fe.fused_tail_fwd_reference(*args)
+    grads = fe.fused_tail_bwd(*args[:7], g, *args[7:])
+    again = fe.fused_tail_bwd(*args[:7], g, *args[7:])
+    refs = fe.fused_tail_bwd_reference(*args[:7], g, *args[7:])
+    torch.cuda.synchronize()
+    assert out.dtype == qkv.dtype and out.shape == (n, heads * d)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), **TOL[dtype])
+    np.testing.assert_allclose(grads[0].float().cpu().numpy(),
+                               refs[0].float().cpu().numpy(),
+                               **BWD_TOL[dtype])
+    tol = _summed_tol(refs[1:], dtype)
+    for got, want in zip(grads[1:], refs[1:]):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **tol)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    if masked:
+        assert (out[::3] == 0).all() and (grads[0][::3] == 0).all()
+    variant = "_masked" if masked else ""
+    assert kernels.launch_counts("fused_tail_fwd")["tail" + variant] == 1
+    assert kernels.launch_counts("fused_tail_bwd")["tail_bwd" + variant] == 2
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+def test_fused_tail_takes_t_up_to_its_smem_limit(which):
+    """At H = D = 20, Q = 200 the longest row that fits in shared memory
+    runs and agrees with the plain version; one more position raises, with
+    the limit in the message."""
+    src = f"fused_tail_{which}"
+    fits = [t for t in range(1, 200) if kernels.smem_bytes(
+        src, t, 20, 20, 200, fn=f"{src}_smem_bytes") <= kernels.MAX_SMEM]
+    t_max = max(fits)
+    qkv, mask, pool, g = _tail_inputs(3, t_max, 20, 20, 200, "float32",
+                                      seed=10)
+    seed = torch.zeros(1, dtype=torch.int32, device="cuda")
+    args = (qkv, mask, *pool, seed, 20, 0.0, True)
+    if which == "fwd":
+        got, want = fe.fused_tail_fwd(*args), fe.fused_tail_fwd_reference(
+            *args)
+    else:
+        got = fe.fused_tail_bwd(*args[:7], g, *args[7:])[0]
+        want = fe.fused_tail_bwd_reference(*args[:7], g, *args[7:])[0]
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **BWD_TOL["float32"])
+    qkv, mask, pool, g = _tail_inputs(3, t_max + 1, 20, 20, 200, "float32")
+    args = (qkv, mask, *pool, seed, 20, 0.0, True)
+    with pytest.raises(NotImplementedError, match=f"T <= {t_max}"):
+        if which == "fwd":
+            fe.fused_tail_fwd(*args)
+        else:
+            fe.fused_tail_bwd(*args[:7], g, *args[7:])
+
+
+def test_fused_tail_raises_on_what_it_does_not_take():
+    qkv, mask, pool, g = _tail_inputs(4, 6, 2, 4, 5, "float32")
+    seed = torch.zeros(1, dtype=torch.int32, device="cuda")
+    w1, b1, w2, b2 = pool
+    with pytest.raises(ValueError, match="contiguous"):
+        fe.fused_tail_fwd(qkv.transpose(0, 1).contiguous().transpose(0, 1),
+                          None, w1, b1, w2, b2, seed, 2, 0.0, True)
+    with pytest.raises(TypeError, match="w1"):
+        fe.fused_tail_fwd(qkv, None, w1.bfloat16(), b1, w2, b2, seed, 2, 0.0,
+                          True)
+    with pytest.raises(TypeError, match="seed"):
+        fe.fused_tail_fwd(qkv, None, w1, b1, w2, b2, seed.long(), 2, 0.0,
+                          True)
+    with pytest.raises(ValueError, match="g must be"):
+        fe.fused_tail_bwd(qkv, None, w1, b1, w2, b2, seed, g[:, :4], 2, 0.0,
+                          True)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_fused_tail_launches_rows_13_14(masked):
+    """With fused_tail on, the encoder tail under grad launches row 13 and,
+    in its backward, row 14, and no attention row (whatever attention_io
+    says); a strided gradient is made contiguous. Gradients agree with the
+    plain route's on the CPU."""
+    from newsrecommendation_tpu_torch.ops import attention
+
+    rng = np.random.default_rng(2)
+    heads, d, t, q = 4, 8, 20, 16
+
+    def lin(i, o):
+        return {"w": torch.from_numpy(rng.normal(scale=0.3, size=(i, o))
+                                      .astype(np.float32)).cuda()
+                .requires_grad_(),
+                "b": torch.zeros(o, device="cuda", requires_grad=True)}
+
+    mhsa = {k: lin(32, heads * d) for k in ("wq", "wk", "wv")}
+    pool = {"fc1": lin(heads * d, q), "fc2": lin(q, 1)}
+    x = torch.randn((6, t, 32), device="cuda", requires_grad=True)
+    mask = torch.ones((6, t), device="cuda")
+    mask[0, 5:] = 0.0
+    km = mask if masked else None
+    g = torch.randn((heads * d, 6), device="cuda").t()
+    kernel_config.set_fused_tail("on")
+    kernel_config.set_attention_io("2d")
+    try:
+        kernels.reset_launch_counts()
+        out = attention.mhsa_dropout_pool(mhsa, pool, x, km, n_heads=heads)
+        out.backward(g)
+        torch.cuda.synchronize()
+        launches = {k: kernels.launch_counts(k) for k in kernels.KERNELS}
+        cpu = {name: {k: {n: w.detach().cpu().requires_grad_()
+                          for n, w in p.items()} for k, p in tree.items()}
+               for name, tree in (("mhsa", mhsa), ("pool", pool))}
+        xc = x.detach().cpu().requires_grad_()
+        ref = attention.mhsa_dropout_pool(
+            cpu["mhsa"], cpu["pool"], xc, None if km is None else km.cpu(),
+            n_heads=heads)
+        ref.backward(g.cpu())
+    finally:
+        kernel_config.set_fused_tail("auto")
+        kernel_config.set_attention_io("3d")
+    variant = "_masked" if masked else ""
+    assert launches["fused_tail_fwd"]["tail" + variant] == 1
+    assert launches["fused_tail_bwd"]["tail_bwd" + variant] == 1
+    others = {k: v for k, v in launches.items()
+              if not k.startswith("fused_tail")}
+    assert not any(any(v.values()) for v in others.values()), others
+    np.testing.assert_allclose(out.detach().cpu().numpy(),
+                               ref.detach().numpy(), **TOL["float32"])
+    np.testing.assert_allclose(x.grad.cpu().numpy(), xc.grad.numpy(),
+                               **BWD_TOL["float32"])
+    pairs = [(f"{k}.{n}", w.grad, cpu[name][k][n].grad)
+             for name, tree in (("mhsa", mhsa), ("pool", pool))
+             for k, p in tree.items() for n, w in p.items()]
+    tol = _summed_tol([ref_g for _, _, ref_g in pairs], "float32")
+    for label, got, ref_g in pairs:
+        np.testing.assert_allclose(got.cpu().numpy(), ref_g.numpy(), **tol,
+                                   err_msg=label)

@@ -182,13 +182,28 @@ def test_switch_defaults_are_jax_s():
 
 
 @pytest.mark.parametrize("setter, value", [
-    ("set_fused_tail", "on"), ("set_fused_tail", True),
-    ("set_attention_layout", "blanes"), ("set_attention_io", "2d")])
+    ("set_attention_layout", "blanes")])
 def test_unported_values_raise(setter, value):
     """A value whose kernel is not ported raises when it is set: it is
     never accepted and then ignored."""
     with pytest.raises(NotImplementedError, match="not ported"):
         getattr(kernel_config, setter)(value)
+
+
+@pytest.mark.parametrize("setter, value, getter, want, default", [
+    ("set_fused_tail", "on", "fused_tail_enabled", True, "auto"),
+    ("set_fused_tail", True, "fused_tail_enabled", True, "auto"),
+    ("set_attention_io", "2d", "attention_io", "2d", "3d")])
+def test_ported_values_set_their_switch(setter, value, getter, want,
+                                        default):
+    """The values whose kernels are now ported (rows 11-14) set their
+    switch, which its getter reads; the default is restored after."""
+    try:
+        getattr(kernel_config, setter)(value)
+        assert getattr(kernel_config, getter)() == want
+    finally:
+        getattr(kernel_config, setter)(default)
+    assert getattr(kernel_config, getter)() != want
 
 
 @pytest.mark.parametrize("setter, value", [
@@ -213,11 +228,15 @@ def test_ported_values_are_taken():
         assert kernel_config.flash_min_seq() == 64
         kernel_config.apply(Config(bwd_residuals="recompute"))
         assert kernel_config.bwd_residuals() == "recompute"
+        kernel_config.apply(Config(fused_tail="on"))
+        assert kernel_config.fused_tail_enabled()
         kernel_config.apply(Config())
         assert kernel_config.bwd_residuals() == "probs"
+        assert not kernel_config.fused_tail_enabled()
     finally:
         kernel_config.set_flash_min_seq(512)
         kernel_config.set_bwd_residuals("probs")
+        kernel_config.set_fused_tail("auto")
     with pytest.raises(ValueError, match="bwd_residuals"):
         Config(bwd_residuals="saved")
 
