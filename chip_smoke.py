@@ -3,7 +3,8 @@
 NVIDIA GPU: builds the CUDA kernels, holds each against its plain PyTorch
 version, serves NRMS at its published width over HTTP, then trains it at
 its published width, with 50- and 512-news histories, and with the fused
-encoder tail and the 2-D-I/O attention.
+encoder tail, the 2-D-I/O attention and the batch-in-lanes attention;
+drives multi-head self-attention at unequal q/k/v widths.
 
     python3 chip_smoke.py        # from the repo root, on a machine with
                                  # one CUDA card and nvcc
@@ -46,6 +47,23 @@ Phases, each printing one line with its elapsed seconds:
            controls (keep mask from another hash constant or a per-block
            index, dropout scale left out, alpha without the key mask, and
            in bf16 dw1 from the rounded ctx and d_z unrounded before w1^T)
+  kernel-fused-tail-long  rows 13-14, masked, at 128 x 87, 128 x 512 (with
+           dropout) and 32 x 1000, f32 and bf16: rows past what shared
+           memory holds, kept in a global scratch; also the control of a
+           scratch slot shared between two rows
+  kernel-sep  rows 5-8 (separate q, k, v; 7-8 with the key mask) vs their
+           plain versions at 7040 x 20 with d_v = 20 and d_v = 32, f32 and
+           bf16, on q, k, v cut from one projection; controls (mask
+           dropped, v sliced at q's width as the TPU kernels slice it, ds
+           without its row-sum term, in bf16 dv from the unrounded a);
+           kernel / plain / scaled_dot_product_attention times
+  kernel-blanes  rows 15-16 (the batch-in-lanes forward and backward) vs
+           their plain versions at 7040 x 20, 128 x 50 masked and 64 x 511
+           (both), f32 and bf16; controls as rows 1 and 4's; kernel /
+           plain / scaled_dot_product_attention times
+  mhsa-unequal  multi_head_self_attention at d_k = 20, d_v = 32 (1024 x
+           20, 20 heads, both masks), forward and backward on the card
+           against the CPU, launching rows 5-8 only
   corpus   a 65,536-news synthetic corpus, full-width NRMS params from a
            seed, and two draws of its behaviors prepared into training
            samples: histories of up to 80 news cut to 50, and of up to 600
@@ -57,14 +75,18 @@ Phases, each printing one line with its elapsed seconds:
            the plain versions; launch counts read around both runs
   serve fused_tail  the same once with fused_tail "on" and user_log_mask
            True: row 13 only, both variants
+  serve attention_layout=blanes  the same with attention_layout "blanes":
+           row 15 only, both variants
   serve-long  the same with user_log_length 512: the user encoder takes
-           the flash forward (row 9), whose launches are counted
+           the flash forward (row 9), whose launches are counted; then once
+           with fused_tail "on": row 13 on both encoders, no flash
   train-check  one f32 train step (dropout off, B=16, full width) on the
            card and on the CPU from the same params and batch: loss, every
            leaf's gradient, the frozen table unchanged; for user_log_mask
            False and True, with bwd_residuals "recompute", with fused_tail
-           "on" (both masks), with the word table trained, and at a
-           512-news history (B=8, 5 heads of 20)
+           "on" (both masks), with attention_layout "blanes" (both
+           masks), with the word table trained, and at a 512-news history
+           (B=8, 5 heads of 20)
   train    fit() at the headline training step (bf16 over f32 params,
            B=128, 1+4 candidates, 50-news history, dropout 0.2, Adam lr
            3e-4, frozen table, device gather, prefetch depth 2) for one
@@ -75,14 +97,18 @@ Phases, each printing one line with its elapsed seconds:
            must fall. Again with bwd_residuals "recompute" (2 row-1 and 2
            row-4 launches per step), with the word table trained, with
            fused_tail "on" (2 row-13 and 2 row-14 launches per step), with
-           attention_io "2d" (2 row-11 and 2 row-12 launches per step), and
-           for 12 steps with 512-news histories (one row-9 and one row-10
-           launch per step, rows 2-3 once per step for the news encoder)
+           attention_io "2d" (2 row-11 and 2 row-12 launches per step),
+           with attention_layout "blanes" (2 row-15 and 2 row-16 launches
+           per step), for 12 steps with 512-news histories (one row-9 and
+           one row-10 launch per step, rows 2-3 once per step for the news
+           encoder), and for 6 steps with 512-news histories and fused_tail
+           "on" (2 row-13 and 2 row-14 launches per step, no flash)
   profile  device time, top kernels and device busy share (torch.profiler
            against an unprofiled wall clock) of one served batch of 64
            users x 300 candidates, of a 64-user corpus top-10, of one
            1024-row news-encoder chunk and of the headline, recompute,
-           trained-table, fused-tail, 2-D-I/O and 512-history train steps
+           trained-table, fused-tail, 2-D-I/O, blanes, 512-history and
+           512-history fused-tail train steps
 Then one JSON line of per-kernel numbers, and last the line
 {"ok": true, "device": {...}}. Any failed phase raises: the exit code is
 then not 0 and no result line is printed. Without CUDA it exits 1 at once.
@@ -148,14 +174,31 @@ FLASH_BWD_SOURCE = f"{CSRC}/flash_bwd.cu"
 QKV2D_KERNELS = "newsrecommendation_tpu/ops/pallas/experimental_qkv2d.py"
 TAIL_KERNELS = ("newsrecommendation_tpu/ops/pallas/"
                 "experimental_fused_encoder.py")
+BLANES_KERNELS = "newsrecommendation_tpu/ops/pallas/experimental_blanes.py"
 QKV2D_SOURCE = f"{CSRC}/qkv2d.cu"
 TAIL_FWD_SOURCE = f"{CSRC}/fused_tail_fwd.cu"
 TAIL_BWD_SOURCE = f"{CSRC}/fused_tail_bwd.cu"
+SEP_SOURCE = f"{CSRC}/mhsa_sep.cu"
+BLANES_SOURCE = f"{CSRC}/blanes.cu"
 # Row 3 at the lengths its first design refused (T > 201 at D = 20).
 LONG_T = (202, 300, 511)
 # A long user history: flash_min_seq keys, so MHSA takes rows 9-10.
 LONG_L = 512
 LONG_STEPS = 12  # train steps at LONG_L
+# Rows 13-14 past the row the kernels keep in shared memory (T <= 86 / 85
+# at the NRMS width), masked: (N, T, dropout, dtypes) one position past
+# it, the user encoder at LONG_L, and the flash cases' 1000 (past row 4's
+# 599, so row 14's attention part stages its operands in global memory
+# too). At 1000, 32 rows lie within one block of the planted per-block
+# keep mask, so dropout is off; and in bf16 the pooled output of 1000
+# positions moves by less than the 2^-8 atol when alpha loses the key
+# mask, so only f32 there.
+TAIL_LONG = ((128, 87, True, ("float32", "bfloat16")),
+             (128, LONG_L, True, ("float32", "bfloat16")),
+             (32, 1000, False, ("float32",)))
+FUSED_LONG_STEPS = 6  # train steps with the fused tail at LONG_L
+# Rows 5-8 at the news encoder's shape with d_v = d_k and d_v = 32.
+SEP_DV = (20, 32)
 # The long train-check's reduced width (heads of 20 as published).
 LONG_CHECK = {"news_dim": 100, "num_attention_heads": 5,
               "news_query_vector_dim": 50, "user_query_vector_dim": 50,
@@ -703,7 +746,10 @@ TAIL_BLOCK = 64  # rows per block of the planted per-block keep mask
 def tail_inputs(n, t, heads, d, q, dtype, masked, seed):
     """Biased qkv, the key mask (every 7th row fully masked) or None, the
     pooling params as the model feeds them (w1, w2 in the input dtype, b1,
-    b2 f32) and the output's gradient g, on DEVICE."""
+    b2 f32) and the output's gradient g, on DEVICE. g is scaled by T / 20
+    past T = 20: the pooling weights spread it over T positions, and at
+    T = 512 unscaled every bf16 dqkv element lies below the 2^-8 atol,
+    where no comparison could tell a kernel 6% off."""
     import torch
 
     tdt = getattr(torch, dtype)
@@ -716,7 +762,7 @@ def tail_inputs(n, t, heads, d, q, dtype, masked, seed):
     qkv = rnd((n, t, 3 * hd)).to(tdt)
     pool = (rnd((hd, q), (6.0 / (hd + q)) ** 0.5).to(tdt), rnd((1, q), 0.1),
             rnd((q, 1), (6.0 / (q + 1)) ** 0.5).to(tdt), rnd((1, 1), 0.1))
-    g = rnd((n, hd)).to(tdt)
+    g = rnd((n, hd), max(1.0, t / 20)).to(tdt)
     mask = None
     if masked:
         mask = (torch.rand((n, t), generator=gen, device=DEVICE) > 0.3).float()
@@ -725,13 +771,22 @@ def tail_inputs(n, t, heads, d, q, dtype, masked, seed):
     return qkv, mask, pool, g
 
 
-def tail_faults(fe, dropout, masked):
+def tail_faults(fe, dropout, masked, long_rows=False):
     """Planted faults of row 13's plain version: {name: patches of the
     module's functions or constants}, each to be rejected by the forward's
-    comparison."""
+    comparison. ``long_rows``: the rows live in a global scratch, and one
+    fault lets two rows share a slot (the second row pools the first's
+    context)."""
     import torch
 
     keep = fe.keep_mask
+    context = fe._context
+
+    def shared_slot(*args, **kw):
+        ctx, probs = context(*args, **kw)
+        ctx = ctx.clone()
+        ctx[1::2] = ctx[0::2][:ctx[1::2].shape[0]]
+        return ctx, probs
 
     def per_block(shape, rate, seed, row0=0):
         n, t, hd = shape
@@ -749,6 +804,8 @@ def tail_faults(fe, dropout, masked):
         pool_fwd = fe._pool_fwd
         faults["alpha without the key mask"] = {
             "_pool_fwd": lambda ctx, key_mask, *p: pool_fwd(ctx, None, *p)}
+    if long_rows:
+        faults["scratch shared between two rows"] = {"_context": shared_slot}
     return faults
 
 
@@ -791,7 +848,11 @@ def tail_kernel_case(fe, masked, n, t, heads, d, q, dtype, dropout, seed):
                              or grads[0][::7].abs().max().item() != 0.0):
         fail(f"{where}: fully masked rows have out or dqkv not 0")
     caught = {}
-    for name, attrs in tail_faults(fe, dropout, masked).items():
+    long_rows = fe.kernels.size_of("fused_tail_fwd",
+                                   "fused_tail_fwd_scratch_floats", t, heads,
+                                   d, q) > 0
+    case["long_rows"] = long_rows
+    for name, attrs in tail_faults(fe, dropout, masked, long_rows).items():
         with mock.patch.multiple(fe, **attrs):
             caught[name] = n_outside(out, fe.fused_tail_fwd_reference(*args),
                                      f_rtol, f_atol)
@@ -809,9 +870,18 @@ def tail_kernel_case(fe, masked, n, t, heads, d, q, dtype, dropout, seed):
         with mock.patch.multiple(fe, _dctx_of_dz=lambda d_z, w1: torch.matmul(
                 d_z, w1.float().t())):
             fault = fe.fused_tail_bwd_reference(*bargs)[0]
-        caught["d_z not rounded before w1^T (differing elements)"] = (
-            rounding_fault(grads[0], fault, case["dqkv"]["n_differ"], b_rtol,
-                           b_atol))
+        name = "d_z not rounded before w1^T (differing elements)"
+        if not long_rows:
+            caught[name] = rounding_fault(grads[0], fault,
+                                          case["dqkv"]["n_differ"], b_rtol,
+                                          b_atol)
+        else:
+            # long rows round d_z in the same code as the rows above, which
+            # hold this fault; here its count is recorded, not held: the
+            # kernel and its plain version already differ in a similar count
+            # of sub-ulp dqkv elements
+            case["d_z_fault_differ"] = [n_differ(grads[0], fault),
+                                        case["dqkv"]["n_differ"]]
     check_caught(where, caught)
     case["faults_caught"] = caught
 
@@ -821,7 +891,7 @@ def tail_kernel_case(fe, masked, n, t, heads, d, q, dtype, dropout, seed):
     mask_bytes = 0 if mask is None else 4 * n * t
     attn = n * heads * t * t * d
     pool_flops = n * t * hd * q
-    iters = 10 if n * t > 50000 else 20
+    iters = 3 if t > 100 else 10 if n * t > 50000 else 20
     case["fwd"] = timed(
         lambda: fe.fused_tail_fwd(*args),
         lambda: fe.fused_tail_fwd_reference(*args),
@@ -833,6 +903,225 @@ def tail_kernel_case(fe, masked, n, t, heads, d, q, dtype, dropout, seed):
         item * (2 * n * t * 3 * hd + n * hd) + param_bytes + mask_bytes + 4
         + 4 * (hd * q + 2 * q + 1), 10 * attn + 6 * pool_flops, dtype, iters)
     return case
+
+def blanes_kernel_case(bl, fa, masked, n, t, heads, d, dtype, seed):
+    """Rows 15 and 16 (batch-in-lanes forward and backward) against their
+    plain versions on the card, with planted faults, timings (row 15's
+    beside scaled_dot_product_attention) and bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=DEVICE).manual_seed(600 + seed)
+    hd = heads * d
+    qkv = (torch.randn((n, t, 3 * hd), generator=gen, device=DEVICE)
+           + 0.5 * torch.randn((3 * hd,), generator=gen,
+                               device=DEVICE)).to(tdt)
+    g = torch.randn((n, t, hd), generator=gen, device=DEVICE).to(tdt)
+    mask = None
+    if masked:
+        mask = (torch.rand((n, t), generator=gen, device=DEVICE) > 0.3).float()
+        mask[:, -1] = 1.0
+        mask[::7] = 0.0  # every 7th row fully masked: its output is 0
+    (f_rtol, f_atol), (b_rtol, b_atol) = TRAIN_TOL[dtype]
+    where = f"blanes{'_masked' if masked else ''} {dtype} N={n} T={t}"
+
+    out = bl.blanes_fwd(qkv, mask, heads)
+    dqkv = bl.blanes_bwd(qkv, mask, g, heads)
+    ref = bl.blanes_fwd_reference(qkv, mask, heads)
+    ref_dqkv = bl.blanes_bwd_reference(qkv, mask, g, heads)
+    dqkv.sum().item()  # waits for the kernels
+    case = {"variant": "blanes_masked" if masked else "blanes",
+            "shape": [n, t, heads, d], "dtype": dtype,
+            "ctx": compare(where, "ctx", out, ref, f_rtol, f_atol),
+            "dqkv": compare(where, "dqkv", dqkv, ref_dqkv, b_rtol, b_atol)}
+    if mask is not None and (out[::7].abs().max().item() != 0.0
+                             or dqkv[::7].abs().max().item() != 0.0):
+        fail(f"{where}: fully masked rows have ctx or dqkv not 0")
+    zero = torch.zeros(3 * hd, dtype=tdt, device=DEVICE)
+    _, probs = fa.exp_mhsa_qkv_bias_probs_reference(qkv, zero, mask, heads)
+    caught = {"ds without its row-sum term": n_outside(
+        dqkv, bwd_plain_with_fault(qkv, zero, probs, g, heads, rowsum=False),
+        b_rtol, b_atol)}
+    if mask is not None:
+        caught["mask dropped"] = n_outside(
+            out, bl.blanes_fwd_reference(qkv, None, heads), f_rtol, f_atol)
+    if dtype == "bfloat16":
+        caught.update(bwd_rounding_faults(dqkv, qkv, zero, probs, g, heads,
+                                          case["dqkv"]["n_differ"],
+                                          (b_rtol, b_atol)))
+    check_caught(where, caught)
+    case["faults_caught"] = caught
+    item = qkv.element_size()
+    mask_bytes = 0 if mask is None else 4 * n * t
+    iters = 3 if t > 100 else 20
+    # library: softmax attention on the same q, k, v, equal to this
+    # function on rows with a key left (up to its 1e-8 term); timed as a
+    # yardstick, never called by the port
+    x = qkv.view(n, t, 3, heads, d).permute(2, 0, 3, 1, 4)
+    attn_mask = None if mask is None else mask.bool()[:, None, None, :]
+    case["fwd"] = timed(
+        lambda: bl.blanes_fwd(qkv, mask, heads),
+        lambda: bl.blanes_fwd_reference(qkv, mask, heads),
+        item * (n * t * 3 * hd + n * t * hd) + mask_bytes,
+        4 * n * heads * t * t * d, dtype, iters,
+        library=lambda: F.scaled_dot_product_attention(
+            x[0], x[1], x[2], attn_mask=attn_mask))
+    case["bwd"] = timed(
+        lambda: bl.blanes_bwd(qkv, mask, g, heads),
+        lambda: bl.blanes_bwd_reference(qkv, mask, g, heads),
+        item * (2 * n * t * 3 * hd + n * t * hd) + mask_bytes,
+        10 * n * heads * t * t * d, dtype, iters)
+    return case
+
+
+def sep_kernel_case(fa, masked, n, t, heads, dk, dv, dtype, seed):
+    """Rows 5-8 (separate q, k, v; rows 7-8 with the key mask) against
+    their plain versions on the card, on q, k, v cut from one projection,
+    at d_v = d_k and d_v != d_k, with planted faults, timings (the
+    forward's beside scaled_dot_product_attention) and bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=DEVICE).manual_seed(700 + seed)
+    hdk, hdv = heads * dk, heads * dv
+    proj = torch.randn((n, t, 2 * hdk + hdv), generator=gen,
+                       device=DEVICE).to(tdt)
+    q, k, v = torch.split(proj, [hdk, hdk, hdv], dim=-1)
+    g = torch.randn((n, t, hdv), generator=gen, device=DEVICE).to(tdt)
+    mask = None
+    if masked:
+        mask = (torch.rand((n, t), generator=gen, device=DEVICE) > 0.3).float()
+        mask[:, -1] = 1.0
+        mask[::7] = 0.0  # every 7th row fully masked: output and grads 0
+    (f_rtol, f_atol), (b_rtol, b_atol) = TRAIN_TOL[dtype]
+    where = (f"mhsa{'_masked' if masked else ''} {dtype} N={n} T={t} "
+             f"dk={dk} dv={dv}")
+
+    out = fa.mhsa_sep_fwd(q, k, v, mask, heads)
+    grads = fa.mhsa_sep_bwd(q, k, v, mask, g, heads)
+    ref = fa.exp_mhsa_reference(q, k, v, mask, heads)
+    refs = fa.exp_mhsa_bwd_reference(q, k, v, mask, g, heads)
+    grads[0].sum().item()  # waits for the kernels
+    case = {"variant": "mhsa_masked" if masked else "mhsa",
+            "shape": [n, t, heads, dk, dv], "dtype": dtype,
+            "ctx": compare(where, "ctx", out, ref, f_rtol, f_atol)}
+    for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
+        case[name] = compare(where, name, got, want, b_rtol, b_atol)
+    if mask is not None and (out[::7].abs().max().item() != 0.0 or any(
+            x[::7].abs().max().item() != 0.0 for x in grads)):
+        fail(f"{where}: fully masked rows have ctx or grads not 0")
+    caught = {}
+    if mask is not None:
+        caught["mask dropped"] = n_outside(
+            out, fa.exp_mhsa_reference(q, k, v, None, heads), f_rtol, f_atol)
+    if dv != dk:
+        # the JAX package's rows 5-8: the output sized by q's width and v
+        # sliced with q's per-head slice (zero past that width here)
+        sliced = fa.exp_mhsa_reference(q, k, v[..., :hdk], mask, heads)
+        caught["v sliced at q's width"] = n_outside(
+            out, F.pad(sliced, (0, hdv - hdk)), f_rtol, f_atol)
+    else:
+        qkv = proj.contiguous()
+        zero = torch.zeros(3 * hdk, dtype=tdt, device=DEVICE)
+        _, probs = fa.exp_mhsa_qkv_bias_probs_reference(qkv, zero, mask,
+                                                        heads)
+        got = torch.cat(grads, -1)
+        caught["ds without its row-sum term"] = n_outside(
+            got, bwd_plain_with_fault(qkv, zero, probs, g, heads,
+                                      rowsum=False), b_rtol, b_atol)
+        if dtype == "bfloat16":
+            caught.update(bwd_rounding_faults(
+                got, qkv, zero, probs, g, heads,
+                sum(case[x]["n_differ"] for x in ("dq", "dk", "dv")),
+                (b_rtol, b_atol)))
+    check_caught(where, caught)
+    case["faults_caught"] = caught
+    item = q.element_size()
+    mask_bytes = 0 if mask is None else 4 * n * t
+    in_bytes = item * n * t * (2 * hdk + hdv)
+    qh, kh = (x.view(n, t, heads, dk).transpose(1, 2) for x in (q, k))
+    vh = v.view(n, t, heads, dv).transpose(1, 2)
+    attn_mask = None if mask is None else mask.bool()[:, None, None, :]
+    case["fwd"] = timed(
+        lambda: fa.mhsa_sep_fwd(q, k, v, mask, heads),
+        lambda: fa.exp_mhsa_reference(q, k, v, mask, heads),
+        in_bytes + item * n * t * hdv + mask_bytes,
+        2 * n * heads * t * t * (dk + dv), dtype,
+        library=lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=attn_mask))
+    case["bwd"] = timed(
+        lambda: fa.mhsa_sep_bwd(q, k, v, mask, g, heads),
+        lambda: fa.exp_mhsa_bwd_reference(q, k, v, mask, g, heads),
+        2 * in_bytes + item * n * t * hdv + mask_bytes,
+        n * heads * t * t * (6 * dk + 4 * dv), dtype)
+    return case
+
+
+def unequal_run(masked, n=1024, t=20, heads=20, dk=20, dv=32, d_model=300):
+    """multi_head_self_attention at d_v != d_k, forward and backward, on
+    the card and on the CPU from the same params and input: the card's
+    route is rows 5-8 (launch counts reset just before and read just
+    after), the CPU's their plain versions. Output and the input's
+    gradient held as a kernel to its plain version (f32), each projection
+    weight's gradient within TRAIN_GRAD_SHARE of its largest element."""
+    import torch
+
+    from newsrecommendation_tpu_torch.ops import attention, kernels
+
+    gen = torch.Generator().manual_seed(800 + masked)
+    params = attention.init_multi_head_self_attention(gen, d_model, heads,
+                                                      dk, dv)
+    x = torch.randn((n, t, d_model), generator=gen)
+    mask = None
+    if masked:
+        mask = (torch.rand((n, t), generator=gen) > 0.3).float()
+        mask[:, -1] = 1.0
+        mask[::7] = 0.0
+    g = torch.randn((n, t, heads * dv), generator=gen)
+    res = {}
+    for dev in (DEVICE, "cpu"):
+        p = {k: {nm: w.to(dev).requires_grad_() for nm, w in v.items()}
+             for k, v in params.items()}
+        xx = x.to(dev).requires_grad_()
+        kernels.reset_launch_counts()
+        out = attention.multi_head_self_attention(
+            p, xx, None if mask is None else mask.to(dev), n_heads=heads)
+        out.backward(g.to(dev))
+        xx.grad.sum().item()  # waits for the kernels
+        launches = {k: kernels.launch_counts(k) for k in kernels.KERNELS
+                    if any(kernels.launch_counts(k).values())}
+        res[dev] = (out.detach().cpu(), xx.grad.cpu(),
+                    {k: p[k]["w"].grad.cpu() for k in p}, launches)
+    where = f"mhsa-unequal masked={masked}"
+    (f_rtol, f_atol), (b_rtol, b_atol) = TRAIN_TOL["float32"]
+    out = {"shape": [n, t, heads, dk, dv],
+           "ctx": compare(where, "ctx", res[DEVICE][0], res["cpu"][0],
+                          f_rtol, f_atol),
+           "dx": compare(where, "dx", res[DEVICE][1], res["cpu"][1], b_rtol,
+                         b_atol)}
+    worst = 0.0
+    for k, got in res[DEVICE][2].items():
+        want = res["cpu"][2][k]
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        if not err <= TRAIN_GRAD_SHARE * scale:
+            fail(f"{where}: {k} gradient differs by {err:.3e}, over "
+                 f"{TRAIN_GRAD_SHARE} of its max {scale:.3e}")
+        worst = max(worst, err / scale)
+    out["worst_weight_grad_share"] = worst
+    variant = "_masked" if masked else ""
+    launches = res[DEVICE][3]
+    if set(launches) != {"mhsa_fwd", "mhsa_bwd"} or not (
+            launches["mhsa_fwd"]["mhsa" + variant]
+            and launches["mhsa_bwd"]["mhsa_bwd" + variant]):
+        fail(f"{where}: launches {launches}, expected rows 5-8 only")
+    if res["cpu"][3]:
+        fail(f"{where}: the CPU counted launches {res['cpu'][3]}")
+    out["launches"] = launches
+    return out
+
 
 def compare(where, name, got, want, rtol, atol):
     """got against want: fails on a non-finite value or an element outside
@@ -969,10 +1258,11 @@ def expected_launches(steps, cfg, attention_io="3d"):
     """Launches per kernel variant of an epoch of ``steps`` train steps
     with user_log_mask off: the news encoder (20-word titles) and the user
     encoder each run one forward and one backward per step: with
-    fused_tail "on" through rows 13-14 (the whole tail); else, for a
-    history of flash_min_seq keys or more, the user encoder through rows
-    9-10, and each shorter sequence through rows 11-12 (attention_io
-    "2d"), rows 2-3 ("probs") or rows 1 and 4 ("recompute")."""
+    fused_tail "on" through rows 13-14 (the whole tail, at any length);
+    else, for a history of flash_min_seq keys or more, the user encoder
+    through rows 9-10, and each shorter sequence through rows 15-16
+    (attention_layout "blanes"), rows 11-12 (attention_io "2d"), rows 2-3
+    ("probs") or rows 1 and 4 ("recompute")."""
     from newsrecommendation_tpu_torch.ops import kernel_config, kernels
 
     want = {k: {v: 0 for v in variants}
@@ -982,7 +1272,10 @@ def expected_launches(steps, cfg, attention_io="3d"):
         want["fused_tail_bwd"]["tail_bwd"] = 2 * steps
         return want
     fused = 1 + int(cfg.user_log_length < kernel_config.flash_min_seq())
-    if attention_io == "2d":
+    if cfg.attention_layout == "blanes":
+        want["blanes_fwd"]["blanes"] = fused * steps
+        want["blanes_bwd"]["blanes_bwd"] = fused * steps
+    elif attention_io == "2d":
         want["qkv2d_fwd"]["fwd2d"] = fused * steps
         want["qkv2d_bwd"]["bwd2d"] = fused * steps
     elif cfg.bwd_residuals == "probs":
@@ -1069,6 +1362,7 @@ def train_run(ctx, fa, samples="samples", fixed_batch=True, max_steps=None,
            "user_log_length": cfg.user_log_length,
            "bwd_residuals": cfg.bwd_residuals,
            "fused_tail": cfg.fused_tail, "attention_io": io,
+           "attention_layout": cfg.attention_layout,
            "freeze_embedding": cfg.freeze_embedding,
            "examples_per_sec": ex_s,
            "step_ms": 1e3 * cfg.batch_size / ex_s if ex_s else None,
@@ -1271,6 +1565,7 @@ def main() -> int:
           cuda=torch.version.cuda)
 
     from newsrecommendation_tpu_torch.ops import blockwise as bw
+    from newsrecommendation_tpu_torch.ops import experimental_blanes as bl
     from newsrecommendation_tpu_torch.ops import (
         experimental_fused_encoder as fe,
     )
@@ -1354,6 +1649,50 @@ def main() -> int:
                 tail_cases.append(c)
                 print("  kernel-fused-tail " + json.dumps(c), flush=True)
     phase("kernel-fused-tail", t, cases=len(tail_cases))
+
+    # ---- kernel rows 13-14 past the rows shared memory holds ----------------
+    t = time.perf_counter()
+    tail_long_cases = []
+    for i, (n, tl, dropout, dtypes) in enumerate(TAIL_LONG):
+        for dtype in dtypes:
+            c = tail_kernel_case(fe, True, n, tl, 20, 20, 200, dtype,
+                                 dropout, seed=10 + i)
+            tail_long_cases.append(c)
+            print("  kernel-fused-tail-long " + json.dumps(c), flush=True)
+    phase("kernel-fused-tail-long", t, cases=len(tail_long_cases))
+
+    # ---- kernel rows 5-8 vs plain -------------------------------------------
+    t = time.perf_counter()
+    sep_cases = []
+    for i, dv in enumerate(SEP_DV):
+        for masked in (False, True):
+            for dtype in ("float32", "bfloat16"):
+                c = sep_kernel_case(fa, masked, 7040, 20, 20, 20, dv, dtype,
+                                    seed=i)
+                sep_cases.append(c)
+                print("  kernel-sep " + json.dumps(c), flush=True)
+    phase("kernel-sep", t, cases=len(sep_cases))
+
+    # ---- kernel rows 15-16 vs plain -----------------------------------------
+    t = time.perf_counter()
+    blanes_cases = []
+    shapes = [(False, 7040, 20), (True, 128, 50), (False, 64, 511),
+              (True, 64, 511)]
+    for i, (masked, n, tl) in enumerate(shapes):
+        for dtype in ("float32", "bfloat16"):
+            c = blanes_kernel_case(bl, fa, masked, n, tl, 20, 20, dtype,
+                                   seed=i)
+            blanes_cases.append(c)
+            print("  kernel-blanes " + json.dumps(c), flush=True)
+    phase("kernel-blanes", t, cases=len(blanes_cases))
+
+    # ---- multi_head_self_attention at d_v != d_k: rows 5-8 ------------------
+    unequal = {}
+    for masked in (False, True):
+        t = time.perf_counter()
+        unequal[masked] = unequal_run(masked)
+        phase(f"mhsa-unequal masked={masked}", t,
+              **{k: json.dumps(v) for k, v in unequal[masked].items()})
 
     # ---- serve at NRMS's published width ----------------------------------
     from newsrecommendation_tpu_torch.config import Config
@@ -1441,6 +1780,20 @@ def main() -> int:
     phase("serve fused_tail=on user_log_mask=True", t,
           **{k: json.dumps(v) for k, v in serve_tail.items()})
 
+    # ---- serve with the batch-in-lanes attention: rows 15 only --------------
+    t = time.perf_counter()
+    fa.reset_launch_counts()
+    serve_blanes, _ = serve_run(ctx, True, attention_layout="blanes")
+    serve_blanes["launches"] = {k: fa.launch_counts(k) for k in fa.KERNELS
+                                if any(fa.launch_counts(k).values())}
+    got = serve_blanes["launches"].get("blanes_fwd", {})
+    if set(serve_blanes["launches"]) != {"blanes_fwd"} or not (
+            got["blanes"] and got["blanes_masked"]):
+        fail(f"serve blanes: launches {serve_blanes['launches']}, expected "
+             "row 15 only, both variants")
+    phase("serve attention_layout=blanes user_log_mask=True", t,
+          **{k: json.dumps(v) for k, v in serve_blanes.items()})
+
     # ---- serve with a history of LONG_L news: the flash forward ------------
     for user_log_mask in (False, True):
         t = time.perf_counter()
@@ -1455,6 +1808,18 @@ def main() -> int:
                  f"user_log_mask={user_log_mask}")
         phase(f"serve-long user_log_mask={user_log_mask}", t,
               **{k: json.dumps(v) for k, v in run.items()})
+    t = time.perf_counter()
+    fa.reset_launch_counts()
+    run, _ = serve_run(ctx, True, user_log_length=LONG_L, fused_tail="on")
+    run["launches"] = {k: fa.launch_counts(k) for k in fa.KERNELS
+                       if any(fa.launch_counts(k).values())}
+    got = run["launches"].get("fused_tail_fwd", {})
+    if set(run["launches"]) != {"fused_tail_fwd"} or not (
+            got["tail"] and got["tail_masked"]):
+        fail(f"serve-long fused_tail: launches {run['launches']}, expected "
+             "row 13 only, on both encoders")
+    phase("serve-long fused_tail=on user_log_mask=True", t,
+          **{k: json.dumps(v) for k, v in run.items()})
 
     # ---- training ------------------------------------------------------------
     checks = [({"user_log_mask": False}, {}), ({"user_log_mask": True}, {}),
@@ -1463,6 +1828,8 @@ def main() -> int:
               ({"user_log_mask": False}, {"freeze_embedding": False}),
               ({"user_log_mask": False}, {"fused_tail": "on"}),
               ({"user_log_mask": True}, {"fused_tail": "on"}),
+              ({"user_log_mask": False}, {"attention_layout": "blanes"}),
+              ({"user_log_mask": True}, {"attention_layout": "blanes"}),
               ({"user_log_mask": False, "samples": "samples_long"},
                dict(LONG_CHECK, user_log_length=LONG_L)),
               ({"user_log_mask": True, "samples": "samples_long"},
@@ -1481,6 +1848,13 @@ def main() -> int:
                                     "fixed_batch": False}),
                      ("fused_tail", {"fused_tail": "on"}),
                      ("2d", {"io": "2d", "fixed_batch": False}),
+                     ("blanes", {"attention_layout": "blanes",
+                                 "fixed_batch": False}),
+                     ("fused_tail_long", {"fused_tail": "on",
+                                          "user_log_length": LONG_L,
+                                          "samples": "samples_long",
+                                          "max_steps": FUSED_LONG_STEPS,
+                                          "fixed_batch": False}),
                      ("long", {"user_log_length": LONG_L,
                                "samples": "samples_long",
                                "max_steps": LONG_STEPS,
@@ -1536,6 +1910,9 @@ def main() -> int:
             "train_step_fused_tail_b128_bf16": profile_device(
                 step_of("fused_tail")),
             "train_step_2d_b128_bf16": profile_device(step_of("2d", "2d")),
+            "train_step_blanes_b128_bf16": profile_device(step_of("blanes")),
+            f"train_step_fused_tail_l{LONG_L}_b128_bf16": profile_device(
+                step_of("fused_tail_long"), reps=2),
             f"train_step_l{LONG_L}_b128_bf16": profile_device(
                 step_of("long"), reps=3)}
     phase("profile", t, **{k: json.dumps(v) for k, v in prof.items()})
@@ -1580,6 +1957,28 @@ def main() -> int:
     n_launch = sum(trains["recompute"][0]["launches"]["qkv_bwd"].values())
     kernels.append(row("qkv_bwd", BWD_SOURCE, f"{TPU_KERNELS}:712", n_launch,
                        c["dqkv"], c["bwd"], c))
+    # rows 5-8 at the news encoder's shape with d_v = 32 != d_k, launched
+    # on their own path (multi_head_self_attention at unequal widths)
+    for masked, (fwd_line, bwd_line) in ((False, (391, 415)),
+                                         (True, (443, 468))):
+        variant = "mhsa_masked" if masked else "mhsa"
+        c = next(x for x in sep_cases if x["variant"] == variant
+                 and x["dtype"] == "bfloat16" and x["shape"][4] == SEP_DV[1])
+        n_fwd = unequal[masked]["launches"]["mhsa_fwd"][variant]
+        n_bwd = unequal[masked]["launches"]["mhsa_bwd"][
+            "mhsa_bwd_masked" if masked else "mhsa_bwd"]
+        grads = [c[x] for x in ("dq", "dk", "dv")]
+        err = {"max_abs_err": max(x["max_abs_err"] for x in grads),
+               "n_differ": sum(x["n_differ"] for x in grads),
+               "n_elems": sum(x["n_elems"] for x in grads),
+               "max_abs_ref": max(x["max_abs_ref"] for x in grads)}
+        name = "exp_mhsa_masked" if masked else "exp_mhsa"
+        kernels.append(row(f"{name}_fwd", SEP_SOURCE,
+                           f"{TPU_KERNELS}:{fwd_line}", n_fwd, c["ctx"],
+                           c["fwd"], c))
+        kernels.append(row(f"{name}_bwd", SEP_SOURCE,
+                           f"{TPU_KERNELS}:{bwd_line}", n_bwd, err,
+                           c["bwd"], c))
     c = find(flash_cases, variant="flash", shape=[128, LONG_L],
              dtype="bfloat16")
     long_launches = trains["long"][0]["launches"]
@@ -1613,6 +2012,19 @@ def main() -> int:
     kernels.append(row("exp_mhsa_pool_bwd", TAIL_BWD_SOURCE,
                        f"{TAIL_KERNELS}:309",
                        sum(tail_launches["fused_tail_bwd"].values()),
+                       c["dqkv"], c["bwd"], c))
+    # rows 15-16 at the news encoder's shape, launched on their own path
+    # (attention_layout "blanes")
+    c = find(blanes_cases, variant="blanes", shape=[7040, 20],
+             dtype="bfloat16")
+    blanes_launches = trains["blanes"][0]["launches"]
+    kernels.append(row("exp_mhsa_qkv_blanes_fwd", BLANES_SOURCE,
+                       f"{BLANES_KERNELS}:143",
+                       sum(blanes_launches["blanes_fwd"].values()), c["ctx"],
+                       c["fwd"], c))
+    kernels.append(row("exp_mhsa_qkv_blanes_bwd", BLANES_SOURCE,
+                       f"{BLANES_KERNELS}:171",
+                       sum(blanes_launches["blanes_bwd"].values()),
                        c["dqkv"], c["bwd"], c))
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:

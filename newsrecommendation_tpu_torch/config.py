@@ -67,7 +67,7 @@ class Config:
     # "on": each NRMS encoder tail (MHSA -> dropout -> pooling) runs as one
     # kernel (rows 13-14); "auto" and "off" compose it from rows 1-4.
     fused_tail: str = "auto"  # "auto" | "on" | "off"
-    attention_layout: str = "headloop"  # "blanes" is not ported
+    attention_layout: str = "headloop"  # "headloop" | "blanes"
     eval_news_chunk: int = 1024  # corpus rows per news-encoder call
     # Recommender's "auto" scorer: dense (whole-corpus matmul) while the
     # cache has at most this many rows, gather (candidate rows only) above.

@@ -29,9 +29,21 @@
 // stay in shared memory. The pooling's products with w1 (T x HD by HD x Q,
 // and the backward's d_z w1^T) run as register tiles of 4 x 4 f32 FMAs
 // per thread on the CUDA cores, w1 read from global memory (L2/L1
-// resident: 160 KB in bf16). A row needs (T*HD + T*Q + ...) * 4 bytes of
-// shared memory, so T is bounded (at H = D = 20, Q = 200: the forward takes
-// T <= 86, the backward T <= 85); a longer row raises before launch.
+// resident: 160 KB in bf16). A row needs (T*HD + T*Q + 3*T*(D|1) + ...)
+// * 4 bytes of shared memory: at H = D = 20, Q = 200 that fits up to
+// T = 86 in the forward and T = 85 in the backward.
+//
+// Longer rows (the user encoder over a long history) run the same phases
+// with the big buffers in global memory: the forward keeps ctx, e and the
+// staged q, k, v in a per-slot scratch of T*(HD + Q + 3*(D|1)) floats, the
+// backward keeps ctx and d_z in the scratch it writes anyway for dw1 and
+// q, k, v in a per-slot scratch of 3*T*(D|1) floats. A grid of `slots`
+// blocks walks the rows, so the scratch is bounded by the slots, not by N.
+// Only the row buffers and the small vectors stay in shared memory: the
+// forward then takes T up to 6456 at those widths, the backward 5771 (and
+// its attention part, row 4's kernel staged in global memory, 4470).
+// Which variant runs is decided by T before the launch (the *_global
+// functions below); the wrapper allocates the scratch.
 #pragma once
 
 #include "common.cuh"
@@ -215,23 +227,40 @@ __device__ void tail_pool_scores(float* e, float* alpha, const float* ctx,
   __syncthreads();
 }
 
-// Shared floats of the forward's block: ctx, e, q/k/v, one row per warp,
-// alpha.
-inline size_t tail_fwd_floats(int t_len, int n_heads, int d_head, int q_dim,
-                              int warps) {
+// The big buffers of a row (ctx, e, q/k/v), in floats, and the forward's
+// small ones (one row per warp, alpha).
+__host__ __device__ inline size_t tail_big_floats(int t_len,
+                                                      int n_heads,
+                                                      int d_head, int q_dim) {
   const size_t t = t_len;
-  return t * n_heads * d_head + t * q_dim + 3 * t * (d_head | 1) +
-         (size_t)warps * t + t;
+  return t * n_heads * d_head + t * q_dim + 3 * t * (d_head | 1);
 }
 
-// Shared floats of the backward's per-row block: ctx, e (then d_z),
-// q/k/v of a head, one row per warp, alpha, d_alpha, g, 1 - sum(alpha).
-inline size_t tail_bwd_floats(int t_len, int n_heads, int d_head, int q_dim,
-                              int warps) {
-  const size_t t = t_len;
-  const size_t hd = (size_t)n_heads * d_head;
-  return t * hd + t * q_dim + 3 * t * (d_head | 1) + (size_t)warps * t +
-         2 * t + hd + 1;
+inline size_t tail_fwd_small_floats(int t_len, int warps) {
+  return (size_t)(warps + 1) * t_len;
+}
+
+// whether the forward keeps its big buffers in global memory
+inline bool tail_fwd_global(int t_len, int n_heads, int d_head, int q_dim,
+                            int warps) {
+  return tail_big_floats(t_len, n_heads, d_head, q_dim) +
+             tail_fwd_small_floats(t_len, warps) >
+         (size_t)kMaxSmemFloats;
+}
+
+// The backward's per-row block: big buffers as the forward's (ctx, e then
+// d_z, the q/k/v of a head); small ones one row per warp, alpha, d_alpha,
+// g and 1 - sum(alpha).
+inline size_t tail_bwd_small_floats(int t_len, int n_heads, int d_head,
+                                    int warps) {
+  return (size_t)(warps + 2) * t_len + (size_t)n_heads * d_head + 1;
+}
+
+inline bool tail_bwd_global(int t_len, int n_heads, int d_head, int q_dim,
+                            int warps) {
+  return tail_big_floats(t_len, n_heads, d_head, q_dim) +
+             tail_bwd_small_floats(t_len, n_heads, d_head, warps) >
+         (size_t)kMaxSmemFloats;
 }
 
 }  // namespace nrk

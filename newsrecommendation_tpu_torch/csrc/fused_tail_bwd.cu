@@ -32,14 +32,19 @@
 // at 67 TFLOP/s), which bound it.
 //
 // Design, five launches:
-//   1. one block of 8 warps per row (fused_tail.cuh's phases): the forward
+//   1. one block of 8 warps per row (fused_tail.cuh's phases; a row too long
+//      for shared memory keeps ctx and d_z in their scratch below and q/k/v
+//      in its block slot's part of `stage`, `slots` blocks walking the
+//      rows): the forward
 //      again, the pooling backward and d_ctx. It writes d_ctx (T, HD) in
 //      qkv's dtype, the row's sums of db1, dw2, db2 (N, 2Q + 1), and, for
 //      dw1, the row's f32 ctx (T, HD) and d_z (T, Q) to scratch;
 //   2. the attention backward: row 4's kernel (qkv_bwd.cuh) on the biased
 //      qkv with a zero bias and d_ctx as its g, which recomputes the probs
 //      as row 1 computes them: the TPU kernel's arithmetic, in blocks per
-//      (row, head);
+//      (row, head) (past T = 599 at D = 20, its tiled kernel with q, k, v
+//      and g staged in `attn_stage`, `attn_slots` blocks walking the
+//      items);
 //   3. dw1 = ctx^T d_z over all N*T positions as a tiled product: blocks
 //      of 64 x 128 outputs (8 x 4 per thread) times a split of the
 //      positions, staged 32 positions at a time in shared memory; each
@@ -70,7 +75,9 @@ constexpr int kDw1C = 64;
 constexpr int kDw1Q = 128;
 constexpr int kDw1Rows = 32;
 
-template <typename T>
+// kGlobal: ctx and d_z in their scratch rows, q/k/v in this block's slot
+// of stage
+template <typename T, bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
 fused_tail_bwd_kernel(const T* __restrict__ qkv,
                       const float* __restrict__ mask,
@@ -79,18 +86,23 @@ fused_tail_bwd_kernel(const T* __restrict__ qkv,
                       const float* __restrict__ b2,
                       const int* __restrict__ seed, const T* __restrict__ g,
                       T* __restrict__ dctx, float* __restrict__ ctxs,
-                      float* __restrict__ dzs, float* __restrict__ rowpart,
+                      float* __restrict__ dzs,
+                      float* __restrict__ rowpart, float* stage, int64_t n,
                       int n_heads, int t_len, int d_head, int q_dim,
                       float inv, int use_dropout, uint32_t thr, float scale) {
   extern __shared__ float smem[];
-  const int64_t row = blockIdx.x;
   const int hd = n_heads * d_head;
   const int w3 = 3 * hd;
   const int stride = d_head | 1;  // odd row stride: no bank conflicts
-  float* ctx = smem;                      // (T, HD) ctx
-  float* e = ctx + t_len * hd;            // (T, Q) e, then d_z
-  float* qs = e + t_len * q_dim;          // (3, T, stride) q, k, v
-  float* rows = qs + 3 * t_len * stride;  // (kWarps, T) row buffers
+  constexpr bool global = kGlobal;
+  // in shared memory: ctx (T, HD), e then d_z (T, Q), q, k, v (3, T,
+  // stride); in global memory, ctx and d_z in their scratch rows and q, k,
+  // v in this block's slot of stage
+  float* small = global ? smem : smem + tail_big_floats(t_len, n_heads,
+                                                            d_head, q_dim);
+  float* qs = global ? stage + (size_t)blockIdx.x * 3 * t_len * stride
+                     : smem + t_len * (hd + q_dim);
+  float* rows = small;                    // (kWarps, T) row buffers
   float* alpha = rows + kWarps * t_len;   // (T)
   float* dal = alpha + t_len;             // (T) d_alpha, then d_a
   float* gv = dal + t_len;                // (HD) this row's g
@@ -100,69 +112,83 @@ fused_tail_bwd_kernel(const T* __restrict__ qkv,
   const int lane = threadIdx.x % 32;
   const TailDropout drop{use_dropout != 0,
                          use_dropout ? (uint32_t)seed[0] : 0u, thr, scale};
-  const T* src = qkv + row * t_len * w3;
-  const float* mrow = mask ? mask + row * t_len : nullptr;
-  for (int c = threadIdx.x; c < hd; c += kThreads)
-    gv[c] = to_f32(g[row * hd + c]);
+  auto body = [&](int64_t row) {
+    float* ctx_out = ctxs + row * t_len * hd;
+    float* dz_out = dzs + row * t_len * q_dim;
+    float* ctx = global ? ctx_out : smem;
+    float* e = global ? dz_out : smem + t_len * hd;
+    const T* src = qkv + row * t_len * w3;
+    const float* mrow = mask ? mask + row * t_len : nullptr;
+    for (int c = threadIdx.x; c < hd; c += kThreads)
+      gv[c] = to_f32(g[row * hd + c]);
 
-  // ---- the forward again, up to the pooling weights ----------------------
-  tail_context<T, kThreads>(ctx, qs, rows, src, mrow, row, n_heads, t_len,
-                            d_head, stride, inv, drop);
-  tail_pool_scores<T, kThreads>(e, alpha, ctx, w1, b1, w2, b2, mrow, t_len,
-                                hd, q_dim, rest);
+    // ---- the forward again, up to the pooling weights --------------------
+    tail_context<T, kThreads>(ctx, qs, rows, src, mrow, row, n_heads, t_len,
+                              d_head, stride, inv, drop);
+    tail_pool_scores<T, kThreads>(e, alpha, ctx, w1, b1, w2, b2, mrow, t_len,
+                                  hd, q_dim, rest);
 
-  // ---- pooling backward ----------------------------------------------------
-  float* ctx_out = ctxs + row * t_len * hd;
-  for (int idx = threadIdx.x; idx < t_len * hd; idx += kThreads)
-    ctx_out[idx] = ctx[idx];
-  for (int i = warp; i < t_len; i += kWarps) {
-    float s = 0.f;
-    for (int c = lane; c < hd; c += 32) s = fmaf(ctx[i * hd + c], gv[c], s);
-    s = warp_sum(s);
-    if (lane == 0) dal[i] = s;
-  }
-  __syncthreads();
-  float* part = rowpart + row * (2 * q_dim + 1);
-  if (warp == 0) {
-    float s = 0.f;
-    for (int i = lane; i < t_len; i += 32) s = fmaf(dal[i], alpha[i], s);
-    const float r = warp_sum(s);
-    for (int i = lane; i < t_len; i += 32) dal[i] = (dal[i] - r) * alpha[i];
-    // this row's db2 = sum_i d_a_i = r (1 - sum(alpha)), 0 analytically up
-    // to the 1e-8 term: summed from the f32 d_a it is rounding noise
-    if (lane == 0) part[2 * q_dim] = r * *rest;
-  }
-  __syncthreads();
-  // this row's sums of db1 and dw2 per column q, and d_z over e
-  for (int q = threadIdx.x; q < q_dim; q += kThreads) {
-    const float w2q = to_f32(w2[q]);
-    float s2 = 0.f, s1 = 0.f;
-    for (int i = 0; i < t_len; ++i) {
-      const float ei = e[i * q_dim + q];
-      s2 = fmaf(ei, dal[i], s2);
-      const float dz = __fmul_rn(__fmul_rn(dal[i], w2q),
-                                 __fsub_rn(1.f, __fmul_rn(ei, ei)));
-      e[i * q_dim + q] = dz;
-      s1 += dz;
+    // ---- pooling backward --------------------------------------------------
+    if (!global)
+      for (int idx = threadIdx.x; idx < t_len * hd; idx += kThreads)
+        ctx_out[idx] = ctx[idx];
+    for (int i = warp; i < t_len; i += kWarps) {
+      float s = 0.f;
+      for (int c = lane; c < hd; c += 32) s = fmaf(ctx[i * hd + c], gv[c], s);
+      s = warp_sum(s);
+      if (lane == 0) dal[i] = s;
     }
-    part[q] = s1;
-    part[q_dim + q] = s2;
+    __syncthreads();
+    float* part = rowpart + row * (2 * q_dim + 1);
+    if (warp == 0) {
+      float s = 0.f;
+      for (int i = lane; i < t_len; i += 32) s = fmaf(dal[i], alpha[i], s);
+      const float r = warp_sum(s);
+      for (int i = lane; i < t_len; i += 32) dal[i] = (dal[i] - r) * alpha[i];
+      // this row's db2 = sum_i d_a_i = r (1 - sum(alpha)), 0 analytically up
+      // to the 1e-8 term: summed from the f32 d_a it is rounding noise
+      if (lane == 0) part[2 * q_dim] = r * *rest;
+    }
+    __syncthreads();
+    // this row's sums of db1 and dw2 per column q, and d_z over e
+    for (int q = threadIdx.x; q < q_dim; q += kThreads) {
+      const float w2q = to_f32(w2[q]);
+      float s2 = 0.f, s1 = 0.f;
+      for (int i = 0; i < t_len; ++i) {
+        const float ei = e[i * q_dim + q];
+        s2 = fmaf(ei, dal[i], s2);
+        const float dz = __fmul_rn(__fmul_rn(dal[i], w2q),
+                                   __fsub_rn(1.f, __fmul_rn(ei, ei)));
+        e[i * q_dim + q] = dz;
+        s1 += dz;
+      }
+      part[q] = s1;
+      part[q_dim + q] = s2;
+    }
+    __syncthreads();
+    if (!global)
+      for (int idx = threadIdx.x; idx < t_len * q_dim; idx += kThreads)
+        dz_out[idx] = e[idx];
+    // d_ctx = (alpha g + round(d_z) w1^T) * keep, rounded to T, for row 4
+    T* dctx_out = dctx + row * t_len * hd;
+    tile_product<kThreads>(
+        t_len, hd, q_dim,
+        [&](int i, int q) { return round_to<T>(e[i * q_dim + q]); },
+        [&](int q, int c) { return to_f32(w1t[(int64_t)q * hd + c]); },
+        [&](int i, int c, float x) {
+          float d = __fadd_rn(__fmul_rn(alpha[i], gv[c]), x);
+          if (drop.on) d *= drop.keep(row, i, c, t_len, hd);
+          dctx_out[i * hd + c] = from_f32<T>(d);
+        });
+  };
+  if constexpr (kGlobal) {
+    for (int64_t row = blockIdx.x; row < n; row += gridDim.x) {
+      body(row);
+      __syncthreads();  // the next row overwrites the buffers
+    }
+  } else {
+    body(blockIdx.x);  // one row per block
   }
-  __syncthreads();
-  float* dz_out = dzs + row * t_len * q_dim;
-  for (int idx = threadIdx.x; idx < t_len * q_dim; idx += kThreads)
-    dz_out[idx] = e[idx];
-  // d_ctx = (alpha g + round(d_z) w1^T) * keep, rounded to T, for row 4
-  T* dctx_out = dctx + row * t_len * hd;
-  tile_product<kThreads>(
-      t_len, hd, q_dim,
-      [&](int i, int q) { return round_to<T>(e[i * q_dim + q]); },
-      [&](int q, int c) { return to_f32(w1t[(int64_t)q * hd + c]); },
-      [&](int i, int c, float x) {
-        float d = __fadd_rn(__fmul_rn(alpha[i], gv[c]), x);
-        if (drop.on) d *= drop.keep(row, i, c, t_len, hd);
-        dctx_out[i * hd + c] = from_f32<T>(d);
-      });
 }
 
 // part[split] (HD, Q) = sum over this split's positions r of
@@ -264,41 +290,61 @@ fused_tail_sum_rows_kernel(const float* __restrict__ rowpart, int n,
   }
 }
 
+// shared bytes of the per-row kernel
+size_t row_smem_bytes(int t_len, int n_heads, int d_head, int q_dim) {
+  const size_t small = tail_bwd_small_floats(t_len, n_heads, d_head, kWarps);
+  return sizeof(float) *
+         (tail_bwd_global(t_len, n_heads, d_head, q_dim, kWarps)
+              ? small
+              : small + tail_big_floats(t_len, n_heads, d_head, q_dim));
+}
+
+// whether row 4's kernel stages its operands in global memory
+bool attn_global(int t_len, int d_head) {
+  return !qkv_bwd_resident(t_len, d_head) &&
+         !qkv_bwd_tiled_in_smem(t_len, d_head);
+}
+
 template <typename T>
 int launch(const void* qkv, const void* mask, const void* w1, const void* w1t,
            const void* b1, const void* w2, const void* b2, const void* seed,
            const void* g, const void* zero_bias, void* dqkv, void* dctx,
            void* ctxs, void* dzs, void* rowpart, void* part, void* dw1,
-           void* db1, void* dw2, void* db2, int n, int t_len, int n_heads,
-           int d_head, int q_dim, int n_splits, int use_dropout, unsigned thr,
+           void* db1, void* dw2, void* db2, void* stage, void* attn_stage,
+           int n, int t_len, int n_heads, int d_head, int q_dim, int n_splits,
+           int slots, int attn_slots, int use_dropout, unsigned thr,
            float scale, void* stream) {
   if (n <= 0 || n_splits <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(float) * tail_bwd_floats(t_len, n_heads, d_head, q_dim, kWarps);
+  const bool global = tail_bwd_global(t_len, n_heads, d_head, q_dim, kWarps);
+  if (global && (stage == nullptr || slots <= 0))
+    return (int)cudaErrorInvalidValue;
+  const int row_grid = global && slots < n ? slots : n;
+  const size_t smem = row_smem_bytes(t_len, n_heads, d_head, q_dim);
+  auto* kernel = global ? fused_tail_bwd_kernel<T, true>
+                        : fused_tail_bwd_kernel<T, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_tail_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const float inv = (float)(1.0 / sqrt((double)d_head));
   auto* cs = (cudaStream_t)stream;
   auto* f_ctxs = static_cast<float*>(ctxs);
   auto* f_dzs = static_cast<float*>(dzs);
   auto* f_rowpart = static_cast<float*>(rowpart);
-  fused_tail_bwd_kernel<T><<<(unsigned)n, kThreads, smem, cs>>>(
+  kernel<<<(unsigned)row_grid, kThreads, smem, cs>>>(
       static_cast<const T*>(qkv), static_cast<const float*>(mask),
       static_cast<const T*>(w1), static_cast<const T*>(w1t),
       static_cast<const float*>(b1), static_cast<const T*>(w2),
       static_cast<const float*>(b2), static_cast<const int*>(seed),
       static_cast<const T*>(g), static_cast<T*>(dctx), f_ctxs, f_dzs,
-      f_rowpart, n_heads, t_len, d_head, q_dim, inv, use_dropout, thr,
-      scale);
+      f_rowpart, static_cast<float*>(stage), n, n_heads, t_len, d_head,
+      q_dim, inv, use_dropout, thr, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // the attention backward: row 4's kernel on the biased qkv (a zero bias)
   // and d_ctx, the probs recomputed as the forward computes them
-  const int row4 = qkv_bwd_launch<T, true>(qkv, zero_bias, nullptr, mask,
-                                           dctx, dqkv, n, t_len, n_heads,
-                                           d_head, stream);
+  const int row4 = qkv_bwd_launch<T, true>(
+      qkv, zero_bias, nullptr, mask, dctx, dqkv, n, t_len, n_heads, d_head,
+      stream, static_cast<float*>(attn_stage), attn_slots);
   if (row4 != (int)cudaSuccess) return row4;
 
   const int hd = n_heads * d_head;
@@ -331,23 +377,27 @@ extern "C" {
 
 // w1t: w1 transposed, (Q, HD) contiguous; zero_bias: 3HD zeros in qkv's
 // dtype. Scratch: dctx (N, T, HD) in qkv's dtype, ctxs (N, T, HD) f32,
-// dzs (N, T, Q) f32, rowpart (N, 2Q + 1) f32, part (n_splits, HD, Q) f32.
-// mask may be null (the unmasked variant). Launches the five kernels on
-// the stream; returns cudaGetLastError() after them: 0 when all were
-// queued.
+// dzs (N, T, Q) f32, rowpart (N, 2Q + 1) f32, part (n_splits, HD, Q) f32;
+// stage (`slots` slots of fused_tail_bwd_stage_floats) and attn_stage
+// (`attn_slots` slots of fused_tail_bwd_attn_stage_floats), read only when
+// those are not 0. mask may be null (the unmasked variant). Launches the
+// five kernels on the stream; returns cudaGetLastError() after them: 0
+// when all were queued.
 int fused_tail_bwd_f32(const void* qkv, const void* mask, const void* w1,
                        const void* w1t, const void* b1, const void* w2,
                        const void* b2, const void* seed, const void* g,
                        const void* zero_bias, void* dqkv, void* dctx,
                        void* ctxs, void* dzs, void* rowpart, void* part,
-                       void* dw1, void* db1, void* dw2, void* db2, int n,
-                       int t_len, int n_heads, int d_head, int q_dim,
-                       int n_splits, int use_dropout, unsigned thr,
-                       float scale, void* stream) {
+                       void* dw1, void* db1, void* dw2, void* db2,
+                       void* stage, void* attn_stage, int n, int t_len,
+                       int n_heads, int d_head, int q_dim, int n_splits,
+                       int slots, int attn_slots, int use_dropout,
+                       unsigned thr, float scale, void* stream) {
   return launch<float>(qkv, mask, w1, w1t, b1, w2, b2, seed, g, zero_bias,
                        dqkv, dctx, ctxs, dzs, rowpart, part, dw1, db1, dw2,
-                       db2, n, t_len, n_heads, d_head, q_dim, n_splits,
-                       use_dropout, thr, scale, stream);
+                       db2, stage, attn_stage, n, t_len, n_heads, d_head,
+                       q_dim, n_splits, slots, attn_slots, use_dropout, thr,
+                       scale, stream);
 }
 
 int fused_tail_bwd_bf16(const void* qkv, const void* mask, const void* w1,
@@ -355,20 +405,42 @@ int fused_tail_bwd_bf16(const void* qkv, const void* mask, const void* w1,
                         const void* b2, const void* seed, const void* g,
                         const void* zero_bias, void* dqkv, void* dctx,
                         void* ctxs, void* dzs, void* rowpart, void* part,
-                        void* dw1, void* db1, void* dw2, void* db2, int n,
-                        int t_len, int n_heads, int d_head, int q_dim,
-                        int n_splits, int use_dropout, unsigned thr,
-                        float scale, void* stream) {
+                        void* dw1, void* db1, void* dw2, void* db2,
+                        void* stage, void* attn_stage, int n, int t_len,
+                        int n_heads, int d_head, int q_dim, int n_splits,
+                        int slots, int attn_slots, int use_dropout,
+                        unsigned thr, float scale, void* stream) {
   return launch<__nv_bfloat16>(qkv, mask, w1, w1t, b1, w2, b2, seed, g,
                                zero_bias, dqkv, dctx, ctxs, dzs, rowpart,
-                               part, dw1, db1, dw2, db2, n, t_len, n_heads,
-                               d_head, q_dim, n_splits, use_dropout, thr,
-                               scale, stream);
+                               part, dw1, db1, dw2, db2, stage, attn_stage, n,
+                               t_len, n_heads, d_head, q_dim, n_splits, slots,
+                               attn_slots, use_dropout, thr, scale, stream);
 }
 
+// Shared bytes the call's kernels need per block: the larger of the
+// per-row kernel's and row 4's.
 int fused_tail_bwd_smem_bytes(int t_len, int n_heads, int d_head, int q_dim) {
-  return (int)(sizeof(float) *
-               tail_bwd_floats(t_len, n_heads, d_head, q_dim, kWarps));
+  const size_t attn = attn_global(t_len, d_head)
+                          ? qkv_bwd_tiled_smem_bytes(t_len, 0)
+                          : qkv_bwd_smem_bytes_for(t_len, d_head);
+  const size_t row = row_smem_bytes(t_len, n_heads, d_head, q_dim);
+  return (int)(row > attn ? row : attn);
+}
+
+// Floats of one slot of `stage`: 0 when the row fits in shared memory.
+int fused_tail_bwd_stage_floats(int t_len, int n_heads, int d_head,
+                                int q_dim) {
+  return tail_bwd_global(t_len, n_heads, d_head, q_dim, kWarps)
+             ? 3 * t_len * (d_head | 1)
+             : 0;
+}
+
+// Floats of one slot of `attn_stage`: 0 when row 4's kernel stages its
+// operands in shared memory.
+int fused_tail_bwd_attn_stage_floats(int t_len, int d_head) {
+  return attn_global(t_len, d_head)
+             ? (int)qkv_bwd_stage_floats(t_len, d_head)
+             : 0;
 }
 
 }  // extern "C"

@@ -14,7 +14,9 @@
 // floor near 0.4 ms; the context never leaves the block, so its traffic is
 // the bound's.
 //
-// Design: one block of 8 warps per row; fused_tail.cuh has the phases.
+// Design: one block of 8 warps per row; fused_tail.cuh has the phases. A
+// row too long for shared memory keeps ctx, e and q/k/v in its block
+// slot's part of a global scratch, and `slots` blocks walk the rows.
 
 #include "fused_tail.cuh"
 
@@ -25,59 +27,87 @@ using namespace nrk;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-template <typename T>
+// kGlobal: ctx, e and q/k/v in this block's slot of scratch
+template <typename T, bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
 fused_tail_fwd_kernel(const T* __restrict__ qkv,
                       const float* __restrict__ mask,
                       const T* __restrict__ w1, const float* __restrict__ b1,
                       const T* __restrict__ w2, const float* __restrict__ b2,
                       const int* __restrict__ seed, T* __restrict__ out,
-                      int n_heads, int t_len, int d_head, int q_dim,
-                      float inv, int use_dropout, uint32_t thr, float scale) {
+                      float* scratch, int64_t n, int n_heads, int t_len,
+                      int d_head, int q_dim, float inv, int use_dropout,
+                      uint32_t thr, float scale) {
   extern __shared__ float smem[];
-  const int64_t row = blockIdx.x;
   const int hd = n_heads * d_head;
   const int stride = d_head | 1;  // odd row stride: no bank conflicts
-  float* ctx = smem;                         // (T, HD) f32 context
+  // the big buffers in shared memory, or in this block's scratch slot
+  const size_t big = tail_big_floats(t_len, n_heads, d_head, q_dim);
+  float* ctx = kGlobal ? scratch + blockIdx.x * big : smem;  // (T, HD) f32
   float* e = ctx + t_len * hd;               // (T, Q) tanh(z)
   float* qs = e + t_len * q_dim;             // (3, T, stride) q, k, v
-  float* rows = qs + 3 * t_len * stride;     // (kWarps, T) probs rows
+  float* rows = kGlobal ? smem : qs + 3 * t_len * stride;  // (kWarps, T)
   float* alpha = rows + kWarps * t_len;      // (T) pooling weights
 
   const TailDropout drop{use_dropout != 0,
                          use_dropout ? (uint32_t)seed[0] : 0u, thr, scale};
-  const float* mrow = mask ? mask + row * t_len : nullptr;
-  tail_context<T, kThreads>(ctx, qs, rows, qkv + row * t_len * 3 * hd, mrow,
-                            row, n_heads, t_len, d_head, stride, inv, drop);
-  tail_pool_scores<T, kThreads>(e, alpha, ctx, w1, b1, w2, b2, mrow, t_len,
-                                hd, q_dim);
-  for (int c = threadIdx.x; c < hd; c += kThreads) {
-    float acc = 0.f;
-    for (int i = 0; i < t_len; ++i) acc = fmaf(alpha[i], ctx[i * hd + c], acc);
-    out[row * hd + c] = from_f32<T>(acc);
+  auto body = [&](int64_t row) {
+    const float* mrow = mask ? mask + row * t_len : nullptr;
+    tail_context<T, kThreads>(ctx, qs, rows, qkv + row * t_len * 3 * hd,
+                              mrow, row, n_heads, t_len, d_head, stride, inv,
+                              drop);
+    tail_pool_scores<T, kThreads>(e, alpha, ctx, w1, b1, w2, b2, mrow, t_len,
+                                  hd, q_dim);
+    for (int c = threadIdx.x; c < hd; c += kThreads) {
+      float acc = 0.f;
+      for (int i = 0; i < t_len; ++i)
+        acc = fmaf(alpha[i], ctx[i * hd + c], acc);
+      out[row * hd + c] = from_f32<T>(acc);
+    }
+  };
+  if constexpr (kGlobal) {
+    for (int64_t row = blockIdx.x; row < n; row += gridDim.x) {
+      body(row);
+      __syncthreads();  // the next row overwrites ctx and alpha
+    }
+  } else {
+    body(blockIdx.x);  // one row per block
   }
+}
+
+size_t smem_bytes(int t_len, int n_heads, int d_head, int q_dim) {
+  const size_t small = tail_fwd_small_floats(t_len, kWarps);
+  return sizeof(float) *
+         (tail_fwd_global(t_len, n_heads, d_head, q_dim, kWarps)
+              ? small
+              : small + tail_big_floats(t_len, n_heads, d_head, q_dim));
 }
 
 template <typename T>
 int launch(const void* qkv, const void* mask, const void* w1, const void* b1,
-           const void* w2, const void* b2, const void* seed, void* out, int n,
-           int t_len, int n_heads, int d_head, int q_dim, int use_dropout,
-           unsigned thr, float scale, void* stream) {
+           const void* w2, const void* b2, const void* seed, void* out,
+           void* scratch, int n, int t_len, int n_heads, int d_head,
+           int q_dim, int slots, int use_dropout, unsigned thr, float scale,
+           void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  const size_t smem =
-      sizeof(float) * tail_fwd_floats(t_len, n_heads, d_head, q_dim, kWarps);
+  const bool global = tail_fwd_global(t_len, n_heads, d_head, q_dim, kWarps);
+  if (global && (scratch == nullptr || slots <= 0))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(t_len, n_heads, d_head, q_dim);
+  auto* kernel = global ? fused_tail_fwd_kernel<T, true>
+                        : fused_tail_fwd_kernel<T, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_tail_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const float inv = (float)(1.0 / sqrt((double)d_head));
-  fused_tail_fwd_kernel<T><<<(unsigned)n, kThreads, smem,
-                             (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)(global && slots < n ? slots : n), kThreads, smem,
+           (cudaStream_t)stream>>>(
       static_cast<const T*>(qkv), static_cast<const float*>(mask),
       static_cast<const T*>(w1), static_cast<const float*>(b1),
       static_cast<const T*>(w2), static_cast<const float*>(b2),
-      static_cast<const int*>(seed), static_cast<T*>(out), n_heads, t_len,
-      d_head, q_dim, inv, use_dropout, thr, scale);
+      static_cast<const int*>(seed), static_cast<T*>(out),
+      static_cast<float*>(scratch), n, n_heads, t_len, d_head, q_dim, inv,
+      use_dropout, thr, scale);
   return (int)cudaGetLastError();
 }
 
@@ -86,31 +116,42 @@ int launch(const void* qkv, const void* mask, const void* w1, const void* b1,
 extern "C" {
 
 // mask may be null (the unmasked variant). With use_dropout 0, thr and
-// scale are not read. Returns cudaGetLastError() after the launch: 0 when
-// the kernel was queued.
+// scale are not read. scratch, `slots` slots of
+// fused_tail_fwd_scratch_floats each, is read only when that is not 0.
+// Returns cudaGetLastError() after the launch: 0 when the kernel was
+// queued.
 int fused_tail_fwd_f32(const void* qkv, const void* mask, const void* w1,
                        const void* b1, const void* w2, const void* b2,
-                       const void* seed, void* out, int n, int t_len,
-                       int n_heads, int d_head, int q_dim, int use_dropout,
-                       unsigned thr, float scale, void* stream) {
-  return launch<float>(qkv, mask, w1, b1, w2, b2, seed, out, n, t_len,
-                       n_heads, d_head, q_dim, use_dropout, thr, scale,
-                       stream);
+                       const void* seed, void* out, void* scratch, int n,
+                       int t_len, int n_heads, int d_head, int q_dim,
+                       int slots, int use_dropout, unsigned thr, float scale,
+                       void* stream) {
+  return launch<float>(qkv, mask, w1, b1, w2, b2, seed, out, scratch, n,
+                       t_len, n_heads, d_head, q_dim, slots, use_dropout, thr,
+                       scale, stream);
 }
 
 int fused_tail_fwd_bf16(const void* qkv, const void* mask, const void* w1,
                         const void* b1, const void* w2, const void* b2,
-                        const void* seed, void* out, int n, int t_len,
-                        int n_heads, int d_head, int q_dim, int use_dropout,
-                        unsigned thr, float scale, void* stream) {
-  return launch<__nv_bfloat16>(qkv, mask, w1, b1, w2, b2, seed, out, n, t_len,
-                               n_heads, d_head, q_dim, use_dropout, thr,
-                               scale, stream);
+                        const void* seed, void* out, void* scratch, int n,
+                        int t_len, int n_heads, int d_head, int q_dim,
+                        int slots, int use_dropout, unsigned thr, float scale,
+                        void* stream) {
+  return launch<__nv_bfloat16>(qkv, mask, w1, b1, w2, b2, seed, out, scratch,
+                               n, t_len, n_heads, d_head, q_dim, slots,
+                               use_dropout, thr, scale, stream);
 }
 
 int fused_tail_fwd_smem_bytes(int t_len, int n_heads, int d_head, int q_dim) {
-  return (int)(sizeof(float) *
-               tail_fwd_floats(t_len, n_heads, d_head, q_dim, kWarps));
+  return (int)smem_bytes(t_len, n_heads, d_head, q_dim);
+}
+
+// Floats of one scratch slot: 0 when the row fits in shared memory.
+int fused_tail_fwd_scratch_floats(int t_len, int n_heads, int d_head,
+                                  int q_dim) {
+  return tail_fwd_global(t_len, n_heads, d_head, q_dim, kWarps)
+             ? (int)tail_big_floats(t_len, n_heads, d_head, q_dim)
+             : 0;
 }
 
 }  // extern "C"

@@ -51,6 +51,12 @@
 //     threads over (j, d) write dv and dk. ds is computed twice there, by
 //     the same expression on the same operands. At D = 20 every T up to
 //     599 fits.
+//   Tiled, staged in global memory (only inside the fused tail's backward,
+//     fused_tail_bwd.cu, for T past that): the same kernel with q, k, v and
+//     g staged in a global buffer of 4*T*(D|1) floats per block slot
+//     (L2-resident at the sizes it serves), and the row buffers, stats and
+//     tile in shared memory; a grid of `slots` blocks walks the (row, head)
+//     items. At D = 20 it takes T up to 4470.
 // Two kernels, not one with two paths: in one kernel with the tiled path
 // (more registers, a run-time block size) the resident path ran 1.5-11%
 // slower on the card. Every dot runs in index order, so both kernels give
@@ -79,25 +85,44 @@ inline bool qkv_bwd_resident(int t_len, int d_head) {
   return qkv_bwd_resident_floats(t_len, d_head) <= (size_t)kMaxSmemFloats;
 }
 
-// rows of the tiled kernel's tile: as many as fit beside q, k, v, g, the
-// row buffers and the row stats (r, m, den: 3T floats); 2 at the least (a
-// launch that needs more shared memory than a block has is refused)
-inline int qkv_bwd_tile_rows(int t_len, int d_head) {
-  const size_t used = 4 * (size_t)t_len * (d_head | 1) +
-                      (size_t)(kTiledWarps + 3) * t_len;
+// q, k, v and g of one (row, head), each (T, D|1) f32: the tiled kernel's
+// stage, in shared memory or in one global slot
+__host__ __device__ inline size_t qkv_bwd_stage_floats(int t_len,
+                                                       int d_head) {
+  return 4 * (size_t)t_len * (d_head | 1);
+}
+
+// rows of the tiled kernel's tile: as many as fit beside `staged` floats
+// (the stage when it is in shared memory, else 0), the row buffers and
+// the row stats (r, m, den: 3T floats); 2 at the least (a launch that
+// needs more shared memory than a block has is refused)
+inline int qkv_bwd_tile_rows(int t_len, size_t staged) {
+  const size_t used = staged + (size_t)(kTiledWarps + 3) * t_len;
   const size_t rows = used < (size_t)kMaxSmemFloats
                           ? (kMaxSmemFloats - used) / (size_t)(t_len | 1)
                           : 0;
   return (int)(rows < 2 ? 2 : rows);
 }
 
+// whether the tiled kernel's stage fits in shared memory beside 2 tile rows
+inline bool qkv_bwd_tiled_in_smem(int t_len, int d_head) {
+  return qkv_bwd_stage_floats(t_len, d_head) +
+             (size_t)(kTiledWarps + 3) * t_len + 2 * (size_t)(t_len | 1) <=
+         (size_t)kMaxSmemFloats;
+}
+
+// shared bytes of the tiled kernel, its stage in shared memory (`staged`)
+// or in global memory
+inline size_t qkv_bwd_tiled_smem_bytes(int t_len, size_t staged) {
+  return sizeof(float) *
+         (staged + (size_t)(kTiledWarps + 3) * t_len +
+          (size_t)qkv_bwd_tile_rows(t_len, staged) * (t_len | 1));
+}
+
 inline size_t qkv_bwd_smem_bytes_for(int t_len, int d_head) {
   if (qkv_bwd_resident(t_len, d_head))
     return sizeof(float) * qkv_bwd_resident_floats(t_len, d_head);
-  return sizeof(float) *
-         (4 * (size_t)t_len * (d_head | 1) +
-          (size_t)(kTiledWarps + 3) * t_len +
-          (size_t)qkv_bwd_tile_rows(t_len, d_head) * (t_len | 1));
+  return qkv_bwd_tiled_smem_bytes(t_len, qkv_bwd_stage_floats(t_len, d_head));
 }
 
 // One warp: a's row i into `a` (f32), as the forward's warp computes it
@@ -267,19 +292,19 @@ qkv_bwd_resident_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
   }
 }
 
-// The tiled kernel: T past what the resident kernel holds.
-template <typename T, bool kRecompute>
+// The tiled kernel: T past what the resident kernel holds (kGlobal: q, k,
+// v, g staged in gstage, not in shared memory).
+template <typename T, bool kRecompute, bool kGlobal>
 __global__ void __launch_bounds__(32 * kTiledWarps)
 qkv_bwd_tiled_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
                      const float* __restrict__ probs,
                      const float* __restrict__ mask, const T* __restrict__ g,
                      T* __restrict__ dqkv, int n_heads, int t_len,
-                     int d_head, int tile_rows, float inv) {
+                     int d_head, int tile_rows, float inv, int64_t n_items,
+                     float* gstage) {
   constexpr int warps = kTiledWarps;
   constexpr int kThreads = 32 * kTiledWarps;
   extern __shared__ float smem[];
-  const int row = blockIdx.x / n_heads;
-  const int h = blockIdx.x % n_heads;
   const int hd = n_heads * d_head;
   const int w3 = 3 * hd;
   const int stride = d_head | 1;  // odd row strides: no bank conflicts
@@ -287,133 +312,159 @@ qkv_bwd_tiled_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
-  float* q = smem;  // (T, stride), then k, v, g
+  // q, k, v and g in shared memory, or in this block's slot of gstage
+  float* q = kGlobal ? gstage + (int64_t)blockIdx.x *
+                                    qkv_bwd_stage_floats(t_len, d_head)
+                     : smem;  // (T, stride), then k, v, g
   float* k = q + t_len * stride;
   float* v = k + t_len * stride;
   float* gs = v + t_len * stride;
-  float* wrow = gs + t_len * stride + warp * t_len;  // this warp's buffer
-  float* tile = gs + t_len * stride + warps * t_len;  // (tile_rows, tstride)
+  float* rest = kGlobal ? smem : gs + t_len * stride;
+  float* wrow = rest + warp * t_len;   // this warp's buffer
+  float* tile = rest + warps * t_len;  // (tile_rows, tstride)
   // the row stats, after the tile: rowsum(da * a), and (row 4) the row's
   // max and denominator
   float* rs = tile + tile_rows * tstride;
   float* ms = rs + t_len;
   float* dens = ms + t_len;
 
-  // staging: all threads over (t, d) of each operand, loads unrolled so
-  // that several are in flight at once
-  const T* src = qkv + (int64_t)row * t_len * w3 + h * d_head;
-  const T* gsrc = g + (int64_t)row * t_len * hd + h * d_head;
-  const int per_part = t_len * d_head;
+  // one (row, head) item per block, or, staged in global memory, a grid of
+  // slots walking the items
+  auto body = [&](int64_t item) {
+    const int64_t row = item / n_heads;
+    const int h = (int)(item % n_heads);
+
+    // staging: all threads over (t, d) of each operand, loads unrolled so
+    // that several are in flight at once
+    const T* src = qkv + (int64_t)row * t_len * w3 + h * d_head;
+    const T* gsrc = g + (int64_t)row * t_len * hd + h * d_head;
+    const int per_part = t_len * d_head;
 #pragma unroll 4
-  for (int idx = threadIdx.x; idx < 4 * per_part; idx += kThreads) {
-    const int part = idx / per_part;  // q, k, v, then g
-    const int rem = idx - part * per_part;
-    const int t = rem / d_head;
-    const int d = rem - t * d_head;
-    // the bias add happens at the input dtype, as in the forward
-    smem[(part * t_len + t) * stride + d] =
-        part < 3 ? round_to<T>(to_f32(src[(int64_t)t * w3 + part * hd + d]) +
-                               to_f32(bias[part * hd + h * d_head + d]))
-                 : to_f32(gsrc[(int64_t)t * hd + d]);
-  }
-  // probs[row, i, h*T + j] = a[i, j]
-  const int64_t pstride = (int64_t)n_heads * t_len;
-  const float* prow0 = kRecompute ? nullptr
-                                  : probs + (int64_t)row * t_len * pstride +
-                                        h * t_len;
-  __syncthreads();
-
-  const float* mrow = mask ? mask + (int64_t)row * t_len : nullptr;
-  // the forward's scale of the scores, computed as the forward does
-  const float inv_s = 1.0f / sqrtf((float)d_head);
-  T* dst = dqkv + (int64_t)row * t_len * w3 + h * d_head;
-
-  // ---- query tiles: ds's rows, then dq --------------------------------
-  for (int i0 = 0; i0 < t_len; i0 += tile_rows) {
-    const int nq = min(tile_rows, t_len - i0);
-    for (int ii = warp; ii < nq; ii += warps) {
-      const int i = i0 + ii;
-      if constexpr (kRecompute) {
-        recompute_a_row(wrow, q + i * stride, k, mrow, t_len, d_head, stride,
-                        inv_s, ms + i, dens + i, lane);
-      } else {
-        for (int j = lane; j < t_len; j += 32) wrow[j] = prow0[i * pstride + j];
-      }
-      float* dsi = tile + ii * tstride;  // da's row, then ds's
-      ds_row<T>(dsi, wrow, dsi, gs + i * stride, v, t_len, d_head, stride,
-                inv, rs + i, lane);
-      __syncwarp();  // the next query overwrites wrow
+    for (int idx = threadIdx.x; idx < 4 * per_part; idx += kThreads) {
+      const int part = idx / per_part;  // q, k, v, then g
+      const int rem = idx - part * per_part;
+      const int t = rem / d_head;
+      const int d = rem - t * d_head;
+      // the bias add happens at the input dtype, as in the forward
+      q[(part * t_len + t) * stride + d] =
+          part < 3 ? round_to<T>(to_f32(src[(int64_t)t * w3 + part * hd + d]) +
+                                 to_f32(bias[part * hd + h * d_head + d]))
+                   : to_f32(gsrc[(int64_t)t * hd + d]);
     }
+    // probs[row, i, h*T + j] = a[i, j]
+    const int64_t pstride = (int64_t)n_heads * t_len;
+    const float* prow0 = kRecompute ? nullptr
+                                    : probs + (int64_t)row * t_len * pstride +
+                                          h * t_len;
     __syncthreads();
-    // dq[i, d] = sum_j ds[i, j] k[j, d]
-    for (int idx = threadIdx.x; idx < nq * d_head; idx += kThreads) {
-      const int ii = idx / d_head;
-      const int d = idx - ii * d_head;
-      const float* dsi = tile + ii * tstride;
-      float acc = 0.f;
-      for (int j = 0; j < t_len; ++j) acc = fmaf(dsi[j], k[j * stride + d], acc);
-      dst[(int64_t)(i0 + ii) * w3 + d] = from_f32<T>(acc);
-    }
-    __syncthreads();  // the next tile overwrites this one
-  }
 
-  // ---- key tiles: a's and ds's columns, then dv and dk -----------------
-  const int tk = tile_rows / 2;
-  float* a_cols = tile;                  // (tk, tstride) round(a)
-  float* ds_cols = tile + tk * tstride;  // (tk, tstride) ds
-  for (int j0 = 0; j0 < t_len; j0 += tk) {
-    const int nk = min(tk, t_len - j0);
-    for (int idx = threadIdx.x; idx < nk * t_len; idx += kThreads) {
-      const int jj = idx / t_len;
-      const int i = idx - jj * t_len;
-      const int j = j0 + jj;
-      float a;
-      if constexpr (kRecompute) {
-        const float* qi = q + i * stride;
-        const float* kj = k + j * stride;
+    const float* mrow = mask ? mask + (int64_t)row * t_len : nullptr;
+    // the forward's scale of the scores, computed as the forward does
+    const float inv_s = 1.0f / sqrtf((float)d_head);
+    T* dst = dqkv + (int64_t)row * t_len * w3 + h * d_head;
+
+    // ---- query tiles: ds's rows, then dq --------------------------------
+    for (int i0 = 0; i0 < t_len; i0 += tile_rows) {
+      const int nq = min(tile_rows, t_len - i0);
+      for (int ii = warp; ii < nq; ii += warps) {
+        const int i = i0 + ii;
+        if constexpr (kRecompute) {
+          recompute_a_row(wrow, q + i * stride, k, mrow, t_len, d_head, stride,
+                          inv_s, ms + i, dens + i, lane);
+        } else {
+          for (int j = lane; j < t_len; j += 32) wrow[j] = prow0[i * pstride + j];
+        }
+        float* dsi = tile + ii * tstride;  // da's row, then ds's
+        ds_row<T>(dsi, wrow, dsi, gs + i * stride, v, t_len, d_head, stride,
+                  inv, rs + i, lane);
+        __syncwarp();  // the next query overwrites wrow
+      }
+      __syncthreads();
+      // dq[i, d] = sum_j ds[i, j] k[j, d]
+      for (int idx = threadIdx.x; idx < nq * d_head; idx += kThreads) {
+        const int ii = idx / d_head;
+        const int d = idx - ii * d_head;
+        const float* dsi = tile + ii * tstride;
         float acc = 0.f;
-        for (int d = 0; d < d_head; ++d) acc = fmaf(qi[d], kj[d], acc);
-        float e = expf(__fmul_rn(acc, inv_s) - ms[i]);
-        if (mrow) e *= mrow[j];
-        a = dens[i] > 0.f ? e / dens[i] : 0.f;
-      } else {
-        a = prow0[i * pstride + j];
+        for (int j = 0; j < t_len; ++j) acc = fmaf(dsi[j], k[j * stride + d], acc);
+        dst[(int64_t)(i0 + ii) * w3 + d] = from_f32<T>(acc);
       }
-      const float* gi = gs + i * stride;
-      const float* vj = v + j * stride;
-      float da = 0.f;
-      for (int d = 0; d < d_head; ++d) da = fmaf(gi[d], vj[d], da);
-      a_cols[jj * tstride + i] = round_to<T>(a);  // a in g's dtype, for dv
-      ds_cols[jj * tstride + i] = round_to<T>((da - rs[i]) * a * inv);
+      __syncthreads();  // the next tile overwrites this one
     }
-    __syncthreads();
-    // dv[j, d] = sum_i round(a[i, j]) g[i, d];  dk[j, d] = sum_i ds[i, j] q[i, d]
-    for (int idx = threadIdx.x; idx < nk * d_head; idx += kThreads) {
-      const int jj = idx / d_head;
-      const int d = idx - jj * d_head;
-      const float* aj = a_cols + jj * tstride;
-      const float* dsj = ds_cols + jj * tstride;
-      float dv = 0.f, dk = 0.f;
-      for (int i = 0; i < t_len; ++i) {
-        dv = fmaf(aj[i], gs[i * stride + d], dv);
-        dk = fmaf(dsj[i], q[i * stride + d], dk);
+
+    // ---- key tiles: a's and ds's columns, then dv and dk -----------------
+    const int tk = tile_rows / 2;
+    float* a_cols = tile;                  // (tk, tstride) round(a)
+    float* ds_cols = tile + tk * tstride;  // (tk, tstride) ds
+    for (int j0 = 0; j0 < t_len; j0 += tk) {
+      const int nk = min(tk, t_len - j0);
+      for (int idx = threadIdx.x; idx < nk * t_len; idx += kThreads) {
+        const int jj = idx / t_len;
+        const int i = idx - jj * t_len;
+        const int j = j0 + jj;
+        float a;
+        if constexpr (kRecompute) {
+          const float* qi = q + i * stride;
+          const float* kj = k + j * stride;
+          float acc = 0.f;
+          for (int d = 0; d < d_head; ++d) acc = fmaf(qi[d], kj[d], acc);
+          float e = expf(__fmul_rn(acc, inv_s) - ms[i]);
+          if (mrow) e *= mrow[j];
+          a = dens[i] > 0.f ? e / dens[i] : 0.f;
+        } else {
+          a = prow0[i * pstride + j];
+        }
+        const float* gi = gs + i * stride;
+        const float* vj = v + j * stride;
+        float da = 0.f;
+        for (int d = 0; d < d_head; ++d) da = fmaf(gi[d], vj[d], da);
+        a_cols[jj * tstride + i] = round_to<T>(a);  // a in g's dtype, for dv
+        ds_cols[jj * tstride + i] = round_to<T>((da - rs[i]) * a * inv);
       }
-      const int64_t o = (int64_t)(j0 + jj) * w3 + d;
-      dst[o + hd] = from_f32<T>(dk);
-      dst[o + 2 * hd] = from_f32<T>(dv);
+      __syncthreads();
+      // dv[j, d] = sum_i round(a[i, j]) g[i, d];  dk[j, d] = sum_i ds[i, j] q[i, d]
+      for (int idx = threadIdx.x; idx < nk * d_head; idx += kThreads) {
+        const int jj = idx / d_head;
+        const int d = idx - jj * d_head;
+        const float* aj = a_cols + jj * tstride;
+        const float* dsj = ds_cols + jj * tstride;
+        float dv = 0.f, dk = 0.f;
+        for (int i = 0; i < t_len; ++i) {
+          dv = fmaf(aj[i], gs[i * stride + d], dv);
+          dk = fmaf(dsj[i], q[i * stride + d], dk);
+        }
+        const int64_t o = (int64_t)(j0 + jj) * w3 + d;
+        dst[o + hd] = from_f32<T>(dk);
+        dst[o + 2 * hd] = from_f32<T>(dv);
+      }
+      __syncthreads();
     }
-    __syncthreads();
+  };
+  if constexpr (kGlobal) {
+    for (int64_t item = blockIdx.x; item < n_items; item += gridDim.x)
+      body(item);  // ends with a __syncthreads
+  } else {
+    body(blockIdx.x);
   }
 }
 
+// gstage, with `slots` slots of qkv_bwd_stage_floats each, is read only
+// when the tiled kernel's stage does not fit in shared memory; without it
+// such a T is refused (cudaErrorInvalidValue).
 template <typename T, bool kRecompute>
 int qkv_bwd_launch(const void* qkv, const void* bias, const void* probs,
                    const void* mask, const void* g, void* dqkv, int n,
-                   int t_len, int n_heads, int d_head, void* stream) {
+                   int t_len, int n_heads, int d_head, void* stream,
+                   float* gstage = nullptr, int slots = 0) {
   if (n <= 0) return (int)cudaSuccess;
   const int64_t blocks = (int64_t)n * n_heads;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = qkv_bwd_smem_bytes_for(t_len, d_head);
+  const bool global = !qkv_bwd_resident(t_len, d_head) &&
+                      !qkv_bwd_tiled_in_smem(t_len, d_head);
+  if (global && (gstage == nullptr || slots <= 0))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = global ? qkv_bwd_tiled_smem_bytes(t_len, 0)
+                             : qkv_bwd_smem_bytes_for(t_len, d_head);
   // 1/sqrt(D) for ds, rounded once from double, as the plain version's
   // scalar is
   const float inv = (float)(1.0 / sqrt((double)d_head));
@@ -434,15 +485,35 @@ int qkv_bwd_launch(const void* qkv, const void* bias, const void* probs,
            (cudaStream_t)stream>>>(x, b, p, m, gg, out, n_heads, t_len,
                                    d_head, inv);
   } else {
-    err = cudaFuncSetAttribute(qkv_bwd_tiled_kernel<T, kRecompute>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    qkv_bwd_tiled_kernel<T, kRecompute>
-        <<<(unsigned)blocks, 32 * kTiledWarps, smem,
-           (cudaStream_t)stream>>>(x, b, p, m, gg, out, n_heads, t_len,
-                                   d_head, qkv_bwd_tile_rows(t_len, d_head),
-                                   inv);
+    if (global) {
+      // only the fused tail's backward (row 4's arithmetic) stages here
+      if constexpr (!kRecompute) {
+        return (int)cudaErrorInvalidValue;
+      } else {
+        err = cudaFuncSetAttribute(
+            qkv_bwd_tiled_kernel<T, true, true>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        qkv_bwd_tiled_kernel<T, true, true>
+            <<<(unsigned)(slots < blocks ? slots : blocks),
+               32 * kTiledWarps, smem, (cudaStream_t)stream>>>(
+                x, b, p, m, gg, out, n_heads, t_len, d_head,
+                qkv_bwd_tile_rows(t_len, 0), inv, blocks, gstage);
+      }
+    } else {
+      err = cudaFuncSetAttribute(qkv_bwd_tiled_kernel<T, kRecompute, false>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      qkv_bwd_tiled_kernel<T, kRecompute, false>
+          <<<(unsigned)blocks, 32 * kTiledWarps, smem,
+             (cudaStream_t)stream>>>(x, b, p, m, gg, out, n_heads, t_len,
+                                     d_head,
+                                     qkv_bwd_tile_rows(
+                                         t_len, qkv_bwd_stage_floats(
+                                                    t_len, d_head)),
+                                     inv, blocks, nullptr);
+    }
   }
   return (int)cudaGetLastError();
 }

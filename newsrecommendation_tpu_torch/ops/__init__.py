@@ -6,10 +6,18 @@ from newsrecommendation_tpu_torch.ops.attention import (  # noqa: F401
     mhsa_dropout_pool,
 )
 from newsrecommendation_tpu_torch.ops.common import dropout, linear  # noqa: F401
+from newsrecommendation_tpu_torch.ops.experimental_blanes import (  # noqa: F401
+    exp_mhsa_qkv_blanes,
+    exp_mhsa_qkv_blanes_masked,
+)
 from newsrecommendation_tpu_torch.ops.experimental_fused_encoder import (  # noqa: E501,F401
     exp_mhsa_pool,
     exp_mhsa_pool_masked,
 )
 from newsrecommendation_tpu_torch.ops.experimental_qkv2d import (  # noqa: F401
     exp_mhsa_qkv_bias_2d,
+)
+from newsrecommendation_tpu_torch.ops.fused_attention import (  # noqa: F401
+    exp_mhsa,
+    exp_mhsa_masked,
 )

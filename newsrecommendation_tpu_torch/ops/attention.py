@@ -158,20 +158,20 @@ def multi_head_self_attention(params, x, mask=None, *, n_heads: int):
 
 def _mhsa_from_qkv(qkv_2d, bs, bias, nq, nk, nv, mask=None, *, n_heads: int):
     """MHSA over the un-biased fused projection output (B*S, nq+nk+nv),
-    routed as the JAX package routes it: a sequence of at least
+    routed as the JAX package routes it. With unequal widths (d_v != d_k),
+    the separate-q/k/v kernels (rows 5-8) on q, k, v cut from the biased
+    projection. With equal widths, a sequence of at least
     ``kernel_config.flash_min_seq()`` keys goes to the key-blocked flash
-    kernels on q, k, v cut from the biased projection; a shorter one to the
-    fused-qkv kernels, which add the bias themselves: unmasked with
-    ``attention_io() == "2d"`` to rows 11-12 on the 2-D product, else to
-    rows 1-4 on its (B, S, 3HD) view. The route is the same
-    on every device; the device picks kernel (CUDA) or plain version (CPU).
-    Unequal widths need the separate-q/k/v kernels, not ported yet, and
-    raise on every device.
+    kernels on the same cuts; a shorter one, under
+    ``attention_layout() == "blanes"``, to the batch-in-lanes kernels (rows
+    15-16) on the biased (B, S, 3HD) view; else to the fused-qkv kernels,
+    which add the bias themselves: unmasked with ``attention_io() == "2d"``
+    to rows 11-12 on the 2-D product, otherwise to rows 1-4 on its
+    (B, S, 3HD) view. The route is the same on every device; the device
+    picks kernel (CUDA) or plain version (CPU).
     """
-    if not nq == nk == nv:
-        raise NotImplementedError(
-            f"q/k/v widths ({nq}, {nk}, {nv}): the separate-q/k/v kernels "
-            "(exp_mhsa) are not ported")
+    if nq != nk:
+        raise ValueError(f"q and k widths differ ({nq}, {nk})")
     b, s = bs
     qkv_raw = qkv_2d.reshape(b, s, qkv_2d.shape[-1])
     from newsrecommendation_tpu_torch.ops import blockwise, kernel_config
@@ -179,11 +179,24 @@ def _mhsa_from_qkv(qkv_2d, bs, bias, nq, nk, nv, mask=None, *, n_heads: int):
 
     if mask is not None:
         mask = mask.float().contiguous()
+    if nv != nq:
+        q, k, v = torch.split(qkv_raw + bias, [nq, nk, nv], dim=-1)
+        if mask is None:
+            return fa.exp_mhsa(q, k, v, n_heads)
+        return fa.exp_mhsa_masked(q, k, v, mask, n_heads)
     if s >= kernel_config.flash_min_seq():
         q, k, v = torch.split(qkv_raw + bias, [nq, nk, nv], dim=-1)
         if mask is None:
             return blockwise.flash_exp_mhsa(q, k, v, n_heads)
         return blockwise.flash_exp_mhsa_masked(q, k, v, mask, n_heads)
+    if kernel_config.attention_layout() == "blanes":
+        from newsrecommendation_tpu_torch.ops import experimental_blanes
+
+        qkv = qkv_raw + bias
+        if mask is None:
+            return experimental_blanes.exp_mhsa_qkv_blanes(qkv, n_heads)
+        return experimental_blanes.exp_mhsa_qkv_blanes_masked(qkv, mask,
+                                                              n_heads)
     if mask is None:
         if kernel_config.attention_io() == "2d":
             # the (B*S, 3HD) product as it is: rows 11-12

@@ -15,6 +15,11 @@ each element's global index and a seed read from a device tensor
 (``keep_mask``), so the backward draws the same mask and the JAX package's
 mask bit for bit. The backward writes the f32 context and d_z once to
 scratch for its dw1 product over all positions (``csrc/fused_tail_bwd.cu``).
+A row too long for a block's shared memory (at the NRMS width, T > 86 in
+the forward and T > 85 in the backward) keeps its working set in a global
+scratch of one slot per block, which the wrappers allocate
+(``csrc/fused_tail.cuh``): the tail takes the user encoder's long
+histories as the JAX package's does.
 
 The rounding points are the TPU kernels': qkv arrives biased in the input
 dtype; per-head contexts are concatenated in f32, unrounded; dropout
@@ -218,13 +223,16 @@ def _check_launch(src, t, n_heads, d, q, qkv, key_mask, w1, b1, w2, b2, seed,
     if key_mask is not None and key_mask.dtype != torch.float32:
         raise TypeError(f"key_mask must be float32, got {key_mask.dtype}")
     fn = f"{src}_smem_bytes"
-    need = kernels.smem_bytes(src, t, n_heads, d, q, fn=fn)
+    need = kernels.size_of(src, fn, t, n_heads, d, q)
     if need > kernels.MAX_SMEM:
-        lo, hi = 0, t  # the largest T that fits: in [lo, hi)
+        # rows past what fits move to global memory, leaving the row
+        # buffers in shared memory: the largest T whose need fits, in
+        # [lo, hi) (the need grows with T)
+        lo, hi = 0, t
         while hi - lo > 1:
             mid = (lo + hi) // 2
-            if kernels.smem_bytes(src, mid, n_heads, d, q,
-                                  fn=fn) <= kernels.MAX_SMEM:
+            if kernels.size_of(src, fn, mid, n_heads, d,
+                               q) <= kernels.MAX_SMEM:
                 lo = mid
             else:
                 hi = mid
@@ -238,17 +246,21 @@ def fused_tail_fwd(qkv, key_mask, w1, b1, w2, b2, seed, n_heads: int,
                    drop_rate: float, deterministic: bool):
     """Kernel row 13 on CUDA tensors, with the plain version's contract;
     w1 and w2 in qkv's dtype, b1 and b2 float32, seed int32. Raises for
-    other devices and for a T whose row does not fit in shared memory."""
+    other devices and for a T whose row buffers do not fit in shared
+    memory (T > 6456 at the NRMS width)."""
     n, t, d, q = _check(qkv, key_mask, w1, b1, w2, b2, seed, n_heads)
     _check_launch("fused_tail_fwd", t, n_heads, d, q, qkv, key_mask, w1, b1,
                   w2, b2, seed)
     out = torch.empty((n, n_heads * d), dtype=qkv.dtype, device=qkv.device)
+    scratch, slots = kernels.scratch("fused_tail_fwd",
+                                     "fused_tail_fwd_scratch_floats", n,
+                                     qkv.device, t, n_heads, d, q)
     kernels.call("tail" if key_mask is None else "tail_masked",
                  kernels.entry("fused_tail_fwd", "fused_tail_fwd",
                                qkv.dtype),
                  qkv.device, *map(kernels.ptr, (qkv, key_mask, w1, b1, w2,
-                                                b2, seed, out)),
-                 n, t, n_heads, d, q,
+                                                b2, seed, out, scratch)),
+                 n, t, n_heads, d, q, slots,
                  *_dropout_args(drop_rate, deterministic))
     return out
 
@@ -267,7 +279,8 @@ def fused_tail_bwd(qkv, key_mask, w1, b1, w2, b2, seed, g, n_heads: int,
     """Kernel row 14 on CUDA tensors, with the plain version's contract.
     The parameter gradients are summed in a fixed order (per row, per split
     of the positions, then over rows and splits), so two runs give the
-    same bits. Raises for other devices."""
+    same bits. Raises for other devices and past the T its row buffers
+    and row 4's take (T > 4470 at the NRMS width)."""
     n, t, d, q = _check(qkv, key_mask, w1, b1, w2, b2, seed, n_heads)
     hd = n_heads * d
     if g.shape != (n, hd) or g.dtype != qkv.dtype:
@@ -275,7 +288,6 @@ def fused_tail_bwd(qkv, key_mask, w1, b1, w2, b2, seed, g, n_heads: int,
                          f"got {g.dtype} {tuple(g.shape)}")
     _check_launch("fused_tail_bwd", t, n_heads, d, q, qkv, key_mask, w1, b1,
                   w2, b2, seed, g)
-    kernels.check_smem("qkv_bwd", t, d)  # row 4, its attention backward
     dev = qkv.device
     splits = _n_splits(n * t, hd, q, dev)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -288,13 +300,22 @@ def fused_tail_bwd(qkv, key_mask, w1, b1, w2, b2, seed, g, n_heads: int,
     dw2, db2 = torch.empty((q, 1), **f32), torch.empty((1, 1), **f32)
     w1t = w1.t().contiguous()  # (Q, HD): the d_z w1^T product reads rows
     zero_bias = qkv.new_zeros(3 * hd)  # row 4's kernel adds a bias
+    # long rows: q, k, v of the per-row kernel and row 4's operands staged
+    # in global memory, one slot per block
+    stage, slots = kernels.scratch("fused_tail_bwd",
+                                   "fused_tail_bwd_stage_floats", n, dev, t,
+                                   n_heads, d, q)
+    attn_stage, attn_slots = kernels.scratch(
+        "fused_tail_bwd", "fused_tail_bwd_attn_stage_floats", n * n_heads,
+        dev, t, d)
     kernels.call("tail_bwd" if key_mask is None else "tail_bwd_masked",
                  kernels.entry("fused_tail_bwd", "fused_tail_bwd",
                                qkv.dtype),
                  dev, *map(kernels.ptr, (qkv, key_mask, w1, w1t, b1, w2, b2,
                                          seed, g, zero_bias, dqkv, *scratch,
-                                         dw1, db1, dw2, db2)),
-                 n, t, n_heads, d, q, splits,
+                                         dw1, db1, dw2, db2, stage,
+                                         attn_stage)),
+                 n, t, n_heads, d, q, splits, slots, attn_slots,
                  *_dropout_args(drop_rate, deterministic))
     return dqkv, dw1, db1, dw2, db2
 

@@ -16,6 +16,14 @@ Replaces, in ``newsrecommendation_tpu/ops/pallas/fused_attention.py``:
     the probs from qkv, bias and the mask -> ``csrc/qkv_bwd.cu``, kernel
     "qkv_bwd" (row 4). Rows 3 and 4 share one kernel template
     (``csrc/qkv_bwd.cuh``) and give the same gradients.
+and, on separate q, k and v (the JAX package's route when the q/k/v
+widths differ), ``_fwd_call`` / ``_masked_fwd_call`` and ``_bwd_call`` /
+``_masked_bwd_call`` -> ``csrc/mhsa_sep.cu``, kernels "mhsa_fwd" (rows 5
+and 7) and "mhsa_bwd" (rows 6 and 8), behind ``exp_mhsa`` and
+``exp_mhsa_masked``. Those take d_v as a width of its own: the TPU kernels
+size the output and v's head slice by q's width, which is right only when
+the widths are equal, so the port is held to them there and, at unequal
+widths, to the JAX package with Pallas off.
 The entry points ``exp_mhsa_qkv_bias`` and ``exp_mhsa_qkv_bias_masked``
 choose as the JAX package's custom_vjp does: with grad mode on and qkv or
 bias requiring grad, the forward and backward follow
@@ -272,3 +280,165 @@ def exp_mhsa_qkv_bias_masked(qkv, bias, key_mask, n_heads: int):
     """Key-masked exp_mhsa_qkv_bias; key_mask (N, T) float32 0/1 over keys.
     A row whose keys are all masked gives 0."""
     return _attend("bias_masked", qkv, bias, key_mask, n_heads)
+
+
+# ---- rows 5-8: separate q, k, v ---------------------------------------------
+
+
+def _check_sep(q, k, v, key_mask, n_heads):
+    if q.dim() != 3 or k.shape != q.shape or v.dim() != 3 or (
+            v.shape[:2] != q.shape[:2]):
+        raise ValueError(f"q, k must be (N, T, H*Dk) and v (N, T, H*Dv), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    n, t, hdk = q.shape
+    hdv = v.shape[-1]
+    if n_heads < 1 or hdk % n_heads or hdv % n_heads:
+        raise ValueError(f"widths {hdk}, {hdv} are not n_heads({n_heads}) "
+                         "times a head width")
+    if key_mask is not None and key_mask.shape != (n, t):
+        raise ValueError(f"key_mask must be ({n}, {t}), "
+                         f"got {tuple(key_mask.shape)}")
+    return n, t, hdk // n_heads, hdv // n_heads
+
+
+def _sep_probs(q, k, key_mask, n_heads):
+    """a (N, H, Tq, Tk) f32 of rows 5-8, and the f32 q, k by head."""
+    n, t, hdk = q.shape
+    dk = hdk // n_heads
+    qh, kh = (x.reshape(n, t, n_heads, dk).float() for x in (q, k))
+    s = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * (1.0 / math.sqrt(dk))
+    m = None if key_mask is None else key_mask[:, None, None, :]
+    return masked_exp_normalize(s, m, dim=-1), qh, kh
+
+
+def exp_mhsa_reference(q, k, v, key_mask, n_heads: int):
+    """Plain PyTorch version of rows 5 and 7: the context (N, T, H*Dv) in
+    q's dtype from q, k (N, T, H*Dk), v (N, T, H*Dv) and the key mask
+    (N, T) f32 or None: scores f32 and scaled by 1/sqrt(Dk) after the dot,
+    max over all keys, mask after the exp, a cast to v's dtype before a@v,
+    f32 sums."""
+    n, t, _, dv = _check_sep(q, k, v, key_mask, n_heads)
+    a, _, _ = _sep_probs(q, k, key_mask, n_heads)
+    ctx = torch.einsum("bhqk,bkhd->bqhd", a.to(v.dtype).float(),
+                       v.reshape(n, t, n_heads, dv).float())
+    return ctx.reshape(n, t, n_heads * dv).to(q.dtype)
+
+
+def exp_mhsa_bwd_reference(q, k, v, key_mask, g, n_heads: int):
+    """Plain PyTorch version of rows 6 and 8: (dq, dk, dv) in q's dtype,
+    the probs recomputed as rows 5 and 7 compute them; g (N, T, H*Dv) in
+    q's dtype. a is rounded to g's dtype for dv = a^T g, ds =
+    (da - rowsum(da * a)) * a / sqrt(Dk) to k's dtype for dq = ds k and
+    dk = ds^T q."""
+    n, t, dk, dv = _check_sep(q, k, v, key_mask, n_heads)
+    _check_grad(g, q, n, t, n_heads * dv)
+    a, qh, kh = _sep_probs(q, k, key_mask, n_heads)
+    gh = g.reshape(n, t, n_heads, dv).float()
+    d_v = torch.einsum("bhqk,bqhd->bkhd", a.to(g.dtype).float(), gh)
+    da = torch.einsum("bqhd,bkhd->bhqk", gh,
+                      v.reshape(n, t, n_heads, dv).float())
+    ds = (da - (da * a).sum(-1, keepdim=True)) * a * (1.0 / math.sqrt(dk))
+    ds = ds.to(k.dtype).float()
+    d_q = torch.einsum("bhqk,bkhd->bqhd", ds, kh)
+    d_k = torch.einsum("bhqk,bqhd->bkhd", ds, qh)
+    return tuple(x.reshape(n, t, -1).to(q.dtype) for x in (d_q, d_k, d_v))
+
+
+def _check_sep_launch(q, k, v, key_mask, *more):
+    """What rows 5-8 need of their operands; returns the row strides of q,
+    k and v (each (N, T, W) with contiguous lanes, rows a stride apart)."""
+    kernels.check_operands(q, k, v, key_mask, *more, contiguous=False)
+    for x in (key_mask, *more):
+        if x is not None and not x.is_contiguous():
+            raise ValueError("operands must be contiguous")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v dtypes {q.dtype}, {k.dtype}, {v.dtype}")
+    if key_mask is not None and key_mask.dtype != torch.float32:
+        raise TypeError(f"key_mask must be float32, got {key_mask.dtype}")
+    t = q.shape[1]
+    lds = []
+    for x in (q, k, v):
+        ld = x.stride(1)
+        if x.stride() != (t * ld, ld, 1):
+            raise ValueError("q, k, v must have contiguous lanes and rows a "
+                             f"stride apart; got strides {x.stride()}")
+        lds.append(ld)
+    return lds
+
+
+def mhsa_sep_fwd(q, k, v, key_mask, n_heads: int):
+    """Kernel rows 5 (key_mask None) and 7 on CUDA tensors: the context as
+    exp_mhsa_reference. q, k, v may be views of one projection. Raises for
+    other devices."""
+    n, t, dk, dv = _check_sep(q, k, v, key_mask, n_heads)
+    lds = _check_sep_launch(q, k, v, key_mask)
+    out = torch.empty((n, t, n_heads * dv), dtype=q.dtype, device=q.device)
+    scratch, slots = kernels.scratch("mhsa_sep", "mhsa_sep_fwd_scratch_floats",
+                                     n * n_heads, q.device, t, dk, dv)
+    kernels.call("mhsa" if key_mask is None else "mhsa_masked",
+                 kernels.entry("mhsa_sep", "mhsa_sep_fwd", q.dtype), q.device,
+                 *map(kernels.ptr, (q, k, v, key_mask, out, scratch)), n, t,
+                 n_heads, dk, dv, *lds, slots)
+    return out
+
+
+def mhsa_sep_bwd(q, k, v, key_mask, g, n_heads: int):
+    """Kernel rows 6 (key_mask None) and 8 on CUDA tensors: (dq, dk, dv)
+    as exp_mhsa_bwd_reference. Raises for other devices."""
+    n, t, dk, dv = _check_sep(q, k, v, key_mask, n_heads)
+    _check_grad(g, q, n, t, n_heads * dv)
+    lds = _check_sep_launch(q, k, v, key_mask, g)
+    d_q, d_k = (torch.empty((n, t, n_heads * dk), dtype=q.dtype,
+                            device=q.device) for _ in range(2))
+    d_v = torch.empty((n, t, n_heads * dv), dtype=q.dtype, device=q.device)
+    scratch, slots = kernels.scratch("mhsa_sep", "mhsa_sep_bwd_scratch_floats",
+                                     n * n_heads, q.device, t, dk, dv)
+    kernels.call("mhsa_bwd" if key_mask is None else "mhsa_bwd_masked",
+                 kernels.entry("mhsa_sep", "mhsa_sep_bwd", q.dtype), q.device,
+                 *map(kernels.ptr, (q, k, v, key_mask, g, d_q, d_k, d_v,
+                                    scratch)), n, t, n_heads, dk, dv, *lds,
+                 slots)
+    return d_q, d_k, d_v
+
+
+class _ExpMhsa(torch.autograd.Function):
+    """Rows 5/7 forward (saves q, k, v and the mask), rows 6/8 backward,
+    which recomputes the probs; their plain versions for CPU tensors. The
+    mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, n_heads):
+        ctx.n_heads = n_heads
+        ctx.save_for_backward(q, k, v, key_mask)
+        fwd = exp_mhsa_reference if q.device.type == "cpu" else mhsa_sep_fwd
+        return fwd(q, k, v, key_mask, n_heads)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        q, k, v, key_mask = ctx.saved_tensors
+        g = g.to(q.dtype).contiguous()  # as the JAX package casts it
+        bwd = (exp_mhsa_bwd_reference if q.device.type == "cpu"
+               else mhsa_sep_bwd)
+        return (*bwd(q, k, v, key_mask, g, ctx.n_heads), None, None)
+
+
+def _attend_sep(q, k, v, key_mask, n_heads):
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _ExpMhsa.apply(q, k, v, key_mask, n_heads)
+    if q.device.type == "cpu":
+        return exp_mhsa_reference(q, k, v, key_mask, n_heads)
+    return mhsa_sep_fwd(q, k, v, key_mask, n_heads)
+
+
+def exp_mhsa(q, k, v, n_heads: int):
+    """Exp-MHSA on separate q, k (N, T, H*Dk) and v (N, T, H*Dv). Returns
+    the context (N, T, H*Dv), differentiable in q, k and v."""
+    return _attend_sep(q, k, v, None, n_heads)
+
+
+def exp_mhsa_masked(q, k, v, key_mask, n_heads: int):
+    """Key-masked exp_mhsa; key_mask (N, T) float32 0/1 over keys. A row
+    whose keys are all masked gives 0."""
+    return _attend_sep(q, k, v, key_mask, n_heads)

@@ -4,9 +4,7 @@ its defaults.
 
 The switches are read when a forward runs (the JAX package reads them when
 a step is traced). ``pallas_mode`` has no counterpart: a tensor's device
-decides between a kernel (CUDA) and its plain version (CPU). A value whose
-kernel is not ported yet ("blanes") raises ``NotImplementedError`` when it
-is set, so it is never accepted and then ignored.
+decides between a kernel (CUDA) and its plain version (CPU).
 """
 
 from __future__ import annotations
@@ -15,6 +13,7 @@ _BWD_RESIDUALS = "probs"  # "probs" | "recompute"
 _FLASH_MIN_SEQ = 512
 _FUSED_TAIL = "auto"  # "auto" | "on" | "off"
 _ATTN_IO = "3d"  # "3d" | "2d"
+_ATTN_LAYOUT = "headloop"  # "headloop" | "blanes"
 
 
 def set_bwd_residuals(mode: str) -> None:
@@ -79,13 +78,18 @@ def attention_io() -> str:
 
 
 def set_attention_layout(layout: str) -> None:
-    """"headloop" only: "blanes" needs its kernels (rows 15-16), not
-    ported yet, and raises."""
+    """How the fused-qkv attention below flash_min_seq keys maps its work:
+    "headloop" (rows 1-4, or 11-12 with attention_io "2d") or "blanes"
+    (the batch-in-lanes kernels, rows 15-16, masked and unmasked, whatever
+    attention_io says)."""
+    global _ATTN_LAYOUT
     if layout not in ("headloop", "blanes"):
         raise ValueError(f"unknown attention layout {layout!r}")
-    if layout == "blanes":
-        raise NotImplementedError(
-            "attention_layout='blanes' needs its kernels, not ported")
+    _ATTN_LAYOUT = layout
+
+
+def attention_layout() -> str:
+    return _ATTN_LAYOUT
 
 
 def apply(cfg) -> None:

@@ -43,29 +43,42 @@ _ENTRY_POINTS = {
     "flash_bwd": {"flash_bwd": "p" * 11 + "i" * 5},
     "qkv2d": {"qkv2d_fwd": "p" * 4 + "i" * 4,
               "qkv2d_bwd": "p" * 5 + "i" * 4},
-    "fused_tail_fwd": {"fused_tail_fwd": "p" * 8 + "i" * 6 + "uf"},
-    "fused_tail_bwd": {"fused_tail_bwd": "p" * 20 + "i" * 7 + "uf"},
+    "fused_tail_fwd": {"fused_tail_fwd": "p" * 9 + "i" * 7 + "uf"},
+    "fused_tail_bwd": {"fused_tail_bwd": "p" * 22 + "i" * 9 + "uf"},
+    "blanes": {"blanes_fwd": "p" * 3 + "i" * 4,
+               "blanes_bwd": "p" * 5 + "i" * 4},
+    "mhsa_sep": {"mhsa_sep_fwd": "p" * 6 + "i" * 9,
+                 "mhsa_sep_bwd": "p" * 9 + "i" * 9},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "u": ctypes.c_uint32,
            "f": ctypes.c_float}
 # Sources whose block stages whole rows or (T, D) operands in shared memory
-# export size functions (no dtype suffix), checked against what a block
-# may use: {source: {function: count of int arguments}}.
-_SMEM_CHECKED = {
+# export size functions (no dtype suffix): the shared bytes a block needs,
+# checked against what a block may use, and the floats of a scratch slot
+# where a long row moves to global memory. {source: {function: count of
+# int arguments}}.
+_SIZE_FUNCTIONS = {
     "qkv_fwd": {"qkv_fwd_smem_bytes": 2},
     "qkv_bwd_probs": {"qkv_bwd_probs_smem_bytes": 2},
     "qkv_bwd": {"qkv_bwd_smem_bytes": 2},
     "qkv2d": {"qkv2d_fwd_smem_bytes": 2, "qkv2d_bwd_smem_bytes": 2},
-    "fused_tail_fwd": {"fused_tail_fwd_smem_bytes": 4},
-    "fused_tail_bwd": {"fused_tail_bwd_smem_bytes": 4},
+    "fused_tail_fwd": {"fused_tail_fwd_smem_bytes": 4,
+                       "fused_tail_fwd_scratch_floats": 4},
+    "fused_tail_bwd": {"fused_tail_bwd_smem_bytes": 4,
+                       "fused_tail_bwd_stage_floats": 4,
+                       "fused_tail_bwd_attn_stage_floats": 2},
+    "blanes": {"blanes_bwd_stats_floats": 3},
+    "mhsa_sep": {"mhsa_sep_fwd_scratch_floats": 3,
+                 "mhsa_sep_bwd_scratch_floats": 3},
 }
 # Shared memory one block may use on sm_90 (opt-in, dynamic).
 MAX_SMEM = 232448
 
 # Each kernel's variants, counted apart. Rows of PERF.md's kernel table:
 # 1 "qkv_fwd", 2 "qkv_fwd_probs", 3 "qkv_bwd_probs", 4 "qkv_bwd",
-# 9 "flash_fwd", 10 "flash_bwd", 11 "qkv2d_fwd", 12 "qkv2d_bwd",
-# 13 "fused_tail_fwd", 14 "fused_tail_bwd".
+# 5 and 7 "mhsa_fwd" (unmasked, masked), 6 and 8 "mhsa_bwd", 9 "flash_fwd",
+# 10 "flash_bwd", 11 "qkv2d_fwd", 12 "qkv2d_bwd", 13 "fused_tail_fwd",
+# 14 "fused_tail_bwd", 15 "blanes_fwd", 16 "blanes_bwd".
 KERNELS = {"qkv_fwd": ("bias", "bias_masked"),
            "qkv_fwd_probs": ("bias_probs", "bias_masked_probs"),
            "qkv_bwd_probs": ("bwd_probs",),
@@ -75,7 +88,11 @@ KERNELS = {"qkv_fwd": ("bias", "bias_masked"),
            "qkv2d_fwd": ("fwd2d",),
            "qkv2d_bwd": ("bwd2d",),
            "fused_tail_fwd": ("tail", "tail_masked"),
-           "fused_tail_bwd": ("tail_bwd", "tail_bwd_masked")}
+           "fused_tail_bwd": ("tail_bwd", "tail_bwd_masked"),
+           "mhsa_fwd": ("mhsa", "mhsa_masked"),
+           "mhsa_bwd": ("mhsa_bwd", "mhsa_bwd_masked"),
+           "blanes_fwd": ("blanes", "blanes_masked"),
+           "blanes_bwd": ("blanes_bwd", "blanes_bwd_masked")}
 
 _lock = threading.Lock()  # guards the launch counts
 _build_lock = threading.Lock()
@@ -170,7 +187,7 @@ def library(name: str):
                     fn = getattr(lib, f"{entry}_{suffix}")
                     fn.argtypes = [_CTYPES[c] for c in sig] + [ptr]
                     fn.restype = i32
-            for fn_name, n_ints in _SMEM_CHECKED.get(name, {}).items():
+            for fn_name, n_ints in _SIZE_FUNCTIONS.get(name, {}).items():
                 smem = getattr(lib, fn_name)
                 smem.argtypes = [i32] * n_ints
                 smem.restype = i32
@@ -203,14 +220,29 @@ def check_operands(lead, *others, contiguous=True,
             raise ValueError("operands must be contiguous")
 
 
-def smem_bytes(name: str, *dims, fn: str | None = None) -> int:
-    """Shared memory one block of source ``name`` needs at ``dims``, from
-    its size function ``fn`` (default ``<name>_smem_bytes``)."""
-    return getattr(library(name), fn or f"{name}_smem_bytes")(*dims)
+def size_of(name: str, fn: str, *dims) -> int:
+    """Size function ``fn`` of source ``name`` (``_SIZE_FUNCTIONS``) at
+    ``dims``: bytes of shared memory, or floats of scratch."""
+    return getattr(library(name), fn)(*dims)
+
+
+def scratch(name: str, fn: str, n_items: int, device, *dims):
+    """(scratch, slots) for a kernel whose working set moves to global
+    memory when a block's shared memory cannot hold it: ``fn`` of source
+    ``name`` gives the floats of one slot at ``dims``, 0 when it fits.
+    Two slots per SM (a block each, walking the n_items), so the scratch is
+    bounded by the card, not by the rows. (None, 0) when it fits."""
+    floats = size_of(name, fn, *dims)
+    if not floats:
+        return None, 0
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    slots = max(1, min(n_items, 2 * sms))
+    return torch.empty((slots, floats), dtype=torch.float32,
+                       device=device), slots
 
 
 def check_smem(name: str, t: int, d: int, fn: str | None = None) -> None:
-    smem = smem_bytes(name, t, d, fn=fn)
+    smem = size_of(name, fn or f"{name}_smem_bytes", t, d)
     if smem > MAX_SMEM:
         raise NotImplementedError(
             f"T={t}, D={d} needs {smem} bytes of shared memory per block in "

@@ -150,11 +150,30 @@ def test_long_sequence_matches_jax_on_cpu(pallas_off, masked):
 
 
 def test_unequal_widths_raise_on_cpu():
-    """The separate-q/k/v path is not ported: no plain stand-in either."""
-    qkv = torch.zeros((2 * 5, 8 + 8 + 16))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        torch_attention._mhsa_from_qkv(qkv, (2, 5), torch.zeros(32), 8, 8, 16,
-                                       n_heads=2)
+    """Unequal widths (8, 8, 16) no longer raise on the CPU: the route takes
+    rows 5-8's plain versions and computes the JAX package's answer with
+    Pallas off (its default on the CPU). JAX's own rows 5-8 size the
+    output by q's width, so they are not the yardstick here
+    (tests/test_torch_exp_mhsa.py)."""
+    rng = np.random.default_rng(3)
+    qkv = rng.normal(size=(2 * 5, 8 + 8 + 16)).astype(np.float32)
+    bias = rng.normal(scale=0.5, size=(32,)).astype(np.float32)
+    mask = (rng.random((2, 5)) > 0.3).astype(np.float32)
+    mask[:, 0] = 1.0
+    for km in (None, mask):
+        out = torch_attention._mhsa_from_qkv(
+            torch.from_numpy(qkv), (2, 5), torch.from_numpy(bias), 8, 8, 16,
+            None if km is None else torch.from_numpy(km), n_heads=2)
+        set_pallas_mode("off")
+        try:
+            ref = jax_attention._mhsa_from_qkv(
+                jnp.asarray(qkv), (2, 5), jnp.asarray(bias), 8, 8, 16,
+                None if km is None else jnp.asarray(km), n_heads=2)
+        finally:
+            set_pallas_mode("auto")
+        assert out.shape == ref.shape == (2, 5, 16)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                                   atol=1e-6)
 
 
 @pytest.mark.parametrize("s, widths", [(512, (8, 8, 8)), (600, (8, 8, 8)),

@@ -178,6 +178,40 @@ def test_plain_versions_match_jax_kernels(dtype, masked, dropout, block_rows):
         assert (out[2] == 0).all() and (got[0][2] == 0).all()
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_versions_match_jax_kernels_long_rows(dtype, masked):
+    """Rows 13-14's plain versions against _fwd_call and _bwd_call at
+    T = 100, a row longer than the kernels keep in shared memory at the
+    NRMS width (they then work from a global scratch; the JAX tail takes
+    any T), dropout on, two grid blocks each."""
+    n, t = 16, 100
+    set_pallas_mode("interpret")
+    try:
+        qkv, mask, pool, g = make_tail(seed=5, n=n, t=t)
+        km = mask if masked else None
+        jargs = _jax_args(qkv, km, pool, dtype)
+        seed = np.array([SEED], np.int32)
+        kw = dict(drop_rate=RATE, deterministic=False)
+        want = jfe._fwd_call(*jargs, jnp.asarray(seed), HEADS, D,
+                             block_rows=8, **kw)
+        wants = jfe._bwd_call(*jargs, jnp.asarray(seed), _j(g, dtype), HEADS,
+                              D, block_rows=16, **kw)
+    finally:
+        set_pallas_mode("auto")
+    targs = _port_args(qkv, km, pool, dtype)
+    out = fe.fused_tail_fwd_reference(*targs, torch.from_numpy(seed), HEADS,
+                                      **kw)
+    assert out.shape == (n, HEADS * D)
+    np.testing.assert_allclose(_np(out), _np(want), **FWD_TOL[dtype])
+    got = fe.fused_tail_bwd_reference(*targs, torch.from_numpy(seed),
+                                      _t(g, dtype), HEADS, **kw)
+    for name, x, y in zip(("dqkv", "dw1", "db1", "dw2", "db2"), got, wants):
+        assert x.shape == y.shape, name
+        np.testing.assert_allclose(_np(x), _np(y), **BWD_TOL[dtype],
+                                   err_msg=name)
+
+
 def _jax_grads(qkv, mask, pool, g, dtype, dropout):
     seed = jnp.asarray([SEED], jnp.int32)
 

@@ -1,7 +1,8 @@
 """The CUDA kernels (csrc/qkv_fwd.cu, rows 1 and 2; csrc/qkv_bwd_probs.cu,
-row 3; csrc/qkv_bwd.cu, row 4; csrc/flash_fwd.cu and csrc/flash_bwd.cu,
-rows 9 and 10; csrc/qkv2d.cu, rows 11 and 12; csrc/fused_tail_fwd.cu and
-csrc/fused_tail_bwd.cu, rows 13 and 14) against their plain PyTorch
+row 3; csrc/qkv_bwd.cu, row 4; csrc/mhsa_sep.cu, rows 5-8;
+csrc/flash_fwd.cu and csrc/flash_bwd.cu, rows 9 and 10; csrc/qkv2d.cu,
+rows 11 and 12; csrc/fused_tail_fwd.cu and csrc/fused_tail_bwd.cu, rows 13
+and 14; csrc/blanes.cu, rows 15 and 16) against their plain PyTorch
 versions, on the card. Imports
 no JAX, so it runs where only PyTorch is installed:
 
@@ -516,32 +517,58 @@ def test_fused_tail_kernels_match_plain(n, t, heads, d, q, dtype, masked,
 
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
 def test_fused_tail_takes_t_up_to_its_smem_limit(which):
-    """At H = D = 20, Q = 200 the longest row that fits in shared memory
-    runs and agrees with the plain version; one more position raises, with
-    the limit in the message."""
+    """At H = D = 20, Q = 200 the longest row that fits in shared memory,
+    one position more (the kernels then keep the row in a global scratch)
+    and T = 512 (the user encoder over a long history) all agree with the
+    plain version."""
     src = f"fused_tail_{which}"
-    fits = [t for t in range(1, 200) if kernels.smem_bytes(
-        src, t, 20, 20, 200, fn=f"{src}_smem_bytes") <= kernels.MAX_SMEM]
-    t_max = max(fits)
-    qkv, mask, pool, g = _tail_inputs(3, t_max, 20, 20, 200, "float32",
-                                      seed=10)
+    fn = (f"{src}_scratch_floats" if which == "fwd"
+          else "fused_tail_bwd_stage_floats")
+    t_max = max(t for t in range(1, 200)
+                if kernels.size_of(src, fn, t, 20, 20, 200) == 0)
+    assert t_max == (86 if which == "fwd" else 85)
     seed = torch.zeros(1, dtype=torch.int32, device="cuda")
-    args = (qkv, mask, *pool, seed, 20, 0.0, True)
-    if which == "fwd":
-        got, want = fe.fused_tail_fwd(*args), fe.fused_tail_fwd_reference(
-            *args)
-    else:
-        got = fe.fused_tail_bwd(*args[:7], g, *args[7:])[0]
-        want = fe.fused_tail_bwd_reference(*args[:7], g, *args[7:])[0]
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                               **BWD_TOL["float32"])
-    qkv, mask, pool, g = _tail_inputs(3, t_max + 1, 20, 20, 200, "float32")
-    args = (qkv, mask, *pool, seed, 20, 0.0, True)
-    with pytest.raises(NotImplementedError, match=f"T <= {t_max}"):
+    for t in (t_max, t_max + 1, 512):
+        qkv, mask, pool, g = _tail_inputs(3, t, 20, 20, 200, "float32",
+                                          seed=10)
+        args = (qkv, mask, *pool, seed, 20, 0.0, True)
         if which == "fwd":
-            fe.fused_tail_fwd(*args)
+            got = fe.fused_tail_fwd(*args)
+            want = fe.fused_tail_fwd_reference(*args)
         else:
-            fe.fused_tail_bwd(*args[:7], g, *args[7:])
+            got = fe.fused_tail_bwd(*args[:7], g, *args[7:])[0]
+            want = fe.fused_tail_bwd_reference(*args[:7], g, *args[7:])[0]
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **BWD_TOL["float32"], err_msg=f"T={t}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [512, 1000])
+def test_fused_tail_takes_long_rows(t, dtype):
+    """Rows 13-14 at T = 512 and 1000 with dropout on, masked, against
+    their plain versions; past T = 599 row 14's attention part stages its
+    operands in global memory too. The pooling gradients are held as in
+    test_fused_tail_kernels_match_plain, and two runs give the same bits."""
+    qkv, mask, pool, g = _tail_inputs(4, t, 20, 20, 200, dtype, seed=11)
+    seed = torch.tensor([77], dtype=torch.int32, device="cuda")
+    args = (qkv, mask, *pool, seed, 20, 0.2, False)
+    out = fe.fused_tail_fwd(*args)
+    grads = fe.fused_tail_bwd(*args[:7], g, *args[7:])
+    again = fe.fused_tail_bwd(*args[:7], g, *args[7:])
+    ref = fe.fused_tail_fwd_reference(*args)
+    refs = fe.fused_tail_bwd_reference(*args[:7], g, *args[7:])
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), **TOL[dtype])
+    np.testing.assert_allclose(grads[0].float().cpu().numpy(),
+                               refs[0].float().cpu().numpy(),
+                               **BWD_TOL[dtype])
+    tol = _summed_tol(refs[1:], dtype)
+    for got, want in zip(grads[1:], refs[1:]):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **tol)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    assert (out[::3] == 0).all() and (grads[0][::3] == 0).all()
 
 
 def test_fused_tail_raises_on_what_it_does_not_take():
@@ -622,3 +649,209 @@ def test_fused_tail_launches_rows_13_14(masked):
     for label, got, ref_g in pairs:
         np.testing.assert_allclose(got.cpu().numpy(), ref_g.numpy(), **tol,
                                    err_msg=label)
+
+
+# ---- rows 15-16: batch-in-lanes attention -----------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n, t, heads, d", [(64, 20, 20, 20), (33, 50, 20, 20),
+                                            (7, 5, 3, 4), (3, 300, 2, 8),
+                                            (40, 511, 1, 33), (5, 37, 2, 64)])
+def test_blanes_kernels_match_plain(dtype, n, t, heads, d):
+    """Rows 15-16 against their plain versions, unmasked and masked (every
+    third row fully masked), at N not a multiple of the 32 rows of a block
+    and T past the 32 keys of a staged tile."""
+    from newsrecommendation_tpu_torch.ops import experimental_blanes as bl
+
+    qkv, bias, mask = _inputs(n, t, heads, d, dtype, seed=12)
+    qkv = (qkv + bias).contiguous()
+    g = torch.randn((n, t, heads * d), device="cuda").to(qkv.dtype)
+    kernels.reset_launch_counts()
+    for km in (None, mask):
+        out = bl.blanes_fwd(qkv, km, heads)
+        dqkv = bl.blanes_bwd(qkv, km, g, heads)
+        ref = bl.blanes_fwd_reference(qkv, km, heads)
+        refg = bl.blanes_bwd_reference(qkv, km, g, heads)
+        torch.cuda.synchronize()
+        assert out.dtype == qkv.dtype and out.shape == (n, t, heads * d)
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(), **TOL[dtype])
+        np.testing.assert_allclose(dqkv.float().cpu().numpy(),
+                                   refg.float().cpu().numpy(),
+                                   **BWD_TOL[dtype])
+    assert (out[::3] == 0).all() and (dqkv[::3] == 0).all()
+    assert kernels.launch_counts("blanes_fwd") == {"blanes": 1,
+                                                   "blanes_masked": 1}
+    assert kernels.launch_counts("blanes_bwd") == {"blanes_bwd": 1,
+                                                   "blanes_bwd_masked": 1}
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_blanes_layout_launches_rows_15_16(masked):
+    """Under attention_layout "blanes" (and attention_io "2d", which it
+    overrides) multi_head_self_attention under grad launches rows 15-16
+    only; output and gradients agree with the CPU's plain route."""
+    from newsrecommendation_tpu_torch.ops import attention
+
+    rng = np.random.default_rng(3)
+    heads, d, t = 4, 8, 20
+    params = {k: {"w": torch.from_numpy(rng.normal(scale=0.3, size=(
+                      32, heads * d)).astype(np.float32)),
+                  "b": torch.from_numpy(rng.normal(scale=0.1, size=(
+                      heads * d,)).astype(np.float32))}
+              for k in ("wq", "wk", "wv")}
+    x = torch.from_numpy(rng.normal(size=(40, t, 32)).astype(np.float32))
+    mask = torch.ones((40, t))
+    mask[0, 5:] = 0.0
+    mask[1] = 0.0
+    g = torch.from_numpy(rng.normal(size=(40, t, heads * d)).astype(
+        np.float32))
+    results = {}
+    kernel_config.set_attention_layout("blanes")
+    kernel_config.set_attention_io("2d")
+    try:
+        for dev in ("cuda", "cpu"):
+            p = {k: {n: w.to(dev).requires_grad_() for n, w in v.items()}
+                 for k, v in params.items()}
+            xx = x.to(dev).requires_grad_()
+            kernels.reset_launch_counts()
+            out = attention.multi_head_self_attention(
+                p, xx, mask.to(dev) if masked else None, n_heads=heads)
+            out.backward(g.to(dev))
+            launches = {k: kernels.launch_counts(k) for k in kernels.KERNELS}
+            results[dev] = (out.detach().cpu(), xx.grad.cpu(), launches)
+    finally:
+        kernel_config.set_attention_layout("headloop")
+        kernel_config.set_attention_io("3d")
+    variant = "_masked" if masked else ""
+    launches = results["cuda"][2]
+    assert launches["blanes_fwd"]["blanes" + variant] == 1
+    assert launches["blanes_bwd"]["blanes_bwd" + variant] == 1
+    others = {k: v for k, v in launches.items() if not k.startswith("blanes")}
+    assert not any(any(v.values()) for v in others.values()), others
+    assert not any(any(v.values()) for v in results["cpu"][2].values())
+    np.testing.assert_allclose(results["cuda"][0].numpy(),
+                               results["cpu"][0].numpy(), **TOL["float32"])
+    np.testing.assert_allclose(results["cuda"][1].numpy(),
+                               results["cpu"][1].numpy(),
+                               **BWD_TOL["float32"])
+
+
+def test_blanes_raises_on_what_it_does_not_take():
+    from newsrecommendation_tpu_torch.ops import experimental_blanes as bl
+
+    qkv = torch.zeros((4, 6, 3 * 2 * 65), device="cuda")
+    with pytest.raises(NotImplementedError, match="at most 64"):
+        bl.blanes_fwd(qkv, None, 2)
+    qkv = torch.zeros((4, 6, 24), device="cuda")
+    with pytest.raises(TypeError, match="key_mask"):
+        bl.blanes_fwd(qkv, torch.ones((4, 6), device="cuda",
+                                      dtype=torch.bfloat16), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        bl.blanes_fwd(qkv.transpose(0, 1).contiguous().transpose(0, 1), None,
+                      2)
+    with pytest.raises(ValueError, match="g must be"):
+        bl.blanes_bwd(qkv, None, torch.zeros((4, 6, 8), device="cuda",
+                                             dtype=torch.bfloat16), 2)
+
+
+# ---- rows 5-8: separate q, k, v --------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n, t, heads, dk, dv", [
+    (64, 20, 20, 20, 20), (64, 20, 20, 20, 32), (33, 50, 20, 20, 8),
+    (7, 5, 3, 4, 6), (2, 300, 2, 8, 12), (2, 900, 1, 20, 20)])
+def test_mhsa_sep_kernels_match_plain(dtype, n, t, heads, dk, dv):
+    """Rows 5-8 against their plain versions, unmasked and masked, on q, k
+    and v cut from one projection (one row stride) at equal and unequal
+    widths; at T = 300 the backward's working set, and at T = 900 the
+    forward's too, lives in a global scratch."""
+    rng = np.random.default_rng(13)
+    tdt = getattr(torch, dtype)
+    w = heads * (2 * dk + dv)
+    qkv = torch.from_numpy(rng.normal(size=(n, t, w)).astype(
+        np.float32)).to(tdt).cuda()
+    q, k, v = torch.split(qkv, [heads * dk, heads * dk, heads * dv], -1)
+    g = torch.from_numpy(rng.normal(size=(n, t, heads * dv)).astype(
+        np.float32)).to(tdt).cuda()
+    mask = (rng.random((n, t)) > 0.3).astype(np.float32)
+    mask[:, 0] = 1.0
+    mask[::3] = 0.0
+    mask = torch.from_numpy(mask).cuda()
+    kernels.reset_launch_counts()
+    for km in (None, mask):
+        out = fa.mhsa_sep_fwd(q, k, v, km, heads)
+        grads = fa.mhsa_sep_bwd(q, k, v, km, g, heads)
+        ref = fa.exp_mhsa_reference(q, k, v, km, heads)
+        refs = fa.exp_mhsa_bwd_reference(q, k, v, km, g, heads)
+        torch.cuda.synchronize()
+        assert out.shape == (n, t, heads * dv) and out.dtype == tdt
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(), **TOL[dtype])
+        for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
+            assert got.shape == want.shape, name
+            np.testing.assert_allclose(got.float().cpu().numpy(),
+                                       want.float().cpu().numpy(),
+                                       **BWD_TOL[dtype], err_msg=name)
+    assert (out[::3] == 0).all() and all((x[::3] == 0).all() for x in grads)
+    assert kernels.launch_counts("mhsa_fwd") == {"mhsa": 1, "mhsa_masked": 1}
+    assert kernels.launch_counts("mhsa_bwd") == {"mhsa_bwd": 1,
+                                                 "mhsa_bwd_masked": 1}
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_unequal_widths_launch_rows_5_8(masked):
+    """multi_head_self_attention at d_v = 6 != d_k = 4 on the card launches
+    rows 5-8 only and agrees with the CPU's plain route."""
+    from newsrecommendation_tpu_torch.ops import attention
+
+    rng = np.random.default_rng(4)
+    heads, t = 3, 12
+    width = {"wq": heads * 4, "wk": heads * 4, "wv": heads * 6}
+    params = {k: {"w": torch.from_numpy(rng.normal(scale=0.4, size=(
+                      10, w)).astype(np.float32)),
+                  "b": torch.from_numpy(rng.normal(scale=0.1, size=(
+                      w,)).astype(np.float32))}
+              for k, w in width.items()}
+    x = torch.from_numpy(rng.normal(size=(9, t, 10)).astype(np.float32))
+    mask = torch.ones((9, t))
+    mask[0, 4:] = 0.0
+    g = torch.from_numpy(rng.normal(size=(9, t, heads * 6)).astype(
+        np.float32))
+    results = {}
+    for dev in ("cuda", "cpu"):
+        p = {k: {n: w.to(dev).requires_grad_() for n, w in v.items()}
+             for k, v in params.items()}
+        xx = x.to(dev).requires_grad_()
+        kernels.reset_launch_counts()
+        out = attention.multi_head_self_attention(
+            p, xx, mask.to(dev) if masked else None, n_heads=heads)
+        out.backward(g.to(dev))
+        launches = {k: kernels.launch_counts(k) for k in kernels.KERNELS}
+        results[dev] = (out.detach().cpu(), xx.grad.cpu(),
+                        p["wv"]["w"].grad.cpu(), launches)
+    variant = "_masked" if masked else ""
+    launches = results["cuda"][3]
+    assert launches["mhsa_fwd"]["mhsa" + variant] == 1
+    assert launches["mhsa_bwd"]["mhsa_bwd" + variant] == 1
+    others = {k: v for k, v in launches.items() if not k.startswith("mhsa")}
+    assert not any(any(v.values()) for v in others.values()), others
+    assert results["cuda"][0].shape == (9, t, heads * 6)
+    for i, tol in ((0, TOL["float32"]), (1, BWD_TOL["float32"]),
+                   (2, BWD_TOL["float32"])):
+        np.testing.assert_allclose(results["cuda"][i].numpy(),
+                                   results["cpu"][i].numpy(), **tol)
+
+
+def test_mhsa_sep_raises_on_what_it_does_not_take():
+    q = torch.zeros((4, 6, 8), device="cuda")
+    with pytest.raises(TypeError, match="dtypes"):
+        fa.mhsa_sep_fwd(q, q, q.bfloat16(), None, 2)
+    with pytest.raises(ValueError, match="stride"):
+        fa.mhsa_sep_fwd(q, q.transpose(0, 1).contiguous().transpose(0, 1), q,
+                        None, 2)
+    with pytest.raises(ValueError, match="g must be"):
+        fa.mhsa_sep_bwd(q, q, q, None, torch.zeros((4, 6, 6), device="cuda"),
+                        2)

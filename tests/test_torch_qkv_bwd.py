@@ -181,22 +181,15 @@ def test_switch_defaults_are_jax_s():
     assert kernel_config.flash_min_seq() == jax_config.flash_min_seq() == 512
 
 
-@pytest.mark.parametrize("setter, value", [
-    ("set_attention_layout", "blanes")])
-def test_unported_values_raise(setter, value):
-    """A value whose kernel is not ported raises when it is set: it is
-    never accepted and then ignored."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        getattr(kernel_config, setter)(value)
-
-
 @pytest.mark.parametrize("setter, value, getter, want, default", [
     ("set_fused_tail", "on", "fused_tail_enabled", True, "auto"),
     ("set_fused_tail", True, "fused_tail_enabled", True, "auto"),
-    ("set_attention_io", "2d", "attention_io", "2d", "3d")])
+    ("set_attention_io", "2d", "attention_io", "2d", "3d"),
+    ("set_attention_layout", "blanes", "attention_layout", "blanes",
+     "headloop")])
 def test_ported_values_set_their_switch(setter, value, getter, want,
                                         default):
-    """The values whose kernels are now ported (rows 11-14) set their
+    """The values whose kernels are now ported (rows 11-16) set their
     switch, which its getter reads; the default is restored after."""
     try:
         getattr(kernel_config, setter)(value)
