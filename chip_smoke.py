@@ -40,6 +40,7 @@ Phases, each printing one line with its elapsed seconds:
   kernel-2d  rows 11-12 (the 2-D-I/O forward and backward) at 7040 x 20
            and 128 x 50, f32 and bf16: equal to rows 2-3 on the 3-D view in
            every element, and vs their plain versions; times and bounds
+           (the backward's beside scaled_dot_product_attention's)
   kernel-fused-tail  rows 13-14 (the fused encoder tail) vs their plain
            versions at 7040 x 20 and 128 x 50 (masked and not), f32 and
            bf16, dropout off and 0.2; the pooling gradients held to a share
@@ -58,9 +59,12 @@ Phases, each printing one line with its elapsed seconds:
            without its row-sum term, in bf16 dv from the unrounded a);
            kernel / plain / scaled_dot_product_attention times
   kernel-blanes  rows 15-16 (the batch-in-lanes forward and backward) vs
-           their plain versions at 7040 x 20, 128 x 50 masked and 64 x 511
-           (both), f32 and bf16; controls as rows 1 and 4's; kernel /
-           plain / scaled_dot_product_attention times
+           their plain versions at 7040 x 20, 128 x 50 (both masks), 64 x
+           511 (both) and 128 x T masked for T in 64, 65 (the two sides of
+           the regime switch), 128, 200, f32 and bf16; controls as rows 1
+           and 4's, and past T = 64 a max and den taken per 64-key tile
+           without rescaling; kernel / plain / scaled_dot_product_attention
+           times, forward and backward
   mhsa-unequal  multi_head_self_attention at d_k = 20, d_v = 32 (1024 x
            20, 20 heads, both masks), forward and backward on the card
            against the CPU, launching rows 5-8 only
@@ -109,7 +113,10 @@ Phases, each printing one line with its elapsed seconds:
            1024-row news-encoder chunk and of the headline, recompute,
            trained-table, fused-tail, 2-D-I/O, blanes, 512-history and
            512-history fused-tail train steps
-Then one JSON line of per-kernel numbers, and last the line
+Every backward row's library time is scaled_dot_product_attention's
+backward alone on the same q, k, v (its forward run outside the timed
+window), a yardstick the port never calls. Then one JSON line of
+per-kernel numbers, and last the line
 {"ok": true, "device": {...}}. Any failed phase raises: the exit code is
 then not 0 and no result line is printed. Without CUDA it exits 1 at once.
 """
@@ -197,6 +204,10 @@ TAIL_LONG = ((128, 87, True, ("float32", "bfloat16")),
              (128, LONG_L, True, ("float32", "bfloat16")),
              (32, 1000, False, ("float32",)))
 FUSED_LONG_STEPS = 6  # train steps with the fused tail at LONG_L
+# Rows 15-16 besides the main paths' T (20, 50, 511): both sides of the
+# regime switch (T <= 64 holds a head's T x T in shared memory), and two
+# lengths past it.
+BLANES_T = (64, 65, 128, 200)
 # Rows 5-8 at the news encoder's shape with d_v = d_k and d_v = 32.
 SEP_DV = (20, 32)
 # The long train-check's reduced width (heads of 20 as published).
@@ -468,7 +479,8 @@ def train_kernel_case(fa, variant, n, t, heads, d, dtype, seed):
                        lambda: fa.qkv_bwd_probs_reference(qkv, bias,
                                                           ref_probs, g,
                                                           heads),
-                       bwd_bytes, 8 * n * heads * t * t * d, dtype)
+                       bwd_bytes, 8 * n * heads * t * t * d, dtype,
+                       library=sdpa_bwd_of_qkv(qkv, bias, mask, g, heads))
     return out
 
 
@@ -522,20 +534,20 @@ def recompute_kernel_case(fa, variant, n, t, heads, d, dtype, seed):
     out["bwd"] = timed(lambda: fa.qkv_bwd(qkv, bias, mask, g, heads),
                        lambda: fa.qkv_bwd_reference(qkv, bias, mask, g,
                                                     heads),
-                       n_bytes, 10 * n * heads * t * t * d, dtype)
+                       n_bytes, 10 * n * heads * t * t * d, dtype,
+                       library=sdpa_bwd_of_qkv(qkv, bias, mask, g, heads))
     return out
 
 
-def flash_fwd_plain_without_rescale(q, k, v, key_mask, heads, block_kv):
+def flash_fwd_plain_without_rescale(q, k, v, key_mask, heads, bkv):
     """Row 9's plain version with a planted fault: the accumulator of the
-    earlier key blocks is not rescaled when the running max grows."""
+    earlier key blocks of bkv keys (the last one may be shorter) is not
+    rescaled when the running max grows. Also row 15's fault of a max and
+    a den taken per key tile."""
     import torch
-
-    from newsrecommendation_tpu_torch.ops import blockwise as bw
 
     n, t, hd = q.shape
     d = hd // heads
-    bkv = bw.kv_block(t, block_kv)
     qh, kh = (x.reshape(n, t, heads, d).float() for x in (q, k))
     vh = v.reshape(n, t, heads, d)
     m = q.new_full((n, heads, t), -1e30, dtype=torch.float32)
@@ -679,7 +691,9 @@ def flash_kernel_case(bw, masked, n, t, heads, d, dtype, seed):
         lambda: bw.flash_bwd(q, k, v, mask, g, rm, rden, delta, heads),
         lambda: bw.flash_bwd_reference(q, k, v, mask, g, rm, rden, delta,
                                        heads),
-        7 * q_bytes + 3 * stat_bytes + mask_bytes, 10 * flops, dtype, iters)
+        7 * q_bytes + 3 * stat_bytes + mask_bytes, 10 * flops, dtype, iters,
+        library=sdpa_bwd(qh, kh, vh, attn_mask,
+                         g.view(n, t, heads, d).transpose(1, 2)))
     return out
 
 
@@ -727,7 +741,8 @@ def qkv2d_kernel_case(q2, fa, n, t, heads, d, dtype, seed):
         lambda: q2.qkv2d_bwd(qkv2d, bias, probs, g, heads, t),
         lambda: q2.qkv2d_bwd_reference(qkv2d, bias, ref_probs, g, heads, t),
         item * (2 * n * t * 3 * hd + 3 * hd + n * t * hd)
-        + 4 * n * t * heads * t, 8 * n * heads * t * t * d, dtype)
+        + 4 * n * t * heads * t, 8 * n * heads * t * t * d, dtype,
+        library=sdpa_bwd_of_qkv(qkv2d.view(n, t, -1), bias, None, g, heads))
     return out_case
 
 
@@ -946,6 +961,13 @@ def blanes_kernel_case(bl, fa, masked, n, t, heads, d, dtype, seed):
     if mask is not None:
         caught["mask dropped"] = n_outside(
             out, bl.blanes_fwd_reference(qkv, None, heads), f_rtol, f_atol)
+    if t > bl.TILE:
+        # a design that walks the keys in tiles of the long regime's rows
+        # and takes the max and den of each tile without rescaling
+        caught[f"max and den per {bl.TILE}-key tile, not rescaled"] = (
+            n_outside(out, flash_fwd_plain_without_rescale(
+                *torch.split(qkv, hd, dim=-1), mask, heads, bl.TILE),
+                f_rtol, f_atol))
     if dtype == "bfloat16":
         caught.update(bwd_rounding_faults(dqkv, qkv, zero, probs, g, heads,
                                           case["dqkv"]["n_differ"],
@@ -971,7 +993,8 @@ def blanes_kernel_case(bl, fa, masked, n, t, heads, d, dtype, seed):
         lambda: bl.blanes_bwd(qkv, mask, g, heads),
         lambda: bl.blanes_bwd_reference(qkv, mask, g, heads),
         item * (2 * n * t * 3 * hd + n * t * hd) + mask_bytes,
-        10 * n * heads * t * t * d, dtype, iters)
+        10 * n * heads * t * t * d, dtype, iters,
+        library=sdpa_bwd_of_qkv(qkv, None, mask, g, heads))
     return case
 
 
@@ -1055,7 +1078,9 @@ def sep_kernel_case(fa, masked, n, t, heads, dk, dv, dtype, seed):
         lambda: fa.mhsa_sep_bwd(q, k, v, mask, g, heads),
         lambda: fa.exp_mhsa_bwd_reference(q, k, v, mask, g, heads),
         2 * in_bytes + item * n * t * hdv + mask_bytes,
-        n * heads * t * t * (6 * dk + 4 * dv), dtype)
+        n * heads * t * t * (6 * dk + 4 * dv), dtype,
+        library=sdpa_bwd(qh, kh, vh, attn_mask,
+                         g.view(n, t, heads, dv).transpose(1, 2)))
     return case
 
 
@@ -1164,6 +1189,30 @@ def check_caught(where, caught) -> None:
         if not count:
             fail(f"{where}: a plain version with {name} passed the "
                  "comparison")
+
+
+def sdpa_bwd(q, k, v, attn_mask, g):
+    """The library yardstick of a backward row: scaled_dot_product_attention's
+    backward alone on leaves q, k, v (N, H, T, D), the forward run once here,
+    outside the timed window; g (N, H, T, D_v). The port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask)
+    return lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+
+
+def sdpa_bwd_of_qkv(qkv, bias, mask, g, heads):
+    """sdpa_bwd on the heads of a fused projection (N, T, 3HD) plus bias
+    (or None), the boolean key mask as the forward yardstick takes it."""
+    n, t, w3 = qkv.shape
+    d = w3 // (3 * heads)
+    x = (qkv if bias is None else qkv + bias).view(n, t, 3, heads, d).permute(
+        2, 0, 3, 1, 4)
+    attn_mask = None if mask is None else mask.bool()[:, None, None, :]
+    return sdpa_bwd(x[0], x[1], x[2], attn_mask,
+                    g.view(n, t, heads, d).transpose(1, 2))
 
 
 def timed(fn, plain, n_bytes, flops, dtype, iters=20, library=None) -> dict:
@@ -1676,8 +1725,9 @@ def main() -> int:
     # ---- kernel rows 15-16 vs plain -----------------------------------------
     t = time.perf_counter()
     blanes_cases = []
-    shapes = [(False, 7040, 20), (True, 128, 50), (False, 64, 511),
-              (True, 64, 511)]
+    shapes = [(False, 7040, 20), (False, 128, 50), (True, 128, 50),
+              (False, 64, 511), (True, 64, 511)]
+    shapes += [(True, 128, tl) for tl in BLANES_T]
     for i, (masked, n, tl) in enumerate(shapes):
         for dtype in ("float32", "bfloat16"):
             c = blanes_kernel_case(bl, fa, masked, n, tl, 20, 20, dtype,

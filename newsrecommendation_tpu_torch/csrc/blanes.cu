@@ -1,7 +1,7 @@
 // Kernel rows 15 and 16: exp-normalised multi-head self-attention over a
-// biased fused [q|k|v] projection with the batch in the lanes ("blanes"):
-// the forward and the backward that recomputes the probs, unmasked and
-// key-masked.
+// biased fused [q|k|v] projection (the "batch-in-lanes" layout of the TPU
+// kernels): the forward and the backward that recomputes the probs,
+// unmasked and key-masked.
 //
 // Replaces the TPU kernels newsrecommendation_tpu/ops/pallas/
 // experimental_blanes.py:_blanes_fwd_kernel (row 15, _blanes_fwd_call) and
@@ -27,486 +27,1609 @@
 // qkv and writes out (451 MB, 0.135 ms at 3.35 TB/s; 4*N*H*T*T*D = 4.5
 // GFLOP); the backward reads qkv and g and writes dqkv (789 MB, 0.236 ms).
 //
-// Design: the TPU kernel transposes a block of rows to (T, 3HD, bn) so
-// that every elementwise step and reduction runs with the batch across
-// the VPU's lanes. Here the batch runs across a warp's lanes: lane r of
-// every warp of block (group b, head h) takes batch row 32*b + r, and each
-// warp takes one query (or key) at a time, so the 32 lanes of a warp do
-// the same step on 32 rows. The keys (or queries) are staged a tile of KT
-// at a time in shared memory as [position][d][lane], lanes padded to 33,
-// so the staging writes and the lanes' reads each hit 32 banks. A thread
-// holds its query's q (and g) in registers and walks the keys once for
-// the max, once for the sum and once for the context (the backward: also
-// for r and for dq), recomputing s each time: the contract rounds
-// a = e / den after the whole sum, so there is no online rescaling. The
-// backward's second phase, in the same block after a barrier, gives each
-// thread one key and walks the queries for dk and dv, with each query's m,
-// den and r read back from a global scratch the first phase wrote.
-// The sums over keys (den and r) run in the order of a warp reduction over
-// keys in lanes (rows 1 and 4's, which equal PyTorch's own reductions bit
-// for bit at T = 20 and 50 on an H100): key j into slot j mod 32, each slot
-// in key order, then the xor tree over the 32 slots. In that order, a and ds round as the plain version's do, so at
-// the NRMS shapes (T = 20, 50) a bf16 a does not flip its rounding and
-// move the context by an ulp of a times v. Each thread keeps its 32 slots
-// in a column of shared memory (32 KB a block).
-// Left on the table: the scores are recomputed 3-5 times, KT-key tiles are
-// staged again for each pass when T > KT, and no tensor cores.
+// Design. The TPU kernel puts the batch in the VPU's lanes; on this card
+// the contract is the function, not the layout. A work item is one batch
+// row, a group of heads and a tile of query (or key) rows; the grid is
+// sized by items (rows x head groups x tiles), at most as many blocks as
+// fit on the card, each block walking items with the next item's operands
+// copied in (cp.async, 16/8/4 bytes as the alignment allows) while it
+// computes the current one. Operands are staged in their own dtype, one
+// padded row of D per head, rows an odd number of 16-byte units apart, so
+// a lane reading its own key's row in 16-byte pieces hits 32 banks.
+// On CUDA cores a warp owns one (row, head, query) at a time, its lanes
+// over keys: key j in lane j mod 32, each lane taking its keys in order,
+// then the xor tree.
+// That is the order of rows 1 and 4 and of PyTorch's own reductions, which
+// is why a and ds round where the plain version's do (the max, exact in
+// any order, is one redux.sync). Each score is computed once.
+// Two regimes, chosen from T before the launch (the launch plan is
+// ops/experimental_blanes.py:launch_plan):
+//   T <= 64: an item is up to four heads and every query. A lane keeps its
+//     two scores in registers through the max, den and a (and da, r, ds);
+//     the rows of round(a) (and ds) go to the item's (heads, T, T|1)
+//     arrays in shared memory. The dots read an f32 copy of K (and V) made
+//     once per item, and at T <= 32 the forward's warps split by head and
+//     hold their lane's key row in registers. Then the context (or dq, dk,
+//     dv) is summed in index order over threads by (head, query pair, d
+//     pair). One kernel each way, no global scratch.
+//   T > 64: an item is one head and a tile of query (or key) rows, with
+//     that head's K and V (or Q and g) staged once for the whole tile. The
+//     backward takes two kernels and no atomics: the query side computes
+//     m, den, r and dq and writes the per-query stats; the key side
+//     recomputes a and ds from them and computes dk and dv. In bf16 with
+//     D <= 32 (the NRMS heads) the products run on tensor cores
+//     (mma.sync.m16n8k16, bf16 in, f32 sums; tiles of 128 rows, a warp 16
+//     of them, fragments by ldmatrix): the forward's QK^T and round(a)V,
+//     the backward's QK^T, gV^T, round(ds)K, KQ^T, Vg^T, round(a)g and
+//     round(ds)Q; the scores are recomputed in each walk over the keys
+//     rather than held. Only the order of the f32 sums changes (scores,
+//     den, r, products): at these T, a is about 1/T, and a flipped
+//     rounding of a or ds is far below the bf16 tolerance. Otherwise (f32,
+//     D > 32) CUDA cores: the forward's warps take two queries at once,
+//     a's rows in shared memory and the context with the lanes over d; the
+//     backward's kernels recompute a and ds bit for bit (the same dots in
+//     the same order).
+// At T <= 64 no tensor cores: the FMA work is below the memory bound and
+// the rounding of a and ds needs the plain order; f32 would miss its
+// tolerance in TF32. What bounds the resident regime on the card is
+// instruction throughput and latency: the per-query chain of a dot, a warp
+// sum, exp and an IEEE division. Left on the table: the long CUDA-core kernels' context with
+// the lanes past D idle (12 of 32 at D = 20), element copies when a head
+// row is not 4-byte aligned (bf16 at odd D).
 
 #include "flash.cuh"  // with_head_width
+
+#include <type_traits>
 
 namespace {
 
 using namespace nrk;
 
-constexpr int kLanes = 32;        // batch rows of a block, one per lane
-constexpr int kPad = kLanes + 1;  // staged stride of a (position, d) pair
-constexpr int kWarpsBl = 8;       // queries (or keys) of a block at once
-constexpr int kThreadsBl = 32 * kWarpsBl;
-constexpr int kMaxTile = 32;      // positions staged at once, at most
-constexpr int kSmemFloats = 232448 / 4;  // what a block may use
-constexpr int kSlotFloats = kLanes * kThreadsBl;  // tree_sum's slots
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kShortT = 64;        // longest T of the resident regime
+constexpr int kMaxSmem = 232448;   // what a block may use
 
-// Positions per staged tile: two (KT, D, kPad) operands and `vecs`
-// (KT, kLanes) vectors (the mask, or the stats m, den, r), beside the
-// slots.
-inline int tile_len(int t_len, int d_head, int vecs) {
-  const int per = 2 * d_head * kPad + vecs * kLanes;
-  int kt = (kSmemFloats - kSlotFloats) / per;
-  kt = kt < kMaxTile ? kt : kMaxTile;
-  kt = kt < t_len ? kt : t_len;
-  return kt < 1 ? 1 : kt;
+enum Kind { kFwd = 0, kBwd = 1, kBwdQuery = 2, kBwdKey = 3 };
+
+// Whether the long regime takes the tensor-core kernels: past the
+// resident regime, bf16, heads of at most 32 (the forward, and both
+// kernels of the backward).
+__host__ __device__ inline bool long_mma(int t, int d_head, int esize) {
+  return t > kShortT && esize == 2 && d_head <= 32;
 }
 
-inline size_t smem_bytes_for(int kt, int d_head, int vecs) {
-  return sizeof(float) *
-         ((size_t)kt * (2 * d_head * kPad + vecs * kLanes) + kSlotFloats);
+// Elements a staged head row is padded to: 16 bytes, or 16 elements (one
+// k-step of mma.m16n8k16) for the tensor-core kernels.
+__host__ __device__ inline int head_align(int kind, int t, int d_head,
+                                          int esize) {
+  return kind != kBwd && long_mma(t, d_head, esize) ? 16 : 16 / esize;
 }
 
-// dst[(j*D + d)*kPad + r] = lanes [c0, c0 + D) of x at (row0 + r, t0 + j),
-// for the block's 32 rows (0 past N) and positions t0 .. t0 + cnt - 1;
-// x has rows of w elements.
+// Bytes of one row of `heads` heads of D elements, each padded to a whole
+// number of `ve` elements held at `width` bytes, the row padded to an odd
+// number of 16-byte units (rows an odd number of units apart: a lane's, or
+// ldmatrix's, 16 bytes of eight rows hit 32 banks).
+inline int row_bytes(int d_head, int ve, int heads, int width) {
+  const int rb = heads * ((d_head + ve - 1) / ve * ve) * width;
+  return (rb / 16) % 2 == 0 ? rb + 16 : rb;
+}
+
+// Queries a warp of the long forward takes at once: two share each
+// staged row they read, as far as registers allow. The long backward's
+// kernels take one (rows of a and ds for two would cost the second block
+// on an SM at T = 511).
+__host__ __device__ inline int pair_of(int d_head) {
+  return d_head <= 32 ? 2 : 1;
+}
+
+// Bytes of one stage buffer and of the f32 arrays after the buffers.
+//   fwd, T <= 64:  Q, K, V [T];        bf16: K in f32; round(a), (heads, T, T|1)
+//   fwd, T > 64:   Q [rows], K, V [T]; a row per warp and query it takes
+//   bwd (T <= 64): Q, K, V, g [T];     bf16: K, V in f32; a and ds, each
+//                                      (heads, T, T|1)
+//   bwd query:     Q [rows], g [rows], K [T], V [T];   two rows per warp
+//   bwd key:       Q [T], g [T], K [rows], V [rows], the m, den, r of the T
+//                  queries;                           two rows per warp
+// (on tensor cores, past T = 64, heads padded to 16 elements, no warp rows).
+// The f32 copy of staged rows (bf16) keeps the stage's head offsets.
+struct Layout {
+  size_t stage, rows;
+};
+
+inline Layout layout_of(int kind, int t, int d_head, int esize, int heads,
+                        int rows) {
+  const size_t rb =
+      row_bytes(d_head, head_align(kind, t, d_head, esize), heads, esize);
+  const size_t wide =
+      esize == 2 ? row_bytes(d_head, 16 / esize, heads, 4) : 0;
+  const size_t t_ = t, r_ = rows;
+  const size_t warp_rows = (size_t)kWarps * t * 4;
+  const size_t tt = (size_t)heads * t_ * (t | 1) * 4;
+  switch (kind) {
+    case kFwd:
+      if (t <= kShortT) return {3 * t_ * rb, t_ * wide + tt};
+      if (long_mma(t, d_head, esize)) return {(r_ + 2 * t_) * rb, 0};
+      return {(r_ + 2 * t_) * rb, pair_of(d_head) * warp_rows};
+    case kBwd:
+      return {4 * t_ * rb, 2 * t_ * wide + 2 * tt};
+    case kBwdQuery:
+      return {(2 * r_ + 2 * t_) * rb,
+              long_mma(t, d_head, esize) ? 0 : 2 * warp_rows};
+    default:
+      return {(2 * t_ + 2 * r_) * rb + (12 * t_ + 15) / 16 * 16,
+              long_mma(t, d_head, esize) ? 0 : 2 * warp_rows};
+  }
+}
+
+struct Params {
+  int n, t, h, d;       // batch rows, positions, heads, head width
+  int heads, rows;      // heads and rows (queries or keys) of an item
+  int groups, tiles;    // head groups and row tiles of a batch row
+  int items;            // rows x groups x tiles, below 2^31
+  int nbuf;             // stage buffers: 2 copies the next item in early
+  int dp, rs;           // padded head width, staged row stride (elements)
+  int rsf;              // row stride of an f32 copy of staged rows
+  int chunk;            // bytes of one async copy; 0: element copies
+  size_t stage;         // bytes of one stage buffer
+  float inv_s, inv;     // the scale of the scores, and of ds
+};
+
+struct Item {
+  int64_t n;
+  int h0, gn, r0, rn;  // first head and heads; first row and rows
+};
+
+__device__ __forceinline__ Item item_of(const Params& p, int item) {
+  Item it;
+  const int rest = item / p.tiles;
+  const int tile = item - rest * p.tiles;
+  const int n = rest / p.groups;
+  it.n = n;
+  it.h0 = (rest - n * p.groups) * p.heads;
+  it.gn = min(p.heads, p.h - it.h0);
+  it.r0 = tile * p.rows;
+  it.rn = min(p.rows, p.t - it.r0);
+  return it;
+}
+
+// ---- staging ---------------------------------------------------------------
+
+template <int C>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+               "l"(src), "n"(C)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + rows) of x (w elements a row), the D columns of head
+// hl at col0 + hl*D for hl < gn, into dst[r*rs + hl*dp ...]. Each thread
+// keeps one piece of a row (gn * D / step <= 128 of them) and walks the
+// rows.
 template <typename T>
-__device__ __forceinline__ void stage_op(float* dst, const T* __restrict__ x,
-                                         int64_t row0, int n, int t_len,
-                                         int w, int c0, int t0, int cnt,
-                                         int d_head) {
-  const int total = kLanes * cnt * d_head;
-  for (int idx = threadIdx.x; idx < total; idx += kThreadsBl) {
-    const int d = idx % d_head;
-    const int rest = idx / d_head;
-    const int j = rest % cnt;
-    const int r = rest / cnt;
-    const int64_t row = row0 + r;
-    dst[(j * d_head + d) * kPad + r] =
-        row < n ? to_f32(x[(row * t_len + t0 + j) * w + c0 + d]) : 0.f;
+__device__ __forceinline__ void stage_part(T* dst, const T* __restrict__ x,
+                                           int64_t row0, int rows, int w,
+                                           int col0, int gn,
+                                           const Params& p) {
+  const int step = p.chunk ? p.chunk / (int)sizeof(T) : 1;  // elements
+  const int per = p.d / step;  // pieces of a head row
+  const int cols = gn * per;
+  const int rstep = kThreads / cols;
+  const int r0 = threadIdx.x / cols;
+  if (r0 >= rstep) return;
+  const int col = threadIdx.x - r0 * cols;
+  const int hl = col / per;
+  const int e = (col - hl * per) * step;
+  const T* src = x + row0 * w + col0 + hl * p.d + e;
+  T* to = dst + hl * p.dp + e;
+  for (int r = r0; r < rows; r += rstep) {
+    if (p.chunk == 16) cp_async<16>(to + r * p.rs, src + (int64_t)r * w);
+    else if (p.chunk == 8) cp_async<8>(to + r * p.rs, src + (int64_t)r * w);
+    else if (p.chunk == 4) cp_async<4>(to + r * p.rs, src + (int64_t)r * w);
+    else to[r * p.rs] = src[(int64_t)r * w];
   }
 }
 
-// dst[j*kLanes + r] = v[(row0 + r) * t_len + t0 + j] (`fill` when v is
-// null or past N).
-__device__ __forceinline__ void stage_vec(float* dst,
-                                          const float* __restrict__ v,
-                                          int64_t row0, int n, int t_len,
-                                          int t0, int cnt, float fill) {
-  for (int idx = threadIdx.x; idx < kLanes * cnt; idx += kThreadsBl) {
-    const int r = idx % kLanes;
-    const int j = idx / kLanes;
-    const int64_t row = row0 + r;
-    dst[idx] = v && row < n ? v[row * t_len + t0 + j] : fill;
+// An f32 copy of `rows` staged rows (gn heads, pads included) into dst,
+// rows rsf floats apart, with the stage's head offsets: the dots of every
+// query read it, so each element is converted once per item.
+template <typename T>
+__device__ __forceinline__ void widen(float* dst, const T* src, int rows,
+                                      int gn, const Params& p) {
+  const int cols = gn * p.dp;
+  const int rstep = kThreads / cols;
+  const int r0 = threadIdx.x / cols;
+  if (r0 >= rstep) return;
+  const int col = threadIdx.x - r0 * cols;
+  for (int r = r0; r < rows; r += rstep)
+    dst[r * p.rsf + col] = to_f32(src[r * p.rs + col]);
+}
+
+// Walks this block's items: item k's operands are staged (stage(item,
+// buffer)) while item k - 1 is computed when there are two buffers.
+// The stage buffers are zeroed first: the pads past D are never copied.
+template <typename Stage, typename Compute>
+__device__ __forceinline__ void run_items(const Params& p, unsigned char* smem,
+                                          Stage stage, Compute compute) {
+  const uint4 zero = {0u, 0u, 0u, 0u};
+  for (size_t i = threadIdx.x * 16; i < p.nbuf * p.stage; i += kThreads * 16)
+    *reinterpret_cast<uint4*>(smem + i) = zero;
+  __syncthreads();
+  int item = blockIdx.x;
+  int b = 0;
+  if (item < p.items) stage(item, 0);
+  cp_commit();
+  for (; item < p.items; item += gridDim.x) {
+    const int next = item + gridDim.x;
+    if (p.nbuf == 2) {
+      if (next < p.items) stage(next, b ^ 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();  // the item's operands are in
+    compute(item, b);
+    __syncthreads();  // its buffer and rows are free again
+    if (p.nbuf == 2) {
+      b ^= 1;
+    } else if (next < p.items) {
+      stage(next, 0);
+      cp_commit();
+    }
+  }
+  cp_wait<0>();
+}
+
+// ---- reading staged rows ----------------------------------------------------
+
+// 16 staged bytes at p (16-byte aligned) as floats
+__device__ __forceinline__ void load_chunk(const float* p, float* f) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
+}
+
+__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p, float* f) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    f[2 * k] = __uint_as_float(w[k] << 16);
+    f[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
   }
 }
 
-// s = (x . staged[j]) * inv for this lane, the dot in d order
-template <int DM>
-__device__ __forceinline__ float score(const float* x, const float* staged,
-                                       int j, int d_head, int lane,
-                                       float inv) {
-  float acc = 0.f;
+// NQ staged head rows, rs elements apart, as NQ vectors of DM floats
+// (their zero pads included, 0 past them).
+template <typename T, int DM, int NQ>
+__device__ __forceinline__ void load_rows(float* x, const T* row, int rs,
+                                          int d_head) {
+  constexpr int VE = 16 / sizeof(T);
 #pragma unroll
-  for (int d = 0; d < DM; ++d)
-    if (d < d_head) acc = fmaf(x[d], staged[(j * d_head + d) * kPad + lane],
-                               acc);
-  return __fmul_rn(acc, inv);
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int c = 0; c < DM / VE; ++c) {
+      if (c * VE < d_head) {
+        load_chunk(row + q * rs + c * VE, x + q * DM + c * VE);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VE; ++e) x[q * DM + c * VE + e] = 0.f;
+      }
+    }
 }
 
-template <int DM>
-__device__ __forceinline__ float dot_staged(const float* x,
-                                            const float* staged, int j,
-                                            int d_head, int lane) {
-  float acc = 0.f;
+// acc[q] = x_q . row for NQ vectors x_q, each in d order (the pads add
+// exact zeros); the row is read once for all of them.
+template <typename T, int DM, int NQ>
+__device__ __forceinline__ void dot_rows(float* acc, const float* x,
+                                         const T* row, int d_head) {
+  constexpr int VE = 16 / sizeof(T);
 #pragma unroll
-  for (int d = 0; d < DM; ++d)
-    if (d < d_head) acc = fmaf(x[d], staged[(j * d_head + d) * kPad + lane],
-                               acc);
-  return acc;
+  for (int q = 0; q < NQ; ++q) acc[q] = 0.f;
+#pragma unroll
+  for (int c = 0; c < DM / VE; ++c) {
+    if (c * VE < d_head) {
+      float f[VE];
+      load_chunk(row + c * VE, f);
+#pragma unroll
+      for (int e = 0; e < VE; ++e)
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+          acc[q] = fmaf(x[q * DM + c * VE + e], f[e], acc[q]);
+    }
+  }
 }
 
-// this lane's D-vector of x at (row, t, lanes c0 ..), zero padded to DM
-template <typename T, int DM>
-__device__ __forceinline__ void load_vec(float* dst, const T* __restrict__ x,
-                                         int64_t row, int t, int t_len, int w,
-                                         int c0, int d_head, bool active) {
+// Lanes over d (d and d + 32), for NQ weight rows w + q*t:
+// sum_j w_q[j] * x[j*rs + d] for j < cnt, in j order, stored to
+// dst[q*dstride + d] for d < D.
+template <typename T, int NQ>
+__device__ __forceinline__ void weighted_rows(T* __restrict__ dst,
+                                              int64_t dstride, const float* w,
+                                              int t, const T* x, int rs,
+                                              int cnt, int d_head, int lane) {
+  const int d0 = min(lane, d_head - 1);
+  const int d1 = min(lane + 32, d_head - 1);
+  float acc0[NQ], acc1[NQ];
 #pragma unroll
-  for (int d = 0; d < DM; ++d)
-    dst[d] = active && d < d_head
-                 ? to_f32(x[(row * t_len + t) * w + c0 + d]) : 0.f;
-}
-
-template <typename T, int DM>
-__device__ __forceinline__ void store_vec(T* __restrict__ x, const float* v,
-                                          int64_t row, int t, int t_len,
-                                          int w, int c0, int d_head) {
-#pragma unroll
-  for (int d = 0; d < DM; ++d)
-    if (d < d_head) x[(row * t_len + t) * w + c0 + d] = from_f32<T>(v[d]);
-}
-
-// sum over the keys of term(j) (j within the staged tile), in a warp
-// reduction's order: slot (j0 + j) mod 32 per key, each slot in key order,
-// then the xor tree over the slots. stage(j0) brings tile j0 in; `slots`
-// is the block's (kLanes, kThreadsBl) slot array, this thread's column.
-template <typename Stage, typename Term>
-__device__ __forceinline__ float tree_sum(float* slots, int t_len, int kt,
-                                          Stage stage, Term term) {
-  float* slot = slots + threadIdx.x;  // slot l at slot[l * kThreadsBl]
-  for (int l = 0; l < kLanes; ++l) slot[l * kThreadsBl] = 0.f;
-  for (int j0 = 0; j0 < t_len; j0 += kt) {
-    stage(j0);
-    const int cnt = min(kt, t_len - j0);
+  for (int q = 0; q < NQ; ++q) acc0[q] = acc1[q] = 0.f;
+  if (d_head > 32) {
     for (int j = 0; j < cnt; ++j) {
-      float* at = slot + ((j0 + j) % kLanes) * kThreadsBl;
-      *at = __fadd_rn(*at, term(j));
-    }
-  }
-  for (int o = kLanes / 2; o > 0; o >>= 1)
-    for (int l = 0; l < o; ++l)
-      slot[l * kThreadsBl] =
-          __fadd_rn(slot[l * kThreadsBl], slot[(l + o) * kThreadsBl]);
-  return slot[0];
-}
-
-template <typename T, int DM>
-__global__ void __launch_bounds__(kThreadsBl)
-blanes_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
-                  T* __restrict__ out, int n, int n_heads, int t_len,
-                  int d_head, int kt, float inv) {
-  extern __shared__ float smem[];
-  const int h = blockIdx.x % n_heads;
-  const int64_t row0 = (int64_t)(blockIdx.x / n_heads) * kLanes;
-  const int hd = n_heads * d_head;
-  const int w3 = 3 * hd;
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int64_t row = row0 + lane;
-  float* ks = smem;                     // (kt, D, kPad) keys
-  float* vs = ks + kt * d_head * kPad;  // (kt, D, kPad) values
-  float* ms = vs + kt * d_head * kPad;  // (kt, kLanes) key mask
-  float* slots = ms + kt * kLanes;      // (kLanes, kThreadsBl) tree_sum
-  int staged = -1;  // the key tile in shared memory (block-uniform)
-  auto stage = [&](int j0) {
-    if (j0 == staged) return;
-    __syncthreads();  // the previous tile is no longer read
-    const int cnt = min(kt, t_len - j0);
-    stage_op(ks, qkv, row0, n, t_len, w3, hd + h * d_head, j0, cnt, d_head);
-    stage_op(vs, qkv, row0, n, t_len, w3, 2 * hd + h * d_head, j0, cnt,
-             d_head);
-    stage_vec(ms, mask, row0, n, t_len, j0, cnt, 1.f);
-    __syncthreads();
-    staged = j0;
-  };
-
-  for (int i0 = 0; i0 < t_len; i0 += kWarpsBl) {
-    const int i = i0 + warp;
-    const bool active = row < n && i < t_len;
-    float qi[DM], acc[DM];
-    load_vec<T, DM>(qi, qkv, row, i, t_len, w3, h * d_head, d_head, active);
+      const float x0 = to_f32(x[j * rs + d0]);
+      const float x1 = to_f32(x[j * rs + d1]);
 #pragma unroll
-    for (int d = 0; d < DM; ++d) acc[d] = 0.f;
-    float m = -INFINITY;
-    for (int j0 = 0; j0 < t_len; j0 += kt) {
-      stage(j0);
-      const int cnt = min(kt, t_len - j0);
-      for (int j = 0; j < cnt; ++j)
-        m = fmaxf(m, score<DM>(qi, ks, j, d_head, lane, inv));
-    }
-    const float den = __fadd_rn(
-        tree_sum(slots, t_len, kt, stage, [&](int j) {
-          return expf(score<DM>(qi, ks, j, d_head, lane, inv) - m) *
-                 ms[j * kLanes + lane];
-        }),
-        __fmul_rn(kEps, expf(-m)));
-    for (int j0 = 0; j0 < t_len; j0 += kt) {
-      stage(j0);
-      const int cnt = min(kt, t_len - j0);
-      for (int j = 0; j < cnt; ++j) {
-        const float e = expf(score<DM>(qi, ks, j, d_head, lane, inv) - m) *
-                        ms[j * kLanes + lane];
-        const float al = round_to<T>(den > 0.f ? e / den : 0.f);
-#pragma unroll
-        for (int d = 0; d < DM; ++d)
-          if (d < d_head)
-            acc[d] = fmaf(al, vs[(j * d_head + d) * kPad + lane], acc[d]);
+      for (int q = 0; q < NQ; ++q) {
+        acc0[q] = fmaf(w[q * t + j], x0, acc0[q]);
+        acc1[q] = fmaf(w[q * t + j], x1, acc1[q]);
       }
     }
-    if (active) store_vec<T, DM>(out, acc, row, i, t_len, hd, h * d_head,
-                                 d_head);
+  } else {
+    for (int j = 0; j < cnt; ++j) {
+      const float x0 = to_f32(x[j * rs + d0]);
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) acc0[q] = fmaf(w[q * t + j], x0, acc0[q]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    if (lane < d_head) dst[q * dstride + lane] = from_f32<T>(acc0[q]);
+    if (lane + 32 < d_head) dst[q * dstride + lane + 32] = from_f32<T>(acc1[q]);
   }
 }
 
+// ---- one warp's rows ---------------------------------------------------------
+
+// The max over a warp in one redux.sync: floats mapped to integers of the
+// same order (a max is exact, so it equals warp_max's value).
+__device__ __forceinline__ float redux_max(float v) {
+  const int b = __float_as_int(v);
+  const int key = __reduce_max_sync(0xffffffffu, b ^ ((b >> 31) & 0x7fffffff));
+  return __int_as_float(key ^ ((key >> 31) & 0x7fffffff));
+}
+
+
+// a's rows of NQ queries into arow + q*as (f32, or rounded to T with
+// kRound) from their q (registers) and the keys (key j at ks + j*krs, in
+// T or in an f32 copy); m[q] and den[q] out.
+template <typename T, typename K, int DM, int NQ, bool kRound>
+__device__ __forceinline__ void a_rows(float* arow, int as, const float* qf,
+                                       const K* ks, int krs,
+                                       const float* mrow, const Params& p,
+                                       float* m, float* den, int lane) {
+  float mx[NQ], sum[NQ];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    mx[q] = -INFINITY;
+    sum[q] = 0.f;
+  }
+  for (int j = lane; j < p.t; j += 32) {
+    float s[NQ];
+    dot_rows<K, DM, NQ>(s, qf, ks + j * krs, p.d);
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      s[q] = __fmul_rn(s[q], p.inv_s);
+      arow[q * as + j] = s[q];
+      mx[q] = fmaxf(mx[q], s[q]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) m[q] = redux_max(mx[q]);
+  for (int j = lane; j < p.t; j += 32) {
+    const float mj = mrow ? mrow[j] : 1.f;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      float e = expf(arow[q * as + j] - m[q]);
+      if (mrow) e = e * mj;
+      arow[q * as + j] = e;
+      sum[q] = __fadd_rn(sum[q], e);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+    den[q] = __fadd_rn(warp_sum(sum[q]), __fmul_rn(kEps, expf(-m[q])));
+  for (int j = lane; j < p.t; j += 32)
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const float a = den[q] > 0.f ? arow[q * as + j] / den[q] : 0.f;
+      arow[q * as + j] = kRound ? round_to<T>(a) : a;
+    }
+}
+
+// da's rows (g_i . v_j) of NQ queries, r = sum_j da a, then ds's rows,
+// rounded to T, into dsrow + q*as; a rounded to T in arow with kRoundA.
+template <typename T, typename V, int DM, int NQ, bool kRoundA>
+__device__ __forceinline__ void ds_rows(float* dsrow, float* arow, int as,
+                                        const float* gf, const V* vs,
+                                        int vrs, const Params& p, float* r,
+                                        int lane) {
+  float part[NQ];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) part[q] = 0.f;
+  for (int j = lane; j < p.t; j += 32) {
+    float da[NQ];
+    dot_rows<V, DM, NQ>(da, gf, vs + j * vrs, p.d);
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      dsrow[q * as + j] = da[q];
+      part[q] = __fadd_rn(part[q], __fmul_rn(da[q], arow[q * as + j]));
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) r[q] = warp_sum(part[q]);
+  for (int j = lane; j < p.t; j += 32)
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const float a = arow[q * as + j];
+      dsrow[q * as + j] = round_to<T>((dsrow[q * as + j] - r[q]) * a * p.inv);
+      if (kRoundA) arow[q * as + j] = round_to<T>(a);
+    }
+}
+
+// T <= 64, one warp, one query: its two scores a lane holds (keys lane
+// and lane + 32) stay in registers through the max, den and a; a's row,
+// rounded to T, into arow. With g's row (kBwd) also da, r and ds: ds's
+// row, rounded to T, into dsrow. The sums in the order of a_rows/ds_rows.
+// kreg: the lane's key row in registers (T <= 32), else the keys at ks.
+template <typename T, typename K, int DM, bool kBwd>
+__device__ __forceinline__ void short_row(float* arow, float* dsrow,
+                                          const T* qrow, const T* grow,
+                                          const float* kreg, const K* ks,
+                                          const K* vs, int krs,
+                                          const float* mrow, const Params& p,
+                                          int lane) {
+  constexpr int NS = (kShortT + 31) / 32;
+  float x[NS], mx = -INFINITY, sum = 0.f;
+  {
+    float qf[DM];
+    load_rows<T, DM, 1>(qf, qrow, 0, p.d);
+#pragma unroll
+    for (int k = 0; k < NS; ++k) {
+      const int j = lane + 32 * k;
+      x[k] = 0.f;
+      if (j < p.t) {
+        if (kreg) {
+#pragma unroll
+          for (int d = 0; d < DM; ++d) x[k] = fmaf(qf[d], kreg[d], x[k]);
+        } else {
+          dot_rows<K, DM, 1>(x + k, qf, ks + j * krs, p.d);
+        }
+        x[k] = __fmul_rn(x[k], p.inv_s);
+        mx = fmaxf(mx, x[k]);
+      }
+    }
+  }
+  const float m = redux_max(mx);
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    const int j = lane + 32 * k;
+    if (j < p.t) {
+      float e = expf(x[k] - m);
+      if (mrow) e = e * mrow[j];
+      x[k] = e;
+      sum = __fadd_rn(sum, e);
+    }
+  }
+  const float den = __fadd_rn(warp_sum(sum), __fmul_rn(kEps, expf(-m)));
+#pragma unroll
+  for (int k = 0; k < NS; ++k)
+    if (lane + 32 * k < p.t) x[k] = den > 0.f ? x[k] / den : 0.f;
+  if constexpr (kBwd) {
+    float gf[DM], da[NS], part = 0.f;
+    load_rows<T, DM, 1>(gf, grow, 0, p.d);
+#pragma unroll
+    for (int k = 0; k < NS; ++k) {
+      const int j = lane + 32 * k;
+      if (j < p.t) {
+        dot_rows<K, DM, 1>(da + k, gf, vs + j * krs, p.d);
+        part = __fadd_rn(part, __fmul_rn(da[k], x[k]));
+      }
+    }
+    const float r = warp_sum(part);
+#pragma unroll
+    for (int k = 0; k < NS; ++k) {
+      const int j = lane + 32 * k;
+      if (j < p.t) dsrow[j] = round_to<T>((da[k] - r) * x[k] * p.inv);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    const int j = lane + 32 * k;
+    if (j < p.t) arow[j] = round_to<T>(x[k]);
+  }
+}
+
+// Two neighbouring staged elements (an even offset) as floats.
+__device__ __forceinline__ void load_pair(const float* x, float* f) {
+  const float2 v = *reinterpret_cast<const float2*>(x);
+  f[0] = v.x;
+  f[1] = v.y;
+}
+
+__device__ __forceinline__ void load_pair(const __nv_bfloat16* x, float* f) {
+  const unsigned w = *reinterpret_cast<const unsigned*>(x);
+  f[0] = __uint_as_float(w << 16);
+  f[1] = __uint_as_float(w & 0xffff0000u);
+}
+
+// The short kernels' queries: with kRegK (the forward) at T <= 32 the
+// warps split by head, each holding its lane's key row of that head in
+// registers for every query it takes; else one warp per query, the keys
+// read from shared memory (the backward: registers for K cost it the
+// third block on an SM). body(key row or null, head, query).
+template <int DM, bool kRegK, typename K, typename Body>
+__device__ __forceinline__ void for_rows(int gn, const Params& p, int warp,
+                                         int lane, const K* keys, int krs,
+                                         Body body) {
+  if (kRegK && p.t <= 32) {
+    const int hl = warp % p.heads;
+    if (hl >= gn) return;
+    float kreg[DM];
+    if (lane < p.t) {
+      load_rows<K, DM, 1>(kreg, keys + lane * krs + hl * p.dp, 0, p.d);
+    } else {
+#pragma unroll
+      for (int d = 0; d < DM; ++d) kreg[d] = 0.f;
+    }
+    // the warps of head hl: hl, hl + heads, ...
+    const int nsub = (kWarps - 1 - hl) / p.heads + 1;
+    for (int i = warp / p.heads; i < p.t; i += nsub) body(kreg, hl, i);
+  } else {
+    for (int task = warp; task < gn * p.t; task += kWarps)
+      body(nullptr, task / p.t, task % p.t);
+  }
+}
+
+template <int N>
+struct Int {
+  static constexpr int value = N;
+};
+
+// A warp's tasks: `rows` rows of each of `gn` heads, taken kPair
+// consecutive rows at a time, an odd last row alone; body(Int<NQ>, head,
+// first row).
+template <int kPair, typename Body>
+__device__ __forceinline__ void for_tasks(int gn, int rows, int warp,
+                                          Body body) {
+  const int per = (rows + kPair - 1) / kPair;
+  for (int task = warp; task < gn * per; task += kWarps) {
+    const int hl = task / per;
+    const int ii = (task - hl * per) * kPair;
+    if (kPair == 2 && ii + 1 < rows) body(Int<kPair>{}, hl, ii);
+    else body(Int<1>{}, hl, ii);
+  }
+}
+
+// ---- the kernels -------------------------------------------------------------
+
+// T <= 64: phase 1, one warp per query, writes the rows of round(a) into
+// the item's (heads, T, T|1) array; phase 2 sums the context over threads
+// by (head, query pair, d pair).
 template <typename T, int DM>
-__global__ void __launch_bounds__(kThreadsBl)
-blanes_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
-                  const T* __restrict__ g, T* __restrict__ dqkv,
-                  float* __restrict__ stats, int n, int n_heads, int t_len,
-                  int d_head, int kt, float inv_s, float inv) {
-  extern __shared__ float smem[];
-  const int h = blockIdx.x % n_heads;
-  const int64_t row0 = (int64_t)(blockIdx.x / n_heads) * kLanes;
-  const int hd = n_heads * d_head;
-  const int w3 = 3 * hd;
+__global__ void __launch_bounds__(kThreads)
+blanes_fwd_short_kernel(const T* __restrict__ qkv,
+                        const float* __restrict__ mask, T* __restrict__ out,
+                        Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kWiden = sizeof(T) == 2;
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
-  const int64_t row = row0 + lane;
-  float* xs = smem;                     // (kt, D, kPad) k, then q
-  float* ys = xs + kt * d_head * kPad;  // (kt, D, kPad) v, then g
-  float* vec = ys + kt * d_head * kPad;  // (3, kt, kLanes) mask, or stats
-  float* slots = vec + 3 * kt * kLanes;  // (kLanes, kThreadsBl) tree_sum
-  // this block's stats, (3, T, kLanes): m, den, r of each (row, query)
-  float* st = stats + (int64_t)blockIdx.x * 3 * t_len * kLanes;
-
-  // ---- phase 1: one thread per (row, query): m, den, r, then dq ---------
-  int staged = -1;  // the key tile in shared memory (block-uniform)
-  auto stage_keys = [&](int j0) {
-    if (j0 == staged) return;
-    __syncthreads();
-    const int cnt = min(kt, t_len - j0);
-    stage_op(xs, qkv, row0, n, t_len, w3, hd + h * d_head, j0, cnt, d_head);
-    stage_op(ys, qkv, row0, n, t_len, w3, 2 * hd + h * d_head, j0, cnt,
-             d_head);
-    stage_vec(vec, mask, row0, n, t_len, j0, cnt, 1.f);
-    __syncthreads();
-    staged = j0;
+  const int hd = p.h * p.d;
+  const int as = p.t | 1;  // odd: the rows of a query pair on other banks
+  float* rest = reinterpret_cast<float*>(smem + p.nbuf * p.stage);
+  float* kf = rest;  // the f32 copy of K (bf16)
+  float* at = rest + (kWiden ? p.t * p.rsf : 0);  // (heads, T, as)
+  auto stage = [&](int item, int b) {
+    const Item it = item_of(p, item);
+    T* s = reinterpret_cast<T*>(smem + b * p.stage);
+    const int64_t base = it.n * p.t;
+    const int c = it.h0 * p.d;
+    const int part = p.t * p.rs;
+    stage_part(s, qkv, base, p.t, 3 * hd, c, it.gn, p);
+    stage_part(s + part, qkv, base, p.t, 3 * hd, hd + c, it.gn, p);
+    stage_part(s + 2 * part, qkv, base, p.t, 3 * hd, 2 * hd + c, it.gn, p);
   };
-  for (int i0 = 0; i0 < t_len; i0 += kWarpsBl) {
-    const int i = i0 + warp;
-    const bool active = row < n && i < t_len;
-    float qi[DM], gi[DM], dq[DM];
-    load_vec<T, DM>(qi, qkv, row, i, t_len, w3, h * d_head, d_head, active);
-    load_vec<T, DM>(gi, g, row, i, t_len, hd, h * d_head, d_head, active);
-#pragma unroll
-    for (int d = 0; d < DM; ++d) dq[d] = 0.f;
-    float m = -INFINITY;
-    for (int j0 = 0; j0 < t_len; j0 += kt) {
-      stage_keys(j0);
-      const int cnt = min(kt, t_len - j0);
-      for (int j = 0; j < cnt; ++j)
-        m = fmaxf(m, score<DM>(qi, xs, j, d_head, lane, inv_s));
+  auto compute = [&](int item, int b) {
+    const Item it = item_of(p, item);
+    const T* qs = reinterpret_cast<const T*>(smem + b * p.stage);
+    const T* ks = qs + p.t * p.rs;
+    const T* vs = ks + p.t * p.rs;
+    const float* mrow = mask ? mask + it.n * p.t : nullptr;
+    if constexpr (kWiden) {
+      widen(kf, ks, p.t, it.gn, p);
+      __syncthreads();
     }
-    const float den = __fadd_rn(
-        tree_sum(slots, t_len, kt, stage_keys, [&](int j) {
-          return expf(score<DM>(qi, xs, j, d_head, lane, inv_s) - m) *
-                 vec[j * kLanes + lane];
-        }),
-        __fmul_rn(kEps, expf(-m)));
-    // r = sum_j da_ij a_ij, with the f32 a
-    const float r = tree_sum(slots, t_len, kt, stage_keys, [&](int j) {
-      const float e = expf(score<DM>(qi, xs, j, d_head, lane, inv_s) - m) *
-                      vec[j * kLanes + lane];
-      const float a = den > 0.f ? e / den : 0.f;
-      return __fmul_rn(dot_staged<DM>(gi, ys, j, d_head, lane), a);
+    using K = typename std::conditional<kWiden, float, T>::type;
+    const K* keys = kWiden ? (const K*)kf : (const K*)ks;
+    const int krs = kWiden ? p.rsf : p.rs;
+    for_rows<DM, true>(it.gn, p, warp, lane, keys, krs,
+                       [&](const float* kreg, int hl, int i) {
+      short_row<T, K, DM, false>(at + (hl * p.t + i) * as, nullptr,
+                                 qs + i * p.rs + hl * p.dp, nullptr, kreg,
+                                 keys + hl * p.dp, nullptr, krs, mrow, p,
+                                 lane);
     });
-    for (int j0 = 0; j0 < t_len; j0 += kt) {
-      stage_keys(j0);
-      const int cnt = min(kt, t_len - j0);
-      for (int j = 0; j < cnt; ++j) {
-        const float e = expf(score<DM>(qi, xs, j, d_head, lane, inv_s) - m) *
-                        vec[j * kLanes + lane];
-        const float a = den > 0.f ? e / den : 0.f;
-        const float da = dot_staged<DM>(gi, ys, j, d_head, lane);
-        const float ds = round_to<T>((da - r) * a * inv);
-#pragma unroll
-        for (int d = 0; d < DM; ++d)
-          if (d < d_head)
-            dq[d] = fmaf(ds, xs[(j * d_head + d) * kPad + lane], dq[d]);
+    __syncthreads();  // every row of a is written
+    const int dpairs = (p.d + 1) / 2;
+    const int ipairs = (p.t + 1) / 2;
+    for (int idx = threadIdx.x; idx < it.gn * ipairs * dpairs;
+         idx += kThreads) {
+      const int dpi = idx % dpairs;
+      const int rest_i = idx / dpairs;
+      const int hl = rest_i / ipairs;
+      const int i = (rest_i - hl * ipairs) * 2;
+      const int d = dpi * 2;
+      const float* a0 = at + (hl * p.t + i) * as;
+      const float* a1 = at + (hl * p.t + min(i + 1, p.t - 1)) * as;
+      const T* v = vs + hl * p.dp + d;
+      float o00 = 0.f, o01 = 0.f, o10 = 0.f, o11 = 0.f;
+      for (int j = 0; j < p.t; ++j) {
+        float vv[2];
+        load_pair(v + j * p.rs, vv);
+        const float x0 = a0[j], x1 = a1[j];
+        o00 = fmaf(x0, vv[0], o00);
+        o01 = fmaf(x0, vv[1], o01);
+        o10 = fmaf(x1, vv[0], o10);
+        o11 = fmaf(x1, vv[1], o11);
+      }
+      T* o = out + (it.n * p.t + i) * hd + (it.h0 + hl) * p.d + d;
+      o[0] = from_f32<T>(o00);
+      if (d + 1 < p.d) o[1] = from_f32<T>(o01);
+      if (i + 1 < p.t) {
+        o[hd] = from_f32<T>(o10);
+        if (d + 1 < p.d) o[hd + 1] = from_f32<T>(o11);
       }
     }
-    if (i < t_len) {
-      st[(0 * t_len + i) * kLanes + lane] = m;
-      st[(1 * t_len + i) * kLanes + lane] = den;
-      st[(2 * t_len + i) * kLanes + lane] = r;
-    }
-    if (active) store_vec<T, DM>(dqkv, dq, row, i, t_len, w3, h * d_head,
-                                 d_head);
-  }
-  __syncthreads();  // the stats are written; the key tiles are done
-
-  // ---- phase 2: one thread per (row, key): dk and dv over the queries ---
-  staged = -1;
-  auto stage_queries = [&](int i0) {
-    if (i0 == staged) return;
-    __syncthreads();
-    const int cnt = min(kt, t_len - i0);
-    stage_op(xs, qkv, row0, n, t_len, w3, h * d_head, i0, cnt, d_head);
-    stage_op(ys, g, row0, n, t_len, hd, h * d_head, i0, cnt, d_head);
-    for (int idx = threadIdx.x; idx < 3 * kLanes * cnt; idx += kThreadsBl) {
-      const int which = idx / (kLanes * cnt);
-      const int rest = idx - which * kLanes * cnt;  // j * kLanes + r
-      vec[which * kt * kLanes + rest] =
-          st[(which * t_len + i0) * kLanes + rest];
-    }
-    __syncthreads();
-    staged = i0;
   };
-  for (int j0 = 0; j0 < t_len; j0 += kWarpsBl) {
-    const int j = j0 + warp;
-    const bool active = row < n && j < t_len;
-    float kj[DM], vj[DM], dk[DM], dv[DM];
-    load_vec<T, DM>(kj, qkv, row, j, t_len, w3, hd + h * d_head, d_head,
-                    active);
-    load_vec<T, DM>(vj, qkv, row, j, t_len, w3, 2 * hd + h * d_head, d_head,
-                    active);
-    const float mask_j = mask && active ? mask[row * t_len + j] : 1.f;
+  run_items(p, smem, stage, compute);
+}
+
+// T > 64: an item is one head and a tile of queries; a warp takes two
+// queries at once (one where D > 32), its rows of round(a) in shared
+// memory, then their context with the lanes over d.
+template <typename T, int DM>
+__global__ void __launch_bounds__(kThreads)
+blanes_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
+                  T* __restrict__ out, Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kPair = DM <= 32 ? 2 : 1;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int hd = p.h * p.d;
+  float* arow = reinterpret_cast<float*>(smem + p.nbuf * p.stage) +
+                warp * kPair * p.t;
+  auto stage = [&](int item, int b) {
+    const Item it = item_of(p, item);
+    T* s = reinterpret_cast<T*>(smem + b * p.stage);
+    const int64_t base = it.n * p.t;
+    const int c = it.h0 * p.d;
+    stage_part(s, qkv, base + it.r0, it.rn, 3 * hd, c, it.gn, p);
+    stage_part(s + p.rows * p.rs, qkv, base, p.t, 3 * hd, hd + c, it.gn, p);
+    stage_part(s + (p.rows + p.t) * p.rs, qkv, base, p.t, 3 * hd,
+               2 * hd + c, it.gn, p);
+  };
+  auto compute = [&](int item, int b) {
+    const Item it = item_of(p, item);
+    const T* qs = reinterpret_cast<const T*>(smem + b * p.stage);
+    const T* ks = qs + p.rows * p.rs;
+    const T* vs = ks + p.t * p.rs;
+    const float* mrow = mask ? mask + it.n * p.t : nullptr;
+    for_tasks<kPair>(it.gn, it.rn, warp, [&](auto nq, int hl, int ii) {
+      constexpr int NQ = decltype(nq)::value;
+      float qf[NQ * DM], m[NQ], den[NQ];
+      load_rows<T, DM, NQ>(qf, qs + ii * p.rs + hl * p.dp, p.rs, p.d);
+      a_rows<T, T, DM, NQ, true>(arow, p.t, qf, ks + hl * p.dp, p.rs, mrow,
+                                 p, m, den, lane);
+      __syncwarp();
+      weighted_rows<T, NQ>(
+          out + (it.n * p.t + it.r0 + ii) * hd + (it.h0 + hl) * p.d, hd, arow,
+          p.t, vs + hl * p.dp, p.rs, p.t, p.d, lane);
+      __syncwarp();  // the next task overwrites the rows
+    });
+  };
+  run_items(p, smem, stage, compute);
+}
+
+// ---- tensor cores (mma.sync.m16n8k16, bf16 in, f32 sums) --------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Four 8x8 bf16 matrices from shared memory (lane i gives row i % 8 of
+// matrix i / 8), transposed with kTrans.
+template <bool kTrans>
+__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p) {
+  if constexpr (kTrans)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)));
+}
+
+template <bool kTrans>
+__device__ __forceinline__ void ldsm_x2(unsigned* r, const void* p) {
+  if constexpr (kTrans)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+        : "=r"(r[0]), "=r"(r[1])
+        : "r"(smem_addr(p)));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+                 : "=r"(r[0]), "=r"(r[1])
+                 : "r"(smem_addr(p)));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
+                                         const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// A fragments of the 16 staged rows row0 .. row0 + 15 (rows rs apart,
+// clamped below nrows: a tile's last rows past the item are not read), KS
+// k-steps of 16 elements.
+template <int KS>
+__device__ __forceinline__ void load_a(unsigned (*a)[4],
+                                       const __nv_bfloat16* base, int rs,
+                                       int row0, int nrows, int lane) {
+  const __nv_bfloat16* row =
+      base + min(row0 + lane % 8 + 8 * (lane / 8 % 2), nrows - 1) * rs;
 #pragma unroll
-    for (int d = 0; d < DM; ++d) dk[d] = dv[d] = 0.f;
-    for (int i0 = 0; i0 < t_len; i0 += kt) {
-      stage_queries(i0);
-      const int cnt = min(kt, t_len - i0);
-      for (int ii = 0; ii < cnt; ++ii) {
-        const float m_i = vec[ii * kLanes + lane];
-        const float den_i = vec[(kt + ii) * kLanes + lane];
-        const float r_i = vec[(2 * kt + ii) * kLanes + lane];
-        const float e =
-            expf(score<DM>(kj, xs, ii, d_head, lane, inv_s) - m_i) * mask_j;
-        const float a = den_i > 0.f ? e / den_i : 0.f;
-        const float da = dot_staged<DM>(vj, ys, ii, d_head, lane);
-        const float ds = round_to<T>((da - r_i) * a * inv);
-        const float al = round_to<T>(a);  // a in g's dtype, for dv
+  for (int k = 0; k < KS; ++k)
+    ldsm_x4<false>(a[k], row + 16 * k + 8 * (lane / 16));
+}
+
+// c (16 x 8 f32) = a (16 rows, KS k-steps) times the staged rows row0 ..
+// row0 + 7 as B's columns (row clamped below nrows), scaled by `scale`.
+template <int KS>
+__device__ __forceinline__ void mma_rows(float* c, const unsigned (*a)[4],
+                                         const __nv_bfloat16* base, int rs,
+                                         int row0, int nrows, float scale,
+                                         int lane) {
+  c[0] = c[1] = c[2] = c[3] = 0.f;
+  const __nv_bfloat16* br = base + min(row0 + lane % 8, nrows - 1) * rs;
+  if constexpr (KS == 2) {
+    unsigned b[4];
+    ldsm_x4<false>(b, br + 8 * (lane / 8));
+    mma_bf16(c, a[0], b);
+    mma_bf16(c, a[1], b + 2);
+  } else {
+    unsigned b[2];
+    ldsm_x2<false>(b, br + 8 * (lane / 8 % 2));
+    mma_bf16(c, a[0], b);
+  }
+  if (scale != 1.f)
 #pragma unroll
-        for (int d = 0; d < DM; ++d)
-          if (d < d_head) {
-            const int at = (ii * d_head + d) * kPad + lane;
-            dk[d] = fmaf(ds, xs[at], dk[d]);
-            dv[d] = fmaf(al, ys[at], dv[d]);
+    for (int e = 0; e < 4; ++e) c[e] = __fmul_rn(c[e], scale);
+}
+
+// o[dt] (16 x 8 f32, ND d tiles) += pa (16 x 16 bf16) times the staged
+// rows row0 .. row0 + 15 as B (k = rows, n = d; rows clamped below nrows).
+template <int ND>
+__device__ __forceinline__ void mma_acc(float (*o)[4], const unsigned* pa,
+                                        const __nv_bfloat16* base, int rs,
+                                        int row0, int nrows, int lane) {
+  const __nv_bfloat16* vr =
+      base + min(row0 + lane % 8 + 8 * (lane / 8 % 2), nrows - 1) * rs;
+#pragma unroll
+  for (int dt = 0; dt < ND; dt += 2) {
+    if (dt + 1 < ND) {
+      unsigned vb[4];
+      ldsm_x4<true>(vb, vr + 8 * dt + 8 * (lane / 16));
+      mma_bf16(o[dt], pa, vb);
+      mma_bf16(o[dt + 1], pa, vb + 2);
+    } else {
+      unsigned vb[2];
+      ldsm_x2<true>(vb, vr + 8 * dt);
+      mma_bf16(o[dt], pa, vb);
+    }
+  }
+}
+
+// o (16 rows x ND d tiles) of rows row0 + q, q < nrows, to x at
+// (first + q) * ld + d, d < D.
+template <int ND>
+__device__ __forceinline__ void store_tiles(__nv_bfloat16* x, int64_t first,
+                                            int ld, const float (*o)[4],
+                                            int row0, int nrows, int d_head,
+                                            int lane) {
+#pragma unroll
+  for (int dt = 0; dt < ND; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int q = row0 + lane / 4 + 8 * (e / 2);
+      const int d = 8 * dt + 2 * (lane % 4) + e % 2;
+      if (q < nrows && d < d_head)
+        x[(first + q) * ld + d] = __float2bfloat16_rn(o[dt][e]);
+    }
+}
+
+// The long regime's stats of 16 queries (a warp's) in bf16 by mma: m and
+// den of the rows g and g + 8 of each quad (lane / 4), from three walks
+// over the keys in the forward's way. e_of(s, key, r) is e, 0 past T.
+template <int KS>
+__device__ __forceinline__ void mma_m_den(const unsigned (*qa)[4],
+                                          const __nv_bfloat16* ks,
+                                          const float* mrow, const Params& p,
+                                          float* m, float* den, int lane) {
+  const int tq = lane % 4;
+  m[0] = m[1] = -INFINITY;
+  for (int key0 = 0; key0 < p.t; key0 += 8) {
+    float c[4];
+    mma_rows<KS>(c, qa, ks, p.rs, key0, p.t, p.inv_s, lane);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (key0 + 2 * tq + e % 2 < p.t) m[e / 2] = fmaxf(m[e / 2], c[e]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+  }
+  den[0] = den[1] = 0.f;
+  for (int key0 = 0; key0 < p.t; key0 += 8) {
+    float c[4];
+    mma_rows<KS>(c, qa, ks, p.rs, key0, p.t, p.inv_s, lane);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = key0 + 2 * tq + e % 2;
+      if (k < p.t) {
+        float x = expf(c[e] - m[e / 2]);
+        if (mrow) x = x * mrow[k];
+        den[e / 2] = __fadd_rn(den[e / 2], x);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    den[r] = __fadd_rn(den[r], __shfl_xor_sync(0xffffffffu, den[r], 1));
+    den[r] = __fadd_rn(den[r], __shfl_xor_sync(0xffffffffu, den[r], 2));
+    den[r] = __fadd_rn(den[r], __fmul_rn(kEps, expf(-m[r])));
+  }
+}
+
+// a (f32) of the fragment element (row r, key k) from its scaled score
+__device__ __forceinline__ float a_of(float s, int k, float m, float den,
+                                      const float* mrow, int t) {
+  if (k >= t) return 0.f;
+  float e = expf(s - m);
+  if (mrow) e = e * mrow[k];
+  return den > 0.f ? e / den : 0.f;
+}
+
+// T > 64 in bf16 with D <= 32: an item is one head and a tile of 128
+// queries, a warp 16 of them. QK^T and round(a)V run on mma.sync with f32
+// sums, the scores recomputed in three walks over the keys (the max, den,
+// then a and the context) rather than held. Only the order of the f32
+// sums changes (scores, den, context); at these T, a is about 1/T and a
+// flipped rounding of it is far below the bf16 tolerance.
+template <int DM>
+__global__ void __launch_bounds__(kThreads)
+blanes_fwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
+                      const float* __restrict__ mask,
+                      __nv_bfloat16* __restrict__ out, Params p) {
+  using T = __nv_bfloat16;
+  constexpr int KS = (DM + 15) / 16;  // k-steps of QK^T
+  constexpr int ND = (DM + 7) / 8;    // d tiles of the context
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int tq = lane % 4;
+  const int hd = p.h * p.d;
+  auto stage = [&](int item, int b) {
+    const Item it = item_of(p, item);
+    T* s = reinterpret_cast<T*>(smem + b * p.stage);
+    const int64_t base = it.n * p.t;
+    const int c = it.h0 * p.d;
+    stage_part(s, qkv, base + it.r0, it.rn, 3 * hd, c, 1, p);
+    stage_part(s + p.rows * p.rs, qkv, base, p.t, 3 * hd, hd + c, 1, p);
+    stage_part(s + (p.rows + p.t) * p.rs, qkv, base, p.t, 3 * hd,
+               2 * hd + c, 1, p);
+  };
+  auto compute = [&](int item, int b) {
+    const Item it = item_of(p, item);
+    const int q0 = warp * 16;
+    if (q0 >= it.rn) return;
+    const T* qs = reinterpret_cast<const T*>(smem + b * p.stage);
+    const T* ks = qs + p.rows * p.rs;
+    const T* vs = ks + p.t * p.rs;
+    const float* mrow = mask ? mask + it.n * p.t : nullptr;
+    unsigned qa[KS][4];
+    load_a<KS>(qa, qs, p.rs, q0, it.rn, lane);
+    float m[2], den[2];
+    mma_m_den<KS>(qa, ks, mrow, p, m, den, lane);
+    float o[ND][4] = {};
+    for (int key0 = 0; key0 < p.t; key0 += 16) {
+      float c[2][4], a[8];
+      mma_rows<KS>(c[0], qa, ks, p.rs, key0, p.t, p.inv_s, lane);
+      mma_rows<KS>(c[1], qa, ks, p.rs, key0 + 8, p.t, p.inv_s, lane);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int r = e % 4 / 2;
+        a[e] = a_of(c[e / 4][e % 4], key0 + 8 * (e / 4) + 2 * tq + e % 2,
+                    m[r], den[r], mrow, p.t);
+      }
+      // round(a) as the A fragment of a (16 queries x 16 keys) . V
+      const unsigned pa[4] = {pack_bf16(a[0], a[1]), pack_bf16(a[2], a[3]),
+                              pack_bf16(a[4], a[5]), pack_bf16(a[6], a[7])};
+      mma_acc<ND>(o, pa, vs, p.rs, key0, p.t, lane);
+    }
+    store_tiles<ND>(out + it.h0 * p.d, it.n * p.t + it.r0, hd, o, q0, it.rn,
+                    p.d, lane);
+  };
+  run_items(p, smem, stage, compute);
+}
+
+// The long backward's query side in bf16 with D <= 32 (a tile of 128
+// queries, a warp 16): m and den as the forward's, then r = sum_k da a
+// with da = g V^T on mma, then ds rounded to bf16 and dq = ds K on mma;
+// writes the stats for the key side.
+template <int DM>
+__global__ void __launch_bounds__(kThreads)
+blanes_bwd_query_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
+                            const float* __restrict__ mask,
+                            const __nv_bfloat16* __restrict__ g,
+                            __nv_bfloat16* __restrict__ dqkv,
+                            float* __restrict__ stats, Params p) {
+  using T = __nv_bfloat16;
+  constexpr int KS = (DM + 15) / 16;
+  constexpr int ND = (DM + 7) / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int tq = lane % 4;
+  const int hd = p.h * p.d;
+  const int64_t nht = (int64_t)p.n * p.h * p.t;
+  auto stage = [&](int item, int b) {
+    const Item it = item_of(p, item);
+    T* s = reinterpret_cast<T*>(smem + b * p.stage);
+    const int64_t base = it.n * p.t;
+    const int c = it.h0 * p.d;
+    stage_part(s, qkv, base + it.r0, it.rn, 3 * hd, c, 1, p);
+    stage_part(s + p.rows * p.rs, g, base + it.r0, it.rn, hd, c, 1, p);
+    stage_part(s + 2 * p.rows * p.rs, qkv, base, p.t, 3 * hd, hd + c, 1, p);
+    stage_part(s + (2 * p.rows + p.t) * p.rs, qkv, base, p.t, 3 * hd,
+               2 * hd + c, 1, p);
+  };
+  auto compute = [&](int item, int b) {
+    const Item it = item_of(p, item);
+    const int q0 = warp * 16;
+    if (q0 >= it.rn) return;
+    const T* qs = reinterpret_cast<const T*>(smem + b * p.stage);
+    const T* gs = qs + p.rows * p.rs;
+    const T* ks = gs + p.rows * p.rs;
+    const T* vs = ks + p.t * p.rs;
+    const float* mrow = mask ? mask + it.n * p.t : nullptr;
+    unsigned qa[KS][4], ga[KS][4];
+    load_a<KS>(qa, qs, p.rs, q0, it.rn, lane);
+    load_a<KS>(ga, gs, p.rs, q0, it.rn, lane);
+    float m[2], den[2], r[2] = {0.f, 0.f};
+    mma_m_den<KS>(qa, ks, mrow, p, m, den, lane);
+    for (int key0 = 0; key0 < p.t; key0 += 8) {
+      float c[4], da[4];
+      mma_rows<KS>(c, qa, ks, p.rs, key0, p.t, p.inv_s, lane);
+      mma_rows<KS>(da, ga, vs, p.rs, key0, p.t, 1.f, lane);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = key0 + 2 * tq + e % 2;
+        r[e / 2] = __fadd_rn(r[e / 2], __fmul_rn(da[e], a_of(
+            c[e], k, m[e / 2], den[e / 2], mrow, p.t)));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      r[i] = __fadd_rn(r[i], __shfl_xor_sync(0xffffffffu, r[i], 1));
+      r[i] = __fadd_rn(r[i], __shfl_xor_sync(0xffffffffu, r[i], 2));
+    }
+    float o[ND][4] = {};
+    for (int key0 = 0; key0 < p.t; key0 += 16) {
+      float c[2][4], da[2][4], ds[8];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mma_rows<KS>(c[h], qa, ks, p.rs, key0 + 8 * h, p.t, p.inv_s, lane);
+        mma_rows<KS>(da[h], ga, vs, p.rs, key0 + 8 * h, p.t, 1.f, lane);
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int i = e % 4 / 2;
+        const float a = a_of(c[e / 4][e % 4],
+                             key0 + 8 * (e / 4) + 2 * tq + e % 2, m[i],
+                             den[i], mrow, p.t);
+        ds[e] = (da[e / 4][e % 4] - r[i]) * a * p.inv;
+      }
+      const unsigned pa[4] = {pack_bf16(ds[0], ds[1]), pack_bf16(ds[2], ds[3]),
+                              pack_bf16(ds[4], ds[5]), pack_bf16(ds[6], ds[7])};
+      mma_acc<ND>(o, pa, ks, p.rs, key0, p.t, lane);
+    }
+    store_tiles<ND>(dqkv + it.h0 * p.d, it.n * p.t + it.r0, 3 * hd, o, q0,
+                    it.rn, p.d, lane);
+    if (tq == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int q = q0 + lane / 4 + 8 * i;
+        if (q < it.rn) {
+          const int64_t at = (it.n * p.h + it.h0) * p.t + it.r0 + q;
+          stats[at] = m[i];
+          stats[nht + at] = den[i];
+          stats[2 * nht + at] = r[i];
+        }
+      }
+    }
+  };
+  run_items(p, smem, stage, compute);
+}
+
+// The long backward's key side in bf16 with D <= 32 (a tile of 128 keys,
+// a warp 16): over the queries in tiles of 16, s = K Q^T and da = V g^T on
+// mma, a and ds from the query side's stats, then dv += round(a) g and
+// dk += ds Q on mma.
+template <int DM>
+__global__ void __launch_bounds__(kThreads)
+blanes_bwd_key_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
+                          const float* __restrict__ mask,
+                          const __nv_bfloat16* __restrict__ g,
+                          __nv_bfloat16* __restrict__ dqkv,
+                          const float* __restrict__ stats, Params p) {
+  using T = __nv_bfloat16;
+  constexpr int KS = (DM + 15) / 16;
+  constexpr int ND = (DM + 7) / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int tq = lane % 4;
+  const int hd = p.h * p.d;
+  const int64_t nht = (int64_t)p.n * p.h * p.t;
+  const size_t stats_at = (size_t)(2 * p.t + 2 * p.rows) * p.rs * sizeof(T);
+  auto stage = [&](int item, int b) {
+    const Item it = item_of(p, item);
+    unsigned char* buf = smem + b * p.stage;
+    T* s = reinterpret_cast<T*>(buf);
+    const int64_t base = it.n * p.t;
+    const int c = it.h0 * p.d;
+    stage_part(s, qkv, base, p.t, 3 * hd, c, 1, p);
+    stage_part(s + p.t * p.rs, g, base, p.t, hd, c, 1, p);
+    stage_part(s + 2 * p.t * p.rs, qkv, base + it.r0, it.rn, 3 * hd, hd + c,
+               1, p);
+    stage_part(s + (2 * p.t + p.rows) * p.rs, qkv, base + it.r0, it.rn,
+               3 * hd, 2 * hd + c, 1, p);
+    float* st = reinterpret_cast<float*>(buf + stats_at);
+    const int64_t at = (it.n * p.h + it.h0) * p.t;
+    for (int idx = threadIdx.x; idx < 3 * p.t; idx += kThreads) {
+      const int which = idx / p.t;
+      cp_async<4>(st + idx, stats + which * nht + at + (idx - which * p.t));
+    }
+  };
+  auto compute = [&](int item, int b) {
+    const Item it = item_of(p, item);
+    const int k0 = warp * 16;
+    if (k0 >= it.rn) return;
+    const unsigned char* buf = smem + b * p.stage;
+    const T* qs = reinterpret_cast<const T*>(buf);
+    const T* gs = qs + p.t * p.rs;
+    const T* ks = gs + p.t * p.rs;
+    const T* vs = ks + p.rows * p.rs;
+    const float* ms = reinterpret_cast<const float*>(buf + stats_at);
+    const float* dens = ms + p.t;
+    const float* rs = dens + p.t;
+    unsigned ka[KS][4], va[KS][4];
+    load_a<KS>(ka, ks, p.rs, k0, it.rn, lane);
+    load_a<KS>(va, vs, p.rs, k0, it.rn, lane);
+    // the key mask of this lane's rows (keys k0 + lane / 4, + 8)
+    float mk[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int k = min(k0 + lane / 4 + 8 * i, it.rn - 1);
+      mk[i] = mask ? mask[it.n * p.t + it.r0 + k] : 1.f;
+    }
+    float dk[ND][4] = {}, dv[ND][4] = {};
+    for (int q0 = 0; q0 < p.t; q0 += 16) {
+      float ar[8], ds[8];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float c[4], da[4];
+        mma_rows<KS>(c, ka, qs, p.rs, q0 + 8 * h, p.t, p.inv_s, lane);
+        mma_rows<KS>(da, va, gs, p.rs, q0 + 8 * h, p.t, 1.f, lane);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = q0 + 8 * h + 2 * tq + e % 2;  // c: (key, query)
+          float a = 0.f, d_s = 0.f;
+          if (q < p.t) {
+            float x = expf(c[e] - ms[q]);
+            if (mask) x = x * mk[e / 2];
+            a = dens[q] > 0.f ? x / dens[q] : 0.f;
+            d_s = (da[e] - rs[q]) * a * p.inv;
+          }
+          ar[4 * h + e] = a;
+          ds[4 * h + e] = d_s;
+        }
+      }
+      const unsigned pa[4] = {pack_bf16(ar[0], ar[1]), pack_bf16(ar[2], ar[3]),
+                              pack_bf16(ar[4], ar[5]), pack_bf16(ar[6], ar[7])};
+      const unsigned pd[4] = {pack_bf16(ds[0], ds[1]), pack_bf16(ds[2], ds[3]),
+                              pack_bf16(ds[4], ds[5]), pack_bf16(ds[6], ds[7])};
+      mma_acc<ND>(dv, pa, gs, p.rs, q0, p.t, lane);
+      mma_acc<ND>(dk, pd, qs, p.rs, q0, p.t, lane);
+    }
+    const int64_t first = it.n * p.t + it.r0;
+    store_tiles<ND>(dqkv + hd + it.h0 * p.d, first, 3 * hd, dk, k0, it.rn,
+                    p.d, lane);
+    store_tiles<ND>(dqkv + 2 * hd + it.h0 * p.d, first, 3 * hd, dv, k0, it.rn,
+                    p.d, lane);
+  };
+  run_items(p, smem, stage, compute);
+}
+
+// T <= 64: phase 1, one warp per query, writes each query's rows of
+// round(a) and ds into the item's (heads, T, T|1) arrays (the dots read
+// f32 copies of K and V); phase 2 sums dq, dk and dv from them over
+// threads by (head, row, d pair).
+template <typename T, int DM>
+__global__ void __launch_bounds__(kThreads, 3)
+blanes_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
+                  const T* __restrict__ g, T* __restrict__ dqkv, Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kWiden = sizeof(T) == 2;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int hd = p.h * p.d;
+  const int as = p.t | 1;
+  const int tt = p.t * as;
+  float* rest = reinterpret_cast<float*>(smem + p.nbuf * p.stage);
+  float* kf = rest;  // f32 copies of K and V (bf16)
+  float* vf = kf + p.t * p.rsf;
+  float* ats = rest + (kWiden ? 2 * p.t * p.rsf : 0);  // (heads, T, as)
+  float* dss = ats + p.heads * tt;
+  auto stage = [&](int item, int b) {
+    const Item it = item_of(p, item);
+    T* s = reinterpret_cast<T*>(smem + b * p.stage);
+    const int64_t base = it.n * p.t;
+    const int c = it.h0 * p.d;
+    const int part = p.t * p.rs;
+    stage_part(s, qkv, base, p.t, 3 * hd, c, it.gn, p);
+    stage_part(s + part, qkv, base, p.t, 3 * hd, hd + c, it.gn, p);
+    stage_part(s + 2 * part, qkv, base, p.t, 3 * hd, 2 * hd + c, it.gn, p);
+    stage_part(s + 3 * part, g, base, p.t, hd, c, it.gn, p);
+  };
+  auto compute = [&](int item, int b) {
+    const Item it = item_of(p, item);
+    const T* qs = reinterpret_cast<const T*>(smem + b * p.stage);
+    const T* ks = qs + p.t * p.rs;
+    const T* vs = ks + p.t * p.rs;
+    const T* gs = vs + p.t * p.rs;
+    const float* mrow = mask ? mask + it.n * p.t : nullptr;
+    if constexpr (kWiden) {
+      widen(kf, ks, p.t, it.gn, p);
+      widen(vf, vs, p.t, it.gn, p);
+      __syncthreads();
+    }
+    using K = typename std::conditional<kWiden, float, T>::type;
+    const K* keys = kWiden ? (const K*)kf : (const K*)ks;
+    const K* vals = kWiden ? (const K*)vf : (const K*)vs;
+    const int krs = kWiden ? p.rsf : p.rs;
+    for_rows<DM, false>(it.gn, p, warp, lane, keys, krs,
+                        [&](const float* kreg, int hl, int i) {
+      const int at = i * p.rs + hl * p.dp;
+      short_row<T, K, DM, true>(ats + hl * tt + i * as, dss + hl * tt + i * as,
+                                qs + at, gs + at, kreg, keys + hl * p.dp,
+                                vals + hl * p.dp, krs, mrow, p, lane);
+    });
+    __syncthreads();  // every row of a and ds is written
+    T* dst = dqkv + it.n * p.t * 3 * hd;
+    const int dpairs = (p.d + 1) / 2;
+    for (int idx = threadIdx.x; idx < it.gn * p.t * dpairs; idx += kThreads) {
+      const int dpi = idx % dpairs;
+      const int rest_x = idx / dpairs;
+      const int x = rest_x % p.t;
+      const int hl = rest_x / p.t;
+      const int d = dpi * 2;
+      const float* ah = ats + hl * tt;
+      const float* dsh = dss + hl * tt;
+      const int col = hl * p.dp + d;
+      float dq[2] = {0.f, 0.f}, dk[2] = {0.f, 0.f}, dv[2] = {0.f, 0.f};
+      for (int j = 0; j < p.t; ++j) {
+        float kk[2], qq[2], gg[2];
+        load_pair(ks + j * p.rs + col, kk);
+        load_pair(qs + j * p.rs + col, qq);
+        load_pair(gs + j * p.rs + col, gg);
+        const float ds_xj = dsh[x * as + j], ds_jx = dsh[j * as + x];
+        const float a_jx = ah[j * as + x];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          dq[e] = fmaf(ds_xj, kk[e], dq[e]);
+          dk[e] = fmaf(ds_jx, qq[e], dk[e]);
+          dv[e] = fmaf(a_jx, gg[e], dv[e]);
+        }
+      }
+      T* o = dst + (int64_t)x * 3 * hd + (it.h0 + hl) * p.d + d;
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (d + e < p.d) {
+          o[e] = from_f32<T>(dq[e]);
+          o[hd + e] = from_f32<T>(dk[e]);
+          o[2 * hd + e] = from_f32<T>(dv[e]);
+        }
+    }
+  };
+  run_items(p, smem, stage, compute);
+}
+// T > 64, query side (one head, a tile of queries): m, den, r and dq; the
+// stats (3, N*H*T) f32 for the key side.
+template <typename T, int DM>
+__global__ void __launch_bounds__(kThreads)
+blanes_bwd_query_kernel(const T* __restrict__ qkv,
+                        const float* __restrict__ mask,
+                        const T* __restrict__ g, T* __restrict__ dqkv,
+                        float* __restrict__ stats, Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int hd = p.h * p.d;
+  const int64_t nht = (int64_t)p.n * p.h * p.t;
+  float* arow = reinterpret_cast<float*>(smem + p.nbuf * p.stage) +
+                2 * warp * p.t;
+  float* dsrow = arow + p.t;
+  auto stage = [&](int item, int b) {
+    const Item it = item_of(p, item);
+    T* s = reinterpret_cast<T*>(smem + b * p.stage);
+    const int64_t base = it.n * p.t;
+    const int c = it.h0 * p.d;
+    stage_part(s, qkv, base + it.r0, it.rn, 3 * hd, c, 1, p);
+    stage_part(s + p.rows * p.rs, g, base + it.r0, it.rn, hd, c, 1, p);
+    stage_part(s + 2 * p.rows * p.rs, qkv, base, p.t, 3 * hd, hd + c, 1, p);
+    stage_part(s + (2 * p.rows + p.t) * p.rs, qkv, base, p.t, 3 * hd,
+               2 * hd + c, 1, p);
+  };
+  auto compute = [&](int item, int b) {
+    const Item it = item_of(p, item);
+    const T* qs = reinterpret_cast<const T*>(smem + b * p.stage);
+    const T* gs = qs + p.rows * p.rs;
+    const T* ks = gs + p.rows * p.rs;
+    const T* vs = ks + p.t * p.rs;
+    const float* mrow = mask ? mask + it.n * p.t : nullptr;
+    for_tasks<1>(1, it.rn, warp, [&](auto nq, int, int ii) {
+      constexpr int NQ = decltype(nq)::value;
+      float m[NQ], den[NQ], r[NQ];
+      {
+        float qf[NQ * DM];
+        load_rows<T, DM, NQ>(qf, qs + ii * p.rs, p.rs, p.d);
+        a_rows<T, T, DM, NQ, false>(arow, p.t, qf, ks, p.rs, mrow, p, m, den,
+                                    lane);
+      }
+      float gf[NQ * DM];
+      load_rows<T, DM, NQ>(gf, gs + ii * p.rs, p.rs, p.d);
+      ds_rows<T, T, DM, NQ, false>(dsrow, arow, p.t, gf, vs, p.rs, p, r,
+                                   lane);
+      __syncwarp();
+      const int64_t i = it.n * p.t + it.r0 + ii;
+      weighted_rows<T, NQ>(dqkv + i * 3 * hd + it.h0 * p.d, 3 * hd, dsrow,
+                           p.t, ks, p.rs, p.t, p.d, lane);
+      if (lane < NQ) {
+        const int64_t at = (it.n * p.h + it.h0) * p.t + it.r0 + ii + lane;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+          if (q == lane) {
+            stats[at] = m[q];
+            stats[nht + at] = den[q];
+            stats[2 * nht + at] = r[q];
           }
       }
-    }
-    if (active) {
-      store_vec<T, DM>(dqkv, dk, row, j, t_len, w3, hd + h * d_head, d_head);
-      store_vec<T, DM>(dqkv, dv, row, j, t_len, w3, 2 * hd + h * d_head,
-                       d_head);
-    }
-  }
+      __syncwarp();  // the next task overwrites the rows
+    });
+  };
+  run_items(p, smem, stage, compute);
 }
 
-int check_grid(int n, int n_heads, int64_t* blocks) {
-  *blocks = (int64_t)((n + kLanes - 1) / kLanes) * n_heads;
-  return *blocks > 0x7fffffff ? (int)cudaErrorInvalidConfiguration
-                              : (int)cudaSuccess;
+// T > 64, key side (one head, a tile of keys): each query's a and ds
+// recomputed from the stats, then dk and dv.
+template <typename T, int DM>
+__global__ void __launch_bounds__(kThreads)
+blanes_bwd_key_kernel(const T* __restrict__ qkv,
+                      const float* __restrict__ mask,
+                      const T* __restrict__ g, T* __restrict__ dqkv,
+                      const float* __restrict__ stats, Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int hd = p.h * p.d;
+  const int64_t nht = (int64_t)p.n * p.h * p.t;
+  float* arow = reinterpret_cast<float*>(smem + p.nbuf * p.stage) +
+                2 * warp * p.t;
+  float* dsrow = arow + p.t;
+  const size_t stats_at = (size_t)(2 * p.t + 2 * p.rows) * p.rs * sizeof(T);
+  auto stage = [&](int item, int b) {
+    const Item it = item_of(p, item);
+    unsigned char* buf = smem + b * p.stage;
+    T* s = reinterpret_cast<T*>(buf);
+    const int64_t base = it.n * p.t;
+    const int c = it.h0 * p.d;
+    stage_part(s, qkv, base, p.t, 3 * hd, c, 1, p);
+    stage_part(s + p.t * p.rs, g, base, p.t, hd, c, 1, p);
+    stage_part(s + 2 * p.t * p.rs, qkv, base + it.r0, it.rn, 3 * hd, hd + c,
+               1, p);
+    stage_part(s + (2 * p.t + p.rows) * p.rs, qkv, base + it.r0, it.rn,
+               3 * hd, 2 * hd + c, 1, p);
+    float* st = reinterpret_cast<float*>(buf + stats_at);
+    const int64_t at = (it.n * p.h + it.h0) * p.t;
+    for (int idx = threadIdx.x; idx < 3 * p.t; idx += kThreads) {
+      const int which = idx / p.t;
+      cp_async<4>(st + idx, stats + which * nht + at + (idx - which * p.t));
+    }
+  };
+  auto compute = [&](int item, int b) {
+    const Item it = item_of(p, item);
+    const unsigned char* buf = smem + b * p.stage;
+    const T* qs = reinterpret_cast<const T*>(buf);
+    const T* gs = qs + p.t * p.rs;
+    const T* ks = gs + p.t * p.rs;
+    const T* vs = ks + p.rows * p.rs;
+    const float* ms = reinterpret_cast<const float*>(buf + stats_at);
+    const float* dens = ms + p.t;
+    const float* rs = dens + p.t;
+    for_tasks<1>(1, it.rn, warp, [&](auto nq, int, int jj) {
+      constexpr int NQ = decltype(nq)::value;  // keys jj .. jj + NQ - 1
+      const int64_t j = it.n * p.t + it.r0 + jj;
+      float mask_j[NQ];
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) mask_j[q] = mask ? mask[j + q] : 1.f;
+      {
+        float kf[NQ * DM];
+        load_rows<T, DM, NQ>(kf, ks + jj * p.rs, p.rs, p.d);
+        for (int i = lane; i < p.t; i += 32) {
+          float s[NQ];
+          dot_rows<T, DM, NQ>(s, kf, qs + i * p.rs, p.d);
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) {
+            float e = expf(__fmul_rn(s[q], p.inv_s) - ms[i]);
+            if (mask) e = e * mask_j[q];
+            arow[q * p.t + i] = dens[i] > 0.f ? e / dens[i] : 0.f;
+          }
+        }
+      }
+      float vf[NQ * DM];
+      load_rows<T, DM, NQ>(vf, vs + jj * p.rs, p.rs, p.d);
+      for (int i = lane; i < p.t; i += 32) {
+        float da[NQ];
+        dot_rows<T, DM, NQ>(da, vf, gs + i * p.rs, p.d);
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const float a = arow[q * p.t + i];
+          dsrow[q * p.t + i] = round_to<T>((da[q] - rs[i]) * a * p.inv);
+          arow[q * p.t + i] = round_to<T>(a);  // a in g's dtype, for dv
+        }
+      }
+      __syncwarp();
+      T* o = dqkv + j * 3 * hd + it.h0 * p.d;
+      weighted_rows<T, NQ>(o + hd, 3 * hd, dsrow, p.t, qs, p.rs, p.t, p.d,
+                           lane);
+      weighted_rows<T, NQ>(o + 2 * hd, 3 * hd, arow, p.t, gs, p.rs, p.t, p.d,
+                           lane);
+      __syncwarp();  // the next task overwrites the rows
+    });
+  };
+  run_items(p, smem, stage, compute);
+}
+
+// ---- launch --------------------------------------------------------------------
+
+// Bytes of one async copy: the largest of 16, 8, 4 that divides a head
+// row's bytes and both base addresses (every row and head offset is a
+// multiple of a head row); 0 for element copies.
+int chunk_bytes(int d_head, int esize, const void* a, const void* b) {
+  for (int c = 16; c >= 4; c /= 2)
+    if ((d_head * esize) % c == 0 && (uintptr_t)a % c == 0 &&
+        (uintptr_t)b % c == 0)
+      return c;
+  return 0;
 }
 
 template <typename T>
-struct Fwd {
-  const void *qkv, *mask;
-  void* out;
-  int n, t_len, n_heads, d_head;
+struct Launch {
+  int kind;
+  const T *qkv, *g;
+  const float* mask;
+  T* out;
+  float* stats;
+  Params p;
+  size_t smem;
+  unsigned blocks;
   cudaStream_t stream;
+
+  template <typename K, typename... A>
+  int go(K kernel, A... args) const {
+    int err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != (int)cudaSuccess) return err;
+    kernel<<<blocks, kThreads, smem, stream>>>(args...);
+    return (int)cudaGetLastError();
+  }
 
   template <int DM>
   int operator()() const {
-    int64_t blocks;
-    int err = check_grid(n, n_heads, &blocks);
-    if (err != (int)cudaSuccess) return err;
-    const int kt = tile_len(t_len, d_head, 1);
-    const size_t smem = smem_bytes_for(kt, d_head, 1);
-    err = (int)cudaFuncSetAttribute(
-        blanes_fwd_kernel<T, DM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != (int)cudaSuccess) return err;
-    // the scale of the scores, computed as rows 1 and 4 compute it
-    const float inv = 1.0f / sqrtf((float)d_head);
-    blanes_fwd_kernel<T, DM><<<(unsigned)blocks, kThreadsBl, smem, stream>>>(
-        static_cast<const T*>(qkv), static_cast<const float*>(mask),
-        static_cast<T*>(out), n, n_heads, t_len, d_head, kt, inv);
-    return (int)cudaGetLastError();
+    constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value && DM <= 32;
+    switch (kind) {
+      case kFwd:
+        if (p.t <= kShortT)
+          return go(blanes_fwd_short_kernel<T, DM>, qkv, mask, out, p);
+        if constexpr (kMma) {
+          if (long_mma(p.t, p.d, 2))
+            return go(blanes_fwd_mma_kernel<DM>, qkv, mask, out, p);
+        }
+        return go(blanes_fwd_kernel<T, DM>, qkv, mask, out, p);
+      case kBwd:
+        return go(blanes_bwd_kernel<T, DM>, qkv, mask, g, out, p);
+      case kBwdQuery:
+        if constexpr (kMma) {
+          if (long_mma(p.t, p.d, 2))
+            return go(blanes_bwd_query_mma_kernel<DM>, qkv, mask, g, out,
+                      stats, p);
+        }
+        return go(blanes_bwd_query_kernel<T, DM>, qkv, mask, g, out, stats,
+                  p);
+      default:
+        if constexpr (kMma) {
+          if (long_mma(p.t, p.d, 2))
+            return go(blanes_bwd_key_mma_kernel<DM>, qkv, mask, g, out,
+                      (const float*)stats, p);
+        }
+        return go(blanes_bwd_key_kernel<T, DM>, qkv, mask, g, out,
+                  (const float*)stats, p);
+    }
   }
 };
+
+// One kernel launch of the plan (heads, rows, nbuf, blocks) the wrapper
+// chose; refuses a plan the kind does not take.
+template <typename T>
+int launch(int kind, const void* qkv, const void* mask, const void* g,
+           void* out, void* stats, int n, int t_len, int n_heads, int d_head,
+           int heads, int rows, int nbuf, int blocks, void* stream) {
+  if (n <= 0 || t_len <= 0) return (int)cudaSuccess;
+  if (kind == kBwd || (kind == kFwd && t_len <= kShortT)) rows = t_len;
+  const bool one_head = kind == kBwdQuery || kind == kBwdKey;
+  if (heads < 1 || heads > 4 || heads > n_heads ||
+      (one_head && heads != 1) ||
+      rows < 1 || rows > t_len || (kFwd != kind && (kind == kBwd) !=
+                                                       (t_len <= kShortT)) ||
+      (one_head && stats == nullptr) || nbuf < 1 || nbuf > 2 || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  const int esize = (int)sizeof(T);
+  const Layout lay = layout_of(kind, t_len, d_head, esize, heads, rows);
+  const size_t smem = nbuf * lay.stage + lay.rows;
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  Params p;
+  p.n = n;
+  p.t = t_len;
+  p.h = n_heads;
+  p.d = d_head;
+  p.heads = heads;
+  p.rows = rows;
+  p.groups = (n_heads + heads - 1) / heads;
+  p.tiles = (t_len + rows - 1) / rows;
+  const int64_t items = (int64_t)n * p.groups * p.tiles;
+  if (items > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  p.items = (int)items;
+  p.nbuf = nbuf;
+  const int ve = head_align(kind, t_len, d_head, esize);
+  p.dp = (d_head + ve - 1) / ve * ve;
+  p.rs = row_bytes(d_head, ve, heads, esize) / esize;
+  p.rsf = row_bytes(d_head, 16 / esize, heads, 4) / 4;
+  p.chunk = chunk_bytes(d_head, esize, qkv, g ? g : qkv);
+  p.stage = lay.stage;
+  // the scale of the scores, computed as rows 1 and 4 compute it; 1/sqrt(D)
+  // for ds rounded once from double, as the plain version's scalar is
+  p.inv_s = 1.0f / sqrtf((float)d_head);
+  p.inv = (float)(1.0 / sqrt((double)d_head));
+  const Launch<T> body{kind, static_cast<const T*>(qkv),
+                       static_cast<const T*>(g),
+                       static_cast<const float*>(mask), static_cast<T*>(out),
+                       static_cast<float*>(stats), p, smem,
+                       (unsigned)(blocks < p.items ? blocks : p.items),
+                       (cudaStream_t)stream};
+  return with_head_width(d_head, body);
+}
 
 template <typename T>
-struct Bwd {
-  const void *qkv, *mask, *g;
-  void *dqkv, *stats;
-  int n, t_len, n_heads, d_head;
-  cudaStream_t stream;
+int fwd(const void* qkv, const void* mask, void* out, int n, int t_len,
+        int n_heads, int d_head, int heads, int rows, int nbuf, int blocks,
+        void* stream) {
+  return launch<T>(kFwd, qkv, mask, nullptr, out, nullptr, n, t_len, n_heads,
+                   d_head, heads, rows, nbuf, blocks, stream);
+}
 
-  template <int DM>
-  int operator()() const {
-    int64_t blocks;
-    int err = check_grid(n, n_heads, &blocks);
-    if (err != (int)cudaSuccess) return err;
-    const int kt = tile_len(t_len, d_head, 3);
-    const size_t smem = smem_bytes_for(kt, d_head, 3);
-    err = (int)cudaFuncSetAttribute(
-        blanes_bwd_kernel<T, DM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != (int)cudaSuccess) return err;
-    const float inv_s = 1.0f / sqrtf((float)d_head);
-    // 1/sqrt(D) for ds, rounded once from double, as the plain version's
-    // scalar is
-    const float inv = (float)(1.0 / sqrt((double)d_head));
-    blanes_bwd_kernel<T, DM><<<(unsigned)blocks, kThreadsBl, smem, stream>>>(
-        static_cast<const T*>(qkv), static_cast<const float*>(mask),
-        static_cast<const T*>(g), static_cast<T*>(dqkv),
-        static_cast<float*>(stats), n, n_heads, t_len, d_head, kt, inv_s,
-        inv);
-    return (int)cudaGetLastError();
-  }
-};
+// T <= 64: one kernel (heads, nbuf, blocks); else the query side (rows,
+// nbuf, blocks) then the key side (key_rows, key_nbuf, key_blocks).
+template <typename T>
+int bwd(const void* qkv, const void* mask, const void* g, void* dqkv,
+        void* stats, int n, int t_len, int n_heads, int d_head, int heads,
+        int rows, int nbuf, int blocks, int key_rows, int key_nbuf,
+        int key_blocks, void* stream) {
+  if (t_len <= kShortT)
+    return launch<T>(kBwd, qkv, mask, g, dqkv, nullptr, n, t_len, n_heads,
+                     d_head, heads, rows, nbuf, blocks, stream);
+  const int err = launch<T>(kBwdQuery, qkv, mask, g, dqkv, stats, n, t_len,
+                            n_heads, d_head, heads, rows, nbuf, blocks,
+                            stream);
+  if (err != (int)cudaSuccess) return err;
+  return launch<T>(kBwdKey, qkv, mask, g, dqkv, stats, n, t_len, n_heads,
+                   d_head, heads, key_rows, key_nbuf, key_blocks, stream);
+}
 
 }  // namespace
 
 extern "C" {
 
-// mask may be null (the unmasked variant). Returns cudaGetLastError()
-// after the launch: 0 when the kernel was queued; cudaErrorInvalidValue
-// for D > 64.
+// mask may be null (the unmasked variant). (heads, rows, nbuf, blocks) is
+// the launch plan of ops/experimental_blanes.py:launch_plan. Returns
+// cudaGetLastError() after the launch: 0 when the kernel was queued;
+// cudaErrorInvalidValue for D > 64 or a plan the kernel does not take.
 int blanes_fwd_f32(const void* qkv, const void* mask, void* out, int n,
-                   int t_len, int n_heads, int d_head, void* stream) {
-  if (n <= 0 || t_len <= 0) return (int)cudaSuccess;
-  return with_head_width(d_head, Fwd<float>{qkv, mask, out, n, t_len, n_heads,
-                                            d_head, (cudaStream_t)stream});
+                   int t_len, int n_heads, int d_head, int heads, int rows,
+                   int nbuf, int blocks, void* stream) {
+  return fwd<float>(qkv, mask, out, n, t_len, n_heads, d_head, heads, rows,
+                    nbuf, blocks, stream);
 }
 
 int blanes_fwd_bf16(const void* qkv, const void* mask, void* out, int n,
-                    int t_len, int n_heads, int d_head, void* stream) {
-  if (n <= 0 || t_len <= 0) return (int)cudaSuccess;
-  return with_head_width(
-      d_head, Fwd<__nv_bfloat16>{qkv, mask, out, n, t_len, n_heads, d_head,
-                                 (cudaStream_t)stream});
+                    int t_len, int n_heads, int d_head, int heads, int rows,
+                    int nbuf, int blocks, void* stream) {
+  return fwd<__nv_bfloat16>(qkv, mask, out, n, t_len, n_heads, d_head, heads,
+                            rows, nbuf, blocks, stream);
 }
 
-// stats: blanes_bwd_stats_floats(n, t_len, n_heads) f32 of scratch.
+// stats: 3*N*H*T f32 of scratch when T > 64 (m, den, r of every query),
+// else unused.
 int blanes_bwd_f32(const void* qkv, const void* mask, const void* g,
                    void* dqkv, void* stats, int n, int t_len, int n_heads,
-                   int d_head, void* stream) {
-  if (n <= 0 || t_len <= 0) return (int)cudaSuccess;
-  return with_head_width(d_head,
-                         Bwd<float>{qkv, mask, g, dqkv, stats, n, t_len,
-                                    n_heads, d_head, (cudaStream_t)stream});
+                   int d_head, int heads, int rows, int nbuf, int blocks,
+                   int key_rows, int key_nbuf, int key_blocks, void* stream) {
+  return bwd<float>(qkv, mask, g, dqkv, stats, n, t_len, n_heads, d_head,
+                    heads, rows, nbuf, blocks, key_rows, key_nbuf, key_blocks,
+                    stream);
 }
 
 int blanes_bwd_bf16(const void* qkv, const void* mask, const void* g,
                     void* dqkv, void* stats, int n, int t_len, int n_heads,
-                    int d_head, void* stream) {
-  if (n <= 0 || t_len <= 0) return (int)cudaSuccess;
-  return with_head_width(
-      d_head, Bwd<__nv_bfloat16>{qkv, mask, g, dqkv, stats, n, t_len,
-                                 n_heads, d_head, (cudaStream_t)stream});
+                    int d_head, int heads, int rows, int nbuf, int blocks,
+                    int key_rows, int key_nbuf, int key_blocks, void* stream) {
+  return bwd<__nv_bfloat16>(qkv, mask, g, dqkv, stats, n, t_len, n_heads,
+                            d_head, heads, rows, nbuf, blocks, key_rows,
+                            key_nbuf, key_blocks, stream);
 }
 
-// Floats of the backward's stats scratch: m, den and r of every (row,
-// head, query), the rows rounded up to whole blocks.
-int blanes_bwd_stats_floats(int n, int t_len, int n_heads) {
-  return ((n + kLanes - 1) / kLanes) * n_heads * 3 * t_len * kLanes;
+// Shared bytes of one block of `kind` (0 forward, 1 the T <= 64 backward,
+// 2 its query side and 3 its key side past 64): what the launch plan
+// computes in Python, for a test to hold the two equal.
+int blanes_smem_bytes(int kind, int t_len, int d_head, int esize, int heads,
+                      int rows, int nbuf) {
+  const Layout lay = layout_of(kind, t_len, d_head, esize, heads, rows);
+  return (int)(nbuf * lay.stage + lay.rows);
 }
 
 }  // extern "C"

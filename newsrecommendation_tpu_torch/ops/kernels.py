@@ -45,8 +45,8 @@ _ENTRY_POINTS = {
               "qkv2d_bwd": "p" * 5 + "i" * 4},
     "fused_tail_fwd": {"fused_tail_fwd": "p" * 9 + "i" * 7 + "uf"},
     "fused_tail_bwd": {"fused_tail_bwd": "p" * 22 + "i" * 9 + "uf"},
-    "blanes": {"blanes_fwd": "p" * 3 + "i" * 4,
-               "blanes_bwd": "p" * 5 + "i" * 4},
+    "blanes": {"blanes_fwd": "p" * 3 + "i" * 8,
+               "blanes_bwd": "p" * 5 + "i" * 11},
     "mhsa_sep": {"mhsa_sep_fwd": "p" * 6 + "i" * 9,
                  "mhsa_sep_bwd": "p" * 9 + "i" * 9},
 }
@@ -67,7 +67,7 @@ _SIZE_FUNCTIONS = {
     "fused_tail_bwd": {"fused_tail_bwd_smem_bytes": 4,
                        "fused_tail_bwd_stage_floats": 4,
                        "fused_tail_bwd_attn_stage_floats": 2},
-    "blanes": {"blanes_bwd_stats_floats": 3},
+    "blanes": {"blanes_smem_bytes": 7},
     "mhsa_sep": {"mhsa_sep_fwd_scratch_floats": 3,
                  "mhsa_sep_bwd_scratch_floats": 3},
 }

@@ -286,3 +286,60 @@ def test_fit_step_blanes_matches_jax(tiny_cfg, blanes, user_log_mask):
             continue
         np.testing.assert_allclose(_np(p), want, **STEP_TOL,
                                    err_msg=str(path))
+
+
+# ---- the launch plan of rows 15-16 (csrc/blanes.cu) --------------------------
+
+SMS = 132  # an H100's SMs
+# (N, T, H, D): the main paths' shapes (the news encoder, the user encoder,
+# a history of 511 news), both sides of the regime switch, T = 128 and
+# 200, odd and widest heads
+PLAN_SHAPES = [(7040, 20, 20, 20), (128, 50, 20, 20), (64, 511, 20, 20),
+               (128, 64, 20, 20), (128, 65, 20, 20), (64, 128, 20, 20),
+               (64, 200, 20, 20), (33, 50, 20, 33), (6, 65, 2, 33),
+               (5, 37, 2, 64), (5, 128, 2, 64)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("n, t, heads, d", PLAN_SHAPES)
+def test_launch_plan_fills_the_card(n, t, heads, d, itemsize):
+    """Every launch gets at least two blocks per SM or one block per work
+    item, within a block's shared memory; the items cover every (row,
+    head, row tile) once; the regime follows T."""
+    plans = bl.launch_plans(n, t, heads, d, itemsize, SMS)
+    kinds = ["bwd"] if t <= bl.SHORT_T else ["bwd_query", "bwd_key"]
+    assert [p.kind for p in plans["bwd"]] == kinds
+    for p in [plans["fwd"], *plans["bwd"]]:
+        assert p.smem <= kernels.MAX_SMEM
+        assert p.smem == bl.smem_bytes(p.kind, t, d, itemsize, p.heads,
+                                       p.rows, p.nbuf)
+        assert p.blocks >= 2 * SMS or p.blocks == p.items
+        assert p.blocks <= p.items
+        assert p.items == n * -(-heads // p.heads) * -(-t // p.rows)
+        assert p.nbuf in (1, 2)
+        if t <= bl.SHORT_T:
+            assert p.rows == t and p.heads in (min(heads, 4), min(heads, 2),
+                                               1)
+        else:
+            tile = (bl.MMA_TILE if bl.long_mma(t, d, itemsize)
+                    else bl.TILE)
+            assert (p.heads, p.rows) == (1, min(tile, t))
+
+
+@pytest.mark.parametrize("n, t", [(7040, 20), (128, 50), (64, 511)])
+def test_launch_plan_two_blocks_per_sm_at_main_path_shapes(n, t):
+    """At the shapes of the main paths in bf16 two blocks fit on an SM
+    (its 228 KB, 1 KB more per block) and the grid has at least 264."""
+    plans = bl.launch_plans(n, t, 20, 20, 2, SMS)
+    for p in [plans["fwd"], *plans["bwd"]]:
+        assert bl.SM_SMEM // (p.smem + 1024) >= 2, p
+        assert p.blocks >= 2 * SMS, p
+
+
+def test_launch_plan_refuses_rows_past_shared_memory():
+    """f32 heads of 64 at T = 511: one head's K and V alone (262 KB) do
+    not fit in a block; the plan raises rather than launch."""
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        bl.launch_plan("fwd", 2, 511, 1, 64, 4, SMS)
+    assert bl.launch_plan("fwd", 2, 511, 1, 64, 2, SMS).smem <= (
+        kernels.MAX_SMEM)

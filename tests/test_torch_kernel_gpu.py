@@ -657,11 +657,18 @@ def test_fused_tail_launches_rows_13_14(masked):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n, t, heads, d", [(64, 20, 20, 20), (33, 50, 20, 20),
                                             (7, 5, 3, 4), (3, 300, 2, 8),
-                                            (40, 511, 1, 33), (5, 37, 2, 64)])
+                                            (40, 511, 1, 33), (5, 37, 2, 64),
+                                            (37, 64, 3, 20), (37, 65, 3, 20),
+                                            (9, 128, 2, 16), (5, 200, 3, 20),
+                                            (3, 20, 2, 33), (6, 65, 2, 33),
+                                            (5, 128, 2, 64), (11, 20, 5, 8)])
 def test_blanes_kernels_match_plain(dtype, n, t, heads, d):
     """Rows 15-16 against their plain versions, unmasked and masked (every
-    third row fully masked), at N not a multiple of the 32 rows of a block
-    and T past the 32 keys of a staged tile."""
+    third row fully masked): T on both sides of the regime switch (64, 65)
+    and past it (128, 200, 300, 511), H = 5 against the four heads of a
+    work item, N past and below the blocks of the grid, heads of 33 (rows
+    not 16-byte aligned: element copies in bf16) and of 64 (the widest
+    the wrapper takes)."""
     from newsrecommendation_tpu_torch.ops import experimental_blanes as bl
 
     qkv, bias, mask = _inputs(n, t, heads, d, dtype, seed=12)
@@ -685,6 +692,23 @@ def test_blanes_kernels_match_plain(dtype, n, t, heads, d):
                                                    "blanes_masked": 1}
     assert kernels.launch_counts("blanes_bwd") == {"blanes_bwd": 1,
                                                    "blanes_bwd_masked": 1}
+
+
+def test_blanes_launch_plan_matches_the_kernels_layout():
+    """The launch plan's shared bytes (ops/experimental_blanes.py) equal
+    the kernel source's own layout at the shapes the plan tests take."""
+    from newsrecommendation_tpu_torch.ops import experimental_blanes as bl
+
+    for n, t, heads, d in [(7040, 20, 20, 20), (128, 50, 20, 20),
+                           (64, 511, 20, 20), (128, 64, 20, 20),
+                           (128, 65, 20, 20), (64, 200, 20, 20),
+                           (6, 65, 2, 33), (5, 37, 2, 64), (5, 128, 2, 64)]:
+        for itemsize in (4, 2):
+            plans = bl.launch_plans(n, t, heads, d, itemsize, 132)
+            for p in [plans["fwd"], *plans["bwd"]]:
+                assert p.smem == kernels.size_of(
+                    "blanes", "blanes_smem_bytes", bl.KINDS[p.kind], t, d,
+                    itemsize, p.heads, p.rows, p.nbuf), (n, t, d, p)
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -754,6 +778,11 @@ def test_blanes_raises_on_what_it_does_not_take():
     with pytest.raises(ValueError, match="g must be"):
         bl.blanes_bwd(qkv, None, torch.zeros((4, 6, 8), device="cuda",
                                              dtype=torch.bfloat16), 2)
+    # f32 heads of 64 at T = 511: one head's K and V pass a block's
+    # shared memory
+    qkv = torch.zeros((2, 511, 3 * 64), device="cuda")
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        bl.blanes_fwd(qkv, None, 1)
 
 
 # ---- rows 5-8: separate q, k, v --------------------------------------------
