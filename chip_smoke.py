@@ -33,10 +33,15 @@ Phases, each printing one line with its elapsed seconds:
            row 3's dqkv fed row 2's probs; controls (ds without its
            row-sum term, mask dropped, in bf16 dv from the unrounded a)
   kernel-flash  rows 9-10 (the key-blocked forward and backward) vs their
-           plain versions at 128 x 512, 128 x 1000 (not a multiple of the
-           key block) and 32 x 2048, masked and not, f32 and bf16, on q, k,
-           v cut from one projection; controls (the forward without the
-           running-max rescale, in bf16 dv from the unrounded a)
+           plain versions at 128 x 512, 128 x 513 (one key block of 513),
+           128 x 1000 (key blocks of 200, not a multiple of the kernels'
+           16-key step) and 32 x 2048, masked and not, f32 and bf16, on q,
+           k, v cut from one projection; controls (the forward without the
+           running-max rescale where there are two key blocks or more; in
+           bf16 dv from the unrounded a, and e rounded against a max taken
+           per 64-key tile inside each key block and rescaled, whose count
+           of elements of o that differ from the plain version must be at
+           least 10x the kernel's); bf16 counts of differing elements
   kernel-2d  rows 11-12 (the 2-D-I/O forward and backward) at 7040 x 20
            and 128 x 50, f32 and bf16: equal to rows 2-3 on the 3-D view in
            every element, and vs their plain versions; times and bounds
@@ -571,6 +576,43 @@ def flash_fwd_plain_without_rescale(q, k, v, key_mask, heads, bkv):
     return o.permute(0, 2, 1, 3).reshape(n, t, hd).to(q.dtype)
 
 
+def flash_fwd_plain_tile_max(q, k, v, key_mask, heads, bkv, tile=64):
+    """Row 9's plain version with e rounded at another point: inside each
+    key block the max is taken per tile of ``tile`` keys and the sums are
+    rescaled as it grows (an online max per tile, as a flash kernel that
+    ignored the key block would take it). In exact arithmetic it equals
+    the plain version; in bf16 only its rounding of e differs, so only its
+    count of differing elements shows it."""
+    import torch
+
+    n, t, hd = q.shape
+    d = hd // heads
+    qh, kh = (x.reshape(n, t, heads, d).float() for x in (q, k))
+    vh = v.reshape(n, t, heads, d)
+    m = q.new_full((n, heads, t), -1e30, dtype=torch.float32)
+    l = torch.zeros_like(m)
+    acc = q.new_zeros((n, heads, t, d), dtype=torch.float32)
+    for b0 in range(0, t, bkv):
+        for t0 in range(b0, min(b0 + bkv, t), tile):
+            t1 = min(t0 + tile, b0 + bkv, t)
+            s = torch.einsum("nqhd,nkhd->nhqk", qh, kh[:, t0:t1]) * (
+                1.0 / d ** 0.5)
+            m_new = torch.maximum(m, s.amax(-1))
+            scale = torch.exp(m - m_new)
+            e = torch.exp(s - m_new[..., None])
+            if key_mask is not None:
+                e = e * key_mask[:, None, None, t0:t1]
+            l = l * scale + e.sum(-1)
+            acc = acc * scale[..., None] + torch.einsum(
+                "nhqk,nkhd->nhqd", e.to(v.dtype).float(),
+                vh[:, t0:t1].float())
+            m = m_new
+    den = l + 1e-8 * torch.exp(-m)
+    o = torch.where(den[..., None] > 0, acc / den[..., None],
+                    torch.zeros_like(acc))
+    return o.permute(0, 2, 1, 3).reshape(n, t, hd).to(q.dtype)
+
+
 def flash_bwd_plain_with_fault(q, k, v, key_mask, g, m, den, delta, heads,
                                *, round_a=True, use_delta=True,
                                round_ds=True):
@@ -649,15 +691,25 @@ def flash_kernel_case(bw, masked, n, t, heads, d, dtype, seed):
     if mask is not None and (o[::7].abs().max().item() != 0.0 or any(
             x[::7].abs().max().item() != 0.0 for x in grads)):
         fail(f"{where}: fully masked rows have o or grads not 0")
-    caught = {"acc not rescaled by the running max": n_outside(
-        o, flash_fwd_plain_without_rescale(q, k, v, mask, heads, bkv),
-        f_rtol, f_atol)}
+    caught = {}
+    if t // bkv > 1:  # with one key block nothing is ever rescaled
+        caught["acc not rescaled by the running max"] = n_outside(
+            o, flash_fwd_plain_without_rescale(q, k, v, mask, heads, bkv),
+            f_rtol, f_atol)
     no_delta = flash_bwd_plain_with_fault(q, k, v, mask, g, rm, rden, delta,
                                           heads, use_delta=False)
     for i, name in ((0, "dq"), (1, "dk")):
         caught[f"ds without delta ({name})"] = n_outside(
             grads[i], no_delta[i], b_rtol, b_atol)
     if dtype == "bfloat16":
+        # e rounded against a per-64-key-tile max: the kernel must round
+        # where the plain version does, against the key block's max
+        tiled = n_differ(flash_fwd_plain_tile_max(q, k, v, mask, heads, bkv),
+                         ro)
+        out["o_n_differ_tile_max_control"] = tiled
+        caught["e rounded against a per-64-key-tile max (differing "
+               "elements, 10x the kernel's)"] = (
+            tiled if tiled >= 10 * out["o"]["n_differ"] else 0)
         caught["dv from the f32 a (differing elements)"] = rounding_fault(
             grads[2], flash_bwd_plain_with_fault(
                 q, k, v, mask, g, rm, rden, delta, heads, round_a=False)[2],
@@ -1667,14 +1719,21 @@ def main() -> int:
     # ---- kernel rows 9-10 vs plain -----------------------------------------
     t = time.perf_counter()
     flash_cases = []
-    for i, (n, tl) in enumerate([(128, 512), (128, 1000), (32, 2048)]):
+    for i, (n, tl) in enumerate([(128, 512), (128, 513), (128, 1000),
+                                 (32, 2048)]):
         for masked in (False, True):
             for dtype in ("float32", "bfloat16"):
                 c = flash_kernel_case(bw, masked, n, tl, 20, 20, dtype,
                                       seed=i)
                 flash_cases.append(c)
                 print("  kernel-flash " + json.dumps(c), flush=True)
-    phase("kernel-flash", t, cases=len(flash_cases))
+    # bf16: elements that differ from the plain version (o, dq, dk, dv),
+    # and o's count for the per-64-key-tile-max control
+    phase("kernel-flash", t, cases=len(flash_cases), bf16_n_differ=json.dumps(
+        {f"{c['variant']} {c['shape'][0]}x{c['shape'][1]}":
+         [c[x]["n_differ"] for x in ("o", "dq", "dk", "dv")]
+         + [c["o_n_differ_tile_max_control"]]
+         for c in flash_cases if c["dtype"] == "bfloat16"}))
 
     # ---- kernel rows 11-12 vs rows 2-3 and plain ----------------------------
     t = time.perf_counter()

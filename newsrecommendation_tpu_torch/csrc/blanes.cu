@@ -78,6 +78,7 @@
 // row is not 4-byte aligned (bf16 at odd D).
 
 #include "flash.cuh"  // with_head_width
+#include "mma.cuh"
 
 #include <type_traits>
 
@@ -194,23 +195,6 @@ __device__ __forceinline__ Item item_of(const Params& p, int item) {
 }
 
 // ---- staging ---------------------------------------------------------------
-
-template <int C>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
-               "l"(src), "n"(C)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Rows [row0, row0 + rows) of x (w elements a row), the D columns of head
 // hl at col0 + hl*D for hl < gn, into dst[r*rs + hl*dp ...]. Each thread
@@ -742,134 +726,7 @@ blanes_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
   run_items(p, smem, stage, compute);
 }
 
-// ---- tensor cores (mma.sync.m16n8k16, bf16 in, f32 sums) --------------------
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// Four 8x8 bf16 matrices from shared memory (lane i gives row i % 8 of
-// matrix i / 8), transposed with kTrans.
-template <bool kTrans>
-__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p) {
-  if constexpr (kTrans)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_addr(p)));
-  else
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_addr(p)));
-}
-
-template <bool kTrans>
-__device__ __forceinline__ void ldsm_x2(unsigned* r, const void* p) {
-  if constexpr (kTrans)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-        : "=r"(r[0]), "=r"(r[1])
-        : "r"(smem_addr(p)));
-  else
-    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-                 : "=r"(r[0]), "=r"(r[1])
-                 : "r"(smem_addr(p)));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row) b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
-                                         const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// A fragments of the 16 staged rows row0 .. row0 + 15 (rows rs apart,
-// clamped below nrows: a tile's last rows past the item are not read), KS
-// k-steps of 16 elements.
-template <int KS>
-__device__ __forceinline__ void load_a(unsigned (*a)[4],
-                                       const __nv_bfloat16* base, int rs,
-                                       int row0, int nrows, int lane) {
-  const __nv_bfloat16* row =
-      base + min(row0 + lane % 8 + 8 * (lane / 8 % 2), nrows - 1) * rs;
-#pragma unroll
-  for (int k = 0; k < KS; ++k)
-    ldsm_x4<false>(a[k], row + 16 * k + 8 * (lane / 16));
-}
-
-// c (16 x 8 f32) = a (16 rows, KS k-steps) times the staged rows row0 ..
-// row0 + 7 as B's columns (row clamped below nrows), scaled by `scale`.
-template <int KS>
-__device__ __forceinline__ void mma_rows(float* c, const unsigned (*a)[4],
-                                         const __nv_bfloat16* base, int rs,
-                                         int row0, int nrows, float scale,
-                                         int lane) {
-  c[0] = c[1] = c[2] = c[3] = 0.f;
-  const __nv_bfloat16* br = base + min(row0 + lane % 8, nrows - 1) * rs;
-  if constexpr (KS == 2) {
-    unsigned b[4];
-    ldsm_x4<false>(b, br + 8 * (lane / 8));
-    mma_bf16(c, a[0], b);
-    mma_bf16(c, a[1], b + 2);
-  } else {
-    unsigned b[2];
-    ldsm_x2<false>(b, br + 8 * (lane / 8 % 2));
-    mma_bf16(c, a[0], b);
-  }
-  if (scale != 1.f)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[e] = __fmul_rn(c[e], scale);
-}
-
-// o[dt] (16 x 8 f32, ND d tiles) += pa (16 x 16 bf16) times the staged
-// rows row0 .. row0 + 15 as B (k = rows, n = d; rows clamped below nrows).
-template <int ND>
-__device__ __forceinline__ void mma_acc(float (*o)[4], const unsigned* pa,
-                                        const __nv_bfloat16* base, int rs,
-                                        int row0, int nrows, int lane) {
-  const __nv_bfloat16* vr =
-      base + min(row0 + lane % 8 + 8 * (lane / 8 % 2), nrows - 1) * rs;
-#pragma unroll
-  for (int dt = 0; dt < ND; dt += 2) {
-    if (dt + 1 < ND) {
-      unsigned vb[4];
-      ldsm_x4<true>(vb, vr + 8 * dt + 8 * (lane / 16));
-      mma_bf16(o[dt], pa, vb);
-      mma_bf16(o[dt + 1], pa, vb + 2);
-    } else {
-      unsigned vb[2];
-      ldsm_x2<true>(vb, vr + 8 * dt);
-      mma_bf16(o[dt], pa, vb);
-    }
-  }
-}
-
-// o (16 rows x ND d tiles) of rows row0 + q, q < nrows, to x at
-// (first + q) * ld + d, d < D.
-template <int ND>
-__device__ __forceinline__ void store_tiles(__nv_bfloat16* x, int64_t first,
-                                            int ld, const float (*o)[4],
-                                            int row0, int nrows, int d_head,
-                                            int lane) {
-#pragma unroll
-  for (int dt = 0; dt < ND; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int q = row0 + lane / 4 + 8 * (e / 2);
-      const int d = 8 * dt + 2 * (lane % 4) + e % 2;
-      if (q < nrows && d < d_head)
-        x[(first + q) * ld + d] = __float2bfloat16_rn(o[dt][e]);
-    }
-}
+// ---- tensor cores (helpers in mma.cuh) -------------------------------------
 
 // The long regime's stats of 16 queries (a warp's) in bf16 by mma: m and
 // den of the rows g and g + 8 of each quad (lane / 4), from three walks
@@ -977,8 +834,8 @@ blanes_fwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
                     m[r], den[r], mrow, p.t);
       }
       // round(a) as the A fragment of a (16 queries x 16 keys) . V
-      const unsigned pa[4] = {pack_bf16(a[0], a[1]), pack_bf16(a[2], a[3]),
-                              pack_bf16(a[4], a[5]), pack_bf16(a[6], a[7])};
+      unsigned pa[4];
+      pack_a(pa, a);
       mma_acc<ND>(o, pa, vs, p.rs, key0, p.t, lane);
     }
     store_tiles<ND>(out + it.h0 * p.d, it.n * p.t + it.r0, hd, o, q0, it.rn,
@@ -1064,8 +921,8 @@ blanes_bwd_query_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
                              den[i], mrow, p.t);
         ds[e] = (da[e / 4][e % 4] - r[i]) * a * p.inv;
       }
-      const unsigned pa[4] = {pack_bf16(ds[0], ds[1]), pack_bf16(ds[2], ds[3]),
-                              pack_bf16(ds[4], ds[5]), pack_bf16(ds[6], ds[7])};
+      unsigned pa[4];
+      pack_a(pa, ds);
       mma_acc<ND>(o, pa, ks, p.rs, key0, p.t, lane);
     }
     store_tiles<ND>(dqkv + it.h0 * p.d, it.n * p.t + it.r0, 3 * hd, o, q0,
@@ -1170,10 +1027,9 @@ blanes_bwd_key_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
           ds[4 * h + e] = d_s;
         }
       }
-      const unsigned pa[4] = {pack_bf16(ar[0], ar[1]), pack_bf16(ar[2], ar[3]),
-                              pack_bf16(ar[4], ar[5]), pack_bf16(ar[6], ar[7])};
-      const unsigned pd[4] = {pack_bf16(ds[0], ds[1]), pack_bf16(ds[2], ds[3]),
-                              pack_bf16(ds[4], ds[5]), pack_bf16(ds[6], ds[7])};
+      unsigned pa[4], pd[4];
+      pack_a(pa, ar);
+      pack_a(pd, ds);
       mma_acc<ND>(dv, pa, gs, p.rs, q0, p.t, lane);
       mma_acc<ND>(dk, pd, qs, p.rs, q0, p.t, lane);
     }

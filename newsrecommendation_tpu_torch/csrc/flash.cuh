@@ -1,6 +1,7 @@
 // What the key-blocked ("flash") exp-MHSA kernels share (flash_fwd.cu,
-// flash_bwd.cu): the block shape, the tile loader and the dispatch on the
-// head width.
+// flash_bwd.cu): the launch plan's layout, the walk over key blocks, the
+// staging of head rows, and the CUDA-core kernels' tile loader and dispatch
+// on the head width.
 //
 // Layout: q, k, v are (N, T, H*D) with head h at lanes [h*D, (h+1)*D); rows
 // of (n, t) lie `ld` elements apart (ld = H*D when contiguous, 3*H*D when
@@ -8,13 +9,25 @@
 // other operand is contiguous: mask (N, T) f32 or null; o, g, dq, dk, dv
 // (N, T, H*D); m, den, delta (N, T, H) f32.
 //
-// One thread owns one query (or one key) of one (row, head), holding its
-// D-vectors in registers, padded with zeros to DM, a compile-time width
-// (8, 16, 24, 32 or 64): the padded terms add exact zeros, so every dot is
-// the sequential f32 sum over the D real lanes.
+// Two regimes, chosen from the dtype and D (the launch plan is
+// ops/blockwise.py:launch_plan, which this file's layout mirrors):
+//   tensor cores (bf16, D <= 64): a block takes one (row, head) and a tile
+//     of 64 or 128 of its own rows (queries; keys in the backward's key
+//     side), a warp 16 of them, its A fragments loaded once; the other
+//     side's rows are staged in chunks of up to 256 by cp.async in their
+//     own dtype, one or two buffers, heads padded with zeros to whole
+//     k-steps of 16 and rows an odd number of 16-byte units apart;
+//   CUDA cores (f32): one thread owns one query (or one key) of one (row,
+//     head), holding its D-vectors in registers, padded with zeros to DM, a
+//     compile-time width (8, 16, 24, 32 or 64): the padded terms add exact
+//     zeros, so every dot is the sequential f32 sum over the D real lanes.
+//     Tiles of 128 threads, 256 rows staged as f32, one buffer.
 #pragma once
 
 #include "common.cuh"
+#include "mma.cuh"
+
+#include <type_traits>
 
 namespace nrk {
 
@@ -43,6 +56,248 @@ __device__ __forceinline__ float dot(const float* a, const float* b) {
 #pragma unroll
   for (int d = 0; d < DM; ++d) acc = fmaf(a[d], b[d], acc);
   return acc;
+}
+
+// ---- the launch plan's layout ----------------------------------------------
+
+enum FlashKind { kFlashFwd = 0, kFlashBwdKey = 1, kFlashBwdQuery = 2 };
+
+constexpr int kFlashMmaMaxHead = 64;  // widest head on tensor cores
+constexpr int kFlashMaxChunk = 256;   // rows of one stage of the other side
+constexpr int kFlashMaxSmem = 232448;  // what a block may use
+
+// Whether the tensor-core kernels take (dtype, D): bf16 heads of up to 64.
+__host__ __device__ inline bool flash_mma(int d_head, int esize) {
+  return esize == 2 && d_head <= kFlashMmaMaxHead;
+}
+
+// The kernels' compile-time width DM (with_head_width): the least of 8,
+// 16, 24, 32, 64 that holds D.
+inline int flash_dm(int d_head) {
+  return d_head <= 8 ? 8 : d_head <= 16 ? 16 : d_head <= 24 ? 24
+         : d_head <= 32 ? 32 : 64;
+}
+
+// Elements of a staged head row on tensor cores: DM padded to whole
+// k-steps of 16 (the KS k-steps and ND d tiles of a DM kernel read zeros
+// past D, never the next row), the row to an odd number of 16-byte units
+// (ldmatrix's eight rows of 16 bytes then hit 32 banks).
+inline int flash_row_elems(int d_head) {
+  int rb = (flash_dm(d_head) + 15) / 16 * 32;
+  if ((rb / 16) % 2 == 0) rb += 16;
+  return rb / 2;
+}
+
+// Bytes of a block's own rows and of one stage buffer of the other side's
+// rows, on tensor cores (bf16 rows of flash_row_elems):
+//   fwd:        own Q [tile];      stage K, V [chunk], mask [chunk]
+//   bwd key:    own K, V [tile];   stage Q, g [chunk], m, den, 1/den,
+//                                  delta [chunk]
+//   bwd query:  own Q, g [tile];   stage K, V [chunk], mask [chunk]
+// (f32 arrays each padded to 16 bytes). On CUDA cores one f32 buffer of
+// 256 rows of two operands and one (fwd, query side) or three (key side)
+// per-row floats, nothing of its own.
+struct FlashLayout {
+  size_t own, stage;
+};
+
+inline FlashLayout flash_layout(int kind, int d_head, int esize, int tile,
+                                int chunk) {
+  if (!flash_mma(d_head, esize)) {
+    const size_t per_row = kind == kFlashBwdKey ? 3 : 1;
+    return {0, sizeof(float) * (2 * (size_t)kFlashTile * flash_dm(d_head) +
+                                per_row * kFlashTile)};
+  }
+  const size_t rb = 2 * (size_t)flash_row_elems(d_head);
+  const size_t floats = kind == kFlashBwdKey ? 4 : 1;
+  const size_t own = (kind == kFlashFwd ? 1 : 2) * (size_t)tile * rb;
+  return {own, 2 * (size_t)chunk * rb + (4 * floats * chunk + 15) / 16 * 16};
+}
+
+// Whether a plan (tile, chunk, nbuf) is one the kernels take: on tensor
+// cores tiles of 64 or 128 rows, chunks of 16 to 256 rows in steps of 16,
+// one or two buffers, within a block's shared memory; on CUDA cores the
+// fixed tile of 128 threads and 256 staged rows, one buffer.
+inline bool flash_plan_ok(int kind, int d_head, int esize, int tile,
+                          int chunk, int nbuf) {
+  if (!flash_mma(d_head, esize))
+    return tile == kFlashThreads && chunk == kFlashTile && nbuf == 1;
+  if ((tile != 64 && tile != 128) || chunk < 16 || chunk > kFlashMaxChunk ||
+      chunk % 16 != 0 || nbuf < 1 || nbuf > 2)
+    return false;
+  const FlashLayout lay = flash_layout(kind, d_head, esize, tile, chunk);
+  return lay.own + nbuf * lay.stage <= (size_t)kFlashMaxSmem;
+}
+
+// What a tensor-core kernel is launched with.
+struct FlashParams {
+  int h, t, d, ld;      // heads, positions, head width, row stride of q, k, v
+  int block;            // keys of a key block (the forward)
+  int tile, chunk;      // own rows of a block; rows of one stage
+  int nbuf;             // stage buffers: 2 copies the next task in early
+  int rs;               // staged row stride (elements)
+  int piece;            // bytes of one async copy; 0: element copies
+  int own, stage;       // bytes of the block's own rows, of one buffer
+  float inv;            // 1/sqrt(D)
+};
+
+// x / den rounded as the plain version's IEEE division e / den, from
+// rcp = 1 / den (IEEE, once per row) and one fma correction: with rcp the
+// correctly rounded reciprocal and q = x * rcp within an ulp of x / den,
+// q + (x - den q) rcp rounds to the correctly rounded quotient (Markstein;
+// exact for normal x and den). rcp = 0 where den is not > 0 gives 0, as
+// the contract has it. A division per element cost a dozen instructions
+// and more again under a key mask: on an H100 at (128, 512) the backward
+// took 3.09 ms unmasked and 5.25 with 30% of keys masked at random with
+// it, 2.16 both ways without (scripts/flash_variants.py division).
+__device__ __forceinline__ float div_by(float x, float den, float rcp) {
+  const float q = __fmul_rn(x, rcp);
+  return fmaf(fmaf(-den, q, x), rcp, q);
+}
+
+__device__ __forceinline__ float rcp_or_zero(float den) {
+  return den > 0.f ? 1.f / den : 0.f;
+}
+
+// Walks rows [0, n) of a stage in steps of 16, body(row0, edge): the steps
+// that lie inside n with edge false, a last partial one with edge true
+// (std::true_type), so only that one checks its rows against n.
+template <typename Body>
+__device__ __forceinline__ void for_steps(int n, Body body) {
+  int r0 = 0;
+  for (; r0 + 16 <= n; r0 += 16) body(r0, std::false_type{});
+  if (r0 < n) body(r0, std::true_type{});
+}
+
+// ---- the forward's walk over key blocks ------------------------------------
+//
+// Key block b holds keys [b*block, (b+1)*block) (block divides T: JAX's
+// _block_rows). Its max must be complete before any of its e is formed, so
+// a block that fits one stage (block <= chunk) is one task that takes the
+// max walk and then the exp walk over the staged keys; a longer block is
+// ceil(block / chunk) max tasks (K staged) then as many exp tasks (K and V
+// staged again). A task never crosses a block edge.
+
+struct FlashTask {
+  int key0, nkeys;     // the staged keys
+  bool max_pass;       // the walk that takes the block's max of s
+  bool exp_pass;       // the walk that forms e and e @ v
+  bool first;          // the block's first task: its max starts afresh
+  bool exp_first;      // the block's first exp task: m' and the scale
+  bool last;           // the block's last task: fold into the running sums
+};
+
+__host__ __device__ inline int flash_tasks_per_block(int block, int chunk) {
+  const int nc = (block + chunk - 1) / chunk;
+  return nc == 1 ? 1 : 2 * nc;
+}
+
+__host__ __device__ inline int flash_walk_tasks(int t_len, int block,
+                                                int chunk) {
+  return t_len / block * flash_tasks_per_block(block, chunk);
+}
+
+__host__ __device__ inline FlashTask flash_task(int idx, int block,
+                                                int chunk) {
+  const int nc = (block + chunk - 1) / chunk;
+  const int per = nc == 1 ? 1 : 2 * nc;
+  const int b = idx / per;
+  const int r = idx - b * per;
+  const int c = nc == 1 ? 0 : (r < nc ? r : r - nc);
+  FlashTask tk;
+  tk.key0 = b * block + c * chunk;
+  tk.nkeys = block - c * chunk < chunk ? block - c * chunk : chunk;
+  tk.max_pass = nc == 1 || r < nc;
+  tk.exp_pass = nc == 1 || r >= nc;
+  tk.first = r == 0;
+  tk.exp_first = nc == 1 || r == nc;
+  tk.last = r == per - 1;
+  return tk;
+}
+
+// ---- staging on tensor cores -----------------------------------------------
+
+// Bytes of one async copy: the largest of 16, 8, 4 that divides a head
+// row's bytes, each row stride's and every base address (so every row and
+// head offset too); 0 for element copies.
+inline int flash_piece(int d_head, int esize, int ld, int ld2,
+                       const void* const* ptrs, int n_ptrs) {
+  for (int c = 16; c >= 4; c /= 2) {
+    bool ok = (d_head * esize) % c == 0 && (ld * esize) % c == 0 &&
+              (ld2 * esize) % c == 0;
+    for (int i = 0; i < n_ptrs; ++i) ok = ok && (uintptr_t)ptrs[i] % c == 0;
+    if (ok) return c;
+  }
+  return 0;
+}
+
+// Rows [0, rows) of x (rows ld elements apart, the D lanes of one head)
+// into dst, rows rs elements apart, by cp.async pieces of `piece` bytes
+// (element stores when 0). Each thread keeps one piece of a row and walks
+// the rows; the pads past D are never written.
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, int rs,
+                                           const T* __restrict__ x,
+                                           int64_t ld, int rows, int d_head,
+                                           int piece) {
+  const int step = piece ? piece / (int)sizeof(T) : 1;  // elements
+  const int per = d_head / step;  // pieces of a row
+  const int rstep = blockDim.x / per;
+  const int r0 = threadIdx.x / per;
+  if (r0 >= rstep) return;
+  const int e = (threadIdx.x - r0 * per) * step;
+  for (int r = r0; r < rows; r += rstep) {
+    T* to = dst + r * rs + e;
+    const T* from = x + r * ld + e;
+    if (piece == 16) cp_async<16>(to, from);
+    else if (piece == 8) cp_async<8>(to, from);
+    else if (piece == 4) cp_async<4>(to, from);
+    else *to = *from;
+  }
+}
+
+// n floats from src, `stride` apart, into dst (4-byte cp.async each).
+__device__ __forceinline__ void stage_floats(float* dst,
+                                             const float* __restrict__ src,
+                                             int n, int stride) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    cp_async<4>(dst + i, src + (int64_t)i * stride);
+}
+
+// Zeroes `bytes` (a multiple of 16) of shared memory from p, then waits
+// for the block: the pads of staged rows are never copied.
+__device__ __forceinline__ void zero_smem(unsigned char* p, size_t bytes) {
+  const uint4 zero = {0u, 0u, 0u, 0u};
+  for (size_t i = threadIdx.x * 16; i < bytes; i += blockDim.x * 16)
+    *reinterpret_cast<uint4*>(p + i) = zero;
+  __syncthreads();
+}
+
+// Walks tasks 0 .. n - 1 of a block; the caller has issued task 0's copies
+// (and its own rows') into buffer 0. With two buffers task i + 1 is copied
+// in while task i is computed; with one, after it.
+template <typename Stage, typename Compute>
+__device__ __forceinline__ void walk_tasks(int n, int nbuf, Stage stage,
+                                           Compute compute) {
+  cp_commit();
+  for (int i = 0; i < n; ++i) {
+    const int b = nbuf == 2 ? i & 1 : 0;
+    if (nbuf == 2) {
+      if (i + 1 < n) stage(i + 1, b ^ 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();  // task i's rows are in
+    compute(i, b);
+    __syncthreads();  // its buffer is free again
+    if (nbuf == 1 && i + 1 < n) {
+      stage(i + 1, 0);
+      cp_commit();
+    }
+  }
+  cp_wait<0>();
 }
 
 // Calls body.template operator()<DM>() with the least DM >= d_head; returns

@@ -24,18 +24,33 @@
 // o (4 * 52 MB) and m, den (10.5 MB): about 0.066 ms at 3.35 TB/s, while
 // the 4*N*H*T*T*D = 53.7 GFLOP take 0.054 ms on bf16 tensor cores.
 //
-// Design (simple, correct first): one thread per query, 128 queries of one
-// (row, head) per block; q_i and the two accumulators (acc and the block's
-// e@v) live in registers, padded to DM lanes. Per key block, the block
-// stages up to 256 keys of k, v and the mask in shared memory as f32; a
-// first pass over them takes the block max of s, a second recomputes s,
-// e and accumulates. Every thread reads the same key at once, so the
-// shared-memory reads are broadcasts. Left on the table: the scores are
-// computed twice, the products run on the CUDA cores in f32 (no tensor
-// cores: f32 inputs would need TF32, which changes the result), and a
-// block of 256 keys leaves at most 4 blocks per SM.
+// Design. Two regimes (flash.cuh; the plan is ops/blockwise.py:
+// launch_plan):
+//   bf16, D <= 64: tensor cores (mma.sync.m16n8k16, bf16 in, f32 sums). A
+//     block takes one (row, head) and a tile of 64 or 128 queries, a warp
+//     16 of them, their A fragments loaded once. K and V are staged in
+//     chunks of up to 256 keys by cp.async, in one or two buffers, each
+//     chunk inside one key block (flash_task): per key block a max walk
+//     (QK^T, then the quad shuffles of the C layout) and an exp walk (QK^T
+//     again, e, l, and round(e) repacked from the C fragments into the A
+//     fragment of e@V, V by ldmatrix.trans), the block's e@v summed apart
+//     and folded into the accumulator with the block's scale, as the
+//     contract has it. So e rounds against the key block's max, never a
+//     partial one, whatever the chunk. Each score is computed twice and
+//     every product is on the tensor cores; what is left is issue-bound:
+//     the expf, the mask and the sum of each e.
+//   f32: CUDA cores (TF32 would change the result). One thread per query,
+//     128 queries of one (row, head) per block; q_i and the two
+//     accumulators (acc and the block's e@v) live in registers, padded to
+//     DM lanes. Per key block, the block stages up to 256 keys of k, v and
+//     the mask in shared memory as f32; a first pass over them takes the
+//     block max of s, a second recomputes s, e and accumulates. Every
+//     thread reads the same key at once, so the shared-memory reads are
+//     broadcasts.
 
 #include "flash.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -127,68 +142,281 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (d < d_head) o[d] = from_f32<T>(den > 0.f ? acc[d] / den : 0.f);
 }
 
+// bf16 with D <= 64: one (row, head) and a tile of queries per block, a warp
+// 16 queries; K, V (and the mask) staged per task of the key walk.
+template <int DM, bool kMask>
+__global__ void __launch_bounds__(256, 3)  // three blocks an SM
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     const float* __restrict__ mask,
+                     __nv_bfloat16* __restrict__ out,
+                     float* __restrict__ m_out, float* __restrict__ den_out,
+                     FlashParams p) {
+  using T = __nv_bfloat16;
+  constexpr int KS = (DM + 15) / 16;  // k-steps of QK^T
+  constexpr int ND = (DM + 7) / 8;    // d tiles of e@V
+  // a name of their own: the CUDA-core kernels declare it as float
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  unsigned char* smem = mma_smem;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int tq = lane % 4;
+  const int row = blockIdx.x / p.h;
+  const int h = blockIdx.x - row * p.h;
+  const int i0 = blockIdx.y * p.tile;  // the tile's first query
+  const int nq = min(p.tile, p.t - i0);
+  const int q0 = warp * 16;  // the warp's first query in the tile
+  const bool active = q0 < nq;
+  const int64_t base = (int64_t)row * p.t * p.ld + h * p.d;
+  const float* mrow = kMask ? mask + (int64_t)row * p.t : nullptr;
+  T* qs = reinterpret_cast<T*>(smem);
+  auto kbuf = [&](int b) {
+    return reinterpret_cast<T*>(smem + p.own + (size_t)b * p.stage);
+  };
+
+  zero_smem(smem, p.own + (size_t)p.nbuf * p.stage);
+  auto stage = [&](int idx, int b) {
+    const FlashTask tk = flash_task(idx, p.block, p.chunk);
+    T* ks = kbuf(b);
+    stage_rows(ks, p.rs, k + base + (int64_t)tk.key0 * p.ld, p.ld, tk.nkeys,
+               p.d, p.piece);
+    if (tk.exp_pass) {
+      stage_rows(ks + p.chunk * p.rs, p.rs,
+                 v + base + (int64_t)tk.key0 * p.ld, p.ld, tk.nkeys, p.d,
+                 p.piece);
+      if (kMask)
+        stage_floats(reinterpret_cast<float*>(ks + 2 * p.chunk * p.rs),
+                     mrow + tk.key0, tk.nkeys, 1);
+    }
+  };
+  stage_rows(qs, p.rs, q + base + (int64_t)i0 * p.ld, p.ld, nq, p.d, p.piece);
+  stage(0, 0);
+
+  unsigned qa[KS][4];
+  // per row of the lane (g and g + 8): the running max and sum, the
+  // block's max, its m' and scale, its sum of e
+  float m_run[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f};
+  float mx[2], m_new[2], scale[2], lsum[2];
+  float o[ND][4] = {}, pv[ND][4];
+  auto compute = [&](int idx, int b) {
+    if (!active) return;
+    if (idx == 0) load_a<KS>(qa, qs, p.rs, q0, nq, lane);
+    const FlashTask tk = flash_task(idx, p.block, p.chunk);
+    const T* ks = kbuf(b);
+    const T* vs = ks + p.chunk * p.rs;
+    const float* mk = reinterpret_cast<const float*>(vs + p.chunk * p.rs);
+    const int nk = tk.nkeys;
+    if (tk.first) mx[0] = mx[1] = -INFINITY;
+    if (tk.max_pass) {
+      // rows past nk are clamped to key nk - 1, a key of this block: they
+      // leave the max as it is
+      for (int key0 = 0; key0 < nk; key0 += 8) {
+        float c[4];
+        mma_rows<KS>(c, qa, ks, p.rs, key0, nk, p.inv, lane);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], c[e]);
+      }
+    }
+    if (tk.exp_first) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        m_new[r] = fmaxf(m_run[r], mx[r]);
+        scale[r] = expf(m_run[r] - m_new[r]);
+        lsum[r] = 0.f;
+      }
+#pragma unroll
+      for (int dt = 0; dt < ND; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pv[dt][e] = 0.f;
+    }
+    if (tk.exp_pass)
+      for_steps(nk, [&](int key0, auto edge) {
+        float c[8];
+        mma_rows<KS>(c, qa, ks, p.rs, key0, nk, p.inv, lane);
+        mma_rows<KS>(c + 4, qa, ks, p.rs, key0 + 8, nk, p.inv, lane);
+#pragma unroll
+        for (int e = 0; e < 8; e += 2) {
+          const int kk = key0 + 8 * (e / 4) + 2 * tq;  // keys kk, kk + 1
+          float x0 = expf(c[e] - m_new[e % 4 / 2]);
+          float x1 = expf(c[e + 1] - m_new[e % 4 / 2]);
+          if (kMask) {
+            const float2 mm = *reinterpret_cast<const float2*>(mk + kk);
+            x0 = x0 * mm.x;
+            x1 = x1 * mm.y;
+          }
+          if constexpr (decltype(edge)::value) {  // clamped rows: no key
+            if (kk >= nk) x0 = 0.f;
+            if (kk + 1 >= nk) x1 = 0.f;
+          }
+          lsum[e % 4 / 2] += x0 + x1;
+          c[e] = x0;
+          c[e + 1] = x1;
+        }
+        unsigned pa[4];
+        pack_a(pa, c);  // e in v's dtype, as the A fragment of e@V
+        mma_acc<ND>(pv, pa, vs, p.rs, key0, nk, lane);
+      });
+    if (tk.last) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 1);
+        lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 2);
+        l[r] = __fadd_rn(__fmul_rn(l[r], scale[r]), lsum[r]);
+        m_run[r] = m_new[r];
+      }
+#pragma unroll
+      for (int dt = 0; dt < ND; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[dt][e] = __fadd_rn(__fmul_rn(o[dt][e], scale[e / 2]), pv[dt][e]);
+    }
+  };
+  walk_tasks(flash_walk_tasks(p.t, p.block, p.chunk), p.nbuf, stage,
+             compute);
+  if (!active) return;
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    den[r] = __fadd_rn(l[r], __fmul_rn(kEps, expf(-m_run[r])));
+#pragma unroll
+  for (int dt = 0; dt < ND; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      o[dt][e] = den[e / 2] > 0.f ? o[dt][e] / den[e / 2] : 0.f;
+  const int hd = p.h * p.d;
+  store_tiles<ND>(out + h * p.d, (int64_t)row * p.t + i0, hd, o, q0, nq, p.d,
+                  lane);
+  if (tq == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = q0 + lane / 4 + 8 * r;
+      if (i < nq) {
+        const int64_t at = ((int64_t)row * p.t + i0 + i) * p.h + h;
+        m_out[at] = m_run[r];
+        den_out[at] = den[r];
+      }
+    }
+  }
+}
+
 template <typename T>
 struct Launch {
   const void *q, *k, *v, *mask;
   void *out, *m, *den;
-  int n, t_len, n_heads, d_head, ld, block_kv;
+  int n, t_len, n_heads, d_head, ld, block_kv, tile, chunk, nbuf;
   cudaStream_t stream;
 
   template <int DM>
   int operator()() const {
-    const size_t smem = sizeof(float) * (2 * kFlashTile * DM + kFlashTile);
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, DM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
     const int64_t rows = (int64_t)n * n_heads;
-    const int tiles = (t_len + kFlashThreads - 1) / kFlashThreads;
+    const int tiles = (t_len + tile - 1) / tile;
     if (rows > 0x7fffffff || tiles > 65535)
       return (int)cudaErrorInvalidConfiguration;
     // 1/sqrt(D) rounded once from double, as the plain version's scalar is
     const float inv = (float)(1.0 / sqrt((double)d_head));
-    flash_fwd_kernel<T, DM>
-        <<<dim3((unsigned)rows, (unsigned)tiles), kFlashThreads, smem,
-           stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                     static_cast<const T*>(v),
-                     static_cast<const float*>(mask), static_cast<T*>(out),
-                     static_cast<float*>(m), static_cast<float*>(den),
-                     n_heads, t_len, d_head, ld, block_kv, inv);
-    return (int)cudaGetLastError();
+    const int esize = (int)sizeof(T);
+    const FlashLayout lay = flash_layout(kFlashFwd, d_head, esize, tile,
+                                         chunk);
+    const size_t smem = lay.own + nbuf * lay.stage;
+    const dim3 grid((unsigned)rows, (unsigned)tiles);
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      // bf16 heads of up to 64 (every head the wrapper takes) are all on
+      // tensor cores
+      const void* ptrs[3] = {q, k, v};
+      FlashParams p{n_heads, t_len, d_head, ld, block_kv, tile, chunk,
+                    nbuf, flash_row_elems(d_head),
+                    flash_piece(d_head, esize, ld, ld, ptrs, 3),
+                    (int)lay.own, (int)lay.stage, inv};
+      auto go = [&](auto kernel) {
+        cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        kernel<<<grid, 2 * tile, smem, stream>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k),
+            static_cast<const T*>(v), static_cast<const float*>(mask),
+            static_cast<T*>(out), static_cast<float*>(m),
+            static_cast<float*>(den), p);
+        return (int)cudaGetLastError();
+      };
+      return mask ? go(flash_fwd_mma_kernel<DM, true>)
+                  : go(flash_fwd_mma_kernel<DM, false>);
+    } else {
+      cudaError_t err = cudaFuncSetAttribute(
+          flash_fwd_kernel<T, DM>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      flash_fwd_kernel<T, DM><<<grid, kFlashThreads, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const float*>(mask),
+          static_cast<T*>(out), static_cast<float*>(m),
+          static_cast<float*>(den), n_heads, t_len, d_head, ld, block_kv,
+          inv);
+      return (int)cudaGetLastError();
+    }
   }
 };
 
+// One launch of the plan (tile, chunk, nbuf) the wrapper chose; refuses a
+// plan the regime does not take, and a key block that does not divide T.
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* mask,
            void* out, void* m, void* den, int n, int t_len, int n_heads,
-           int d_head, int ld, int block_kv, void* stream) {
+           int d_head, int ld, int block_kv, int tile, int chunk, int nbuf,
+           void* stream) {
   if (n <= 0 || t_len <= 0) return (int)cudaSuccess;
-  if (block_kv <= 0) return (int)cudaErrorInvalidValue;
+  if (block_kv <= 0 || t_len % block_kv != 0 ||
+      !flash_plan_ok(kFlashFwd, d_head, (int)sizeof(T), tile, chunk, nbuf))
+    return (int)cudaErrorInvalidValue;
   return with_head_width(
       d_head, Launch<T>{q, k, v, mask, out, m, den, n, t_len, n_heads,
-                        d_head, ld, block_kv, (cudaStream_t)stream});
+                        d_head, ld, block_kv, tile, chunk, nbuf,
+                        (cudaStream_t)stream});
 }
 
 }  // namespace
 
 extern "C" {
 
-// mask may be null. Returns cudaGetLastError() after the launch: 0 when
-// the kernel was queued.
+// mask may be null. (tile, chunk, nbuf) is the plan of ops/blockwise.py:
+// launch_plan. Returns cudaGetLastError() after the launch: 0 when the
+// kernel was queued; cudaErrorInvalidValue for D > 64 or a plan the
+// kernel does not take.
 int flash_fwd_f32(const void* q, const void* k, const void* v,
                   const void* mask, void* out, void* m, void* den, int n,
                   int t_len, int n_heads, int d_head, int ld, int block_kv,
-                  void* stream) {
+                  int tile, int chunk, int nbuf, void* stream) {
   return launch<float>(q, k, v, mask, out, m, den, n, t_len, n_heads, d_head,
-                       ld, block_kv, stream);
+                       ld, block_kv, tile, chunk, nbuf, stream);
 }
 
 int flash_fwd_bf16(const void* q, const void* k, const void* v,
                    const void* mask, void* out, void* m, void* den, int n,
                    int t_len, int n_heads, int d_head, int ld, int block_kv,
-                   void* stream) {
+                   int tile, int chunk, int nbuf, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, mask, out, m, den, n, t_len, n_heads,
-                               d_head, ld, block_kv, stream);
+                               d_head, ld, block_kv, tile, chunk, nbuf,
+                               stream);
+}
+
+// Shared bytes of one block of `kind` (0 the forward, 1 the backward's key
+// side, 2 its query side) under the plan (tile, chunk, nbuf), or -1 for a
+// plan the kernels do not take: what launch_plan computes in Python, for a
+// test to hold the two equal.
+int flash_smem_bytes(int kind, int d_head, int esize, int tile, int chunk,
+                     int nbuf) {
+  if (!flash_plan_ok(kind, d_head, esize, tile, chunk, nbuf)) return -1;
+  const FlashLayout lay = flash_layout(kind, d_head, esize, tile, chunk);
+  return (int)(lay.own + nbuf * lay.stage);
+}
+
+// Tasks of the forward's walk over key blocks of `block` keys in chunks of
+// `chunk` (flash_task), for a test to hold it to launch_plan's.
+int flash_walk_task_count(int t_len, int block, int chunk) {
+  return flash_walk_tasks(t_len, block, chunk);
 }
 
 }  // extern "C"

@@ -16,6 +16,12 @@ in the denominator, a fully masked row gives 0); only the bf16 rounding
 point differs: the un-normalised e against the running max meets v, so the
 key block (JAX's ``_block_rows(t, block_kv)``) is part of the contract.
 
+The kernels take two regimes, chosen by ``launch_plan`` from the dtype and
+D: bf16 heads of up to 64 on tensor cores (a block a (row, head) and a
+tile of queries or keys, the other side staged in chunks that never cross
+a key block in the forward), f32 on CUDA cores. The C side computes the
+same layout and refuses a plan it does not take.
+
 q, k and v are (N, T, H*D) and may be views of one fused projection: their
 lanes must be contiguous and their rows a common stride apart. A CPU tensor
 takes the plain versions, a CUDA tensor launches the kernels or raises.
@@ -24,6 +30,7 @@ takes the plain versions, a CUDA tensor launches the kernels or raises.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -34,6 +41,17 @@ _EPS = 1e-8
 _NEG_BIG = -1e30
 BLOCK_KV = 256  # the JAX package's default key block
 MAX_HEAD = 64  # widest head the kernels take
+MAX_CHUNK = 256  # rows of the other side staged at once (tensor cores)
+CORE_TILE, CORE_CHUNK = 128, 256  # the CUDA-core kernels' fixed tile, stage
+SM_SMEM = 233472  # shared memory of one SM; a block takes 1 KB more
+MAX_SMEM = 232448  # what one block may use (ops/kernels.py MAX_SMEM)
+# Blocks of 256 threads an SM holds by registers: the forward and the
+# query side are built for three (__launch_bounds__), the key side takes
+# two (122 registers at D = 20). A plan with room for a third block beat
+# two stage buffers at (128, 512) in bf16 on an H100: 0.99 against 1.05 ms
+# forward, 2.16 against 2.31 backward (scripts/flash_variants.py plans).
+RESIDENT = 3
+KINDS = {"fwd": 0, "bwd_key": 1, "bwd_query": 2}
 
 
 def kv_block(t: int, target: int = BLOCK_KV) -> int:
@@ -45,6 +63,140 @@ def kv_block(t: int, target: int = BLOCK_KV) -> int:
             return b
         b -= 1
     return t
+
+
+def uses_mma(d: int, itemsize: int) -> bool:
+    """Whether the tensor-core kernels take (dtype, D): bf16 heads of up
+    to MAX_HEAD (csrc/flash.cuh ``flash_mma``); f32 runs on CUDA cores."""
+    return itemsize == 2 and d <= MAX_HEAD
+
+
+def _width(d):
+    """The kernels' compile-time width DM: the least of 8, 16, 24, 32, 64
+    that holds D (csrc/flash.cuh ``flash_dm``)."""
+    return next(w for w in (8, 16, 24, 32, 64) if d <= w)
+
+
+def _row_bytes(d):
+    """Bytes of a staged bf16 head row on tensor cores: DM padded to whole
+    k-steps of 16, the row to an odd number of 16-byte units
+    (``flash_row_elems``)."""
+    rb = -(-_width(d) // 16) * 32
+    return rb + 16 if (rb // 16) % 2 == 0 else rb
+
+
+def smem_bytes(kind: str, d: int, itemsize: int, tile: int, chunk: int,
+               nbuf: int) -> int:
+    """Shared bytes of one block of ``kind`` (csrc/flash.cuh
+    ``flash_layout``). On tensor cores: the block's own rows (fwd: Q; the
+    backward's key side: K, V; its query side: Q, g), then ``nbuf`` stage
+    buffers of ``chunk`` rows of the other side's two operands and its
+    per-row floats (fwd and query side: the mask; key side: m, den, 1/den,
+    delta). On CUDA cores: one f32 buffer of 256 rows of two operands and
+    one or three per-row floats."""
+    if not uses_mma(d, itemsize):
+        floats = 3 if kind == "bwd_key" else 1
+        return 4 * (2 * CORE_CHUNK * _width(d) + floats * CORE_CHUNK)
+    floats = 4 if kind == "bwd_key" else 1
+    rb = _row_bytes(d)
+    own = (1 if kind == "fwd" else 2) * tile * rb
+    return own + nbuf * (2 * chunk * rb + -(-4 * floats * chunk // 16) * 16)
+
+
+def key_walk(t: int, block: int, chunk: int) -> list:
+    """The forward's tasks over key blocks of ``block`` keys (csrc/flash.cuh
+    ``flash_task``): (first key, keys, max walk, exp walk) each. A block of
+    up to ``chunk`` keys is one task taking both walks over its staged
+    keys; a longer one is its chunks for the max walk, then the same chunks
+    again for the exp walk, so each e is formed against its block's whole
+    max. No task crosses a block edge."""
+    nc = -(-block // chunk)
+    tasks = []
+    for b0 in range(0, t, block):
+        chunks = [(b0 + c * chunk, min(chunk, block - c * chunk))
+                  for c in range(nc)]
+        if nc == 1:
+            tasks.append((*chunks[0], True, True))
+        else:
+            tasks += [(*c, True, False) for c in chunks]
+            tasks += [(*c, False, True) for c in chunks]
+    return tasks
+
+
+class Launch(NamedTuple):
+    """One kernel launch: a block takes one (row, head) and ``tile`` of its
+    own rows (queries; keys on the backward's key side) with ``threads``
+    threads, and walks the other side ``chunk`` rows at a time through
+    ``nbuf`` stage buffers; ``smem`` bytes a block; ``grid`` (N*H, row
+    tiles)."""
+    kind: str
+    tile: int
+    chunk: int
+    nbuf: int
+    smem: int
+    grid: tuple
+    threads: int
+
+
+class FlashPlan(NamedTuple):
+    """The regime ("mma": tensor cores, "cuda_core") and the launches of
+    rows 9 (fwd) and 10 (bwd_key, then bwd_query)."""
+    regime: str
+    fwd: Launch
+    bwd_key: Launch
+    bwd_query: Launch
+
+
+def launch_plan(n: int, t: int, heads: int, d: int, dtype,
+                block_kv: int = BLOCK_KV, sms: int = 132) -> FlashPlan:
+    """The launches of rows 9-10 at (N, T, H, D) in ``dtype`` (float32 or
+    bfloat16). On tensor cores: tiles of 128 rows (64 when that leaves
+    fewer than two blocks per SM); chunks of the other side of up to
+    MAX_CHUNK rows (in the forward up to the key block, rounded up to 16)
+    or halves of that; of those chunks and one or two buffers, the plan
+    that leaves room for the most blocks on an SM by shared memory, up to
+    RESIDENT, then the largest chunk (fewest copies), then two buffers. On
+    CUDA cores the kernels' fixed plan. Raises NotImplementedError for a
+    head wider than MAX_HEAD or a plan that fits no block."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dtype {dtype} not supported (float32, bfloat16)")
+    if d > MAX_HEAD:
+        raise NotImplementedError(f"D={d}: the flash kernels take heads of "
+                                  f"at most {MAX_HEAD}")
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    rows = n * heads
+    if not uses_mma(d, itemsize):
+        grid = (rows, -(-t // CORE_TILE))
+        return FlashPlan("cuda_core", *(
+            Launch(kind, CORE_TILE, CORE_CHUNK, 1,
+                   smem_bytes(kind, d, itemsize, CORE_TILE, CORE_CHUNK, 1),
+                   grid, CORE_TILE) for kind in KINDS))
+    tile = 128 if rows * -(-t // 128) >= 2 * sms else 64
+    grid = (rows, -(-t // tile))
+
+    def one(kind, rows_walked):
+        chunk = min(MAX_CHUNK, -(-rows_walked // 16) * 16)
+        fits = []
+        while chunk >= 16:
+            for nbuf in (2, 1):
+                smem = smem_bytes(kind, d, itemsize, tile, chunk, nbuf)
+                if smem <= MAX_SMEM:
+                    resident = min(RESIDENT, SM_SMEM // (smem + 1024))
+                    fits.append(((resident, chunk, nbuf), smem))
+            chunk = chunk // 32 * 16
+        if not fits:
+            raise NotImplementedError(
+                f"D={d}: the flash {kind} kernel needs more than "
+                f"{MAX_SMEM} bytes of shared memory per block")
+        (_, chunk, nbuf), smem = max(fits)
+        return Launch(kind, tile, chunk, nbuf, smem, grid, 2 * tile)
+
+    return FlashPlan("mma", one("fwd", kv_block(t, block_kv)),
+                     one("bwd_key", t), one("bwd_query", t))
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(q, k, v, key_mask, n_heads):
@@ -163,6 +315,8 @@ def flash_fwd(q, k, v, key_mask, n_heads: int, block_kv: int = BLOCK_KV):
     Raises for other devices."""
     n, t, d = _check(q, k, v, key_mask, n_heads)
     ld = _check_launch(q, k, v, key_mask, d)
+    p = launch_plan(n, t, n_heads, d, q.dtype, block_kv,
+                    _sms(q.device)).fwd
     o = torch.empty((n, t, n_heads * d), dtype=q.dtype, device=q.device)
     m = torch.empty((n, t, n_heads), dtype=torch.float32, device=q.device)
     den = torch.empty_like(m)
@@ -170,7 +324,8 @@ def flash_fwd(q, k, v, key_mask, n_heads: int, block_kv: int = BLOCK_KV):
                  kernels.entry("flash_fwd", "flash_fwd", q.dtype), q.device,
                  q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  kernels.ptr(key_mask), o.data_ptr(), m.data_ptr(),
-                 den.data_ptr(), n, t, n_heads, d, ld, kv_block(t, block_kv))
+                 den.data_ptr(), n, t, n_heads, d, ld, kv_block(t, block_kv),
+                 p.tile, p.chunk, p.nbuf)
     return o, m, den
 
 
@@ -187,6 +342,8 @@ def flash_bwd(q, k, v, key_mask, g, m, den, delta, n_heads: int):
             raise ValueError(f"{name} must be float32 ({n}, {t}, {n_heads}),"
                              f" got {x.dtype} {tuple(x.shape)}")
     ld = _check_launch(q, k, v, key_mask, d, g, m, den, delta)
+    plan = launch_plan(n, t, n_heads, d, q.dtype, sms=_sms(q.device))
+    kp, qp = plan.bwd_key, plan.bwd_query
     dq, dk, dv = (torch.empty((n, t, n_heads * d), dtype=q.dtype,
                               device=q.device) for _ in range(3))
     kernels.call("flash_bwd" if key_mask is None else "flash_bwd_masked",
@@ -194,7 +351,8 @@ def flash_bwd(q, k, v, key_mask, g, m, den, delta, n_heads: int):
                  q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  kernels.ptr(key_mask), g.data_ptr(), m.data_ptr(),
                  den.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), n, t, n_heads, d, ld)
+                 dk.data_ptr(), dv.data_ptr(), n, t, n_heads, d, ld,
+                 kp.tile, kp.chunk, kp.nbuf, qp.tile, qp.chunk, qp.nbuf)
     return dq, dk, dv
 
 

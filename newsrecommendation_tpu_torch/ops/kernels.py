@@ -39,8 +39,8 @@ _ENTRY_POINTS = {
                 "qkv_fwd_probs": "p" * 5 + "i" * 4},
     "qkv_bwd_probs": {"qkv_bwd_probs": "p" * 5 + "i" * 4},
     "qkv_bwd": {"qkv_bwd": "p" * 5 + "i" * 4},
-    "flash_fwd": {"flash_fwd": "p" * 7 + "i" * 6},
-    "flash_bwd": {"flash_bwd": "p" * 11 + "i" * 5},
+    "flash_fwd": {"flash_fwd": "p" * 7 + "i" * 9},
+    "flash_bwd": {"flash_bwd": "p" * 11 + "i" * 11},
     "qkv2d": {"qkv2d_fwd": "p" * 4 + "i" * 4,
               "qkv2d_bwd": "p" * 5 + "i" * 4},
     "fused_tail_fwd": {"fused_tail_fwd": "p" * 9 + "i" * 7 + "uf"},
@@ -54,13 +54,14 @@ _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "u": ctypes.c_uint32,
            "f": ctypes.c_float}
 # Sources whose block stages whole rows or (T, D) operands in shared memory
 # export size functions (no dtype suffix): the shared bytes a block needs,
-# checked against what a block may use, and the floats of a scratch slot
-# where a long row moves to global memory. {source: {function: count of
-# int arguments}}.
+# checked against what a block may use, the floats of a scratch slot
+# where a long row moves to global memory, and the flash forward's count
+# of key-walk tasks. {source: {function: count of int arguments}}.
 _SIZE_FUNCTIONS = {
     "qkv_fwd": {"qkv_fwd_smem_bytes": 2},
     "qkv_bwd_probs": {"qkv_bwd_probs_smem_bytes": 2},
     "qkv_bwd": {"qkv_bwd_smem_bytes": 2},
+    "flash_fwd": {"flash_smem_bytes": 6, "flash_walk_task_count": 3},
     "qkv2d": {"qkv2d_fwd_smem_bytes": 2, "qkv2d_bwd_smem_bytes": 2},
     "fused_tail_fwd": {"fused_tail_fwd_smem_bytes": 4,
                        "fused_tail_fwd_scratch_floats": 4},

@@ -277,3 +277,161 @@ def test_flash_min_seq_routes_as_jax(flash_from, masked):
                     _np(tparams[name][leaf].grad), _np(jgp[name][leaf]),
                     **BWD_TOL["float32"], err_msg=f"{name}/{leaf}")
                 tparams[name][leaf].grad = None
+
+
+# ---- the kernels' launch plan (ops/blockwise.py:launch_plan) ----------------
+# What the CUDA kernels are launched with, computed in Python so that it is
+# checked here; tests/test_torch_kernel_gpu.py holds the C side's layout to
+# it on the card.
+
+SMS = 132  # the H100's SMs
+
+
+@pytest.mark.parametrize("dtype, d, regime", [
+    (torch.bfloat16, 20, "mma"), (torch.bfloat16, 4, "mma"),
+    (torch.bfloat16, 33, "mma"), (torch.bfloat16, 64, "mma"),
+    (torch.float32, 20, "cuda_core"), (torch.float32, 64, "cuda_core")])
+def test_launch_plan_regime_by_dtype_and_width(dtype, d, regime):
+    """bf16 heads of up to 64 run on tensor cores (padded to whole k-steps
+    of 16), f32 on CUDA cores with the kernels' fixed tile."""
+    plan = bw.launch_plan(64, 512, 4, d, dtype)
+    assert plan.regime == regime
+    assert bw.uses_mma(d, torch.empty((), dtype=dtype).element_size()) == (
+        regime == "mma")
+    for p in plan[1:]:
+        if regime == "cuda_core":
+            assert (p.tile, p.chunk, p.nbuf, p.threads) == (128, 256, 1, 128)
+        else:
+            assert p.tile in (64, 128) and p.threads == 2 * p.tile
+            assert p.nbuf in (1, 2) and p.chunk % 16 == 0
+            assert 16 <= p.chunk <= bw.MAX_CHUNK
+
+
+@pytest.mark.parametrize("t", [512, 513, 1000, 2048])
+@pytest.mark.parametrize("n, heads, d", [(128, 20, 20), (32, 20, 20),
+                                         (3, 4, 64), (2, 3, 8)])
+def test_launch_plan_covers_every_row_and_key_block(t, n, heads, d):
+    """The tiles cover every (row, head, query) (and key, on the backward's
+    key side) once; the forward's key walk covers every key block once in a
+    max walk and then once in an exp walk, its chunks clipped at the key
+    block's edges (kv_block: 256 at T = 512 and 2048, 200 at 1000, T itself
+    at 513); the backward's chunks cover every row of the other side."""
+    plan = bw.launch_plan(n, t, heads, d, torch.bfloat16, sms=SMS)
+    for p in plan[1:]:
+        rows, tiles = p.grid
+        assert rows == n * heads
+        assert tiles == -(-t // p.tile) and (tiles - 1) * p.tile < t
+        covered = [r for i in range(tiles)
+                   for r in range(i * p.tile, min((i + 1) * p.tile, t))]
+        assert covered == list(range(t))
+    block = bw.kv_block(t)
+    assert block == {512: 256, 513: 513, 1000: 200, 2048: 256}[t]
+    walk = bw.key_walk(t, block, plan.fwd.chunk)
+    for b0 in range(0, t, block):
+        tasks = [w for w in walk if b0 <= w[0] < b0 + block]
+        assert all(k0 + nk <= b0 + block and nk <= plan.fwd.chunk
+                   for k0, nk, _, _ in tasks)
+        for pass_ in (2, 3):
+            keys = [k for w in tasks if w[pass_]
+                    for k in range(w[0], w[0] + w[1])]
+            assert keys == list(range(b0, b0 + block))
+        last_max = max(i for i, w in enumerate(walk)
+                       if w[2] and b0 <= w[0] < b0 + block)
+        first_exp = min(i for i, w in enumerate(walk)
+                        if w[3] and b0 <= w[0] < b0 + block)
+        assert last_max <= first_exp  # the block's max is whole first
+    blocks = [w[0] // block for w in walk]
+    assert blocks == sorted(blocks)  # one block after another
+    for p in (plan.bwd_key, plan.bwd_query):
+        assert -(-t // p.chunk) * p.chunk >= t and p.chunk <= bw.MAX_CHUNK
+
+
+def test_key_walk_restages_a_block_longer_than_a_chunk():
+    """A key block longer than a chunk is walked twice: its chunks for the
+    max, then the same chunks again for e; a block that fits is one task
+    taking both walks."""
+    assert bw.key_walk(512, 256, 256) == [(0, 256, True, True),
+                                         (256, 256, True, True)]
+    assert bw.key_walk(513, 513, 256) == [
+        (0, 256, True, False), (256, 256, True, False), (512, 1, True, False),
+        (0, 256, False, True), (256, 256, False, True), (512, 1, False, True)]
+    assert bw.key_walk(40, 8, 16) == [(b, 8, True, True)
+                                      for b in range(0, 40, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [1, 4, 8, 16, 20, 24, 32, 33, 48, 64])
+@pytest.mark.parametrize("t", [40, 512, 513, 1000, 2048, 4096])
+def test_launch_plan_fits_a_block(dtype, d, t):
+    """Every launch's shared memory fits one block (232,448 bytes), and
+    its bytes are smem_bytes' at its plan."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    for p in bw.launch_plan(16, t, 4, d, dtype)[1:]:
+        assert p.smem <= kernels.MAX_SMEM == 232448
+        assert p.smem == bw.smem_bytes(p.kind, d, itemsize, p.tile, p.chunk,
+                                       p.nbuf)
+
+
+@pytest.mark.parametrize("n, t", [(128, 512), (32, 2048)])
+def test_launch_plan_fills_the_card(n, t):
+    """At the long-history shapes of the main paths (bf16, 20 heads of
+    20) every launch has at least two blocks per SM of the H100 and room
+    for at least two on an SM (its 228 KB, 1 KB more per block)."""
+    plan = bw.launch_plan(n, t, 20, 20, torch.bfloat16, sms=SMS)
+    assert plan.regime == "mma"
+    for p in plan[1:]:
+        assert p.grid[0] * p.grid[1] >= 2 * SMS, p
+        assert bw.SM_SMEM // (p.smem + 1024) >= 2, p
+
+
+def test_launch_plan_refuses_what_the_kernels_do_not_take():
+    with pytest.raises(NotImplementedError, match="at most 64"):
+        bw.launch_plan(2, 512, 2, 65, torch.bfloat16)
+    with pytest.raises(TypeError, match="float16"):
+        bw.launch_plan(2, 512, 2, 20, torch.float16)
+    # the C side's own refusals (a tile, chunk or buffer count it does not
+    # take) raise in the wrapper on the card: tests/test_torch_kernel_gpu.py
+
+
+def _rn32(x):
+    """The float32 nearest to the rational x, ties to even."""
+    from fractions import Fraction
+
+    if x == 0:
+        return np.float32(0.0)
+    e = x.numerator.bit_length() - x.denominator.bit_length()
+    while Fraction(2) ** e > x:
+        e -= 1
+    while Fraction(2) ** (e + 1) <= x:
+        e += 1
+    mantissa = round(x / Fraction(2) ** (e - 23))  # 24 bits, ties to even
+    return np.float32(float(Fraction(mantissa) * Fraction(2) ** (e - 23)))
+
+
+def test_reciprocal_division_is_exact():
+    """The tensor-core backward forms a = e / den from the row's rcp = 1/den
+    (IEEE) as q = e * rcp, then q + (e - den * q) * rcp with two fmas
+    (csrc/flash.cuh div_by). That is the IEEE quotient e / den of the plain
+    version, checked exactly on 20,000 float32 pairs: e in (e^-30, 1], den
+    from e^-25 to e^10, 1,000 mantissas just above 1 and 100 just below 2,
+    and e = 0."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(0)
+    n = 20000
+    e = np.exp(-rng.random(n) * 30).astype(np.float32)
+    e[-10:] = 0.0
+    den = np.exp(rng.uniform(-25, 10, n)).astype(np.float32)
+    den[:1000] = np.float32(1) + np.arange(1000, dtype=np.float32) * (
+        np.float32(2 ** -23))
+    den[1000:1100] = np.nextafter(np.float32(2), np.float32(0))
+    rcp = np.float32(1) / den
+    q = e * rcp
+    # e - den * q is exact in float64 (a 48-bit product within a factor 2
+    # of e), so casting it rounds once, as the fma does
+    r = (e.astype(np.float64) - den.astype(np.float64)
+         * q.astype(np.float64)).astype(np.float32)
+    got = np.array([_rn32(Fraction(float(qi)) + Fraction(float(ri))
+                          * Fraction(float(yi)))
+                    for qi, ri, yi in zip(q, r, rcp)], dtype=np.float32)
+    np.testing.assert_array_equal(got, e / den)

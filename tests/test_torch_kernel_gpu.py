@@ -288,10 +288,14 @@ def _flash_inputs(n, t, heads, d, dtype, seed=0, fused=False):
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("n, t, heads, d, fused", [
     (4, 512, 20, 20, True), (3, 1000, 4, 8, False), (2, 600, 2, 33, True),
-    (5, 513, 3, 16, False), (2, 40, 2, 4, False)])
+    (5, 513, 3, 16, False), (2, 40, 2, 4, False), (4, 1000, 20, 20, True),
+    (2, 513, 4, 20, True), (3, 512, 4, 32, True), (2, 512, 2, 64, False)])
 def test_flash_kernels_match_plain(dtype, masked, n, t, heads, d, fused):
     """Rows 9-10 against their plain versions: o, m, den, then dq, dk, dv
-    from the same m, den and delta."""
+    from the same m, den and delta. In bf16 the tensor-core kernels: key
+    blocks of 200 (T = 1000), one block of 513 walked in chunks, heads of
+    32 and 64 (64: chunks of 128 inside blocks of 256), one and two stage
+    buffers; masked, every third row fully masked."""
     q, k, v, mask = _flash_inputs(n, t, heads, d, dtype, seed=4, fused=fused)
     km = mask if masked else None
     bkv = 8 if t == 40 else 256
@@ -320,6 +324,94 @@ def test_flash_kernels_match_plain(dtype, masked, n, t, heads, d, fused):
     variant = "_masked" if masked else ""
     assert fa.launch_counts("flash_fwd")["flash" + variant] == 1
     assert fa.launch_counts("flash_bwd")["flash_bwd" + variant] == 1
+
+
+def test_flash_launch_plan_matches_the_kernels_layout():
+    """launch_plan's shared bytes (ops/blockwise.py) equal the kernel
+    source's own layout, its key walk has the source's count of tasks, and
+    the source refuses a plan it does not take."""
+    for n, t, heads, d in [(128, 512, 20, 20), (32, 2048, 20, 20),
+                           (128, 1000, 20, 20), (128, 513, 20, 20),
+                           (2, 40, 2, 4), (5, 513, 3, 16), (3, 512, 4, 32),
+                           (2, 512, 2, 64), (2, 600, 2, 33)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = bw.launch_plan(n, t, heads, d, dtype)
+            itemsize = torch.empty((), dtype=dtype).element_size()
+            for p in plan[1:]:
+                assert p.smem == kernels.size_of(
+                    "flash_fwd", "flash_smem_bytes", bw.KINDS[p.kind], d,
+                    itemsize, p.tile, p.chunk, p.nbuf), (n, t, d, p)
+            block = bw.kv_block(t)
+            assert len(bw.key_walk(t, block, plan.fwd.chunk)) == (
+                kernels.size_of("flash_fwd", "flash_walk_task_count", t,
+                                block, plan.fwd.chunk))
+    for tile, chunk, nbuf in [(96, 256, 1), (128, 200, 1), (128, 272, 1),
+                              (128, 256, 3)]:
+        assert kernels.size_of("flash_fwd", "flash_smem_bytes", 0, 20, 2,
+                               tile, chunk, nbuf) == -1
+    assert kernels.size_of("flash_fwd", "flash_smem_bytes", 0, 20, 4, 128,
+                           128, 1) == -1  # f32 takes only the fixed plan
+
+
+def test_flash_raises_on_a_plan_the_kernels_refuse(monkeypatch):
+    """A plan the C side does not take is refused before any launch: the
+    wrapper raises and counts nothing."""
+    q, k, v, _ = _flash_inputs(2, 512, 2, 20, "bfloat16")
+    plan = bw.launch_plan(2, 512, 2, 20, torch.bfloat16)
+    bad = plan._replace(fwd=plan.fwd._replace(tile=96),
+                        bwd_query=plan.bwd_query._replace(chunk=200))
+    monkeypatch.setattr(bw, "launch_plan", lambda *a, **kw: bad)
+    kernels.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        bw.flash_fwd(q, k, v, None, 2)
+    m = torch.zeros((2, 512, 2), device="cuda")
+    with pytest.raises(RuntimeError, match="launch failed"):
+        bw.flash_bwd(q, k, v, None, q.contiguous(), m, m + 1, m, 2)
+    assert not any(kernels.launch_counts("flash_fwd").values())
+    assert not any(kernels.launch_counts("flash_bwd").values())
+
+
+def test_flash_fully_masked_rows_on_tensor_cores():
+    """bf16 rows whose keys are all masked give o = 0 and zero gradients,
+    also where the max is so large that 1e-8 exp(-m) underflows and den
+    is 0 (rows 0 and 3), as in the plain version."""
+    q, k, v, mask = _flash_inputs(6, 512, 4, 20, "bfloat16", seed=9,
+                                  fused=True)
+    mask[0] = mask[3] = mask[4] = 0.0
+    q[0] *= 40.0
+    k[0] *= 40.0
+    q[3] *= 40.0
+    k[3] *= 40.0
+    o, m, den = bw.flash_fwd(q, k, v, mask, 4)
+    ro, rm, rden = bw.flash_fwd_reference(q, k, v, mask, 4)
+    g = torch.randn((6, 512, 80), device="cuda").to(q.dtype)
+    delta = bw.delta_of(g, ro, 4)
+    grads = bw.flash_bwd(q, k, v, mask, g, rm, rden, delta, 4)
+    torch.cuda.synchronize()
+    assert (rden[0] == 0).any() and (rden[3] == 0).any()
+    for i in (0, 3, 4):
+        assert (o[i] == 0).all() and all((x[i] == 0).all() for x in grads)
+    np.testing.assert_allclose(m.cpu().numpy(), rm.cpu().numpy(),
+                               **TOL["float32"])
+    np.testing.assert_allclose(den.cpu().numpy(), rden.cpu().numpy(),
+                               **TOL["float32"])
+    np.testing.assert_allclose(o.float().cpu().numpy(),
+                               ro.float().cpu().numpy(), **TOL["bfloat16"])
+
+
+def test_flash_bwd_repeats_bit_for_bit():
+    """No atomics: 50 calls of row 10 in bf16 (tensor cores) give the same
+    dq, dk and dv to the bit."""
+    q, k, v, mask = _flash_inputs(8, 1000, 20, 20, "bfloat16", seed=3,
+                                  fused=True)
+    g = torch.randn((8, 1000, 400), device="cuda").to(q.dtype)
+    _, m, den = bw.flash_fwd(q, k, v, mask, 20)
+    o = bw.flash_fwd(q, k, v, mask, 20)[0]
+    delta = bw.delta_of(g, o, 20)
+    first = bw.flash_bwd(q, k, v, mask, g, m, den, delta, 20)
+    for _ in range(50):
+        again = bw.flash_bwd(q, k, v, mask, g, m, den, delta, 20)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def test_long_sequences_route_to_flash_under_grad():
