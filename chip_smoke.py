@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch port (newsrecommendation_tpu_torch) on one
 NVIDIA GPU: builds the CUDA kernels, holds each against its plain PyTorch
 version, serves NRMS at its published width over HTTP, then trains it at
-its published width, with 50- and 512-news histories, and with the fused
-encoder tail, the 2-D-I/O attention and the batch-in-lanes attention;
-drives multi-head self-attention at unequal q/k/v widths.
+its published width, with 50-, 300- and 512-news histories, and with the
+fused encoder tail, the 2-D-I/O attention and the batch-in-lanes
+attention; drives multi-head self-attention at unequal q/k/v widths, and
+every kernel at the head widths and lengths it once refused.
 
     python3 chip_smoke.py        # from the repo root, on a machine with
                                  # one CUDA card and nvcc
@@ -23,15 +24,19 @@ Phases, each printing one line with its elapsed seconds:
            from probs) vs their plain versions, f32 and bf16, at the
            training path's shapes (news encoder 7040 x 20, user encoder
            128 x 50, masked 128 x 50 with fully masked rows) and at
-           64 x T for T in 202, 300, 511: row 2's context bit-equal to row
-           1's, its probs, row 3's dqkv; controls (probs transposed per
-           head, ds without its row-sum term, and in bf16 dv from the
-           unrounded a); kernel / plain times and bounds
+           64 x 202, 128 x 300 and 64 x 511 (bf16 on tensor cores): row 2's
+           context bit-equal to row 1's, its probs, row 3's dqkv; controls
+           (probs transposed per head, ds without its row-sum term, past
+           one staged chunk r summed over the first chunk only, and in bf16
+           dv from the unrounded a); kernel / plain times and bounds; bf16
+           counts of differing elements
   kernel-recompute  row 4 (the backward that recomputes the probs) vs its
-           plain version at 7040 x 20, 128 x 50 and 64 x 511, masked and
-           not, f32 and bf16, with the count of elements that differ from
-           row 3's dqkv fed row 2's probs; controls (ds without its
-           row-sum term, mask dropped, in bf16 dv from the unrounded a)
+           plain version at 7040 x 20, 128 x 50, 128 x 300 and 64 x 511,
+           masked and not, f32 and bf16, with the count of elements that
+           differ from row 3's dqkv fed row 2's probs; controls (ds without
+           its row-sum term, mask dropped, past one chunk r or den summed
+           over the first chunk only, in bf16 dv from the unrounded a);
+           bf16 counts of differing elements
   kernel-flash  rows 9-10 (the key-blocked forward and backward) vs their
            plain versions at 128 x 512, 128 x 513 (one key block of 513),
            128 x 1000 (key blocks of 200, not a multiple of the kernels'
@@ -70,13 +75,18 @@ Phases, each printing one line with its elapsed seconds:
            and 4's, and past T = 64 a max and den taken per 64-key tile
            without rescaling; kernel / plain / scaled_dot_product_attention
            times, forward and backward
+  kernel-limits  the shapes the kernels once refused, f32 and bf16, masked
+           and not, against the plain versions: rows 1-4 (and 11-12) at 8
+           heads of 50 and T = 300, 400; rows 9-10 at D = 80, 400 and 1100,
+           T = 512; rows 15-16 at f32 D = 64, T = 400 and at D = 80; rows
+           13-14 at T = 5000 and 7000
   mhsa-unequal  multi_head_self_attention at d_k = 20, d_v = 32 (1024 x
            20, 20 heads, both masks), forward and backward on the card
            against the CPU, launching rows 5-8 only
   corpus   a 65,536-news synthetic corpus, full-width NRMS params from a
            seed, and two draws of its behaviors prepared into training
            samples: histories of up to 80 news cut to 50, and of up to 600
-           news cut to 512
+           news cut to 512 and to 300
   serve    Recommender.from_state on cuda, the HTTP server on a free
            localhost port, /score (C up to 300) and /recommend (k=10)
            requests, once with user_log_mask False and once True; served
@@ -89,6 +99,8 @@ Phases, each printing one line with its elapsed seconds:
   serve-long  the same with user_log_length 512: the user encoder takes
            the flash forward (row 9), whose launches are counted; then once
            with fused_tail "on": row 13 on both encoders, no flash
+  serve heads=8  the same with 8 heads of 50 and user_log_length 400: row
+           1 only, past shared memory on the user encoder
   train-check  one f32 train step (dropout off, B=16, full width) on the
            card and on the CPU from the same params and batch: loss, every
            leaf's gradient, the frozen table unchanged; for user_log_mask
@@ -110,14 +122,16 @@ Phases, each printing one line with its elapsed seconds:
            with attention_layout "blanes" (2 row-15 and 2 row-16 launches
            per step), for 12 steps with 512-news histories (one row-9 and
            one row-10 launch per step, rows 2-3 once per step for the news
-           encoder), and for 6 steps with 512-news histories and fused_tail
-           "on" (2 row-13 and 2 row-14 launches per step, no flash)
+           encoder), for 6 steps with 512-news histories and fused_tail
+           "on" (2 row-13 and 2 row-14 launches per step, no flash), and for
+           12 steps with 300-news histories (rows 2-3 twice per step, the
+           user encoder's on tensor cores)
   profile  device time, top kernels and device busy share (torch.profiler
            against an unprofiled wall clock) of one served batch of 64
            users x 300 candidates, of a 64-user corpus top-10, of one
            1024-row news-encoder chunk and of the headline, recompute,
-           trained-table, fused-tail, 2-D-I/O, blanes, 512-history and
-           512-history fused-tail train steps
+           trained-table, fused-tail, 2-D-I/O, blanes, 512-history,
+           512-history fused-tail and 300-history train steps
 Every backward row's library time is scaled_dot_product_attention's
 backward alone on the same q, k, v (its forward run outside the timed
 window), a yardstick the port never calls. Then one JSON line of
@@ -192,8 +206,13 @@ TAIL_FWD_SOURCE = f"{CSRC}/fused_tail_fwd.cu"
 TAIL_BWD_SOURCE = f"{CSRC}/fused_tail_bwd.cu"
 SEP_SOURCE = f"{CSRC}/mhsa_sep.cu"
 BLANES_SOURCE = f"{CSRC}/blanes.cu"
-# Row 3 at the lengths its first design refused (T > 201 at D = 20).
-LONG_T = (202, 300, 511)
+# Rows 3-4 past the resident kernel (T > 201 at D = 20): (N, T) of a
+# user encoder over 202-, 300- and 511-news histories; in bf16 the
+# tensor-core kernels, which stage the keys in chunks.
+LONG_T = ((64, 202), (128, 300), (64, 511))
+# A user history below flash_min_seq that rows 2-3 take at full width.
+MID_L = 300
+MID_STEPS = 12  # train steps at MID_L
 # A long user history: flash_min_seq keys, so MHSA takes rows 9-10.
 LONG_L = 512
 LONG_STEPS = 12  # train steps at LONG_L
@@ -213,6 +232,23 @@ FUSED_LONG_STEPS = 6  # train steps with the fused tail at LONG_L
 # regime switch (T <= 64 holds a head's T x T in shared memory), and two
 # lengths past it.
 BLANES_T = (64, 65, 128, 200)
+# The shapes the card once refused and the JAX route runs: (rows, N, T,
+# heads, D), each in f32 and bf16, masked and not. Rows 1-4 (and 11-12) at
+# 8 heads of 50 (examples/demo.sh) past shared memory; rows 9-10 at
+# news_dim 400 in 5 heads and 1 (D = 80, 400) and at a head of 1100 (two
+# slices of the wide kernels); rows 15-16 at f32 D = 64 past one head's K
+# and V in a block, and at D = 80. Rows 13-14 (TAIL_LIMITS: T, heads of
+# 20) at T = 5000, past the 4,470 row 4's tiled kernel held, and at
+# T = 7000, past the rows the tail kept in shared memory (6,456 forward,
+# 5,771 backward at the NRMS width; 4 heads keep the plain version small).
+LIMIT_CASES = (("rows1-4", 16, 300, 8, 50), ("rows1-4", 16, 400, 8, 50),
+               ("flash", 8, 512, 5, 80), ("flash", 4, 512, 1, 400),
+               ("flash", 2, 512, 1, 1100),
+               ("blanes", 8, 400, 2, 64), ("blanes", 8, 512, 5, 80))
+TAIL_LIMITS = ((5000, 20), (7000, 4))
+# Serving at 8 heads of 50 over 400-news histories: row 1 past shared
+# memory on the user encoder.
+MID_SERVE_L = 400
 # Rows 5-8 at the news encoder's shape with d_v = d_k and d_v = 32.
 SEP_DV = (20, 32)
 # The long train-check's reduced width (heads of 20 as published).
@@ -377,11 +413,12 @@ def n_differ(a, b) -> int:
 
 
 def bwd_plain_with_fault(qkv, bias, probs, g, heads, *, rowsum=True,
-                         round_a=True, round_ds=True):
+                         round_a=True, round_ds=True, r_keys=None):
     """The plain backward of row 3 with a planted fault: the ds row-sum
     term dropped, dv computed from the f32 a instead of a rounded to g's
-    dtype, or dq and dk from the f32 ds instead of ds rounded to k's
-    dtype."""
+    dtype, dq and dk from the f32 ds instead of ds rounded to k's dtype,
+    or (``r_keys``) the row sum r taken over the first r_keys keys only,
+    as a kernel that summed one staged chunk would."""
     import torch
 
     n, t, w3 = qkv.shape
@@ -393,7 +430,8 @@ def bwd_plain_with_fault(qkv, bias, probs, g, heads, *, rowsum=True,
     al = a.to(g.dtype).float() if round_a else a
     dv = torch.einsum("bhqk,bqhd->bkhd", al, gh)
     da = torch.einsum("bqhd,bkhd->bhqk", gh, v)
-    r = (da * a).sum(-1, keepdim=True) if rowsum else 0.0
+    keys = t if r_keys is None else r_keys
+    r = (da * a)[..., :keys].sum(-1, keepdim=True) if rowsum else 0.0
     ds = (da - r) * a * (1.0 / d ** 0.5)
     if round_ds:
         ds = ds.to(qkv.dtype).float()
@@ -401,6 +439,37 @@ def bwd_plain_with_fault(qkv, bias, probs, g, heads, *, rowsum=True,
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
     return torch.cat([y.reshape(n, t, heads * d) for y in (dq, dk, dv)],
                      -1).to(qkv.dtype)
+
+
+def probs_with_chunk_den(qkv, bias, mask, heads, keys):
+    """Rows 1-2's plain probs with den summed over the first ``keys`` keys
+    only (m still over all keys), as a kernel that normalised by one staged
+    chunk would: a planted fault of row 4."""
+    import torch
+
+    n, t, w3 = qkv.shape
+    d = w3 // (3 * heads)
+    x = (qkv + bias).view(n, t, 3, heads, d).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", x[:, :, 0], x[:, :, 1]) / d ** 0.5
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    if mask is not None:
+        e = e * mask[:, None, None, :]
+    den = e[..., :keys].sum(-1, keepdim=True) + 1e-8 * torch.exp(-m)
+    a = torch.where(den > 0, e / den, torch.zeros_like(e))
+    return a.permute(0, 2, 1, 3).reshape(n, t, heads * t)
+
+
+def chunk_keys(fa, n, t, heads, d, dtype, probs=False):
+    """Keys of one staged chunk of row 4's (``probs``: row 3's) query side
+    on tensor cores, or 256 where the kernel stages none; None when T fits
+    in one."""
+    import torch
+
+    plan = fa.bwd_launch_plan(n, t, heads, d, getattr(torch, dtype),
+                              probs=probs)
+    keys = plan.query.chunk if plan.regime == "mma" else 256
+    return keys if t > keys else None
 
 
 def bwd_rounding_faults(dqkv, qkv, bias, probs, g, heads, base_differ,
@@ -462,6 +531,11 @@ def train_kernel_case(fa, variant, n, t, heads, d, dtype, seed):
                                      rowsum=False)
     caught["ds without its row-sum term"] = n_outside(dqkv, no_rowsum,
                                                       b_rtol, b_atol)
+    keys = chunk_keys(fa, n, t, heads, d, dtype, probs=True)
+    if keys:
+        caught[f"r over the first {keys} keys only"] = n_outside(
+            dqkv, bwd_plain_with_fault(qkv, bias, ref_probs, g, heads,
+                                       r_keys=keys), b_rtol, b_atol)
     if dtype == "bfloat16":
         caught.update(bwd_rounding_faults(dqkv, qkv, bias, ref_probs, g,
                                           heads, out["dqkv"]["n_differ"],
@@ -527,6 +601,15 @@ def recompute_kernel_case(fa, variant, n, t, heads, d, dtype, seed):
     if mask is not None:
         caught["mask dropped"] = n_outside(
             dqkv, fa.qkv_bwd_reference(qkv, bias, None, g, heads), *b_tol)
+    keys = chunk_keys(fa, n, t, heads, d, dtype)
+    if keys:
+        caught[f"r over the first {keys} keys only"] = n_outside(
+            dqkv, bwd_plain_with_fault(qkv, bias, ref_probs, g, heads,
+                                       r_keys=keys), *b_tol)
+        caught[f"den over the first {keys} keys only"] = n_outside(
+            dqkv, fa.qkv_bwd_probs_reference(
+                qkv, bias, probs_with_chunk_den(qkv, bias, mask, heads, keys),
+                g, heads), *b_tol)
     if dtype == "bfloat16":
         caught.update(bwd_rounding_faults(dqkv, qkv, bias, ref_probs, g,
                                           heads, out["dqkv"]["n_differ"],
@@ -810,13 +893,14 @@ POOL_GRAD_SHARE = {"float32": (1e-4, 1e-4), "bfloat16": (2 ** -6, 2 ** -8)}
 TAIL_BLOCK = 64  # rows per block of the planted per-block keep mask
 
 
-def tail_inputs(n, t, heads, d, q, dtype, masked, seed):
+def tail_inputs(n, t, heads, d, q, dtype, masked, seed, v_scale=1.0):
     """Biased qkv, the key mask (every 7th row fully masked) or None, the
     pooling params as the model feeds them (w1, w2 in the input dtype, b1,
     b2 f32) and the output's gradient g, on DEVICE. g is scaled by T / 20
     past T = 20: the pooling weights spread it over T positions, and at
     T = 512 unscaled every bf16 dqkv element lies below the 2^-8 atol,
-    where no comparison could tell a kernel 6% off."""
+    where no comparison could tell a kernel 6% off. v is scaled by
+    ``v_scale``."""
     import torch
 
     tdt = getattr(torch, dtype)
@@ -826,7 +910,9 @@ def tail_inputs(n, t, heads, d, q, dtype, masked, seed):
     def rnd(shape, scale=1.0):
         return scale * torch.randn(shape, generator=gen, device=DEVICE)
 
-    qkv = rnd((n, t, 3 * hd)).to(tdt)
+    qkv = rnd((n, t, 3 * hd))
+    qkv[..., 2 * hd:] *= v_scale
+    qkv = qkv.to(tdt)
     pool = (rnd((hd, q), (6.0 / (hd + q)) ** 0.5).to(tdt), rnd((1, q), 0.1),
             rnd((q, 1), (6.0 / (q + 1)) ** 0.5).to(tdt), rnd((1, 1), 0.1))
     g = rnd((n, hd), max(1.0, t / 20)).to(tdt)
@@ -1136,6 +1222,157 @@ def sep_kernel_case(fa, masked, n, t, heads, dk, dv, dtype, seed):
     return case
 
 
+def limits_case(fa, bw, bl, q2, which, n, t, heads, d, dtype, masked, seed):
+    """One shape of LIMIT_CASES: each kernel of ``which`` against its plain
+    version on the same inputs (every 7th row fully masked when
+    ``masked``). Returns the comparisons' numbers."""
+    import torch
+
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=DEVICE).manual_seed(900 + seed)
+    hd = heads * d
+    qkv = torch.randn((n, t, 3 * hd), generator=gen, device=DEVICE).to(tdt)
+    bias = (0.5 * torch.randn((3 * hd,), generator=gen, device=DEVICE)).to(tdt)
+    g = torch.randn((n, t, hd), generator=gen, device=DEVICE).to(tdt)
+    mask = None
+    if masked:
+        mask = (torch.rand((n, t), generator=gen, device=DEVICE) > 0.3).float()
+        mask[:, -1] = 1.0
+        mask[::7] = 0.0
+    f_tol, b_tol = TRAIN_TOL[dtype]
+    where = f"kernel-limits {which} {dtype} N={n} T={t} D={d} m={masked}"
+    out = {"rows": which, "shape": [n, t, heads, d], "dtype": dtype,
+           "masked": masked}
+    if which == "rows1-4":
+        with torch.inference_mode():
+            row1 = (fa.exp_mhsa_qkv_bias(qkv, bias, heads) if mask is None
+                    else fa.exp_mhsa_qkv_bias_masked(qkv, bias, mask, heads))
+        ctx, probs = fa.qkv_fwd_probs(qkv, bias, mask, heads)
+        ref_ctx, ref_probs = fa.exp_mhsa_qkv_bias_probs_reference(
+            qkv, bias, mask, heads)
+        ref_d = fa.qkv_bwd_probs_reference(qkv, bias, ref_probs, g, heads)
+        out["row1"] = compare(where, "row 1 ctx", row1, ref_ctx, *f_tol)
+        out["row2"] = compare(where, "row 2 probs", probs, ref_probs,
+                              *TRAIN_TOL["float32"][0])
+        if not torch.equal(ctx, row1):
+            fail(f"{where}: row 2's context is not row 1's bit for bit")
+        out["row3"] = compare(where, "row 3 dqkv", fa.qkv_bwd_probs(
+            qkv, bias, ref_probs, g, heads), ref_d, *b_tol)
+        out["row4"] = compare(where, "row 4 dqkv", fa.qkv_bwd(
+            qkv, bias, mask, g, heads), ref_d, *b_tol)
+        if mask is None:  # rows 11-12 are unmasked only
+            flat = qkv.view(n * t, -1)
+            ctx2, probs2 = q2.qkv2d_fwd(flat, bias, heads, t)
+            if not (torch.equal(ctx2, ctx) and torch.equal(probs2, probs)):
+                fail(f"{where}: row 11 is not row 2 bit for bit")
+            out["row12"] = compare(where, "row 12 dqkv", q2.qkv2d_bwd(
+                flat, bias, ref_probs, g, heads, t).view(n, t, -1), ref_d,
+                *b_tol)
+    elif which == "flash":
+        q, k, v = torch.split(qkv, hd, dim=-1)  # views of one projection
+        o, m, den = bw.flash_fwd(q, k, v, mask, heads)
+        ro, rm, rden = bw.flash_fwd_reference(q, k, v, mask, heads)
+        out["row9"] = compare(where, "row 9 o", o, ro, *f_tol)
+        out["row9_den"] = compare(where, "row 9 den", den, rden,
+                                  *TRAIN_TOL["float32"][0])
+        delta = bw.delta_of(g, ro, heads)
+        got = bw.flash_bwd(q, k, v, mask, g, rm, rden, delta, heads)
+        want = bw.flash_bwd_reference(q, k, v, mask, g, rm, rden, delta,
+                                      heads)
+        for name, x, y in zip(("dq", "dk", "dv"), got, want):
+            out[f"row10_{name}"] = compare(where, f"row 10 {name}", x, y,
+                                           *b_tol)
+    else:
+        out["row15"] = compare(where, "row 15 ctx", bl.blanes_fwd(
+            qkv, mask, heads), bl.blanes_fwd_reference(qkv, mask, heads),
+            *f_tol)
+        out["row16"] = compare(where, "row 16 dqkv", bl.blanes_bwd(
+            qkv, mask, g, heads), bl.blanes_bwd_reference(qkv, mask, g,
+                                                          heads), *b_tol)
+    return out
+
+
+def tail_pool_f64(qkv, mask, w1, b1, w2, b2, g, heads):
+    """Row 14's pooling gradients (dw1, db1, dw2, db2) in float64 from the
+    same inputs, dropout off, flattened as tail_kernel_case flattens them:
+    the exp-normalised attention per head, then the pooling through
+    autograd (its max detached: it carries no gradient in the kernels)."""
+    import torch
+
+    x = qkv.double()
+    n, t, w3 = x.shape
+    hd = w3 // 3
+    d = hd // heads
+    ctx = torch.empty((n, t, hd), dtype=torch.float64, device=x.device)
+    for h in range(heads):
+        q, k, v = (x[..., i * hd + h * d:i * hd + (h + 1) * d]
+                   for i in range(3))
+        s = torch.einsum("nid,njd->nij", q, k) / d ** 0.5
+        m = s.amax(-1, keepdim=True)
+        e = torch.exp(s - m) * mask[:, None, :].double()
+        a = e / (e.sum(-1, keepdim=True) + 1e-8 * torch.exp(-m))
+        ctx[..., h * d:(h + 1) * d] = torch.einsum("nij,njd->nid", a, v)
+    w1, b1, w2, b2 = (p.double().requires_grad_() for p in (w1, b1, w2, b2))
+    score = (torch.tanh(ctx @ w1 + b1[0]) @ w2)[..., 0] + b2[0, 0]
+    m = score.amax(-1, keepdim=True).detach()
+    num = torch.exp(score - m) * mask.double()
+    alpha = num / (num.sum(-1, keepdim=True) + 1e-8 * torch.exp(-m))
+    out = torch.einsum("nt,ntc->nc", alpha, ctx)
+    grads = torch.autograd.grad((out * g.double()).sum(), (w1, b1, w2, b2))
+    return torch.cat([x.reshape(-1) for x in grads])
+
+
+def tail_limit_case(fe, t, heads, dtype, seed):
+    """Rows 13-14 at T = t with ``heads`` heads of 20, masked, dropout off,
+    against their plain versions: the pooled output, dqkv and the pooling
+    gradients. The pooled output averages thousands of positions, a few
+    hundredths, where bf16's atol cannot tell a kernel 6% off: the output
+    and the pooling gradients are held on inputs whose v is scaled by
+    sqrt(T / 20), where every comparison must reject the plain version
+    scaled by OFF_SCALE; dqkv on the unscaled ones (the same draws), since
+    its bf16 atol is an ulp of an O(1) ds carried into dq and dk, and v
+    scales ds. In f32 the pooling gradients, sums over 2T positions, are
+    also held against a float64 reference (tail_pool_f64), within the
+    larger of POOL_GRAD_SHARE's share of the largest and four times the
+    f32 plain version's own distance from it."""
+    import torch
+
+    seed_t = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+
+    def args_of(v_scale):
+        qkv, mask, pool, g = tail_inputs(2, t, heads, 20, 200, dtype, True,
+                                         seed, v_scale=v_scale)
+        args = (qkv, mask, *pool, seed_t, heads, 0.0, True)
+        return args, (*args[:7], g, *args[7:])
+
+    f_tol, b_tol = TRAIN_TOL[dtype]
+    where = f"kernel-limits tail {dtype} T={t} H={heads}"
+    res = {"rows": "tail", "shape": [2, t, heads, 20], "dtype": dtype,
+           "masked": True}
+    _, bargs = args_of(1.0)
+    res["row14"] = compare(where, "row 14 dqkv", fe.fused_tail_bwd(*bargs)[0],
+                           fe.fused_tail_bwd_reference(*bargs)[0], *b_tol)
+    args, bargs = args_of((t / 20) ** 0.5)
+    res["row13"] = compare(where, "row 13 out", fe.fused_tail_fwd(*args),
+                           fe.fused_tail_fwd_reference(*args), *f_tol)
+    grads = fe.fused_tail_bwd(*bargs)
+    refs = fe.fused_tail_bwd_reference(*bargs)
+    flat = torch.cat([x.reshape(-1) for x in grads[1:]])
+    ref_flat = torch.cat([x.reshape(-1) for x in refs[1:]])
+    p_rtol, share = POOL_GRAD_SHARE[dtype]
+    largest = ref_flat.abs().max().item()
+    res["pool_grads"] = compare(where, "pool grads", flat, ref_flat, p_rtol,
+                                share * largest)
+    if dtype == "float32":
+        exact = tail_pool_f64(*bargs[:2], *bargs[2:6], bargs[7], heads)
+        spread = (ref_flat.double() - exact).abs().max().item()
+        res["pool_grads_f64"] = compare(
+            where, "pool grads vs float64", flat, exact, p_rtol,
+            max(share * largest, 4 * spread))
+        res["pool_grads_f64"]["plain_max_abs_err"] = spread
+    return res
+
+
 def unequal_run(masked, n=1024, t=20, heads=20, dk=20, dv=32, d_model=300):
     """multi_head_self_attention at d_v != d_k, forward and backward, on
     the card and on the CPU from the same params and input: the card's
@@ -1391,6 +1628,42 @@ def expected_launches(steps, cfg, attention_io="3d"):
     return want
 
 
+# Kernels whose launch takes one of several regimes, counted per regime
+# (kernels.regime_counts): rows 3, 4, 12 and 14.
+REGIME_KERNELS = ("qkv_bwd_probs", "qkv_bwd", "qkv2d_bwd", "fused_tail_bwd")
+
+
+def expected_regimes(steps, cfg, attention_io="3d"):
+    """Launches per regime of REGIME_KERNELS in an epoch of ``steps``
+    train steps (as expected_launches routes them): each backward launch
+    takes its plan's regime at its encoder's length (bwd_launch_plan), the
+    news encoder at num_words_title, the user encoder at user_log_length."""
+    from newsrecommendation_tpu_torch.ops import fused_attention as fa
+
+    want = expected_launches(steps, cfg, attention_io)
+    heads = cfg.num_attention_heads
+    d = cfg.news_dim // heads
+    out = {}
+    for k in REGIME_KERNELS:
+        n = sum(want[k].values())
+        if not n:
+            continue
+        # one launch per encoder and step; the first is the news encoder
+        lengths = [cfg.num_words_title, cfg.user_log_length][:n // steps]
+        for t in lengths:
+            regime = fa.bwd_launch_plan(1, t, heads, d, torch_dtype(
+                cfg.compute_dtype)).regime
+            out.setdefault(k, {})
+            out[k][regime] = out[k].get(regime, 0) + steps
+    return out
+
+
+def torch_dtype(name):
+    import torch
+
+    return getattr(torch, name)
+
+
 @contextlib.contextmanager
 def attention_io(mode):
     """kernel_config's attention_io set to ``mode`` inside, "3d" after: it
@@ -1448,6 +1721,8 @@ def train_run(ctx, fa, samples="samples", fixed_batch=True, max_steps=None,
         float(losses[-1])  # waits for the last step
         wall_s = time.perf_counter() - t0
         launches = {k: fa.launch_counts(k) for k in fa.KERNELS}
+        regimes = {k: fa.regime_counts(k) for k in REGIME_KERNELS
+                   if fa.regime_counts(k)}
     steps = stats["steps"]
     min_steps = TRAIN_STEPS_MIN if max_steps is None else max_steps
     if steps < min_steps or steps != len(losses):
@@ -1458,6 +1733,9 @@ def train_run(ctx, fa, samples="samples", fixed_batch=True, max_steps=None,
     want = expected_launches(steps, cfg, io)
     if launches != want:
         fail(f"train: launches {launches}, expected {want}")
+    want = expected_regimes(steps, cfg, io)
+    if regimes != want:
+        fail(f"train: launches per regime {regimes}, expected {want}")
     ex_s = stats["examples_per_sec"]
     out = {"steps": steps, "samples": samples.num_samples,
            "user_log_length": cfg.user_log_length,
@@ -1473,7 +1751,8 @@ def train_run(ctx, fa, samples="samples", fixed_batch=True, max_steps=None,
            "max_memory_allocated_gb":
                torch.cuda.max_memory_allocated() / 2 ** 30 if on_card
                else None,
-           "launches": {k: v for k, v in launches.items() if any(v.values())}}
+           "launches": {k: v for k, v in launches.items() if any(v.values())},
+           "regimes": regimes}
     if fixed_batch:
         fixed_cfg = cfg.replace(deterministic=True)
         _, fixed = train_setup(fixed_cfg, ctx["table"], 3, DEVICE)
@@ -1694,18 +1973,24 @@ def main() -> int:
     t = time.perf_counter()
     train_cases = []
     shapes = [("bias", 7040, 20), ("bias", 128, 50), ("bias_masked", 128, 50)]
-    shapes += [(v, 64, tl) for tl in LONG_T for v in ("bias", "bias_masked")]
+    shapes += [(v, n, tl) for n, tl in LONG_T
+               for v in ("bias", "bias_masked")]
     for i, (variant, n, tl) in enumerate(shapes):
         for dtype in ("float32", "bfloat16"):
             c = train_kernel_case(fa, variant, n, tl, 20, 20, dtype, seed=i)
             train_cases.append(c)
             print("  kernel-train " + json.dumps(c), flush=True)
-    phase("kernel-train", t, cases=len(train_cases))
+    # bf16: elements of dqkv that differ from the plain version
+    phase("kernel-train", t, cases=len(train_cases), bf16_n_differ=json.dumps(
+        {f"{c['variant']} {c['shape'][0]}x{c['shape'][1]}":
+         c["dqkv"]["n_differ"] for c in train_cases
+         if c["dtype"] == "bfloat16"}))
 
     # ---- kernel row 4 vs plain ---------------------------------------------
     t = time.perf_counter()
     recompute_cases = []
-    for i, (n, tl) in enumerate([(7040, 20), (128, 50), (64, 511)]):
+    for i, (n, tl) in enumerate([(7040, 20), (128, 50), (128, MID_L),
+                                 (64, 511)]):
         for variant in ("bwd", "bwd_masked"):
             for dtype in ("float32", "bfloat16"):
                 c = recompute_kernel_case(fa, variant, n, tl, 20, 20, dtype,
@@ -1714,7 +1999,11 @@ def main() -> int:
                 print("  kernel-recompute " + json.dumps(c), flush=True)
     phase("kernel-recompute", t, cases=len(recompute_cases),
           n_differ_from_row3=sum(c["n_differ_from_row3"]
-                                 for c in recompute_cases))
+                                 for c in recompute_cases),
+          bf16_n_differ=json.dumps(
+              {f"{c['variant']} {c['shape'][0]}x{c['shape'][1]}":
+               c["dqkv"]["n_differ"] for c in recompute_cases
+               if c["dtype"] == "bfloat16"}))
 
     # ---- kernel rows 9-10 vs plain -----------------------------------------
     t = time.perf_counter()
@@ -1795,6 +2084,23 @@ def main() -> int:
             print("  kernel-blanes " + json.dumps(c), flush=True)
     phase("kernel-blanes", t, cases=len(blanes_cases))
 
+    # ---- the shapes the card once refused ----------------------------------
+    t = time.perf_counter()
+    limit_cases = []
+    for i, (which, n, tl, heads, d) in enumerate(LIMIT_CASES):
+        for dtype in ("float32", "bfloat16"):
+            for masked in (False, True):
+                c = limits_case(fa, bw, bl, q2, which, n, tl, heads, d,
+                                dtype, masked, seed=i)
+                limit_cases.append(c)
+                print("  kernel-limits " + json.dumps(c), flush=True)
+    for i, (tl, heads) in enumerate(TAIL_LIMITS):
+        for j, dtype in enumerate(("float32", "bfloat16")):
+            c = tail_limit_case(fe, tl, heads, dtype, seed=40 + 2 * i + j)
+            limit_cases.append(c)
+            print("  kernel-limits " + json.dumps(c), flush=True)
+    phase("kernel-limits", t, cases=len(limit_cases))
+
     # ---- multi_head_self_attention at d_v != d_k: rows 5-8 ------------------
     unequal = {}
     for masked in (False, True):
@@ -1845,12 +2151,16 @@ def main() -> int:
         samples_long = TrainSamples.from_file(
             shards["samples_long"], corpus.news_index,
             cfg.replace(user_log_length=LONG_L))
+        samples_mid = TrainSamples.from_file(
+            shards["samples_long"], corpus.news_index,
+            cfg.replace(user_log_length=MID_L))
     feats = build_news_features(corpus, cfg)
     table = random_word_embeddings(corpus.word_dict, cfg.word_embedding_dim)
     params = nrms.init(cfg, table, seed=0, device="cuda")
     ctx = {"cfg": cfg, "params": params, "feats": feats, "nrms": nrms,
            "news_index": corpus.news_index, "table": table,
            "samples": samples, "samples_long": samples_long,
+           "samples_mid": samples_mid,
            "cpu_params": to_device(params, "cpu")}
     phase("corpus", t, news=corpus.num_news, vocab=len(corpus.word_dict),
           train_samples=samples.num_samples,
@@ -1930,6 +2240,20 @@ def main() -> int:
     phase("serve-long fused_tail=on user_log_mask=True", t,
           **{k: json.dumps(v) for k, v in run.items()})
 
+    # ---- serve 8 heads of 50 over MID_SERVE_L-news histories: row 1 -------
+    t = time.perf_counter()
+    fa.reset_launch_counts()
+    run, _ = serve_run(ctx, True, user_log_length=MID_SERVE_L,
+                       num_attention_heads=8)
+    run["launches"] = {k: fa.launch_counts(k) for k in fa.KERNELS
+                       if any(fa.launch_counts(k).values())}
+    got = run["launches"].get("qkv_fwd", {})
+    if set(run["launches"]) != {"qkv_fwd"} or not got["bias_masked"]:
+        fail(f"serve heads=8: launches {run['launches']}, expected row 1 "
+             "only, masked on the user encoder")
+    phase(f"serve heads=8 user_log_length={MID_SERVE_L} user_log_mask=True",
+          t, **{k: json.dumps(v) for k, v in run.items()})
+
     # ---- training ------------------------------------------------------------
     checks = [({"user_log_mask": False}, {}), ({"user_log_mask": True}, {}),
               ({"user_log_mask": False}, {"bwd_residuals": "recompute"}),
@@ -1967,7 +2291,16 @@ def main() -> int:
                      ("long", {"user_log_length": LONG_L,
                                "samples": "samples_long",
                                "max_steps": LONG_STEPS,
-                               "fixed_batch": False})]:
+                               "fixed_batch": False}),
+                     ("mid", {"user_log_length": MID_L,
+                              "samples": "samples_mid",
+                              "max_steps": MID_STEPS,
+                              "fixed_batch": False}),
+                     ("mid_recompute", {"bwd_residuals": "recompute",
+                                        "user_log_length": MID_L,
+                                        "samples": "samples_mid",
+                                        "max_steps": MID_STEPS,
+                                        "fixed_batch": False})]:
         t = time.perf_counter()
         trains[name] = train_run(ctx, fa, **kw)
         phase(f"train {name}", t,
@@ -1995,7 +2328,8 @@ def main() -> int:
         # carries (kernel_config.apply), which the later runs have changed
         tcfg, tmodel, tstate, _ = trains[name][1]
         tstep = make_train_step(tcfg, tmodel, device_gather=True)
-        key = "samples_long" if tcfg.user_log_length == LONG_L else "samples"
+        key = {LONG_L: "samples_long", MID_L: "samples_mid"}.get(
+            tcfg.user_log_length, "samples")
         batch = {k: torch.from_numpy(v).cuda() for k, v in next(
             ctx[key].iter_index_batches(tcfg.batch_size, epoch=0,
                                         seed=2)).items()}
@@ -2023,7 +2357,9 @@ def main() -> int:
             f"train_step_fused_tail_l{LONG_L}_b128_bf16": profile_device(
                 step_of("fused_tail_long"), reps=2),
             f"train_step_l{LONG_L}_b128_bf16": profile_device(
-                step_of("long"), reps=3)}
+                step_of("long"), reps=3),
+            f"train_step_l{MID_L}_b128_bf16": profile_device(
+                step_of("mid"), reps=3)}
     phase("profile", t, **{k: json.dumps(v) for k, v in prof.items()})
 
     # ---- summary -----------------------------------------------------------
@@ -2059,13 +2395,26 @@ def main() -> int:
                        c["probs"], c["fwd"], c))
     kernels.append(row("qkv_bwd_probs", BWD_PROBS_SOURCE,
                        f"{TPU_KERNELS}:642",
-                       train["launches"]["qkv_bwd_probs"]["bwd_probs"],
+                       train["regimes"]["qkv_bwd_probs"]["resident"],
                        c["dqkv"], c["bwd"], c))
     c = find(recompute_cases, variant="bwd", shape=[7040, 20],
              dtype="bfloat16")
-    n_launch = sum(trains["recompute"][0]["launches"]["qkv_bwd"].values())
-    kernels.append(row("qkv_bwd", BWD_SOURCE, f"{TPU_KERNELS}:712", n_launch,
+    kernels.append(row("qkv_bwd", BWD_SOURCE, f"{TPU_KERNELS}:712",
+                       trains["recompute"][0]["regimes"]["qkv_bwd"][
+                           "resident"], c["dqkv"], c["bwd"], c))
+    # rows 3-4 at a user encoder over 511-news histories (bf16, tensor
+    # cores), with the launches of their tensor-core regime in the MID_L
+    # runs (row 3 in "probs" mode, row 4 in "recompute")
+    c = find(train_cases, variant="bias", shape=[64, 511], dtype="bfloat16")
+    kernels.append(row("qkv_bwd_probs_long", BWD_PROBS_SOURCE,
+                       f"{TPU_KERNELS}:642",
+                       trains["mid"][0]["regimes"]["qkv_bwd_probs"]["mma"],
                        c["dqkv"], c["bwd"], c))
+    c = find(recompute_cases, variant="bwd", shape=[64, 511],
+             dtype="bfloat16")
+    kernels.append(row("qkv_bwd_long", BWD_SOURCE, f"{TPU_KERNELS}:712",
+                       trains["mid_recompute"][0]["regimes"]["qkv_bwd"][
+                           "mma"], c["dqkv"], c["bwd"], c))
     # rows 5-8 at the news encoder's shape with d_v = 32 != d_k, launched
     # on their own path (multi_head_self_attention at unequal widths)
     for masked, (fwd_line, bwd_line) in ((False, (391, 415)),

@@ -69,6 +69,12 @@
 //     a's rows in shared memory and the context with the lanes over d; the
 //     backward's kernels recompute a and ds bit for bit (the same dots in
 //     the same order).
+// Past both regimes (heads wider than 64, or one head's K and V past a
+// block's shared memory: f32 D = 64 past T = 318, f32 D = 20 past 941,
+// bf16 D <= 32 past 1,232): the same function by row 1's and row 4's
+// kernels on qkv with a zero bias (qkv_fwd.cu, qkv_bwd.cu), which the
+// wrappers launch under rows 15-16's counts
+// (ops/experimental_blanes.py:regime).
 // At T <= 64 no tensor cores: the FMA work is below the memory bound and
 // the rounding of a and ds needs the plain order; f32 would miss its
 // tolerance in TF32. What bounds the resident regime on the card is

@@ -60,15 +60,35 @@ __device__ __forceinline__ float dot(const float* a, const float* b) {
 
 // ---- the launch plan's layout ----------------------------------------------
 
-enum FlashKind { kFlashFwd = 0, kFlashBwdKey = 1, kFlashBwdQuery = 2 };
+// The sides of rows 3-4's tensor-core backward (qkv_bwd_mma.cuh) stage the
+// same operands as the flash backward's; row 3's add a tile of its f32
+// probs (kQkvProbsKey, kQkvProbsQuery).
+enum FlashKind {
+  kFlashFwd = 0,
+  kFlashBwdKey = 1,
+  kFlashBwdQuery = 2,
+  kQkvProbsKey = 3,
+  kQkvProbsQuery = 4
+};
+
+// Floats between two rows of a staged probs tile of `cols` columns: room
+// for a 16-byte copy's shift of up to 3 floats, a multiple of 4.
+__host__ __device__ inline int qkv_probs_stride(int cols) { return cols + 4; }
 
 constexpr int kFlashMmaMaxHead = 64;  // widest head on tensor cores
+// past 64 (flash_wide.cuh): a warp per row, 8 rows a block, any head
+constexpr int kFlashWideWarps = 8;
 constexpr int kFlashMaxChunk = 256;   // rows of one stage of the other side
 constexpr int kFlashMaxSmem = 232448;  // what a block may use
 
 // Whether the tensor-core kernels take (dtype, D): bf16 heads of up to 64.
 __host__ __device__ inline bool flash_mma(int d_head, int esize) {
   return esize == 2 && d_head <= kFlashMmaMaxHead;
+}
+
+// Whether (D) takes the wide kernels (flash_wide.cuh): heads past 64.
+__host__ __device__ inline bool flash_wide(int d_head) {
+  return d_head > kFlashMmaMaxHead;
 }
 
 // The kernels' compile-time width DM (with_head_width): the least of 8,
@@ -94,7 +114,10 @@ inline int flash_row_elems(int d_head) {
 //   bwd key:    own K, V [tile];   stage Q, g [chunk], m, den, 1/den,
 //                                  delta [chunk]
 //   bwd query:  own Q, g [tile];   stage K, V [chunk], mask [chunk]
-// (f32 arrays each padded to 16 bytes). On CUDA cores one f32 buffer of
+// (f32 arrays each padded to 16 bytes); row 3's key side also stages the
+// probs of [chunk] queries over its [tile] keys and its query side those
+// of its [tile] queries over [chunk] keys, f32 rows qkv_probs_stride
+// apart. On CUDA cores one f32 buffer of
 // 256 rows of two operands and one (fwd, query side) or three (key side)
 // per-row floats, nothing of its own.
 struct FlashLayout {
@@ -103,23 +126,33 @@ struct FlashLayout {
 
 inline FlashLayout flash_layout(int kind, int d_head, int esize, int tile,
                                 int chunk) {
+  if (flash_wide(d_head)) return {0, 0};  // nothing staged
   if (!flash_mma(d_head, esize)) {
     const size_t per_row = kind == kFlashBwdKey ? 3 : 1;
     return {0, sizeof(float) * (2 * (size_t)kFlashTile * flash_dm(d_head) +
                                 per_row * kFlashTile)};
   }
   const size_t rb = 2 * (size_t)flash_row_elems(d_head);
-  const size_t floats = kind == kFlashBwdKey ? 4 : 1;
+  const bool key = kind == kFlashBwdKey || kind == kQkvProbsKey;
+  const size_t floats = key ? 4 : 1;
   const size_t own = (kind == kFlashFwd ? 1 : 2) * (size_t)tile * rb;
-  return {own, 2 * (size_t)chunk * rb + (4 * floats * chunk + 15) / 16 * 16};
+  size_t stage = 2 * (size_t)chunk * rb + (4 * floats * chunk + 15) / 16 * 16;
+  if (kind == kQkvProbsKey)
+    stage += 4 * (size_t)chunk * qkv_probs_stride(tile);
+  if (kind == kQkvProbsQuery)
+    stage += 4 * (size_t)tile * qkv_probs_stride(chunk);
+  return {own, stage};
 }
 
 // Whether a plan (tile, chunk, nbuf) is one the kernels take: on tensor
 // cores tiles of 64 or 128 rows, chunks of 16 to 256 rows in steps of 16,
 // one or two buffers, within a block's shared memory; on CUDA cores the
-// fixed tile of 128 threads and 256 staged rows, one buffer.
+// fixed tile of 128 threads and 256 staged rows, one buffer; past D = 64 a
+// tile of kFlashWideWarps rows, nothing staged.
 inline bool flash_plan_ok(int kind, int d_head, int esize, int tile,
                           int chunk, int nbuf) {
+  if (flash_wide(d_head))
+    return tile == kFlashWideWarps && chunk == 0 && nbuf == 0;
   if (!flash_mma(d_head, esize))
     return tile == kFlashThreads && chunk == kFlashTile && nbuf == 1;
   if ((tile != 64 && tile != 128) || chunk < 16 || chunk > kFlashMaxChunk ||

@@ -52,6 +52,7 @@
 //       in tiles of 256 (k, v, mask).
 
 #include "flash.cuh"
+#include "flash_wide.cuh"
 
 #include <type_traits>
 
@@ -510,6 +511,36 @@ struct Launch {
   }
 };
 
+// The wide kernels' launches at the lane width DPL (flash_wide.cuh): the
+// key side, then the query side.
+template <typename T>
+struct WideBwd {
+  const T *q, *k, *v;
+  const float* mask;
+  const T* g;
+  const float *m, *den, *delta;
+  T *dq, *dk, *dv;
+  int n_heads, t_len, d_head, ld;
+  float inv;
+  dim3 grid;
+  cudaStream_t stream;
+
+  template <int DPL>
+  int operator()() const {
+    flash_bwd_dkdv_wide_kernel<T, DPL>
+        <<<grid, 32 * kFlashWideWarps, 0, stream>>>(
+            q, k, v, mask, g, m, den, delta, dk, dv, n_heads, t_len, d_head,
+            ld, inv);
+    const int err = (int)cudaGetLastError();
+    if (err != (int)cudaSuccess) return err;
+    flash_bwd_dq_wide_kernel<T, DPL>
+        <<<grid, 32 * kFlashWideWarps, 0, stream>>>(
+            q, k, v, mask, g, m, den, delta, dq, n_heads, t_len, d_head, ld,
+            inv);
+    return (int)cudaGetLastError();
+  }
+};
+
 // The two launches of the plans (tile, chunk, nbuf) of the key side and
 // the query side the wrapper chose; refuses a plan the regime does not
 // take.
@@ -525,6 +556,23 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
                      key_nbuf) ||
       !flash_plan_ok(kFlashBwdQuery, d_head, esize, q_tile, q_chunk, q_nbuf))
     return (int)cudaErrorInvalidValue;
+  if (flash_wide(d_head)) {
+    const int64_t rows = (int64_t)n * n_heads;
+    const int tiles = (t_len + kFlashWideWarps - 1) / kFlashWideWarps;
+    if (rows > 0x7fffffff || tiles > 65535)
+      return (int)cudaErrorInvalidConfiguration;
+    const float inv = (float)(1.0 / sqrt((double)d_head));
+    return with_wide_width(
+        d_head,
+        WideBwd<T>{static_cast<const T*>(q), static_cast<const T*>(k),
+                   static_cast<const T*>(v), static_cast<const float*>(mask),
+                   static_cast<const T*>(g), static_cast<const float*>(m),
+                   static_cast<const float*>(den),
+                   static_cast<const float*>(delta), static_cast<T*>(dq),
+                   static_cast<T*>(dk), static_cast<T*>(dv), n_heads, t_len,
+                   d_head, ld, inv, dim3((unsigned)rows, (unsigned)tiles),
+                   (cudaStream_t)stream});
+  }
   return with_head_width(
       d_head, Launch<T>{q, k, v, mask, g, m, den, delta, dq, dk, dv, n, t_len,
                         n_heads, d_head, ld, key_tile, key_chunk, key_nbuf,

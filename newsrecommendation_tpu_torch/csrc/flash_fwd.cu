@@ -49,6 +49,7 @@
 //     broadcasts.
 
 #include "flash.cuh"
+#include "flash_wide.cuh"
 
 #include <type_traits>
 
@@ -360,6 +361,27 @@ struct Launch {
   }
 };
 
+// The wide kernel's launch at the lane width DPL (flash_wide.cuh).
+template <typename T>
+struct WideFwd {
+  const T *q, *k, *v;
+  const float* mask;
+  T* out;
+  float *m, *den;
+  int n_heads, t_len, d_head, ld, block_kv;
+  float inv;
+  dim3 grid;
+  cudaStream_t stream;
+
+  template <int DPL>
+  int operator()() const {
+    flash_fwd_wide_kernel<T, DPL><<<grid, 32 * kFlashWideWarps, 0, stream>>>(
+        q, k, v, mask, out, m, den, n_heads, t_len, d_head, ld, block_kv,
+        inv);
+    return (int)cudaGetLastError();
+  }
+};
+
 // One launch of the plan (tile, chunk, nbuf) the wrapper chose; refuses a
 // plan the regime does not take, and a key block that does not divide T.
 template <typename T>
@@ -371,6 +393,22 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
   if (block_kv <= 0 || t_len % block_kv != 0 ||
       !flash_plan_ok(kFlashFwd, d_head, (int)sizeof(T), tile, chunk, nbuf))
     return (int)cudaErrorInvalidValue;
+  if (flash_wide(d_head)) {
+    const int64_t rows = (int64_t)n * n_heads;
+    const int tiles = (t_len + kFlashWideWarps - 1) / kFlashWideWarps;
+    if (rows > 0x7fffffff || tiles > 65535)
+      return (int)cudaErrorInvalidConfiguration;
+    const float inv = (float)(1.0 / sqrt((double)d_head));
+    return with_wide_width(
+        d_head, WideFwd<T>{static_cast<const T*>(q), static_cast<const T*>(k),
+                           static_cast<const T*>(v),
+                           static_cast<const float*>(mask),
+                           static_cast<T*>(out), static_cast<float*>(m),
+                           static_cast<float*>(den), n_heads, t_len, d_head,
+                           ld, block_kv, inv,
+                           dim3((unsigned)rows, (unsigned)tiles),
+                           (cudaStream_t)stream});
+  }
   return with_head_width(
       d_head, Launch<T>{q, k, v, mask, out, m, den, n, t_len, n_heads,
                         d_head, ld, block_kv, tile, chunk, nbuf,

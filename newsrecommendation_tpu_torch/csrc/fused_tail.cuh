@@ -39,11 +39,11 @@
 // backward keeps ctx and d_z in the scratch it writes anyway for dw1 and
 // q, k, v in a per-slot scratch of 3*T*(D|1) floats. A grid of `slots`
 // blocks walks the rows, so the scratch is bounded by the slots, not by N.
-// Only the row buffers and the small vectors stay in shared memory: the
-// forward then takes T up to 6456 at those widths, the backward 5771 (and
-// its attention part, row 4's kernel staged in global memory, 4470).
-// Which variant runs is decided by T before the launch (the *_global
-// functions below); the wrapper allocates the scratch.
+// The row buffers and the small vectors stay in shared memory up to
+// T = 6456 in the forward and 5771 in the backward at those widths; past
+// that they move into the slot too (the *_small_global functions), so any
+// T runs. Which variant runs is decided by T before the launch (the
+// *_global functions below); the wrapper allocates the scratch.
 #pragma once
 
 #include "common.cuh"
@@ -236,7 +236,8 @@ __host__ __device__ inline size_t tail_big_floats(int t_len,
   return t * n_heads * d_head + t * q_dim + 3 * t * (d_head | 1);
 }
 
-inline size_t tail_fwd_small_floats(int t_len, int warps) {
+__host__ __device__ inline size_t tail_fwd_small_floats(int t_len,
+                                                        int warps) {
   return (size_t)(warps + 1) * t_len;
 }
 
@@ -251,8 +252,10 @@ inline bool tail_fwd_global(int t_len, int n_heads, int d_head, int q_dim,
 // The backward's per-row block: big buffers as the forward's (ctx, e then
 // d_z, the q/k/v of a head); small ones one row per warp, alpha, d_alpha,
 // g and 1 - sum(alpha).
-inline size_t tail_bwd_small_floats(int t_len, int n_heads, int d_head,
-                                    int warps) {
+__host__ __device__ inline size_t tail_bwd_small_floats(int t_len,
+                                                        int n_heads,
+                                                        int d_head,
+                                                        int warps) {
   return (size_t)(warps + 2) * t_len + (size_t)n_heads * d_head + 1;
 }
 
@@ -260,6 +263,18 @@ inline bool tail_bwd_global(int t_len, int n_heads, int d_head, int q_dim,
                             int warps) {
   return tail_big_floats(t_len, n_heads, d_head, q_dim) +
              tail_bwd_small_floats(t_len, n_heads, d_head, warps) >
+         (size_t)kMaxSmemFloats;
+}
+
+// Past these (T > 6456 in the forward, T > 5771 in the backward at the
+// NRMS width) the small buffers too move to the row's global slot.
+inline bool tail_fwd_small_global(int t_len, int warps) {
+  return tail_fwd_small_floats(t_len, warps) > (size_t)kMaxSmemFloats;
+}
+
+inline bool tail_bwd_small_global(int t_len, int n_heads, int d_head,
+                                  int warps) {
+  return tail_bwd_small_floats(t_len, n_heads, d_head, warps) >
          (size_t)kMaxSmemFloats;
 }
 

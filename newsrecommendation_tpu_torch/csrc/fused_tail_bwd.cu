@@ -34,17 +34,19 @@
 // Design, five launches:
 //   1. one block of 8 warps per row (fused_tail.cuh's phases; a row too long
 //      for shared memory keeps ctx and d_z in their scratch below and q/k/v
-//      in its block slot's part of `stage`, `slots` blocks walking the
-//      rows): the forward
+//      in its block slot's part of `stage`, and past T = 5771 its row
+//      buffers there too, `slots` blocks walking the rows): the forward
 //      again, the pooling backward and d_ctx. It writes d_ctx (T, HD) in
 //      qkv's dtype, the row's sums of db1, dw2, db2 (N, 2Q + 1), and, for
 //      dw1, the row's f32 ctx (T, HD) and d_z (T, Q) to scratch;
-//   2. the attention backward: row 4's kernel (qkv_bwd.cuh) on the biased
-//      qkv with a zero bias and d_ctx as its g, which recomputes the probs
-//      as row 1 computes them: the TPU kernel's arithmetic, in blocks per
-//      (row, head) (past T = 599 at D = 20, its tiled kernel with q, k, v
-//      and g staged in `attn_stage`, `attn_slots` blocks walking the
-//      items);
+//   2. the attention backward: row 4's kernels (qkv_bwd.cuh) on the biased
+//      qkv with a zero bias and d_ctx as its g, which recompute the probs
+//      as row 1 computes them: the TPU kernel's arithmetic, in row 4's
+//      regime for (T, D, dtype) -- past T = 201 at D = 20 in bf16 its
+//      tensor-core kernels with the plan `attn_plan` and the row stats in
+//      `attn_stats`; in f32 past T = 599 its tiled kernel with its whole
+//      working set in `attn_stage`, `attn_slots` blocks walking the
+//      items;
 //   3. dw1 = ctx^T d_z over all N*T positions as a tiled product: blocks
 //      of 64 x 128 outputs (8 x 4 per thread) times a split of the
 //      positions, staged 32 positions at a time in shared memory; each
@@ -76,8 +78,9 @@ constexpr int kDw1Q = 128;
 constexpr int kDw1Rows = 32;
 
 // kGlobal: ctx and d_z in their scratch rows, q/k/v in this block's slot
-// of stage
-template <typename T, bool kGlobal>
+// of stage; kSmallGlobal (past the small buffers' limit): the row buffers,
+// alpha, d_alpha and g in that slot too
+template <typename T, bool kGlobal, bool kSmallGlobal>
 __global__ void __launch_bounds__(kThreads)
 fused_tail_bwd_kernel(const T* __restrict__ qkv,
                       const float* __restrict__ mask,
@@ -98,10 +101,17 @@ fused_tail_bwd_kernel(const T* __restrict__ qkv,
   // in shared memory: ctx (T, HD), e then d_z (T, Q), q, k, v (3, T,
   // stride); in global memory, ctx and d_z in their scratch rows and q, k,
   // v in this block's slot of stage
-  float* small = global ? smem : smem + tail_big_floats(t_len, n_heads,
-                                                            d_head, q_dim);
-  float* qs = global ? stage + (size_t)blockIdx.x * 3 * t_len * stride
+  const size_t qkv_floats = 3 * (size_t)t_len * stride;
+  const size_t slot =
+      qkv_floats + (kSmallGlobal ? tail_bwd_small_floats(t_len, n_heads,
+                                                         d_head, kWarps)
+                                 : 0);
+  float* qs = global ? stage + (size_t)blockIdx.x * slot
                      : smem + t_len * (hd + q_dim);
+  float* small = kSmallGlobal ? qs + qkv_floats
+                 : global     ? smem
+                              : smem + tail_big_floats(t_len, n_heads,
+                                                       d_head, q_dim);
   float* rows = small;                    // (kWarps, T) row buffers
   float* alpha = rows + kWarps * t_len;   // (T)
   float* dal = alpha + t_len;             // (T) d_alpha, then d_a
@@ -292,17 +302,12 @@ fused_tail_sum_rows_kernel(const float* __restrict__ rowpart, int n,
 
 // shared bytes of the per-row kernel
 size_t row_smem_bytes(int t_len, int n_heads, int d_head, int q_dim) {
+  if (tail_bwd_small_global(t_len, n_heads, d_head, kWarps)) return 0;
   const size_t small = tail_bwd_small_floats(t_len, n_heads, d_head, kWarps);
   return sizeof(float) *
          (tail_bwd_global(t_len, n_heads, d_head, q_dim, kWarps)
               ? small
               : small + tail_big_floats(t_len, n_heads, d_head, q_dim));
-}
-
-// whether row 4's kernel stages its operands in global memory
-bool attn_global(int t_len, int d_head) {
-  return !qkv_bwd_resident(t_len, d_head) &&
-         !qkv_bwd_tiled_in_smem(t_len, d_head);
 }
 
 template <typename T>
@@ -311,17 +316,20 @@ int launch(const void* qkv, const void* mask, const void* w1, const void* w1t,
            const void* g, const void* zero_bias, void* dqkv, void* dctx,
            void* ctxs, void* dzs, void* rowpart, void* part, void* dw1,
            void* db1, void* dw2, void* db2, void* stage, void* attn_stage,
-           int n, int t_len, int n_heads, int d_head, int q_dim, int n_splits,
-           int slots, int attn_slots, int use_dropout, unsigned thr,
-           float scale, void* stream) {
+           void* attn_stats, int n, int t_len, int n_heads, int d_head,
+           int q_dim, int n_splits, int slots, int attn_slots,
+           const int* attn_plan, int use_dropout, unsigned thr, float scale,
+           void* stream) {
   if (n <= 0 || n_splits <= 0) return (int)cudaErrorInvalidValue;
   const bool global = tail_bwd_global(t_len, n_heads, d_head, q_dim, kWarps);
   if (global && (stage == nullptr || slots <= 0))
     return (int)cudaErrorInvalidValue;
   const int row_grid = global && slots < n ? slots : n;
   const size_t smem = row_smem_bytes(t_len, n_heads, d_head, q_dim);
-  auto* kernel = global ? fused_tail_bwd_kernel<T, true>
-                        : fused_tail_bwd_kernel<T, false>;
+  auto* kernel = tail_bwd_small_global(t_len, n_heads, d_head, kWarps)
+                     ? fused_tail_bwd_kernel<T, true, true>
+                 : global ? fused_tail_bwd_kernel<T, true, false>
+                          : fused_tail_bwd_kernel<T, false, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -344,7 +352,9 @@ int launch(const void* qkv, const void* mask, const void* w1, const void* w1t,
   // and d_ctx, the probs recomputed as the forward computes them
   const int row4 = qkv_bwd_launch<T, true>(
       qkv, zero_bias, nullptr, mask, dctx, dqkv, n, t_len, n_heads, d_head,
-      stream, static_cast<float*>(attn_stage), attn_slots);
+      stream,
+      {attn_plan, nullptr, static_cast<float*>(attn_stats),
+       static_cast<float*>(attn_stage), attn_slots, true});
   if (row4 != (int)cudaSuccess) return row4;
 
   const int hd = n_heads * d_head;
@@ -380,67 +390,47 @@ extern "C" {
 // dzs (N, T, Q) f32, rowpart (N, 2Q + 1) f32, part (n_splits, HD, Q) f32;
 // stage (`slots` slots of fused_tail_bwd_stage_floats) and attn_stage
 // (`attn_slots` slots of fused_tail_bwd_attn_stage_floats), read only when
-// those are not 0. mask may be null (the unmasked variant). Launches the
-// five kernels on the stream; returns cudaGetLastError() after them: 0
-// when all were queued.
-int fused_tail_bwd_f32(const void* qkv, const void* mask, const void* w1,
-                       const void* w1t, const void* b1, const void* w2,
-                       const void* b2, const void* seed, const void* g,
-                       const void* zero_bias, void* dqkv, void* dctx,
-                       void* ctxs, void* dzs, void* rowpart, void* part,
-                       void* dw1, void* db1, void* dw2, void* db2,
-                       void* stage, void* attn_stage, int n, int t_len,
-                       int n_heads, int d_head, int q_dim, int n_splits,
-                       int slots, int attn_slots, int use_dropout,
-                       unsigned thr, float scale, void* stream) {
-  return launch<float>(qkv, mask, w1, w1t, b1, w2, b2, seed, g, zero_bias,
-                       dqkv, dctx, ctxs, dzs, rowpart, part, dw1, db1, dw2,
-                       db2, stage, attn_stage, n, t_len, n_heads, d_head,
-                       q_dim, n_splits, slots, attn_slots, use_dropout, thr,
-                       scale, stream);
-}
-
-int fused_tail_bwd_bf16(const void* qkv, const void* mask, const void* w1,
-                        const void* w1t, const void* b1, const void* w2,
-                        const void* b2, const void* seed, const void* g,
-                        const void* zero_bias, void* dqkv, void* dctx,
-                        void* ctxs, void* dzs, void* rowpart, void* part,
-                        void* dw1, void* db1, void* dw2, void* db2,
-                        void* stage, void* attn_stage, int n, int t_len,
-                        int n_heads, int d_head, int q_dim, int n_splits,
-                        int slots, int attn_slots, int use_dropout,
-                        unsigned thr, float scale, void* stream) {
-  return launch<__nv_bfloat16>(qkv, mask, w1, w1t, b1, w2, b2, seed, g,
-                               zero_bias, dqkv, dctx, ctxs, dzs, rowpart,
-                               part, dw1, db1, dw2, db2, stage, attn_stage, n,
-                               t_len, n_heads, d_head, q_dim, n_splits, slots,
-                               attn_slots, use_dropout, thr, scale, stream);
-}
-
-// Shared bytes the call's kernels need per block: the larger of the
-// per-row kernel's and row 4's.
-int fused_tail_bwd_smem_bytes(int t_len, int n_heads, int d_head, int q_dim) {
-  const size_t attn = attn_global(t_len, d_head)
-                          ? qkv_bwd_tiled_smem_bytes(t_len, 0)
-                          : qkv_bwd_smem_bytes_for(t_len, d_head);
-  const size_t row = row_smem_bytes(t_len, n_heads, d_head, q_dim);
-  return (int)(row > attn ? row : attn);
-}
+// those are not 0; attn_stats (3, N*H, T) f32 and the tensor-core plan of
+// row 4's two sides (q_tile, q_chunk, q_nbuf, k_tile, k_chunk, k_nbuf),
+// read only in that regime. mask may be null (the unmasked variant).
+// Launches the kernels on the stream; returns cudaGetLastError() after
+// them: 0 when all were queued.
+#define NRK_TAIL_BWD(SUFFIX, T)                                              \
+  int fused_tail_bwd_##SUFFIX(                                               \
+      const void* qkv, const void* mask, const void* w1, const void* w1t,    \
+      const void* b1, const void* w2, const void* b2, const void* seed,      \
+      const void* g, const void* zero_bias, void* dqkv, void* dctx,          \
+      void* ctxs, void* dzs, void* rowpart, void* part, void* dw1,           \
+      void* db1, void* dw2, void* db2, void* stage, void* attn_stage,        \
+      void* attn_stats, int n, int t_len, int n_heads, int d_head,           \
+      int q_dim, int n_splits, int slots, int attn_slots, int q_tile,        \
+      int q_chunk, int q_nbuf, int k_tile, int k_chunk, int k_nbuf,          \
+      int use_dropout, unsigned thr, float scale, void* stream) {            \
+    const int plan[6] = {q_tile, q_chunk, q_nbuf, k_tile, k_chunk, k_nbuf};  \
+    return launch<T>(qkv, mask, w1, w1t, b1, w2, b2, seed, g, zero_bias,     \
+                     dqkv, dctx, ctxs, dzs, rowpart, part, dw1, db1, dw2,    \
+                     db2, stage, attn_stage, attn_stats, n, t_len, n_heads,  \
+                     d_head, q_dim, n_splits, slots, attn_slots, plan,       \
+                     use_dropout, thr, scale, stream);                       \
+  }
+NRK_TAIL_BWD(f32, float)
+NRK_TAIL_BWD(bf16, __nv_bfloat16)
+#undef NRK_TAIL_BWD
 
 // Floats of one slot of `stage`: 0 when the row fits in shared memory.
 int fused_tail_bwd_stage_floats(int t_len, int n_heads, int d_head,
                                 int q_dim) {
-  return tail_bwd_global(t_len, n_heads, d_head, q_dim, kWarps)
-             ? 3 * t_len * (d_head | 1)
-             : 0;
+  if (!tail_bwd_global(t_len, n_heads, d_head, q_dim, kWarps)) return 0;
+  return (int)(3 * (size_t)t_len * (d_head | 1) +
+               (tail_bwd_small_global(t_len, n_heads, d_head, kWarps)
+                    ? tail_bwd_small_floats(t_len, n_heads, d_head, kWarps)
+                    : 0));
 }
 
-// Floats of one slot of `attn_stage`: 0 when row 4's kernel stages its
-// operands in shared memory.
-int fused_tail_bwd_attn_stage_floats(int t_len, int d_head) {
-  return attn_global(t_len, d_head)
-             ? (int)qkv_bwd_stage_floats(t_len, d_head)
-             : 0;
+// Floats of one slot of `attn_stage`: 0 unless row 4's regime at (T, D) in
+// a dtype of esize bytes is its tiled kernel in global memory.
+int fused_tail_bwd_attn_stage_floats(int t_len, int d_head, int esize) {
+  return (int)qkv_bwd_slot_floats_for(t_len, d_head, esize);
 }
 
 }  // extern "C"

@@ -16,7 +16,8 @@
 //
 // Design: one block of 8 warps per row; fused_tail.cuh has the phases. A
 // row too long for shared memory keeps ctx, e and q/k/v in its block
-// slot's part of a global scratch, and `slots` blocks walk the rows.
+// slot's part of a global scratch (past T = 6456 its row buffers and
+// alpha too), and `slots` blocks walk the rows.
 
 #include "fused_tail.cuh"
 
@@ -27,8 +28,9 @@ using namespace nrk;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-// kGlobal: ctx, e and q/k/v in this block's slot of scratch
-template <typename T, bool kGlobal>
+// kGlobal: ctx, e and q/k/v in this block's slot of scratch; kSmallGlobal
+// (past the small buffers' limit): the row buffers and alpha there too
+template <typename T, bool kGlobal, bool kSmallGlobal>
 __global__ void __launch_bounds__(kThreads)
 fused_tail_fwd_kernel(const T* __restrict__ qkv,
                       const float* __restrict__ mask,
@@ -42,11 +44,15 @@ fused_tail_fwd_kernel(const T* __restrict__ qkv,
   const int hd = n_heads * d_head;
   const int stride = d_head | 1;  // odd row stride: no bank conflicts
   // the big buffers in shared memory, or in this block's scratch slot
-  const size_t big = tail_big_floats(t_len, n_heads, d_head, q_dim);
-  float* ctx = kGlobal ? scratch + blockIdx.x * big : smem;  // (T, HD) f32
+  const size_t slot =
+      tail_big_floats(t_len, n_heads, d_head, q_dim) +
+      (kSmallGlobal ? tail_fwd_small_floats(t_len, kWarps) : 0);
+  float* ctx = kGlobal ? scratch + blockIdx.x * slot : smem;  // (T, HD)
   float* e = ctx + t_len * hd;               // (T, Q) tanh(z)
   float* qs = e + t_len * q_dim;             // (3, T, stride) q, k, v
-  float* rows = kGlobal ? smem : qs + 3 * t_len * stride;  // (kWarps, T)
+  float* rows = kGlobal && !kSmallGlobal
+                    ? smem
+                    : qs + 3 * t_len * stride;  // (kWarps, T)
   float* alpha = rows + kWarps * t_len;      // (T) pooling weights
 
   const TailDropout drop{use_dropout != 0,
@@ -76,6 +82,7 @@ fused_tail_fwd_kernel(const T* __restrict__ qkv,
 }
 
 size_t smem_bytes(int t_len, int n_heads, int d_head, int q_dim) {
+  if (tail_fwd_small_global(t_len, kWarps)) return 0;
   const size_t small = tail_fwd_small_floats(t_len, kWarps);
   return sizeof(float) *
          (tail_fwd_global(t_len, n_heads, d_head, q_dim, kWarps)
@@ -94,8 +101,10 @@ int launch(const void* qkv, const void* mask, const void* w1, const void* b1,
   if (global && (scratch == nullptr || slots <= 0))
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(t_len, n_heads, d_head, q_dim);
-  auto* kernel = global ? fused_tail_fwd_kernel<T, true>
-                        : fused_tail_fwd_kernel<T, false>;
+  auto* kernel = tail_fwd_small_global(t_len, kWarps)
+                     ? fused_tail_fwd_kernel<T, true, true>
+                 : global ? fused_tail_fwd_kernel<T, true, false>
+                          : fused_tail_fwd_kernel<T, false, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -142,16 +151,14 @@ int fused_tail_fwd_bf16(const void* qkv, const void* mask, const void* w1,
                                use_dropout, thr, scale, stream);
 }
 
-int fused_tail_fwd_smem_bytes(int t_len, int n_heads, int d_head, int q_dim) {
-  return (int)smem_bytes(t_len, n_heads, d_head, q_dim);
-}
-
 // Floats of one scratch slot: 0 when the row fits in shared memory.
 int fused_tail_fwd_scratch_floats(int t_len, int n_heads, int d_head,
                                   int q_dim) {
-  return tail_fwd_global(t_len, n_heads, d_head, q_dim, kWarps)
-             ? (int)tail_big_floats(t_len, n_heads, d_head, q_dim)
-             : 0;
+  if (!tail_fwd_global(t_len, n_heads, d_head, q_dim, kWarps)) return 0;
+  return (int)(tail_big_floats(t_len, n_heads, d_head, q_dim) +
+               (tail_fwd_small_global(t_len, kWarps)
+                    ? tail_fwd_small_floats(t_len, kWarps)
+                    : 0));
 }
 
 }  // extern "C"

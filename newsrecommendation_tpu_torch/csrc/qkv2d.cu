@@ -29,54 +29,52 @@ inline int rows_of(int nt, int t_len) {
 
 extern "C" {
 
-// qkv2d (N*T, 3HD), bias (3HD,), out (N, T, HD), probs (N, T, H*T) f32.
-// Returns cudaGetLastError() after the launch: 0 when it was queued.
-int qkv2d_fwd_f32(const void* qkv2d, const void* bias, void* out,
-                  void* probs, int nt, int t_len, int n_heads, int d_head,
-                  void* stream) {
-  const int n = rows_of(nt, t_len);
-  if (n < 0) return (int)cudaErrorInvalidValue;
-  return nrk::qkv_fwd_launch<float>(qkv2d, bias, nullptr, out, probs, n,
-                                    t_len, n_heads, d_head, stream);
+// qkv2d (N*T, 3HD), bias (3HD,), out (N, T, HD), probs (N, T, H*T) f32;
+// stage (`slots` slots of qkv2d_fwd_slot_floats) read only past shared
+// memory. Returns cudaGetLastError() after the launch: 0 when it was
+// queued.
+#define NRK_QKV2D_FWD(SUFFIX, T)                                             \
+  int qkv2d_fwd_##SUFFIX(const void* qkv2d, const void* bias, void* out,     \
+                         void* probs, void* stage, int nt, int t_len,        \
+                         int n_heads, int d_head, int slots, void* stream) { \
+    const int n = rows_of(nt, t_len);                                        \
+    if (n < 0) return (int)cudaErrorInvalidValue;                            \
+    return nrk::qkv_fwd_launch<T>(qkv2d, bias, nullptr, out, probs, n,       \
+                                  t_len, n_heads, d_head, stream,            \
+                                  static_cast<float*>(stage), slots);        \
+  }
+NRK_QKV2D_FWD(f32, float)
+NRK_QKV2D_FWD(bf16, __nv_bfloat16)
+#undef NRK_QKV2D_FWD
+
+// probs from the forward, g (N, T, HD), dqkv2d (N*T, 3HD); plan, biased,
+// stats, stage, slots as qkv_bwd.cu's entry points.
+#define NRK_QKV2D_BWD(SUFFIX, T)                                             \
+  int qkv2d_bwd_##SUFFIX(                                                    \
+      const void* qkv2d, const void* bias, const void* probs, const void* g, \
+      void* dqkv2d, void* biased, void* stats, void* stage, int nt,          \
+      int t_len, int n_heads, int d_head, int q_tile, int q_chunk,           \
+      int q_nbuf, int k_tile, int k_chunk, int k_nbuf, int slots,            \
+      void* stream) {                                                        \
+    const int n = rows_of(nt, t_len);                                        \
+    if (n < 0) return (int)cudaErrorInvalidValue;                            \
+    const int plan[6] = {q_tile, q_chunk, q_nbuf, k_tile, k_chunk, k_nbuf};  \
+    return nrk::qkv_bwd_launch<T, false>(                                    \
+        qkv2d, bias, probs, nullptr, g, dqkv2d, n, t_len, n_heads, d_head,   \
+        stream,                                                              \
+        {plan, biased, static_cast<float*>(stats),                           \
+         static_cast<float*>(stage), slots, false});                         \
+  }
+NRK_QKV2D_BWD(f32, float)
+NRK_QKV2D_BWD(bf16, __nv_bfloat16)
+#undef NRK_QKV2D_BWD
+
+int qkv2d_bwd_slot_floats(int t_len, int d_head, int esize) {
+  return (int)nrk::qkv_bwd_slot_floats_for(t_len, d_head, esize);
 }
 
-int qkv2d_fwd_bf16(const void* qkv2d, const void* bias, void* out,
-                   void* probs, int nt, int t_len, int n_heads, int d_head,
-                   void* stream) {
-  const int n = rows_of(nt, t_len);
-  if (n < 0) return (int)cudaErrorInvalidValue;
-  return nrk::qkv_fwd_launch<__nv_bfloat16>(qkv2d, bias, nullptr, out, probs,
-                                            n, t_len, n_heads, d_head,
-                                            stream);
-}
-
-// probs from the forward, g (N, T, HD), dqkv2d (N*T, 3HD).
-int qkv2d_bwd_f32(const void* qkv2d, const void* bias, const void* probs,
-                  const void* g, void* dqkv2d, int nt, int t_len,
-                  int n_heads, int d_head, void* stream) {
-  const int n = rows_of(nt, t_len);
-  if (n < 0) return (int)cudaErrorInvalidValue;
-  return nrk::qkv_bwd_launch<float, false>(qkv2d, bias, probs, nullptr, g,
-                                           dqkv2d, n, t_len, n_heads, d_head,
-                                           stream);
-}
-
-int qkv2d_bwd_bf16(const void* qkv2d, const void* bias, const void* probs,
-                   const void* g, void* dqkv2d, int nt, int t_len,
-                   int n_heads, int d_head, void* stream) {
-  const int n = rows_of(nt, t_len);
-  if (n < 0) return (int)cudaErrorInvalidValue;
-  return nrk::qkv_bwd_launch<__nv_bfloat16, false>(
-      qkv2d, bias, probs, nullptr, g, dqkv2d, n, t_len, n_heads, d_head,
-      stream);
-}
-
-int qkv2d_fwd_smem_bytes(int t_len, int d_head) {
-  return (int)nrk::qkv_fwd_smem_bytes_for(t_len, d_head);
-}
-
-int qkv2d_bwd_smem_bytes(int t_len, int d_head) {
-  return (int)nrk::qkv_bwd_smem_bytes_for(t_len, d_head);
+int qkv2d_fwd_slot_floats(int t_len, int d_head) {
+  return (int)nrk::qkv_fwd_slot_floats_for(t_len, d_head);
 }
 
 }  // extern "C"

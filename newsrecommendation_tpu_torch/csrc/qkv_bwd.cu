@@ -12,24 +12,47 @@
 
 extern "C" {
 
-// mask may be null. Returns cudaGetLastError() after the launch: 0 when
-// the kernel was queued.
-int qkv_bwd_f32(const void* qkv, const void* bias, const void* mask,
-                const void* g, void* dqkv, int n, int t_len, int n_heads,
-                int d_head, void* stream) {
-  return nrk::qkv_bwd_launch<float, true>(qkv, bias, nullptr, mask, g, dqkv,
-                                          n, t_len, n_heads, d_head, stream);
+// mask may be null. plan: the tensor-core plan of each side (q_tile,
+// q_chunk, q_nbuf, k_tile, k_chunk, k_nbuf); biased, stats: the
+// tensor-core regime's scratch; stage, slots: the tiled kernel's global
+// slots (qkv_bwd.cuh QkvBwdWork). Returns cudaGetLastError() after the
+// launches: 0 when they were queued; cudaErrorInvalidValue for a plan or
+// scratch the regime does not get.
+#define NRK_QKV_BWD(SUFFIX, T)                                               \
+  int qkv_bwd_##SUFFIX(const void* qkv, const void* bias, const void* mask, \
+                       const void* g, void* dqkv, void* biased, void* stats, \
+                       void* stage, int n, int t_len, int n_heads,           \
+                       int d_head, int q_tile, int q_chunk, int q_nbuf,      \
+                       int k_tile, int k_chunk, int k_nbuf, int slots,       \
+                       void* stream) {                                       \
+    const int plan[6] = {q_tile, q_chunk, q_nbuf, k_tile, k_chunk, k_nbuf};  \
+    return nrk::qkv_bwd_launch<T, true>(                                     \
+        qkv, bias, nullptr, mask, g, dqkv, n, t_len, n_heads, d_head,        \
+        stream,                                                              \
+        {plan, biased, static_cast<float*>(stats),                           \
+         static_cast<float*>(stage), slots, false});                         \
+  }
+NRK_QKV_BWD(f32, float)
+NRK_QKV_BWD(bf16, __nv_bfloat16)
+#undef NRK_QKV_BWD
+
+// 0 resident, 1 tensor cores, 2 tiled, 3 tiled in global memory
+int qkv_bwd_regime(int t_len, int d_head, int esize) {
+  return nrk::qkv_bwd_regime(t_len, d_head, esize);
 }
 
-int qkv_bwd_bf16(const void* qkv, const void* bias, const void* mask,
-                 const void* g, void* dqkv, int n, int t_len, int n_heads,
-                 int d_head, void* stream) {
-  return nrk::qkv_bwd_launch<__nv_bfloat16, true>(
-      qkv, bias, nullptr, mask, g, dqkv, n, t_len, n_heads, d_head, stream);
+// floats of one global slot (0 unless the tiled kernel runs there)
+int qkv_bwd_slot_floats(int t_len, int d_head, int esize) {
+  return (int)nrk::qkv_bwd_slot_floats_for(t_len, d_head, esize);
 }
 
-int qkv_bwd_smem_bytes(int t_len, int d_head) {
-  return (int)nrk::qkv_bwd_smem_bytes_for(t_len, d_head);
+// shared bytes of a tensor-core side (kind 1 key, 2 query), as flash.cuh
+// lays it out; 0 for a plan the kernels refuse
+int qkv_bwd_mma_smem_bytes(int kind, int d_head, int tile, int chunk,
+                           int nbuf) {
+  if (!nrk::flash_plan_ok(kind, d_head, 2, tile, chunk, nbuf)) return 0;
+  const nrk::FlashLayout l = nrk::flash_layout(kind, d_head, 2, tile, chunk);
+  return (int)(l.own + nbuf * l.stage);
 }
 
 }  // extern "C"

@@ -30,49 +30,55 @@
 // 1,014 MB, about 0.30 ms at 3.35 TB/s, against 8*N*H*T*T*D = 9.0 GFLOP.
 // Row 4 moves no probs (789 MB, 0.24 ms) and does 10*N*H*T*T*D flops.
 //
-// Design (simple, correct first): one block per (row n, head h), two
-// kernels chosen by T.
-//   Resident (the T x T block of a fits: T up to 201 at D = 20, the NRMS
-//     shapes, where the time goes; block size fixed at compile time): 4
-//     warps stage q_h, k_h, v_h and g_h (T x D each, rounded to the input
-//     dtype and held as f32, odd row stride) and a (T x T f32, odd stride;
-//     staged from probs, or recomputed one warp per row exactly as the
-//     forward's warp computes it) in shared memory. Threads over (j, d)
-//     write dv; one warp per row computes da (in its own row buffer), the
-//     row sum r by warp shuffles and ds over a in place; then threads over
-//     (x, d) write dq and dk.
-//   Tiled (longer T; 8 warps): the same q, k, v, g and a tile of R rows of
-//     T floats, R as large as the rest of the 227 KB allows (18 at T = 511,
-//     D = 20). Query tiles of R rows: one warp per query makes a's row in
-//     its buffer and ds's row in the tile, then threads over (i, d) write
-//     dq; then key tiles of R/2 keys: threads over (key j, query i) pairs
-//     compute a_ij (probs read with a stride, L1/L2 resident; or recomputed
-//     from the row's m_i and den_i), da_ij and ds_ij into two tiles, and
-//     threads over (j, d) write dv and dk. ds is computed twice there, by
-//     the same expression on the same operands. At D = 20 every T up to
-//     599 fits.
-//   Tiled, staged in global memory (only inside the fused tail's backward,
-//     fused_tail_bwd.cu, for T past that): the same kernel with q, k, v and
-//     g staged in a global buffer of 4*T*(D|1) floats per block slot
-//     (L2-resident at the sizes it serves), and the row buffers, stats and
-//     tile in shared memory; a grid of `slots` blocks walks the (row, head)
-//     items. At D = 20 it takes T up to 4470.
-// Two kernels, not one with two paths: in one kernel with the tiled path
-// (more registers, a run-time block size) the resident path ran 1.5-11%
-// slower on the card. Every dot runs in index order, so both kernels give
-// the same values, and row 3 and row 4 give the same dqkv bit for bit when
-// row 4's recomputed a equals the probs row 2 wrote. Left on the table:
-// 2*D-byte runs instead of 16-byte loads, da computed twice on the tiled
-// path, a tiled row 4 that spills, and no tensor cores.
+// Four regimes, chosen by T, D and the dtype (qkv_bwd_regime; the plan in
+// Python is ops/fused_attention.py:bwd_launch_plan):
+//   Resident (the T x T block of a fits: T up to 201 at D = 20, the news
+//     and L = 50 user encoders; both dtypes): one block of 4 warps per
+//     (row n, head h) stages q_h, k_h, v_h and g_h (T x D each, rounded to
+//     the input dtype and held as f32, odd row stride) and a (T x T f32,
+//     odd stride; staged from probs, or recomputed one warp per row
+//     exactly as the forward's warp computes it) in shared memory. Threads
+//     over (j, d) write dv; one warp per row computes da (in its own row
+//     buffer), the row sum r by warp shuffles and ds over a in place; then
+//     threads over (x, d) write dq and dk.
+//   Tensor cores (bf16, D <= 64, past the resident kernel): qkv_bwd_mma.cuh,
+//     a query-side and a key-side kernel on mma.sync with every operand
+//     staged in chunks, so any T runs.
+//   Tiled (f32, or D > 64; 8 warps, one block per (row, head)): the same
+//     q, k, v, g and a tile of R rows of T floats, R as large as the rest
+//     of the 227 KB allows (18 at T = 511, D = 20). Query tiles of R rows:
+//     one warp per query makes a's row in its buffer and ds's row in the
+//     tile, then threads over (i, d) write dq; then key tiles of R/2 keys:
+//     threads over (key j, query i) pairs compute a_ij (probs read with a
+//     stride, L1/L2 resident; or recomputed from the row's m_i and den_i),
+//     da_ij and ds_ij into two tiles, and threads over (j, d) write dv and
+//     dk. ds is computed twice there, by the same expression on the same
+//     operands. At D = 20 every T up to 599 fits.
+//   Tiled in global memory (the same, past what shared memory holds): q,
+//     k, v, g, the row buffers, the row stats and a tile of 16 rows in one
+//     global slot per block (qkv_bwd_global_floats), a grid of `slots`
+//     blocks walking the (row, head) items. Any T runs.
+// The resident and tiled kernels are two, not one with two paths: in one
+// kernel with the tiled path (more registers, a run-time block size) the
+// resident path ran 1.5-11% slower on the card. Every dot runs in index
+// order, so both give the same values, and on them row 3 and row 4 give
+// the same dqkv bit for bit when row 4's recomputed a equals the probs row
+// 2 wrote. Left on the table: 2*D-byte runs instead of 16-byte loads, da
+// computed twice on the tiled path, and no tensor cores in f32 (TF32 would
+// change the result).
 #pragma once
 
 #include "common.cuh"
+#include "qkv_bwd_mma.cuh"
+
+#include <type_traits>
 
 namespace nrk {
 
 constexpr int kMaxSmemFloats = 232448 / 4;  // what a block may use
 constexpr int kResidentWarps = 4;
 constexpr int kTiledWarps = 8;
+constexpr int kGlobalTileRows = 16;  // the tile of the tiled kernel in a slot
 
 // shared floats of the resident kernel: q, k, v, g, the T x T block of a,
 // one row buffer per warp
@@ -90,6 +96,15 @@ inline bool qkv_bwd_resident(int t_len, int d_head) {
 __host__ __device__ inline size_t qkv_bwd_stage_floats(int t_len,
                                                        int d_head) {
   return 4 * (size_t)t_len * (d_head | 1);
+}
+
+// one global slot of the tiled kernel past shared memory: the stage, the
+// row buffers, the row stats (r, m, den) and a tile of kGlobalTileRows
+__host__ __device__ inline size_t qkv_bwd_global_floats(int t_len,
+                                                        int d_head) {
+  return qkv_bwd_stage_floats(t_len, d_head) +
+         (size_t)(kTiledWarps + 3) * t_len +
+         (size_t)kGlobalTileRows * (t_len | 1);
 }
 
 // rows of the tiled kernel's tile: as many as fit beside `staged` floats
@@ -119,10 +134,26 @@ inline size_t qkv_bwd_tiled_smem_bytes(int t_len, size_t staged) {
           (size_t)qkv_bwd_tile_rows(t_len, staged) * (t_len | 1));
 }
 
-inline size_t qkv_bwd_smem_bytes_for(int t_len, int d_head) {
-  if (qkv_bwd_resident(t_len, d_head))
-    return sizeof(float) * qkv_bwd_resident_floats(t_len, d_head);
-  return qkv_bwd_tiled_smem_bytes(t_len, qkv_bwd_stage_floats(t_len, d_head));
+enum QkvBwdRegime {
+  kQkvResident = 0,
+  kQkvMma = 1,
+  kQkvTiled = 2,
+  kQkvTiledGlobal = 3
+};
+
+// the regime of a (T, D) in a dtype of esize bytes
+inline int qkv_bwd_regime(int t_len, int d_head, int esize) {
+  if (qkv_bwd_resident(t_len, d_head)) return kQkvResident;
+  if (flash_mma(d_head, esize)) return kQkvMma;
+  return qkv_bwd_tiled_in_smem(t_len, d_head) ? kQkvTiled : kQkvTiledGlobal;
+}
+
+// floats of one global slot of the regime: 0 unless it is the tiled kernel
+// in global memory
+inline size_t qkv_bwd_slot_floats_for(int t_len, int d_head, int esize) {
+  return qkv_bwd_regime(t_len, d_head, esize) == kQkvTiledGlobal
+             ? qkv_bwd_global_floats(t_len, d_head)
+             : 0;
 }
 
 // One warp: a's row i into `a` (f32), as the forward's warp computes it
@@ -292,8 +323,8 @@ qkv_bwd_resident_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
   }
 }
 
-// The tiled kernel: T past what the resident kernel holds (kGlobal: q, k,
-// v, g staged in gstage, not in shared memory).
+// The tiled kernel: T past what the resident kernel holds in f32 or at
+// D > 64 (kGlobal: its whole working set in gstage, none in shared memory).
 template <typename T, bool kRecompute, bool kGlobal>
 __global__ void __launch_bounds__(32 * kTiledWarps)
 qkv_bwd_tiled_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
@@ -312,14 +343,15 @@ qkv_bwd_tiled_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
-  // q, k, v and g in shared memory, or in this block's slot of gstage
+  // q, k, v and g, then the rest, in shared memory or in this block's slot
+  // of gstage
   float* q = kGlobal ? gstage + (int64_t)blockIdx.x *
-                                    qkv_bwd_stage_floats(t_len, d_head)
+                                    qkv_bwd_global_floats(t_len, d_head)
                      : smem;  // (T, stride), then k, v, g
   float* k = q + t_len * stride;
   float* v = k + t_len * stride;
   float* gs = v + t_len * stride;
-  float* rest = kGlobal ? smem : gs + t_len * stride;
+  float* rest = gs + t_len * stride;
   float* wrow = rest + warp * t_len;   // this warp's buffer
   float* tile = rest + warps * t_len;  // (tile_rows, tstride)
   // the row stats, after the tile: rowsum(da * a), and (row 4) the row's
@@ -448,23 +480,33 @@ qkv_bwd_tiled_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
   }
 }
 
-// gstage, with `slots` slots of qkv_bwd_stage_floats each, is read only
-// when the tiled kernel's stage does not fit in shared memory; without it
-// such a T is refused (cudaErrorInvalidValue).
+// What a launch of rows 3-4 is given beside its operands: the tensor-core
+// plan of each side (ops/fused_attention.py:bwd_launch_plan: tile, chunk,
+// buffers of the query side, then of the key side), and the scratch of the
+// regime: `biased` (N, T, 3HD) bf16 for the biased qkv and `stats` (3, N*H,
+// T) f32 (tensor cores; biased unused when qkv_biased, the caller's qkv
+// carrying its bias already), `gstage` with `slots` slots of
+// qkv_bwd_global_floats (the tiled kernel in global memory). A plan or
+// scratch the regime needs and does not get is refused
+// (cudaErrorInvalidValue).
+struct QkvBwdWork {
+  const int* plan;  // 6 ints
+  void* biased;
+  float* stats;
+  float* gstage;
+  int slots;
+  bool qkv_biased;
+};
+
 template <typename T, bool kRecompute>
 int qkv_bwd_launch(const void* qkv, const void* bias, const void* probs,
                    const void* mask, const void* g, void* dqkv, int n,
                    int t_len, int n_heads, int d_head, void* stream,
-                   float* gstage = nullptr, int slots = 0) {
+                   const QkvBwdWork& w) {
   if (n <= 0) return (int)cudaSuccess;
   const int64_t blocks = (int64_t)n * n_heads;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-  const bool global = !qkv_bwd_resident(t_len, d_head) &&
-                      !qkv_bwd_tiled_in_smem(t_len, d_head);
-  if (global && (gstage == nullptr || slots <= 0))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = global ? qkv_bwd_tiled_smem_bytes(t_len, 0)
-                             : qkv_bwd_smem_bytes_for(t_len, d_head);
+  const int regime = qkv_bwd_regime(t_len, d_head, (int)sizeof(T));
   // 1/sqrt(D) for ds, rounded once from double, as the plain version's
   // scalar is
   const float inv = (float)(1.0 / sqrt((double)d_head));
@@ -474,46 +516,61 @@ int qkv_bwd_launch(const void* qkv, const void* bias, const void* probs,
   const auto* m = static_cast<const float*>(mask);
   const auto* gg = static_cast<const T*>(g);
   auto* out = static_cast<T*>(dqkv);
+  auto* cs = (cudaStream_t)stream;
   cudaError_t err;
-  if (qkv_bwd_resident(t_len, d_head)) {
+  if (regime == kQkvMma) {
+    if constexpr (!std::is_same<T, __nv_bfloat16>::value) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      const int* pl = w.plan;
+      if (pl == nullptr || w.stats == nullptr ||
+          (!w.qkv_biased && w.biased == nullptr) ||
+          !qkv_bwd_mma_plan_ok(kRecompute, d_head, pl[0], pl[1], pl[2],
+                               pl[3], pl[4], pl[5]))
+        return (int)cudaErrorInvalidValue;
+      const T* src = x;
+      if (!w.qkv_biased) {
+        const int64_t total = (int64_t)n * t_len * 3 * n_heads * d_head;
+        const int64_t want = (total + 255) / 256;
+        auto* biased = static_cast<T*>(w.biased);
+        qkv_bias_kernel<<<(unsigned)(want < 4096 ? want : 4096), 256, 0,
+                          cs>>>(x, b, biased, total, 3 * n_heads * d_head);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+        src = biased;
+      }
+      return with_head_width(
+          d_head, QkvBwdMmaLaunch{src, p, m, gg, out, w.stats, n, t_len,
+                                  n_heads, d_head, pl[0], pl[1], pl[2], pl[3],
+                                  pl[4], pl[5], kRecompute, cs});
+    }
+  }
+  if (regime == kQkvResident) {
+    const size_t smem = sizeof(float) * qkv_bwd_resident_floats(t_len, d_head);
     err = cudaFuncSetAttribute(qkv_bwd_resident_kernel<T, kRecompute>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
     qkv_bwd_resident_kernel<T, kRecompute>
-        <<<(unsigned)blocks, 32 * kResidentWarps, smem,
-           (cudaStream_t)stream>>>(x, b, p, m, gg, out, n_heads, t_len,
-                                   d_head, inv);
+        <<<(unsigned)blocks, 32 * kResidentWarps, smem, cs>>>(
+            x, b, p, m, gg, out, n_heads, t_len, d_head, inv);
+  } else if (regime == kQkvTiledGlobal) {
+    if (w.gstage == nullptr || w.slots <= 0) return (int)cudaErrorInvalidValue;
+    qkv_bwd_tiled_kernel<T, kRecompute, true>
+        <<<(unsigned)(w.slots < blocks ? w.slots : blocks), 32 * kTiledWarps,
+           0, cs>>>(x, b, p, m, gg, out, n_heads, t_len, d_head,
+                    kGlobalTileRows, inv, blocks, w.gstage);
   } else {
-    if (global) {
-      // only the fused tail's backward (row 4's arithmetic) stages here
-      if constexpr (!kRecompute) {
-        return (int)cudaErrorInvalidValue;
-      } else {
-        err = cudaFuncSetAttribute(
-            qkv_bwd_tiled_kernel<T, true, true>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        qkv_bwd_tiled_kernel<T, true, true>
-            <<<(unsigned)(slots < blocks ? slots : blocks),
-               32 * kTiledWarps, smem, (cudaStream_t)stream>>>(
-                x, b, p, m, gg, out, n_heads, t_len, d_head,
-                qkv_bwd_tile_rows(t_len, 0), inv, blocks, gstage);
-      }
-    } else {
-      err = cudaFuncSetAttribute(qkv_bwd_tiled_kernel<T, kRecompute, false>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
-      if (err != cudaSuccess) return (int)err;
-      qkv_bwd_tiled_kernel<T, kRecompute, false>
-          <<<(unsigned)blocks, 32 * kTiledWarps, smem,
-             (cudaStream_t)stream>>>(x, b, p, m, gg, out, n_heads, t_len,
-                                     d_head,
-                                     qkv_bwd_tile_rows(
-                                         t_len, qkv_bwd_stage_floats(
-                                                    t_len, d_head)),
-                                     inv, blocks, nullptr);
-    }
+    const size_t staged = qkv_bwd_stage_floats(t_len, d_head);
+    const size_t smem = qkv_bwd_tiled_smem_bytes(t_len, staged);
+    err = cudaFuncSetAttribute(qkv_bwd_tiled_kernel<T, kRecompute, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    qkv_bwd_tiled_kernel<T, kRecompute, false>
+        <<<(unsigned)blocks, 32 * kTiledWarps, smem, cs>>>(
+            x, b, p, m, gg, out, n_heads, t_len, d_head,
+            qkv_bwd_tile_rows(t_len, staged), inv, blocks, nullptr);
   }
   return (int)cudaGetLastError();
 }

@@ -10,23 +10,27 @@
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch: 0 when the kernel was queued.
-int qkv_bwd_probs_f32(const void* qkv, const void* bias, const void* probs,
-                      const void* g, void* dqkv, int n, int t_len,
-                      int n_heads, int d_head, void* stream) {
-  return nrk::qkv_bwd_launch<float, false>(qkv, bias, probs, nullptr, g, dqkv,
-                                           n, t_len, n_heads, d_head, stream);
-}
+// plan, biased, stats, stage, slots: as qkv_bwd.cu's entry points. Returns
+// cudaGetLastError() after the launches: 0 when they were queued.
+#define NRK_QKV_BWD_PROBS(SUFFIX, T)                                         \
+  int qkv_bwd_probs_##SUFFIX(                                                \
+      const void* qkv, const void* bias, const void* probs, const void* g,   \
+      void* dqkv, void* biased, void* stats, void* stage, int n, int t_len,  \
+      int n_heads, int d_head, int q_tile, int q_chunk, int q_nbuf,          \
+      int k_tile, int k_chunk, int k_nbuf, int slots, void* stream) {        \
+    const int plan[6] = {q_tile, q_chunk, q_nbuf, k_tile, k_chunk, k_nbuf};  \
+    return nrk::qkv_bwd_launch<T, false>(                                    \
+        qkv, bias, probs, nullptr, g, dqkv, n, t_len, n_heads, d_head,       \
+        stream,                                                              \
+        {plan, biased, static_cast<float*>(stats),                           \
+         static_cast<float*>(stage), slots, false});                         \
+  }
+NRK_QKV_BWD_PROBS(f32, float)
+NRK_QKV_BWD_PROBS(bf16, __nv_bfloat16)
+#undef NRK_QKV_BWD_PROBS
 
-int qkv_bwd_probs_bf16(const void* qkv, const void* bias, const void* probs,
-                       const void* g, void* dqkv, int n, int t_len,
-                       int n_heads, int d_head, void* stream) {
-  return nrk::qkv_bwd_launch<__nv_bfloat16, false>(
-      qkv, bias, probs, nullptr, g, dqkv, n, t_len, n_heads, d_head, stream);
-}
-
-int qkv_bwd_probs_smem_bytes(int t_len, int d_head) {
-  return (int)nrk::qkv_bwd_smem_bytes_for(t_len, d_head);
+int qkv_bwd_probs_slot_floats(int t_len, int d_head, int esize) {
+  return (int)nrk::qkv_bwd_slot_floats_for(t_len, d_head, esize);
 }
 
 }  // extern "C"

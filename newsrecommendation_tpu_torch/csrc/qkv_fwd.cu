@@ -10,39 +10,44 @@
 
 extern "C" {
 
-// mask may be null (the bias variant). Returns cudaGetLastError() after the
-// launch: 0 when the kernel was queued.
+// mask may be null (the bias variant); stage (`slots` slots of
+// qkv_fwd_slot_floats) is read only past shared memory. Returns
+// cudaGetLastError() after the launch: 0 when the kernel was queued.
 int qkv_fwd_f32(const void* qkv, const void* bias, const void* mask,
-                void* out, int n, int t_len, int n_heads, int d_head,
-                void* stream) {
+                void* out, void* stage, int n, int t_len, int n_heads,
+                int d_head, int slots, void* stream) {
   return nrk::qkv_fwd_launch<float>(qkv, bias, mask, out, nullptr, n, t_len,
-                                    n_heads, d_head, stream);
+                                    n_heads, d_head, stream,
+                                    static_cast<float*>(stage), slots);
 }
 
 int qkv_fwd_bf16(const void* qkv, const void* bias, const void* mask,
-                 void* out, int n, int t_len, int n_heads, int d_head,
-                 void* stream) {
-  return nrk::qkv_fwd_launch<__nv_bfloat16>(qkv, bias, mask, out, nullptr, n,
-                                            t_len, n_heads, d_head, stream);
+                 void* out, void* stage, int n, int t_len, int n_heads,
+                 int d_head, int slots, void* stream) {
+  return nrk::qkv_fwd_launch<__nv_bfloat16>(
+      qkv, bias, mask, out, nullptr, n, t_len, n_heads, d_head, stream,
+      static_cast<float*>(stage), slots);
 }
 
 // The same forward that also writes the f32 probs (N, T, H*T).
 int qkv_fwd_probs_f32(const void* qkv, const void* bias, const void* mask,
-                      void* out, void* probs, int n, int t_len, int n_heads,
-                      int d_head, void* stream) {
+                      void* out, void* probs, void* stage, int n, int t_len,
+                      int n_heads, int d_head, int slots, void* stream) {
   return nrk::qkv_fwd_launch<float>(qkv, bias, mask, out, probs, n, t_len,
-                                    n_heads, d_head, stream);
+                                    n_heads, d_head, stream,
+                                    static_cast<float*>(stage), slots);
 }
 
 int qkv_fwd_probs_bf16(const void* qkv, const void* bias, const void* mask,
-                       void* out, void* probs, int n, int t_len, int n_heads,
-                       int d_head, void* stream) {
-  return nrk::qkv_fwd_launch<__nv_bfloat16>(qkv, bias, mask, out, probs, n,
-                                            t_len, n_heads, d_head, stream);
+                       void* out, void* probs, void* stage, int n, int t_len,
+                       int n_heads, int d_head, int slots, void* stream) {
+  return nrk::qkv_fwd_launch<__nv_bfloat16>(
+      qkv, bias, mask, out, probs, n, t_len, n_heads, d_head, stream,
+      static_cast<float*>(stage), slots);
 }
 
-int qkv_fwd_smem_bytes(int t_len, int d_head) {
-  return (int)nrk::qkv_fwd_smem_bytes_for(t_len, d_head);
+int qkv_fwd_slot_floats(int t_len, int d_head) {
+  return (int)nrk::qkv_fwd_slot_floats_for(t_len, d_head);
 }
 
 }  // extern "C"

@@ -33,7 +33,11 @@
 // Design (simple, correct first): one block of 4 warps per (row n, head h).
 // The block stages q_h, k_h, v_h (T x D each, biased and rounded at the
 // input dtype, held as f32) in shared memory with an odd row stride so that
-// lanes walking keys hit distinct banks. Each warp takes one query at a
+// lanes walking keys hit distinct banks. Past what shared memory holds (T >
+// 370 at D = 50, 867 at D = 20) the same kernel keeps q_h, k_h, v_h and the
+// warps' score rows in one global slot per block (L2-resident at the sizes
+// it serves), a grid of `slots` blocks walking the (row, head) items: the
+// same arithmetic in the same order, so the same bits. Each warp takes one query at a
 // time: lanes over keys compute the scores into a per-warp row buffer,
 // warp shuffles give the max and the sum, then lanes over d accumulate the
 // context. Left on the table: the q/k/v loads are 2*D-byte runs rather than
@@ -50,106 +54,146 @@ constexpr int kFwdWarps = 4;
 constexpr int kFwdThreads = 32 * kFwdWarps;
 
 // shared bytes of a block: q, k, v of one head, one score row per warp
-inline size_t qkv_fwd_smem_bytes_for(int t_len, int d_head) {
-  return sizeof(float) *
-         (3 * (size_t)t_len * (d_head | 1) + (size_t)kFwdWarps * t_len);
+__host__ __device__ inline size_t qkv_fwd_floats(int t_len, int d_head) {
+  return 3 * (size_t)t_len * (d_head | 1) + (size_t)kFwdWarps * t_len;
 }
 
-template <typename T>
+inline size_t qkv_fwd_smem_bytes_for(int t_len, int d_head) {
+  return sizeof(float) * qkv_fwd_floats(t_len, d_head);
+}
+
+// whether the working set moves to a global slot (past 227 KB)
+inline bool qkv_fwd_global(int t_len, int d_head) {
+  return qkv_fwd_smem_bytes_for(t_len, d_head) > 232448;
+}
+
+// floats of one global slot: 0 when the working set fits in shared memory
+inline size_t qkv_fwd_slot_floats_for(int t_len, int d_head) {
+  return qkv_fwd_global(t_len, d_head) ? qkv_fwd_floats(t_len, d_head) : 0;
+}
+
+// kGlobal: the working set in this block's slot of gstage, the grid
+// walking the n_items (row, head) items
+template <typename T, bool kGlobal>
 __global__ void __launch_bounds__(kFwdThreads)
 qkv_fwd_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
                const float* __restrict__ mask, T* __restrict__ out,
                float* __restrict__ probs, int n_heads, int t_len, int d_head,
-               int stride) {
+               int stride, int64_t n_items, float* gstage) {
   extern __shared__ float smem[];
-  const int row = blockIdx.x / n_heads;
-  const int h = blockIdx.x % n_heads;
-  const int hd = n_heads * d_head;
-  const int w3 = 3 * hd;
+  float* const work =
+      kGlobal ? gstage + blockIdx.x * qkv_fwd_floats(t_len, d_head) : smem;
+  auto body = [&](int64_t item) {
+    const int row = (int)(item / n_heads);
+    const int h = (int)(item % n_heads);
+    const int hd = n_heads * d_head;
+    const int w3 = 3 * hd;
 
-  float* q = smem;                       // (T, stride)
-  float* k = q + t_len * stride;         // (T, stride)
-  float* v = k + t_len * stride;         // (T, stride)
-  float* prow = v + t_len * stride;      // (kFwdWarps, T) per-warp score row
+    float* q = work;                       // (T, stride)
+    float* k = q + t_len * stride;         // (T, stride)
+    float* v = k + t_len * stride;         // (T, stride)
+    float* prow = v + t_len * stride;      // (kFwdWarps, T) per-warp score row
 
-  const T* src = qkv + (int64_t)row * t_len * w3;
-  const int per_part = t_len * d_head;
-  for (int idx = threadIdx.x; idx < 3 * per_part; idx += kFwdThreads) {
-    const int part = idx / per_part;
-    const int rem = idx - part * per_part;
-    const int t = rem / d_head;
-    const int d = rem - t * d_head;
-    const int lane = part * hd + h * d_head + d;
-    // the bias add happens at the input dtype, as in the TPU kernel
-    const float x = round_to<T>(to_f32(src[(int64_t)t * w3 + lane]) +
-                                to_f32(bias[lane]));
-    smem[part * t_len * stride + t * stride + d] = x;
-  }
-  __syncthreads();
+    const T* src = qkv + (int64_t)row * t_len * w3;
+    const int per_part = t_len * d_head;
+    for (int idx = threadIdx.x; idx < 3 * per_part; idx += kFwdThreads) {
+      const int part = idx / per_part;
+      const int rem = idx - part * per_part;
+      const int t = rem / d_head;
+      const int d = rem - t * d_head;
+      const int lane = part * hd + h * d_head + d;
+      // the bias add happens at the input dtype, as in the TPU kernel
+      const float x = round_to<T>(to_f32(src[(int64_t)t * w3 + lane]) +
+                                  to_f32(bias[lane]));
+      work[part * t_len * stride + t * stride + d] = x;
+    }
+    __syncthreads();
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const float inv = 1.0f / sqrtf((float)d_head);
-  const float* mrow = mask ? mask + (int64_t)row * t_len : nullptr;
-  float* p = prow + warp * t_len;
-  T* dst = out + (int64_t)row * t_len * hd + h * d_head;
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const float inv = 1.0f / sqrtf((float)d_head);
+    const float* mrow = mask ? mask + (int64_t)row * t_len : nullptr;
+    float* p = prow + warp * t_len;
+    T* dst = out + (int64_t)row * t_len * hd + h * d_head;
 
-  for (int i = warp; i < t_len; i += kFwdWarps) {
-    const float* qi = q + i * stride;
-    float mx = -INFINITY;
-    for (int j = lane; j < t_len; j += 32) {
-      const float* kj = k + j * stride;
-      float acc = 0.f;
-      for (int d = 0; d < d_head; ++d) acc = fmaf(qi[d], kj[d], acc);
-      const float s = acc * inv;
-      p[j] = s;
-      mx = fmaxf(mx, s);
+    for (int i = warp; i < t_len; i += kFwdWarps) {
+      const float* qi = q + i * stride;
+      float mx = -INFINITY;
+      for (int j = lane; j < t_len; j += 32) {
+        const float* kj = k + j * stride;
+        float acc = 0.f;
+        for (int d = 0; d < d_head; ++d) acc = fmaf(qi[d], kj[d], acc);
+        const float s = acc * inv;
+        p[j] = s;
+        mx = fmaxf(mx, s);
+      }
+      const float m = warp_max(mx);
+      float sum = 0.f;
+      for (int j = lane; j < t_len; j += 32) {
+        float e = expf(p[j] - m);
+        if (mrow) e *= mrow[j];
+        p[j] = e;
+        sum += e;
+      }
+      const float den = warp_sum(sum) + kEps * expf(-m);
+      // probs[row, i, h*T + j]: this query's row of head h
+      const int64_t at = (((int64_t)row * t_len + i) * n_heads + h) * t_len;
+      float* arow = probs ? probs + at : nullptr;
+      for (int j = lane; j < t_len; j += 32) {
+        const float a = den > 0.f ? p[j] / den : 0.f;
+        if (arow) arow[j] = a;  // f32, before the rounding for a@v
+        p[j] = round_to<T>(a);  // a in v's dtype
+      }
+      __syncwarp();
+      for (int d = lane; d < d_head; d += 32) {
+        float acc = 0.f;
+        for (int j = 0; j < t_len; ++j) acc = fmaf(p[j], v[j * stride + d], acc);
+        dst[(int64_t)i * hd + d] = from_f32<T>(acc);
+      }
+      __syncwarp();  // the next query overwrites p
     }
-    const float m = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < t_len; j += 32) {
-      float e = expf(p[j] - m);
-      if (mrow) e *= mrow[j];
-      p[j] = e;
-      sum += e;
+  };
+  if constexpr (kGlobal) {
+    for (int64_t item = blockIdx.x; item < n_items; item += gridDim.x) {
+      body(item);
+      __syncthreads();  // the next item overwrites the slot
     }
-    const float den = warp_sum(sum) + kEps * expf(-m);
-    // probs[row, i, h*T + j]: this query's row of head h
-    const int64_t at = (((int64_t)row * t_len + i) * n_heads + h) * t_len;
-    float* arow = probs ? probs + at : nullptr;
-    for (int j = lane; j < t_len; j += 32) {
-      const float a = den > 0.f ? p[j] / den : 0.f;
-      if (arow) arow[j] = a;  // f32, before the rounding for a@v
-      p[j] = round_to<T>(a);  // a in v's dtype
-    }
-    __syncwarp();
-    for (int d = lane; d < d_head; d += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < t_len; ++j) acc = fmaf(p[j], v[j * stride + d], acc);
-      dst[(int64_t)i * hd + d] = from_f32<T>(acc);
-    }
-    __syncwarp();  // the next query overwrites p
+  } else {
+    body(blockIdx.x);
   }
 }
 
+// gstage (`slots` slots of qkv_fwd_slot_floats_for) is read only past
+// shared memory; without it such a T is refused (cudaErrorInvalidValue).
 template <typename T>
 int qkv_fwd_launch(const void* qkv, const void* bias, const void* mask,
                    void* out, void* probs, int n, int t_len, int n_heads,
-                   int d_head, void* stream) {
+                   int d_head, void* stream, float* gstage = nullptr,
+                   int slots = 0) {
   if (n <= 0) return (int)cudaSuccess;
   const int stride = d_head | 1;  // odd row stride: no bank conflicts
-  const size_t smem = qkv_fwd_smem_bytes_for(t_len, d_head);
-  cudaError_t err = cudaFuncSetAttribute(
-      qkv_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const int64_t blocks = (int64_t)n * n_heads;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-  qkv_fwd_kernel<T><<<(unsigned)blocks, kFwdThreads, smem,
-                      (cudaStream_t)stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(bias),
-      static_cast<const float*>(mask), static_cast<T*>(out),
-      static_cast<float*>(probs), n_heads, t_len, d_head, stride);
+  const auto* x = static_cast<const T*>(qkv);
+  const auto* b = static_cast<const T*>(bias);
+  const auto* m = static_cast<const float*>(mask);
+  auto* o = static_cast<T*>(out);
+  auto* pr = static_cast<float*>(probs);
+  if (qkv_fwd_global(t_len, d_head)) {
+    if (gstage == nullptr || slots <= 0) return (int)cudaErrorInvalidValue;
+    qkv_fwd_kernel<T, true><<<(unsigned)(slots < blocks ? slots : blocks),
+                              kFwdThreads, 0, (cudaStream_t)stream>>>(
+        x, b, m, o, pr, n_heads, t_len, d_head, stride, blocks, gstage);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = qkv_fwd_smem_bytes_for(t_len, d_head);
+  cudaError_t err = cudaFuncSetAttribute(
+      qkv_fwd_kernel<T, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  qkv_fwd_kernel<T, false><<<(unsigned)blocks, kFwdThreads, smem,
+                             (cudaStream_t)stream>>>(
+      x, b, m, o, pr, n_heads, t_len, d_head, stride, blocks, nullptr);
   return (int)cudaGetLastError();
 }
 

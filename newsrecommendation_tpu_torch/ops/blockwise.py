@@ -16,11 +16,13 @@ in the denominator, a fully masked row gives 0); only the bf16 rounding
 point differs: the un-normalised e against the running max meets v, so the
 key block (JAX's ``_block_rows(t, block_kv)``) is part of the contract.
 
-The kernels take two regimes, chosen by ``launch_plan`` from the dtype and
-D: bf16 heads of up to 64 on tensor cores (a block a (row, head) and a
+The kernels take three regimes, chosen by ``launch_plan`` from the dtype
+and D: bf16 heads of up to 64 on tensor cores (a block a (row, head) and a
 tile of queries or keys, the other side staged in chunks that never cross
-a key block in the forward), f32 on CUDA cores. The C side computes the
-same layout and refuses a plan it does not take.
+a key block in the forward), f32 heads of up to 64 on CUDA cores, and
+heads past 64, of any width, in either dtype on the wide kernels
+(``csrc/flash_wide.cuh``: a warp per row, its lanes over D). The C side
+computes the same layout and refuses a plan it does not take.
 
 q, k and v are (N, T, H*D) and may be views of one fused projection: their
 lanes must be contiguous and their rows a common stride apart. A CPU tensor
@@ -40,7 +42,8 @@ from newsrecommendation_tpu_torch.ops import kernels
 _EPS = 1e-8
 _NEG_BIG = -1e30
 BLOCK_KV = 256  # the JAX package's default key block
-MAX_HEAD = 64  # widest head the kernels take
+MAX_HEAD = 64  # widest head of the tensor-core and CUDA-core kernels
+WIDE_WARPS = 8  # rows (a warp each) of a wide kernel's block (D > MAX_HEAD)
 MAX_CHUNK = 256  # rows of the other side staged at once (tensor cores)
 CORE_TILE, CORE_CHUNK = 128, 256  # the CUDA-core kernels' fixed tile, stage
 SM_SMEM = 233472  # shared memory of one SM; a block takes 1 KB more
@@ -52,6 +55,10 @@ MAX_SMEM = 232448  # what one block may use (ops/kernels.py MAX_SMEM)
 # forward, 2.16 against 2.31 backward (scripts/flash_variants.py plans).
 RESIDENT = 3
 KINDS = {"fwd": 0, "bwd_key": 1, "bwd_query": 2}
+# The sides of rows 3-4's tensor-core backward stage what the flash
+# backward's do; row 3's also a tile of its f32 probs (csrc/flash.cuh
+# FlashKind).
+QKV_KINDS = {"bwd_key_probs": 3, "bwd_query_probs": 4}
 
 
 def kv_block(t: int, target: int = BLOCK_KV) -> int:
@@ -92,15 +99,24 @@ def smem_bytes(kind: str, d: int, itemsize: int, tile: int, chunk: int,
     backward's key side: K, V; its query side: Q, g), then ``nbuf`` stage
     buffers of ``chunk`` rows of the other side's two operands and its
     per-row floats (fwd and query side: the mask; key side: m, den, 1/den,
-    delta). On CUDA cores: one f32 buffer of 256 rows of two operands and
-    one or three per-row floats."""
+    delta); rows 3's sides ("bwd_key_probs", "bwd_query_probs") also the
+    f32 probs of the chunk's rows over the tile's, rows 4 floats longer
+    than they are wide. On CUDA cores: one f32 buffer of 256 rows of two
+    operands and one or three per-row floats. The wide kernels
+    (D > MAX_HEAD) stage nothing."""
+    if d > MAX_HEAD:
+        return 0
+    key = kind in ("bwd_key", "bwd_key_probs")
     if not uses_mma(d, itemsize):
-        floats = 3 if kind == "bwd_key" else 1
+        floats = 3 if key else 1
         return 4 * (2 * CORE_CHUNK * _width(d) + floats * CORE_CHUNK)
-    floats = 4 if kind == "bwd_key" else 1
+    floats = 4 if key else 1
     rb = _row_bytes(d)
     own = (1 if kind == "fwd" else 2) * tile * rb
-    return own + nbuf * (2 * chunk * rb + -(-4 * floats * chunk // 16) * 16)
+    probs = {"bwd_key_probs": chunk * (tile + 4),
+             "bwd_query_probs": tile * (chunk + 4)}.get(kind, 0)
+    return own + nbuf * (2 * chunk * rb + -(-4 * floats * chunk // 16) * 16
+                         + 4 * probs)
 
 
 def key_walk(t: int, block: int, chunk: int) -> list:
@@ -139,12 +155,43 @@ class Launch(NamedTuple):
 
 
 class FlashPlan(NamedTuple):
-    """The regime ("mma": tensor cores, "cuda_core") and the launches of
-    rows 9 (fwd) and 10 (bwd_key, then bwd_query)."""
+    """The regime ("mma": tensor cores, "cuda_core", "wide") and the
+    launches of rows 9 (fwd) and 10 (bwd_key, then bwd_query)."""
     regime: str
     fwd: Launch
     bwd_key: Launch
     bwd_query: Launch
+
+
+def mma_tile(rows: int, t: int, sms: int) -> int:
+    """Own rows of a tensor-core block: 128, or 64 when 128 leaves fewer
+    than two blocks per SM over ``rows`` (row, head) items of t rows."""
+    return 128 if rows * -(-t // 128) >= 2 * sms else 64
+
+
+def mma_launch(kind: str, d: int, itemsize: int, tile: int,
+               rows_walked: int, grid: tuple) -> Launch:
+    """The tensor-core launch of ``kind`` with ``tile`` own rows that walks
+    ``rows_walked`` rows of the other side: chunks of up to MAX_CHUNK rows
+    (rounded up to 16) or halves of that, one or two buffers; the plan
+    that leaves room for the most blocks on an SM by shared memory, up to
+    RESIDENT, then the largest chunk (fewest copies), then two buffers.
+    Raises NotImplementedError when no chunk fits a block."""
+    chunk = min(MAX_CHUNK, -(-rows_walked // 16) * 16)
+    fits = []
+    while chunk >= 16:
+        for nbuf in (2, 1):
+            smem = smem_bytes(kind, d, itemsize, tile, chunk, nbuf)
+            if smem <= MAX_SMEM:
+                resident = min(RESIDENT, SM_SMEM // (smem + 1024))
+                fits.append(((resident, chunk, nbuf), smem))
+        chunk = chunk // 32 * 16
+    if not fits:
+        raise NotImplementedError(
+            f"D={d}: the {kind} kernel needs more than {MAX_SMEM} bytes of "
+            "shared memory per block")
+    (_, chunk, nbuf), smem = max(fits)
+    return Launch(kind, tile, chunk, nbuf, smem, grid, 2 * tile)
 
 
 def launch_plan(n: int, t: int, heads: int, d: int, dtype,
@@ -156,40 +203,29 @@ def launch_plan(n: int, t: int, heads: int, d: int, dtype,
     or halves of that; of those chunks and one or two buffers, the plan
     that leaves room for the most blocks on an SM by shared memory, up to
     RESIDENT, then the largest chunk (fewest copies), then two buffers. On
-    CUDA cores the kernels' fixed plan. Raises NotImplementedError for a
-    head wider than MAX_HEAD or a plan that fits no block."""
+    CUDA cores the kernels' fixed plan; past MAX_HEAD the wide kernels',
+    WIDE_WARPS rows a block and nothing staged. Raises NotImplementedError
+    for a plan that fits no block."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"dtype {dtype} not supported (float32, bfloat16)")
-    if d > MAX_HEAD:
-        raise NotImplementedError(f"D={d}: the flash kernels take heads of "
-                                  f"at most {MAX_HEAD}")
     itemsize = 2 if dtype == torch.bfloat16 else 4
     rows = n * heads
+    if d > MAX_HEAD:
+        grid = (rows, -(-t // WIDE_WARPS))
+        return FlashPlan("wide", *(
+            Launch(kind, WIDE_WARPS, 0, 0, 0, grid, 32 * WIDE_WARPS)
+            for kind in KINDS))
     if not uses_mma(d, itemsize):
         grid = (rows, -(-t // CORE_TILE))
         return FlashPlan("cuda_core", *(
             Launch(kind, CORE_TILE, CORE_CHUNK, 1,
                    smem_bytes(kind, d, itemsize, CORE_TILE, CORE_CHUNK, 1),
                    grid, CORE_TILE) for kind in KINDS))
-    tile = 128 if rows * -(-t // 128) >= 2 * sms else 64
+    tile = mma_tile(rows, t, sms)
     grid = (rows, -(-t // tile))
 
     def one(kind, rows_walked):
-        chunk = min(MAX_CHUNK, -(-rows_walked // 16) * 16)
-        fits = []
-        while chunk >= 16:
-            for nbuf in (2, 1):
-                smem = smem_bytes(kind, d, itemsize, tile, chunk, nbuf)
-                if smem <= MAX_SMEM:
-                    resident = min(RESIDENT, SM_SMEM // (smem + 1024))
-                    fits.append(((resident, chunk, nbuf), smem))
-            chunk = chunk // 32 * 16
-        if not fits:
-            raise NotImplementedError(
-                f"D={d}: the flash {kind} kernel needs more than "
-                f"{MAX_SMEM} bytes of shared memory per block")
-        (_, chunk, nbuf), smem = max(fits)
-        return Launch(kind, tile, chunk, nbuf, smem, grid, 2 * tile)
+        return mma_launch(kind, d, itemsize, tile, rows_walked, grid)
 
     return FlashPlan("mma", one("fwd", kv_block(t, block_kv)),
                      one("bwd_key", t), one("bwd_query", t))
@@ -297,9 +333,6 @@ def _check_launch(q, k, v, key_mask, d, *more):
         raise TypeError(f"q, k, v dtypes {q.dtype}, {k.dtype}, {v.dtype}")
     if key_mask is not None and key_mask.dtype != torch.float32:
         raise TypeError(f"key_mask must be float32, got {key_mask.dtype}")
-    if d > MAX_HEAD:
-        raise NotImplementedError(f"D={d}: the flash kernels take heads of "
-                                  f"at most {MAX_HEAD}")
     n, t, _ = q.shape
     ld = q.stride(1)
     for x in (q, k, v):

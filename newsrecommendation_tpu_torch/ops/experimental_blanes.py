@@ -19,7 +19,11 @@ plain versions are rows 1 and 4's with a zero bias. The kernels are their
 own (``csrc/blanes.cu``): the TPU kernel puts the batch in the vector lanes;
 these give a warp one (row, head, query) at a time with its lanes over the
 keys, or past SHORT_T in bf16 16 queries on tensor cores, in two regimes
-chosen from T by ``launch_plan``. The backward always
+chosen from T by ``launch_plan``. Past what those layouts hold (heads
+wider than MAX_HEAD, or one head's K and V past a block's shared memory;
+``regime``) the same entry points run the fused-qkv kernels' templates
+with a zero bias (rows 1 and 4, ``csrc/qkv_fwd.cuh`` and
+``csrc/qkv_bwd.cuh``), which compute the same function. The backward always
 recomputes, whatever ``bwd_residuals`` says, as the JAX package's custom
 VJPs do.
 
@@ -133,6 +137,22 @@ def launch_plan(kind: str, n: int, t: int, n_heads: int, d: int,
                 min(items, sms * max(per_sm, 2)), smem)
 
 
+def regime(t: int, d: int, itemsize: int) -> str:
+    """"blanes" where rows 15-16's own kernels take (T, D) in the dtype:
+    heads of up to MAX_HEAD whose every kernel fits a block with one head
+    and one buffer; else "qkv", the fused-qkv kernels' templates (any T
+    and D)."""
+    if d > MAX_HEAD:
+        return "qkv"
+    short = t <= SHORT_T
+    kinds = ["fwd", "bwd"] if short else ["fwd", "bwd_query", "bwd_key"]
+    tile = MMA_TILE if long_mma(t, d, itemsize) else TILE
+    rows = t if short else min(tile, t)
+    fits = all(smem_bytes(k, t, d, itemsize, 1, rows, 1) <= kernels.MAX_SMEM
+               for k in kinds)
+    return "blanes" if fits else "qkv"
+
+
 def launch_plans(n: int, t: int, n_heads: int, d: int, itemsize: int,
                  sms: int) -> dict:
     """{"fwd": Plan, "bwd": [Plan, ...]}: the backward is one kernel at
@@ -176,26 +196,27 @@ def blanes_bwd_reference(qkv, key_mask, g, n_heads: int):
                                 g, n_heads)
 
 
-def _check_launch(qkv, key_mask, d, *more):
+def _check_launch(qkv, key_mask, *more):
     kernels.check_operands(qkv, key_mask, *more)
     if key_mask is not None and key_mask.dtype != torch.float32:
         raise TypeError(f"key_mask must be float32, got {key_mask.dtype}")
-    if d > MAX_HEAD:
-        raise NotImplementedError(f"D={d}: the blanes kernels take heads of "
-                                  f"at most {MAX_HEAD}")
 
 
 def blanes_fwd(qkv, key_mask, n_heads: int):
     """Kernel row 15 on CUDA tensors, with the plain version's contract.
     Raises for other devices."""
     n, t, d = _check(qkv, key_mask, n_heads)
-    _check_launch(qkv, key_mask, d)
+    _check_launch(qkv, key_mask)
+    variant = "blanes" if key_mask is None else "blanes_masked"
+    if regime(t, d, qkv.element_size()) == "qkv":
+        # row 1's kernel with a zero bias, counted as row 15
+        return fa._launch(variant, qkv, qkv.new_zeros(qkv.shape[-1]),
+                          key_mask, n_heads)
     p = launch_plan("fwd", n, t, n_heads, d, qkv.element_size(),
                     _sms(qkv.device))
     out = torch.empty((n, t, n_heads * d), dtype=qkv.dtype,
                       device=qkv.device)
-    kernels.call("blanes" if key_mask is None else "blanes_masked",
-                 kernels.entry("blanes", "blanes_fwd", qkv.dtype),
+    kernels.call(variant, kernels.entry("blanes", "blanes_fwd", qkv.dtype),
                  qkv.device, qkv.data_ptr(), kernels.ptr(key_mask),
                  out.data_ptr(), n, t, n_heads, d, p.heads, p.rows, p.nbuf,
                  p.blocks)
@@ -209,7 +230,15 @@ def blanes_bwd(qkv, key_mask, g, n_heads: int):
     if g.shape != (n, t, n_heads * d) or g.dtype != qkv.dtype:
         raise ValueError(f"g must be {qkv.dtype} ({n}, {t}, {n_heads * d}), "
                          f"got {g.dtype} {tuple(g.shape)}")
-    _check_launch(qkv, key_mask, d, g)
+    _check_launch(qkv, key_mask, g)
+    variant = "blanes_bwd" if key_mask is None else "blanes_bwd_masked"
+    if regime(t, d, qkv.element_size()) == "qkv":
+        # row 4's kernels with a zero bias, counted as row 16
+        dqkv = torch.empty_like(qkv)
+        fa._bwd_call(variant, "qkv_bwd", "qkv_bwd", qkv,
+                     qkv.new_zeros(qkv.shape[-1]), key_mask, g, dqkv, n, t,
+                     n_heads, d)
+        return dqkv
     plans = launch_plans(n, t, n_heads, d, qkv.element_size(),
                          _sms(qkv.device))["bwd"]
     dqkv = torch.empty_like(qkv)
@@ -218,9 +247,9 @@ def blanes_bwd(qkv, key_mask, g, n_heads: int):
     stats = (torch.empty((3 * n * n_heads * t,), dtype=torch.float32,
                          device=qkv.device) if len(plans) == 2 else None)
     key = plans[-1] if len(plans) == 2 else Plan("", 0, 0, 0, 0, 0, 0)
-    kernels.call("blanes_bwd" if key_mask is None else "blanes_bwd_masked",
-                 kernels.entry("blanes", "blanes_bwd", qkv.dtype), qkv.device,
-                 qkv.data_ptr(), kernels.ptr(key_mask), g.data_ptr(),
+    kernels.call(variant, kernels.entry("blanes", "blanes_bwd", qkv.dtype),
+                 qkv.device, qkv.data_ptr(), kernels.ptr(key_mask),
+                 g.data_ptr(),
                  dqkv.data_ptr(), kernels.ptr(stats), n, t, n_heads, d,
                  plans[0].heads, plans[0].rows, plans[0].nbuf,
                  plans[0].blocks, key.rows, key.nbuf, key.blocks)

@@ -18,8 +18,9 @@ scratch for its dw1 product over all positions (``csrc/fused_tail_bwd.cu``).
 A row too long for a block's shared memory (at the NRMS width, T > 86 in
 the forward and T > 85 in the backward) keeps its working set in a global
 scratch of one slot per block, which the wrappers allocate
-(``csrc/fused_tail.cuh``): the tail takes the user encoder's long
-histories as the JAX package's does.
+(``csrc/fused_tail.cuh``), and past T = 6456 (5771 in the backward) its
+row buffers too: the tail takes any history length, as the JAX package's
+does.
 
 The rounding points are the TPU kernels': qkv arrives biased in the input
 dtype; per-head contexts are concatenated in f32, unrounded; dropout
@@ -46,6 +47,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from newsrecommendation_tpu_torch.ops import blockwise
 from newsrecommendation_tpu_torch.ops import fused_attention as fa
 from newsrecommendation_tpu_torch.ops import kernels
 from newsrecommendation_tpu_torch.ops.attention import masked_exp_normalize
@@ -211,8 +213,7 @@ def _dropout_args(drop_rate, deterministic):
     return 1, drop_threshold(drop_rate), 1.0 / (1.0 - drop_rate)
 
 
-def _check_launch(src, t, n_heads, d, q, qkv, key_mask, w1, b1, w2, b2, seed,
-                  *more):
+def _check_launch(qkv, key_mask, w1, b1, w2, b2, seed, *more):
     kernels.check_operands(qkv, key_mask, w1, b1, w2, b2, seed, *more)
     for name, x, dtype in (("w1", w1, qkv.dtype), ("w2", w2, qkv.dtype),
                            ("b1", b1, torch.float32),
@@ -222,35 +223,15 @@ def _check_launch(src, t, n_heads, d, q, qkv, key_mask, w1, b1, w2, b2, seed,
             raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
     if key_mask is not None and key_mask.dtype != torch.float32:
         raise TypeError(f"key_mask must be float32, got {key_mask.dtype}")
-    fn = f"{src}_smem_bytes"
-    need = kernels.size_of(src, fn, t, n_heads, d, q)
-    if need > kernels.MAX_SMEM:
-        # rows past what fits move to global memory, leaving the row
-        # buffers in shared memory: the largest T whose need fits, in
-        # [lo, hi) (the need grows with T)
-        lo, hi = 0, t
-        while hi - lo > 1:
-            mid = (lo + hi) // 2
-            if kernels.size_of(src, fn, mid, n_heads, d,
-                               q) <= kernels.MAX_SMEM:
-                lo = mid
-            else:
-                hi = mid
-        raise NotImplementedError(
-            f"{src}: T={t} needs {need} bytes of shared memory per block, "
-            f"over the {kernels.MAX_SMEM} a block may use; at H={n_heads}, "
-            f"D={d}, Q={q} the kernel takes T <= {lo}")
 
 
 def fused_tail_fwd(qkv, key_mask, w1, b1, w2, b2, seed, n_heads: int,
                    drop_rate: float, deterministic: bool):
     """Kernel row 13 on CUDA tensors, with the plain version's contract;
     w1 and w2 in qkv's dtype, b1 and b2 float32, seed int32. Raises for
-    other devices and for a T whose row buffers do not fit in shared
-    memory (T > 6456 at the NRMS width)."""
+    other devices."""
     n, t, d, q = _check(qkv, key_mask, w1, b1, w2, b2, seed, n_heads)
-    _check_launch("fused_tail_fwd", t, n_heads, d, q, qkv, key_mask, w1, b1,
-                  w2, b2, seed)
+    _check_launch(qkv, key_mask, w1, b1, w2, b2, seed)
     out = torch.empty((n, n_heads * d), dtype=qkv.dtype, device=qkv.device)
     scratch, slots = kernels.scratch("fused_tail_fwd",
                                      "fused_tail_fwd_scratch_floats", n,
@@ -279,15 +260,13 @@ def fused_tail_bwd(qkv, key_mask, w1, b1, w2, b2, seed, g, n_heads: int,
     """Kernel row 14 on CUDA tensors, with the plain version's contract.
     The parameter gradients are summed in a fixed order (per row, per split
     of the positions, then over rows and splits), so two runs give the
-    same bits. Raises for other devices and past the T its row buffers
-    and row 4's take (T > 4470 at the NRMS width)."""
+    same bits. Raises for other devices."""
     n, t, d, q = _check(qkv, key_mask, w1, b1, w2, b2, seed, n_heads)
     hd = n_heads * d
     if g.shape != (n, hd) or g.dtype != qkv.dtype:
         raise ValueError(f"g must be {qkv.dtype} ({n}, {hd}), "
                          f"got {g.dtype} {tuple(g.shape)}")
-    _check_launch("fused_tail_bwd", t, n_heads, d, q, qkv, key_mask, w1, b1,
-                  w2, b2, seed, g)
+    _check_launch(qkv, key_mask, w1, b1, w2, b2, seed, g)
     dev = qkv.device
     splits = _n_splits(n * t, hd, q, dev)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -305,18 +284,23 @@ def fused_tail_bwd(qkv, key_mask, w1, b1, w2, b2, seed, g, n_heads: int,
     stage, slots = kernels.scratch("fused_tail_bwd",
                                    "fused_tail_bwd_stage_floats", n, dev, t,
                                    n_heads, d, q)
-    attn_stage, attn_slots = kernels.scratch(
-        "fused_tail_bwd", "fused_tail_bwd_attn_stage_floats", n * n_heads,
-        dev, t, d)
+    # row 4's part in its regime: the plan and row stats on tensor cores,
+    # or its tiled kernel's global slots
+    plan = fa.bwd_launch_plan(n, t, n_heads, d, qkv.dtype,
+                              blockwise._sms(dev))
+    _, attn_stats, attn_stage, attn_slots = fa.bwd_work(
+        "fused_tail_bwd", "fused_tail_bwd_attn_stage_floats", plan, qkv, n,
+        t, n_heads, d, biased=True)
     kernels.call("tail_bwd" if key_mask is None else "tail_bwd_masked",
                  kernels.entry("fused_tail_bwd", "fused_tail_bwd",
                                qkv.dtype),
                  dev, *map(kernels.ptr, (qkv, key_mask, w1, w1t, b1, w2, b2,
                                          seed, g, zero_bias, dqkv, *scratch,
                                          dw1, db1, dw2, db2, stage,
-                                         attn_stage)),
+                                         attn_stage, attn_stats)),
                  n, t, n_heads, d, q, splits, slots, attn_slots,
-                 *_dropout_args(drop_rate, deterministic))
+                 *plan.args(), *_dropout_args(drop_rate, deterministic),
+                 regime=plan.regime)
     return dqkv, dw1, db1, dw2, db2
 
 

@@ -43,12 +43,11 @@ def _check(qkv2d, bias, n_heads, t, key_mask=None):
     return n, d
 
 
-def _check_launch(fn, t, d, *operands):
+def _check_launch(*operands):
     kernels.check_operands(*operands)
     qkv2d, bias = operands[:2]
     if bias.dtype != qkv2d.dtype:
         raise TypeError(f"bias dtype {bias.dtype} != qkv dtype {qkv2d.dtype}")
-    kernels.check_smem("qkv2d", t, d, fn=fn)
 
 
 def qkv2d_fwd(qkv2d, bias, n_heads: int, t: int, key_mask=None):
@@ -57,14 +56,17 @@ def qkv2d_fwd(qkv2d, bias, n_heads: int, t: int, key_mask=None):
     to row 2's on the (N, T, 3HD) view. A key mask raises. Raises for other
     devices."""
     n, d = _check(qkv2d, bias, n_heads, t, key_mask)
-    _check_launch("qkv2d_fwd_smem_bytes", t, d, qkv2d, bias)
+    _check_launch(qkv2d, bias)
     out = torch.empty((n, t, n_heads * d), dtype=qkv2d.dtype,
                       device=qkv2d.device)
     probs = torch.empty((n, t, n_heads * t), dtype=torch.float32,
                         device=qkv2d.device)
+    stage, slots = kernels.scratch("qkv2d", "qkv2d_fwd_slot_floats",
+                                   n * n_heads, qkv2d.device, t, d)
     kernels.call("fwd2d", kernels.entry("qkv2d", "qkv2d_fwd", qkv2d.dtype),
                  qkv2d.device, qkv2d.data_ptr(), bias.data_ptr(),
-                 out.data_ptr(), probs.data_ptr(), n * t, t, n_heads, d)
+                 out.data_ptr(), probs.data_ptr(), kernels.ptr(stage), n * t,
+                 t, n_heads, d, slots)
     return out, probs
 
 
@@ -74,12 +76,10 @@ def qkv2d_bwd(qkv2d, bias, probs, g, n_heads: int, t: int):
     to row 3's on the 3-D views. Raises for other devices."""
     n, d = _check(qkv2d, bias, n_heads, t)
     fa._check_bwd(qkv2d.view(n, t, -1), bias, probs, g, n_heads)
-    _check_launch("qkv2d_bwd_smem_bytes", t, d, qkv2d, bias, probs, g)
+    _check_launch(qkv2d, bias, probs, g)
     dqkv = torch.empty_like(qkv2d)
-    kernels.call("bwd2d", kernels.entry("qkv2d", "qkv2d_bwd", qkv2d.dtype),
-                 qkv2d.device, qkv2d.data_ptr(), bias.data_ptr(),
-                 probs.data_ptr(), g.data_ptr(), dqkv.data_ptr(), n * t, t,
-                 n_heads, d)
+    fa._bwd_call("bwd2d", "qkv2d", "qkv2d_bwd", qkv2d, bias, probs, g, dqkv,
+                 n, t, n_heads, d, rows=n * t)
     return dqkv
 
 

@@ -15,7 +15,9 @@ Replaces, in ``newsrecommendation_tpu/ops/pallas/fused_attention.py``:
   - ``_qkv_bwd_call`` (``_qkv_bwd_kernel``): the backward that recomputes
     the probs from qkv, bias and the mask -> ``csrc/qkv_bwd.cu``, kernel
     "qkv_bwd" (row 4). Rows 3 and 4 share one kernel template
-    (``csrc/qkv_bwd.cuh``) and give the same gradients.
+    (``csrc/qkv_bwd.cuh``) in four regimes that ``bwd_launch_plan``
+    chooses by T, D and the dtype; in all but the tensor-core one they
+    give the same gradients bit for bit.
 and, on separate q, k and v (the JAX package's route when the q/k/v
 widths differ), ``_fwd_call`` / ``_masked_fwd_call`` and ``_bwd_call`` /
 ``_masked_bwd_call`` -> ``csrc/mhsa_sep.cu``, kernels "mhsa_fwd" (rows 5
@@ -38,16 +40,18 @@ Builds and launch counts: ``ops/kernels.py``.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
-from newsrecommendation_tpu_torch.ops import kernel_config, kernels
+from newsrecommendation_tpu_torch.ops import blockwise, kernel_config, kernels
 from newsrecommendation_tpu_torch.ops.attention import masked_exp_normalize
 from newsrecommendation_tpu_torch.ops.kernels import (  # noqa: F401
     KERNELS,
     build,
     launch_counts,
+    regime_counts,
     reset_launch_counts,
 )
 
@@ -75,35 +79,146 @@ def _check_bwd(qkv, bias, probs, g, n_heads):
     return n, t, d
 
 
-def _check_launch(lib, t, d, qkv, bias, key_mask, *more):
-    """What every kernel of library ``lib`` needs of its operands; raises
-    on the rest."""
+def _check_launch(qkv, bias, key_mask, *more):
+    """What every kernel of rows 1-4 needs of its operands; raises on the
+    rest."""
     kernels.check_operands(qkv, bias, key_mask, *more)
     if bias.dtype != qkv.dtype:
         raise TypeError(f"bias dtype {bias.dtype} != qkv dtype {qkv.dtype}")
     if key_mask is not None and key_mask.dtype != torch.float32:
         raise TypeError(f"key_mask must be float32, got {key_mask.dtype}")
-    kernels.check_smem(lib, t, d)
 
 
 def _launch(variant, qkv, bias, key_mask, n_heads, with_probs=False):
     """Row 1 (returns ctx) or, with_probs, row 2 (returns ctx, probs)."""
     n, t, d = _check(qkv, bias, key_mask, n_heads)
-    _check_launch("qkv_fwd", t, d, qkv, bias, key_mask)
+    _check_launch(qkv, bias, key_mask)
     out = torch.empty((n, t, n_heads * d), dtype=qkv.dtype,
                       device=qkv.device)
+    # past shared memory (T > 370 at D = 50): q, k, v and the score rows
+    # in one global slot per block
+    stage, slots = kernels.scratch("qkv_fwd", "qkv_fwd_slot_floats",
+                                   n * n_heads, qkv.device, t, d)
     ptrs = (qkv.data_ptr(), bias.data_ptr(), kernels.ptr(key_mask),
             out.data_ptr())
     if not with_probs:
         kernels.call(variant, kernels.entry("qkv_fwd", "qkv_fwd", qkv.dtype),
-                     qkv.device, *ptrs, n, t, n_heads, d)
+                     qkv.device, *ptrs, kernels.ptr(stage), n, t, n_heads,
+                     d, slots)
         return out
     probs = torch.empty((n, t, n_heads * t), dtype=torch.float32,
                         device=qkv.device)
     kernels.call(variant,
                  kernels.entry("qkv_fwd", "qkv_fwd_probs", qkv.dtype),
-                 qkv.device, *ptrs, probs.data_ptr(), n, t, n_heads, d)
+                 qkv.device, *ptrs, probs.data_ptr(), kernels.ptr(stage), n,
+                 t, n_heads, d, slots)
     return out, probs
+
+
+# ---- rows 3-4: the launch plan ---------------------------------------------
+
+_SMEM_FLOATS = kernels.MAX_SMEM // 4
+_RESIDENT_WARPS, _TILED_WARPS = 4, 8
+REGIMES = ("resident", "mma", "tiled", "tiled_global")
+
+
+def resident(t: int, d: int) -> bool:
+    """Whether the resident kernel holds (T, D): q, k, v, g (T x (D|1)),
+    the T x (T|1) block of a and a row per warp, in f32
+    (``csrc/qkv_bwd.cuh`` qkv_bwd_resident)."""
+    return (4 * t * (d | 1) + t * (t | 1) + _RESIDENT_WARPS * t
+            <= _SMEM_FLOATS)
+
+
+def _tiled_in_smem(t: int, d: int) -> bool:
+    """Whether the tiled kernel's q, k, v, g fit beside its row buffers,
+    row stats and two tile rows (``qkv_bwd_tiled_in_smem``)."""
+    return (4 * t * (d | 1) + (_TILED_WARPS + 3) * t + 2 * (t | 1)
+            <= _SMEM_FLOATS)
+
+
+class BwdPlan(NamedTuple):
+    """The regime of rows 3-4 (``REGIMES``) and, on tensor cores, the
+    launches of the query side (first) and the key side
+    (``blockwise.Launch``: tile, chunk, buffers, shared bytes, grid,
+    threads)."""
+    regime: str
+    query: blockwise.Launch | None = None
+    key: blockwise.Launch | None = None
+
+    def args(self) -> tuple:
+        """The six ints the C entry points take: (tile, chunk, nbuf) of
+        the query side, then of the key side; zeros off tensor cores."""
+        if self.regime != "mma":
+            return (0,) * 6
+        return tuple(x for p in (self.query, self.key)
+                     for x in (p.tile, p.chunk, p.nbuf))
+
+
+def bwd_launch_plan(n: int, t: int, heads: int, d: int, dtype,
+                    sms: int = 132, probs: bool = False) -> BwdPlan:
+    """The regime and launches of rows 3-4 (and 12, and row 14's attention
+    part) at (N, T, H, D) in ``dtype``; ``probs`` for row 3 (and 12),
+    which reads the f32 probs. The resident kernel where it holds (T, D)
+    (T <= 201 at D = 20, both dtypes); past it, bf16 heads of up to 64 on
+    tensor cores, each side a block per (row, head) and tile of 128 own
+    rows (64 when that leaves fewer than two blocks per SM), the other side
+    staged in chunks (``blockwise.mma_launch``), with row 3's probs tile;
+    f32 and wider heads on the tiled CUDA-core kernel, in shared memory
+    while it fits and in one global slot per block past it. Every T and D
+    has a plan; a dtype other than float32 and bfloat16 raises
+    TypeError."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dtype {dtype} not supported (float32, bfloat16)")
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    if resident(t, d):
+        return BwdPlan("resident")
+    if blockwise.uses_mma(d, itemsize):
+        rows = n * heads
+        tile = blockwise.mma_tile(rows, t, sms)
+        grid = (rows, -(-t // tile))
+        return BwdPlan("mma", *(
+            blockwise.mma_launch(kind + ("_probs" if probs else ""), d,
+                                 itemsize, tile, t, grid)
+            for kind in ("bwd_query", "bwd_key")))
+    return BwdPlan("tiled" if _tiled_in_smem(t, d) else "tiled_global")
+
+
+def bwd_work(lib: str, fn: str, plan: BwdPlan, qkv, n: int, t: int,
+             n_heads: int, d: int, biased: bool = False):
+    """The scratch of a rows 3-4 launch in ``plan``'s regime: on tensor
+    cores the biased qkv (unless ``biased``: qkv carries its bias) and the
+    row stats (3, N*H, T) f32; for the tiled kernel in global memory its
+    (stage, slots), sized by size function ``fn`` of source ``lib``.
+    Returns (biased qkv, stats, stage, slots), None and 0 where the regime
+    reads none."""
+    work = stats = stage = None
+    slots = 0
+    if plan.regime == "mma":
+        work = None if biased else torch.empty_like(qkv)
+        stats = torch.empty((3, n * n_heads, t), dtype=torch.float32,
+                            device=qkv.device)
+    elif plan.regime == "tiled_global":
+        stage, slots = kernels.scratch(lib, fn, n * n_heads, qkv.device, t,
+                                       d, qkv.element_size())
+    return work, stats, stage, slots
+
+
+def _bwd_call(variant, lib, fn, qkv, bias, third, g, dqkv, n, t, n_heads, d,
+              rows=None):
+    """Launch row 3 (third: probs), 4 (lib "qkv_bwd"; third: the mask or
+    None) or 12 (``rows`` = N*T) in the regime of its plan."""
+    plan = bwd_launch_plan(n, t, n_heads, d, qkv.dtype,
+                           blockwise._sms(qkv.device),
+                           probs=lib != "qkv_bwd")
+    biased, stats, stage, slots = bwd_work(lib, f"{fn}_slot_floats", plan,
+                                           qkv, n, t, n_heads, d)
+    kernels.call(variant, kernels.entry(lib, fn, qkv.dtype), qkv.device,
+                 qkv.data_ptr(), bias.data_ptr(), kernels.ptr(third),
+                 g.data_ptr(), dqkv.data_ptr(),
+                 *map(kernels.ptr, (biased, stats, stage)),
+                 n if rows is None else rows, t, n_heads, d, *plan.args(),
+                 slots, regime=plan.regime)
 
 
 def qkv_fwd_probs(qkv, bias, key_mask, n_heads: int):
@@ -118,13 +233,10 @@ def qkv_bwd_probs(qkv, bias, probs, g, n_heads: int):
     the probs row 2 saved and the context's gradient g (N, T, HD) in qkv's
     dtype. Raises for other devices."""
     n, t, d = _check_bwd(qkv, bias, probs, g, n_heads)
-    _check_launch("qkv_bwd_probs", t, d, qkv, bias, None, probs, g)
+    _check_launch(qkv, bias, None, probs, g)
     dqkv = torch.empty_like(qkv)
-    kernels.call("bwd_probs",
-                 kernels.entry("qkv_bwd_probs", "qkv_bwd_probs", qkv.dtype),
-                 qkv.device, qkv.data_ptr(), bias.data_ptr(),
-                 probs.data_ptr(), g.data_ptr(), dqkv.data_ptr(), n, t,
-                 n_heads, d)
+    _bwd_call("bwd_probs", "qkv_bwd_probs", "qkv_bwd_probs", qkv, bias,
+              probs, g, dqkv, n, t, n_heads, d)
     return dqkv
 
 
@@ -135,12 +247,10 @@ def qkv_bwd(qkv, bias, key_mask, g, n_heads: int):
     them. Raises for other devices."""
     n, t, d = _check(qkv, bias, key_mask, n_heads)
     _check_grad(g, qkv, n, t, n_heads * d)
-    _check_launch("qkv_bwd", t, d, qkv, bias, key_mask, g)
+    _check_launch(qkv, bias, key_mask, g)
     dqkv = torch.empty_like(qkv)
-    kernels.call("bwd" if key_mask is None else "bwd_masked",
-                 kernels.entry("qkv_bwd", "qkv_bwd", qkv.dtype), qkv.device,
-                 qkv.data_ptr(), bias.data_ptr(), kernels.ptr(key_mask),
-                 g.data_ptr(), dqkv.data_ptr(), n, t, n_heads, d)
+    _bwd_call("bwd" if key_mask is None else "bwd_masked", "qkv_bwd",
+              "qkv_bwd", qkv, bias, key_mask, g, dqkv, n, t, n_heads, d)
     return dqkv
 
 

@@ -8,7 +8,9 @@ starts one ``nvcc`` per source that is not built yet, all at once. A rerun
 with the same sources reuses the libraries; a failed build raises.
 
 Each wrapper counts its launches per variant (``KERNELS``), so a run can
-show which kernels its path went through. A CPU tensor takes a kernel's
+show which kernels its path went through; a wrapper whose launch takes one
+of several regimes (rows 3-4, 12 and 14: resident, tensor-core or tiled
+kernels) also counts it per regime. A CPU tensor takes a kernel's
 plain PyTorch version and counts nothing; a CUDA tensor launches the
 kernel or raises; any other device raises ``NoKernelError``.
 """
@@ -35,16 +37,16 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # types of their arguments ("p" a pointer, "i" an int, "u" an unsigned
 # 32-bit int, "f" a float); the stream comes last.
 _ENTRY_POINTS = {
-    "qkv_fwd": {"qkv_fwd": "p" * 4 + "i" * 4,
-                "qkv_fwd_probs": "p" * 5 + "i" * 4},
-    "qkv_bwd_probs": {"qkv_bwd_probs": "p" * 5 + "i" * 4},
-    "qkv_bwd": {"qkv_bwd": "p" * 5 + "i" * 4},
+    "qkv_fwd": {"qkv_fwd": "p" * 5 + "i" * 5,
+                "qkv_fwd_probs": "p" * 6 + "i" * 5},
+    "qkv_bwd_probs": {"qkv_bwd_probs": "p" * 8 + "i" * 11},
+    "qkv_bwd": {"qkv_bwd": "p" * 8 + "i" * 11},
     "flash_fwd": {"flash_fwd": "p" * 7 + "i" * 9},
     "flash_bwd": {"flash_bwd": "p" * 11 + "i" * 11},
-    "qkv2d": {"qkv2d_fwd": "p" * 4 + "i" * 4,
-              "qkv2d_bwd": "p" * 5 + "i" * 4},
+    "qkv2d": {"qkv2d_fwd": "p" * 5 + "i" * 5,
+              "qkv2d_bwd": "p" * 8 + "i" * 11},
     "fused_tail_fwd": {"fused_tail_fwd": "p" * 9 + "i" * 7 + "uf"},
-    "fused_tail_bwd": {"fused_tail_bwd": "p" * 22 + "i" * 9 + "uf"},
+    "fused_tail_bwd": {"fused_tail_bwd": "p" * 23 + "i" * 15 + "uf"},
     "blanes": {"blanes_fwd": "p" * 3 + "i" * 8,
                "blanes_bwd": "p" * 5 + "i" * 11},
     "mhsa_sep": {"mhsa_sep_fwd": "p" * 6 + "i" * 9,
@@ -52,22 +54,22 @@ _ENTRY_POINTS = {
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "u": ctypes.c_uint32,
            "f": ctypes.c_float}
-# Sources whose block stages whole rows or (T, D) operands in shared memory
-# export size functions (no dtype suffix): the shared bytes a block needs,
-# checked against what a block may use, the floats of a scratch slot
-# where a long row moves to global memory, and the flash forward's count
-# of key-walk tasks. {source: {function: count of int arguments}}.
+# Sources whose block stages whole rows or (T, D) operands export size
+# functions (no dtype suffix): the shared bytes a block needs, checked
+# against what a block may use, the floats of a scratch slot where a long
+# row moves to global memory, rows 3-4's regime and tensor-core layout,
+# and the flash forward's count of key-walk tasks. {source: {function:
+# count of int arguments}}.
 _SIZE_FUNCTIONS = {
-    "qkv_fwd": {"qkv_fwd_smem_bytes": 2},
-    "qkv_bwd_probs": {"qkv_bwd_probs_smem_bytes": 2},
-    "qkv_bwd": {"qkv_bwd_smem_bytes": 2},
+    "qkv_fwd": {"qkv_fwd_slot_floats": 2},
+    "qkv_bwd_probs": {"qkv_bwd_probs_slot_floats": 3},
+    "qkv_bwd": {"qkv_bwd_slot_floats": 3, "qkv_bwd_regime": 3,
+                "qkv_bwd_mma_smem_bytes": 5},
     "flash_fwd": {"flash_smem_bytes": 6, "flash_walk_task_count": 3},
-    "qkv2d": {"qkv2d_fwd_smem_bytes": 2, "qkv2d_bwd_smem_bytes": 2},
-    "fused_tail_fwd": {"fused_tail_fwd_smem_bytes": 4,
-                       "fused_tail_fwd_scratch_floats": 4},
-    "fused_tail_bwd": {"fused_tail_bwd_smem_bytes": 4,
-                       "fused_tail_bwd_stage_floats": 4,
-                       "fused_tail_bwd_attn_stage_floats": 2},
+    "qkv2d": {"qkv2d_fwd_slot_floats": 2, "qkv2d_bwd_slot_floats": 3},
+    "fused_tail_fwd": {"fused_tail_fwd_scratch_floats": 4},
+    "fused_tail_bwd": {"fused_tail_bwd_stage_floats": 4,
+                       "fused_tail_bwd_attn_stage_floats": 3},
     "blanes": {"blanes_smem_bytes": 7},
     "mhsa_sep": {"mhsa_sep_fwd_scratch_floats": 3,
                  "mhsa_sep_bwd_scratch_floats": 3},
@@ -99,6 +101,7 @@ _lock = threading.Lock()  # guards the launch counts
 _build_lock = threading.Lock()
 _libs = {}
 _launches = {v: 0 for variants in KERNELS.values() for v in variants}
+_regime_launches = {}  # {(variant, regime): launches}
 
 
 class NoKernelError(NotImplementedError, ValueError):
@@ -113,10 +116,23 @@ def launch_counts(kernel: str = "qkv_fwd") -> dict:
         return {v: _launches[v] for v in KERNELS[kernel]}
 
 
+def regime_counts(kernel: str) -> dict:
+    """Launches of one kernel of ``KERNELS`` per regime of its launch plan
+    (summed over its variants) since the last reset_launch_counts(); only
+    the regimes launched."""
+    out = {}
+    with _lock:
+        for (variant, regime), count in _regime_launches.items():
+            if variant in KERNELS[kernel]:
+                out[regime] = out.get(regime, 0) + count
+    return out
+
+
 def reset_launch_counts() -> None:
     with _lock:
         for k in _launches:
             _launches[k] = 0
+        _regime_launches.clear()
 
 
 def _nvcc() -> str:
@@ -242,23 +258,19 @@ def scratch(name: str, fn: str, n_items: int, device, *dims):
                        device=device), slots
 
 
-def check_smem(name: str, t: int, d: int, fn: str | None = None) -> None:
-    smem = size_of(name, fn or f"{name}_smem_bytes", t, d)
-    if smem > MAX_SMEM:
-        raise NotImplementedError(
-            f"T={t}, D={d} needs {smem} bytes of shared memory per block in "
-            f"{fn or name}; the kernel takes at most {MAX_SMEM}")
-
-
-def call(variant: str, fn, device, *args) -> None:
+def call(variant: str, fn, device, *args, regime: str | None = None) -> None:
     """Launch ``fn(*args, stream)`` on ``device``'s current stream, raise if
-    the launch was refused, and count it."""
+    the launch was refused, and count it (also under ``regime``, if
+    given)."""
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{variant} kernel launch failed: CUDA error {err}")
     with _lock:
         _launches[variant] += 1
+        if regime is not None:
+            key = (variant, regime)
+            _regime_launches[key] = _regime_launches.get(key, 0) + 1
 
 
 def ptr(x):

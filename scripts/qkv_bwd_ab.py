@@ -1,0 +1,276 @@
+#!/usr/bin/env python3
+"""One side of an A/B of the fused-qkv attention backward (rows 3-4) on one
+NVIDIA GPU: run it from the root of each checkout in turn, in one process
+per run, on the same card (parent, change, change, parent) and compare the
+lines it prints.
+
+    python3 scripts/qkv_bwd_ab.py LABEL [--limits] [--plans]
+
+It prints one line, ``AB {json}``, with:
+  - rows 3 (qkv_bwd_probs) and 4 (qkv_bwd, unmasked and key-masked) at
+    (N, T) = (64, 511), (128, 300) and (7040, 20), 20 heads of 20, in
+    bf16 (and (7040, 20), (128, 50) in f32 too): a hash of each output on
+    fixed inputs, so two checkouts can be held equal bit for bit, and its
+    ms (CUDA events over 10 calls);
+  - rows 1-2 (qkv_fwd, qkv_fwd_probs) at (7040, 20) and (128, 50), hashes
+    and ms, for the resident forward;
+  - the device ms (chip_smoke.profile_device) of two training steps of
+    NRMS at its published width in bf16, batch 128, 1+4 candidates, on a
+    synthetic corpus of 8,192 news: with the fused encoder tail and
+    512-news histories (row 4's part of row 14 at T = 512), and with
+    300-news histories (rows 2-3 at T = 300), with their launches of rows
+    2-4 and 14.
+With --limits (a checkout that takes those shapes) it also times, kernel
+and plain version, the paths past the old limits: rows 1 and 4 at 8 heads
+of 50 and T = 400 (f32: row 1's and row 4's working sets in global
+slots; bf16: row 4 on tensor cores), rows 9-10 on the wide kernels at
+(8, 512) with 5 heads of 80, (4, 512) with 1 head of 400 and (2, 512)
+with 1 head of 1100, rows 15-16 through the fused-qkv kernels at 5 heads
+of 80, T = 512, and rows 13-14 at (2, 7000) with 4 heads of 20.
+With --plans (a checkout whose row 3 stages its probs) it also times row
+3 at (64, 511) and (128, 300) in bf16 under other launch plans: each
+side in turn with tiles of 64 or 128 and (chunk, buffers) of (32, 1),
+(32, 2), (64, 1), (64, 2), (128, 1), (128, 2) or (256, 1) where they fit,
+the other side on the default plan; each with its output hash, which the
+plan must not change.
+It uses the checkout's own package and chip_smoke.py, so it runs on older
+checkouts too. Without CUDA it exits 1.
+"""
+
+import hashlib
+import json
+import os
+import sys
+import tempfile
+
+sys.path.insert(0, os.getcwd())
+
+
+def _hash(x):
+    import torch
+
+    bits = x.contiguous().view(
+        torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+    return hashlib.sha256(bits.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _inputs(n, t, dtype, masked, seed):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((n, t, 1200), generator=gen, device="cuda").to(dtype)
+    bias = (0.5 * torch.randn((1200,), generator=gen, device="cuda")).to(
+        dtype)
+    g = torch.randn((n, t, 400), generator=gen, device="cuda").to(dtype)
+    mask = None
+    if masked:
+        mask = (torch.rand((n, t), generator=gen, device="cuda") > 0.3).float()
+        mask[:, -1] = 1.0
+        mask[::7] = 0.0
+    return qkv, bias, g, mask
+
+
+def _limits(cs, out):
+    import torch
+
+    from newsrecommendation_tpu_torch.ops import blockwise as bw
+    from newsrecommendation_tpu_torch.ops import experimental_blanes as bl
+    from newsrecommendation_tpu_torch.ops import (
+        experimental_fused_encoder as fe,
+    )
+    from newsrecommendation_tpu_torch.ops import fused_attention as fa
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        qkv = torch.randn((16, 400, 1200), generator=gen,
+                          device="cuda").to(dtype)
+        bias = torch.zeros(1200, device="cuda", dtype=dtype)
+        g = torch.randn((16, 400, 400), generator=gen, device="cuda").to(
+            dtype)
+        out[f"limits row1 {name} 16x400 h8"] = [
+            cs.time_ms(lambda: fa.exp_mhsa_qkv_bias(qkv, bias, 8), 5),
+            cs.time_ms(lambda: fa.exp_mhsa_qkv_bias_reference(
+                qkv, bias, None, 8), 5)]
+        out[f"limits row4 {name} 16x400 h8"] = [
+            cs.time_ms(lambda: fa.qkv_bwd(qkv, bias, None, g, 8), 5),
+            cs.time_ms(lambda: fa.qkv_bwd_reference(qkv, bias, None, g, 8),
+                       5)]
+        for n, heads, d in ((8, 5, 80), (4, 1, 400), (2, 1, 1100)):
+            x = torch.randn((n, 512, 3 * heads * d), generator=gen,
+                            device="cuda").to(dtype)
+            gg = torch.randn((n, 512, heads * d), generator=gen,
+                             device="cuda").to(dtype)
+            q, k, v = torch.split(x, heads * d, dim=-1)
+            o, m, den = bw.flash_fwd(q, k, v, None, heads)
+            delta = bw.delta_of(gg, o, heads)
+            key = f"{name} {n}x512 h{heads} d{d}"
+            out[f"limits row9 {key}"] = [
+                cs.time_ms(lambda: bw.flash_fwd(q, k, v, None, heads), 5),
+                cs.time_ms(lambda: bw.flash_fwd_reference(q, k, v, None,
+                                                          heads), 5)]
+            out[f"limits row10 {key}"] = [
+                cs.time_ms(lambda: bw.flash_bwd(q, k, v, None, gg, m, den,
+                                                delta, heads), 5),
+                cs.time_ms(lambda: bw.flash_bwd_reference(
+                    q, k, v, None, gg, m, den, delta, heads), 5)]
+            if d == 80:
+                out[f"limits row15 {key}"] = [
+                    cs.time_ms(lambda: bl.blanes_fwd(x, None, heads), 5),
+                    cs.time_ms(lambda: bl.blanes_fwd_reference(x, None,
+                                                               heads), 5)]
+                out[f"limits row16 {key}"] = [
+                    cs.time_ms(lambda: bl.blanes_bwd(x, None, gg, heads), 5),
+                    cs.time_ms(lambda: bl.blanes_bwd_reference(
+                        x, None, gg, heads), 5)]
+        qkv, mask, pool, gt = cs.tail_inputs(2, 7000, 4, 20, 200, name, True,
+                                             3)
+        seed = torch.zeros(1, dtype=torch.int32, device="cuda")
+        args = (qkv, mask, *pool, seed, 4, 0.0, True)
+        out[f"limits row13 {name} 2x7000 h4"] = [
+            cs.time_ms(lambda: fe.fused_tail_fwd(*args), 3),
+            cs.time_ms(lambda: fe.fused_tail_fwd_reference(*args), 3)]
+        out[f"limits row14 {name} 2x7000 h4"] = [
+            cs.time_ms(lambda: fe.fused_tail_bwd(*args[:7], gt, *args[7:]),
+                       3),
+            cs.time_ms(lambda: fe.fused_tail_bwd_reference(
+                *args[:7], gt, *args[7:]), 3)]
+
+
+def _plans(cs, out):
+    import torch
+
+    from newsrecommendation_tpu_torch.ops import blockwise as bw
+    from newsrecommendation_tpu_torch.ops import fused_attention as fa
+    from newsrecommendation_tpu_torch.ops import kernels
+
+    default = fa.bwd_launch_plan
+    for n, t in ((64, 511), (128, 300)):
+        qkv, bias, g, _ = _inputs(n, t, torch.bfloat16, False, 5)
+        _, probs = fa.qkv_fwd_probs(qkv, bias, None, 20)
+        base = default(n, t, 20, 20, torch.bfloat16, probs=True)
+        plans = {"default": base}
+        for side in ("query", "key"):
+            for tile in (64, 128):
+                for chunk, nbuf in ((32, 1), (32, 2), (64, 1), (64, 2),
+                                    (128, 1), (128, 2), (256, 1)):
+                    kind = f"bwd_{side}_probs"
+                    smem = bw.smem_bytes(kind, 20, 2, tile, chunk, nbuf)
+                    if smem <= kernels.MAX_SMEM:
+                        plans[f"{side} {tile} {chunk} {nbuf}"] = \
+                            base._replace(**{side: bw.Launch(
+                                kind, tile, chunk, nbuf, smem,
+                                (n * 20, -(-t // tile)), 2 * tile)})
+        for name, plan in plans.items():
+            fa.bwd_launch_plan = lambda *a, _plan=plan, **k: _plan
+            try:
+                def fn():
+                    return fa.qkv_bwd_probs(qkv, bias, probs, g, 20)
+
+                out[f"plan row3 {n}x{t} {name}"] = [_hash(fn()),
+                                                    cs.time_ms(fn, 10)]
+            finally:
+                fa.bwd_launch_plan = default
+
+
+def _steps(cs, out):
+    import torch
+
+    from newsrecommendation_tpu_torch.config import Config
+    from newsrecommendation_tpu_torch.data import (
+        build_news_features, random_word_embeddings, read_news)
+    from newsrecommendation_tpu_torch.data.loader import TrainSamples
+    from newsrecommendation_tpu_torch.data.prepare import (
+        prepare_training_data)
+    from newsrecommendation_tpu_torch.data.synthetic import generate_corpus
+    from newsrecommendation_tpu_torch.ops import fused_attention as fa
+    from newsrecommendation_tpu_torch.train import make_train_step
+
+    cfg = Config()
+    samples = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        generate_corpus(tmp, num_news=8192, num_users=100,
+                        num_impressions=600, title_len=cfg.num_words_title,
+                        max_history=600, seed=0)
+        prepare_training_data(tmp, 1, cfg.npratio, seed=0)
+        corpus = read_news(os.path.join(tmp, "news.tsv"), cfg)
+        for length in (512, 300):
+            samples[length] = TrainSamples.from_file(
+                os.path.join(tmp, f"behaviors_np{cfg.npratio}_0.tsv"),
+                corpus.news_index, cfg.replace(user_log_length=length))
+    feats = torch.from_numpy(build_news_features(corpus, cfg)).cuda()
+    table = random_word_embeddings(corpus.word_dict, cfg.word_embedding_dim)
+    for name, length, extra in (("fused_tail_l512", 512,
+                                 {"fused_tail": "on"}),
+                                ("l300", 300, {})):
+        tcfg = cfg.replace(compute_dtype="bfloat16", batch_size=128,
+                           npratio=4, lr=3e-4, drop_rate=0.2,
+                           freeze_embedding=True, device_gather=True,
+                           prefetch_depth=2, epochs=1, seed=0,
+                           deterministic=False, user_log_length=length,
+                           **extra)
+        model, state = cs.train_setup(tcfg, table, 2, "cuda")
+        step = make_train_step(tcfg, model, device_gather=True)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in next(
+            samples[length].iter_index_batches(tcfg.batch_size, epoch=0,
+                                               seed=2)).items()}
+        fa.reset_launch_counts()
+        step(state, batch, tcfg.seed, feats)
+        torch.cuda.synchronize()
+        out[f"step_{name}_launches"] = {
+            k: fa.launch_counts(k) for k in (
+                "qkv_fwd_probs", "qkv_bwd_probs", "qkv_bwd",
+                "fused_tail_bwd")}
+        out[f"step_{name}"] = cs.profile_device(
+            lambda: step(state, batch, tcfg.seed, feats), reps=3)
+
+
+def main() -> int:
+    import torch
+
+    args = [a for a in sys.argv[1:] if a not in ("--limits", "--plans")]
+    if len(args) != 1 or not torch.cuda.is_available():
+        print(__doc__, file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from newsrecommendation_tpu_torch.ops import fused_attention as fa
+    from newsrecommendation_tpu_torch.ops import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.build()
+    out = {"label": args[0], "card": torch.cuda.get_device_name(0)}
+    bf16, f32 = torch.bfloat16, torch.float32
+    for n, t, dtype in [(64, 511, bf16), (128, 300, bf16), (7040, 20, bf16),
+                        (7040, 20, f32), (128, 50, bf16), (128, 50, f32)]:
+        name = f"{str(dtype).split('.')[1]} {n}x{t}"
+        for masked in (False, True):
+            qkv, bias, g, mask = _inputs(n, t, dtype, masked, 5)
+            _, probs = fa.qkv_fwd_probs(qkv, bias, mask, 20)
+            rows = {"row4": lambda: fa.qkv_bwd(qkv, bias, mask, g, 20)}
+            if not masked:
+                rows["row3"] = lambda: fa.qkv_bwd_probs(qkv, bias, probs, g,
+                                                        20)
+            if t <= 50:
+                rows["row1"] = lambda: (
+                    fa.exp_mhsa_qkv_bias_masked(qkv, bias, mask, 20)
+                    if mask is not None else fa.exp_mhsa_qkv_bias(qkv, bias,
+                                                                  20))
+                rows["row2"] = lambda: fa.qkv_fwd_probs(qkv, bias, mask,
+                                                        20)[1]
+            for row, fn in rows.items():
+                with torch.inference_mode():
+                    h = _hash(fn())
+                out[f"{row} {name}{'m' if masked else ''}"] = [
+                    h, cs.time_ms(fn, 10)]
+    _steps(cs, out)
+    if "--limits" in sys.argv:
+        _limits(cs, out)
+    if "--plans" in sys.argv:
+        _plans(cs, out)
+    print("AB " + json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

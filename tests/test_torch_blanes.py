@@ -116,6 +116,36 @@ def test_plain_versions_match_jax_kernels(dtype, masked):
 
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_versions_match_jax_kernels_at_d80(dtype, masked):
+    """Rows 15-16's plain versions against JAX's batch-in-lanes kernels at
+    a head of 80, past the card's own blanes layouts (it runs rows 1 and
+    4's kernels there)."""
+    heads = 2
+    rng = np.random.default_rng(14)
+    qkv = rng.normal(size=(N, T, 3 * heads * 80)).astype(np.float32)
+    g = rng.normal(size=(N, T, heads * 80)).astype(np.float32)
+    mask = (rng.random((N, T)) > 0.3).astype(np.float32)
+    mask[:, 0] = 1.0
+    mask[2] = 0.0  # a fully masked row
+    km = mask if masked else None
+    set_pallas_mode("interpret")
+    try:
+        jm = None if km is None else _j(km)
+        want = jbl._blanes_fwd_call(_j(qkv, dtype), jm, heads, 128)
+        wantg = jbl._blanes_bwd_call(_j(qkv, dtype), jm, _j(g, dtype), heads,
+                                     128)
+    finally:
+        set_pallas_mode("auto")
+    tq, tm = _t(qkv, dtype), None if km is None else _t(km)
+    np.testing.assert_allclose(_np(bl.blanes_fwd_reference(tq, tm, heads)),
+                               _np(want), **FWD_TOL[dtype])
+    np.testing.assert_allclose(
+        _np(bl.blanes_bwd_reference(tq, tm, _t(g, dtype), heads)),
+        _np(wantg), **BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_functions_match_jax_grad(dtype, masked):
     qkv, mask, g = _case(seed=1)
     km = mask if masked else None
@@ -336,10 +366,24 @@ def test_launch_plan_two_blocks_per_sm_at_main_path_shapes(n, t):
         assert p.blocks >= 2 * SMS, p
 
 
-def test_launch_plan_refuses_rows_past_shared_memory():
+@pytest.mark.parametrize("t, d, itemsize, regime", [
+    (318, 64, 4, "blanes"), (319, 64, 4, "qkv"), (941, 20, 4, "blanes"),
+    (942, 20, 4, "qkv"), (1232, 20, 2, "blanes"), (1233, 20, 2, "qkv"),
+    (511, 64, 2, "blanes"), (20, 65, 2, "qkv"), (512, 80, 4, "qkv"),
+    (512, 400, 2, "qkv")])
+def test_launch_plan_refuses_rows_past_shared_memory(t, d, itemsize, regime):
     """f32 heads of 64 at T = 511: one head's K and V alone (262 KB) do
-    not fit in a block; the plan raises rather than launch."""
+    not fit in a block, so rows 15-16's own plan raises rather than
+    launch. Past the last T their layouts hold (318 at f32 D = 64, 941 at
+    f32 D = 20, 1,232 in bf16 at D = 20) and at every head past 64 the
+    entry points take the fused-qkv kernels' templates instead
+    (``regime`` "qkv"), which take any T and D."""
     with pytest.raises(NotImplementedError, match="shared memory"):
         bl.launch_plan("fwd", 2, 511, 1, 64, 4, SMS)
     assert bl.launch_plan("fwd", 2, 511, 1, 64, 2, SMS).smem <= (
         kernels.MAX_SMEM)
+    assert bl.regime(t, d, itemsize) == regime
+    if regime == "blanes":
+        plans = bl.launch_plans(2, t, 1, d, itemsize, SMS)
+        assert all(p.smem <= kernels.MAX_SMEM
+                   for p in [plans["fwd"], *plans["bwd"]])

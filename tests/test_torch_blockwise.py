@@ -125,6 +125,41 @@ def test_bwd_plain_matches_jax_kernel(jax_kernels, dtype, masked):
         assert all((x[2] == 0).all() for x in got)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_plain_matches_jax_kernels_at_d80(jax_kernels, dtype, masked):
+    """Rows 9-10's plain versions against JAX's blockwise kernels at a head
+    of 80 (news_dim 400 in 5 heads, which the card's wide kernels take),
+    block_kv 8 over 24 keys."""
+    rng = np.random.default_rng(7)
+    heads, d = 2, 80
+    q, k, v, g = (rng.normal(size=(N, T, heads * d)).astype(np.float32)
+                  for _ in range(4))
+    mask = (rng.random((N, T)) > 0.3).astype(np.float32)
+    mask[:, 0] = 1.0
+    mask[2] = 0.0
+    km = mask if masked else None
+    tq, tk, tv, tg = (_t(x, dtype) for x in (q, k, v, g))
+    tm = None if km is None else _t(km)
+    jm = None if km is None else jnp.asarray(km)
+    o, m, den = bw.flash_fwd_reference(tq, tk, tv, tm, heads, BLOCK)
+    jo, jmax, jden = jbw._fwd_call(_j(q, dtype), _j(k, dtype), _j(v, dtype),
+                                   jm, heads, BLOCK, BLOCK)
+    np.testing.assert_allclose(_np(o), _np(jo), **FWD_TOL[dtype])
+    np.testing.assert_allclose(_np(m), _np(jmax), **FWD_TOL["float32"])
+    np.testing.assert_allclose(_np(den), _np(jden), **FWD_TOL["float32"])
+    delta = bw.delta_of(tg, o, heads)
+    got = bw.flash_bwd_reference(tq, tk, tv, tm, tg, m, den, delta, heads,
+                                 BLOCK)
+    want = jbw._bwd_call(_j(q, dtype), _j(k, dtype), _j(v, dtype), jm,
+                         _j(g, dtype), jnp.asarray(m.numpy()),
+                         jnp.asarray(den.numpy()),
+                         jnp.asarray(delta.numpy()), heads, BLOCK, BLOCK)
+    for name, a, b in zip("qkv", got, want):
+        np.testing.assert_allclose(_np(a), _np(b), **BWD_TOL[dtype],
+                                   err_msg=f"d{name}")
+
+
 def _jax_grads(q, k, v, mask, g, dtype):
     def loss(q, k, v):
         if mask is None:
@@ -384,9 +419,21 @@ def test_launch_plan_fills_the_card(n, t):
         assert bw.SM_SMEM // (p.smem + 1024) >= 2, p
 
 
-def test_launch_plan_refuses_what_the_kernels_do_not_take():
-    with pytest.raises(NotImplementedError, match="at most 64"):
-        bw.launch_plan(2, 512, 2, 65, torch.bfloat16)
+@pytest.mark.parametrize("d", [65, 80, 100, 200, 400, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_launch_plan_refuses_what_the_kernels_do_not_take(d, dtype):
+    """Heads past 64 (news_dim 400 with 1, 2, 4 or 5 heads, and any wider)
+    take the wide kernels in either dtype: WIDE_WARPS rows a block, a warp
+    each, every row of every (row, head) covered, nothing staged. In f16
+    the plan raises."""
+    for width in (d, d + 1024):
+        plan = bw.launch_plan(2, 512, 2, width, dtype)
+        assert plan.regime == "wide"
+        for p in plan[1:]:
+            assert (p.tile, p.chunk, p.nbuf, p.smem) == (bw.WIDE_WARPS, 0,
+                                                         0, 0)
+            assert p.grid == (4, 512 // bw.WIDE_WARPS)
+            assert p.threads == 32 * bw.WIDE_WARPS
     with pytest.raises(TypeError, match="float16"):
         bw.launch_plan(2, 512, 2, 20, torch.float16)
     # the C side's own refusals (a tile, chunk or buffer count it does not

@@ -78,9 +78,14 @@ def test_kernel_raises_on_what_it_does_not_take():
     ref = fa.exp_mhsa_qkv_bias_reference(q, b, None, 2)
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
                                **TOL["float32"])
-    q = torch.zeros((1, 400, 3 * 64), device="cuda")  # D=64: too much smem
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        fa.exp_mhsa_qkv_bias(q, torch.zeros(192, device="cuda"), 1)
+    # D = 64 at T = 400 passes a block's shared memory: the working set
+    # moves to a global slot per block, and the result agrees
+    q = torch.randn((2, 400, 3 * 64), device="cuda")
+    b = torch.randn(192, device="cuda")
+    np.testing.assert_allclose(
+        fa.exp_mhsa_qkv_bias(q, b, 1).cpu().numpy(),
+        fa.exp_mhsa_qkv_bias_reference(q, b, None, 1).cpu().numpy(),
+        **TOL["float32"])
     q = torch.zeros((2, 5, 24), device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError):
         fa.exp_mhsa_qkv_bias(q, torch.zeros(24, device="cuda",
@@ -180,8 +185,8 @@ def test_launch_counts_follow_grad_mode():
 
 def test_probs_kernels_raise_on_what_they_do_not_take():
     """A CUDA tensor never takes the plain version: what the kernels do not
-    take raises, under grad too. Row 3 takes every T that row 2 takes up to
-    511 at D = 20 (and beyond: it stages no T x T block)."""
+    take raises, under grad too. Rows 2 and 3 take every T: at T = 700,
+    D = 20 row 3 runs its tiled kernel in global slots (f32)."""
     q = torch.randn((1, 300, 3 * 20), device="cuda", requires_grad=True)
     b = torch.zeros(60, device="cuda")
     out = fa.exp_mhsa_qkv_bias(q, b, 1)  # rows 2 and 3 take T=300 at D=20
@@ -191,10 +196,14 @@ def test_probs_kernels_raise_on_what_they_do_not_take():
     ref = fa.qkv_bwd_probs_reference(q.detach(), b, probs, g, 1)
     np.testing.assert_allclose(q.grad.cpu().numpy(), ref.cpu().numpy(),
                                **BWD_TOL["float32"])
-    q = torch.zeros((1, 700, 3 * 20), device="cuda", requires_grad=True)
-    out = fa.exp_mhsa_qkv_bias(q, b, 1)  # row 2 takes T=700 at D=20
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        out.sum().backward()  # row 3 needs about 272 KB there
+    q = torch.randn((1, 700, 3 * 20), device="cuda", requires_grad=True)
+    out = fa.exp_mhsa_qkv_bias(q, b, 1)  # rows 2-3 at T=700, D=20
+    g = torch.randn_like(out)
+    out.backward(g)
+    _, probs = fa.exp_mhsa_qkv_bias_probs_reference(q.detach(), b, None, 1)
+    ref = fa.qkv_bwd_probs_reference(q.detach(), b, probs, g, 1)
+    np.testing.assert_allclose(q.grad.cpu().numpy(), ref.cpu().numpy(),
+                               **BWD_TOL["float32"])
     q = torch.randn((1, 512, 24), device="cuda", requires_grad=True)
     out = fa.exp_mhsa_qkv_bias(q, torch.zeros(24, device="cuda"), 2)
     out.backward(torch.ones_like(out))  # rows 2-3 at T=512, D=4
@@ -236,7 +245,10 @@ def test_bwd_probs_takes_long_sequences(dtype, masked, n, t):
 def test_recompute_kernel_matches_plain_and_row_3(dtype, masked, n, t, heads,
                                                   d):
     """Row 4 against its plain version, and equal bit for bit to row 3 fed
-    the probs row 2 wrote (it recomputes them as row 2 computes them)."""
+    the probs row 2 wrote (it recomputes them as row 2 computes them) on
+    the CUDA-core kernels; on tensor cores (bf16 past the resident kernel)
+    the tensor core's sums make row 4's a differ from row 2's probs by an
+    ulp here and there, so there the two agree within the tolerance."""
     qkv, bias, mask = _inputs(n, t, heads, d, dtype, seed=3)
     km = mask if masked else None
     g = torch.randn((n, t, heads * d), device="cuda").to(qkv.dtype)
@@ -249,7 +261,12 @@ def test_recompute_kernel_matches_plain_and_row_3(dtype, masked, n, t, heads,
     assert dqkv.dtype == qkv.dtype and dqkv.shape == qkv.shape
     np.testing.assert_allclose(dqkv.float().cpu().numpy(),
                                ref.float().cpu().numpy(), **BWD_TOL[dtype])
-    assert torch.equal(dqkv, row3)
+    if fa.bwd_launch_plan(n, t, heads, d, qkv.dtype).regime == "mma":
+        np.testing.assert_allclose(dqkv.float().cpu().numpy(),
+                                   row3.float().cpu().numpy(),
+                                   **BWD_TOL[dtype])
+    else:
+        assert torch.equal(dqkv, row3)
     if masked:
         assert (dqkv[::3] == 0).all()
     assert fa.launch_counts("qkv_bwd") == {"bwd": int(not masked),
@@ -333,7 +350,8 @@ def test_flash_launch_plan_matches_the_kernels_layout():
     for n, t, heads, d in [(128, 512, 20, 20), (32, 2048, 20, 20),
                            (128, 1000, 20, 20), (128, 513, 20, 20),
                            (2, 40, 2, 4), (5, 513, 3, 16), (3, 512, 4, 32),
-                           (2, 512, 2, 64), (2, 600, 2, 33)]:
+                           (2, 512, 2, 64), (2, 600, 2, 33),
+                           (2, 512, 2, 80), (1, 512, 1, 400)]:
         for dtype in (torch.float32, torch.bfloat16):
             plan = bw.launch_plan(n, t, heads, d, dtype)
             itemsize = torch.empty((), dtype=dtype).element_size()
@@ -341,6 +359,8 @@ def test_flash_launch_plan_matches_the_kernels_layout():
                 assert p.smem == kernels.size_of(
                     "flash_fwd", "flash_smem_bytes", bw.KINDS[p.kind], d,
                     itemsize, p.tile, p.chunk, p.nbuf), (n, t, d, p)
+            if plan.regime == "wide":  # no key walk: nothing staged
+                continue
             block = bw.kv_block(t)
             assert len(bw.key_walk(t, block, plan.fwd.chunk)) == (
                 kernels.size_of("flash_fwd", "flash_walk_task_count", t,
@@ -351,6 +371,13 @@ def test_flash_launch_plan_matches_the_kernels_layout():
                                tile, chunk, nbuf) == -1
     assert kernels.size_of("flash_fwd", "flash_smem_bytes", 0, 20, 4, 128,
                            128, 1) == -1  # f32 takes only the fixed plan
+    # past D = 64: the wide kernels' fixed plan, any head
+    assert kernels.size_of("flash_fwd", "flash_smem_bytes", 0, 80, 2, 8, 0,
+                           0) == 0
+    assert kernels.size_of("flash_fwd", "flash_smem_bytes", 0, 80, 2, 128,
+                           256, 1) == -1
+    assert kernels.size_of("flash_fwd", "flash_smem_bytes", 0, 1100, 4, 8,
+                           0, 0) == 0
 
 
 def test_flash_raises_on_a_plan_the_kernels_refuse(monkeypatch):
@@ -452,9 +479,13 @@ def test_long_sequences_route_to_flash_under_grad():
 
 
 def test_flash_raises_on_what_it_does_not_take():
-    q = torch.zeros((1, 512, 130), device="cuda")  # D=65
-    with pytest.raises(NotImplementedError, match="at most 64"):
-        bw.flash_exp_mhsa(q, q, q, 2)
+    # D = 65 and D = 1100 (two slices of the wide kernels) agree
+    for width in (130, 2200):
+        q = torch.randn((1, 512, width), device="cuda")
+        np.testing.assert_allclose(
+            bw.flash_exp_mhsa(q, q, q, 2).cpu().numpy(),
+            bw.flash_fwd_reference(q, q, q, None, 2)[0].cpu().numpy(),
+            **TOL["float32"])
     q = torch.zeros((1, 512, 8), device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError):
         bw.flash_exp_mhsa(q, q, q, 2)
@@ -638,9 +669,10 @@ def test_fused_tail_takes_t_up_to_its_smem_limit(which):
 @pytest.mark.parametrize("t", [512, 1000])
 def test_fused_tail_takes_long_rows(t, dtype):
     """Rows 13-14 at T = 512 and 1000 with dropout on, masked, against
-    their plain versions; past T = 599 row 14's attention part stages its
-    operands in global memory too. The pooling gradients are held as in
-    test_fused_tail_kernels_match_plain, and two runs give the same bits."""
+    their plain versions; row 14's attention part runs on tensor cores in
+    bf16 and, past T = 599 in f32, in global slots. The pooling gradients
+    are held as in test_fused_tail_kernels_match_plain, and two runs give
+    the same bits."""
     qkv, mask, pool, g = _tail_inputs(4, t, 20, 20, 200, dtype, seed=11)
     seed = torch.tensor([77], dtype=torch.int32, device="cuda")
     args = (qkv, mask, *pool, seed, 20, 0.2, False)
@@ -857,9 +889,12 @@ def test_blanes_layout_launches_rows_15_16(masked):
 def test_blanes_raises_on_what_it_does_not_take():
     from newsrecommendation_tpu_torch.ops import experimental_blanes as bl
 
-    qkv = torch.zeros((4, 6, 3 * 2 * 65), device="cuda")
-    with pytest.raises(NotImplementedError, match="at most 64"):
-        bl.blanes_fwd(qkv, None, 2)
+    # D = 65 runs the fused-qkv kernels' templates and agrees
+    qkv = torch.randn((4, 6, 3 * 2 * 65), device="cuda")
+    np.testing.assert_allclose(
+        bl.blanes_fwd(qkv, None, 2).cpu().numpy(),
+        bl.blanes_fwd_reference(qkv, None, 2).cpu().numpy(),
+        **TOL["float32"])
     qkv = torch.zeros((4, 6, 24), device="cuda")
     with pytest.raises(TypeError, match="key_mask"):
         bl.blanes_fwd(qkv, torch.ones((4, 6), device="cuda",
@@ -871,10 +906,13 @@ def test_blanes_raises_on_what_it_does_not_take():
         bl.blanes_bwd(qkv, None, torch.zeros((4, 6, 8), device="cuda",
                                              dtype=torch.bfloat16), 2)
     # f32 heads of 64 at T = 511: one head's K and V pass a block's
-    # shared memory
-    qkv = torch.zeros((2, 511, 3 * 64), device="cuda")
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        bl.blanes_fwd(qkv, None, 1)
+    # shared memory, and the same entry point takes the fused-qkv kernels'
+    # templates
+    qkv = torch.randn((2, 511, 3 * 64), device="cuda")
+    np.testing.assert_allclose(
+        bl.blanes_fwd(qkv, None, 1).cpu().numpy(),
+        bl.blanes_fwd_reference(qkv, None, 1).cpu().numpy(),
+        **TOL["float32"])
 
 
 # ---- rows 5-8: separate q, k, v --------------------------------------------
@@ -976,3 +1014,337 @@ def test_mhsa_sep_raises_on_what_it_does_not_take():
     with pytest.raises(ValueError, match="g must be"):
         fa.mhsa_sep_bwd(q, q, q, None, torch.zeros((4, 6, 6), device="cuda"),
                         2)
+
+
+# ---- rows 3-4 past the resident kernel, and every shape the JAX route runs --
+
+
+def _grad(n, t, width, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((n, t, width), generator=gen,
+                       device="cuda").to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n, t", [(64, 511), (128, 300), (2, 1000)])
+def test_rows_3_4_take_long_histories(dtype, masked, n, t):
+    """Rows 3 and 4 at the long-history shapes (bf16 on tensor cores, f32
+    on the tiled kernel, in global slots at T = 1000) against their plain
+    versions, with fully masked rows (every third) giving 0."""
+    qkv, bias, mask = _inputs(n, t, 20, 20, dtype, seed=21)
+    km = mask if masked else None
+    g = _grad(n, t, 400, dtype, 22)
+    _, probs = fa.exp_mhsa_qkv_bias_probs_reference(qkv, bias, km, 20)
+    fa.reset_launch_counts()
+    row3 = fa.qkv_bwd_probs(qkv, bias, probs, g, 20)
+    row4 = fa.qkv_bwd(qkv, bias, km, g, 20)
+    ref = fa.qkv_bwd_probs_reference(qkv, bias, probs, g, 20)
+    torch.cuda.synchronize()
+    for got in (row3, row4):
+        assert torch.isfinite(got.float()).all()
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(),
+                                   **BWD_TOL[dtype])
+    if masked:
+        assert (row3[::3] == 0).all() and (row4[::3] == 0).all()
+    assert fa.launch_counts("qkv_bwd_probs") == {"bwd_probs": 1}
+    assert sum(fa.launch_counts("qkv_bwd").values()) == 1
+
+
+def test_rows_2_3_take_t_1000_with_flash_min_seq_raised():
+    """With flash_min_seq raised past T, a 1000-news history under grad
+    takes rows 2-3 (no flash launch) and agrees with the CPU's route."""
+    from newsrecommendation_tpu_torch.ops import attention
+
+    rng = np.random.default_rng(5)
+    params = {k: {"w": torch.from_numpy(rng.normal(scale=0.2, size=(
+                      64, 80)).astype(np.float32)),
+                  "b": torch.from_numpy(rng.normal(scale=0.1, size=(
+                      80,)).astype(np.float32))}
+              for k in ("wq", "wk", "wv")}
+    x = torch.from_numpy(rng.normal(size=(2, 1000, 64)).astype(np.float32))
+    mask = torch.from_numpy((rng.random((2, 1000)) > 0.3).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(2, 1000, 80)).astype(np.float32))
+    results = {}
+    kernel_config.set_flash_min_seq(2048)
+    try:
+        for dev in ("cuda", "cpu"):
+            p = {k: {n: w.detach().to(dev).requires_grad_()
+                     for n, w in v.items()} for k, v in params.items()}
+            xx = x.detach().to(dev).requires_grad_()
+            kernels.reset_launch_counts()
+            out = attention.multi_head_self_attention(p, xx, mask.to(dev),
+                                                      n_heads=4)
+            out.backward(g.to(dev))
+            results[dev] = (out.detach().cpu(), xx.grad.cpu(),
+                            {k: kernels.launch_counts(k)
+                             for k in ("qkv_fwd_probs", "qkv_bwd_probs",
+                                       "flash_fwd")})
+    finally:
+        kernel_config.set_flash_min_seq(512)
+    launches = results["cuda"][2]
+    assert launches["qkv_fwd_probs"]["bias_masked_probs"] == 1
+    assert launches["qkv_bwd_probs"]["bwd_probs"] == 1
+    assert not any(launches["flash_fwd"].values())
+    np.testing.assert_allclose(results["cuda"][0].numpy(),
+                               results["cpu"][0].numpy(), **TOL["float32"])
+    np.testing.assert_allclose(results["cuda"][1].numpy(),
+                               results["cpu"][1].numpy(),
+                               **BWD_TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("t", [300, 400])
+def test_rows_1_4_at_d50(dtype, masked, t):
+    """8 heads of 50 (examples/demo.sh): rows 1-4 at T = 300 and 400,
+    which the kernels once refused for shared memory (rows 1-2 past 370,
+    rows 3-4 past 267), against their plain versions."""
+    qkv, bias, mask = _inputs(4, t, 8, 50, dtype, seed=23)
+    km = mask if masked else None
+    g = _grad(4, t, 400, dtype, 24)
+    with torch.inference_mode():
+        row1 = (fa.exp_mhsa_qkv_bias_masked(qkv, bias, km, 8) if masked
+                else fa.exp_mhsa_qkv_bias(qkv, bias, 8))
+    ctx, probs = fa.qkv_fwd_probs(qkv, bias, km, 8)
+    ref_ctx, ref_probs = fa.exp_mhsa_qkv_bias_probs_reference(qkv, bias, km,
+                                                              8)
+    row3 = fa.qkv_bwd_probs(qkv, bias, ref_probs, g, 8)
+    row4 = fa.qkv_bwd(qkv, bias, km, g, 8)
+    ref = fa.qkv_bwd_probs_reference(qkv, bias, ref_probs, g, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(ctx, row1)
+    np.testing.assert_allclose(ctx.float().cpu().numpy(),
+                               ref_ctx.float().cpu().numpy(), **TOL[dtype])
+    np.testing.assert_allclose(probs.cpu().numpy(), ref_probs.cpu().numpy(),
+                               **TOL["float32"])
+    for got in (row3, row4):
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(),
+                                   **BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n, heads, d", [(2, 5, 80), (2, 1, 400),
+                                         (2, 1, 1100)])
+def test_flash_takes_wide_heads(dtype, masked, n, heads, d):
+    """news_dim 400 with 5 heads (D = 80) and 1 head (D = 400) at L = 512,
+    and a head of 1100 (two slices): rows 9-10 on the wide kernels against
+    their plain versions."""
+    q, k, v, mask = _flash_inputs(n, 512, heads, d, dtype, seed=25,
+                                  fused=True)
+    km = mask if masked else None
+    g = _grad(n, 512, heads * d, dtype, 26)
+    o, m, den = bw.flash_fwd(q, k, v, km, heads)
+    ro, rm, rden = bw.flash_fwd_reference(q, k, v, km, heads)
+    delta = bw.delta_of(g, ro, heads)
+    grads = bw.flash_bwd(q, k, v, km, g, rm, rden, delta, heads)
+    refs = bw.flash_bwd_reference(q, k, v, km, g, rm, rden, delta, heads)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(o.float().cpu().numpy(),
+                               ro.float().cpu().numpy(), **TOL[dtype])
+    for got, want in ((m, rm), (den, rden)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **TOL["float32"])
+    for got, want in zip(grads, refs):
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   **BWD_TOL[dtype])
+    if masked:
+        assert (o[::3] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n, t, heads, d", [(2, 400, 2, 64), (2, 512, 5, 80),
+                                            (2, 1300, 2, 20)])
+def test_blanes_takes_every_shape(dtype, masked, n, t, heads, d):
+    """Rows 15-16 past their own layouts (f32 D = 64 past T = 318, heads
+    past 64, bf16 D = 20 past 1,232) take the fused-qkv kernels' templates
+    through the same entry points and agree with their plain versions."""
+    from newsrecommendation_tpu_torch.ops import experimental_blanes as bl
+
+    qkv, _, mask = _inputs(n, t, heads, d, dtype, seed=27)
+    km = mask if masked else None
+    g = _grad(n, t, heads * d, dtype, 28)
+    kernels.reset_launch_counts()
+    out = bl.blanes_fwd(qkv, km, heads)
+    dqkv = bl.blanes_bwd(qkv, km, g, heads)
+    ref = bl.blanes_fwd_reference(qkv, km, heads)
+    ref_d = bl.blanes_bwd_reference(qkv, km, g, heads)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), **TOL[dtype])
+    np.testing.assert_allclose(dqkv.float().cpu().numpy(),
+                               ref_d.float().cpu().numpy(), **BWD_TOL[dtype])
+    variant = "_masked" if masked else ""
+    assert kernels.launch_counts("blanes_fwd")["blanes" + variant] == 1
+    assert kernels.launch_counts("blanes_bwd")["blanes_bwd" + variant] == 1
+
+
+def _tail_f64(qkv, mask, w1, b1, w2, b2, g, heads):
+    """Row 13's output and row 14's pooling gradients (dw1, db1, dw2, db2)
+    in float64 from the same inputs, dropout off: the exp-normalised
+    attention per head, then the pooling through autograd (its max
+    detached: it carries no gradient in the kernels either)."""
+    x = qkv.double()
+    n, t, w3 = x.shape
+    hd = w3 // 3
+    d = hd // heads
+    ctx = torch.empty((n, t, hd), dtype=torch.float64, device=x.device)
+    for h in range(heads):
+        q, k, v = (x[..., i * hd + h * d:i * hd + (h + 1) * d]
+                   for i in range(3))
+        s = torch.einsum("nid,njd->nij", q, k) / d ** 0.5
+        m = s.amax(-1, keepdim=True)
+        e = torch.exp(s - m) * mask[:, None, :].double()
+        a = e / (e.sum(-1, keepdim=True) + 1e-8 * torch.exp(-m))
+        ctx[..., h * d:(h + 1) * d] = torch.einsum("nij,njd->nid", a, v)
+    w1, b1, w2, b2 = (p.double().requires_grad_() for p in (w1, b1, w2, b2))
+    score = (torch.tanh(ctx @ w1 + b1[0]) @ w2)[..., 0] + b2[0, 0]
+    m = score.amax(-1, keepdim=True).detach()
+    num = torch.exp(score - m) * mask.double()
+    alpha = num / (num.sum(-1, keepdim=True) + 1e-8 * torch.exp(-m))
+    out = torch.einsum("nt,ntc->nc", alpha, ctx)
+    return out, torch.autograd.grad((out * g.double()).sum(),
+                                    (w1, b1, w2, b2))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t, heads", [(5000, 20), (7000, 4)])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_fused_tail_takes_t_5000_and_7000(dtype, t, heads, scaled):
+    """Rows 13-14 at T = 5000 (past the 4470 row 4's tiled kernel once
+    held) and at T = 7000 (past the rows the tail kept in shared memory,
+    6456 forward and 5771 backward; 4 heads keep the plain version small):
+    row 14's attention part on tensor cores in bf16, in global slots in
+    f32; masked, dropout off; the pooled output, dqkv and the pooling
+    gradients against the plain versions. Averaged over thousands of
+    positions the pooled output is a few hundredths, where bf16's atol
+    cannot tell a kernel 6% off; ``scaled`` multiplies v by sqrt(T / 20),
+    so the output grows about as much and the comparison must reject the
+    plain output scaled by 1 + 2^-4. In f32 the pooling gradients, sums over 2T positions,
+    are held against a float64 reference, within the larger of the usual
+    share of the largest gradient and four times the f32 plain version's
+    own distance from it: at T = 5000 that distance on db1 passes the
+    usual share, and the kernel's is as large."""
+    qkv, mask, pool, g = _tail_inputs(2, t, heads, 20, 200, dtype, seed=12)
+    if scaled:
+        hd = heads * 20
+        x = qkv.float()
+        x[..., 2 * hd:] *= (t / 20) ** 0.5
+        qkv = x.to(qkv.dtype)
+    seed = torch.zeros(1, dtype=torch.int32, device="cuda")
+    args = (qkv, mask, *pool, seed, heads, 0.0, True)
+    out = fe.fused_tail_fwd(*args)
+    grads = fe.fused_tail_bwd(*args[:7], g, *args[7:])
+    ref = fe.fused_tail_fwd_reference(*args)
+    refs = fe.fused_tail_bwd_reference(*args[:7], g, *args[7:])
+    torch.cuda.synchronize()
+    got, want = out.float().cpu().numpy(), ref.float().cpu().numpy()
+    np.testing.assert_allclose(got, want, **TOL[dtype])
+    if scaled:
+        assert not np.allclose(got, want * (1 + 2 ** -4), **TOL[dtype])
+    np.testing.assert_allclose(grads[0].float().cpu().numpy(),
+                               refs[0].float().cpu().numpy(),
+                               **BWD_TOL[dtype])
+    tol = _summed_tol(refs[1:], dtype)
+    if dtype == "bfloat16":
+        wants = refs[1:]
+    else:
+        wants = [w.reshape(r.shape) for w, r in zip(
+            _tail_f64(qkv, mask, *pool, g, heads)[1], refs[1:])]
+        spread = max((r.double() - w).abs().max().item()
+                     for r, w in zip(refs[1:], wants))
+        tol["atol"] = max(tol["atol"], 4 * spread)
+    for got, want in zip(grads[1:], wants):
+        np.testing.assert_allclose(got.double().cpu().numpy(),
+                                   want.double().cpu().numpy(), **tol)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n, t", [(64, 511), (128, 300), (2, 1000), (64, 150)])
+def test_row_4_recomputes_row_2s_probs(masked, n, t):
+    """Row 4's recomputed a against the f32 probs row 2 wrote, read
+    directly: g is 1 at one query per column d of each head's g and 0
+    elsewhere, so dv[j, h, d] is round(a[q_d, j]) alone (one product in
+    an f32 sum). Row 3 gives round(probs) there exactly; row 4 gives it
+    exactly where the resident kernel runs (T = 150), and on tensor cores
+    (bf16 past it), whose sums of s differ from row 2's order, within one
+    bf16 ulp, and in at most 1e-4 of the elements."""
+    heads, d = 20, 20
+    qkv, bias, mask = _inputs(n, t, heads, d, "bfloat16", seed=21)
+    km = mask if masked else None
+    queries = [i * t // d + i % 3 for i in range(d)]
+    g = torch.zeros((n, t, heads, d), device="cuda")
+    for i, qi in enumerate(queries):
+        g[:, qi, :, i] = 1.0
+    g = g.reshape(n, t, heads * d).bfloat16()
+    _, probs = fa.qkv_fwd_probs(qkv, bias, km, heads)
+    row3 = fa.qkv_bwd_probs(qkv, bias, probs, g, heads)
+    row4 = fa.qkv_bwd(qkv, bias, km, g, heads)
+    torch.cuda.synchronize()
+    hd = heads * d
+    dv3 = row3[..., 2 * hd:].reshape(n, t, heads, d)
+    dv4 = row4[..., 2 * hd:].reshape(n, t, heads, d)
+    a = probs.reshape(n, t, heads, t)  # a[n, q, h, key]
+    want = torch.stack([a[:, qi] for qi in queries], -1)  # (n, h, key, d)
+    assert torch.equal(dv3, want.permute(0, 2, 1, 3).bfloat16())
+    ulps = (dv3.view(torch.int16).int() - dv4.view(torch.int16).int()).abs()
+    if fa.bwd_launch_plan(n, t, heads, d, torch.bfloat16).regime == "mma":
+        assert ulps.max().item() <= 1
+        assert (ulps > 0).sum().item() <= 1e-4 * ulps.numel()
+    else:
+        assert torch.equal(dv3, dv4)
+
+
+def test_rows_3_4_repeat_bit_for_bit():
+    """50 calls of rows 3 and 4 on tensor cores give the same bits: no
+    atomics, every sum in a fixed order."""
+    qkv, bias, mask = _inputs(64, 511, 20, 20, "bfloat16", seed=29)
+    g = _grad(64, 511, 400, "bfloat16", 30)
+    _, probs = fa.qkv_fwd_probs(qkv, bias, mask, 20)
+    first3 = fa.qkv_bwd_probs(qkv, bias, probs, g, 20)
+    first4 = fa.qkv_bwd(qkv, bias, mask, g, 20)
+    for _ in range(50):
+        assert torch.equal(fa.qkv_bwd_probs(qkv, bias, probs, g, 20), first3)
+        assert torch.equal(fa.qkv_bwd(qkv, bias, mask, g, 20), first4)
+
+
+def test_bwd_launch_plan_matches_the_kernels():
+    """bwd_launch_plan's regime and tensor-core shared bytes (rows 3's and
+    4's) equal the C side's (qkv_bwd_regime, qkv_bwd_mma_smem_bytes),
+    which refuses a plan it does not take; a refused plan raises in the
+    wrapper and counts nothing."""
+    for t, d in [(20, 20), (201, 20), (202, 20), (511, 20), (599, 20),
+                 (600, 20), (300, 50), (400, 50), (212, 64), (300, 80),
+                 (40, 400)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = fa.bwd_launch_plan(8, t, 4, d, dtype)
+            esize = 2 if dtype == torch.bfloat16 else 4
+            assert fa.REGIMES.index(plan.regime) == kernels.size_of(
+                "qkv_bwd", "qkv_bwd_regime", t, d, esize), (t, d, dtype)
+            if plan.regime == "mma":
+                probs = fa.bwd_launch_plan(8, t, 4, d, dtype, probs=True)
+                for side, kind in ((plan.query, 2), (plan.key, 1),
+                                   (probs.query, 4), (probs.key, 3)):
+                    assert side.smem == kernels.size_of(
+                        "qkv_bwd", "qkv_bwd_mma_smem_bytes", kind, d,
+                        side.tile, side.chunk, side.nbuf)
+    assert kernels.size_of("qkv_bwd", "qkv_bwd_mma_smem_bytes", 2, 20, 96,
+                           256, 1) == 0
+    qkv, bias, mask = _inputs(2, 300, 20, 20, "bfloat16")
+    g = _grad(2, 300, 400, "bfloat16", 31)
+    good = fa.bwd_launch_plan(2, 300, 20, 20, torch.bfloat16)
+    bad = good._replace(query=good.query._replace(tile=96))
+    fa.reset_launch_counts()
+    real = fa.bwd_launch_plan
+    fa.bwd_launch_plan = lambda *a, **k: bad
+    try:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fa.qkv_bwd(qkv, bias, mask, g, 20)
+    finally:
+        fa.bwd_launch_plan = real
+    assert not any(fa.launch_counts("qkv_bwd").values())

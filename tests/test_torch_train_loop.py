@@ -151,7 +151,9 @@ def test_fit_save_dir_waits_for_the_checkpoint_slice(tiny_cfg):
 @pytest.mark.parametrize("script", ["chip_smoke.py",
                                     "scripts/port_kernel_bounds.py",
                                     "scripts/flash_ab.py",
-                                    "scripts/flash_variants.py"])
+                                    "scripts/flash_variants.py",
+                                    "scripts/qkv_bwd_ab.py",
+                                    "scripts/mismatch_repeat.py"])
 def test_card_scripts_import_no_jax(script):
     """The scripts that drive the port on a GPU, where JAX need not be
     installed, import no JAX and nothing of the JAX package, as the port
