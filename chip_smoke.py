@@ -63,11 +63,14 @@ Phases, each printing one line with its elapsed seconds:
            memory holds, kept in a global scratch; also the control of a
            scratch slot shared between two rows
   kernel-sep  rows 5-8 (separate q, k, v; 7-8 with the key mask) vs their
-           plain versions at 7040 x 20 with d_v = 20 and d_v = 32, f32 and
-           bf16, on q, k, v cut from one projection; controls (mask
-           dropped, v sliced at q's width as the TPU kernels slice it, ds
-           without its row-sum term, in bf16 dv from the unrounded a);
-           kernel / plain / scaled_dot_product_attention times
+           plain versions at 7040 x 20 with d_v = 20 and d_v = 32, and at
+           128 x 300 and 64 x 511 with d_v = 32, f32 and bf16, on q, k, v
+           cut from one projection; each backward launch in its plan's
+           regime (resident at T = 20; past 64 tensor cores in bf16, the
+           wide kernel in f32); controls (mask dropped, v sliced at q's
+           width as the TPU kernels slice it, ds without its row-sum term,
+           in bf16 dv from the unrounded a); kernel / plain /
+           scaled_dot_product_attention times
   kernel-blanes  rows 15-16 (the batch-in-lanes forward and backward) vs
            their plain versions at 7040 x 20, 128 x 50 (both masks), 64 x
            511 (both) and 128 x T masked for T in 64, 65 (the two sides of
@@ -82,7 +85,10 @@ Phases, each printing one line with its elapsed seconds:
            13-14 at T = 5000 and 7000
   mhsa-unequal  multi_head_self_attention at d_k = 20, d_v = 32 (1024 x
            20, 20 heads, both masks), forward and backward on the card
-           against the CPU, launching rows 5-8 only
+           against the CPU, launching rows 5-8 only; on a mismatch first a
+           diagnosis line: the card's q, k, v projection against the
+           CPU's, and rows 5-8 on the card's projection against their
+           plain versions on the same values
   corpus   a 65,536-news synthetic corpus, full-width NRMS params from a
            seed, and two draws of its behaviors prepared into training
            samples: histories of up to 80 news cut to 50, and of up to 600
@@ -249,8 +255,11 @@ TAIL_LIMITS = ((5000, 20), (7000, 4))
 # Serving at 8 heads of 50 over 400-news histories: row 1 past shared
 # memory on the user encoder.
 MID_SERVE_L = 400
-# Rows 5-8 at the news encoder's shape with d_v = d_k and d_v = 32.
+# Rows 5-8 at the news encoder's shape with d_v = d_k and d_v = 32, and
+# past T = 64 (rows 6 and 8 on tensor cores in bf16, on the wide kernel in
+# f32) at the user encoder's long shapes with d_v = 32.
 SEP_DV = (20, 32)
+SEP_LONG = ((128, 300), (64, 511))
 # The long train-check's reduced width (heads of 20 as published).
 LONG_CHECK = {"news_dim": 100, "num_attention_heads": 5,
               "news_query_vector_dim": 50, "user_query_vector_dim": 50,
@@ -1139,10 +1148,13 @@ def blanes_kernel_case(bl, fa, masked, n, t, heads, d, dtype, seed):
 def sep_kernel_case(fa, masked, n, t, heads, dk, dv, dtype, seed):
     """Rows 5-8 (separate q, k, v; rows 7-8 with the key mask) against
     their plain versions on the card, on q, k, v cut from one projection,
-    at d_v = d_k and d_v != d_k, with planted faults, timings (the
-    forward's beside scaled_dot_product_attention) and bounds."""
+    at d_v = d_k and d_v != d_k, with planted faults, timings (each
+    beside scaled_dot_product_attention, the backward's alone) and
+    bounds; the backward's launch must take its plan's regime."""
     import torch
     import torch.nn.functional as F
+
+    from newsrecommendation_tpu_torch.ops import kernels
 
     tdt = getattr(torch, dtype)
     gen = torch.Generator(device=DEVICE).manual_seed(700 + seed)
@@ -1160,13 +1172,19 @@ def sep_kernel_case(fa, masked, n, t, heads, dk, dv, dtype, seed):
     where = (f"mhsa{'_masked' if masked else ''} {dtype} N={n} T={t} "
              f"dk={dk} dv={dv}")
 
+    kernels.reset_launch_counts()
     out = fa.mhsa_sep_fwd(q, k, v, mask, heads)
     grads = fa.mhsa_sep_bwd(q, k, v, mask, g, heads)
+    regimes = kernels.regime_counts("mhsa_bwd")
+    want = fa.sep_bwd_launch_plan(n, t, heads, dk, dv, tdt).regime
+    if regimes != {want: 1}:
+        fail(f"{where}: the backward launched {regimes}, its plan {want}")
     ref = fa.exp_mhsa_reference(q, k, v, mask, heads)
     refs = fa.exp_mhsa_bwd_reference(q, k, v, mask, g, heads)
     grads[0].sum().item()  # waits for the kernels
     case = {"variant": "mhsa_masked" if masked else "mhsa",
             "shape": [n, t, heads, dk, dv], "dtype": dtype,
+            "regimes": regimes,
             "ctx": compare(where, "ctx", out, ref, f_rtol, f_atol)}
     for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
         case[name] = compare(where, name, got, want, b_rtol, b_atol)
@@ -1379,10 +1397,14 @@ def unequal_run(masked, n=1024, t=20, heads=20, dk=20, dv=32, d_model=300):
     route is rows 5-8 (launch counts reset just before and read just
     after), the CPU's their plain versions. Output and the input's
     gradient held as a kernel to its plain version (f32), each projection
-    weight's gradient within TRAIN_GRAD_SHARE of its largest element."""
+    weight's gradient within TRAIN_GRAD_SHARE of its largest element. Each
+    run keeps its own projection and forward operands (references, and a
+    copy of the forward's output before the backward) for
+    unequal_diagnosis, which a mismatch prints first."""
     import torch
 
     from newsrecommendation_tpu_torch.ops import attention, kernels
+    from newsrecommendation_tpu_torch.ops import fused_attention as fa
 
     gen = torch.Generator().manual_seed(800 + masked)
     params = attention.init_multi_head_self_attention(gen, d_model, heads,
@@ -1394,15 +1416,36 @@ def unequal_run(masked, n=1024, t=20, heads=20, dk=20, dv=32, d_model=300):
         mask[:, -1] = 1.0
         mask[::7] = 0.0
     g = torch.randn((n, t, heads * dv), generator=gen)
-    res = {}
+    res, kept = {}, {}
+    real_qkv = attention._fused_qkv
     for dev in (DEVICE, "cpu"):
+        own = kept[dev] = {}
+        # the forward rows 5 and 7 take there: the kernel, or on the CPU
+        # the plain version
+        fwd_name = ("exp_mhsa_reference" if torch.device(dev).type == "cpu"
+                    else "mhsa_sep_fwd")
+
+        def fused_qkv(p, xs, _own=own):
+            r = real_qkv(p, xs)
+            _own["qkv_2d"] = r[0].detach()
+            return r
+
+        def fwd(q, k, v, m, h, _own=own, _fwd=getattr(fa, fwd_name)):
+            o = _fwd(q, k, v, m, h)
+            _own["qkv"] = [y.detach() for y in (q, k, v)]
+            _own["out"] = o.detach().clone()
+            return o
+
         p = {k: {nm: w.to(dev).requires_grad_() for nm, w in v.items()}
              for k, v in params.items()}
         xx = x.to(dev).requires_grad_()
         kernels.reset_launch_counts()
-        out = attention.multi_head_self_attention(
-            p, xx, None if mask is None else mask.to(dev), n_heads=heads)
-        out.backward(g.to(dev))
+        with mock.patch.object(attention, "_fused_qkv", fused_qkv), \
+                mock.patch.object(fa, fwd_name, fwd):
+            out = attention.multi_head_self_attention(
+                p, xx, None if mask is None else mask.to(dev),
+                n_heads=heads)
+            out.backward(g.to(dev))
         xx.grad.sum().item()  # waits for the kernels
         launches = {k: kernels.launch_counts(k) for k in kernels.KERNELS
                     if any(kernels.launch_counts(k).values())}
@@ -1410,6 +1453,10 @@ def unequal_run(masked, n=1024, t=20, heads=20, dk=20, dv=32, d_model=300):
                     {k: p[k]["w"].grad.cpu() for k in p}, launches)
     where = f"mhsa-unequal masked={masked}"
     (f_rtol, f_atol), (b_rtol, b_atol) = TRAIN_TOL["float32"]
+    if (n_outside(res[DEVICE][0], res["cpu"][0], f_rtol, f_atol)
+            or n_outside(res[DEVICE][1], res["cpu"][1], b_rtol, b_atol)):
+        print(f"  {where} diagnosis " + json.dumps(unequal_diagnosis(
+            kept, res, mask, g, heads)), flush=True)
     out = {"shape": [n, t, heads, dk, dv],
            "ctx": compare(where, "ctx", res[DEVICE][0], res["cpu"][0],
                           f_rtol, f_atol),
@@ -1435,6 +1482,58 @@ def unequal_run(masked, n=1024, t=20, heads=20, dk=20, dv=32, d_model=300):
         fail(f"{where}: the CPU counted launches {res['cpu'][3]}")
     out["launches"] = launches
     return out
+
+
+def unequal_diagnosis(kept, res, mask, g, heads) -> dict:
+    """Where a card/CPU mismatch of unequal_run entered, from each run's own
+    values (``kept``: the un-biased projection qkv_2d, the forward's q, k,
+    v and its output before the backward; ``res``: unequal_run's results
+    after the backward): the card's projection against the CPU's (the
+    GEMM); the card's forward output against rows 5 and 7's plain version
+    on the card's own q, k, v, copied to the CPU, and the same for rows 6
+    and 8 with g (the kernels); whether the forward's output changed
+    during the backward; whether the forward repeats its bits; and the
+    worst output element (row, position, lane) and the count outside the
+    tolerance. Largest differences throughout."""
+    import torch
+
+    from newsrecommendation_tpu_torch.ops import fused_attention as fa
+
+    (f_rtol, f_atol), (b_rtol, b_atol) = TRAIN_TOL["float32"]
+    card, cpu = kept[DEVICE], kept["cpu"]
+    q, k, v = card["qkv"]
+    dmask = None if mask is None else mask.to(DEVICE)
+    with torch.no_grad():
+        qc, kc, vc = (y.cpu() for y in (q, k, v))
+        ctx_ref = fa.exp_mhsa_reference(qc, kc, vc, mask, heads)
+        refs = fa.exp_mhsa_bwd_reference(qc, kc, vc, mask, g, heads)
+        grads = [y.cpu() for y in fa.mhsa_sep_bwd(q, k, v, dmask,
+                                                  g.to(DEVICE), heads)]
+        again = fa.mhsa_sep_fwd(q, k, v, dmask, heads)
+        out0 = card["out"].cpu()
+        err = (res[DEVICE][0] - res["cpu"][0]).abs()
+        worst = divmod(int(err.argmax()), err.shape[-1])
+    return {
+        "proj_max_err": (card["qkv_2d"].cpu() - cpu["qkv_2d"]).abs().max()
+        .item(),
+        "proj_outside": n_outside(card["qkv_2d"].cpu(), cpu["qkv_2d"],
+                                  f_rtol, f_atol),
+        "rows_5_7_max_err": (out0 - ctx_ref).abs().max().item(),
+        "rows_5_7_outside": n_outside(out0, ctx_ref, f_rtol, f_atol),
+        "cpu_ctx_vs_plain_on_card_proj": (res["cpu"][0] - ctx_ref).abs()
+        .max().item(),
+        "rows_6_8_max_err": max((a - b).abs().max().item()
+                                for a, b in zip(grads, refs)),
+        "rows_6_8_outside": sum(n_outside(a, b, b_rtol, b_atol)
+                                for a, b in zip(grads, refs)),
+        "out_changed_in_backward": (res[DEVICE][0] - out0).abs().max()
+        .item(),
+        "fwd_repeats_bits": bool(torch.equal(again, card["out"])),
+        "ctx_outside": n_outside(res[DEVICE][0], res["cpu"][0], f_rtol,
+                                 f_atol),
+        "ctx_worst": {"row": worst[0] // err.shape[1],
+                      "pos": worst[0] % err.shape[1], "lane": worst[1],
+                      "err": err.max().item()}}
 
 
 def compare(where, name, got, want, rtol, atol):
@@ -1922,41 +2021,10 @@ def serve_run(ctx, user_log_mask, user_log_length=None, **overrides):
             "max_abs_err_vs_cpu": max(checked), "stats": stats}, rec
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available; this script needs one "
-              "NVIDIA GPU", file=sys.stderr)
-        return 1
-
-    # ---- device ----------------------------------------------------------
-    t = time.perf_counter()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.cuda.init()
-    phase("device", t, name=repr(torch.cuda.get_device_name(0)),
-          count=torch.cuda.device_count(), torch=torch.__version__,
-          cuda=torch.version.cuda)
-
-    from newsrecommendation_tpu_torch.ops import blockwise as bw
-    from newsrecommendation_tpu_torch.ops import experimental_blanes as bl
-    from newsrecommendation_tpu_torch.ops import (
-        experimental_fused_encoder as fe,
-    )
-    from newsrecommendation_tpu_torch.ops import experimental_qkv2d as q2
-    from newsrecommendation_tpu_torch.ops import fused_attention as fa
-
-    # ---- build -----------------------------------------------------------
-    t = time.perf_counter()
-    sos = fa.build()  # one nvcc per source, all started together
-    phase("build", t, **{k: os.path.relpath(v) for k, v in sos.items()})
-
+def kernel_phases(fa, bw, bl, fe, q2) -> dict:
+    """The kernel phases (kernel through kernel-limits): every kernel
+    case against its plain version, in the order main runs them.
+    Returns {name: cases} under the names main reads."""
     # ---- kernel vs plain -------------------------------------------------
     t = time.perf_counter()
     cases = []
@@ -2061,10 +2129,12 @@ def main() -> int:
     # ---- kernel rows 5-8 vs plain -------------------------------------------
     t = time.perf_counter()
     sep_cases = []
-    for i, dv in enumerate(SEP_DV):
+    sep_shapes = [(7040, 20, dv) for dv in SEP_DV]
+    sep_shapes += [(n, tl, SEP_DV[1]) for n, tl in SEP_LONG]
+    for i, (n, tl, dv) in enumerate(sep_shapes):
         for masked in (False, True):
             for dtype in ("float32", "bfloat16"):
-                c = sep_kernel_case(fa, masked, 7040, 20, 20, 20, dv, dtype,
+                c = sep_kernel_case(fa, masked, n, tl, 20, 20, dv, dtype,
                                     seed=i)
                 sep_cases.append(c)
                 print("  kernel-sep " + json.dumps(c), flush=True)
@@ -2100,6 +2170,55 @@ def main() -> int:
             limit_cases.append(c)
             print("  kernel-limits " + json.dumps(c), flush=True)
     phase("kernel-limits", t, cases=len(limit_cases))
+    return {"cases": cases, "train_cases": train_cases,
+            "recompute_cases": recompute_cases, "flash_cases": flash_cases,
+            "qkv2d_cases": qkv2d_cases, "tail_cases": tail_cases,
+            "tail_long_cases": tail_long_cases, "sep_cases": sep_cases,
+            "blanes_cases": blanes_cases, "limit_cases": limit_cases}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script needs one "
+              "NVIDIA GPU", file=sys.stderr)
+        return 1
+
+    # ---- device ----------------------------------------------------------
+    t = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.init()
+    phase("device", t, name=repr(torch.cuda.get_device_name(0)),
+          count=torch.cuda.device_count(), torch=torch.__version__,
+          cuda=torch.version.cuda)
+
+    from newsrecommendation_tpu_torch.ops import blockwise as bw
+    from newsrecommendation_tpu_torch.ops import experimental_blanes as bl
+    from newsrecommendation_tpu_torch.ops import (
+        experimental_fused_encoder as fe,
+    )
+    from newsrecommendation_tpu_torch.ops import experimental_qkv2d as q2
+    from newsrecommendation_tpu_torch.ops import fused_attention as fa
+
+    # ---- build -----------------------------------------------------------
+    t = time.perf_counter()
+    sos = fa.build()  # one nvcc per source, all started together
+    phase("build", t, **{k: os.path.relpath(v) for k, v in sos.items()})
+
+    kc = kernel_phases(fa, bw, bl, fe, q2)
+    cases, train_cases, recompute_cases = (
+        kc["cases"], kc["train_cases"], kc["recompute_cases"])
+    flash_cases, qkv2d_cases, tail_cases, tail_long_cases = (
+        kc["flash_cases"], kc["qkv2d_cases"], kc["tail_cases"],
+        kc["tail_long_cases"])
+    sep_cases, blanes_cases = kc["sep_cases"], kc["blanes_cases"]
 
     # ---- multi_head_self_attention at d_v != d_k: rows 5-8 ------------------
     unequal = {}
@@ -2421,7 +2540,8 @@ def main() -> int:
                                          (True, (443, 468))):
         variant = "mhsa_masked" if masked else "mhsa"
         c = next(x for x in sep_cases if x["variant"] == variant
-                 and x["dtype"] == "bfloat16" and x["shape"][4] == SEP_DV[1])
+                 and x["dtype"] == "bfloat16" and x["shape"][4] == SEP_DV[1]
+                 and x["shape"][:2] == [7040, 20])
         n_fwd = unequal[masked]["launches"]["mhsa_fwd"][variant]
         n_bwd = unequal[masked]["launches"]["mhsa_bwd"][
             "mhsa_bwd_masked" if masked else "mhsa_bwd"]

@@ -25,20 +25,41 @@
 // Dv != Dk they return the wrong shape; these take Dv as its own loop
 // bound and compute what the JAX package computes with Pallas off.
 //
-// Bound: memory, as rows 1 and 4. At N = 7040, T = 20, H = 20, Dk = Dv = 20
-// in bf16 the forward reads q, k, v and writes out (451 MB, 0.135 ms at
-// 3.35 TB/s); the backward reads q, k, v, g and writes dq, dk, dv (789 MB,
-// 0.236 ms).
+// Bound: memory. At N = 7040, T = 20, H = 20, Dk = 20, Dv = 32 in bf16 the
+// forward reads q, k, v and writes out (586 MB, 0.175 ms at 3.35 TB/s); the
+// backward reads q, k, v, g and writes dq, dk, dv (991 MB, 0.296 ms)
+// against N*H*T*T*(6*Dk + 4*Dv) = 14.0 GFLOP (0.014 ms at the bf16
+// tensor-core peak).
 //
-// Design: rows 1 and 4's (qkv_fwd.cuh, qkv_bwd.cuh's resident kernel) on
-// three base pointers: one block per (row, head) stages q_h, k_h, v_h
-// (and g_h) as f32 with odd row strides; one warp per query makes a's row
-// (the backward keeps the T x T block of a); threads over (row, lane)
-// write the products. A working set that does not fit in shared memory
-// (the backward past T = 199 at Dk = Dv = 20, the forward past T = 867)
-// lives in its block slot's part of a global scratch instead, and `slots`
-// blocks walk the (row, head) items: the kernels take any T.
+// Forward (rows 5 and 7): row 1's design (qkv_fwd.cuh) on three base
+// pointers: one block per (row, head) stages q_h, k_h, v_h as f32 with odd
+// row strides; one warp per query makes a's row; threads over (row, lane)
+// write the products. Past shared memory (T > 735 at Dk = 20, Dv = 32)
+// the working set lives in its block slot's part of a global scratch and
+// `slots` blocks walk the (row, head) items.
+//
+// Backward (rows 6 and 8), in three regimes chosen by the launch plan
+// (ops/fused_attention.py sep_bwd_launch_plan, mhsa_sep_bwd_regime here):
+//   resident, T <= 64, heads of up to 64, f32 and bf16: row 16's resident
+//     design on three pointers and two widths (mhsa_sep_bwd.cuh);
+//   tensor cores, T > 64, bf16, heads of up to 64: row 4's query-side and
+//     key-side kernels with a (3, N*H, T) stats scratch (mhsa_sep_bwd.cuh);
+//   wide, otherwise (f32 past T = 64, heads wider than 64): the design
+//     rows 5-8 were first ported with, row 4's old resident kernel on three
+//     pointers: one block of 4 warps per (row, head) stages q, k, v, g as
+//     f32 and the T x T block of a, in a global slot past shared memory
+//     (T > 191 at Dk = 20, Dv = 32). It is correct at any T and slow.
+// Left on the table: in the resident regime the per-(head, query) pass
+// (two dots, two warp sums, exp and an IEEE division, each lane unpacking
+// the whole bf16 q and g rows) is most of the time
+// (scripts/mhsa_sep_variants.py cuts), and both widths are padded to the
+// larger (d_k = 20 beside d_v = 32 stages 32 lanes of q and k); on tensor
+// cores the query side recomputes s in each of its four passes and the
+// k-steps and d tiles of q and k run at the larger width too; f32 past
+// T = 64 has no kernel of its own design, and the forward keeps row 1's
+// design at every T.
 
+#include "mhsa_sep_bwd.cuh"
 #include "qkv_bwd.cuh"  // recompute_a_row, kMaxSmemFloats
 
 namespace {
@@ -264,12 +285,13 @@ int fwd(const void* q, const void* k, const void* v, const void* mask,
   return (int)cudaGetLastError();
 }
 
+// The wide route: one block per (row, head) with the working set in shared
+// memory, or `slots` blocks with it in gscratch.
 template <typename T>
-int bwd(const void* q, const void* k, const void* v, const void* mask,
-        const void* g, void* dq, void* dk, void* dv, void* gscratch, int n,
-        int t_len, int n_heads, int dk_w, int dv_w, int ldq, int ldk,
-        int ldv, int slots, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
+int bwd_wide(const void* q, const void* k, const void* v, const void* mask,
+             const void* g, void* dq, void* dk, void* dv, void* gscratch,
+             int n, int t_len, int n_heads, int dk_w, int dv_w, int ldq,
+             int ldk, int ldv, int slots, void* stream) {
   int64_t grid;
   size_t smem;
   int err = plan(bwd_floats(t_len, dk_w, dv_w), n, n_heads, gscratch, slots,
@@ -290,6 +312,45 @@ int bwd(const void* q, const void* k, const void* v, const void* mask,
       static_cast<T*>(dv), smem ? nullptr : static_cast<float*>(gscratch),
       (int64_t)n * n_heads, n_heads, t_len, dk_w, dv_w, ldq, ldk, ldv, inv);
   return (int)cudaGetLastError();
+}
+
+// The backward in `regime` (sep::Regime), which must be the shape's:
+// resident, args = (heads, nbuf, blocks, -, -, -); tensor cores, args =
+// (tile, chunk, nbuf) of the query side then of the key side and scratch
+// the (3, N*H, T) stats; wide, scratch the global slots (`slots` of them)
+// or null.
+template <typename T>
+int bwd(const void* q, const void* k, const void* v, const void* mask,
+        const void* g, void* dq, void* dk, void* dv, void* scratch, int n,
+        int t_len, int n_heads, int dk_w, int dv_w, int ldq, int ldk,
+        int ldv, int regime, const int* args, int slots, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (t_len <= 0 || regime != sep::regime(t_len, dk_w, dv_w, sizeof(T)))
+    return (int)cudaErrorInvalidValue;
+  if (regime == sep::kResident)
+    return sep::resident_launch<T>(q, k, v, mask, g, dq, dk, dv, n, t_len,
+                                   n_heads, dk_w, dv_w, ldq, ldk, ldv,
+                                   args[0], args[1], args[2], stream);
+  if (regime == sep::kWide)
+    return bwd_wide<T>(q, k, v, mask, g, dq, dk, dv, scratch, n, t_len,
+                       n_heads, dk_w, dv_w, ldq, ldk, ldv, slots, stream);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const int dmax = dk_w > dv_w ? dk_w : dv_w;
+    if (scratch == nullptr ||
+        !sep::mma_plan_ok(dmax, args[0], args[1], args[2], args[3], args[4],
+                          args[5]))
+      return (int)cudaErrorInvalidValue;
+    using B = __nv_bfloat16;
+    const sep::MmaLaunch body{
+        static_cast<const B*>(q), static_cast<const B*>(k),
+        static_cast<const B*>(v), static_cast<const B*>(g),
+        static_cast<const float*>(mask), static_cast<B*>(dq),
+        static_cast<B*>(dk), static_cast<B*>(dv), static_cast<float*>(scratch),
+        n, t_len, n_heads, dk_w, dv_w, ldq, ldk, ldv, args[0], args[1],
+        args[2], args[3], args[4], args[5], (cudaStream_t)stream};
+    return with_head_width(dmax, body);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -316,23 +377,49 @@ int mhsa_sep_fwd_bf16(const void* q, const void* k, const void* v,
                             dk, dv, ldq, ldk, ldv, slots, stream);
 }
 
-int mhsa_sep_bwd_f32(const void* q, const void* k, const void* v,
-                     const void* mask, const void* g, void* dq, void* dk,
-                     void* dv, void* gscratch, int n, int t_len, int n_heads,
-                     int dk_w, int dv_w, int ldq, int ldk, int ldv, int slots,
-                     void* stream) {
-  return bwd<float>(q, k, v, mask, g, dq, dk, dv, gscratch, n, t_len,
-                    n_heads, dk_w, dv_w, ldq, ldk, ldv, slots, stream);
+// regime: 0 resident, 1 tensor cores, 2 wide (mhsa_sep_bwd_regime);
+// p0..p5 its plan; scratch the stats (tensor cores) or the global slots
+// (wide, `slots` of mhsa_sep_bwd_scratch_floats each, null when 0).
+#define NRK_SEP_BWD(SUFFIX, T)                                                \
+  int mhsa_sep_bwd_##SUFFIX(const void* q, const void* k, const void* v,     \
+                            const void* mask, const void* g, void* dq,       \
+                            void* dk, void* dv, void* scratch, int n,        \
+                            int t_len, int n_heads, int dk_w, int dv_w,      \
+                            int ldq, int ldk, int ldv, int regime, int p0,   \
+                            int p1, int p2, int p3, int p4, int p5,          \
+                            int slots, void* stream) {                       \
+    const int args[6] = {p0, p1, p2, p3, p4, p5};                            \
+    return bwd<T>(q, k, v, mask, g, dq, dk, dv, scratch, n, t_len, n_heads,  \
+                  dk_w, dv_w, ldq, ldk, ldv, regime, args, slots, stream);   \
+  }
+NRK_SEP_BWD(f32, float)
+NRK_SEP_BWD(bf16, __nv_bfloat16)
+#undef NRK_SEP_BWD
+
+// The backward's regime at (T, Dk, Dv) in a dtype of esize bytes: 0
+// resident, 1 tensor cores, 2 wide.
+int mhsa_sep_bwd_regime(int t_len, int dk, int dv, int esize) {
+  return nrk::sep::regime(t_len, dk, dv, esize);
 }
 
-int mhsa_sep_bwd_bf16(const void* q, const void* k, const void* v,
-                      const void* mask, const void* g, void* dq, void* dk,
-                      void* dv, void* gscratch, int n, int t_len, int n_heads,
-                      int dk_w, int dv_w, int ldq, int ldk, int ldv,
-                      int slots, void* stream) {
-  return bwd<__nv_bfloat16>(q, k, v, mask, g, dq, dk, dv, gscratch, n, t_len,
-                            n_heads, dk_w, dv_w, ldq, ldk, ldv, slots,
-                            stream);
+// Shared bytes of one block of the backward: kind 0 resident (a = heads,
+// c = nbuf), 1 the tensor-core key side, 2 its query side (a = tile, b =
+// chunk, c = nbuf); 0 for a plan the kernels refuse.
+int mhsa_sep_bwd_smem_bytes(int kind, int t_len, int dk, int dv, int esize,
+                            int a, int b, int c) {
+  const int dmax = dk > dv ? dk : dv;
+  if (kind == 0) {
+    const size_t smem = nrk::sep::resident_smem(t_len, dmax, esize, a, c);
+    return a >= 1 && a <= 4 && c >= 1 && c <= 2 &&
+                   smem <= (size_t)nrk::sep::kMaxSmem
+               ? (int)smem
+               : 0;
+  }
+  if (!nrk::flash_mma(dmax, esize) ||
+      !nrk::flash_plan_ok(kind, dmax, esize, a, b, c))
+    return 0;
+  const nrk::FlashLayout l = nrk::flash_layout(kind, dmax, esize, a, b);
+  return (int)(l.own + c * l.stage);
 }
 
 // Floats of one gscratch slot: 0 when the working set fits in a block's

@@ -21,11 +21,12 @@ Replaces, in ``newsrecommendation_tpu/ops/pallas/fused_attention.py``:
 and, on separate q, k and v (the JAX package's route when the q/k/v
 widths differ), ``_fwd_call`` / ``_masked_fwd_call`` and ``_bwd_call`` /
 ``_masked_bwd_call`` -> ``csrc/mhsa_sep.cu``, kernels "mhsa_fwd" (rows 5
-and 7) and "mhsa_bwd" (rows 6 and 8), behind ``exp_mhsa`` and
-``exp_mhsa_masked``. Those take d_v as a width of its own: the TPU kernels
-size the output and v's head slice by q's width, which is right only when
-the widths are equal, so the port is held to them there and, at unequal
-widths, to the JAX package with Pallas off.
+and 7) and "mhsa_bwd" (rows 6 and 8, in the three regimes of
+``sep_bwd_launch_plan``: resident, tensor cores, wide), behind ``exp_mhsa``
+and ``exp_mhsa_masked``. Those take d_v as a width of its own: the TPU
+kernels size the output and v's head slice by q's width, which is right
+only when the widths are equal, so the port is held to them there and, at
+unequal widths, to the JAX package with Pallas off.
 The entry points ``exp_mhsa_qkv_bias`` and ``exp_mhsa_qkv_bias_masked``
 choose as the JAX package's custom_vjp does: with grad mode on and qkv or
 bias requiring grad, the forward and backward follow
@@ -174,14 +175,22 @@ def bwd_launch_plan(n: int, t: int, heads: int, d: int, dtype,
     if resident(t, d):
         return BwdPlan("resident")
     if blockwise.uses_mma(d, itemsize):
-        rows = n * heads
-        tile = blockwise.mma_tile(rows, t, sms)
-        grid = (rows, -(-t // tile))
-        return BwdPlan("mma", *(
-            blockwise.mma_launch(kind + ("_probs" if probs else ""), d,
-                                 itemsize, tile, t, grid)
-            for kind in ("bwd_query", "bwd_key")))
+        return BwdPlan("mma", *_mma_sides(n, t, heads, d, itemsize, sms,
+                                           "_probs" if probs else ""))
     return BwdPlan("tiled" if _tiled_in_smem(t, d) else "tiled_global")
+
+
+def _mma_sides(n, t, heads, d, itemsize, sms, suffix=""):
+    """The tensor-core backward's query-side and key-side launches
+    (``blockwise.mma_launch`` of kind "bwd_query" / "bwd_key" + suffix):
+    a block per (row, head) and tile of ``blockwise.mma_tile`` own rows,
+    the other side's T rows in chunks."""
+    rows = n * heads
+    tile = blockwise.mma_tile(rows, t, sms)
+    grid = (rows, -(-t // tile))
+    return tuple(blockwise.mma_launch(kind + suffix, d, itemsize, tile, t,
+                                      grid)
+                 for kind in ("bwd_query", "bwd_key"))
 
 
 def bwd_work(lib: str, fn: str, plan: BwdPlan, qkv, n: int, t: int,
@@ -493,22 +502,122 @@ def mhsa_sep_fwd(q, k, v, key_mask, n_heads: int):
     return out
 
 
+# ---- rows 6 and 8: the launch plan -----------------------------------------
+
+SEP_REGIMES = ("resident", "mma", "wide")
+SEP_SHORT_T = 64  # longest T of the resident regime
+SEP_MAX_HEAD = 64  # widest head of the resident and tensor-core regimes
+SEP_PER_SM = 3  # resident blocks an SM holds by registers (launch bounds)
+
+
+def sep_bwd_regime(t: int, dk: int, dv: int, itemsize: int) -> str:
+    """The regime of rows 6 and 8 at (T, d_k, d_v) (``csrc/mhsa_sep_bwd.cuh``
+    ``regime``): "resident" at T <= 64, "mma" (tensor cores) past it in
+    bf16, each with both widths up to 64; else "wide"."""
+    if max(dk, dv) > SEP_MAX_HEAD:
+        return "wide"
+    if t <= SEP_SHORT_T:
+        return "resident"
+    return "mma" if itemsize == 2 else "wide"
+
+
+def sep_resident_plan(n: int, t: int, heads: int, d: int, itemsize: int,
+                      sms: int):
+    """The resident kernel's launch (``experimental_blanes.Plan``, row 16's
+    layout at head width d): of four, two or one heads an item and two or
+    one stage buffers, the plan that leaves room for the most blocks on an
+    SM by shared memory, up to SEP_PER_SM, then the most heads, then two
+    buffers; as many blocks as the SMs then hold, or one per item."""
+    from newsrecommendation_tpu_torch.ops import experimental_blanes as bl
+
+    best = None
+    for g in (4, 2, 1):
+        group = min(heads, g)
+        for nbuf in (2, 1):
+            smem = bl.smem_bytes("bwd", t, d, itemsize, group, t, nbuf)
+            if smem <= kernels.MAX_SMEM:
+                per_sm = min(SEP_PER_SM, bl.SM_SMEM // (smem + 1024))
+                key = (per_sm, group, nbuf)
+                if best is None or key > best[0]:
+                    best = (key, smem)
+    (per_sm, group, nbuf), smem = best
+    items = n * -(-heads // group)
+    return bl.Plan("bwd", group, t, nbuf, items, min(items, sms * per_sm),
+                   smem)
+
+
+class SepBwdPlan(NamedTuple):
+    """The regime of rows 6 and 8 (``SEP_REGIMES``) and its launches: the
+    resident kernel's (``experimental_blanes.Plan``), or the tensor-core
+    query side's and key side's (``blockwise.Launch``)."""
+    regime: str
+    resident: NamedTuple | None = None
+    query: blockwise.Launch | None = None
+    key: blockwise.Launch | None = None
+
+    def args(self) -> tuple:
+        """The six ints the C entry points take: resident (heads, nbuf,
+        blocks, 0, 0, 0); tensor cores (tile, chunk, nbuf) of the query
+        side, then of the key side; wide zeros."""
+        if self.regime == "resident":
+            r = self.resident
+            return (r.heads, r.nbuf, r.blocks, 0, 0, 0)
+        if self.regime == "mma":
+            return tuple(x for p in (self.query, self.key)
+                         for x in (p.tile, p.chunk, p.nbuf))
+        return (0,) * 6
+
+
+def sep_bwd_launch_plan(n: int, t: int, heads: int, dk: int, dv: int, dtype,
+                        sms: int = 132) -> SepBwdPlan:
+    """The regime and launches of rows 6 and 8 at (N, T, H, d_k, d_v) in
+    ``dtype``. Both designs stage every head at the larger width, so their
+    layouts are those of the kernels they come from at that width:
+    resident, row 16's (``sep_resident_plan``: up to four heads and two
+    buffers a block, at most as many blocks as the card holds); tensor
+    cores, rows 3-4's (``bwd_launch_plan``: a block per (row, head) and
+    tile of 128 or 64 rows a side, the other side in chunks); wide, no
+    plan. A dtype other than float32 and bfloat16 raises TypeError."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dtype {dtype} not supported (float32, bfloat16)")
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    d = max(dk, dv)
+    regime = sep_bwd_regime(t, dk, dv, itemsize)
+    if regime == "resident":
+        return SepBwdPlan(regime, resident=sep_resident_plan(
+            n, t, heads, d, itemsize, sms))
+    if regime == "mma":
+        query, key = _mma_sides(n, t, heads, d, itemsize, sms)
+        return SepBwdPlan(regime, query=query, key=key)
+    return SepBwdPlan(regime)
+
+
 def mhsa_sep_bwd(q, k, v, key_mask, g, n_heads: int):
     """Kernel rows 6 (key_mask None) and 8 on CUDA tensors: (dq, dk, dv)
-    as exp_mhsa_bwd_reference. Raises for other devices."""
+    as exp_mhsa_bwd_reference, in the regime of ``sep_bwd_launch_plan``.
+    Raises for other devices."""
     n, t, dk, dv = _check_sep(q, k, v, key_mask, n_heads)
     _check_grad(g, q, n, t, n_heads * dv)
     lds = _check_sep_launch(q, k, v, key_mask, g)
     d_q, d_k = (torch.empty((n, t, n_heads * dk), dtype=q.dtype,
                             device=q.device) for _ in range(2))
     d_v = torch.empty((n, t, n_heads * dv), dtype=q.dtype, device=q.device)
-    scratch, slots = kernels.scratch("mhsa_sep", "mhsa_sep_bwd_scratch_floats",
-                                     n * n_heads, q.device, t, dk, dv)
+    plan = sep_bwd_launch_plan(n, t, n_heads, dk, dv, q.dtype,
+                               blockwise._sms(q.device))
+    scratch, slots = None, 0
+    if plan.regime == "mma":  # each (row, head, query)'s m, den and r
+        scratch = torch.empty((3, n * n_heads, t), dtype=torch.float32,
+                              device=q.device)
+    elif plan.regime == "wide":  # past shared memory: the global slots
+        scratch, slots = kernels.scratch(
+            "mhsa_sep", "mhsa_sep_bwd_scratch_floats", n * n_heads, q.device,
+            t, dk, dv)
     kernels.call("mhsa_bwd" if key_mask is None else "mhsa_bwd_masked",
                  kernels.entry("mhsa_sep", "mhsa_sep_bwd", q.dtype), q.device,
                  *map(kernels.ptr, (q, k, v, key_mask, g, d_q, d_k, d_v,
                                     scratch)), n, t, n_heads, dk, dv, *lds,
-                 slots)
+                 SEP_REGIMES.index(plan.regime), *plan.args(), slots,
+                 regime=plan.regime)
     return d_q, d_k, d_v
 
 

@@ -10,7 +10,8 @@ with the same sources reuses the libraries; a failed build raises.
 Each wrapper counts its launches per variant (``KERNELS``), so a run can
 show which kernels its path went through; a wrapper whose launch takes one
 of several regimes (rows 3-4, 12 and 14: resident, tensor-core or tiled
-kernels) also counts it per regime. A CPU tensor takes a kernel's
+kernels; rows 6 and 8: resident, tensor-core or wide) also counts it per
+regime. A CPU tensor takes a kernel's
 plain PyTorch version and counts nothing; a CUDA tensor launches the
 kernel or raises; any other device raises ``NoKernelError``.
 """
@@ -50,16 +51,16 @@ _ENTRY_POINTS = {
     "blanes": {"blanes_fwd": "p" * 3 + "i" * 8,
                "blanes_bwd": "p" * 5 + "i" * 11},
     "mhsa_sep": {"mhsa_sep_fwd": "p" * 6 + "i" * 9,
-                 "mhsa_sep_bwd": "p" * 9 + "i" * 9},
+                 "mhsa_sep_bwd": "p" * 9 + "i" * 16},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "u": ctypes.c_uint32,
            "f": ctypes.c_float}
 # Sources whose block stages whole rows or (T, D) operands export size
 # functions (no dtype suffix): the shared bytes a block needs, checked
 # against what a block may use, the floats of a scratch slot where a long
-# row moves to global memory, rows 3-4's regime and tensor-core layout,
-# and the flash forward's count of key-walk tasks. {source: {function:
-# count of int arguments}}.
+# row moves to global memory, the regimes of rows 3-4 and 6/8 and their
+# shared bytes, and the flash forward's count of key-walk tasks. {source:
+# {function: count of int arguments}}.
 _SIZE_FUNCTIONS = {
     "qkv_fwd": {"qkv_fwd_slot_floats": 2},
     "qkv_bwd_probs": {"qkv_bwd_probs_slot_floats": 3},
@@ -72,7 +73,8 @@ _SIZE_FUNCTIONS = {
                        "fused_tail_bwd_attn_stage_floats": 3},
     "blanes": {"blanes_smem_bytes": 7},
     "mhsa_sep": {"mhsa_sep_fwd_scratch_floats": 3,
-                 "mhsa_sep_bwd_scratch_floats": 3},
+                 "mhsa_sep_bwd_scratch_floats": 3,
+                 "mhsa_sep_bwd_regime": 4, "mhsa_sep_bwd_smem_bytes": 8},
 }
 # Shared memory one block may use on sm_90 (opt-in, dynamic).
 MAX_SMEM = 232448

@@ -5,18 +5,25 @@
 ``test_blanes_layout_launches_rows_15_16[False]``) many times on one
 NVIDIA GPU, to tell a fault of the kernels from one of the projection.
 
-    python3 scripts/mismatch_repeat.py [REPS] [OUT_DIR] [--poison]
+    python3 scripts/mismatch_repeat.py [REPS] [OUT_DIR]
+                                       [--poison[=VALUE]] [--after-smoke]
 
 Each case computes its CPU reference once, then runs the card side REPS
 times (default 2000) from the same parameters and input. With --poison,
-before each repeat 1 GiB of the allocator's cache is filled with NaN and
-freed again, so a kernel that reads memory it never wrote (a scratch
-slot, a pad) sees NaN there and fails the comparison. Per repeat it
+before each repeat 1 GiB of the allocator's cache is filled with NaN (or
+VALUE) and freed again, so a kernel that reads memory it never wrote (a
+scratch slot, a pad) sees it there and fails the comparison; a finite
+VALUE also reaches reads whose NaN a max or a comparison would drop. Per repeat it
 checks whether the card's output and input gradient equal the first
 repeat's bit for bit, counts the elements outside the tolerance the
 original check used, and compares the projection's output alone (q, k,
 v) with the CPU's. With OUT_DIR the inputs of the first failing repeat
-are saved there (give a git-ignored directory). It prints one line,
+are saved there (give a git-ignored directory). With --after-smoke the
+process first runs chip_smoke.py's phases that come before
+``mhsa-unequal`` (every kernel case, chip_smoke.kernel_phases) and then
+the two ``mhsa-unequal`` phases themselves (chip_smoke.unequal_run,
+recording whether each passed), as the smoke's own process does, then
+the loops. It prints one line,
 ``MISMATCH {json}``: per case the repeats, the failing ones, the repeats
 whose bits differ from the first, the largest error of the output and of
 the projection, and the card. Exits 1 without CUDA.
@@ -25,6 +32,7 @@ the projection, and the card. Exits 1 without CUDA.
 import json
 import os
 import sys
+import time
 
 sys.path.insert(0, os.getcwd())
 
@@ -59,8 +67,9 @@ def _case(name, params, x, mask, g, heads, layout, io, reps, out_dir,
         ref = (out_c.cuda(), dx_c.cuda(), [y.cuda() for y in proj_c])
         first, changed, failing, worst, worst_proj = None, 0, [], 0.0, 0.0
         for rep in range(reps):
-            if poison:  # freed at once: the next allocations reuse it
-                torch.full((256 << 20,), float("nan"), device="cuda")
+            if poison is not None:  # freed at once: the next
+                # allocations reuse it
+                torch.full((256 << 20,), poison, device="cuda")
             out, dx, proj = run("cuda")
             if first is None:
                 first = (out, dx)
@@ -104,16 +113,43 @@ def main() -> int:
     if not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 1
-    args = [a for a in sys.argv[1:] if a != "--poison"]
-    poison = "--poison" in sys.argv
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    poison = next((float(a.partition("=")[2] or "nan")
+                   for a in sys.argv[1:] if a.startswith("--poison")), None)
+    after_smoke = "--after-smoke" in sys.argv
     reps = int(args[0]) if args else 2000
     out_dir = args[1] if len(args) > 1 else None
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from newsrecommendation_tpu_torch.ops import attention, kernels
 
-    kernels.build(["mhsa_sep", "blanes"])
-    res = {"card": torch.cuda.get_device_name(0), "poison": poison}
+    res = {"card": torch.cuda.get_device_name(0), "poison": poison,
+           "after_smoke": after_smoke}
+    if after_smoke:
+        import chip_smoke as cs
+        from newsrecommendation_tpu_torch.ops import blockwise as bw
+        from newsrecommendation_tpu_torch.ops import experimental_blanes as bl
+        from newsrecommendation_tpu_torch.ops import (
+            experimental_fused_encoder as fe,
+        )
+        from newsrecommendation_tpu_torch.ops import experimental_qkv2d as q2
+        from newsrecommendation_tpu_torch.ops import fused_attention as fa
+
+        kernels.build()
+        t0 = time.perf_counter()
+        cases = cs.kernel_phases(fa, bw, bl, fe, q2)
+        res["smoke_phases_s"] = time.perf_counter() - t0
+        res["smoke_cases"] = sum(len(c) for c in cases.values())
+        # then the smoke's own mhsa-unequal phases (a mismatch prints
+        # chip_smoke.unequal_diagnosis's line first)
+        for masked in (False, True):
+            try:
+                cs.unequal_run(masked)
+                res[f"smoke_unequal_masked_{masked}"] = "passed"
+            except RuntimeError as e:
+                res[f"smoke_unequal_masked_{masked}"] = str(e)
+    else:
+        kernels.build(["mhsa_sep", "blanes"])
     # chip_smoke.unequal_run(False): rows 5-8 at d_v != d_k
     gen = torch.Generator().manual_seed(800)
     params = attention.init_multi_head_self_attention(gen, 300, 20, 20, 32)

@@ -918,21 +918,42 @@ def test_blanes_raises_on_what_it_does_not_take():
 # ---- rows 5-8: separate q, k, v --------------------------------------------
 
 
+def _sep_regime(t, dk, dv, dtype):
+    """Rows 6-8's regime as the kernels' design states it: resident at
+    T <= 64, tensor cores past it in bf16, both with heads of up to 64;
+    else the wide kernel."""
+    if max(dk, dv) > 64:
+        return "wide"
+    if t <= 64:
+        return "resident"
+    return "mma" if dtype == "bfloat16" else "wide"
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n, t, heads, dk, dv", [
-    (64, 20, 20, 20, 20), (64, 20, 20, 20, 32), (33, 50, 20, 20, 8),
-    (7, 5, 3, 4, 6), (2, 300, 2, 8, 12), (2, 900, 1, 20, 20)])
-def test_mhsa_sep_kernels_match_plain(dtype, n, t, heads, dk, dv):
+@pytest.mark.parametrize("n, t, heads, dk, dv, pad", [
+    (64, 20, 20, 20, 20, 0), (64, 20, 20, 20, 32, 0), (33, 50, 20, 20, 8, 0),
+    (7, 5, 3, 4, 6, 0), (2, 300, 2, 8, 12, 0), (2, 900, 1, 20, 20, 0),
+    (9, 64, 5, 20, 32, 1), (3, 65, 2, 24, 40, 3), (4, 128, 3, 20, 32, 1),
+    (2, 300, 3, 5, 12, 1), (2, 200, 2, 64, 16, 0), (3, 30, 2, 70, 8, 1),
+    (2, 100, 1, 72, 20, 0)])
+def test_mhsa_sep_kernels_match_plain(dtype, n, t, heads, dk, dv, pad):
     """Rows 5-8 against their plain versions, unmasked and masked, on q, k
-    and v cut from one projection (one row stride) at equal and unequal
-    widths; at T = 300 the backward's working set, and at T = 900 the
-    forward's too, lives in a global scratch."""
+    and v cut from one projection (one row stride; ``pad`` extra lanes
+    make it odd) at equal and unequal widths, in every regime of rows 6
+    and 8, whose launches are counted per regime: resident at T <= 64
+    (d_k = 5 in bf16 is a head row of 10 bytes, staged element by
+    element), tensor cores past it in bf16 (T = 65: one partial step of 16
+    past 64; d_k = 24 beside d_v = 40 at the width of 64), the wide kernel
+    in f32 past 64 and for heads wider than 64; at T = 300 the wide
+    backward's working set, and at T = 900 the forward's too, lives in a
+    global scratch."""
     rng = np.random.default_rng(13)
     tdt = getattr(torch, dtype)
-    w = heads * (2 * dk + dv)
+    w = heads * (2 * dk + dv) + pad
     qkv = torch.from_numpy(rng.normal(size=(n, t, w)).astype(
         np.float32)).to(tdt).cuda()
-    q, k, v = torch.split(qkv, [heads * dk, heads * dk, heads * dv], -1)
+    q, k, v, _ = torch.split(qkv, [heads * dk, heads * dk, heads * dv, pad],
+                             -1)
     g = torch.from_numpy(rng.normal(size=(n, t, heads * dv)).astype(
         np.float32)).to(tdt).cuda()
     mask = (rng.random((n, t)) > 0.3).astype(np.float32)
@@ -958,6 +979,69 @@ def test_mhsa_sep_kernels_match_plain(dtype, n, t, heads, dk, dv):
     assert kernels.launch_counts("mhsa_fwd") == {"mhsa": 1, "mhsa_masked": 1}
     assert kernels.launch_counts("mhsa_bwd") == {"mhsa_bwd": 1,
                                                  "mhsa_bwd_masked": 1}
+    assert kernels.regime_counts("mhsa_bwd") == {
+        _sep_regime(t, dk, dv, dtype): 2}
+
+
+def test_sep_bwd_launch_plan_matches_the_kernels():
+    """sep_bwd_launch_plan's regime and shared bytes (ops/fused_attention.py)
+    equal the C side's (mhsa_sep_bwd_regime, mhsa_sep_bwd_smem_bytes), which
+    refuses a plan it does not take; a refused plan raises in the wrapper
+    and counts nothing."""
+    for t, dk, dv in [(20, 20, 20), (20, 20, 32), (64, 20, 32), (65, 20, 32),
+                      (300, 20, 32), (511, 20, 32), (50, 5, 12), (64, 64, 8),
+                      (100, 24, 40), (30, 70, 8), (128, 20, 72)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            esize = 2 if dtype == torch.bfloat16 else 4
+            plan = fa.sep_bwd_launch_plan(64, t, 20, dk, dv, dtype)
+            assert fa.SEP_REGIMES.index(plan.regime) == kernels.size_of(
+                "mhsa_sep", "mhsa_sep_bwd_regime", t, dk, dv, esize)
+            if plan.regime == "resident":
+                r = plan.resident
+                assert r.smem == kernels.size_of(
+                    "mhsa_sep", "mhsa_sep_bwd_smem_bytes", 0, t, dk, dv,
+                    esize, r.heads, 0, r.nbuf), (t, dk, dv, dtype)
+            if plan.regime == "mma":
+                for side, kind in ((plan.query, 2), (plan.key, 1)):
+                    assert side.smem == kernels.size_of(
+                        "mhsa_sep", "mhsa_sep_bwd_smem_bytes", kind, t, dk,
+                        dv, esize, side.tile, side.chunk, side.nbuf)
+    assert kernels.size_of("mhsa_sep", "mhsa_sep_bwd_smem_bytes", 2, 300, 20,
+                           32, 2, 96, 256, 1) == 0
+    assert kernels.size_of("mhsa_sep", "mhsa_sep_bwd_smem_bytes", 0, 20, 20,
+                           32, 2, 5, 0, 1) == 0
+    q = torch.zeros((2, 300, 3 * 20), device="cuda", dtype=torch.bfloat16)
+    g = torch.zeros((2, 300, 32), device="cuda", dtype=torch.bfloat16)
+    v = torch.zeros((2, 300, 32), device="cuda", dtype=torch.bfloat16)
+    good = fa.sep_bwd_launch_plan(2, 300, 1, 20, 32, torch.bfloat16)
+    bad = good._replace(query=good.query._replace(tile=96))
+    fa.reset_launch_counts()
+    real = fa.sep_bwd_launch_plan
+    fa.sep_bwd_launch_plan = lambda *a, **k: bad
+    try:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fa.mhsa_sep_bwd(q[..., :20], q[..., 20:40], v, None, g, 1)
+    finally:
+        fa.sep_bwd_launch_plan = real
+    assert not any(fa.launch_counts("mhsa_bwd").values())
+
+
+def test_mhsa_sep_bwd_repeats_bit_for_bit():
+    """20 calls of rows 6 and 8 in each regime give the same bits: no
+    atomics, every sum in a fixed order."""
+    for n, t, dtype in ((64, 20, torch.bfloat16), (8, 300, torch.bfloat16),
+                        (8, 100, torch.float32)):
+        gen = torch.Generator(device="cuda").manual_seed(t)
+        qkv = torch.randn((n, t, 20 * 72), generator=gen,
+                          device="cuda").to(dtype)
+        q, k, v = torch.split(qkv, [400, 400, 640], -1)
+        g = torch.randn((n, t, 640), generator=gen, device="cuda").to(dtype)
+        mask = (torch.rand((n, t), generator=gen, device="cuda") > 0.3).float()
+        for km in (None, mask):
+            first = fa.mhsa_sep_bwd(q, k, v, km, g, 20)
+            for _ in range(20):
+                again = fa.mhsa_sep_bwd(q, k, v, km, g, 20)
+                assert all(torch.equal(a, b) for a, b in zip(again, first))
 
 
 @pytest.mark.parametrize("masked", [False, True])

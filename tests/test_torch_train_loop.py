@@ -153,7 +153,9 @@ def test_fit_save_dir_waits_for_the_checkpoint_slice(tiny_cfg):
                                     "scripts/flash_ab.py",
                                     "scripts/flash_variants.py",
                                     "scripts/qkv_bwd_ab.py",
-                                    "scripts/mismatch_repeat.py"])
+                                    "scripts/mismatch_repeat.py",
+                                    "scripts/mhsa_sep_ab.py",
+                                    "scripts/mhsa_sep_variants.py"])
 def test_card_scripts_import_no_jax(script):
     """The scripts that drive the port on a GPU, where JAX need not be
     installed, import no JAX and nothing of the JAX package, as the port
