@@ -65,11 +65,13 @@ Phases, each printing one line with its elapsed seconds:
   kernel-sep  rows 5-8 (separate q, k, v; 7-8 with the key mask) vs their
            plain versions at 7040 x 20 with d_v = 20 and d_v = 32, and at
            128 x 300 and 64 x 511 with d_v = 32, f32 and bf16, on q, k, v
-           cut from one projection; each backward launch in its plan's
-           regime (resident at T = 20; past 64 tensor cores in bf16, the
-           wide kernel in f32); controls (mask dropped, v sliced at q's
-           width as the TPU kernels slice it, ds without its row-sum term,
-           in bf16 dv from the unrounded a); kernel / plain /
+           cut from one projection; each launch in its plan's regime
+           (forward: row-wise at T = 20; past 64 tensor cores in bf16,
+           the tiled kernel in f32; backward: resident at T = 20; past 64
+           tensor cores in bf16, the wide kernel in f32); controls (mask
+           dropped, v sliced at q's width as the TPU kernels slice it, ds
+           without its row-sum term, in bf16 dv from the unrounded a, and
+           past T = 64 out from the unrounded a); kernel / plain /
            scaled_dot_product_attention times
   kernel-blanes  rows 15-16 (the batch-in-lanes forward and backward) vs
            their plain versions at 7040 x 20, 128 x 50 (both masks), 64 x
@@ -85,7 +87,8 @@ Phases, each printing one line with its elapsed seconds:
            13-14 at T = 5000 and 7000
   mhsa-unequal  multi_head_self_attention at d_k = 20, d_v = 32 (1024 x
            20, 20 heads, both masks), forward and backward on the card
-           against the CPU, launching rows 5-8 only; on a mismatch first a
+           against the CPU, launching rows 5-8 only (the row-wise and
+           resident regimes); on a mismatch first a
            diagnosis line: the card's q, k, v projection against the
            CPU's, and rows 5-8 on the card's projection against their
            plain versions on the same values
@@ -256,8 +259,9 @@ TAIL_LIMITS = ((5000, 20), (7000, 4))
 # memory on the user encoder.
 MID_SERVE_L = 400
 # Rows 5-8 at the news encoder's shape with d_v = d_k and d_v = 32, and
-# past T = 64 (rows 6 and 8 on tensor cores in bf16, on the wide kernel in
-# f32) at the user encoder's long shapes with d_v = 32.
+# past T = 64 (on tensor cores in bf16; in f32 rows 5 and 7 on the tiled
+# kernel, rows 6 and 8 on the wide one) at the user encoder's long shapes
+# with d_v = 32.
 SEP_DV = (20, 32)
 SEP_LONG = ((128, 300), (64, 511))
 # The long train-check's reduced width (heads of 20 as published).
@@ -1145,12 +1149,24 @@ def blanes_kernel_case(bl, fa, masked, n, t, heads, d, dtype, seed):
     return case
 
 
+def sep_fwd_unrounded(fa, q, k, v, mask, heads):
+    """Rows 5 and 7's plain version with a fault: a meets v in f32, not
+    rounded to v's dtype first."""
+    import torch
+
+    n, t, _, dv = fa._check_sep(q, k, v, mask, heads)
+    a, _, _ = fa._sep_probs(q, k, mask, heads)
+    ctx = torch.einsum("bhqk,bkhd->bqhd", a,
+                       v.reshape(n, t, heads, dv).float())
+    return ctx.reshape(n, t, heads * dv).to(q.dtype)
+
+
 def sep_kernel_case(fa, masked, n, t, heads, dk, dv, dtype, seed):
     """Rows 5-8 (separate q, k, v; rows 7-8 with the key mask) against
     their plain versions on the card, on q, k, v cut from one projection,
     at d_v = d_k and d_v != d_k, with planted faults, timings (each
     beside scaled_dot_product_attention, the backward's alone) and
-    bounds; the backward's launch must take its plan's regime."""
+    bounds; each launch must take its plan's regime."""
     import torch
     import torch.nn.functional as F
 
@@ -1176,15 +1192,19 @@ def sep_kernel_case(fa, masked, n, t, heads, dk, dv, dtype, seed):
     out = fa.mhsa_sep_fwd(q, k, v, mask, heads)
     grads = fa.mhsa_sep_bwd(q, k, v, mask, g, heads)
     regimes = kernels.regime_counts("mhsa_bwd")
+    fwd_regimes = kernels.regime_counts("mhsa_fwd")
     want = fa.sep_bwd_launch_plan(n, t, heads, dk, dv, tdt).regime
     if regimes != {want: 1}:
         fail(f"{where}: the backward launched {regimes}, its plan {want}")
+    want = fa.sep_fwd_launch_plan(n, t, heads, dk, dv, tdt).regime
+    if fwd_regimes != {want: 1}:
+        fail(f"{where}: the forward launched {fwd_regimes}, its plan {want}")
     ref = fa.exp_mhsa_reference(q, k, v, mask, heads)
     refs = fa.exp_mhsa_bwd_reference(q, k, v, mask, g, heads)
     grads[0].sum().item()  # waits for the kernels
     case = {"variant": "mhsa_masked" if masked else "mhsa",
             "shape": [n, t, heads, dk, dv], "dtype": dtype,
-            "regimes": regimes,
+            "regimes": regimes, "fwd_regimes": fwd_regimes,
             "ctx": compare(where, "ctx", out, ref, f_rtol, f_atol)}
     for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
         case[name] = compare(where, name, got, want, b_rtol, b_atol)
@@ -1201,7 +1221,12 @@ def sep_kernel_case(fa, masked, n, t, heads, dk, dv, dtype, seed):
         sliced = fa.exp_mhsa_reference(q, k, v[..., :hdk], mask, heads)
         caught["v sliced at q's width"] = n_outside(
             out, F.pad(sliced, (0, hdv - hdk)), f_rtol, f_atol)
-    else:
+    if dtype == "bfloat16" and t > fa.SEP_SHORT_T:
+        # the tensor-core forward rounds a into the A fragment of a@V
+        caught["out from the f32 a (differing elements)"] = rounding_fault(
+            out, sep_fwd_unrounded(fa, q, k, v, mask, heads),
+            case["ctx"]["n_differ"], f_rtol, f_atol)
+    if dv == dk:
         qkv = proj.contiguous()
         zero = torch.zeros(3 * hdk, dtype=tdt, device=DEVICE)
         _, probs = fa.exp_mhsa_qkv_bias_probs_reference(qkv, zero, mask,
@@ -1416,7 +1441,7 @@ def unequal_run(masked, n=1024, t=20, heads=20, dk=20, dv=32, d_model=300):
         mask[:, -1] = 1.0
         mask[::7] = 0.0
     g = torch.randn((n, t, heads * dv), generator=gen)
-    res, kept = {}, {}
+    res, kept, regimes = {}, {}, {}
     real_qkv = attention._fused_qkv
     for dev in (DEVICE, "cpu"):
         own = kept[dev] = {}
@@ -1449,6 +1474,8 @@ def unequal_run(masked, n=1024, t=20, heads=20, dk=20, dv=32, d_model=300):
         xx.grad.sum().item()  # waits for the kernels
         launches = {k: kernels.launch_counts(k) for k in kernels.KERNELS
                     if any(kernels.launch_counts(k).values())}
+        regimes[dev] = {k: kernels.regime_counts(k)
+                        for k in ("mhsa_fwd", "mhsa_bwd")}
         res[dev] = (out.detach().cpu(), xx.grad.cpu(),
                     {k: p[k]["w"].grad.cpu() for k in p}, launches)
     where = f"mhsa-unequal masked={masked}"
@@ -1478,9 +1505,15 @@ def unequal_run(masked, n=1024, t=20, heads=20, dk=20, dv=32, d_model=300):
             launches["mhsa_fwd"]["mhsa" + variant]
             and launches["mhsa_bwd"]["mhsa_bwd" + variant]):
         fail(f"{where}: launches {launches}, expected rows 5-8 only")
+    # at T = 20 rows 5 and 7 take the row-wise kernel, rows 6 and 8 the
+    # resident one
+    want = {"mhsa_fwd": {"rowwise": 1}, "mhsa_bwd": {"resident": 1}}
+    if regimes[DEVICE] != want:
+        fail(f"{where}: regimes {regimes[DEVICE]}, expected {want}")
     if res["cpu"][3]:
         fail(f"{where}: the CPU counted launches {res['cpu'][3]}")
     out["launches"] = launches
+    out["regimes"] = regimes[DEVICE]
     return out
 
 

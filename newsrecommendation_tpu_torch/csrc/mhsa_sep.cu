@@ -29,14 +29,29 @@
 // forward reads q, k, v and writes out (586 MB, 0.175 ms at 3.35 TB/s); the
 // backward reads q, k, v, g and writes dq, dk, dv (991 MB, 0.296 ms)
 // against N*H*T*T*(6*Dk + 4*Dv) = 14.0 GFLOP (0.014 ms at the bf16
-// tensor-core peak).
+// tensor-core peak). Past T = 64 the forward is still bound by its bytes,
+// as chip_smoke.py's kernel-sep phase reckons it (in and out once, the
+// mask; 2*N*H*T*T*(Dk + Dv) flops at 989 TFLOP/s): at (64, 511), Dv = 32,
+// bf16, 136.0 MB, 0.0406 ms (34.8 GFLOP, 0.0351 ms); at (128, 300) 159.7
+// MB, 0.0477 ms (24.0 GFLOP, 0.0242 ms).
 //
-// Forward (rows 5 and 7): row 1's design (qkv_fwd.cuh) on three base
-// pointers: one block per (row, head) stages q_h, k_h, v_h as f32 with odd
-// row strides; one warp per query makes a's row; threads over (row, lane)
-// write the products. Past shared memory (T > 735 at Dk = 20, Dv = 32)
-// the working set lives in its block slot's part of a global scratch and
-// `slots` blocks walk the (row, head) items.
+// Forward (rows 5 and 7), in three regimes chosen by the launch plan
+// (ops/fused_attention.py sep_fwd_launch_plan, mhsa_sep_fwd_regime here):
+//   rowwise, T <= 64 at any width and heads wider than 64 at any T: row
+//     1's design (qkv_fwd.cuh) on three base pointers: one block per (row,
+//     head) stages q_h, k_h, v_h as f32 with odd row strides; one warp per
+//     query makes a's row; threads over (row, lane) write the products.
+//     Past shared memory (T > 735 at Dk = 20, Dv = 32) the working set
+//     lives in its block slot's part of a global scratch and `slots`
+//     blocks walk the (row, head) items. Kept bit for bit from the first
+//     port: at T <= 64 it beats SDPA.
+//   tensor cores, T > 64, bf16, both widths up to 64: row 9's tensor-core
+//     forward with a walk for (m, den) over all keys, then a = e * (1/den)
+//     rounded to bf16 into the A fragment of a@V (mhsa_sep_fwd.cuh);
+//   tiled, T > 64, f32, both widths up to 64: row 9's CUDA-core design, a
+//     thread per query with q_i and its output row in registers, key
+//     chunks staged as f32 and read as broadcasts, the same walks
+//     (mhsa_sep_fwd.cuh).
 //
 // Backward (rows 6 and 8), in three regimes chosen by the launch plan
 // (ops/fused_attention.py sep_bwd_launch_plan, mhsa_sep_bwd_regime here):
@@ -54,12 +69,15 @@
 // the whole bf16 q and g rows) is most of the time
 // (scripts/mhsa_sep_variants.py cuts), and both widths are padded to the
 // larger (d_k = 20 beside d_v = 32 stages 32 lanes of q and k); on tensor
-// cores the query side recomputes s in each of its four passes and the
-// k-steps and d tiles of q and k run at the larger width too; f32 past
-// T = 64 has no kernel of its own design, and the forward keeps row 1's
-// design at every T.
+// cores the backward's query side recomputes s in each of its four passes
+// and the forward in each of its walks, and the k-steps and d tiles of q
+// and k run at the larger width too; the forward's tensor-core and tiled
+// kernels are bound by the instructions of each score's exp, mask and
+// division, far from their byte bound; f32 past T = 64 has no backward of its
+// own design, and the row-wise forward keeps row 1's design at T <= 64.
 
 #include "mhsa_sep_bwd.cuh"
+#include "mhsa_sep_fwd.cuh"
 #include "qkv_bwd.cuh"  // recompute_a_row, kMaxSmemFloats
 
 namespace {
@@ -262,11 +280,13 @@ int plan(size_t floats, int n, int n_heads, const void* gscratch, int slots,
   return (int)cudaSuccess;
 }
 
+// The row-wise route: one block per (row, head) with the working set in
+// shared memory, or `slots` blocks with it in gscratch.
 template <typename T>
-int fwd(const void* q, const void* k, const void* v, const void* mask,
-        void* out, void* gscratch, int n, int t_len, int n_heads, int dk,
-        int dv, int ldq, int ldk, int ldv, int slots, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
+int fwd_rowwise(const void* q, const void* k, const void* v,
+                const void* mask, void* out, void* gscratch, int n,
+                int t_len, int n_heads, int dk, int dv, int ldq, int ldk,
+                int ldv, int slots, void* stream) {
   int64_t grid;
   size_t smem;
   int err = plan(fwd_floats(t_len, dk, dv), n, n_heads, gscratch, slots,
@@ -283,6 +303,25 @@ int fwd(const void* q, const void* k, const void* v, const void* mask,
       static_cast<T*>(out), smem ? nullptr : static_cast<float*>(gscratch),
       (int64_t)n * n_heads, n_heads, t_len, dk, dv, ldq, ldk, ldv);
   return (int)cudaGetLastError();
+}
+
+// The forward in `regime` (sepf::Regime), which must be the shape's:
+// row-wise, gscratch the global slots (`slots` of them) or null; tensor
+// cores and tiled, args = (tile, chunk, nbuf).
+template <typename T>
+int fwd(const void* q, const void* k, const void* v, const void* mask,
+        void* out, void* gscratch, int n, int t_len, int n_heads, int dk,
+        int dv, int ldq, int ldk, int ldv, int regime, const int* args,
+        int slots, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (t_len <= 0 || regime != sepf::regime(t_len, dk, dv, sizeof(T)))
+    return (int)cudaErrorInvalidValue;
+  if (regime == sepf::kRowwise)
+    return fwd_rowwise<T>(q, k, v, mask, out, gscratch, n, t_len, n_heads,
+                          dk, dv, ldq, ldk, ldv, slots, stream);
+  return sepf::launch<T>(regime, q, k, v, mask, out, n, t_len, n_heads, dk,
+                         dv, ldq, ldk, ldv, args[0], args[1], args[2],
+                         stream);
 }
 
 // The wide route: one block per (row, head) with the working set in shared
@@ -357,25 +396,27 @@ int bwd(const void* q, const void* k, const void* v, const void* mask,
 
 extern "C" {
 
-// mask may be null (rows 5 and 6; with a mask, rows 7 and 8). gscratch,
-// `slots` slots of mhsa_sep_*_scratch_floats each, is read only when those
-// are not 0. Each returns cudaGetLastError()
-// after its launch: 0 when the kernel was queued.
-int mhsa_sep_fwd_f32(const void* q, const void* k, const void* v,
-                     const void* mask, void* out, void* gscratch, int n,
-                     int t_len, int n_heads, int dk, int dv, int ldq, int ldk,
-                     int ldv, int slots, void* stream) {
-  return fwd<float>(q, k, v, mask, out, gscratch, n, t_len, n_heads, dk, dv,
-                    ldq, ldk, ldv, slots, stream);
-}
-
-int mhsa_sep_fwd_bf16(const void* q, const void* k, const void* v,
-                      const void* mask, void* out, void* gscratch, int n,
-                      int t_len, int n_heads, int dk, int dv, int ldq,
-                      int ldk, int ldv, int slots, void* stream) {
-  return fwd<__nv_bfloat16>(q, k, v, mask, out, gscratch, n, t_len, n_heads,
-                            dk, dv, ldq, ldk, ldv, slots, stream);
-}
+// mask may be null (rows 5 and 6; with a mask, rows 7 and 8). The
+// forward's regime: 0 row-wise, 1 tensor cores, 2 tiled
+// (mhsa_sep_fwd_regime); p0..p2 its plan (tile, chunk, nbuf; zeros
+// row-wise); gscratch, `slots` slots of mhsa_sep_fwd_scratch_floats each,
+// is read only row-wise and when those are not 0. Each returns
+// cudaGetLastError() after its launch: 0 when the kernel was queued;
+// cudaErrorInvalidValue for a regime that is not the shape's or a plan the
+// regime's kernel does not take.
+#define NRK_SEP_FWD(SUFFIX, T)                                                \
+  int mhsa_sep_fwd_##SUFFIX(const void* q, const void* k, const void* v,     \
+                            const void* mask, void* out, void* gscratch,     \
+                            int n, int t_len, int n_heads, int dk, int dv,   \
+                            int ldq, int ldk, int ldv, int regime, int p0,   \
+                            int p1, int p2, int slots, void* stream) {       \
+    const int args[3] = {p0, p1, p2};                                        \
+    return fwd<T>(q, k, v, mask, out, gscratch, n, t_len, n_heads, dk, dv,   \
+                  ldq, ldk, ldv, regime, args, slots, stream);               \
+  }
+NRK_SEP_FWD(f32, float)
+NRK_SEP_FWD(bf16, __nv_bfloat16)
+#undef NRK_SEP_FWD
 
 // regime: 0 resident, 1 tensor cores, 2 wide (mhsa_sep_bwd_regime);
 // p0..p5 its plan; scratch the stats (tensor cores) or the global slots
@@ -395,6 +436,30 @@ int mhsa_sep_fwd_bf16(const void* q, const void* k, const void* v,
 NRK_SEP_BWD(f32, float)
 NRK_SEP_BWD(bf16, __nv_bfloat16)
 #undef NRK_SEP_BWD
+
+// The forward's regime at (T, Dk, Dv) in a dtype of esize bytes: 0
+// row-wise, 1 tensor cores, 2 tiled.
+int mhsa_sep_fwd_regime(int t_len, int dk, int dv, int esize) {
+  return nrk::sepf::regime(t_len, dk, dv, esize);
+}
+
+// Shared bytes of one block of the forward in `regime` under the plan
+// (tile, chunk, nbuf); row-wise (no plan) the working set's, 0 past shared
+// memory; 0 for a plan the kernels refuse.
+int mhsa_sep_fwd_smem_bytes(int regime, int t_len, int dk, int dv,
+                            int esize, int tile, int chunk, int nbuf) {
+  namespace f = nrk::sepf;
+  if (regime != f::regime(t_len, dk, dv, esize)) return 0;
+  if (regime == f::kRowwise) {
+    const size_t floats = fwd_floats(t_len, dk, dv);
+    return floats > (size_t)kMaxSmemFloats ? 0 : (int)(4 * floats);
+  }
+  if (!f::plan_ok(regime, dk, dv, tile, chunk, nbuf)) return 0;
+  if (regime == f::kTiled) return (int)f::tiled_smem(dk, dv);
+  const nrk::FlashLayout l =
+      nrk::flash_layout(nrk::kFlashFwd, dk > dv ? dk : dv, 2, tile, chunk);
+  return (int)(l.own + nbuf * l.stage);
+}
 
 // The backward's regime at (T, Dk, Dv) in a dtype of esize bytes: 0
 // resident, 1 tensor cores, 2 wide.

@@ -21,7 +21,8 @@ Replaces, in ``newsrecommendation_tpu/ops/pallas/fused_attention.py``:
 and, on separate q, k and v (the JAX package's route when the q/k/v
 widths differ), ``_fwd_call`` / ``_masked_fwd_call`` and ``_bwd_call`` /
 ``_masked_bwd_call`` -> ``csrc/mhsa_sep.cu``, kernels "mhsa_fwd" (rows 5
-and 7) and "mhsa_bwd" (rows 6 and 8, in the three regimes of
+and 7, in the three regimes of ``sep_fwd_launch_plan``: row-wise, tensor
+cores, tiled) and "mhsa_bwd" (rows 6 and 8, in the three regimes of
 ``sep_bwd_launch_plan``: resident, tensor cores, wide), behind ``exp_mhsa``
 and ``exp_mhsa_masked``. Those take d_v as a width of its own: the TPU
 kernels size the output and v's head slice by q's width, which is right
@@ -486,28 +487,99 @@ def _check_sep_launch(q, k, v, key_mask, *more):
     return lds
 
 
+# ---- rows 5-8: the launch plans ---------------------------------------------
+
+SEP_REGIMES = ("resident", "mma", "wide")  # rows 6 and 8
+SEP_FWD_REGIMES = ("rowwise", "mma", "tiled")  # rows 5 and 7
+SEP_SHORT_T = 64  # longest T of the resident and row-wise regimes
+SEP_MAX_HEAD = 64  # widest head of every regime but "wide" and "rowwise"
+SEP_PER_SM = 3  # resident blocks an SM holds by registers (launch bounds)
+# The forward past T = 64 on the tiled kernel: threads (one query each)
+# and keys staged at once (csrc/mhsa_sep_fwd.cuh kTiledThreads,
+# kTiledChunk). On an H100 at (64, 511), d_k 20, d_v 32, chunks of 128
+# took 2.64 ms against 4.43 for 256 and 2.68 for 64, and two queries a
+# thread 2.68 (PERF.md, PR 14).
+SEP_TILED_THREADS, SEP_TILED_CHUNK = 128, 128
+
+
+def sep_fwd_regime(t: int, dk: int, dv: int, itemsize: int) -> str:
+    """The regime of rows 5 and 7 at (T, d_k, d_v) (``csrc/mhsa_sep_fwd.cuh``
+    ``regime``): "mma" (tensor cores) past T = 64 in bf16 and "tiled" (CUDA
+    cores) past it in f32, each with both widths up to 64; else "rowwise",
+    the kernel rows 5 and 7 were first ported with."""
+    if max(dk, dv) > SEP_MAX_HEAD or t <= SEP_SHORT_T:
+        return "rowwise"
+    return "mma" if itemsize == 2 else "tiled"
+
+
+class SepFwdPlan(NamedTuple):
+    """The regime of rows 5 and 7 (``SEP_FWD_REGIMES``) and its launch
+    (``blockwise.Launch``; none row-wise)."""
+    regime: str
+    launch: blockwise.Launch | None = None
+
+    def args(self) -> tuple:
+        """The three ints the C entry points take: (tile, chunk, nbuf);
+        zeros row-wise."""
+        if self.launch is None:
+            return (0,) * 3
+        p = self.launch
+        return (p.tile, p.chunk, p.nbuf)
+
+
+def sep_tiled_smem(dk: int, dv: int) -> int:
+    """Shared bytes of a tiled block: SEP_TILED_CHUNK keys of K and V at
+    their compile-time widths and of the mask, f32 (``tiled_smem``)."""
+    return 4 * SEP_TILED_CHUNK * (blockwise._width(dk)
+                                  + blockwise._width(dv) + 1)
+
+
+def sep_fwd_launch_plan(n: int, t: int, heads: int, dk: int, dv: int, dtype,
+                        sms: int = 132) -> SepFwdPlan:
+    """The regime and launch of rows 5 and 7 at (N, T, H, d_k, d_v) in
+    ``dtype``. Tensor cores: row 9's forward layout at the larger width
+    (``blockwise.mma_launch`` of kind "fwd": a block per (row, head) and
+    tile of 128 or 64 queries, K, V and the mask in chunks over all T
+    keys); tiled: a block of SEP_TILED_THREADS threads per (row, head),
+    one query a thread, SEP_TILED_CHUNK keys staged at once; row-wise, no
+    plan. A dtype other than float32 and bfloat16 raises TypeError."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dtype {dtype} not supported (float32, bfloat16)")
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    regime = sep_fwd_regime(t, dk, dv, itemsize)
+    rows = n * heads
+    if regime == "mma":
+        tile = blockwise.mma_tile(rows, t, sms)
+        return SepFwdPlan(regime, blockwise.mma_launch(
+            "fwd", max(dk, dv), itemsize, tile, t, (rows, -(-t // tile))))
+    if regime == "tiled":
+        tile = SEP_TILED_THREADS
+        return SepFwdPlan(regime, blockwise.Launch(
+            "sep_fwd_tiled", tile, SEP_TILED_CHUNK, 1, sep_tiled_smem(dk, dv),
+            (rows, -(-t // tile)), SEP_TILED_THREADS))
+    return SepFwdPlan(regime)
+
+
 def mhsa_sep_fwd(q, k, v, key_mask, n_heads: int):
     """Kernel rows 5 (key_mask None) and 7 on CUDA tensors: the context as
-    exp_mhsa_reference. q, k, v may be views of one projection. Raises for
-    other devices."""
+    exp_mhsa_reference, in the regime of ``sep_fwd_launch_plan``. q, k, v
+    may be views of one projection. Raises for other devices."""
     n, t, dk, dv = _check_sep(q, k, v, key_mask, n_heads)
     lds = _check_sep_launch(q, k, v, key_mask)
     out = torch.empty((n, t, n_heads * dv), dtype=q.dtype, device=q.device)
-    scratch, slots = kernels.scratch("mhsa_sep", "mhsa_sep_fwd_scratch_floats",
-                                     n * n_heads, q.device, t, dk, dv)
+    plan = sep_fwd_launch_plan(n, t, n_heads, dk, dv, q.dtype,
+                               blockwise._sms(q.device))
+    scratch, slots = None, 0
+    if plan.regime == "rowwise":  # past shared memory: the global slots
+        scratch, slots = kernels.scratch(
+            "mhsa_sep", "mhsa_sep_fwd_scratch_floats", n * n_heads, q.device,
+            t, dk, dv)
     kernels.call("mhsa" if key_mask is None else "mhsa_masked",
                  kernels.entry("mhsa_sep", "mhsa_sep_fwd", q.dtype), q.device,
                  *map(kernels.ptr, (q, k, v, key_mask, out, scratch)), n, t,
-                 n_heads, dk, dv, *lds, slots)
+                 n_heads, dk, dv, *lds, SEP_FWD_REGIMES.index(plan.regime),
+                 *plan.args(), slots, regime=plan.regime)
     return out
-
-
-# ---- rows 6 and 8: the launch plan -----------------------------------------
-
-SEP_REGIMES = ("resident", "mma", "wide")
-SEP_SHORT_T = 64  # longest T of the resident regime
-SEP_MAX_HEAD = 64  # widest head of the resident and tensor-core regimes
-SEP_PER_SM = 3  # resident blocks an SM holds by registers (launch bounds)
 
 
 def sep_bwd_regime(t: int, dk: int, dv: int, itemsize: int) -> str:

@@ -10,10 +10,10 @@ with the same sources reuses the libraries; a failed build raises.
 Each wrapper counts its launches per variant (``KERNELS``), so a run can
 show which kernels its path went through; a wrapper whose launch takes one
 of several regimes (rows 3-4, 12 and 14: resident, tensor-core or tiled
-kernels; rows 6 and 8: resident, tensor-core or wide) also counts it per
-regime. A CPU tensor takes a kernel's
-plain PyTorch version and counts nothing; a CUDA tensor launches the
-kernel or raises; any other device raises ``NoKernelError``.
+kernels; rows 5 and 7: row-wise, tensor-core or tiled; rows 6 and 8:
+resident, tensor-core or wide) also counts it per regime. A CPU tensor
+takes a kernel's plain PyTorch version and counts nothing; a CUDA tensor
+launches the kernel or raises; any other device raises ``NoKernelError``.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ _ENTRY_POINTS = {
     "fused_tail_bwd": {"fused_tail_bwd": "p" * 23 + "i" * 15 + "uf"},
     "blanes": {"blanes_fwd": "p" * 3 + "i" * 8,
                "blanes_bwd": "p" * 5 + "i" * 11},
-    "mhsa_sep": {"mhsa_sep_fwd": "p" * 6 + "i" * 9,
+    "mhsa_sep": {"mhsa_sep_fwd": "p" * 6 + "i" * 13,
                  "mhsa_sep_bwd": "p" * 9 + "i" * 16},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "u": ctypes.c_uint32,
@@ -58,7 +58,7 @@ _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "u": ctypes.c_uint32,
 # Sources whose block stages whole rows or (T, D) operands export size
 # functions (no dtype suffix): the shared bytes a block needs, checked
 # against what a block may use, the floats of a scratch slot where a long
-# row moves to global memory, the regimes of rows 3-4 and 6/8 and their
+# row moves to global memory, the regimes of rows 3-4, 5/7 and 6/8 and their
 # shared bytes, and the flash forward's count of key-walk tasks. {source:
 # {function: count of int arguments}}.
 _SIZE_FUNCTIONS = {
@@ -74,6 +74,7 @@ _SIZE_FUNCTIONS = {
     "blanes": {"blanes_smem_bytes": 7},
     "mhsa_sep": {"mhsa_sep_fwd_scratch_floats": 3,
                  "mhsa_sep_bwd_scratch_floats": 3,
+                 "mhsa_sep_fwd_regime": 4, "mhsa_sep_fwd_smem_bytes": 8,
                  "mhsa_sep_bwd_regime": 4, "mhsa_sep_bwd_smem_bytes": 8},
 }
 # Shared memory one block may use on sm_90 (opt-in, dynamic).

@@ -12,10 +12,10 @@ phase ((7040, 20) with d_v = 20 and 32, (128, 300) and (64, 511) with
 d_v = 32; 20 heads, d_k = 20; f32 and bf16, unmasked and key-masked, on
 q, k, v cut from one projection as the smoke cuts them), a hash of the
 output on fixed inputs, so two checkouts can be held equal bit for bit,
-its ms (CUDA events, chip_smoke.time_ms over 10 calls) and the backward's
-launches per regime. It uses the checkout's own package and
-chip_smoke.py, so it runs on older checkouts too. Without CUDA it exits
-1.
+its ms (CUDA events, chip_smoke.time_ms over 10 calls) and its launches
+per regime (empty where the checkout counts none). It uses the checkout's
+own package and chip_smoke.py, so it runs on older checkouts too. Without
+CUDA it exits 1.
 """
 
 import hashlib
@@ -80,7 +80,8 @@ def main() -> int:
                     fwd = _hash([fa.mhsa_sep_fwd(q, k, v, mask, HEADS)])
                     bwd = _hash(fa.mhsa_sep_bwd(q, k, v, mask, g, HEADS))
                 out[f"fwd {name}"] = [fwd, cs.time_ms(
-                    lambda: fa.mhsa_sep_fwd(q, k, v, mask, HEADS), 10)]
+                    lambda: fa.mhsa_sep_fwd(q, k, v, mask, HEADS), 10),
+                    kernels.regime_counts("mhsa_fwd")]
                 out[f"bwd {name}"] = [bwd, cs.time_ms(
                     lambda: fa.mhsa_sep_bwd(q, k, v, mask, g, HEADS), 10),
                     kernels.regime_counts("mhsa_bwd")]

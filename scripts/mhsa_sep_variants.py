@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of rows 6 and 8's resident kernel (the separate-q/k/v
-backward at T <= 64, csrc/mhsa_sep_bwd.cuh) goes on one NVIDIA GPU: the
-measurements behind its launch plan and its design.
+backward at T <= 64, csrc/mhsa_sep_bwd.cuh) and of rows 5 and 7 on tensor
+cores (the forward past T = 64 in bf16, csrc/mhsa_sep_fwd.cuh) goes on
+one NVIDIA GPU: the measurements behind their launch plans and designs.
 
     python3 scripts/mhsa_sep_variants.py plans
     python3 scripts/mhsa_sep_variants.py cuts
+    python3 scripts/mhsa_sep_variants.py fwd
 
 plans: rows 6 and 8 (ms, CUDA events over 10 calls) at (7040, 20), 20
   heads, d_k 20, d_v 32, bf16 and f32, unmasked and key-masked, under
@@ -19,6 +21,11 @@ cuts: builds variants of csrc/mhsa_sep.cu beside the package's own, each
   at (7040, 20) under the default plan. A cut variant computes wrong
   gradients; only its time is read. The script stops if a cut matches
   nothing in the source.
+fwd: rows 5 and 7 (ms, CUDA events over 10 calls) at (64, 511) and
+  (128, 300), 20 heads, d_k 20, d_v 32, bf16, unmasked and key-masked,
+  on tensor cores under forced forms of their plan (chunks of 256 keys in
+  one buffer, 128 and 64 in two), each checked against the plain version
+  (elements outside the smoke's tolerance, which must be 0).
 Run from the repo root. Prints one line per measurement; exits 1 without
 CUDA.
 """
@@ -116,6 +123,50 @@ def plans():
                         qkv, mask, gg, HEADS), 10)}), flush=True)
 
 
+def fwd():
+    import torch
+
+    import chip_smoke as cs
+    from newsrecommendation_tpu_torch.ops import blockwise as bw
+    from newsrecommendation_tpu_torch.ops import fused_attention as fa
+
+    default = fa.sep_fwd_launch_plan
+    f_rtol, f_atol = cs.TRAIN_TOL["bfloat16"][0]
+    for n, t in ((64, 511), (128, 300)):
+        base = default(n, t, HEADS, DK, DV, torch.bfloat16)
+        plans = [base._replace(launch=base.launch._replace(
+            chunk=chunk, nbuf=nbuf, smem=bw.smem_bytes(
+                "fwd", DV, 2, base.launch.tile, chunk, nbuf)))
+            for chunk, nbuf in ((256, 1), (128, 2), (64, 2))]
+        for masked in (False, True):
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            hdk, hdv = HEADS * DK, HEADS * DV
+            proj = torch.randn((n, t, 2 * hdk + hdv), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+            q, k, v = torch.split(proj, [hdk, hdk, hdv], dim=-1)
+            mask = None
+            if masked:
+                mask = (torch.rand((n, t), generator=gen,
+                                   device="cuda") > 0.3).float()
+            ref = fa.exp_mhsa_reference(q, k, v, mask, HEADS)
+            for plan in plans:
+                fa.sep_fwd_launch_plan = lambda *a, _plan=plan, **kw: _plan
+                try:
+                    def fn():
+                        return fa.mhsa_sep_fwd(q, k, v, mask, HEADS)
+
+                    bad = cs.n_outside(fn(), ref, f_rtol, f_atol)
+                    ms = cs.time_ms(fn, 10)
+                finally:
+                    fa.sep_fwd_launch_plan = default
+                p = plan.launch
+                print("FWD " + json.dumps({
+                    "shape": [n, t], "masked": masked, "tile": p.tile,
+                    "chunk": p.chunk, "nbuf": p.nbuf, "smem": p.smem,
+                    "ms": ms, "outside": bad, "default": plan == base}),
+                    flush=True)
+
+
 def load(path):
     from newsrecommendation_tpu_torch.ops import kernels
 
@@ -182,12 +233,13 @@ def cuts():
 def main() -> int:
     import torch
 
-    if len(sys.argv) != 2 or sys.argv[1] not in ("plans", "cuts") or (
+    modes = {"plans": plans, "cuts": cuts, "fwd": fwd}
+    if len(sys.argv) != 2 or sys.argv[1] not in modes or (
             not torch.cuda.is_available()):
         print(__doc__, file=sys.stderr)
         return 1
     print(torch.cuda.get_device_name(0), flush=True)
-    plans() if sys.argv[1] == "plans" else cuts()
+    modes[sys.argv[1]]()
     return 0
 
 

@@ -929,24 +929,37 @@ def _sep_regime(t, dk, dv, dtype):
     return "mma" if dtype == "bfloat16" else "wide"
 
 
+def _sep_fwd_regime(t, dk, dv, dtype):
+    """Rows 5 and 7's regime as the kernels' design states it: tensor cores
+    past T = 64 in bf16, the tiled CUDA-core kernel past it in f32, both
+    with heads of up to 64; else the row-wise kernel."""
+    if max(dk, dv) > 64 or t <= 64:
+        return "rowwise"
+    return "mma" if dtype == "bfloat16" else "tiled"
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n, t, heads, dk, dv, pad", [
     (64, 20, 20, 20, 20, 0), (64, 20, 20, 20, 32, 0), (33, 50, 20, 20, 8, 0),
     (7, 5, 3, 4, 6, 0), (2, 300, 2, 8, 12, 0), (2, 900, 1, 20, 20, 0),
     (9, 64, 5, 20, 32, 1), (3, 65, 2, 24, 40, 3), (4, 128, 3, 20, 32, 1),
     (2, 300, 3, 5, 12, 1), (2, 200, 2, 64, 16, 0), (3, 30, 2, 70, 8, 1),
-    (2, 100, 1, 72, 20, 0)])
+    (2, 100, 1, 72, 20, 0), (3, 65, 2, 5, 12, 1), (2, 900, 1, 80, 8, 0)])
 def test_mhsa_sep_kernels_match_plain(dtype, n, t, heads, dk, dv, pad):
     """Rows 5-8 against their plain versions, unmasked and masked, on q, k
     and v cut from one projection (one row stride; ``pad`` extra lanes
-    make it odd) at equal and unequal widths, in every regime of rows 6
-    and 8, whose launches are counted per regime: resident at T <= 64
-    (d_k = 5 in bf16 is a head row of 10 bytes, staged element by
-    element), tensor cores past it in bf16 (T = 65: one partial step of 16
-    past 64; d_k = 24 beside d_v = 40 at the width of 64), the wide kernel
-    in f32 past 64 and for heads wider than 64; at T = 300 the wide
-    backward's working set, and at T = 900 the forward's too, lives in a
-    global scratch."""
+    make it odd) at equal and unequal widths, in every regime of rows 5
+    and 7 and of rows 6 and 8, whose launches are counted per regime.
+    Rows 6 and 8: resident at T <= 64 (d_k = 5 in bf16 is a head row of
+    10 bytes, staged element by element), tensor cores past it in bf16
+    (T = 65: one partial step of 16 past 64; d_k = 24 beside d_v = 40 at
+    the width of 64), the wide kernel in f32 past 64 and for heads wider
+    than 64; at T = 300 the wide backward's working set lives in a global
+    scratch. Rows 5 and 7: row-wise at T <= 64 and for heads wider than
+    64 (at T = 900 in its global scratch), tensor cores past 64 in bf16
+    (T = 65 with d_k = 5: rows of 10 bytes copied element by element), the
+    tiled kernel past 64 in f32 (T = 900: eight chunks of 128 keys per
+    walk, the last partial)."""
     rng = np.random.default_rng(13)
     tdt = getattr(torch, dtype)
     w = heads * (2 * dk + dv) + pad
@@ -981,6 +994,133 @@ def test_mhsa_sep_kernels_match_plain(dtype, n, t, heads, dk, dv, pad):
                                                  "mhsa_bwd_masked": 1}
     assert kernels.regime_counts("mhsa_bwd") == {
         _sep_regime(t, dk, dv, dtype): 2}
+    assert kernels.regime_counts("mhsa_fwd") == {
+        _sep_fwd_regime(t, dk, dv, dtype): 2}
+
+
+def test_sep_fwd_launch_plan_matches_the_kernels():
+    """sep_fwd_launch_plan's regime and shared bytes (ops/fused_attention.py)
+    equal the C side's (mhsa_sep_fwd_regime, mhsa_sep_fwd_smem_bytes),
+    which refuses a plan it does not take and a regime that is not the
+    shape's; a refused launch raises in the wrapper and counts nothing."""
+    for t, dk, dv in [(20, 20, 20), (20, 20, 32), (64, 20, 32), (65, 20, 32),
+                      (300, 20, 32), (511, 20, 32), (50, 5, 12), (64, 64, 8),
+                      (100, 24, 40), (100, 64, 64), (30, 70, 8),
+                      (128, 20, 72), (900, 80, 8)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            esize = 2 if dtype == torch.bfloat16 else 4
+            plan = fa.sep_fwd_launch_plan(64, t, 20, dk, dv, dtype)
+            assert fa.SEP_FWD_REGIMES.index(plan.regime) == (
+                kernels.size_of("mhsa_sep", "mhsa_sep_fwd_regime", t, dk, dv,
+                                esize))
+            if plan.launch is not None:
+                assert plan.launch.smem == kernels.size_of(
+                    "mhsa_sep", "mhsa_sep_fwd_smem_bytes",
+                    fa.SEP_FWD_REGIMES.index(plan.regime), t, dk, dv, esize,
+                    *plan.args()), (t, dk, dv, dtype)
+    size = lambda *a: kernels.size_of("mhsa_sep", "mhsa_sep_fwd_smem_bytes",
+                                      *a)
+    assert size(1, 300, 20, 32, 2, 96, 256, 1) == 0  # tile of 96
+    assert size(1, 300, 20, 32, 2, 128, 256, 3) == 0  # three buffers
+    assert size(2, 300, 20, 32, 4, 256, 128, 1) == 0  # two queries a thread
+    assert size(2, 300, 20, 32, 4, 128, 64, 1) == 0  # chunk of 64
+    assert size(1, 300, 20, 32, 4, 128, 128, 1) == 0  # not f32's regime
+    assert size(0, 300, 20, 32, 2, 0, 0, 0) == 0
+    q = torch.zeros((2, 300, 3 * 20), device="cuda", dtype=torch.bfloat16)
+    v = torch.zeros((2, 300, 32), device="cuda", dtype=torch.bfloat16)
+    good = fa.sep_fwd_launch_plan(2, 300, 1, 20, 32, torch.bfloat16)
+    for bad in (good._replace(launch=good.launch._replace(tile=96)),
+                good._replace(regime="tiled"),
+                good._replace(launch=good.launch._replace(nbuf=3))):
+        fa.reset_launch_counts()
+        real = fa.sep_fwd_launch_plan
+        fa.sep_fwd_launch_plan = lambda *a, **k: bad
+        try:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                fa.mhsa_sep_fwd(q[..., :20], q[..., 20:40], v, None, 1)
+        finally:
+            fa.sep_fwd_launch_plan = real
+        assert not any(fa.launch_counts("mhsa_fwd").values())
+
+
+@pytest.mark.parametrize("tile, chunk, nbuf", [
+    (128, 256, 1), (128, 128, 2), (64, 64, 2), (64, 16, 1)])
+def test_mhsa_sep_fwd_plans_agree(tile, chunk, nbuf):
+    """Rows 5 and 7 on tensor cores under each form their plan takes
+    (blockwise.mma_launch: tiles of 128 or 64 queries, chunks of 16 to 256
+    keys, one or two buffers) against the plain version, on q, k, v cut
+    from one projection at T = 300, d_k 20, d_v 32, bf16."""
+    rng = np.random.default_rng(17)
+    n, t, heads, dk, dv = 3, 300, 2, 20, 32
+    qkv = torch.from_numpy(rng.normal(size=(n, t, heads * (2 * dk + dv)))
+                           .astype(np.float32)).to(torch.bfloat16).cuda()
+    q, k, v = torch.split(qkv, [heads * dk, heads * dk, heads * dv], -1)
+    mask = torch.from_numpy((rng.random((n, t)) > 0.3).astype(np.float32))
+    mask[1] = 0.0
+    mask = mask.cuda()
+    real = fa.sep_fwd_launch_plan
+    base = real(n, t, heads, dk, dv, torch.bfloat16)
+    plan = base._replace(launch=base.launch._replace(
+        tile=tile, chunk=chunk, nbuf=nbuf, threads=2 * tile,
+        grid=(n * heads, -(-t // tile)),
+        smem=bw.smem_bytes("fwd", dv, 2, tile, chunk, nbuf)))
+    fa.sep_fwd_launch_plan = lambda *a, **kw: plan
+    try:
+        for km in (None, mask):
+            out = fa.mhsa_sep_fwd(q, k, v, km, heads)
+            ref = fa.exp_mhsa_reference(q, k, v, km, heads)
+            np.testing.assert_allclose(out.float().cpu().numpy(),
+                                       ref.float().cpu().numpy(),
+                                       **TOL["bfloat16"])
+    finally:
+        fa.sep_fwd_launch_plan = real
+    assert (out[1] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [20, 300])
+def test_mhsa_sep_fwd_far_below_gives_zero(dtype, t):
+    """A row whose scores all lie below about -88.7 has den = inf (1e-8
+    exp(-m) overflows) and a = 0, so its output is 0 as the plain version
+    gives, unmasked and masked, in every regime of rows 5 and 7 (row-wise
+    at T = 20; tensor cores and tiled at T = 300); the other rows match
+    the plain version."""
+    rng = np.random.default_rng(19)
+    n, heads, dk, dv = 3, 2, 20, 32
+    tdt = getattr(torch, dtype)
+    qkv = rng.normal(size=(n, t, heads * (2 * dk + dv))).astype(np.float32)
+    qkv[1, :, :heads * dk] = 5.0  # q . k / sqrt(20) = -500 / 4.47
+    qkv[1, :, heads * dk:2 * heads * dk] = -5.0
+    qkv = torch.from_numpy(qkv).to(tdt).cuda()
+    q, k, v = torch.split(qkv, [heads * dk, heads * dk, heads * dv], -1)
+    mask = torch.from_numpy(
+        (rng.random((n, t)) > 0.3).astype(np.float32)).cuda()
+    for km in (None, mask):
+        fa.reset_launch_counts()
+        out = fa.mhsa_sep_fwd(q, k, v, km, heads)
+        ref = fa.exp_mhsa_reference(q, k, v, km, heads)
+        assert torch.isfinite(out).all()
+        assert (out[1] == 0).all() and (ref[1] == 0).all()
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(), **TOL[dtype])
+        assert kernels.regime_counts("mhsa_fwd") == {
+            _sep_fwd_regime(t, dk, dv, dtype): 1}
+
+
+def test_mhsa_sep_fwd_repeats_bit_for_bit():
+    """20 calls of rows 5 and 7 in each regime give the same bits: no
+    atomics, every sum in a fixed order."""
+    for n, t, dtype in ((64, 20, torch.bfloat16), (8, 300, torch.bfloat16),
+                        (8, 300, torch.float32)):
+        gen = torch.Generator(device="cuda").manual_seed(t)
+        qkv = torch.randn((n, t, 20 * 72), generator=gen,
+                          device="cuda").to(dtype)
+        q, k, v = torch.split(qkv, [400, 400, 640], -1)
+        mask = (torch.rand((n, t), generator=gen, device="cuda") > 0.3).float()
+        for km in (None, mask):
+            first = fa.mhsa_sep_fwd(q, k, v, km, 20)
+            for _ in range(20):
+                assert torch.equal(fa.mhsa_sep_fwd(q, k, v, km, 20), first)
 
 
 def test_sep_bwd_launch_plan_matches_the_kernels():

@@ -1,11 +1,13 @@
-"""Rows 6 and 8 (the backward of exp-MHSA on separate q, k, v) on the CPU:
-the launch plan (``fused_attention.sep_bwd_launch_plan``: the regime by T,
-the two widths and the dtype; the resident plan's heads, buffers, blocks
-and shared bytes; the tensor-core plan's tiles and chunks over every query
-and key), what the wrapper hands the C entry point and how it counts the
-launch, and the plain versions of rows 5-8 against the JAX package's
-Pallas kernels (interpret mode) past T = 64, where the card takes the
-tensor-core regime.
+"""Rows 5-8 (exp-MHSA on separate q, k, v) on the CPU: the launch plans
+(``fused_attention.sep_bwd_launch_plan`` for rows 6 and 8: the regime by
+T, the two widths and the dtype; the resident plan's heads, buffers,
+blocks and shared bytes; the tensor-core plan's tiles and chunks over
+every query and key; ``sep_fwd_launch_plan`` for rows 5 and 7: the regime,
+the tiles over every query, the chunks over every key, the shared bytes),
+what the wrappers hand the C entry points and how they count the launch,
+and the plain versions of rows 5-8 against the JAX package's Pallas
+kernels (interpret mode) past T = 64, where the card takes the
+tensor-core and tiled regimes.
 
 The kernels themselves run on the card: tests/test_torch_kernel_gpu.py
 and chip_smoke.py hold them to these plain versions there, and hold the
@@ -144,6 +146,109 @@ def test_plan_raises_on_other_dtypes(t):
         fa.sep_bwd_launch_plan(2, t, 2, 4, 6, torch.float16, SMS)
 
 
+# ---- rows 5 and 7: the forward's launch plan --------------------------------
+
+
+@pytest.mark.parametrize("t, dk, dv, dtype, regime", [
+    (20, 20, 20, F32, "rowwise"), (20, 20, 32, BF16, "rowwise"),
+    (64, 20, 32, F32, "rowwise"), (64, 20, 32, BF16, "rowwise"),
+    (64, 64, 64, BF16, "rowwise"), (1, 1, 1, F32, "rowwise"),
+    (65, 20, 32, BF16, "mma"), (65, 20, 32, F32, "tiled"),
+    (300, 20, 32, BF16, "mma"), (300, 20, 32, F32, "tiled"),
+    (511, 20, 32, BF16, "mma"), (511, 20, 32, F32, "tiled"),
+    (2000, 20, 32, BF16, "mma"), (100, 64, 8, BF16, "mma"),
+    (100, 8, 64, F32, "tiled"), (100, 64, 64, F32, "tiled"),
+    (100, 65, 8, BF16, "rowwise"), (100, 8, 65, F32, "rowwise"),
+    (65, 65, 65, BF16, "rowwise"), (900, 80, 8, F32, "rowwise")])
+def test_fwd_regime_by_t_widths_and_dtype(t, dk, dv, dtype, regime):
+    """Row-wise at T <= 64 in both dtypes and wherever either width passes
+    64; past T = 64 tensor cores in bf16 and the tiled kernel in f32. The
+    plan carries a launch past the row-wise regime only, and three ints
+    for the C entry point (zeros row-wise)."""
+    plan = fa.sep_fwd_launch_plan(64, t, 20, dk, dv, dtype, SMS)
+    assert plan.regime == regime
+    assert fa.sep_fwd_regime(t, dk, dv, _itemsize(dtype)) == regime
+    assert (plan.launch is None) == (regime == "rowwise")
+    args = plan.args()
+    assert len(args) == 3 and all(isinstance(x, int) for x in args)
+    assert (args == (0,) * 3) == (regime == "rowwise")
+
+
+def _covers(plan, n, t, heads):
+    """The grid (N*H, tiles) covers every query once, and the chunks of a
+    walk cover every key once."""
+    p = plan.launch
+    assert p.grid == (n * heads, -(-t // p.tile))
+    queries = [i for y in range(p.grid[1])
+               for i in range(y * p.tile, min(t, (y + 1) * p.tile))]
+    assert queries == list(range(t))
+    keys = [j for c in range(-(-t // p.chunk))
+            for j in range(c * p.chunk, min(t, (c + 1) * p.chunk))]
+    assert keys == list(range(t))
+    assert 0 < p.smem <= kernels.MAX_SMEM
+
+
+@pytest.mark.parametrize("n, t, heads, dk, dv", [
+    (64, 511, 20, 20, 32), (128, 300, 20, 20, 32), (2, 65, 2, 5, 12),
+    (3, 4097, 5, 8, 12), (1, 100, 1, 64, 8), (7, 250, 3, 33, 20),
+    (1, 100, 1, 64, 64)])
+def test_fwd_mma_plan_covers_every_query_and_key(n, t, heads, dk, dv):
+    """On tensor cores a block per (row, head) and tile of 128 or 64
+    queries (64 where 128 leaves fewer than two blocks an SM), two threads
+    a query, chunks of 16 to 256 keys in steps of 16, one or two buffers;
+    the shared bytes are flash.cuh's forward layout at the larger width:
+    Q [tile], then per buffer K and V [chunk] and the mask."""
+    plan = fa.sep_fwd_launch_plan(n, t, heads, dk, dv, BF16, SMS)
+    p = plan.launch
+    _covers(plan, n, t, heads)
+    assert p.kind == "fwd" and p.threads == 2 * p.tile
+    assert p.tile == bw.mma_tile(n * heads, t, SMS)
+    assert p.chunk % 16 == 0 and 16 <= p.chunk <= 256 and p.nbuf in (1, 2)
+    rb = bw._row_bytes(max(dk, dv))
+    assert p.smem == p.tile * rb + p.nbuf * (
+        2 * p.chunk * rb + -(-4 * p.chunk // 16) * 16)
+    assert p.smem == bw.smem_bytes("fwd", max(dk, dv), 2, p.tile, p.chunk,
+                                   p.nbuf)
+    assert plan.args() == (p.tile, p.chunk, p.nbuf)
+
+
+@pytest.mark.parametrize("n, t", [(64, 511), (128, 300)])
+def test_fwd_mma_plan_fills_the_card(n, t):
+    """At the user encoder's long shapes the forward launches tiles of 128
+    queries, at least two blocks an SM, and leaves room for three blocks
+    an SM by shared memory (the kernel's launch bounds)."""
+    p = fa.sep_fwd_launch_plan(n, t, 20, 20, 32, BF16, SMS).launch
+    assert p.tile == 128 and p.grid[0] * p.grid[1] >= 2 * SMS
+    assert 3 * (p.smem + 1024) <= bw.SM_SMEM
+
+
+@pytest.mark.parametrize("n, t, heads, dk, dv", [
+    (64, 511, 20, 20, 32), (128, 300, 20, 20, 32), (2, 65, 2, 5, 12),
+    (3, 4097, 5, 8, 12), (1, 100, 1, 64, 64), (7, 250, 3, 33, 20)])
+def test_fwd_tiled_plan_covers_every_query_and_key(n, t, heads, dk, dv):
+    """The tiled kernel: SEP_TILED_THREADS threads a block of one (row,
+    head), one query each, SEP_TILED_CHUNK keys staged at once as f32 at
+    the kernel's compile-time widths of d_k and d_v (8, 16, 24, 32 or 64),
+    with the mask; one buffer."""
+    plan = fa.sep_fwd_launch_plan(n, t, heads, dk, dv, F32, SMS)
+    p = plan.launch
+    _covers(plan, n, t, heads)
+    assert p.threads == p.tile == fa.SEP_TILED_THREADS
+    assert (p.chunk, p.nbuf) == (fa.SEP_TILED_CHUNK, 1)
+
+    def width(d):
+        return next(w for w in (8, 16, 24, 32, 64) if d <= w)
+
+    assert p.smem == 4 * p.chunk * (width(dk) + width(dv) + 1)
+    assert plan.args() == (p.tile, p.chunk, 1)
+
+
+@pytest.mark.parametrize("t", [5, 64, 65, 511])
+def test_fwd_plan_raises_on_other_dtypes(t):
+    with pytest.raises(TypeError, match="not supported"):
+        fa.sep_fwd_launch_plan(2, t, 2, 4, 6, torch.float16, SMS)
+
+
 # ---- what the wrapper hands the C entry point -------------------------------
 
 
@@ -203,6 +308,39 @@ def test_wrapper_launches_the_plan_and_counts_its_regime(fake_launch, t,
     assert kernels.launch_counts("mhsa_bwd") == {"mhsa_bwd": 1,
                                                  "mhsa_bwd_masked": 2}
     assert kernels.regime_counts("mhsa_bwd") == {regime: 3}
+
+
+@pytest.mark.parametrize("t, dtype, dk, regime", [
+    (20, BF16, 4, "rowwise"), (20, F32, 4, "rowwise"), (300, BF16, 4, "mma"),
+    (300, F32, 4, "tiled"), (300, F32, 70, "rowwise")])
+def test_fwd_wrapper_launches_the_plan_and_counts_its_regime(
+        fake_launch, t, dtype, dk, regime):
+    """mhsa_sep_fwd hands the C entry point the operands, the shape, the
+    row strides of q, k, v cut from one projection, the regime's index and
+    the plan's three ints, then the slots of the row-wise kernel's global
+    scratch; a scratch only where the regime reads one. Each launch counts
+    under its variant and its regime."""
+    n, heads, dv = 2, 3, 6
+    proj = torch.zeros((n, t, heads * (2 * dk + dv) + 1), dtype=dtype)
+    q, k, v, _ = torch.split(proj, [heads * dk, heads * dk, heads * dv, 1],
+                             -1)
+    mask = torch.ones((n, t))
+    for m in (None, mask, mask):
+        out = fa.mhsa_sep_fwd(q, k, v, m, heads)
+        assert out.shape == (n, t, heads * dv) and out.dtype == dtype
+    plan = fa.sep_fwd_launch_plan(n, t, heads, dk, dv, dtype, SMS)
+    assert plan.regime == regime
+    ld = heads * (2 * dk + dv) + 1
+    rowwise = regime == "rowwise"
+    for args, m in zip(fake_launch, (None, mask, mask)):
+        assert args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+        assert args[3] == (None if m is None else m.data_ptr())
+        assert (args[5] is None) == (not rowwise)
+        assert args[6:] == (n, t, heads, dk, dv, ld, ld, ld,
+                            fa.SEP_FWD_REGIMES.index(regime), *plan.args(),
+                            1 if rowwise else 0, 0)
+    assert kernels.launch_counts("mhsa_fwd") == {"mhsa": 1, "mhsa_masked": 2}
+    assert kernels.regime_counts("mhsa_fwd") == {regime: 3}
 
 
 # ---- the plain versions against JAX's kernels past T = 64 -------------------
