@@ -15,11 +15,16 @@ Phases, each printing one line with its elapsed seconds:
   build    one nvcc per kernel source (csrc/*.cu) for sm_90a, all started
            together (skipped if built)
   kernel   row 1 (the forward without probs), both variants vs the plain
-           version, f32 and bf16, at the shapes the serving path gives it,
-           with the count of elements that differ at all; controls with a
-           planted fault (bias dropped, inputs scaled, mask dropped) that
-           the comparison must reject; kernel / plain /
-           scaled_dot_product_attention times and the memory/flop bound
+           version, f32 and bf16, at the shapes the serving path gives it
+           and past T = 64 at 128 x 300 and 64 x 511, with the count of
+           elements that differ at all and the launch's regime, which must
+           be fwd_launch_plan's (resident at T <= 64, past it tensor cores
+           in bf16, tiled in f32); controls with a planted fault (bias
+           dropped, inputs scaled, mask dropped, and on tensor cores the
+           output from the unrounded f32 a, rejected by its count of
+           differing elements) that the comparison must reject; kernel /
+           plain / scaled_dot_product_attention times and the memory/flop
+           bound
   kernel-train  rows 2 (the forward that writes probs) and 3 (the backward
            from probs) vs their plain versions, f32 and bf16, at the
            training path's shapes (news encoder 7040 x 20, user encoder
@@ -29,7 +34,9 @@ Phases, each printing one line with its elapsed seconds:
            (probs transposed per head, ds without its row-sum term, past
            one staged chunk r summed over the first chunk only, and in bf16
            dv from the unrounded a); kernel / plain times and bounds; bf16
-           counts of differing elements
+           counts of differing elements; rows 1 and 2 each in its plan's
+           regime, and on tensor cores a context from the unrounded f32 a
+           as a further control
   kernel-recompute  row 4 (the backward that recomputes the probs) vs its
            plain version at 7040 x 20, 128 x 50, 128 x 300 and 64 x 511,
            masked and not, f32 and bf16, with the count of elements that
@@ -109,7 +116,7 @@ Phases, each printing one line with its elapsed seconds:
            the flash forward (row 9), whose launches are counted; then once
            with fused_tail "on": row 13 on both encoders, no flash
   serve heads=8  the same with 8 heads of 50 and user_log_length 400: row
-           1 only, past shared memory on the user encoder
+           1 only, on the tiled kernel past T = 64 on the user encoder
   train-check  one f32 train step (dropout off, B=16, full width) on the
            card and on the CPU from the same params and batch: loss, every
            leaf's gradient, the frozen table unchanged; for user_log_mask
@@ -243,7 +250,8 @@ FUSED_LONG_STEPS = 6  # train steps with the fused tail at LONG_L
 BLANES_T = (64, 65, 128, 200)
 # The shapes the card once refused and the JAX route runs: (rows, N, T,
 # heads, D), each in f32 and bf16, masked and not. Rows 1-4 (and 11-12) at
-# 8 heads of 50 (examples/demo.sh) past shared memory; rows 9-10 at
+# 8 heads of 50 (examples/demo.sh) past what shared memory once held (rows
+# 1-2 and 11 there now tiled in f32, on tensor cores in bf16); rows 9-10 at
 # news_dim 400 in 5 heads and 1 (D = 80, 400) and at a head of 1100 (two
 # slices of the wide kernels); rows 15-16 at f32 D = 64 past one head's K
 # and V in a block, and at D = 80. Rows 13-14 (TAIL_LIMITS: T, heads of
@@ -255,8 +263,8 @@ LIMIT_CASES = (("rows1-4", 16, 300, 8, 50), ("rows1-4", 16, 400, 8, 50),
                ("flash", 2, 512, 1, 1100),
                ("blanes", 8, 400, 2, 64), ("blanes", 8, 512, 5, 80))
 TAIL_LIMITS = ((5000, 20), (7000, 4))
-# Serving at 8 heads of 50 over 400-news histories: row 1 past shared
-# memory on the user encoder.
+# Serving at 8 heads of 50 over 400-news histories: row 1 on the tiled
+# kernel on the user encoder.
 MID_SERVE_L = 400
 # Rows 5-8 at the news encoder's shape with d_v = d_k and d_v = 32, and
 # past T = 64 (on tensor cores in bf16; in f32 rows 5 and 7 on the tiled
@@ -367,7 +375,13 @@ def kernel_case(fa, variant, n, t, heads, d, dtype, seed):
         mask[::7] = 0.0  # every 7th row fully masked: its output is 0
     call = ((lambda: fa.exp_mhsa_qkv_bias(qkv, bias, heads)) if mask is None
             else (lambda: fa.exp_mhsa_qkv_bias_masked(qkv, bias, mask, heads)))
+    fa.reset_launch_counts()
     out = call()
+    regimes = fa.regime_counts("qkv_fwd")
+    want = fa.fwd_launch_plan(n, t, heads, d, tdt).regime
+    if regimes != {want: 1}:
+        fail(f"{variant} {dtype} N={n} T={t}: row 1 launched {regimes}, its "
+             f"plan {want}")
     ref = fa.exp_mhsa_qkv_bias_reference(qkv, bias, mask, heads)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs()
@@ -393,6 +407,12 @@ def kernel_case(fa, variant, n, t, heads, d, dtype, seed):
         if not caught[name]:
             fail(f"{variant} {dtype}: a plain version with {name} passed "
                  "the comparison")
+    if dtype == "bfloat16" and want == "mma":
+        # the tensor-core forward rounds a into the A fragment of a@V
+        caught["out from the f32 a (differing elements)"] = rounding_fault(
+            out, qkv_fwd_unrounded(qkv, bias, mask, heads),
+            n_differ(out, ref), rtol, atol)
+        check_caught(f"{variant} {dtype} N={n} T={t}", caught)
     kernel_ms = time_ms(call)
     plain_ms = time_ms(
         lambda: fa.exp_mhsa_qkv_bias_reference(qkv, bias, mask, heads))
@@ -411,6 +431,7 @@ def kernel_case(fa, variant, n, t, heads, d, dtype, seed):
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return {
         "variant": variant, "shape": [n, t, heads, d], "dtype": dtype,
+        "regime": want,
         "max_abs_err": err.max().item(), "rtol": rtol, "atol": atol,
         "n_differ": int((err != 0).sum().item()), "n_elems": err.numel(),
         "max_abs_ref": ref.float().abs().max().item(),
@@ -423,6 +444,22 @@ def kernel_case(fa, variant, n, t, heads, d, dtype, seed):
 
 def n_differ(a, b) -> int:
     return int((a.float() != b.float()).sum().item())
+
+
+def qkv_fwd_unrounded(qkv, bias, mask, heads):
+    """Rows 1-2's plain context with a fault: a meets v in f32, not rounded
+    to v's dtype first."""
+    import torch
+
+    from newsrecommendation_tpu_torch.ops import fused_attention as fa
+
+    n, t, w3 = qkv.shape
+    d = w3 // (3 * heads)
+    _, probs = fa.attend_f32(qkv, bias, mask, heads)
+    a = probs.view(n, t, heads, t)
+    v = (qkv + bias)[..., 2 * heads * d:].view(n, t, heads, d).float()
+    ctx = torch.einsum("bqhk,bkhd->bqhd", a, v)
+    return ctx.reshape(n, t, heads * d).to(qkv.dtype)
 
 
 def bwd_plain_with_fault(qkv, bias, probs, g, heads, *, rowsum=True,
@@ -516,9 +553,12 @@ def train_kernel_case(fa, variant, n, t, heads, d, dtype, seed):
     (f_rtol, f_atol), (b_rtol, b_atol) = TRAIN_TOL[dtype]
     where = f"{variant} {dtype} N={n} T={t}"
 
+    fa.reset_launch_counts()
     ctx, probs = fa.qkv_fwd_probs(qkv, bias, mask, heads)
     row1 = (fa.exp_mhsa_qkv_bias(qkv, bias, heads) if mask is None
             else fa.exp_mhsa_qkv_bias_masked(qkv, bias, mask, heads))
+    check_fwd_regimes(where, fa, n, t, heads, d, tdt, ("qkv_fwd",
+                                                       "qkv_fwd_probs"))
     ref_ctx, ref_probs = fa.exp_mhsa_qkv_bias_probs_reference(qkv, bias,
                                                               mask, heads)
     dqkv = fa.qkv_bwd_probs(qkv, bias, ref_probs, g, heads)
@@ -553,6 +593,11 @@ def train_kernel_case(fa, variant, n, t, heads, d, dtype, seed):
         caught.update(bwd_rounding_faults(dqkv, qkv, bias, ref_probs, g,
                                           heads, out["dqkv"]["n_differ"],
                                           (b_rtol, b_atol)))
+    if dtype == "bfloat16" and fa.fwd_launch_plan(
+            n, t, heads, d, tdt).regime == "mma":
+        caught["ctx from the f32 a (differing elements)"] = rounding_fault(
+            ctx, qkv_fwd_unrounded(qkv, bias, mask, heads),
+            out["ctx"]["n_differ"], f_rtol, f_atol)
     check_caught(where, caught)
     out["faults_caught"] = caught
 
@@ -598,7 +643,9 @@ def recompute_kernel_case(fa, variant, n, t, heads, d, dtype, seed):
 
     dqkv = fa.qkv_bwd(qkv, bias, mask, g, heads)
     ref = fa.qkv_bwd_reference(qkv, bias, mask, g, heads)
+    fa.reset_launch_counts()
     _, probs = fa.qkv_fwd_probs(qkv, bias, mask, heads)
+    check_fwd_regimes(where, fa, n, t, heads, d, tdt, ("qkv_fwd_probs",))
     row3 = fa.qkv_bwd_probs(qkv, bias, probs, g, heads)
     dqkv.sum().item()  # waits for the kernels
     out = {"variant": variant, "shape": [n, t, heads, d], "dtype": dtype,
@@ -1605,6 +1652,16 @@ def rounding_fault(got, fault, base_differ, rtol, atol) -> int:
                      or count > 10 * max(base_differ, 1)) else 0
 
 
+def check_fwd_regimes(where, fa, n, t, heads, d, dtype, kernels) -> None:
+    """Each of rows 1-2's ``kernels`` launched once since the counts were
+    reset, in the regime of fwd_launch_plan."""
+    want = fa.fwd_launch_plan(n, t, heads, d, dtype).regime
+    for k in kernels:
+        if fa.regime_counts(k) != {want: 1}:
+            fail(f"{where}: {k} launched {fa.regime_counts(k)}, its plan "
+                 f"{want}")
+
+
 def check_caught(where, caught) -> None:
     for name, count in caught.items():
         if not count:
@@ -1761,15 +1818,19 @@ def expected_launches(steps, cfg, attention_io="3d"):
 
 
 # Kernels whose launch takes one of several regimes, counted per regime
-# (kernels.regime_counts): rows 3, 4, 12 and 14.
-REGIME_KERNELS = ("qkv_bwd_probs", "qkv_bwd", "qkv2d_bwd", "fused_tail_bwd")
+# (kernels.regime_counts): rows 1, 2, 11 (fwd_launch_plan) and 3, 4, 12
+# and 14 (bwd_launch_plan).
+FWD_REGIME_KERNELS = ("qkv_fwd", "qkv_fwd_probs", "qkv2d_fwd")
+REGIME_KERNELS = FWD_REGIME_KERNELS + ("qkv_bwd_probs", "qkv_bwd",
+                                       "qkv2d_bwd", "fused_tail_bwd")
 
 
 def expected_regimes(steps, cfg, attention_io="3d"):
     """Launches per regime of REGIME_KERNELS in an epoch of ``steps``
-    train steps (as expected_launches routes them): each backward launch
-    takes its plan's regime at its encoder's length (bwd_launch_plan), the
-    news encoder at num_words_title, the user encoder at user_log_length."""
+    train steps (as expected_launches routes them): each launch takes its
+    plan's regime at its encoder's length (fwd_launch_plan for rows 1, 2
+    and 11, bwd_launch_plan for the backwards), the news encoder at
+    num_words_title, the user encoder at user_log_length."""
     from newsrecommendation_tpu_torch.ops import fused_attention as fa
 
     want = expected_launches(steps, cfg, attention_io)
@@ -1782,8 +1843,10 @@ def expected_regimes(steps, cfg, attention_io="3d"):
             continue
         # one launch per encoder and step; the first is the news encoder
         lengths = [cfg.num_words_title, cfg.user_log_length][:n // steps]
+        plan = (fa.fwd_launch_plan if k in FWD_REGIME_KERNELS
+                else fa.bwd_launch_plan)
         for t in lengths:
-            regime = fa.bwd_launch_plan(1, t, heads, d, torch_dtype(
+            regime = plan(1, t, heads, d, torch_dtype(
                 cfg.compute_dtype)).regime
             out.setdefault(k, {})
             out[k][regime] = out[k].get(regime, 0) + steps
@@ -2063,6 +2126,9 @@ def kernel_phases(fa, bw, bl, fe, q2) -> dict:
     cases = []
     shapes = [("bias", 1024, 20), ("bias", 7040, 20), ("bias", MAX_BATCH, 50),
               ("bias_masked", 512, 50), ("bias_masked", MAX_BATCH, 50)]
+    # past T = 64: the user encoder over 300- and 511-news histories
+    shapes += [(v, n, tl) for n, tl in LONG_T[1:]
+               for v in ("bias", "bias_masked")]
     for i, (variant, n, tl) in enumerate(shapes):
         for dtype in ("float32", "bfloat16"):
             c = kernel_case(fa, variant, n, tl, 20, 20, dtype, seed=i)
@@ -2244,6 +2310,9 @@ def main() -> int:
     t = time.perf_counter()
     sos = fa.build()  # one nvcc per source, all started together
     phase("build", t, **{k: os.path.relpath(v) for k, v in sos.items()})
+    print("[build seconds] " + json.dumps(
+        {k: round(v, 1) for k, v in fa.kernels.build_seconds.items()}),
+        flush=True)
 
     kc = kernel_phases(fa, bw, bl, fe, q2)
     cases, train_cases, recompute_cases = (
@@ -2549,6 +2618,14 @@ def main() -> int:
                        f"{TPU_KERNELS}:642",
                        train["regimes"]["qkv_bwd_probs"]["resident"],
                        c["dqkv"], c["bwd"], c))
+    # row 2 at the user encoder over MID_L-news histories (bf16, tensor
+    # cores), with its tensor-core launches in the MID_L run
+    c = find(train_cases, variant="bias", shape=[128, MID_L],
+             dtype="bfloat16")
+    kernels.append(row("exp_mhsa_qkv_bias_probs_long", SOURCE,
+                       f"{TPU_KERNELS}:601",
+                       trains["mid"][0]["regimes"]["qkv_fwd_probs"]["mma"],
+                       c["probs"], c["fwd"], c))
     c = find(recompute_cases, variant="bwd", shape=[7040, 20],
              dtype="bfloat16")
     kernels.append(row("qkv_bwd", BWD_SOURCE, f"{TPU_KERNELS}:712",
@@ -2605,7 +2682,7 @@ def main() -> int:
     # launched on their own paths (attention_io "2d", fused_tail "on")
     c = find(qkv2d_cases, shape=[7040, 20], dtype="bfloat16")
     io_launches = trains["2d"][0]["launches"]
-    kernels.append(row("exp_mhsa_qkv_bias_2d_fwd", QKV2D_SOURCE,
+    kernels.append(row("exp_mhsa_qkv_bias_2d_fwd", SOURCE,
                        f"{QKV2D_KERNELS}:145",
                        sum(io_launches["qkv2d_fwd"].values()), c["ctx"],
                        c["fwd"], c))

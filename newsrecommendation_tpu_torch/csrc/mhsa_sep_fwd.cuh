@@ -29,6 +29,12 @@
 // (masked keys included) and den = sum e + 1e-8 exp(-m), an f32 sum in a
 // fixed order. (A max walk then an exp walk, two queries a thread and
 // other tiled chunks were slower on an H100: PERF.md, PR 14.)
+//
+// Rows 1-2 (qkv_fwd.cuh) launch the same two kernels past T = 64 on the
+// views of a fused [q|k|v] (qkv_launch), with two flags: kProbs, row 2's
+// f32 a, staged in shared memory kProbsKeys keys at a time and written a
+// row a store; kBias on the tiled kernel, the projection's bias added as
+// rows load (on tensor cores a pass of its own adds it first).
 #pragma once
 
 #include "mhsa_sep_bwd.cuh"  // sep::, flash.cuh, mma.cuh, quad_sum/max
@@ -48,11 +54,40 @@ __host__ __device__ inline int regime(int t_len, int dk, int dv, int esize) {
   return esize == 2 ? kMma : kTiled;
 }
 
-// Shared bytes of a tiled block: kTiledChunk keys of K at flash_dm(d_k),
-// of V at flash_dm(d_v), and of the mask, as f32.
+// Row 2's probs leave a kernel through shared memory, kProbsKeys keys of
+// a row at a time, so that a warp's store writes one row's 128 contiguous
+// bytes: each tiled warp stages its 32 queries' a in rows of kProbsRow
+// floats (odd: the threads writing one key hit 32 banks), each tensor-core
+// warp
+// its 16 queries' in rows of kMmaProbsRow (8-byte pairs from the C
+// fragments hit 32 banks per half-warp).
+constexpr int kProbsKeys = 32;
+constexpr int kProbsRow = kProbsKeys + 1;
+constexpr int kMmaProbsRow = kProbsKeys + 8;
+
+// The compile-time widths of rows 1-2's tiled kernel: flash.cuh's, and 20
+// (the NRMS head), whose K and V rows would otherwise be padded to 24.
+inline int qkv_tiled_width(int d) {
+  return d > 16 && d <= 20 ? 20 : flash_dm(d);
+}
+
+// Shared bytes of a tiled block: kTiledChunk keys of K and V (at widths wk
+// and wv) and of the mask, as f32; with probs (row 2) also the staged a,
+// kTiledThreads rows of kProbsRow.
+inline size_t tiled_smem_at(int wk, int wv, bool probs) {
+  return sizeof(float) * ((size_t)kTiledChunk * (wk + wv + 1) +
+                          (probs ? (size_t)kTiledThreads * kProbsRow : 0));
+}
+
+// Rows 5 and 7's tiled block: widths flash_dm(d_k) and flash_dm(d_v).
 inline size_t tiled_smem(int dk, int dv) {
-  return sizeof(float) * (size_t)kTiledChunk *
-         (flash_dm(dk) + flash_dm(dv) + 1);
+  return tiled_smem_at(flash_dm(dk), flash_dm(dv), false);
+}
+
+// Bytes of the tensor-core kernel's probs tiles: one per warp of 16
+// queries, 16 rows of kMmaProbsRow floats.
+inline size_t mma_probs_smem(int tile) {
+  return sizeof(float) * (size_t)tile * kMmaProbsRow;
 }
 
 // Whether a plan (tile, chunk, nbuf) is one the regime's kernel takes:
@@ -96,13 +131,43 @@ __device__ __forceinline__ float finite_den(float den) {
 
 // ---- tensor cores (T > 64, bf16) -------------------------------------------
 
-template <int DM, bool kMask>
+// A warp's 16 x 16 f32 a of one step (element e at query row lane / 4 +
+// 8 (e % 4 / 2), key 8 (e / 4) + 2 tq + e % 2 of the step) into its probs
+// tile at key column col0, pairs of neighbouring keys 8 bytes at once.
+__device__ __forceinline__ void tile_probs(float* tile, const float* s,
+                                           int col0, int lane) {
+#pragma unroll
+  for (int e = 0; e < 8; e += 2) {
+    const int row = lane / 4 + 8 * (e % 4 / 2);
+    const int col = col0 + 8 * (e / 4) + 2 * (lane % 4);
+    *reinterpret_cast<float2*>(tile + row * kMmaProbsRow + col) =
+        make_float2(s[e], s[e + 1]);
+  }
+}
+
+// Keys [0, nk) of staged probs rows [0, rows) (rows tld floats apart in
+// the tile) to probs rows `ld` floats apart from dst: one row a store, the
+// lanes over its keys; this warp takes rows r0, r0 + rstep, ...
+__device__ __forceinline__ void flush_probs(float* dst, int64_t ld,
+                                            const float* tile, int tld,
+                                            int rows, int nk, int r0,
+                                            int rstep, int lane) {
+  if (lane >= nk) return;
+  for (int r = r0; r < rows; r += rstep)
+    dst[r * ld + lane] = tile[r * tld + lane];
+}
+
+// kProbs (rows 2 and 11): the second walk also writes each a in f32,
+// before it is rounded, to probs[row, i, h*T + j], through a tile of the
+// warp's rows after the stage buffers (flushed every kProbsKeys keys).
+template <int DM, bool kMask, bool kProbs>
 __global__ void __launch_bounds__(256, 3)
 sep_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
                    const float* __restrict__ mask,
-                   __nv_bfloat16* __restrict__ out, Params p) {
+                   __nv_bfloat16* __restrict__ out,
+                   float* __restrict__ probs, Params p) {
   using T = __nv_bfloat16;
   constexpr int KS = (DM + 15) / 16;  // k-steps of QK^T
   constexpr int ND = (DM + 7) / 8;    // d tiles of a@V
@@ -127,6 +192,8 @@ sep_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   auto kbuf = [&](int b) {
     return reinterpret_cast<T*>(smem + p.own + (size_t)b * p.stage);
   };
+  float* ptile = reinterpret_cast<float*>(kbuf(p.nbuf)) +
+                 warp * 16 * kMmaProbsRow;  // kProbs: the warp's probs tile
 
   zero_smem(smem, p.own + (size_t)p.nbuf * p.stage);
   // tasks [0, nc) the (m, den) walk over K (and the mask), [nc, 2 nc) the
@@ -194,6 +261,18 @@ sep_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
         s[e] = in ? div_by(x, deni[r], rcpi[r]) : 0.f;
       }
       if (av) {
+        if constexpr (kProbs) {
+          tile_probs(ptile, s, j % kProbsKeys, lane);
+          if (j % kProbsKeys == kProbsKeys - 16 || j + 16 >= nj) {
+            __syncwarp();
+            const int kb = j - j % kProbsKeys;  // the tile's first key
+            flush_probs(probs + ((first + i0 + q0) * p.h + h) * (int64_t)p.t +
+                            c * p.chunk + kb,
+                        (int64_t)p.h * p.t, ptile, kMmaProbsRow,
+                        min(16, nq - q0), min(j + 16, nj) - kb, 0, 1, lane);
+            __syncwarp();  // the next step overwrites the tile
+          }
+        }
         unsigned pa[4];
         pack_a(pa, s);  // a in v's dtype, as the A fragment of a@V
         mma_acc<ND>(o, pa, vs, p.rs, j, nj, lane);
@@ -208,29 +287,59 @@ sep_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 // ---- CUDA cores (T > 64, f32) -----------------------------------------------
 
-// d_k and d_v held at DK and DV lanes (zero pads).
-template <int DK, int DV>
+// Rows [t0, t1) of head h of x as load_rows (flash.cuh) stages them, with
+// b[d] added to lane d (the bias of a fused projection, f32).
+template <int DM>
+__device__ __forceinline__ void load_biased_rows(float* dst,
+                                                 const float* __restrict__ x,
+                                                 int64_t base, int ld, int t0,
+                                                 int t1, int d_head,
+                                                 const float* b) {
+  const int n = (t1 - t0) * DM;
+  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
+    const int j = idx / DM;
+    const int d = idx - j * DM;
+    dst[idx] = d < d_head ? x[base + (int64_t)(t0 + j) * ld + d] + b[d] : 0.f;
+  }
+}
+
+// d_k and d_v held at DK and DV lanes (zero pads). kBias (rows 1-2): bias
+// (3*H*d_k,) of the fused projection, whose q, k and v lanes of head h lie
+// at h*d_k, H*d_k + h*d_k, 2*H*d_k + h*d_v, added to q, k and v as they
+// are loaded. kProbs (row 2): the second walk writes each a, f32, to
+// probs[row, i, h*T + j]; each warp stages its 32 queries' a of
+// kProbsKeys keys and writes them by rows, with no block barrier.
+template <int DK, int DV, bool kBias, bool kProbs>
 __global__ void __launch_bounds__(kTiledThreads)
 sep_fwd_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
+                     const float* __restrict__ bias,
                      const float* __restrict__ mask, float* __restrict__ out,
-                     Params p) {
+                     float* __restrict__ probs, Params p) {
   extern __shared__ __align__(16) float sep_tiled_smem[];
   float* ks = sep_tiled_smem;         // (kTiledChunk, DK)
   float* vs = ks + kTiledChunk * DK;  // (kTiledChunk, DV)
   float* mk = vs + kTiledChunk * DV;  // (kTiledChunk)
+  float* pt = mk + kTiledChunk;       // kProbs: (kTiledThreads, kProbsRow)
   const int row = blockIdx.x / p.h;
   const int h = blockIdx.x - row * p.h;
   const int64_t first = (int64_t)row * p.t;
   const int64_t kbase = first * p.ldk + h * p.dk;
   const int64_t vbase = first * p.ldv + h * p.dv;
   const float* mrow = mask ? mask + first : nullptr;
-  const int qi = blockIdx.y * kTiledThreads + threadIdx.x;
+  const int i0 = blockIdx.y * kTiledThreads;  // the block's first query
+  const int qi = i0 + threadIdx.x;
   const bool act = qi < p.t;
+  const float* bq = kBias ? bias + h * p.dk : nullptr;
+  const float* bk = kBias ? bq + p.h * p.dk : nullptr;
+  const float* bv = kBias ? bias + 2 * p.h * p.dk + h * p.dv : nullptr;
   float qv[DK], o[DV];
   const float* qr = q + (first + (act ? qi : 0)) * p.ldq + h * p.dk;
 #pragma unroll
-  for (int d = 0; d < DK; ++d) qv[d] = act && d < p.dk ? qr[d] : 0.f;
+  for (int d = 0; d < DK; ++d) {
+    if constexpr (kBias) qv[d] = act && d < p.dk ? qr[d] + bq[d] : 0.f;
+    else qv[d] = act && d < p.dk ? qr[d] : 0.f;
+  }
 #pragma unroll
   for (int d = 0; d < DV; ++d) o[d] = 0.f;
   // the walks' max (m), the running sum (l), den and 1/den
@@ -243,9 +352,15 @@ sep_fwd_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j0 = 0; j0 < p.t; j0 += kTiledChunk) {
       const int nj = min(kTiledChunk, p.t - j0);
       __syncthreads();  // the previous chunk is no longer read
-      load_rows<float, DK>(ks, k, kbase, p.ldk, j0, j0 + nj, p.dk);
-      if (pass == 1) load_rows<float, DV>(vs, v, vbase, p.ldv, j0, j0 + nj,
-                                          p.dv);
+      if constexpr (kBias) {
+        load_biased_rows<DK>(ks, k, kbase, p.ldk, j0, j0 + nj, p.dk, bk);
+        if (pass == 1)
+          load_biased_rows<DV>(vs, v, vbase, p.ldv, j0, j0 + nj, p.dv, bv);
+      } else {
+        load_rows<float, DK>(ks, k, kbase, p.ldk, j0, j0 + nj, p.dk);
+        if (pass == 1) load_rows<float, DV>(vs, v, vbase, p.ldv, j0, j0 + nj,
+                                            p.dv);
+      }
       for (int j = threadIdx.x; j < nj; j += blockDim.x)
         mk[j] = mrow ? mrow[j0 + j] : 1.f;
       __syncthreads();
@@ -266,6 +381,20 @@ sep_fwd_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
           continue;
         }
         const float a = div_by(expf(s - m) * mk[j], den, rcp);
+        if constexpr (kProbs) {
+          pt[threadIdx.x * kProbsRow + j % kProbsKeys] = a;
+          if (j % kProbsKeys == kProbsKeys - 1 || j == nj - 1) {
+            __syncwarp();  // the warp's rows of these keys are staged
+            const int kb = j - j % kProbsKeys;
+            const int w0 = threadIdx.x / 32 * 32;  // the warp's first row
+            flush_probs(probs + ((first + i0 + w0) * p.h + h) * (int64_t)p.t +
+                            j0 + kb,
+                        (int64_t)p.h * p.t, pt + w0 * kProbsRow, kProbsRow,
+                        min(32, p.t - i0 - w0), j - kb + 1, 0, 1,
+                        threadIdx.x % 32);
+            __syncwarp();  // the next keys overwrite the warp's rows
+          }
+        }
         const float4* vr = reinterpret_cast<const float4*>(vs + j * DV);
 #pragma unroll
         for (int d4 = 0; d4 < DV / 4; ++d4) {
@@ -297,10 +426,13 @@ int go(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t stream,
   return (int)cudaGetLastError();
 }
 
+// kProbs: row 2's instance (probs written), else rows 1, 5 and 7's.
+template <bool kProbs>
 struct MmaLaunch {
   const __nv_bfloat16 *q, *k, *v;
   const float* mask;
   __nv_bfloat16* out;
+  float* probs;
   Params p;
   dim3 grid;
   size_t smem;
@@ -308,10 +440,10 @@ struct MmaLaunch {
 
   template <int DM>
   int operator()() const {
-    return mask ? go(sep_fwd_mma_kernel<DM, true>, grid, 2 * p.tile, smem,
-                     stream, q, k, v, mask, out, p)
-                : go(sep_fwd_mma_kernel<DM, false>, grid, 2 * p.tile, smem,
-                     stream, q, k, v, mask, out, p);
+    return mask ? go(sep_fwd_mma_kernel<DM, true, kProbs>, grid, 2 * p.tile,
+                     smem, stream, q, k, v, mask, out, probs, p)
+                : go(sep_fwd_mma_kernel<DM, false, kProbs>, grid, 2 * p.tile,
+                     smem, stream, q, k, v, mask, out, probs, p);
   }
 };
 
@@ -328,8 +460,9 @@ struct TiledLaunch {
 
   template <int DK, int DV>
   int run() const {
-    return go(sep_fwd_tiled_kernel<DK, DV>, grid, kTiledThreads, smem, stream,
-              q, k, v, mask, out, p);
+    return go(sep_fwd_tiled_kernel<DK, DV, false, false>, grid, kTiledThreads,
+              smem, stream, q, k, v, static_cast<const float*>(nullptr), mask,
+              out, static_cast<float*>(nullptr), p);
   }
 
   // the key width, then the value width (TiledByDv)
@@ -349,7 +482,68 @@ struct TiledByDv {
   }
 };
 
-// One launch of the forward past T = 64 in regime `reg` (kMma or kTiled)
+// Rows 1-2's tiled launch: one width (qkv_tiled_width), the bias added as
+// rows are loaded.
+template <bool kProbs>
+struct TiledQkv {
+  const float *qkv, *bias, *mask;
+  float* out;
+  float* probs;
+  Params p;
+  dim3 grid;
+  size_t smem;
+  cudaStream_t stream;
+
+  template <int DM>
+  int operator()() const {
+    const int hd = p.h * p.dk;
+    return go(sep_fwd_tiled_kernel<DM, DM, true, kProbs>, grid,
+              kTiledThreads, smem, stream, qkv, qkv + hd, qkv + 2 * hd, bias,
+              mask, out, probs, p);
+  }
+};
+
+// Calls body.template operator()<DM>() with DM = qkv_tiled_width(d_head);
+// cudaErrorInvalidValue for d_head > 64.
+template <typename Body>
+int with_qkv_width(int d_head, Body body) {
+  if (d_head > 16 && d_head <= 20) return body.template operator()<20>();
+  return with_head_width(d_head, body);
+}
+
+// The Params of a launch past T = 64 in regime `reg` under the plan
+// (tile, chunk, nbuf); q, k, v the base addresses the tensor-core
+// kernel's copies read.
+inline Params params_of(int reg, int t_len, int n_heads, int dk, int dv,
+                        int ldq, int ldk, int ldv, int tile, int chunk,
+                        int nbuf, const void* q, const void* k,
+                        const void* v) {
+  Params p{n_heads, t_len, dk, dv, ldq, ldk, ldv, tile, chunk, nbuf,
+           0, 0, 0, 0, 0, 1.0f / sqrtf((float)dk)};
+  if (reg == kMma) {
+    const int dmax = dk > dv ? dk : dv;
+    const FlashLayout l = flash_layout(kFlashFwd, dmax, 2, tile, chunk);
+    const void* qk[2] = {q, k};
+    p.rs = flash_row_elems(dmax);
+    p.pk = flash_piece(dk, 2, ldq, ldk, qk, 2);
+    p.pv = flash_piece(dv, 2, ldv, ldv, &v, 1);
+    p.own = (int)l.own;
+    p.stage = (int)l.stage;
+  }
+  return p;
+}
+
+// The grid of a launch past T = 64: a block per (row, head) and tile of
+// queries; false past what a grid takes.
+inline bool grid_of(int n, int t_len, int n_heads, int tile, dim3* grid) {
+  const int64_t rows = (int64_t)n * n_heads;
+  const int tiles = (t_len + tile - 1) / tile;
+  if (rows > 0x7fffffff || tiles > 65535) return false;
+  *grid = dim3((unsigned)rows, (unsigned)tiles);
+  return true;
+}
+
+// One launch of rows 5 and 7 past T = 64 in regime `reg` (kMma or kTiled)
 // under the plan (tile, chunk, nbuf); refuses a plan the regime's kernel
 // does not take.
 template <typename T>
@@ -361,29 +555,22 @@ int launch(int reg, const void* q, const void* k, const void* v,
   if (regime(t_len, dk, dv, esize) != reg ||
       !plan_ok(reg, dk, dv, tile, chunk, nbuf))
     return (int)cudaErrorInvalidValue;
-  const int64_t rows = (int64_t)n * n_heads;
-  const int tiles = (t_len + tile - 1) / tile;
-  if (rows > 0x7fffffff || tiles > 65535)
+  dim3 grid;
+  if (!grid_of(n, t_len, n_heads, tile, &grid))
     return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)rows, (unsigned)tiles);
-  Params p{n_heads, t_len, dk, dv, ldq, ldk, ldv, tile, chunk, nbuf,
-           0, 0, 0, 0, 0, 1.0f / sqrtf((float)dk)};
-  const int dmax = dk > dv ? dk : dv;
+  const Params p = params_of(reg, t_len, n_heads, dk, dv, ldq, ldk, ldv,
+                             tile, chunk, nbuf, q, k, v);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const FlashLayout l = flash_layout(kFlashFwd, dmax, 2, tile, chunk);
-    const void* qk[2] = {q, k};
-    p.rs = flash_row_elems(dmax);
-    p.pk = flash_piece(dk, 2, ldq, ldk, qk, 2);
-    p.pv = flash_piece(dv, 2, ldv, ldv, &v, 1);
-    p.own = (int)l.own;
-    p.stage = (int)l.stage;
     using B = __nv_bfloat16;
+    const int dmax = dk > dv ? dk : dv;
     return with_head_width(
-        dmax, MmaLaunch{static_cast<const B*>(q), static_cast<const B*>(k),
-                        static_cast<const B*>(v),
-                        static_cast<const float*>(mask), static_cast<B*>(out),
-                        p, grid, l.own + nbuf * l.stage,
-                        (cudaStream_t)stream});
+        dmax, MmaLaunch<false>{static_cast<const B*>(q),
+                               static_cast<const B*>(k),
+                               static_cast<const B*>(v),
+                               static_cast<const float*>(mask),
+                               static_cast<B*>(out), nullptr, p, grid,
+                               (size_t)p.own + nbuf * (size_t)p.stage,
+                               (cudaStream_t)stream});
   } else {
     return with_head_width(
         dk, TiledLaunch{static_cast<const float*>(q),
@@ -392,6 +579,71 @@ int launch(int reg, const void* q, const void* k, const void* v,
                         static_cast<const float*>(mask),
                         static_cast<float*>(out), p, grid,
                         tiled_smem(dk, dv), (cudaStream_t)stream});
+  }
+}
+
+// One launch of rows 1-2 past T = 64 (qkv_fwd.cuh) in regime `reg`, heads
+// of d lanes: qkv (N, T, 3*H*D) and its bias (3*H*D,); probs (row 2) or
+// null. In bf16 (kMma) the bias is added at the input dtype by a pass of
+// its own into `biased` (N, T, 3*H*D), which the kernel then reads, as
+// rows 3-4's tensor-core regime does (qkv_bias_kernel); in f32 (kTiled)
+// the kernel adds it as it loads each row. Refuses a plan the regime's
+// kernel does not take.
+template <typename T>
+int qkv_launch(int reg, const void* qkv, const void* bias, const void* mask,
+               void* out, void* probs, void* biased, int n, int t_len,
+               int n_heads, int d, int tile, int chunk, int nbuf,
+               void* stream) {
+  const int esize = (int)sizeof(T);
+  const bool with_probs = probs != nullptr;
+  if (regime(t_len, d, d, esize) != reg || reg == kRowwise ||
+      !plan_ok(reg, d, d, tile, chunk, nbuf))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid;
+  if (!grid_of(n, t_len, n_heads, tile, &grid))
+    return (int)cudaErrorInvalidConfiguration;
+  const int hd = n_heads * d;
+  auto* cs = (cudaStream_t)stream;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    using B = __nv_bfloat16;
+    if (biased == nullptr) return (int)cudaErrorInvalidValue;
+    const int64_t total = (int64_t)n * t_len * 3 * hd;
+    const int64_t want = (total + 255) / 256;
+    auto* x = static_cast<B*>(biased);
+    qkv_bias_kernel<<<(unsigned)(want < 4096 ? want : 4096), 256, 0, cs>>>(
+        static_cast<const B*>(qkv), static_cast<const B*>(bias), x, total,
+        3 * hd);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const Params p = params_of(reg, t_len, n_heads, d, d, 3 * hd, 3 * hd,
+                               3 * hd, tile, chunk, nbuf, x, x + hd,
+                               x + 2 * hd);
+    const size_t smem = (size_t)p.own + nbuf * (size_t)p.stage +
+                        (with_probs ? mma_probs_smem(tile) : 0);
+    if (smem > (size_t)sep::kMaxSmem) return (int)cudaErrorInvalidValue;
+    const auto* m = static_cast<const float*>(mask);
+    auto* o = static_cast<B*>(out);
+    auto* pr = static_cast<float*>(probs);
+    return with_probs
+               ? with_head_width(d, MmaLaunch<true>{x, x + hd, x + 2 * hd, m,
+                                                    o, pr, p, grid, smem, cs})
+               : with_head_width(d, MmaLaunch<false>{x, x + hd, x + 2 * hd,
+                                                     m, o, pr, p, grid, smem,
+                                                     cs});
+  } else {
+    const Params p = params_of(reg, t_len, n_heads, d, d, 3 * hd, 3 * hd,
+                               3 * hd, tile, chunk, nbuf, qkv, qkv, qkv);
+    const auto* x = static_cast<const float*>(qkv);
+    const auto* b = static_cast<const float*>(bias);
+    const auto* m = static_cast<const float*>(mask);
+    auto* o = static_cast<float*>(out);
+    auto* pr = static_cast<float*>(probs);
+    const int w = qkv_tiled_width(d);
+    const size_t smem = tiled_smem_at(w, w, with_probs);
+    return with_probs ? with_qkv_width(d, TiledQkv<true>{x, b, m, o, pr, p,
+                                                         grid, smem, cs})
+                      : with_qkv_width(d, TiledQkv<false>{x, b, m, o, pr, p,
+                                                          grid, smem, cs});
   }
 }
 

@@ -209,7 +209,8 @@ def blanes_fwd(qkv, key_mask, n_heads: int):
     _check_launch(qkv, key_mask)
     variant = "blanes" if key_mask is None else "blanes_masked"
     if regime(t, d, qkv.element_size()) == "qkv":
-        # row 1's kernel with a zero bias, counted as row 15
+        # row 1's launch with a zero bias, in its plan's regime, counted as
+        # row 15
         return fa._launch(variant, qkv, qkv.new_zeros(qkv.shape[-1]),
                           key_mask, n_heads)
     p = launch_plan("fwd", n, t, n_heads, d, qkv.element_size(),

@@ -3,14 +3,16 @@
 
 Replaces, in ``newsrecommendation_tpu/ops/pallas/experimental_qkv2d.py``:
   - ``_fwd2d_call`` (``_fwd2d_kernel``): the forward, which always writes
-    the f32 probs -> ``csrc/qkv2d.cu``, kernel "qkv2d_fwd" (row 11);
+    the f32 probs -> row 2's launch (``csrc/qkv_fwd.cu``
+    ``qkv_fwd_probs``) on the (N, T, 3HD) view, kernel "qkv2d_fwd"
+    (row 11);
   - ``_bwd2d_call`` (``_bwd2d_probs_kernel``): the backward from those
     probs -> ``csrc/qkv2d.cu``, kernel "qkv2d_bwd" (row 12).
 On the TPU the 2-D and 3-D forms tile differently, and these kernels
 regroup the rows in VMEM. On the card a contiguous (N*T, 3HD) tensor and
-its (N, T, 3HD) view are the same bytes, so rows 11-12 run the kernel
-bodies of rows 2-3 (``csrc/qkv_fwd.cuh``, ``csrc/qkv_bwd.cuh``) and give
-their results bit for bit. The JAX package's contract stays: unmasked
+its (N, T, 3HD) view are the same bytes, so rows 11-12 run the kernels
+of rows 2-3 (row 2's entry point; ``csrc/qkv_bwd.cuh`` in ``qkv2d.cu``)
+and give their results bit for bit. The JAX package's contract stays: unmasked
 only (a mask raises), the forward always writes probs and the backward
 always reads them, whatever ``bwd_residuals`` says, and d(bias) is the sum
 of dqkv over its rows.
@@ -61,12 +63,8 @@ def qkv2d_fwd(qkv2d, bias, n_heads: int, t: int, key_mask=None):
                       device=qkv2d.device)
     probs = torch.empty((n, t, n_heads * t), dtype=torch.float32,
                         device=qkv2d.device)
-    stage, slots = kernels.scratch("qkv2d", "qkv2d_fwd_slot_floats",
-                                   n * n_heads, qkv2d.device, t, d)
-    kernels.call("fwd2d", kernels.entry("qkv2d", "qkv2d_fwd", qkv2d.dtype),
-                 qkv2d.device, qkv2d.data_ptr(), bias.data_ptr(),
-                 out.data_ptr(), probs.data_ptr(), kernels.ptr(stage), n * t,
-                 t, n_heads, d, slots)
+    # row 2's launch on the (N, T, 3HD) view: its regime, plan and bits
+    fa.fwd_call("fwd2d", qkv2d, bias, None, out, probs, n, t, n_heads, d)
     return out, probs
 
 

@@ -8,7 +8,9 @@ Replaces, in ``newsrecommendation_tpu/ops/pallas/fused_attention.py``:
   - ``_qkv_fwd_probs_call``: the same forward that also writes the f32
     probs (N, T, H*T), under differentiation with bwd_residuals "probs" ->
     ``csrc/qkv_fwd.cu`` with a probs pointer, kernel "qkv_fwd_probs"
-    (row 2);
+    (row 2). Rows 1 and 2 share one launch in four regimes that
+    ``fwd_launch_plan`` chooses by T, D and the dtype (resident, tensor
+    cores, tiled, row-wise); row 2's context is row 1's bit for bit;
   - ``_qkv_bwd_probs_call`` (``_qkv_bwd_probs_kernel``): the backward from
     those probs -> ``csrc/qkv_bwd_probs.cu``, kernel "qkv_bwd_probs"
     (row 3);
@@ -41,6 +43,7 @@ Builds and launch counts: ``ops/kernels.py``.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -92,29 +95,153 @@ def _check_launch(qkv, bias, key_mask, *more):
 
 
 def _launch(variant, qkv, bias, key_mask, n_heads, with_probs=False):
-    """Row 1 (returns ctx) or, with_probs, row 2 (returns ctx, probs)."""
+    """Row 1 (returns ctx) or, with_probs, row 2 (returns ctx, probs), in
+    the regime of ``fwd_launch_plan``."""
     n, t, d = _check(qkv, bias, key_mask, n_heads)
     _check_launch(qkv, bias, key_mask)
     out = torch.empty((n, t, n_heads * d), dtype=qkv.dtype,
                       device=qkv.device)
-    # past shared memory (T > 370 at D = 50): q, k, v and the score rows
-    # in one global slot per block
-    stage, slots = kernels.scratch("qkv_fwd", "qkv_fwd_slot_floats",
-                                   n * n_heads, qkv.device, t, d)
-    ptrs = (qkv.data_ptr(), bias.data_ptr(), kernels.ptr(key_mask),
-            out.data_ptr())
     if not with_probs:
-        kernels.call(variant, kernels.entry("qkv_fwd", "qkv_fwd", qkv.dtype),
-                     qkv.device, *ptrs, kernels.ptr(stage), n, t, n_heads,
-                     d, slots)
+        fwd_call(variant, qkv, bias, key_mask, out, None, n, t, n_heads, d)
         return out
     probs = torch.empty((n, t, n_heads * t), dtype=torch.float32,
                         device=qkv.device)
-    kernels.call(variant,
-                 kernels.entry("qkv_fwd", "qkv_fwd_probs", qkv.dtype),
-                 qkv.device, *ptrs, probs.data_ptr(), kernels.ptr(stage), n,
-                 t, n_heads, d, slots)
+    fwd_call(variant, qkv, bias, key_mask, out, probs, n, t, n_heads, d)
     return out, probs
+
+
+def fwd_call(variant, qkv, bias, key_mask, out, probs, n: int, t: int,
+             n_heads: int, d: int) -> None:
+    """One launch of row 1 (``probs`` None) or row 2 (and 11, on the
+    (N, T, 3HD) view of its input) in ``fwd_launch_plan``'s regime,
+    counted under ``variant``: its entry point in ``csrc/qkv_fwd.cu``
+    takes the regime's index and the plan's three ints; on tensor cores
+    also the biased qkv its bias pass writes, row-wise past shared memory
+    (T > 235 at D = 80) a global slot per block for q, k, v and the score
+    rows."""
+    plan = fwd_launch_plan(n, t, n_heads, d, qkv.dtype,
+                           blockwise._sms(qkv.device),
+                           probs=probs is not None)
+    biased = torch.empty_like(qkv) if plan.regime == "mma" else None
+    stage, slots = None, 0
+    if plan.regime == "rowwise":
+        stage, slots = kernels.scratch("qkv_fwd", "qkv_fwd_slot_floats",
+                                       n * n_heads, qkv.device, t, d)
+    ptrs = [qkv.data_ptr(), bias.data_ptr(), kernels.ptr(key_mask),
+            out.data_ptr()]
+    if probs is not None:
+        ptrs.append(probs.data_ptr())
+    fn = kernels.entry("qkv_fwd", "qkv_fwd" if probs is None
+                       else "qkv_fwd_probs", qkv.dtype)
+    kernels.call(variant, fn, qkv.device, *ptrs, kernels.ptr(biased),
+                 kernels.ptr(stage), n, t, n_heads, d,
+                 FWD_REGIMES.index(plan.regime), *plan.args(), slots,
+                 regime=plan.regime)
+
+
+# ---- rows 1-2 (and 11): the launch plan -------------------------------------
+
+FWD_REGIMES = ("resident", "mma", "tiled", "rowwise")
+FWD_SHORT_T = 64  # longest T of the resident regime (blanes_resident.cuh)
+FWD_MAX_HEAD = 64  # widest head of every regime but "rowwise"
+# Row 2's probs leave the tensor-core and tiled kernels through shared
+# memory, FWD_PROBS_KEYS keys of a row at a time (csrc/mhsa_sep_fwd.cuh
+# kProbsKeys): the tiled block stages its queries' a in rows of
+# FWD_PROBS_ROW floats, each tensor-core warp its 16 queries' in rows of
+# FWD_MMA_PROBS_ROW.
+FWD_PROBS_KEYS = 32
+FWD_PROBS_ROW = FWD_PROBS_KEYS + 1
+FWD_MMA_PROBS_ROW = FWD_PROBS_KEYS + 8
+# The tiled kernel's compile-time widths (qkv_tiled_width): row 9's, and
+# 20, the NRMS head.
+FWD_TILED_WIDTHS = (8, 16, 20, 24, 32, 64)
+
+
+def fwd_regime(t: int, d: int, itemsize: int) -> str:
+    """The regime of rows 1-2 (and 11) at (T, D) (``csrc/qkv_fwd.cuh``
+    ``qf::regime``): "resident" (row 15's design) at T <= 64, past it
+    "mma" (tensor cores) in bf16 and "tiled" (CUDA cores) in f32, each with
+    heads of up to 64; "rowwise" (the first port's kernel) for wider
+    heads at any T."""
+    if d > FWD_MAX_HEAD:
+        return "rowwise"
+    if t <= FWD_SHORT_T:
+        return "resident"
+    return "mma" if itemsize == 2 else "tiled"
+
+
+class FwdPlan(NamedTuple):
+    """The regime of rows 1-2 (``FWD_REGIMES``) and its launch: the
+    resident kernel's (``experimental_blanes.Plan``), or the tensor-core or
+    tiled kernel's (``blockwise.Launch``); none row-wise."""
+    regime: str
+    resident: NamedTuple | None = None
+    launch: blockwise.Launch | None = None
+
+    def args(self) -> tuple:
+        """The three ints the C entry points take: resident (heads, nbuf,
+        blocks); tensor cores and tiled (tile, chunk, nbuf); row-wise
+        zeros."""
+        if self.resident is not None:
+            r = self.resident
+            return (r.heads, r.nbuf, r.blocks)
+        if self.launch is not None:
+            p = self.launch
+            return (p.tile, p.chunk, p.nbuf)
+        return (0,) * 3
+
+
+def fwd_tiled_smem(d: int, probs: bool) -> int:
+    """Shared bytes of a tiled block (``tiled_smem_at``): SEP_TILED_CHUNK
+    keys of K and V at the least of FWD_TILED_WIDTHS that holds d, and of
+    the mask, f32; with probs a tile of SEP_TILED_THREADS rows of
+    FWD_PROBS_ROW floats."""
+    width = next(w for w in FWD_TILED_WIDTHS if d <= w)
+    return 4 * (SEP_TILED_CHUNK * (2 * width + 1)
+                + (SEP_TILED_THREADS * FWD_PROBS_ROW if probs else 0))
+
+
+# Cached: worked out in Python the plan takes tens of microseconds, about
+# as long as row 1 runs on a served batch (64, 50).
+@functools.lru_cache(maxsize=256)
+def fwd_launch_plan(n: int, t: int, heads: int, d: int, dtype,
+                    sms: int = 132, probs: bool = False) -> FwdPlan:
+    """The regime and launch of rows 1-2 (and 11) at (N, T, H, D) in
+    ``dtype``; ``probs`` for row 2 (and 11). Resident: row 15's forward
+    layout and plan (``experimental_blanes.launch_plan``: up to four heads
+    an item and two buffers, as many blocks as the card holds); tensor
+    cores: rows 5 and 7's (row 9's forward layout,
+    ``blockwise.mma_launch`` of kind "fwd": a block per (row, head) and
+    tile of 128 or 64 queries, K, V and the mask in chunks over all T
+    keys, on a biased copy of qkv; row 2 adds a probs tile per warp);
+    tiled: a block of
+    SEP_TILED_THREADS threads per (row, head), one query a thread,
+    SEP_TILED_CHUNK keys staged at once (``fwd_tiled_smem``); row-wise, no
+    plan. A dtype other than float32 and bfloat16 raises TypeError."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dtype {dtype} not supported (float32, bfloat16)")
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    regime = fwd_regime(t, d, itemsize)
+    rows = n * heads
+    if regime == "resident":  # the bias and probs take no shared memory
+        from newsrecommendation_tpu_torch.ops import experimental_blanes as bl
+
+        return FwdPlan(regime, resident=bl.launch_plan("fwd", n, t, heads, d,
+                                                       itemsize, sms))
+    if regime == "mma":
+        tile = blockwise.mma_tile(rows, t, sms)
+        launch = blockwise.mma_launch("fwd", d, itemsize, tile, t,
+                                      (rows, -(-t // tile)))
+        if probs:  # a probs tile per warp of 16 queries
+            launch = launch._replace(
+                smem=launch.smem + 4 * tile * FWD_MMA_PROBS_ROW)
+        return FwdPlan(regime, launch=launch)
+    if regime == "tiled":
+        tile = SEP_TILED_THREADS
+        return FwdPlan(regime, launch=blockwise.Launch(
+            "qkv_fwd_tiled", tile, SEP_TILED_CHUNK, 1,
+            fwd_tiled_smem(d, probs), (rows, -(-t // tile)), tile))
+    return FwdPlan(regime)
 
 
 # ---- rows 3-4: the launch plan ---------------------------------------------

@@ -9,9 +9,10 @@ with the same sources reuses the libraries; a failed build raises.
 
 Each wrapper counts its launches per variant (``KERNELS``), so a run can
 show which kernels its path went through; a wrapper whose launch takes one
-of several regimes (rows 3-4, 12 and 14: resident, tensor-core or tiled
-kernels; rows 5 and 7: row-wise, tensor-core or tiled; rows 6 and 8:
-resident, tensor-core or wide) also counts it per regime. A CPU tensor
+of several regimes (rows 1-2 and 11: resident, tensor-core, tiled or
+row-wise kernels; rows 3-4, 12 and 14: resident, tensor-core or tiled;
+rows 5 and 7: row-wise, tensor-core or tiled; rows 6 and 8: resident,
+tensor-core or wide) also counts it per regime. A CPU tensor
 takes a kernel's plain PyTorch version and counts nothing; a CUDA tensor
 launches the kernel or raises; any other device raises ``NoKernelError``.
 """
@@ -25,6 +26,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 import torch
 
@@ -38,14 +40,13 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # types of their arguments ("p" a pointer, "i" an int, "u" an unsigned
 # 32-bit int, "f" a float); the stream comes last.
 _ENTRY_POINTS = {
-    "qkv_fwd": {"qkv_fwd": "p" * 5 + "i" * 5,
-                "qkv_fwd_probs": "p" * 6 + "i" * 5},
+    "qkv_fwd": {"qkv_fwd": "p" * 6 + "i" * 9,
+                "qkv_fwd_probs": "p" * 7 + "i" * 9},
     "qkv_bwd_probs": {"qkv_bwd_probs": "p" * 8 + "i" * 11},
     "qkv_bwd": {"qkv_bwd": "p" * 8 + "i" * 11},
     "flash_fwd": {"flash_fwd": "p" * 7 + "i" * 9},
     "flash_bwd": {"flash_bwd": "p" * 11 + "i" * 11},
-    "qkv2d": {"qkv2d_fwd": "p" * 5 + "i" * 5,
-              "qkv2d_bwd": "p" * 8 + "i" * 11},
+    "qkv2d": {"qkv2d_bwd": "p" * 8 + "i" * 11},
     "fused_tail_fwd": {"fused_tail_fwd": "p" * 9 + "i" * 7 + "uf"},
     "fused_tail_bwd": {"fused_tail_bwd": "p" * 23 + "i" * 15 + "uf"},
     "blanes": {"blanes_fwd": "p" * 3 + "i" * 8,
@@ -58,16 +59,17 @@ _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "u": ctypes.c_uint32,
 # Sources whose block stages whole rows or (T, D) operands export size
 # functions (no dtype suffix): the shared bytes a block needs, checked
 # against what a block may use, the floats of a scratch slot where a long
-# row moves to global memory, the regimes of rows 3-4, 5/7 and 6/8 and their
-# shared bytes, and the flash forward's count of key-walk tasks. {source:
-# {function: count of int arguments}}.
+# row moves to global memory, the regimes of rows 1-2, 3-4, 5/7 and 6/8
+# and their shared bytes, and the flash forward's count of key-walk tasks.
+# {source: {function: count of int arguments}}.
 _SIZE_FUNCTIONS = {
-    "qkv_fwd": {"qkv_fwd_slot_floats": 2},
+    "qkv_fwd": {"qkv_fwd_slot_floats": 2, "qkv_fwd_regime": 3,
+                "qkv_fwd_smem_bytes": 8},
     "qkv_bwd_probs": {"qkv_bwd_probs_slot_floats": 3},
     "qkv_bwd": {"qkv_bwd_slot_floats": 3, "qkv_bwd_regime": 3,
                 "qkv_bwd_mma_smem_bytes": 5},
     "flash_fwd": {"flash_smem_bytes": 6, "flash_walk_task_count": 3},
-    "qkv2d": {"qkv2d_fwd_slot_floats": 2, "qkv2d_bwd_slot_floats": 3},
+    "qkv2d": {"qkv2d_bwd_slot_floats": 3},
     "fused_tail_fwd": {"fused_tail_fwd_scratch_floats": 4},
     "fused_tail_bwd": {"fused_tail_bwd_stage_floats": 4,
                        "fused_tail_bwd_attn_stage_floats": 3},
@@ -105,6 +107,7 @@ _build_lock = threading.Lock()
 _libs = {}
 _launches = {v: 0 for variants in KERNELS.values() for v in variants}
 _regime_launches = {}  # {(variant, regime): launches}
+build_seconds = {}  # {source name: wall seconds of its last nvcc}
 
 
 class NoKernelError(NotImplementedError, ValueError):
@@ -167,9 +170,11 @@ def build(names=None) -> dict:
     """Compile the kernels' sources (all of them by default) that are not
     built yet, one ``nvcc`` each, all started together. Returns {source
     name: .so path}; raises if any build failed, after every ``nvcc`` it
-    started has ended."""
+    started has ended. Each ``nvcc``'s wall seconds go to
+    ``build_seconds``."""
     names = list(_ENTRY_POINTS) if names is None else list(names)
     out, running = {}, {}
+    start = time.perf_counter()
     for name in names:
         so = _so_path(name)
         if os.path.exists(so):
@@ -181,9 +186,21 @@ def build(names=None) -> dict:
             [_nvcc(), *_NVCC_FLAGS, "-o", tmp, _source(name)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, so)
+    logs = {}
+
+    def wait(name, proc):
+        logs[name] = proc.communicate()[0]
+        build_seconds[name] = time.perf_counter() - start
+
+    waiters = [threading.Thread(target=wait, args=(name, proc))
+               for name, (proc, _, _) in running.items()]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     failed = []
     for name, (proc, tmp, so) in running.items():
-        log, _ = proc.communicate()
+        log = logs[name]
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}) on "
                           f"{_source(name)}:\n{log}")

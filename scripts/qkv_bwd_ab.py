@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""One side of an A/B of the fused-qkv attention backward (rows 3-4) on one
-NVIDIA GPU: run it from the root of each checkout in turn, in one process
-per run, on the same card (parent, change, change, parent) and compare the
-lines it prints.
+"""One side of an A/B of the fused-qkv attention (rows 1-4, with rows 11
+and 15-16 beside them) on one NVIDIA GPU: run it from the root of each
+checkout in turn, in one process per run, on the same card (parent,
+change, change, parent) and compare the lines it prints.
 
     python3 scripts/qkv_bwd_ab.py LABEL [--limits] [--plans]
 
@@ -12,8 +12,13 @@ It prints one line, ``AB {json}``, with:
     bf16 (and (7040, 20), (128, 50) in f32 too): a hash of each output on
     fixed inputs, so two checkouts can be held equal bit for bit, and its
     ms (CUDA events over 10 calls);
-  - rows 1-2 (qkv_fwd, qkv_fwd_probs) at (7040, 20) and (128, 50), hashes
-    and ms, for the resident forward;
+  - rows 1 (qkv_fwd) and 2 (qkv_fwd_probs: context and probs) at every
+    shape of FWD_CASES, hashes, ms and launches per regime (empty where
+    the checkout counts none), and there the count of elements of dqkv in
+    which row 4 differs from row 3 fed row 2's probs (``row3v4``: equal
+    where both paths take one order of sums); row 11 (qkv2d_fwd) at
+    (7040, 20) bf16;
+    rows 15-16 (blanes_fwd, blanes_bwd) at BLANES_CASES, hashes and ms;
   - the device ms (chip_smoke.profile_device) of two training steps of
     NRMS at its published width in bf16, batch 128, 1+4 candidates, on a
     synthetic corpus of 8,192 news: with the fused encoder tail and
@@ -45,6 +50,26 @@ import tempfile
 
 sys.path.insert(0, os.getcwd())
 
+# Rows 1-2: (N, T, dtype, key masks) at 20 heads of 20 -- the corpus
+# encoder's chunk, the served user encoder and its 512-user batch, the
+# headline step's news and user encoders, and the user encoder over 300-
+# and 511-news histories.
+FWD_CASES = (("float32", 1024, 20, (False,)),
+             ("float32", 64, 50, (False, True)),
+             ("float32", 512, 50, (True,)),
+             ("bfloat16", 7040, 20, (False, True)),
+             ("float32", 7040, 20, (False,)),
+             ("bfloat16", 128, 50, (False, True)),
+             ("float32", 128, 50, (False, True)),
+             ("bfloat16", 128, 300, (False, True)),
+             ("float32", 128, 300, (False, True)),
+             ("bfloat16", 64, 511, (False, True)),
+             ("float32", 64, 511, (False, True)))
+# Rows 15-16 (whose resident forward rows 1-2 now share): (N, T, dtype).
+BLANES_CASES = (("bfloat16", 7040, 20), ("float32", 7040, 20),
+                ("bfloat16", 128, 50), ("float32", 128, 50),
+                ("float32", 128, 64), ("bfloat16", 64, 511))
+
 
 def _hash(x):
     import torch
@@ -68,6 +93,71 @@ def _inputs(n, t, dtype, masked, seed):
         mask[:, -1] = 1.0
         mask[::7] = 0.0
     return qkv, bias, g, mask
+
+
+def _rows_1_2(cs, out):
+    """Rows 1-2 at FWD_CASES, row 11 at (7040, 20) bf16, rows 15-16 at
+    BLANES_CASES: hashes, ms and (rows 1-2) launches per regime."""
+    import torch
+
+    from newsrecommendation_tpu_torch.ops import experimental_blanes as bl
+    from newsrecommendation_tpu_torch.ops import experimental_qkv2d as q2
+    from newsrecommendation_tpu_torch.ops import fused_attention as fa
+    from newsrecommendation_tpu_torch.ops import kernels
+
+    def regimes(k):
+        return (kernels.regime_counts(k)
+                if hasattr(kernels, "regime_counts") else {})
+
+    for dtype, n, t, masks in FWD_CASES:
+        for masked in masks:
+            qkv, bias, g, mask = _inputs(n, t, getattr(torch, dtype), masked,
+                                         5)
+            name = f"{dtype} {n}x{t}{'m' if masked else ''}"
+
+            def row1():
+                return (fa.exp_mhsa_qkv_bias_masked(qkv, bias, mask, 20)
+                        if mask is not None
+                        else fa.exp_mhsa_qkv_bias(qkv, bias, 20))
+
+            def row2():
+                return fa.qkv_fwd_probs(qkv, bias, mask, 20)
+
+            kernels.reset_launch_counts()
+            with torch.inference_mode():
+                h1 = _hash(row1())
+                h2 = [_hash(x) for x in row2()]
+            got = {k: regimes(k) for k in ("qkv_fwd", "qkv_fwd_probs")}
+            out[f"row1 {name}"] = [h1, cs.time_ms(row1, 10), got["qkv_fwd"]]
+            out[f"row2 {name}"] = [h2, cs.time_ms(row2, 10),
+                                   got["qkv_fwd_probs"]]
+            with torch.inference_mode():
+                d3 = fa.qkv_bwd_probs(qkv, bias, row2()[1], g, 20)
+                d4 = fa.qkv_bwd(qkv, bias, mask, g, 20)
+                out[f"row3v4 {name}"] = [int((d3 != d4).sum()), d3.numel()]
+            del d3, d4
+            print(f"  {name}: row1 {out[f'row1 {name}']} row2 "
+                  f"{out[f'row2 {name}']}", flush=True)
+    qkv, bias, _, _ = _inputs(7040, 20, torch.bfloat16, False, 5)
+
+    def row11():
+        return q2.qkv2d_fwd(qkv.view(7040 * 20, -1), bias, 20, 20)
+
+    out["row11 bfloat16 7040x20"] = [[_hash(x) for x in row11()],
+                                     cs.time_ms(row11, 10)]
+    for dtype, n, t in BLANES_CASES:
+        for masked in (False, True):
+            qkv, _, g, mask = _inputs(n, t, getattr(torch, dtype), masked, 6)
+            name = f"{dtype} {n}x{t}{'m' if masked else ''}"
+
+            def row15():
+                return bl.blanes_fwd(qkv, mask, 20)
+
+            def row16():
+                return bl.blanes_bwd(qkv, mask, g, 20)
+
+            for row, fn in (("row15", row15), ("row16", row16)):
+                out[f"{row} {name}"] = [_hash(fn()), cs.time_ms(fn, 10)]
 
 
 def _limits(cs, out):
@@ -228,7 +318,8 @@ def _steps(cs, out):
 def main() -> int:
     import torch
 
-    args = [a for a in sys.argv[1:] if a not in ("--limits", "--plans")]
+    args = [a for a in sys.argv[1:]
+            if a not in ("--limits", "--plans")]
     if len(args) != 1 or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 1
@@ -251,18 +342,12 @@ def main() -> int:
             if not masked:
                 rows["row3"] = lambda: fa.qkv_bwd_probs(qkv, bias, probs, g,
                                                         20)
-            if t <= 50:
-                rows["row1"] = lambda: (
-                    fa.exp_mhsa_qkv_bias_masked(qkv, bias, mask, 20)
-                    if mask is not None else fa.exp_mhsa_qkv_bias(qkv, bias,
-                                                                  20))
-                rows["row2"] = lambda: fa.qkv_fwd_probs(qkv, bias, mask,
-                                                        20)[1]
             for row, fn in rows.items():
                 with torch.inference_mode():
                     h = _hash(fn())
                 out[f"{row} {name}{'m' if masked else ''}"] = [
                     h, cs.time_ms(fn, 10)]
+    _rows_1_2(cs, out)
     _steps(cs, out)
     if "--limits" in sys.argv:
         _limits(cs, out)

@@ -50,10 +50,29 @@ def _inputs(n, t, heads, d, dtype, seed=0):
     return qkv, bias, torch.from_numpy(mask).cuda()
 
 
+# Rows 1-2 on both sides of each regime switch (T = 64 and 65: resident,
+# then tensor cores in bf16 or tiled in f32; D = 64 and 66: row-wise past
+# 64), at the L = 300 user encoder's width, and at D = 5, where a bf16
+# head row is not 4 bytes long (element copies).
+FWD_SHAPES = [(64, 20, 20, 20), (33, 50, 20, 20), (7, 5, 3, 4),
+              (3, 300, 2, 8), (2, 511, 1, 33), (5, 64, 4, 20),
+              (5, 65, 4, 20), (4, 300, 20, 20), (6, 40, 3, 5), (3, 90, 3, 5),
+              (3, 64, 2, 64), (3, 70, 2, 66)]
+
+
+def _fwd_regime(t, d, dtype):
+    """Rows 1-2's regime as the kernels' design states it: resident at
+    T <= 64 with heads of up to 64, past it tensor cores in bf16 and the
+    tiled kernel in f32; row-wise for wider heads."""
+    if d > 64:
+        return "rowwise"
+    if t <= 64:
+        return "resident"
+    return "mma" if dtype in ("bfloat16", torch.bfloat16) else "tiled"
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n, t, heads, d", [(64, 20, 20, 20), (33, 50, 20, 20),
-                                            (7, 5, 3, 4), (3, 300, 2, 8),
-                                            (2, 511, 1, 33)])
+@pytest.mark.parametrize("n, t, heads, d", FWD_SHAPES)
 def test_kernel_matches_plain(dtype, n, t, heads, d):
     qkv, bias, mask = _inputs(n, t, heads, d, dtype)
     fa.reset_launch_counts()
@@ -67,6 +86,7 @@ def test_kernel_matches_plain(dtype, n, t, heads, d):
                                    ref.float().cpu().numpy(), **TOL[dtype])
     assert (out[::3] == 0).all()
     assert fa.launch_counts() == {"bias": 1, "bias_masked": 1}
+    assert fa.regime_counts("qkv_fwd") == {_fwd_regime(t, d, dtype): 2}
 
 
 def test_kernel_raises_on_what_it_does_not_take():
@@ -78,14 +98,16 @@ def test_kernel_raises_on_what_it_does_not_take():
     ref = fa.exp_mhsa_qkv_bias_reference(q, b, None, 2)
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
                                **TOL["float32"])
-    # D = 64 at T = 400 passes a block's shared memory: the working set
-    # moves to a global slot per block, and the result agrees
-    q = torch.randn((2, 400, 3 * 64), device="cuda")
-    b = torch.randn(192, device="cuda")
-    np.testing.assert_allclose(
-        fa.exp_mhsa_qkv_bias(q, b, 1).cpu().numpy(),
-        fa.exp_mhsa_qkv_bias_reference(q, b, None, 1).cpu().numpy(),
-        **TOL["float32"])
+    # D = 64 at T = 400 takes the tiled kernel; D = 80 at T = 400 passes a
+    # block's shared memory in the row-wise kernel: its working set moves
+    # to a global slot per block. Both agree
+    for d in (64, 80):
+        q = torch.randn((2, 400, 3 * d), device="cuda")
+        b = torch.randn(3 * d, device="cuda")
+        np.testing.assert_allclose(
+            fa.exp_mhsa_qkv_bias(q, b, 1).cpu().numpy(),
+            fa.exp_mhsa_qkv_bias_reference(q, b, None, 1).cpu().numpy(),
+            **TOL["float32"])
     q = torch.zeros((2, 5, 24), device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError):
         fa.exp_mhsa_qkv_bias(q, torch.zeros(24, device="cuda",
@@ -96,26 +118,108 @@ def test_kernel_raises_on_what_it_does_not_take():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_masked_max_underflows_to_zero(dtype):
-    """m is the max over ALL keys: a masked key 110 above the others makes
-    exp(s - m) underflow on every key left, so the row's output is exactly
-    0 (a max over unmasked keys only would give about 1e-14)."""
-    heads, d, t = 3, 4, 5
+@pytest.mark.parametrize("t, d", [(5, 4), (70, 4), (5, 66)])
+def test_masked_max_underflows_to_zero(dtype, t, d):
+    """m is the max over ALL keys: a masked key 110 (or more) above the
+    others makes exp(s - m) underflow on every key left, so the row's
+    output is exactly 0 (a max over unmasked keys only would give about
+    1e-14). A row whose scores all lie below about -88.7 has den = inf
+    (1e-8 exp(-m) overflows) and a = 0, so its output and probs are 0,
+    unmasked and masked, while the other rows match the plain version.
+    Rows 1 and 2 in every regime: resident (T = 5), tensor cores or tiled
+    (T = 70), row-wise (D = 66)."""
+    heads = 3
     hd = heads * d
-    qkv = torch.zeros((1, t, 3 * hd))
-    qkv[0, :, :hd] = 2.0          # every query 2: key c*2 scores 4c
-    qkv[0, 0, hd:2 * hd] = 15.0   # key 0 scores 60 (masked)
-    qkv[0, 1:, hd:2 * hd] = -12.5  # the others score -50
-    qkv[0, :, 2 * hd:] = 1.0
     tdt = getattr(torch, dtype)
+    regime = _fwd_regime(t, d, dtype)
+    qkv = torch.zeros((1, t, 3 * hd))
+    qkv[0, :, :hd] = 2.0          # every query 2
+    qkv[0, 0, hd:2 * hd] = 15.0   # key 0 scores 30 sqrt(D) (masked)
+    qkv[0, 1:, hd:2 * hd] = -12.5  # the others -25 sqrt(D)
+    qkv[0, :, 2 * hd:] = 1.0
     qkv = qkv.to(tdt).cuda()
     bias = torch.zeros(3 * hd, dtype=tdt, device="cuda")
     mask = torch.ones((1, t), device="cuda")
     mask[0, 0] = 0.0
+    fa.reset_launch_counts()
     out = fa.exp_mhsa_qkv_bias_masked(qkv, bias, mask, heads)
+    ctx, probs = fa.qkv_fwd_probs(qkv, bias, mask, heads)
     ref = fa.exp_mhsa_qkv_bias_reference(qkv, bias, mask, heads)
     torch.cuda.synchronize()
-    assert (out == 0).all() and (ref == 0).all()
+    assert (out == 0).all() and (ref == 0).all() and (ctx == 0).all()
+    assert (probs == 0).all()
+    # row 1 far below zero (q . k / sqrt(D) = -50 sqrt(D) <= -100), row 0
+    # random
+    rng = np.random.default_rng(17)
+    far = rng.normal(size=(2, t, 3 * hd)).astype(np.float32)
+    far[1, :, :hd] = 5.0
+    far[1, :, hd:2 * hd] = -10.0
+    qkv = torch.from_numpy(far).to(tdt).cuda()
+    bias = torch.from_numpy(rng.normal(scale=0.5, size=(3 * hd,))
+                            .astype(np.float32)).to(tdt).cuda()
+    bias[:2 * hd] = 0.0
+    mask = torch.from_numpy((rng.random((2, t)) > 0.3).astype(np.float32))
+    mask[:, 0] = 1.0
+    for km in (None, mask.cuda()):
+        row1 = (fa.exp_mhsa_qkv_bias(qkv, bias, heads) if km is None
+                else fa.exp_mhsa_qkv_bias_masked(qkv, bias, km, heads))
+        ctx, probs = fa.qkv_fwd_probs(qkv, bias, km, heads)
+        ref, ref_probs = fa.exp_mhsa_qkv_bias_probs_reference(qkv, bias, km,
+                                                              heads)
+        torch.cuda.synchronize()
+        assert torch.isfinite(row1.float()).all() and torch.equal(ctx, row1)
+        assert (row1[1] == 0).all() and (ref[1] == 0).all()
+        assert (probs[1] == 0).all() and (ref_probs[1] == 0).all()
+        np.testing.assert_allclose(row1.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(), **TOL[dtype])
+        np.testing.assert_allclose(probs.cpu().numpy(),
+                                   ref_probs.cpu().numpy(), **TOL["float32"])
+    assert fa.regime_counts("qkv_fwd") == {regime: 3}
+    assert fa.regime_counts("qkv_fwd_probs") == {regime: 3}
+
+
+def test_fwd_launch_plan_matches_the_kernels():
+    """fwd_launch_plan's regime and shared bytes (ops/fused_attention.py)
+    equal the C side's (qkv_fwd_regime, qkv_fwd_smem_bytes), which refuses
+    a plan its kernel does not take and a regime that is not the shape's;
+    the wrapper raises on a launch so refused."""
+    for dtype in (torch.float32, torch.bfloat16):
+        esize = 2 if dtype == torch.bfloat16 else 4
+        for t, d in ((20, 20), (50, 20), (64, 64), (65, 20), (300, 20),
+                     (511, 33), (20, 5), (90, 5), (400, 80), (100, 80)):
+            for probs in (False, True):
+                plan = fa.fwd_launch_plan(64, t, 20, d, dtype, probs=probs)
+                reg = fa.FWD_REGIMES.index(plan.regime)
+                assert reg == kernels.size_of("qkv_fwd", "qkv_fwd_regime", t,
+                                              d, esize)
+                smem = kernels.size_of("qkv_fwd", "qkv_fwd_smem_bytes", reg,
+                                       t, d, esize, int(probs), *plan.args())
+                if plan.regime == "resident":
+                    assert smem == plan.resident.smem
+                elif plan.regime == "rowwise":  # 0 past shared memory
+                    own = 4 * (3 * t * (d | 1) + 4 * t)
+                    assert smem == (own if own <= kernels.MAX_SMEM else 0)
+                else:
+                    assert smem == plan.launch.smem
+
+    def size(*a):
+        return kernels.size_of("qkv_fwd", "qkv_fwd_smem_bytes", *a)
+
+    assert size(0, 300, 20, 2, 0, 4, 2, 10) == 0  # resident past T = 64
+    assert size(1, 300, 20, 4, 0, 128, 256, 1) == 0  # tensor cores in f32
+    assert size(2, 300, 20, 4, 0, 64, 128, 1) == 0  # tiled: 128 threads
+    assert size(0, 20, 20, 4, 0, 5, 2, 10) == 0  # five heads an item
+    assert size(3, 20, 20, 4, 0, 0, 0, 0) == 0  # row-wise at D = 20
+    qkv, bias, _ = _inputs(2, 300, 2, 20, "bfloat16")
+    real = fa.fwd_launch_plan
+    wrong = fa.FwdPlan("tiled", launch=real(2, 300, 2, 20,
+                                            torch.float32).launch)
+    fa.fwd_launch_plan = lambda *a, **k: wrong
+    try:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fa.exp_mhsa_qkv_bias(qkv, bias, 2)
+    finally:
+        fa.fwd_launch_plan = real
 
 
 BWD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": BF16_TOL}
@@ -124,10 +228,14 @@ BWD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": BF16_TOL}
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("n, t, heads, d", [(64, 20, 20, 20), (33, 50, 20, 20),
-                                            (7, 5, 3, 4), (3, 97, 2, 33)])
+                                            (7, 5, 3, 4), (3, 97, 2, 33),
+                                            (5, 64, 4, 20), (5, 65, 4, 20),
+                                            (4, 300, 20, 20), (6, 40, 3, 5),
+                                            (3, 90, 3, 5)])
 def test_probs_kernels_match_plain(dtype, masked, n, t, heads, d):
     """Row 2 (ctx bit-equal to row 1's, probs) and row 3 (dqkv from the
-    same probs) against their plain versions."""
+    same probs) against their plain versions; rows 1 and 2 in the regime
+    of their shape."""
     qkv, bias, mask = _inputs(n, t, heads, d, dtype, seed=1)
     km = mask if masked else None
     fa.reset_launch_counts()
@@ -155,6 +263,9 @@ def test_probs_kernels_match_plain(dtype, masked, n, t, heads, d):
         assert (probs[::3] == 0).all() and (dqkv[::3] == 0).all()
     assert fa.launch_counts("qkv_fwd_probs")[variant] == 1
     assert fa.launch_counts("qkv_bwd_probs") == {"bwd_probs": 1}
+    regime = _fwd_regime(t, d, dtype)
+    assert fa.regime_counts("qkv_fwd_probs") == {regime: 1}
+    assert fa.regime_counts("qkv_fwd") == {regime: 1}
 
 
 def test_launch_counts_follow_grad_mode():
@@ -241,14 +352,17 @@ def test_bwd_probs_takes_long_sequences(dtype, masked, n, t):
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("n, t, heads, d", [(64, 20, 20, 20), (33, 50, 20, 20),
                                             (7, 5, 3, 4), (3, 97, 2, 33),
-                                            (2, 511, 20, 20)])
+                                            (2, 511, 20, 20), (3, 97, 2, 66)])
 def test_recompute_kernel_matches_plain_and_row_3(dtype, masked, n, t, heads,
                                                   d):
     """Row 4 against its plain version, and equal bit for bit to row 3 fed
-    the probs row 2 wrote (it recomputes them as row 2 computes them) on
-    the CUDA-core kernels; on tensor cores (bf16 past the resident kernel)
-    the tensor core's sums make row 4's a differ from row 2's probs by an
-    ulp here and there, so there the two agree within the tolerance."""
+    the probs row 2 wrote where both take the first design's order of
+    sums (row 4 on its CUDA-core kernels, row 2 resident or row-wise: T <=
+    64 or heads past 64); where either takes another order (row 4 on
+    tensor cores, bf16 past its resident kernel; row 2 past T = 64 on
+    tensor cores or the tiled kernel, whose den is summed online) row 4's
+    a differs from row 2's probs by an ulp here and there, so there the
+    two agree within the tolerance."""
     qkv, bias, mask = _inputs(n, t, heads, d, dtype, seed=3)
     km = mask if masked else None
     g = torch.randn((n, t, heads * d), device="cuda").to(qkv.dtype)
@@ -261,7 +375,9 @@ def test_recompute_kernel_matches_plain_and_row_3(dtype, masked, n, t, heads,
     assert dqkv.dtype == qkv.dtype and dqkv.shape == qkv.shape
     np.testing.assert_allclose(dqkv.float().cpu().numpy(),
                                ref.float().cpu().numpy(), **BWD_TOL[dtype])
-    if fa.bwd_launch_plan(n, t, heads, d, qkv.dtype).regime == "mma":
+    if (fa.bwd_launch_plan(n, t, heads, d, qkv.dtype).regime == "mma"
+            or fa.fwd_launch_plan(n, t, heads, d, qkv.dtype).regime in (
+                "mma", "tiled")):
         np.testing.assert_allclose(dqkv.float().cpu().numpy(),
                                    row3.float().cpu().numpy(),
                                    **BWD_TOL[dtype])
@@ -1489,15 +1605,18 @@ def test_fused_tail_takes_t_5000_and_7000(dtype, t, heads, scaled):
 
 
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("n, t", [(64, 511), (128, 300), (2, 1000), (64, 150)])
+@pytest.mark.parametrize("n, t", [(64, 511), (128, 300), (2, 1000), (64, 150),
+                                  (128, 50)])
 def test_row_4_recomputes_row_2s_probs(masked, n, t):
     """Row 4's recomputed a against the f32 probs row 2 wrote, read
     directly: g is 1 at one query per column d of each head's g and 0
     elsewhere, so dv[j, h, d] is round(a[q_d, j]) alone (one product in
     an f32 sum). Row 3 gives round(probs) there exactly; row 4 gives it
-    exactly where the resident kernel runs (T = 150), and on tensor cores
-    (bf16 past it), whose sums of s differ from row 2's order, within one
-    bf16 ulp, and in at most 1e-4 of the elements."""
+    exactly where both kernels take one order of sums (T = 50: row 2 and
+    row 4 resident), else within one bf16 ulp, and in at most 1e-4 of the
+    elements: past T = 64 row 2 sums s on tensor cores and den online,
+    another order than row 4's on its resident kernel (T = 150) and on
+    its tensor cores (past it)."""
     heads, d = 20, 20
     qkv, bias, mask = _inputs(n, t, heads, d, "bfloat16", seed=21)
     km = mask if masked else None
@@ -1517,11 +1636,13 @@ def test_row_4_recomputes_row_2s_probs(masked, n, t):
     want = torch.stack([a[:, qi] for qi in queries], -1)  # (n, h, key, d)
     assert torch.equal(dv3, want.permute(0, 2, 1, 3).bfloat16())
     ulps = (dv3.view(torch.int16).int() - dv4.view(torch.int16).int()).abs()
-    if fa.bwd_launch_plan(n, t, heads, d, torch.bfloat16).regime == "mma":
+    if (fa.fwd_launch_plan(n, t, heads, d, torch.bfloat16).regime
+            == "resident" and fa.bwd_launch_plan(
+                n, t, heads, d, torch.bfloat16).regime != "mma"):
+        assert torch.equal(dv3, dv4)
+    else:
         assert ulps.max().item() <= 1
         assert (ulps > 0).sum().item() <= 1e-4 * ulps.numel()
-    else:
-        assert torch.equal(dv3, dv4)
 
 
 def test_rows_3_4_repeat_bit_for_bit():

@@ -272,23 +272,30 @@ def test_launches_are_counted_per_regime(fake_launch, t, dtype, regime):
 
 
 @pytest.mark.parametrize("overrides, want", [
-    ({}, {"qkv_bwd_probs": {"resident": 24}}),
-    ({"user_log_length": 300}, {"qkv_bwd_probs": {"resident": 12,
+    ({}, {"qkv_fwd_probs": {"resident": 24},
+          "qkv_bwd_probs": {"resident": 24}}),
+    ({"user_log_length": 300}, {"qkv_fwd_probs": {"resident": 12,
+                                                  "mma": 12},
+                                "qkv_bwd_probs": {"resident": 12,
                                                   "mma": 12}}),
     ({"user_log_length": 300, "bwd_residuals": "recompute"},
-     {"qkv_bwd": {"resident": 12, "mma": 12}}),
-    ({"user_log_length": 512}, {"qkv_bwd_probs": {"resident": 12}}),
+     {"qkv_fwd": {"resident": 12, "mma": 12},
+      "qkv_bwd": {"resident": 12, "mma": 12}}),
+    ({"user_log_length": 512}, {"qkv_fwd_probs": {"resident": 12},
+                                "qkv_bwd_probs": {"resident": 12}}),
     ({"user_log_length": 512, "fused_tail": "on"},
      {"fused_tail_bwd": {"resident": 12, "mma": 12}}),
     ({"user_log_length": 300, "compute_dtype": "float32"},
-     {"qkv_bwd_probs": {"resident": 12, "tiled": 12}}),
+     {"qkv_fwd_probs": {"resident": 12, "tiled": 12},
+      "qkv_bwd_probs": {"resident": 12, "tiled": 12}}),
     ({"attention_layout": "blanes"}, {})])
 def test_smoke_expects_each_encoders_regime(overrides, want):
     """chip_smoke's expected launches per regime of a train run: each
-    encoder's backward in the regime of its length's plan (the news
-    encoder at 20 words, the user encoder at user_log_length), none for
-    the user encoder on the flash route (512 news), none where rows 15-16
-    take both."""
+    encoder's forward (rows 1-2, fwd_launch_plan) and backward (rows 3-4,
+    bwd_launch_plan) in the regime of its length's plan (the news encoder
+    at 20 words, the user encoder at user_log_length), none for the user
+    encoder on the flash route (512 news), none where rows 15-16 take
+    both or the fused tail takes the forward."""
     import chip_smoke
 
     from newsrecommendation_tpu_torch.config import Config
