@@ -59,9 +59,13 @@ Phases, each printing one line with its elapsed seconds:
            every element, and vs their plain versions; times and bounds
            (the backward's beside scaled_dot_product_attention's)
   kernel-fused-tail  rows 13-14 (the fused encoder tail) vs their plain
-           versions at 7040 x 20 and 128 x 50 (masked and not), f32 and
-           bf16, dropout off and 0.2; the pooling gradients held to a share
-           of their largest element and equal bit for bit over two runs;
+           versions at TAIL_SHAPES: 7040 x 20 and 128 x 50 (masked and
+           not), 1024 x 20 in f32, 128 x 64 (the resident regime's
+           longest row) and 128 x 65 (the per-row kernels), masked, f32
+           and bf16, dropout off and 0.2; each launch in its plan's regime;
+           the pooling gradients held to a share of their largest element
+           and equal bit for bit over two runs; the count of elements of
+           out, dqkv and dw1 that differ from the plain version;
            controls (keep mask from another hash constant or a per-block
            index, dropout scale left out, alpha without the key mask, and
            in bf16 dw1 from the rounded ctx and d_z unrounded before w1^T)
@@ -244,6 +248,16 @@ TAIL_LONG = ((128, 87, True, ("float32", "bfloat16")),
              (128, LONG_L, True, ("float32", "bfloat16")),
              (32, 1000, False, ("float32",)))
 FUSED_LONG_STEPS = 6  # train steps with the fused tail at LONG_L
+# Rows 13-14 at the main paths' shapes and on both sides of the resident
+# regime's end (T = 64): (masked, N, T, dtypes) -- the headline step's news
+# and user encoders, the corpus encoder's chunk (f32, serving), then
+# (128, 64) resident and (128, 65) on the per-row kernels.
+TAIL_SHAPES = ((False, 7040, 20, ("float32", "bfloat16")),
+               (False, 128, 50, ("float32", "bfloat16")),
+               (True, 128, 50, ("float32", "bfloat16")),
+               (False, 1024, 20, ("float32",)),
+               (True, 128, 64, ("float32", "bfloat16")),
+               (True, 128, 65, ("float32", "bfloat16")))
 # Rows 15-16 besides the main paths' T (20, 50, 511): both sides of the
 # regime switch (T <= 64 holds a head's T x T in shared memory), and two
 # lengths past it.
@@ -1037,12 +1051,20 @@ def tail_kernel_case(fe, masked, n, t, heads, d, q, dtype, dropout, seed):
     where = (f"tail{'_masked' if masked else ''} {dtype} N={n} T={t} "
              f"dropout={dropout}")
 
+    fe.kernels.reset_launch_counts()
     out = fe.fused_tail_fwd(*args)
     grads = fe.fused_tail_bwd(*bargs)
     again = fe.fused_tail_bwd(*bargs)
     ref = fe.fused_tail_fwd_reference(*args)
     refs = fe.fused_tail_bwd_reference(*bargs)
     out.sum().item()  # waits for the kernels
+    regimes = {k: fe.kernels.regime_counts(f"fused_tail_{k}")
+               for k in ("fwd", "bwd")}
+    tdt = getattr(torch, dtype)
+    want = {k: {fe.tail_launch_plan(k, n, t, heads, d, q, tdt).regime: c}
+            for k, c in (("fwd", 1), ("bwd", 2))}
+    if regimes != want:
+        fail(f"{where}: launches per regime {regimes}, the plans' {want}")
     if not all(torch.equal(a, b) for a, b in zip(grads, again)):
         fail(f"{where}: two runs of row 14 differ")
     flat = torch.cat([x.reshape(-1) for x in grads[1:]])
@@ -1056,7 +1078,8 @@ def tail_kernel_case(fe, masked, n, t, heads, d, q, dtype, dropout, seed):
             "dqkv": compare(where, "dqkv", grads[0], refs[0], b_rtol, b_atol),
             "pool_grads": compare(where, "pool grads", flat, ref_flat, p_rtol,
                                   share * largest),
-            "repeat_equal": True}
+            "repeat_equal": True, "regimes": regimes,
+            "dw1_n_differ": n_differ(grads[1], refs[1])}
     if mask is not None and (out[::7].abs().max().item() != 0.0
                              or grads[0][::7].abs().max().item() != 0.0):
         fail(f"{where}: fully masked rows have out or dqkv not 0")
@@ -1818,36 +1841,46 @@ def expected_launches(steps, cfg, attention_io="3d"):
 
 
 # Kernels whose launch takes one of several regimes, counted per regime
-# (kernels.regime_counts): rows 1, 2, 11 (fwd_launch_plan) and 3, 4, 12
-# and 14 (bwd_launch_plan).
+# (kernels.regime_counts): rows 1, 2, 11 (fwd_launch_plan), 3, 4, 12
+# (bwd_launch_plan) and 13, 14 (tail_launch_plan).
 FWD_REGIME_KERNELS = ("qkv_fwd", "qkv_fwd_probs", "qkv2d_fwd")
+TAIL_REGIME_KERNELS = {"fused_tail_fwd": "fwd", "fused_tail_bwd": "bwd"}
 REGIME_KERNELS = FWD_REGIME_KERNELS + ("qkv_bwd_probs", "qkv_bwd",
-                                       "qkv2d_bwd", "fused_tail_bwd")
+                                       "qkv2d_bwd", *TAIL_REGIME_KERNELS)
 
 
 def expected_regimes(steps, cfg, attention_io="3d"):
     """Launches per regime of REGIME_KERNELS in an epoch of ``steps``
     train steps (as expected_launches routes them): each launch takes its
     plan's regime at its encoder's length (fwd_launch_plan for rows 1, 2
-    and 11, bwd_launch_plan for the backwards), the news encoder at
-    num_words_title, the user encoder at user_log_length."""
+    and 11, bwd_launch_plan for rows 3, 4 and 12, tail_launch_plan for
+    rows 13-14), the news encoder at num_words_title, the user encoder at
+    user_log_length."""
+    from newsrecommendation_tpu_torch.ops import (
+        experimental_fused_encoder as fe,
+    )
     from newsrecommendation_tpu_torch.ops import fused_attention as fa
 
     want = expected_launches(steps, cfg, attention_io)
     heads = cfg.num_attention_heads
     d = cfg.news_dim // heads
+    dtype = torch_dtype(cfg.compute_dtype)
     out = {}
     for k in REGIME_KERNELS:
         n = sum(want[k].values())
         if not n:
             continue
         # one launch per encoder and step; the first is the news encoder
-        lengths = [cfg.num_words_title, cfg.user_log_length][:n // steps]
-        plan = (fa.fwd_launch_plan if k in FWD_REGIME_KERNELS
-                else fa.bwd_launch_plan)
-        for t in lengths:
-            regime = plan(1, t, heads, d, torch_dtype(
-                cfg.compute_dtype)).regime
+        encoders = [(cfg.num_words_title, cfg.news_query_vector_dim),
+                    (cfg.user_log_length, cfg.user_query_vector_dim)]
+        for t, q in encoders[:n // steps]:
+            if k in TAIL_REGIME_KERNELS:
+                regime = fe.tail_launch_plan(TAIL_REGIME_KERNELS[k], 1, t,
+                                             heads, d, q, dtype).regime
+            elif k in FWD_REGIME_KERNELS:
+                regime = fa.fwd_launch_plan(1, t, heads, d, dtype).regime
+            else:
+                regime = fa.bwd_launch_plan(1, t, heads, d, dtype).regime
             out.setdefault(k, {})
             out[k][regime] = out[k].get(regime, 0) + steps
     return out
@@ -2204,9 +2237,8 @@ def kernel_phases(fa, bw, bl, fe, q2) -> dict:
     # ---- kernel rows 13-14 vs plain -----------------------------------------
     t = time.perf_counter()
     tail_cases = []
-    shapes = [(False, 7040, 20), (False, 128, 50), (True, 128, 50)]
-    for i, (masked, n, tl) in enumerate(shapes):
-        for dtype in ("float32", "bfloat16"):
+    for i, (masked, n, tl, dtypes) in enumerate(TAIL_SHAPES):
+        for dtype in dtypes:
             for dropout in (False, True):
                 c = tail_kernel_case(fe, masked, n, tl, 20, 20, 200, dtype,
                                      dropout, seed=i)

@@ -51,10 +51,12 @@
 //     once per item, and at T <= 32 the forward's warps split by head and
 //     hold their lane's key row in registers. Then the context (or dq, dk,
 //     dv) is summed in index order over threads by (head, query pair, d
-//     pair). One kernel each way, no global scratch. The forward kernel,
-//     the layout and the staging are in blanes_resident.cuh: rows 1-2
-//     launch the same kernel with the projection's bias added to each
-//     staged item and row 2's probs written from registers (qkv_fwd.cuh).
+//     pair). One kernel each way, no global scratch. Both kernels, the
+//     layout and the staging are in blanes_resident.cuh: rows 1-2 launch
+//     the same forward with the projection's bias added to each staged
+//     item and row 2's probs written from registers (qkv_fwd.cuh); rows
+//     13-14 take its per-query pass and launch the same backward
+//     (fused_tail.cuh, fused_tail_bwd.cu).
 //   T > 64: an item is one head and a tile of query (or key) rows, with
 //     that head's K and V (or Q and g) staged once for the whole tile. The
 //     backward takes two kernels and no atomics: the query side computes
@@ -594,100 +596,6 @@ blanes_bwd_key_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
   run_items(p, smem, stage, compute);
 }
 
-// T <= 64: phase 1, one warp per query, writes each query's rows of
-// round(a) and ds into the item's (heads, T, T|1) arrays (the dots read
-// f32 copies of K and V); phase 2 sums dq, dk and dv from them over
-// threads by (head, row, d pair).
-template <typename T, int DM>
-__global__ void __launch_bounds__(kThreads, 3)
-blanes_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
-                  const T* __restrict__ g, T* __restrict__ dqkv, Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr bool kWiden = sizeof(T) == 2;
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int hd = p.h * p.d;
-  const int as = p.t | 1;
-  const int tt = p.t * as;
-  float* rest = reinterpret_cast<float*>(smem + p.nbuf * p.stage);
-  float* kf = rest;  // f32 copies of K and V (bf16)
-  float* vf = kf + p.t * p.rsf;
-  float* ats = rest + (kWiden ? 2 * p.t * p.rsf : 0);  // (heads, T, as)
-  float* dss = ats + p.heads * tt;
-  auto stage = [&](int item, int b) {
-    const Item it = item_of(p, item);
-    T* s = reinterpret_cast<T*>(smem + b * p.stage);
-    const int64_t base = it.n * p.t;
-    const int c = it.h0 * p.d;
-    const int part = p.t * p.rs;
-    stage_part(s, qkv, base, p.t, 3 * hd, c, it.gn, p);
-    stage_part(s + part, qkv, base, p.t, 3 * hd, hd + c, it.gn, p);
-    stage_part(s + 2 * part, qkv, base, p.t, 3 * hd, 2 * hd + c, it.gn, p);
-    stage_part(s + 3 * part, g, base, p.t, hd, c, it.gn, p);
-  };
-  auto compute = [&](int item, int b) {
-    const Item it = item_of(p, item);
-    const T* qs = reinterpret_cast<const T*>(smem + b * p.stage);
-    const T* ks = qs + p.t * p.rs;
-    const T* vs = ks + p.t * p.rs;
-    const T* gs = vs + p.t * p.rs;
-    const float* mrow = mask ? mask + it.n * p.t : nullptr;
-    if constexpr (kWiden) {
-      widen(kf, ks, p.t, it.gn, p, static_cast<const T*>(nullptr));
-      widen(vf, vs, p.t, it.gn, p, static_cast<const T*>(nullptr));
-      __syncthreads();
-    }
-    using K = typename std::conditional<kWiden, float, T>::type;
-    const K* keys = kWiden ? (const K*)kf : (const K*)ks;
-    const K* vals = kWiden ? (const K*)vf : (const K*)vs;
-    const int krs = kWiden ? p.rsf : p.rs;
-    for_rows<DM, false>(it.gn, p, warp, lane, keys, krs,
-                        [&](const float* kreg, int hl, int i) {
-      const int at = i * p.rs + hl * p.dp;
-      short_row<T, K, DM, true>(ats + hl * tt + i * as, dss + hl * tt + i * as,
-                                qs + at, gs + at, kreg, keys + hl * p.dp,
-                                vals + hl * p.dp, krs, mrow, p, lane,
-                                nullptr);
-    });
-    __syncthreads();  // every row of a and ds is written
-    T* dst = dqkv + it.n * p.t * 3 * hd;
-    const int dpairs = (p.d + 1) / 2;
-    for (int idx = threadIdx.x; idx < it.gn * p.t * dpairs; idx += kThreads) {
-      const int dpi = idx % dpairs;
-      const int rest_x = idx / dpairs;
-      const int x = rest_x % p.t;
-      const int hl = rest_x / p.t;
-      const int d = dpi * 2;
-      const float* ah = ats + hl * tt;
-      const float* dsh = dss + hl * tt;
-      const int col = hl * p.dp + d;
-      float dq[2] = {0.f, 0.f}, dk[2] = {0.f, 0.f}, dv[2] = {0.f, 0.f};
-      for (int j = 0; j < p.t; ++j) {
-        float kk[2], qq[2], gg[2];
-        load_pair(ks + j * p.rs + col, kk);
-        load_pair(qs + j * p.rs + col, qq);
-        load_pair(gs + j * p.rs + col, gg);
-        const float ds_xj = dsh[x * as + j], ds_jx = dsh[j * as + x];
-        const float a_jx = ah[j * as + x];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          dq[e] = fmaf(ds_xj, kk[e], dq[e]);
-          dk[e] = fmaf(ds_jx, qq[e], dk[e]);
-          dv[e] = fmaf(a_jx, gg[e], dv[e]);
-        }
-      }
-      T* o = dst + (int64_t)x * 3 * hd + (it.h0 + hl) * p.d + d;
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        if (d + e < p.d) {
-          o[e] = from_f32<T>(dq[e]);
-          o[hd + e] = from_f32<T>(dk[e]);
-          o[2 * hd + e] = from_f32<T>(dv[e]);
-        }
-    }
-  };
-  run_items(p, smem, stage, compute);
-}
 // T > 64, query side (one head, a tile of queries): m, den, r and dq; the
 // stats (3, N*H*T) f32 for the key side.
 template <typename T, int DM>
@@ -880,8 +788,6 @@ struct Launch {
             return go(blanes_fwd_mma_kernel<DM>, qkv, mask, out, p);
         }
         return go(blanes_fwd_kernel<T, DM>, qkv, mask, out, p);
-      case kBwd:
-        return go(blanes_bwd_kernel<T, DM>, qkv, mask, g, out, p);
       case kBwdQuery:
         if constexpr (kMma) {
           if (long_mma(p.t, p.d, 2))
@@ -903,18 +809,18 @@ struct Launch {
 };
 
 // One kernel launch of the plan (heads, rows, nbuf, blocks) the wrapper
-// chose; refuses a plan the kind does not take.
+// chose, but the resident backward's (bwd_short_launch); refuses a plan
+// the kind does not take.
 template <typename T>
 int launch(int kind, const void* qkv, const void* mask, const void* g,
            void* out, void* stats, int n, int t_len, int n_heads, int d_head,
            int heads, int rows, int nbuf, int blocks, void* stream) {
   if (n <= 0 || t_len <= 0) return (int)cudaSuccess;
-  if (kind == kBwd || (kind == kFwd && t_len <= kShortT)) rows = t_len;
+  if (kind == kFwd && t_len <= kShortT) rows = t_len;
   const bool one_head = kind == kBwdQuery || kind == kBwdKey;
   if (heads < 1 || heads > 4 || heads > n_heads ||
-      (one_head && heads != 1) ||
-      rows < 1 || rows > t_len || (kFwd != kind && (kind == kBwd) !=
-                                                       (t_len <= kShortT)) ||
+      (one_head && heads != 1) || rows < 1 || rows > t_len ||
+      kind == kBwd || (one_head && t_len <= kShortT) ||
       (one_head && stats == nullptr) || nbuf < 1 || nbuf > 2 || blocks < 1)
     return (int)cudaErrorInvalidValue;
   const int esize = (int)sizeof(T);
@@ -949,8 +855,8 @@ int bwd(const void* qkv, const void* mask, const void* g, void* dqkv,
         int rows, int nbuf, int blocks, int key_rows, int key_nbuf,
         int key_blocks, void* stream) {
   if (t_len <= kShortT)
-    return launch<T>(kBwd, qkv, mask, g, dqkv, nullptr, n, t_len, n_heads,
-                     d_head, heads, rows, nbuf, blocks, stream);
+    return bwd_short_launch<T>(qkv, mask, g, dqkv, n, t_len, n_heads, d_head,
+                               heads, nbuf, blocks, stream);
   const int err = launch<T>(kBwdQuery, qkv, mask, g, dqkv, stats, n, t_len,
                             n_heads, d_head, heads, rows, nbuf, blocks,
                             stream);

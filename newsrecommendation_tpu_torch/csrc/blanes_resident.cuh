@@ -1,7 +1,10 @@
 // Row 15's resident design (the batch-in-lanes forward at T <= 64):
 // the block layout, the staging of work items, the per-query pass and the
 // forward kernel that blanes.cu (rows 15-16) and qkv_fwd.cuh (rows 1-2)
-// both launch. Rows 15-16's other kernels stay in blanes.cu.
+// both launch; the per-query pass (short_context) is also rows 13-14's
+// attention at T <= 64 (fused_tail.cuh), and row 16's resident backward
+// kernel is also row 14's attention backward there (fused_tail_bwd.cu).
+// Rows 15-16's other kernels stay in blanes.cu.
 //
 // An item is one batch row, up to four heads and every query; the grid
 // holds at most as many blocks as fit on the card, each walking items with
@@ -15,7 +18,7 @@
 // Then threads by (head, query pair, d pair) sum the context in key order.
 // That is rows 1 and 4's order of every sum, and PyTorch's.
 //
-// Two compile-time flags of its body (fwd_short) give rows 1-2 their
+// Two compile-time flags of its body (short_context) give rows 1-2 their
 // contract on the same design (qkv_resident_kernel):
 //   kBias   the projection's bias (3*H*D,) is added to the item's staged
 //           q, k, v at the input dtype (round(x + b)) before the first
@@ -194,24 +197,27 @@ __device__ __forceinline__ void widen(float* dst, const T* src, int rows,
   }
 }
 
-// Walks this block's items: item k's operands are staged (stage(item,
-// buffer)) while item k - 1 is computed when there are two buffers.
-// The stage buffers are zeroed first: the pads past D are never copied.
-template <typename Stage, typename Compute>
-__device__ __forceinline__ void run_items(const Params& p, unsigned char* smem,
-                                          Stage stage, Compute compute) {
+// Walks this block's items from `first` on, next(item) after each, while
+// below p.items: item k's operands are staged (stage(item, buffer)) while
+// item k - 1 is computed when there are two buffers. The stage buffers are
+// zeroed first: the pads past D are never copied.
+template <typename Next, typename Stage, typename Compute>
+__device__ __forceinline__ void walk_items(const Params& p,
+                                           unsigned char* smem, int first,
+                                           Next next, Stage stage,
+                                           Compute compute) {
   const uint4 zero = {0u, 0u, 0u, 0u};
   for (size_t i = threadIdx.x * 16; i < p.nbuf * p.stage; i += kThreads * 16)
     *reinterpret_cast<uint4*>(smem + i) = zero;
   __syncthreads();
-  int item = blockIdx.x;
+  int item = first;
   int b = 0;
   if (item < p.items) stage(item, 0);
   cp_commit();
-  for (; item < p.items; item += gridDim.x) {
-    const int next = item + gridDim.x;
+  while (item < p.items) {
+    const int later = next(item);
     if (p.nbuf == 2) {
-      if (next < p.items) stage(next, b ^ 1);
+      if (later < p.items) stage(later, b ^ 1);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -222,12 +228,21 @@ __device__ __forceinline__ void run_items(const Params& p, unsigned char* smem,
     __syncthreads();  // its buffer and rows are free again
     if (p.nbuf == 2) {
       b ^= 1;
-    } else if (next < p.items) {
-      stage(next, 0);
+    } else if (later < p.items) {
+      stage(later, 0);
       cp_commit();
     }
+    item = later;
   }
   cp_wait<0>();
+}
+
+// The grid's walk: block b takes items b, b + gridDim.x, ...
+template <typename Stage, typename Compute>
+__device__ __forceinline__ void run_items(const Params& p, unsigned char* smem,
+                                          Stage stage, Compute compute) {
+  walk_items(p, smem, (int)blockIdx.x,
+             [](int item) { return item + (int)gridDim.x; }, stage, compute);
 }
 
 // ---- reading staged rows ----------------------------------------------------
@@ -475,19 +490,38 @@ __device__ __forceinline__ void add_bias(T* s, const T* __restrict__ bias,
 
 // ---- the kernels -------------------------------------------------------------
 
-// T <= 64: phase 1, one warp per query, writes the rows of round(a) into
-// the item's (heads, T, T|1) array; phase 2 sums the context over threads
-// by (head, query pair, d pair). kBias: the bias is added in place to the
-// staged q and v (and to k in f32; in bf16 as it is widened), in the pass
-// before the dots; kProbs: probs (N, T, H*T) gets each row's f32 a.
-template <typename T, int DM, bool kBias, bool kProbs>
-__device__ __forceinline__ void fwd_short(const T* __restrict__ qkv,
-                                          const T* __restrict__ bias,
-                                          const float* __restrict__ mask,
-                                          T* __restrict__ out,
-                                          float* __restrict__ probs,
+// Stage item `it`'s q, k, v into stage buffer b.
+template <typename T>
+__device__ __forceinline__ void stage_qkv(unsigned char* smem, int b,
+                                          const Item& it,
+                                          const T* __restrict__ qkv,
                                           const Params& p) {
-  extern __shared__ __align__(16) unsigned char smem[];
+  T* s = reinterpret_cast<T*>(smem + b * p.stage);
+  const int hd = p.h * p.d;
+  const int64_t base = it.n * p.t;
+  const int c = it.h0 * p.d;
+  const int part = p.t * p.rs;
+  stage_part(s, qkv, base, p.t, 3 * hd, c, it.gn, p);
+  stage_part(s + part, qkv, base, p.t, 3 * hd, hd + c, it.gn, p);
+  stage_part(s + 2 * part, qkv, base, p.t, 3 * hd, 2 * hd + c, it.gn, p);
+}
+
+// T <= 64, one item staged in buffer b: phase 1, one warp per query, writes
+// the rows of round(a) into the item's (heads, T, T|1) array; phase 2 sums
+// the context over threads by (head, query pair, d pair) and hands each
+// thread's four sums to emit(hl, i, d, o00, o01, o10, o11): queries i and
+// i + 1 (i even), lanes d and d + 1 (d even) of head hl, the second query
+// or lane past T or D where i + 1 or d + 1 is. kBias: the bias is added in
+// place to the staged q and v (and to k in f32; in bf16 as it is widened),
+// in the pass before the dots; kProbs: probs (N, T, H*T) gets each row's
+// f32 a.
+template <typename T, int DM, bool kBias, bool kProbs, typename Emit>
+__device__ __forceinline__ void short_context(unsigned char* smem, int b,
+                                              const Item& it,
+                                              const T* __restrict__ bias,
+                                              const float* __restrict__ mask,
+                                              float* __restrict__ probs,
+                                              const Params& p, Emit emit) {
   constexpr bool kWiden = sizeof(T) == 2;
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
@@ -496,75 +530,87 @@ __device__ __forceinline__ void fwd_short(const T* __restrict__ qkv,
   float* rest = reinterpret_cast<float*>(smem + p.nbuf * p.stage);
   float* kf = rest;  // the f32 copy of K (bf16)
   float* at = rest + (kWiden ? p.t * p.rsf : 0);  // (heads, T, as)
-  auto stage = [&](int item, int b) {
-    const Item it = item_of(p, item);
+  const T* qs = reinterpret_cast<const T*>(smem + b * p.stage);
+  const T* ks = qs + p.t * p.rs;
+  const T* vs = ks + p.t * p.rs;
+  const float* mrow = mask ? mask + it.n * p.t : nullptr;
+  if constexpr (kBias) {  // q and v, and k where no widened copy takes it
     T* s = reinterpret_cast<T*>(smem + b * p.stage);
-    const int64_t base = it.n * p.t;
-    const int c = it.h0 * p.d;
-    const int part = p.t * p.rs;
-    stage_part(s, qkv, base, p.t, 3 * hd, c, it.gn, p);
-    stage_part(s + part, qkv, base, p.t, 3 * hd, hd + c, it.gn, p);
-    stage_part(s + 2 * part, qkv, base, p.t, 3 * hd, 2 * hd + c, it.gn, p);
+    add_bias(s, bias, 0, kWiden ? 1 : 2, it, p);
+    add_bias(s, bias, 2, 3, it, p);
+  }
+  if constexpr (kWiden)
+    widen(kf, ks, p.t, it.gn, p, kBias ? bias + hd + it.h0 * p.d : nullptr);
+  if constexpr (kBias || kWiden) __syncthreads();
+  using K = typename std::conditional<kWiden, float, T>::type;
+  const K* keys = kWiden ? (const K*)kf : (const K*)ks;
+  const int krs = kWiden ? p.rsf : p.rs;
+  for_rows<DM, true>(it.gn, p, warp, lane, keys, krs,
+                     [&](const float* kreg, int hl, int i) {
+    // probs[n, i, h*T + j]: this query's row of head h
+    float* prow = kProbs ? probs + ((it.n * p.t + i) * p.h + it.h0 + hl) *
+                                       (int64_t)p.t
+                         : nullptr;
+    short_row<T, K, DM, false>(at + (hl * p.t + i) * as, nullptr,
+                               qs + i * p.rs + hl * p.dp, nullptr, kreg,
+                               keys + hl * p.dp, nullptr, krs, mrow, p, lane,
+                               prow);
+  });
+  __syncthreads();  // every row of a is written
+  const int dpairs = (p.d + 1) / 2;
+  const int ipairs = (p.t + 1) / 2;
+  for (int idx = threadIdx.x; idx < it.gn * ipairs * dpairs;
+       idx += kThreads) {
+    const int dpi = idx % dpairs;
+    const int rest_i = idx / dpairs;
+    const int hl = rest_i / ipairs;
+    const int i = (rest_i - hl * ipairs) * 2;
+    const int d = dpi * 2;
+    const float* a0 = at + (hl * p.t + i) * as;
+    const float* a1 = at + (hl * p.t + min(i + 1, p.t - 1)) * as;
+    const T* v = vs + hl * p.dp + d;
+    float o00 = 0.f, o01 = 0.f, o10 = 0.f, o11 = 0.f;
+    for (int j = 0; j < p.t; ++j) {
+      float vv[2];
+      load_pair(v + j * p.rs, vv);
+      const float x0 = a0[j], x1 = a1[j];
+      o00 = fmaf(x0, vv[0], o00);
+      o01 = fmaf(x0, vv[1], o01);
+      o10 = fmaf(x1, vv[0], o10);
+      o11 = fmaf(x1, vv[1], o11);
+    }
+    emit(hl, i, d, o00, o01, o10, o11);
+  }
+}
+
+// The resident forward over every item: short_context with each context
+// rounded to T into out (N, T, H*D).
+template <typename T, int DM, bool kBias, bool kProbs>
+__device__ __forceinline__ void fwd_short(const T* __restrict__ qkv,
+                                          const T* __restrict__ bias,
+                                          const float* __restrict__ mask,
+                                          T* __restrict__ out,
+                                          float* __restrict__ probs,
+                                          const Params& p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hd = p.h * p.d;
+  auto stage = [&](int item, int b) {
+    stage_qkv(smem, b, item_of(p, item), qkv, p);
   };
   auto compute = [&](int item, int b) {
     const Item it = item_of(p, item);
-    const T* qs = reinterpret_cast<const T*>(smem + b * p.stage);
-    const T* ks = qs + p.t * p.rs;
-    const T* vs = ks + p.t * p.rs;
-    const float* mrow = mask ? mask + it.n * p.t : nullptr;
-    if constexpr (kBias) {  // q and v, and k where no widened copy takes it
-      T* s = reinterpret_cast<T*>(smem + b * p.stage);
-      add_bias(s, bias, 0, kWiden ? 1 : 2, it, p);
-      add_bias(s, bias, 2, 3, it, p);
-    }
-    if constexpr (kWiden)
-      widen(kf, ks, p.t, it.gn, p, kBias ? bias + hd + it.h0 * p.d : nullptr);
-    if constexpr (kBias || kWiden) __syncthreads();
-    using K = typename std::conditional<kWiden, float, T>::type;
-    const K* keys = kWiden ? (const K*)kf : (const K*)ks;
-    const int krs = kWiden ? p.rsf : p.rs;
-    for_rows<DM, true>(it.gn, p, warp, lane, keys, krs,
-                       [&](const float* kreg, int hl, int i) {
-      // probs[n, i, h*T + j]: this query's row of head h
-      float* prow = kProbs ? probs + ((it.n * p.t + i) * p.h + it.h0 + hl) *
-                                         (int64_t)p.t
-                           : nullptr;
-      short_row<T, K, DM, false>(at + (hl * p.t + i) * as, nullptr,
-                                 qs + i * p.rs + hl * p.dp, nullptr, kreg,
-                                 keys + hl * p.dp, nullptr, krs, mrow, p,
-                                 lane, prow);
-    });
-    __syncthreads();  // every row of a is written
-    const int dpairs = (p.d + 1) / 2;
-    const int ipairs = (p.t + 1) / 2;
-    for (int idx = threadIdx.x; idx < it.gn * ipairs * dpairs;
-         idx += kThreads) {
-      const int dpi = idx % dpairs;
-      const int rest_i = idx / dpairs;
-      const int hl = rest_i / ipairs;
-      const int i = (rest_i - hl * ipairs) * 2;
-      const int d = dpi * 2;
-      const float* a0 = at + (hl * p.t + i) * as;
-      const float* a1 = at + (hl * p.t + min(i + 1, p.t - 1)) * as;
-      const T* v = vs + hl * p.dp + d;
-      float o00 = 0.f, o01 = 0.f, o10 = 0.f, o11 = 0.f;
-      for (int j = 0; j < p.t; ++j) {
-        float vv[2];
-        load_pair(v + j * p.rs, vv);
-        const float x0 = a0[j], x1 = a1[j];
-        o00 = fmaf(x0, vv[0], o00);
-        o01 = fmaf(x0, vv[1], o01);
-        o10 = fmaf(x1, vv[0], o10);
-        o11 = fmaf(x1, vv[1], o11);
-      }
-      T* o = out + (it.n * p.t + i) * hd + (it.h0 + hl) * p.d + d;
-      o[0] = from_f32<T>(o00);
-      if (d + 1 < p.d) o[1] = from_f32<T>(o01);
-      if (i + 1 < p.t) {
-        o[hd] = from_f32<T>(o10);
-        if (d + 1 < p.d) o[hd + 1] = from_f32<T>(o11);
-      }
-    }
+    short_context<T, DM, kBias, kProbs>(
+        smem, b, it, bias, mask, probs, p,
+        [&](int hl, int i, int d, float o00, float o01, float o10,
+            float o11) {
+          T* o = out + (it.n * p.t + i) * hd + (it.h0 + hl) * p.d + d;
+          o[0] = from_f32<T>(o00);
+          if (d + 1 < p.d) o[1] = from_f32<T>(o01);
+          if (i + 1 < p.t) {
+            o[hd] = from_f32<T>(o10);
+            if (d + 1 < p.d) o[hd + 1] = from_f32<T>(o11);
+          }
+        });
   };
   run_items(p, smem, stage, compute);
 }
@@ -590,6 +636,100 @@ qkv_resident_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
   fwd_short<T, DM, true, kProbs>(qkv, bias, mask, out, probs, p);
 }
 
+// T <= 64: phase 1, one warp per query, writes each query's rows of
+// round(a) and ds into the item's (heads, T, T|1) arrays (the dots read
+// f32 copies of K and V); phase 2 sums dq, dk and dv from them over
+// threads by (head, row, d pair).
+template <typename T, int DM>
+__global__ void __launch_bounds__(kThreads, 3)
+blanes_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
+                  const T* __restrict__ g, T* __restrict__ dqkv, Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kWiden = sizeof(T) == 2;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int hd = p.h * p.d;
+  const int as = p.t | 1;
+  const int tt = p.t * as;
+  float* rest = reinterpret_cast<float*>(smem + p.nbuf * p.stage);
+  float* kf = rest;  // f32 copies of K and V (bf16)
+  float* vf = kf + p.t * p.rsf;
+  float* ats = rest + (kWiden ? 2 * p.t * p.rsf : 0);  // (heads, T, as)
+  float* dss = ats + p.heads * tt;
+  auto stage = [&](int item, int b) {
+    const Item it = item_of(p, item);
+    T* s = reinterpret_cast<T*>(smem + b * p.stage);
+    const int64_t base = it.n * p.t;
+    const int c = it.h0 * p.d;
+    const int part = p.t * p.rs;
+    stage_part(s, qkv, base, p.t, 3 * hd, c, it.gn, p);
+    stage_part(s + part, qkv, base, p.t, 3 * hd, hd + c, it.gn, p);
+    stage_part(s + 2 * part, qkv, base, p.t, 3 * hd, 2 * hd + c, it.gn, p);
+    stage_part(s + 3 * part, g, base, p.t, hd, c, it.gn, p);
+  };
+  auto compute = [&](int item, int b) {
+    const Item it = item_of(p, item);
+    const T* qs = reinterpret_cast<const T*>(smem + b * p.stage);
+    const T* ks = qs + p.t * p.rs;
+    const T* vs = ks + p.t * p.rs;
+    const T* gs = vs + p.t * p.rs;
+    const float* mrow = mask ? mask + it.n * p.t : nullptr;
+    if constexpr (kWiden) {
+      widen(kf, ks, p.t, it.gn, p, static_cast<const T*>(nullptr));
+      widen(vf, vs, p.t, it.gn, p, static_cast<const T*>(nullptr));
+      __syncthreads();
+    }
+    using K = typename std::conditional<kWiden, float, T>::type;
+    const K* keys = kWiden ? (const K*)kf : (const K*)ks;
+    const K* vals = kWiden ? (const K*)vf : (const K*)vs;
+    const int krs = kWiden ? p.rsf : p.rs;
+    for_rows<DM, false>(it.gn, p, warp, lane, keys, krs,
+                        [&](const float* kreg, int hl, int i) {
+      const int at = i * p.rs + hl * p.dp;
+      short_row<T, K, DM, true>(ats + hl * tt + i * as, dss + hl * tt + i * as,
+                                qs + at, gs + at, kreg, keys + hl * p.dp,
+                                vals + hl * p.dp, krs, mrow, p, lane,
+                                nullptr);
+    });
+    __syncthreads();  // every row of a and ds is written
+    T* dst = dqkv + it.n * p.t * 3 * hd;
+    const int dpairs = (p.d + 1) / 2;
+    for (int idx = threadIdx.x; idx < it.gn * p.t * dpairs; idx += kThreads) {
+      const int dpi = idx % dpairs;
+      const int rest_x = idx / dpairs;
+      const int x = rest_x % p.t;
+      const int hl = rest_x / p.t;
+      const int d = dpi * 2;
+      const float* ah = ats + hl * tt;
+      const float* dsh = dss + hl * tt;
+      const int col = hl * p.dp + d;
+      float dq[2] = {0.f, 0.f}, dk[2] = {0.f, 0.f}, dv[2] = {0.f, 0.f};
+      for (int j = 0; j < p.t; ++j) {
+        float kk[2], qq[2], gg[2];
+        load_pair(ks + j * p.rs + col, kk);
+        load_pair(qs + j * p.rs + col, qq);
+        load_pair(gs + j * p.rs + col, gg);
+        const float ds_xj = dsh[x * as + j], ds_jx = dsh[j * as + x];
+        const float a_jx = ah[j * as + x];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          dq[e] = fmaf(ds_xj, kk[e], dq[e]);
+          dk[e] = fmaf(ds_jx, qq[e], dk[e]);
+          dv[e] = fmaf(a_jx, gg[e], dv[e]);
+        }
+      }
+      T* o = dst + (int64_t)x * 3 * hd + (it.h0 + hl) * p.d + d;
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (d + e < p.d) {
+          o[e] = from_f32<T>(dq[e]);
+          o[hd + e] = from_f32<T>(dk[e]);
+          o[2 * hd + e] = from_f32<T>(dv[e]);
+        }
+    }
+  };
+  run_items(p, smem, stage, compute);
+}
 // ---- launch ------------------------------------------------------------------
 
 // Bytes of one async copy: the largest of 16, 8, 4 that divides a head
@@ -689,6 +829,55 @@ int qkv_resident_launch(const void* qkv, const void* bias, const void* mask,
                              p, smem,
                              (unsigned)(blocks < p.items ? blocks : p.items),
                              (cudaStream_t)stream});
+}
+
+// Row 16 at T <= 64 (blanes.cu) and row 14's attention part there
+// (fused_tail_bwd.cu): blanes_bwd_kernel under the plan (heads, nbuf,
+// blocks) of ops/experimental_blanes.py:launch_plan; refuses a shape or
+// plan the kernel does not take.
+template <typename T>
+struct BwdShort {
+  const T *qkv, *g;
+  const float* mask;
+  T* dqkv;
+  Params p;
+  size_t smem;
+  unsigned blocks;
+  cudaStream_t stream;
+
+  template <int DM>
+  int operator()() const {
+    const cudaError_t err = cudaFuncSetAttribute(
+        blanes_bwd_kernel<T, DM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    blanes_bwd_kernel<T, DM><<<blocks, kThreads, smem, stream>>>(
+        qkv, mask, g, dqkv, p);
+    return (int)cudaGetLastError();
+  }
+};
+
+template <typename T>
+int bwd_short_launch(const void* qkv, const void* mask, const void* g,
+                     void* dqkv, int n, int t_len, int n_heads, int d_head,
+                     int heads, int nbuf, int blocks, void* stream) {
+  const int esize = (int)sizeof(T);
+  if (n <= 0 || t_len <= 0) return (int)cudaSuccess;
+  if (t_len > kShortT || heads < 1 || heads > 4 || heads > n_heads ||
+      nbuf < 1 || nbuf > 2 || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  const Layout lay = layout_of(kBwd, t_len, d_head, esize, heads, t_len);
+  const size_t smem = nbuf * lay.stage + lay.rows;
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  const Params p = params_of(kBwd, n, t_len, n_heads, d_head, esize, heads,
+                             t_len, nbuf, qkv, g);
+  if (p.items == 0) return (int)cudaErrorInvalidConfiguration;
+  return with_head_width(
+      d_head, BwdShort<T>{static_cast<const T*>(qkv), static_cast<const T*>(g),
+                          static_cast<const float*>(mask),
+                          static_cast<T*>(dqkv), p, smem,
+                          (unsigned)(blocks < p.items ? blocks : p.items),
+                          (cudaStream_t)stream});
 }
 
 }  // namespace bl

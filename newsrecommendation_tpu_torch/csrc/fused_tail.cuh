@@ -23,15 +23,21 @@
 //   alpha  = exp(s - m) * mask / (sum + 1e-8 exp(-m)), m over all T
 //   out    = sum_t alpha_t ctx_t         the f32 ctx; out rounded to T
 //
-// Design: one block per row. The heads run one after another, each head's
-// q, k, v staged in shared memory (odd row stride) and one warp per query;
-// the row's f32 context (T x HD), the pooling's e (T x Q) and the scores
-// stay in shared memory. The pooling's products with w1 (T x HD by HD x Q,
-// and the backward's d_z w1^T) run as register tiles of 4 x 4 f32 FMAs
-// per thread on the CUDA cores, w1 read from global memory (L2/L1
-// resident: 160 KB in bf16). A row needs (T*HD + T*Q + 3*T*(D|1) + ...)
-// * 4 bytes of shared memory: at H = D = 20, Q = 200 that fits up to
-// T = 86 in the forward and T = 85 in the backward.
+// Design, by regime (tail_regime; the plan is ops/experimental_fused_
+// encoder.py:tail_launch_plan):
+//   resident (T <= 64, heads of up to 64): items of batch rows walked as
+//     row 15's sub-items, its attention pass reused; fc1 and d_z w1^T on
+//     tensor cores in bf16. The last section of this file.
+//   shared, global (past it): one block per row, below. The heads run one
+//     after another, each head's q, k, v staged in shared memory (odd row
+//     stride) and one warp per query; the row's f32 context (T x HD), the
+//     pooling's e (T x Q) and the scores stay in shared memory. The
+//     pooling's products with w1 (T x HD by HD x Q, and the backward's
+//     d_z w1^T) run as register tiles of 4 x 4 f32 FMAs per thread on the
+//     CUDA cores, w1 read from global memory (L2/L1 resident: 160 KB in
+//     bf16). A row needs (T*HD + T*Q + 3*T*(D|1) + ...) * 4 bytes of shared
+//     memory: at H = D = 20, Q = 200 that fits up to T = 86 in the forward
+//     and T = 85 in the backward.
 //
 // Longer rows (the user encoder over a long history) run the same phases
 // with the big buffers in global memory: the forward keeps ctx, e and the
@@ -42,10 +48,11 @@
 // The row buffers and the small vectors stay in shared memory up to
 // T = 6456 in the forward and 5771 in the backward at those widths; past
 // that they move into the slot too (the *_small_global functions), so any
-// T runs. Which variant runs is decided by T before the launch (the
-// *_global functions below); the wrapper allocates the scratch.
+// T runs. Which variant runs is decided before the launch (the *_global
+// functions below); the wrapper allocates the scratch.
 #pragma once
 
+#include "blanes_resident.cuh"  // row 15's resident design, row 16's kernel
 #include "common.cuh"
 #include "qkv_bwd.cuh"  // recompute_a_row: row 1's probs row, one warp
 
@@ -179,6 +186,45 @@ __device__ void tail_context(float* ctx, float* qs, float* rows, const T* src,
   __syncthreads();
 }
 
+// s_m = round(e_m) . w2 + b2 for the m_rows rows of e (es elements apart,
+// in T or f32), one warp a row: each lane's q in order, then the xor tree.
+template <typename T, int kThreads, typename E>
+__device__ __forceinline__ void tail_scores(float* s, const E* e, int es,
+                                            int m_rows, int q_dim,
+                                            const T* __restrict__ w2,
+                                            const float* __restrict__ b2) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int i = warp; i < m_rows; i += kThreads / 32) {
+    float part = 0.f;
+    for (int q = lane; q < q_dim; q += 32)
+      part = fmaf(round_to<T>(to_f32(e[i * es + q])), to_f32(w2[q]), part);
+    const float v = warp_sum(part) + b2[0];
+    if (lane == 0) s[i] = v;
+  }
+}
+
+// One warp: alpha (T) in place from the scores over the key mask, the max
+// over all T; unless it is null, *rest gets 1 - sum(alpha) as the exact
+// expression gives it, 1e-8 exp(-m) / den (0 on a fully masked row).
+__device__ __forceinline__ void tail_alpha(float* alpha, const float* mrow,
+                                           int t_len, int lane, float* rest) {
+  float mx = -INFINITY;
+  for (int i = lane; i < t_len; i += 32) mx = fmaxf(mx, alpha[i]);
+  const float m = warp_max(mx);
+  float sum = 0.f;
+  for (int i = lane; i < t_len; i += 32) {
+    float x = expf(alpha[i] - m);
+    if (mrow) x *= mrow[i];
+    alpha[i] = x;
+    sum += x;
+  }
+  const float den = warp_sum(sum) + kEps * expf(-m);
+  for (int i = lane; i < t_len; i += 32)
+    alpha[i] = den > 0.f ? alpha[i] / den : 0.f;
+  if (rest && lane == 0) *rest = den > 0.f ? kEps * expf(-m) / den : 0.f;
+}
+
 // The pooling's scores: e (T, Q) = tanh(round(ctx) w1 + b1), then alpha (T)
 // from s = round(e) w2 + b2 over the key mask; unless it is null, *rest
 // gets 1 - sum(alpha) as the exact expression gives it, 1e-8 exp(-m) / den
@@ -191,7 +237,6 @@ __device__ void tail_pool_scores(float* e, float* alpha, const float* ctx,
                                  const float* __restrict__ b2,
                                  const float* mrow, int t_len, int hd,
                                  int q_dim, float* rest = nullptr) {
-  constexpr int kWarps = kThreads / 32;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   tile_product<kThreads>(
@@ -200,30 +245,9 @@ __device__ void tail_pool_scores(float* e, float* alpha, const float* ctx,
       [&](int c, int q) { return to_f32(w1[(int64_t)c * q_dim + q]); },
       [&](int i, int q, float z) { e[i * q_dim + q] = tanhf(z + b1[q]); });
   __syncthreads();
-  for (int i = warp; i < t_len; i += kWarps) {
-    float part = 0.f;
-    for (int q = lane; q < q_dim; q += 32)
-      part = fmaf(round_to<T>(e[i * q_dim + q]), to_f32(w2[q]), part);
-    const float s = warp_sum(part) + b2[0];
-    if (lane == 0) alpha[i] = s;
-  }
+  tail_scores<T, kThreads>(alpha, e, q_dim, t_len, q_dim, w2, b2);
   __syncthreads();
-  if (warp == 0) {
-    float mx = -INFINITY;
-    for (int i = lane; i < t_len; i += 32) mx = fmaxf(mx, alpha[i]);
-    const float m = warp_max(mx);
-    float sum = 0.f;
-    for (int i = lane; i < t_len; i += 32) {
-      float x = expf(alpha[i] - m);
-      if (mrow) x *= mrow[i];
-      alpha[i] = x;
-      sum += x;
-    }
-    const float den = warp_sum(sum) + kEps * expf(-m);
-    for (int i = lane; i < t_len; i += 32)
-      alpha[i] = den > 0.f ? alpha[i] / den : 0.f;
-    if (rest && lane == 0) *rest = den > 0.f ? kEps * expf(-m) / den : 0.f;
-  }
+  if (warp == 0) tail_alpha(alpha, mrow, t_len, lane, rest);
   __syncthreads();
 }
 
@@ -276,6 +300,457 @@ inline bool tail_bwd_small_global(int t_len, int n_heads, int d_head,
                                   int warps) {
   return tail_bwd_small_floats(t_len, n_heads, d_head, warps) >
          (size_t)kMaxSmemFloats;
+}
+
+
+// ---- the resident regime: T <= 64, heads of up to 64 -----------------------
+//
+// An item is one batch row, walked as sub-items of up to four heads: row
+// 15's items (blanes_resident.cuh: its Params, staging and per-(head,
+// query) pass, short_context), every sub-item of a row on one block in
+// turn, the next one's q, k, v copied in by cp.async while the current one
+// computes. Each sub-item's context times keep goes into the row's f32
+// ctx; after its last sub-item the pooling runs over the row's T
+// positions: fc1 on tensor cores in bf16 (mma.sync.m16n8k16, A =
+// round(ctx) as the fragments load, B = w1 from global memory, f32 sums),
+// on CUDA cores in k order in f32 (tile_product, the per-row kernel's
+// arithmetic); then the scores, alpha and out (forward), or the pooling
+// backward and d_ctx (backward, d_ctx on tensor cores in bf16 as
+// round(d_z) w1^T). Items of two rows, which read w1 half as often, were
+// slower: their shared memory halves the blocks an SM holds (PERF.md).
+//
+// Shared memory, in order: the stage buffers (nbuf of row 15's), row 15's
+// f32 arrays (K's copy in bf16, round(a)) sharing their bytes with e (T
+// rows, es a row: in T in the forward, whose scores read round(e) only;
+// f32 in the backward, e then d_z), ctx (T rows, cs floats a row), then
+// alpha (T) and, in the backward, d_alpha (T), g (HD) and 1 - sum(alpha).
+
+enum TailRegime { kTailResident = 0, kTailShared = 1, kTailGlobal = 2 };
+
+// Row strides of ctx and e: whole 32-element rows, then 16 more, so the
+// fragments' 16-byte loads of two rows (16 mod 32 words apart) hit every
+// bank once per quarter warp.
+__host__ __device__ inline int tail_cs(int hd) {
+  return (hd + 31) / 32 * 32 + 16;
+}
+__host__ __device__ inline int tail_es(int q) {
+  return (q + 31) / 32 * 32 + 16;
+}
+
+inline size_t tail_round16(size_t x) { return (x + 15) / 16 * 16; }
+
+struct TailRes {
+  int subs;                  // sub-items of a row: its head groups
+  int q, cs, es;             // Q, and the row strides of ctx and e
+  size_t e_off, ctx_off, small_off, bytes;
+};
+
+// The resident layout of the forward (bwd 0) or backward (bwd 1) under
+// the plan (heads, nbuf).
+inline TailRes tail_res(int bwd, int t_len, int n_heads, int d_head,
+                        int q_dim, int esize, int heads, int nbuf) {
+  const bl::Layout lay =
+      bl::layout_of(bl::kFwd, t_len, d_head, esize, heads, t_len);
+  TailRes r;
+  const int hd = n_heads * d_head;
+  r.subs = (n_heads + heads - 1) / heads;
+  r.q = q_dim;
+  r.cs = tail_cs(hd);
+  r.es = tail_es(q_dim);
+  const size_t e_bytes = (size_t)t_len * r.es * (bwd ? 4 : esize);
+  const size_t small = bwd ? 2 * (size_t)t_len + hd + 1 : t_len;
+  r.e_off = nbuf * lay.stage;
+  r.ctx_off = r.e_off + tail_round16(lay.rows > e_bytes ? lay.rows : e_bytes);
+  r.small_off = r.ctx_off + (size_t)t_len * r.cs * 4;
+  r.bytes = r.small_off + tail_round16(4 * small);
+  return r;
+}
+
+// The regime of the forward (bwd 0) or backward (bwd 1) at (T, H, D, Q) in
+// a dtype of esize bytes: resident where T <= 64, D <= 64 and one row with
+// one head and one buffer fit a block; else the per-row kernel, in shared
+// memory or with its working set in global memory.
+inline int tail_regime(int bwd, int t_len, int n_heads, int d_head, int q_dim,
+                       int esize) {
+  if (t_len <= bl::kShortT && d_head <= 64 &&
+      tail_res(bwd, t_len, n_heads, d_head, q_dim, esize, 1, 1).bytes <=
+          (size_t)bl::kMaxSmem)
+    return kTailResident;
+  const bool global =
+      bwd ? tail_bwd_global(t_len, n_heads, d_head, q_dim, bl::kWarps)
+          : tail_fwd_global(t_len, n_heads, d_head, q_dim, bl::kWarps);
+  return global ? kTailGlobal : kTailShared;
+}
+
+// Whether (heads, nbuf, blocks) is a resident plan the kernels take.
+inline bool tail_res_ok(const TailRes& r, int n_heads, int heads, int nbuf,
+                        int blocks) {
+  return heads >= 1 && heads <= 4 && heads <= n_heads && nbuf >= 1 &&
+         nbuf <= 2 && blocks >= 1 && r.bytes <= (size_t)bl::kMaxSmem;
+}
+
+// The tensor-core products below take each k-step's 16 elements in the
+// order of the fragments' k slots permuted: lane tq's slots 2tq, 2tq + 1
+// hold k0 + 4tq, + 1 and its slots 2tq + 8, + 9 hold k0 + 4tq + 2, + 3, in A
+// and in B alike (the same 16 products, summed by the tensor core), so each
+// lane reads four neighbouring k of a row at once.
+
+// Four f32 elements k .. k + 3 of a row (k a multiple of 4) rounded to
+// bf16 and packed as two A fragment registers; 0 past K.
+__device__ __forceinline__ uint2 tail_a_quad(const float* row, int k,
+                                             int k_len) {
+  float4 v;
+  if (k + 3 < k_len) {
+    v = *reinterpret_cast<const float4*>(row + k);
+  } else {
+    v.x = k < k_len ? row[k] : 0.f;
+    v.y = k + 1 < k_len ? row[k + 1] : 0.f;
+    v.z = k + 2 < k_len ? row[k + 2] : 0.f;
+    v.w = k + 3 < k_len ? row[k + 3] : 0.f;
+  }
+  return make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
+
+// Four bf16 elements k .. k + 3 of a row of B held transposed (col[k], k
+// contiguous), as two B fragment registers; 0 past K.
+__device__ __forceinline__ uint2 tail_b_quad(const __nv_bfloat16* col, int k,
+                                             int k_len) {
+  const auto* u = reinterpret_cast<const unsigned short*>(col);
+  if (k + 3 < k_len && ((uintptr_t)(u + k) & 7) == 0)
+    return __ldg(reinterpret_cast<const uint2*>(u + k));
+  unsigned x[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) x[e] = k + e < k_len ? __ldg(u + k + e) : 0u;
+  return make_uint2(x[0] | x[1] << 16, x[2] | x[3] << 16);
+}
+
+// C = round(A) B on tensor cores, A (M x K) f32 rows lda floats apart
+// (lda a multiple of 4), B (K x N) bf16 given as its transpose bt (N x K,
+// rows ldb apart). A warp takes kMmaRows 16-row tiles by kMmaCols
+// 8-column tiles of C at a time (column tiles warp, warp + 8, ...), so
+// each A fragment serves kMmaCols products and each B fragment kMmaRows,
+// with the next k-step's B fragments loaded from global memory (L2)
+// before the current step's products. K goes in steps of 16, in order:
+// each step's 16 products summed by the tensor core from 0, the steps
+// added in f32 (round to nearest). Accumulating in the tensor core instead
+// aligns every product to the running sum and drops its low bits: at
+// (16, 20) bf16 that flipped enough roundings of e for s, and so alpha and
+// d_z, to put d_ctx outside the bf16 tolerance. epi(m, n, c0, c1) gets
+// C(m, n) and C(m, n + 1); m may pass M and n + 1 may pass N.
+constexpr int kMmaRows = 2;
+constexpr int kMmaCols = 4;
+
+template <typename Epi>
+__device__ __forceinline__ void tail_mma(int m_len, int n_len, int k_len,
+                                         const float* a, int lda,
+                                         const __nv_bfloat16* bt, int ldb,
+                                         Epi epi) {
+  constexpr int kW = bl::kWarps;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int tq = lane % 4;
+  const int mt = (m_len + 15) / 16;
+  const int nt = (n_len + 7) / 8;
+  const int steps = (k_len + 15) / 16;
+  for (int nb = warp; nb < nt; nb += kW * kMmaCols) {
+    const __nv_bfloat16* col[kMmaCols];
+#pragma unroll
+    for (int j = 0; j < kMmaCols; ++j)
+      col[j] = bt + (int64_t)min((nb + j * kW) * 8 + g, n_len - 1) * ldb;
+    for (int mb = 0; mb < mt; mb += kMmaRows) {
+      float c[kMmaRows][kMmaCols][4];
+#pragma unroll
+      for (int i = 0; i < kMmaRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kMmaCols; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) c[i][j][e] = 0.f;
+      uint2 bnext[kMmaCols];
+#pragma unroll
+      for (int j = 0; j < kMmaCols; ++j)
+        bnext[j] = tail_b_quad(col[j], 4 * tq, k_len);
+      for (int s = 0; s < steps; ++s) {
+        const int k = 16 * s + 4 * tq;
+        uint2 bq[kMmaCols];
+#pragma unroll
+        for (int j = 0; j < kMmaCols; ++j) {
+          bq[j] = bnext[j];
+          bnext[j] = tail_b_quad(col[j], k + 16, k_len);
+        }
+#pragma unroll
+        for (int i = 0; i < kMmaRows; ++i) {
+          if (mb + i < mt) {
+            const int m = (mb + i) * 16 + g;
+            const uint2 r0 = tail_a_quad(a + min(m, m_len - 1) * lda, k,
+                                         k_len);
+            const uint2 r1 = tail_a_quad(a + min(m + 8, m_len - 1) * lda, k,
+                                         k_len);
+            const unsigned af[4] = {r0.x, r1.x, r0.y, r1.y};
+#pragma unroll
+            for (int j = 0; j < kMmaCols; ++j) {
+              if (nb + j * kW < nt) {
+                const unsigned bf[2] = {bq[j].x, bq[j].y};
+                float step[4] = {0.f, 0.f, 0.f, 0.f};
+                mma_bf16(step, af, bf);
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  c[i][j][e] = __fadd_rn(c[i][j][e], step[e]);
+              }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kMmaRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kMmaCols; ++j) {
+          const int m = (mb + i) * 16 + g;
+          const int n = (nb + j * kW) * 8 + 2 * tq;
+          if (mb + i >= mt || nb + j * kW >= nt) continue;
+          epi(m, n, c[i][j][0], c[i][j][1]);
+          epi(m + 8, n, c[i][j][2], c[i][j][3]);
+        }
+    }
+  }
+}
+
+// fc1 over the item's m_len positions: e (es a row, in E) =
+// tanh(round(ctx) w1 + b1), ctx cs floats a row; bf16 on tensor cores (B
+// from w1t, w1 transposed), f32 in k order on CUDA cores (w1), the
+// per-row kernels' arithmetic.
+template <typename T, typename E>
+__device__ __forceinline__ void tail_fc1(E* e, int es, const float* ctx,
+                                         int cs, int m_len, int hd, int q_dim,
+                                         const T* __restrict__ w1,
+                                         const T* __restrict__ w1t,
+                                         const float* __restrict__ b1) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    tail_mma(m_len, q_dim, hd, ctx, cs, w1t, hd,
+             [&](int m, int q, float z0, float z1) {
+               if (m < m_len && q < q_dim)
+                 e[m * es + q] = from_f32<E>(tanhf(z0 + b1[q]));
+               if (m < m_len && q + 1 < q_dim)
+                 e[m * es + q + 1] = from_f32<E>(tanhf(z1 + b1[q + 1]));
+             });
+  } else {
+    tile_product<bl::kThreads>(
+        m_len, q_dim, hd,
+        [&](int i, int c) { return round_to<T>(ctx[i * cs + c]); },
+        [&](int c, int q) { return to_f32(w1[(int64_t)c * q_dim + q]); },
+        [&](int i, int q, float z) {
+          e[i * es + q] = from_f32<E>(tanhf(z + b1[q]));
+        });
+  }
+}
+
+// Walks this block's rows (b, b + gridDim.x, ...), each as its sub-items
+// in order: the context of each into ctx, times keep; after the last,
+// pool(row), all threads.
+template <typename T, int DM, typename Pool>
+__device__ __forceinline__ void tail_walk(const T* __restrict__ qkv,
+                                          const float* __restrict__ mask,
+                                          const bl::Params& p,
+                                          const TailRes& r,
+                                          const TailDropout& drop,
+                                          Pool pool) {
+  extern __shared__ __align__(16) unsigned char tail_smem[];
+  const int hd = p.h * p.d;
+  float* ctx = reinterpret_cast<float*>(tail_smem + r.ctx_off);
+  auto next = [&](int k) {
+    if ((k + 1) % r.subs) return k + 1;
+    const int64_t x = (int64_t)k + 1 + ((int64_t)gridDim.x - 1) * r.subs;
+    return x < p.items ? (int)x : p.items;
+  };
+  auto stage = [&](int k, int b) {
+    bl::stage_qkv(tail_smem, b, bl::item_of(p, k), qkv, p);
+  };
+  auto compute = [&](int k, int b) {
+    const bl::Item it = bl::item_of(p, k);
+    bl::short_context<T, DM, false, false>(
+        tail_smem, b, it, nullptr, mask, nullptr, p,
+        [&](int hl, int i, int d, float o00, float o01, float o10,
+            float o11) {
+          const int c = (it.h0 + hl) * p.d + d;
+          const bool d1 = d + 1 < p.d;
+          const bool i1 = i + 1 < p.t;
+          if (drop.on) {
+            o00 *= drop.keep(it.n, i, c, p.t, hd);
+            if (d1) o01 *= drop.keep(it.n, i, c + 1, p.t, hd);
+            if (i1) o10 *= drop.keep(it.n, i + 1, c, p.t, hd);
+            if (i1 && d1) o11 *= drop.keep(it.n, i + 1, c + 1, p.t, hd);
+          }
+          float* x = ctx + i * r.cs + c;
+          x[0] = o00;
+          if (d1) x[1] = o01;
+          if (i1) x[r.cs] = o10;
+          if (i1 && d1) x[r.cs + 1] = o11;
+        });
+    if ((k + 1) % r.subs == 0) {
+      __syncthreads();  // the row's ctx is whole; row 15's arrays are free
+      pool(it.n);
+    }
+  };
+  bl::walk_items(p, tail_smem, (int)blockIdx.x * r.subs, next, stage,
+                 compute);
+}
+
+// Blocks an SM holds of the resident kernels at heads of up to 24 lanes
+// (the NRMS head): their registers are held to what that many need
+// (unbounded they took 103-110 at DM = 24, two blocks). bf16 runs fastest
+// with three, f32 with two (PERF.md).
+constexpr int kTailBlocksBf16 = 3;
+constexpr int kTailBlocksF32 = 2;
+
+template <typename T, int DM>
+constexpr int tail_blocks() {
+  return DM > 24 ? 1 : sizeof(T) == 2 ? kTailBlocksBf16 : kTailBlocksF32;
+}
+
+// Row 13, resident: out (N, HD) in T.
+template <typename T, int DM>
+__global__ void __launch_bounds__(bl::kThreads, (tail_blocks<T, DM>()))
+tail_resident_fwd_kernel(const T* __restrict__ qkv,
+                         const float* __restrict__ mask,
+                         const T* __restrict__ w1, const T* __restrict__ w1t,
+                         const float* __restrict__ b1,
+                         const T* __restrict__ w2,
+                         const float* __restrict__ b2,
+                         const int* __restrict__ seed, T* __restrict__ out,
+                         bl::Params p, TailRes r, int use_dropout,
+                         uint32_t thr, float scale) {
+  extern __shared__ __align__(16) unsigned char tail_smem[];
+  const int hd = p.h * p.d;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const TailDropout drop{use_dropout != 0,
+                         use_dropout ? (uint32_t)seed[0] : 0u, thr, scale};
+  const float* ctx = reinterpret_cast<const float*>(tail_smem + r.ctx_off);
+  T* e = reinterpret_cast<T*>(tail_smem + r.e_off);
+  float* alpha = reinterpret_cast<float*>(tail_smem + r.small_off);
+  tail_walk<T, DM>(qkv, mask, p, r, drop, [&](int64_t row) {
+    tail_fc1<T, T>(e, r.es, ctx, r.cs, p.t, hd, r.q, w1, w1t, b1);
+    __syncthreads();
+    tail_scores<T, bl::kThreads>(alpha, e, r.es, p.t, r.q, w2, b2);
+    __syncthreads();
+    if (warp == 0)
+      tail_alpha(alpha, mask ? mask + row * p.t : nullptr, p.t, lane,
+                 nullptr);
+    __syncthreads();
+    for (int c = threadIdx.x; c < hd; c += bl::kThreads) {
+      float acc = 0.f;
+      for (int i = 0; i < p.t; ++i)
+        acc = fmaf(alpha[i], ctx[i * r.cs + c], acc);
+      out[row * hd + c] = from_f32<T>(acc);
+    }
+  });
+}
+
+// Row 14's first kernel, resident: the forward again, the pooling backward
+// and d_ctx, as the per-row kernel computes them (fused_tail_bwd.cu);
+// writes d_ctx (N, T, HD) in T, the f32 ctx and d_z to ctxs and dzs and
+// each row's sums of db1, dw2, db2 to rowpart (N, 2Q + 1).
+template <typename T, int DM>
+__global__ void __launch_bounds__(bl::kThreads, (tail_blocks<T, DM>()))
+tail_resident_bwd_kernel(const T* __restrict__ qkv,
+                         const float* __restrict__ mask,
+                         const T* __restrict__ w1, const T* __restrict__ w1t,
+                         const float* __restrict__ b1,
+                         const T* __restrict__ w2,
+                         const float* __restrict__ b2,
+                         const int* __restrict__ seed,
+                         const T* __restrict__ g, T* __restrict__ dctx,
+                         float* __restrict__ ctxs, float* __restrict__ dzs,
+                         float* __restrict__ rowpart, bl::Params p, TailRes r,
+                         int use_dropout, uint32_t thr, float scale) {
+  extern __shared__ __align__(16) unsigned char tail_smem[];
+  const int hd = p.h * p.d;
+  const int q_dim = r.q;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const TailDropout drop{use_dropout != 0,
+                         use_dropout ? (uint32_t)seed[0] : 0u, thr, scale};
+  const float* ctx = reinterpret_cast<const float*>(tail_smem + r.ctx_off);
+  float* e = reinterpret_cast<float*>(tail_smem + r.e_off);  // e, then d_z
+  float* alpha = reinterpret_cast<float*>(tail_smem + r.small_off);
+  float* dal = alpha + p.t;  // d_alpha, then d_a
+  float* gv = dal + p.t;     // the row's g
+  float* rest = gv + hd;     // 1 - sum(alpha)
+  tail_walk<T, DM>(qkv, mask, p, r, drop, [&](int64_t row) {
+    const float* mrow = mask ? mask + row * p.t : nullptr;
+    for (int c = threadIdx.x; c < hd; c += bl::kThreads)
+      gv[c] = to_f32(g[row * hd + c]);
+    tail_fc1<T, float>(e, r.es, ctx, r.cs, p.t, hd, q_dim, w1, w1t, b1);
+    __syncthreads();
+    tail_scores<T, bl::kThreads>(alpha, e, r.es, p.t, q_dim, w2, b2);
+    __syncthreads();
+    if (warp == 0) tail_alpha(alpha, mrow, p.t, lane, rest);
+    // the f32 ctx for dw1, and d_alpha = ctx . g
+    float* ctx_out = ctxs + row * p.t * hd;
+    for (int idx = threadIdx.x; idx < p.t * hd; idx += bl::kThreads) {
+      const int i = idx / hd;
+      ctx_out[idx] = ctx[i * r.cs + idx - i * hd];
+    }
+    for (int i = warp; i < p.t; i += bl::kWarps) {
+      float s = 0.f;
+      for (int c = lane; c < hd; c += 32)
+        s = fmaf(ctx[i * r.cs + c], gv[c], s);
+      s = warp_sum(s);
+      if (lane == 0) dal[i] = s;
+    }
+    __syncthreads();
+    float* part = rowpart + row * (2 * q_dim + 1);
+    if (warp == 0) {
+      float s = 0.f;
+      for (int i = lane; i < p.t; i += 32) s = fmaf(dal[i], alpha[i], s);
+      const float rr = warp_sum(s);
+      for (int i = lane; i < p.t; i += 32) dal[i] = (dal[i] - rr) * alpha[i];
+      // this row's db2 = sum_i d_a_i = r (1 - sum(alpha)), exactly
+      if (lane == 0) part[2 * q_dim] = rr * *rest;
+    }
+    __syncthreads();
+    // this row's sums of db1 and dw2 per column q, and d_z over e
+    for (int q = threadIdx.x; q < q_dim; q += bl::kThreads) {
+      const float w2q = to_f32(w2[q]);
+      float s2 = 0.f, s1 = 0.f;
+      for (int i = 0; i < p.t; ++i) {
+        const float ei = e[i * r.es + q];
+        s2 = fmaf(ei, dal[i], s2);
+        const float dz = __fmul_rn(__fmul_rn(dal[i], w2q),
+                                   __fsub_rn(1.f, __fmul_rn(ei, ei)));
+        e[i * r.es + q] = dz;
+        s1 += dz;
+      }
+      part[q] = s1;
+      part[q_dim + q] = s2;
+    }
+    __syncthreads();
+    float* dz_out = dzs + row * p.t * q_dim;
+    for (int idx = threadIdx.x; idx < p.t * q_dim; idx += bl::kThreads) {
+      const int i = idx / q_dim;
+      dz_out[idx] = e[i * r.es + idx - i * q_dim];
+    }
+    // d_ctx = (alpha g + round(d_z) w1^T) * keep, rounded to T, for the
+    // attention backward
+    auto store = [&](int i, int c, float x) {
+      float d = __fadd_rn(__fmul_rn(alpha[i], gv[c]), x);
+      if (drop.on) d *= drop.keep(row, i, c, p.t, hd);
+      dctx[(row * p.t + i) * hd + c] = from_f32<T>(d);
+    };
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      tail_mma(p.t, hd, q_dim, e, r.es, w1, q_dim,
+               [&](int i, int c, float x0, float x1) {
+                 if (i < p.t && c < hd) store(i, c, x0);
+                 if (i < p.t && c + 1 < hd) store(i, c + 1, x1);
+               });
+    } else {
+      tile_product<bl::kThreads>(
+          p.t, hd, q_dim,
+          [&](int i, int q) { return round_to<T>(e[i * r.es + q]); },
+          [&](int q, int c) { return to_f32(w1t[(int64_t)q * hd + c]); },
+          store);
+    }
+  });
 }
 
 }  // namespace nrk

@@ -13,10 +13,10 @@
 //   d_a = (d_alpha - r) alpha;  dw2 += e d_a,  d_z = d_a w2 (1 - e^2),
 //   db1 += d_z;
 //   dw1 += ctx^T d_z from the f32 ctx;  d_ctx += round(d_z) w1^T, d_z rounded
-//   to w1's dtype;  d_ctx *= keep;  d_ctx rounded to qkv's dtype; then row
-//   4's backward per head (qkv_bwd.cuh) with a recomputed as the forward
-//   computes it: dv = round(a)^T g, ds = round((g v^T - rowsum) a / sqrt(D)),
-//   dq = ds k, dk = ds^T q.
+//   to w1's dtype;  d_ctx *= keep;  d_ctx rounded to qkv's dtype; then the
+//   attention backward per head (row 16's or row 4's kernel) with a
+//   recomputed as the forward computes it: dv = round(a)^T g,
+//   ds = round((g v^T - rowsum) a / sqrt(D)), dq = ds k, dk = ds^T q.
 // One departure: db2 is sum(d_a) = r (1 - sum(alpha)), which is 0 but for
 // the 1e-8 term of the normalisation. The TPU kernel sums the f32 d_a,
 // which leaves rounding noise (at chip_smoke.py's train-check, on an
@@ -28,29 +28,37 @@
 // Bound: at N = 7040, T = 20, H = D = 20, Q = 200 in bf16 the call reads qkv
 // and g (344 MB) and writes dqkv (338 MB): 0.20 ms at 3.35 TB/s. Its
 // products, 10*N*H*T*T*D + 6*N*T*HD*Q (11 + 68 GFLOP), take 0.08 ms at the
-// bf16 tensor-core peak; here they are f32 FMAs on the CUDA cores (1.2 ms
-// at 67 TFLOP/s), which bound it.
+// bf16 tensor-core peak.
 //
-// Design, five launches:
-//   1. one block of 8 warps per row (fused_tail.cuh's phases; a row too long
-//      for shared memory keeps ctx and d_z in their scratch below and q/k/v
-//      in its block slot's part of `stage`, and past T = 5771 its row
-//      buffers there too, `slots` blocks walking the rows): the forward
-//      again, the pooling backward and d_ctx. It writes d_ctx (T, HD) in
-//      qkv's dtype, the row's sums of db1, dw2, db2 (N, 2Q + 1), and, for
-//      dw1, the row's f32 ctx (T, HD) and d_z (T, Q) to scratch;
-//   2. the attention backward: row 4's kernels (qkv_bwd.cuh) on the biased
-//      qkv with a zero bias and d_ctx as its g, which recompute the probs
-//      as row 1 computes them: the TPU kernel's arithmetic, in row 4's
-//      regime for (T, D, dtype) -- past T = 201 at D = 20 in bf16 its
-//      tensor-core kernels with the plan `attn_plan` and the row stats in
+// Design, five launches, the first two in the regime of the launch plan
+// (ops/experimental_fused_encoder.py:tail_launch_plan; the entry points
+// refuse a regime that is not the shape's):
+//   1. the per-row work: the forward again, the pooling backward and d_ctx.
+//      It writes d_ctx (T, HD) in qkv's dtype, the row's sums of db1, dw2,
+//      db2 (N, 2Q + 1), and, for dw1, the row's f32 ctx (T, HD) and d_z
+//      (T, Q) to scratch. Resident (T <= 64, heads of up to 64):
+//      fused_tail.cuh's tail_resident_bwd_kernel, row 13's resident code,
+//      with d_z w1^T on tensor cores in bf16. Past it one block of 8 warps
+//      per row (fused_tail.cuh's per-row phases; a row too long for shared
+//      memory keeps ctx and d_z in their scratch below and q/k/v in its
+//      block slot's part of `stage`, and past T = 5771 its row buffers
+//      there too, `slots` blocks walking the rows);
+//   2. the attention backward on the biased qkv with d_ctx as its g, the
+//      probs recomputed as rows 1 and 15 compute them: resident, in bf16
+//      row 16's resident kernel (blanes_resident.cuh) under row 16's plan,
+//      in f32 row 4's (per_row_and_attention says why); past it row 4's
+//      kernels (qkv_bwd.cuh) with a zero bias, in row 4's regime for
+//      (T, D, dtype) -- past T = 201 at D = 20 in bf16 its tensor-core
+//      kernels with the plan `attn_plan` and the row stats in
 //      `attn_stats`; in f32 past T = 599 its tiled kernel with its whole
-//      working set in `attn_stage`, `attn_slots` blocks walking the
-//      items;
+//      working set in `attn_stage`, `attn_slots` blocks walking the items;
 //   3. dw1 = ctx^T d_z over all N*T positions as a tiled product: blocks
-//      of 64 x 128 outputs (8 x 4 per thread) times a split of the
-//      positions, staged 32 positions at a time in shared memory; each
-//      block writes its partial;
+//      of 40 x 200 outputs (8 x 8 per thread) times a split of the
+//      positions (whole multiples of 32; as many splits as put about four
+//      blocks of 64 x 128 outputs on an SM, which fixes the order of the
+//      sums), staged 16 positions at a time in two shared buffers, the
+//      next copied in while the current is summed; each block writes its
+//      partial;
 //   4. the partials of dw1 added in split order;
 //   5. the row sums of db1, dw2, db2 added per column, each thread over a
 //      fixed set of rows and then a fixed tree.
@@ -73,9 +81,11 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 // the dw1 product: outputs per block (kDw1C x kDw1Q), positions staged
 // per step
-constexpr int kDw1C = 64;
-constexpr int kDw1Q = 128;
-constexpr int kDw1Rows = 32;
+constexpr int kDw1C = 40;
+constexpr int kDw1Q = 200;
+constexpr int kDw1Threads = 128;  // 125 of them own outputs
+constexpr int kDw1Rows = 32;   // the splits are whole multiples of these
+constexpr int kDw1Stage = 16;  // positions staged at a time
 
 // kGlobal: ctx and d_z in their scratch rows, q/k/v in this block's slot
 // of stage; kSmallGlobal (past the small buffers' limit): the row buffers,
@@ -203,59 +213,96 @@ fused_tail_bwd_kernel(const T* __restrict__ qkv,
 
 // part[split] (HD, Q) = sum over this split's positions r of
 // ctx[r, c] * dz[r, q], positions in order, for the block's kDw1C x kDw1Q
-// outputs; thread (cg, lane) owns c = c0 + 8*cg .. +7, q = q0 + lane + 32j.
-__global__ void __launch_bounds__(kThreads)
+// outputs (at the NRMS width HD = 400 and Q = 200 a whole number of
+// tiles): thread (tc, tq), tq < 25, owns c = c0 + 8tc .. +7 and q = q0 +
+// 4tq .. +3 and q0 + 100 + 4tq .. +3, read from the staged rows as
+// 16-byte vectors (a quarter warp's eight vectors of q on 32 banks). The
+// positions come in steps of kDw1Stage, the next step's rows copied in by
+// cp.async (16 bytes where HD and Q allow) while the current one is
+// summed; rows past the split and columns past HD or Q are zeros.
+__global__ void __launch_bounds__(kDw1Threads)
 fused_tail_dw1_kernel(const float* __restrict__ ctxs,
                       const float* __restrict__ dzs, float* __restrict__ part,
                       int64_t n_pos, int hd, int q_dim, int64_t per_split) {
-  __shared__ float as[kDw1Rows][kDw1C];
-  __shared__ float bs[kDw1Rows][kDw1Q];
+  __shared__ __align__(16) float as[2][kDw1Stage][kDw1C];
+  __shared__ __align__(16) float bs[2][kDw1Stage][kDw1Q];
   const int c0 = blockIdx.x * kDw1C;
   const int q0 = blockIdx.y * kDw1Q;
   const int64_t r0 = blockIdx.z * per_split;
   const int64_t r1 = min(n_pos, r0 + per_split);
-  const int cg = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float acc[8][4];
+  const int tc = threadIdx.x / 25;
+  const int tq = threadIdx.x % 25;
+  const bool mine = threadIdx.x < 125;
+  const bool vec = hd % 4 == 0 && q_dim % 4 == 0;
+  // rows [rb, rb + kDw1Stage) of x (w floats a row) from column col0, W
+  // of them, into dst (W floats a row)
+  auto stage_rows = [&](float* dst, const float* x, int w, int col0, int W,
+                        int64_t rb) {
+    if (vec) {
+      for (int idx = threadIdx.x; idx < kDw1Stage * W / 4;
+           idx += kDw1Threads) {
+        const int r = idx / (W / 4);
+        const int c = (idx - r * (W / 4)) * 4;
+        float* d = dst + r * W + c;
+        if (rb + r < r1 && col0 + c < w)
+          cp_async<16>(d, x + (rb + r) * w + col0 + c);
+        else
+          *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < kDw1Stage * W; idx += kDw1Threads) {
+        const int r = idx / W;
+        const int c = idx - r * W;
+        dst[idx] = rb + r < r1 && col0 + c < w ? x[(rb + r) * w + col0 + c]
+                                               : 0.f;
+      }
+    }
+  };
+  auto stage = [&](int b, int64_t rb) {
+    stage_rows(&as[b][0][0], ctxs, hd, c0, kDw1C, rb);
+    stage_rows(&bs[b][0][0], dzs, q_dim, q0, kDw1Q, rb);
+    cp_commit();
+  };
+  float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int64_t rb = r0; rb < r1; rb += kDw1Rows) {
-    __syncthreads();  // the previous step's readers are done
-    for (int idx = threadIdx.x; idx < kDw1Rows * kDw1C; idx += kThreads) {
-      const int r = idx / kDw1C;
-      const int c = idx - r * kDw1C;
-      as[r][c] = (rb + r < r1 && c0 + c < hd)
-                     ? ctxs[(rb + r) * hd + c0 + c] : 0.f;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  int b = 0;
+  if (r0 < r1) stage(0, r0);
+  for (int64_t rb = r0; rb < r1; rb += kDw1Stage) {
+    if (rb + kDw1Stage < r1) {
+      stage(b ^ 1, rb + kDw1Stage);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
-    for (int idx = threadIdx.x; idx < kDw1Rows * kDw1Q; idx += kThreads) {
-      const int r = idx / kDw1Q;
-      const int q = idx - r * kDw1Q;
-      bs[r][q] = (rb + r < r1 && q0 + q < q_dim)
-                     ? dzs[(rb + r) * q_dim + q0 + q] : 0.f;
-    }
-    __syncthreads();
+    __syncthreads();  // this step's rows are in
+    if (mine) {
 #pragma unroll 4
-    for (int r = 0; r < kDw1Rows; ++r) {
-      float x[8], y[4];
+      for (int r = 0; r < kDw1Stage; ++r) {
+        float x[8], y[8];
+        bl::load_chunk(&as[b][r][8 * tc], x);
+        bl::load_chunk(&as[b][r][8 * tc + 4], x + 4);
+        bl::load_chunk(&bs[b][r][4 * tq], y);
+        bl::load_chunk(&bs[b][r][100 + 4 * tq], y + 4);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) x[i] = as[r][cg * 8 + i];
+        for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) y[j] = bs[r][lane + 32 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
+      }
     }
+    __syncthreads();  // its buffer is free for the step after next
+    b ^= 1;
   }
+  if (!mine) return;
   float* out = part + (int64_t)blockIdx.z * hd * q_dim;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + cg * 8 + i;
-      const int q = q0 + lane + 32 * j;
+    for (int j = 0; j < 8; ++j) {
+      const int c = c0 + 8 * tc + i;
+      const int q = q0 + 4 * tq + j % 4 + 100 * (j / 4);
       if (c < hd && q < q_dim) out[(int64_t)c * q_dim + q] = acc[i][j];
     }
 }
@@ -310,18 +357,99 @@ size_t row_smem_bytes(int t_len, int n_heads, int d_head, int q_dim) {
               : small + tail_big_floats(t_len, n_heads, d_head, q_dim));
 }
 
+// Row 14's first kernel at T <= 64 under the resident plan.
 template <typename T>
-int launch(const void* qkv, const void* mask, const void* w1, const void* w1t,
-           const void* b1, const void* w2, const void* b2, const void* seed,
-           const void* g, const void* zero_bias, void* dqkv, void* dctx,
-           void* ctxs, void* dzs, void* rowpart, void* part, void* dw1,
-           void* db1, void* dw2, void* db2, void* stage, void* attn_stage,
-           void* attn_stats, int n, int t_len, int n_heads, int d_head,
-           int q_dim, int n_splits, int slots, int attn_slots,
-           const int* attn_plan, int use_dropout, unsigned thr, float scale,
-           void* stream) {
-  if (n <= 0 || n_splits <= 0) return (int)cudaErrorInvalidValue;
-  const bool global = tail_bwd_global(t_len, n_heads, d_head, q_dim, kWarps);
+struct ResidentBwd {
+  const T *qkv, *w1, *w1t, *w2, *g;
+  const float *mask, *b1, *b2;
+  const int* seed;
+  T* dctx;
+  float *ctxs, *dzs, *rowpart;
+  bl::Params p;
+  TailRes r;
+  unsigned blocks;
+  int use_dropout;
+  uint32_t thr;
+  float scale;
+  cudaStream_t stream;
+
+  template <int DM>
+  int operator()() const {
+    auto* kernel = tail_resident_bwd_kernel<T, DM>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)r.bytes);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<blocks, bl::kThreads, r.bytes, stream>>>(
+        qkv, mask, w1, w1t, b1, w2, b2, seed, g, dctx, ctxs, dzs, rowpart, p,
+        r, use_dropout, thr, scale);
+    return (int)cudaGetLastError();
+  }
+};
+
+// The first two launches: the per-row work, then the attention backward on
+// d_ctx. Resident (T <= 64): tail_resident_bwd_kernel, then in bf16 row
+// 16's resident kernel on the biased qkv (blanes_resident.cuh) under its
+// plan (a_heads, a_nbuf, a_blocks), in f32 row 4's kernel with a zero bias:
+// row 16 sums each query's r (and den's 1e-8 term) with the product
+// rounded before the add, row 4 in one fma, so past T = 32 (two keys a
+// lane) their f32 dqkv differ in 8-18% of the elements (PERF.md), where
+// bf16's rounding of ds hides all but a few. Past the resident regime:
+// the per-row kernel, then row 4's kernel with a zero bias, in row 4's
+// regime.
+template <typename T>
+int per_row_and_attention(
+    const void* qkv, const void* mask, const void* w1, const void* w1t,
+    const void* b1, const void* w2, const void* b2, const void* seed,
+    const void* g, const void* zero_bias, void* dqkv, void* dctx, void* ctxs,
+    void* dzs, void* rowpart, void* stage, void* attn_stage, void* attn_stats,
+    int n, int t_len, int n_heads, int d_head, int q_dim, int slots,
+    int attn_slots, const int* attn_plan, int regime, int heads, int nbuf,
+    int blocks, int a_heads, int a_nbuf, int a_blocks, int use_dropout,
+    unsigned thr, float scale, void* stream) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  const int esize = (int)sizeof(T);
+  auto* cs = (cudaStream_t)stream;
+  // row 4's kernel on the biased qkv (a zero bias) and d_ctx, the probs
+  // recomputed as the forward computes them
+  auto row4 = [&]() {
+    return qkv_bwd_launch<T, true>(
+        qkv, zero_bias, nullptr, mask, dctx, dqkv, n, t_len, n_heads, d_head,
+        stream,
+        {attn_plan, nullptr, static_cast<float*>(attn_stats),
+         static_cast<float*>(attn_stage), attn_slots, true});
+  };
+  if (regime == kTailResident) {
+    const TailRes r = tail_res(1, t_len, n_heads, d_head, q_dim, esize,
+                               heads, nbuf);
+    if (!tail_res_ok(r, n_heads, heads, nbuf, blocks) ||
+        (!kBf16 && (a_heads || a_nbuf || a_blocks)))
+      return (int)cudaErrorInvalidValue;
+    const bl::Params p = bl::params_of(bl::kFwd, n, t_len, n_heads, d_head,
+                                       esize, heads, t_len, nbuf, qkv, qkv);
+    if (p.items == 0) return (int)cudaErrorInvalidConfiguration;
+    const int err = with_head_width(
+        d_head,
+        ResidentBwd<T>{static_cast<const T*>(qkv), static_cast<const T*>(w1),
+                       static_cast<const T*>(w1t), static_cast<const T*>(w2),
+                       static_cast<const T*>(g),
+                       static_cast<const float*>(mask),
+                       static_cast<const float*>(b1),
+                       static_cast<const float*>(b2),
+                       static_cast<const int*>(seed), static_cast<T*>(dctx),
+                       static_cast<float*>(ctxs), static_cast<float*>(dzs),
+                       static_cast<float*>(rowpart), p, r,
+                       (unsigned)(blocks < n ? blocks : n), use_dropout, thr,
+                       scale, cs});
+    if (err != (int)cudaSuccess) return err;
+    if constexpr (kBf16)
+      return bl::bwd_short_launch<T>(qkv, mask, dctx, dqkv, n, t_len,
+                                     n_heads, d_head, a_heads, a_nbuf,
+                                     a_blocks, stream);
+    return row4();
+  }
+  if (heads || nbuf || blocks || a_heads || a_nbuf || a_blocks)
+    return (int)cudaErrorInvalidValue;
+  const bool global = regime == kTailGlobal;
   if (global && (stage == nullptr || slots <= 0))
     return (int)cudaErrorInvalidValue;
   const int row_grid = global && slots < n ? slots : n;
@@ -334,29 +462,42 @@ int launch(const void* qkv, const void* mask, const void* w1, const void* w1t,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const float inv = (float)(1.0 / sqrt((double)d_head));
-  auto* cs = (cudaStream_t)stream;
-  auto* f_ctxs = static_cast<float*>(ctxs);
-  auto* f_dzs = static_cast<float*>(dzs);
-  auto* f_rowpart = static_cast<float*>(rowpart);
   kernel<<<(unsigned)row_grid, kThreads, smem, cs>>>(
       static_cast<const T*>(qkv), static_cast<const float*>(mask),
       static_cast<const T*>(w1), static_cast<const T*>(w1t),
       static_cast<const float*>(b1), static_cast<const T*>(w2),
       static_cast<const float*>(b2), static_cast<const int*>(seed),
-      static_cast<const T*>(g), static_cast<T*>(dctx), f_ctxs, f_dzs,
-      f_rowpart, static_cast<float*>(stage), n, n_heads, t_len, d_head,
-      q_dim, inv, use_dropout, thr, scale);
+      static_cast<const T*>(g), static_cast<T*>(dctx),
+      static_cast<float*>(ctxs), static_cast<float*>(dzs),
+      static_cast<float*>(rowpart), static_cast<float*>(stage), n, n_heads,
+      t_len, d_head, q_dim, inv, use_dropout, thr, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  // the attention backward: row 4's kernel on the biased qkv (a zero bias)
-  // and d_ctx, the probs recomputed as the forward computes them
-  const int row4 = qkv_bwd_launch<T, true>(
-      qkv, zero_bias, nullptr, mask, dctx, dqkv, n, t_len, n_heads, d_head,
-      stream,
-      {attn_plan, nullptr, static_cast<float*>(attn_stats),
-       static_cast<float*>(attn_stage), attn_slots, true});
-  if (row4 != (int)cudaSuccess) return row4;
+  return row4();
+}
 
+template <typename T>
+int launch(const void* qkv, const void* mask, const void* w1, const void* w1t,
+           const void* b1, const void* w2, const void* b2, const void* seed,
+           const void* g, const void* zero_bias, void* dqkv, void* dctx,
+           void* ctxs, void* dzs, void* rowpart, void* part, void* dw1,
+           void* db1, void* dw2, void* db2, void* stage, void* attn_stage,
+           void* attn_stats, int n, int t_len, int n_heads, int d_head,
+           int q_dim, int n_splits, int slots, int attn_slots,
+           const int* attn_plan, int regime, int heads, int nbuf, int blocks,
+           int a_heads, int a_nbuf, int a_blocks, int use_dropout,
+           unsigned thr, float scale, void* stream) {
+  if (n <= 0 || n_splits <= 0 ||
+      regime != tail_regime(1, t_len, n_heads, d_head, q_dim, (int)sizeof(T)))
+    return (int)cudaErrorInvalidValue;
+  const int first = per_row_and_attention<T>(
+      qkv, mask, w1, w1t, b1, w2, b2, seed, g, zero_bias, dqkv, dctx, ctxs,
+      dzs, rowpart, stage, attn_stage, attn_stats, n, t_len, n_heads, d_head,
+      q_dim, slots, attn_slots, attn_plan, regime, heads, nbuf, blocks,
+      a_heads, a_nbuf, a_blocks, use_dropout, thr, scale, stream);
+  if (first != (int)cudaSuccess) return first;
+
+  auto* cs = (cudaStream_t)stream;
   const int hd = n_heads * d_head;
   const int64_t n_pos = (int64_t)n * t_len;
   // positions per split, a whole number of staging steps
@@ -364,9 +505,10 @@ int launch(const void* qkv, const void* mask, const void* w1, const void* w1t,
   per_split = (per_split + kDw1Rows - 1) / kDw1Rows * kDw1Rows;
   const dim3 grid((hd + kDw1C - 1) / kDw1C, (q_dim + kDw1Q - 1) / kDw1Q,
                   n_splits);
-  fused_tail_dw1_kernel<<<grid, kThreads, 0, cs>>>(
-      f_ctxs, f_dzs, static_cast<float*>(part), n_pos, hd, q_dim, per_split);
-  err = cudaGetLastError();
+  fused_tail_dw1_kernel<<<grid, kDw1Threads, 0, cs>>>(
+      static_cast<const float*>(ctxs), static_cast<const float*>(dzs),
+      static_cast<float*>(part), n_pos, hd, q_dim, per_split);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int len = hd * q_dim;
   fused_tail_sum_splits_kernel<<<(len + kThreads - 1) / kThreads, kThreads, 0,
@@ -376,7 +518,7 @@ int launch(const void* qkv, const void* mask, const void* w1, const void* w1t,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   fused_tail_sum_rows_kernel<<<2 * q_dim + 1, kThreads, 0, cs>>>(
-      f_rowpart, n, q_dim, static_cast<float*>(db1),
+      static_cast<const float*>(rowpart), n, q_dim, static_cast<float*>(db1),
       static_cast<float*>(dw2), static_cast<float*>(db2));
   return (int)cudaGetLastError();
 }
@@ -385,16 +527,25 @@ int launch(const void* qkv, const void* mask, const void* w1, const void* w1t,
 
 extern "C" {
 
-// w1t: w1 transposed, (Q, HD) contiguous; zero_bias: 3HD zeros in qkv's
-// dtype. Scratch: dctx (N, T, HD) in qkv's dtype, ctxs (N, T, HD) f32,
-// dzs (N, T, Q) f32, rowpart (N, 2Q + 1) f32, part (n_splits, HD, Q) f32;
-// stage (`slots` slots of fused_tail_bwd_stage_floats) and attn_stage
-// (`attn_slots` slots of fused_tail_bwd_attn_stage_floats), read only when
-// those are not 0; attn_stats (3, N*H, T) f32 and the tensor-core plan of
-// row 4's two sides (q_tile, q_chunk, q_nbuf, k_tile, k_chunk, k_nbuf),
-// read only in that regime. mask may be null (the unmasked variant).
+// w1t: w1 transposed, (Q, HD) contiguous. Scratch: dctx (N, T, HD) in
+// qkv's dtype, ctxs (N, T, HD) f32, dzs (N, T, Q) f32, rowpart (N, 2Q + 1)
+// f32, part (n_splits, HD, Q) f32. regime: the shape's
+// (fused_tail_bwd_regime: 0 resident, 1 the per-row kernel in shared
+// memory, 2 with its working set in global memory). Resident: the plan
+// (heads, nbuf, blocks) of ops/experimental_fused_encoder.py:
+// tail_launch_plan; in bf16 row 16's (a_heads, a_nbuf, a_blocks), and
+// zero_bias, stage, attn_stage, attn_stats and row 4's plan are not read;
+// in f32 row 16's plan is zeros and row 4 takes zero_bias (3HD zeros in
+// qkv's dtype) in its resident regime. Past it the resident plans are
+// zeros; row 4 takes zero_bias; stage
+// (`slots` slots of fused_tail_bwd_stage_floats) and attn_stage
+// (`attn_slots` slots of fused_tail_bwd_attn_stage_floats) are read only
+// when those are not 0; attn_stats (3, N*H, T) f32 and the tensor-core plan
+// of row 4's two sides (q_tile, q_chunk, q_nbuf, k_tile, k_chunk, k_nbuf)
+// only in that regime of row 4. mask may be null (the unmasked variant).
 // Launches the kernels on the stream; returns cudaGetLastError() after
-// them: 0 when all were queued.
+// them: 0 when all were queued; cudaErrorInvalidValue for a regime that is
+// not the shape's or a plan its kernels do not take.
 #define NRK_TAIL_BWD(SUFFIX, T)                                              \
   int fused_tail_bwd_##SUFFIX(                                               \
       const void* qkv, const void* mask, const void* w1, const void* w1t,    \
@@ -405,17 +556,34 @@ extern "C" {
       void* attn_stats, int n, int t_len, int n_heads, int d_head,           \
       int q_dim, int n_splits, int slots, int attn_slots, int q_tile,        \
       int q_chunk, int q_nbuf, int k_tile, int k_chunk, int k_nbuf,          \
-      int use_dropout, unsigned thr, float scale, void* stream) {            \
+      int regime, int heads, int nbuf, int blocks, int a_heads, int a_nbuf,  \
+      int a_blocks, int use_dropout, unsigned thr, float scale,              \
+      void* stream) {                                                        \
     const int plan[6] = {q_tile, q_chunk, q_nbuf, k_tile, k_chunk, k_nbuf};  \
     return launch<T>(qkv, mask, w1, w1t, b1, w2, b2, seed, g, zero_bias,     \
                      dqkv, dctx, ctxs, dzs, rowpart, part, dw1, db1, dw2,    \
                      db2, stage, attn_stage, attn_stats, n, t_len, n_heads,  \
                      d_head, q_dim, n_splits, slots, attn_slots, plan,       \
+                     regime, heads, nbuf, blocks, a_heads, a_nbuf, a_blocks, \
                      use_dropout, thr, scale, stream);                       \
   }
 NRK_TAIL_BWD(f32, float)
 NRK_TAIL_BWD(bf16, __nv_bfloat16)
 #undef NRK_TAIL_BWD
+
+// The backward's regime at (T, H, D, Q) in a dtype of esize bytes, and the
+// shared bytes of its resident per-row block under (heads, nbuf): what
+// tail_launch_plan computes in Python.
+int fused_tail_bwd_regime(int t_len, int n_heads, int d_head, int q_dim,
+                          int esize) {
+  return tail_regime(1, t_len, n_heads, d_head, q_dim, esize);
+}
+
+int fused_tail_bwd_smem_bytes(int t_len, int n_heads, int d_head, int q_dim,
+                              int esize, int heads, int nbuf) {
+  return (int)tail_res(1, t_len, n_heads, d_head, q_dim, esize, heads, nbuf)
+      .bytes;
+}
 
 // Floats of one slot of `stage`: 0 when the row fits in shared memory.
 int fused_tail_bwd_stage_floats(int t_len, int n_heads, int d_head,

@@ -15,12 +15,15 @@ each element's global index and a seed read from a device tensor
 (``keep_mask``), so the backward draws the same mask and the JAX package's
 mask bit for bit. The backward writes the f32 context and d_z once to
 scratch for its dw1 product over all positions (``csrc/fused_tail_bwd.cu``).
-A row too long for a block's shared memory (at the NRMS width, T > 86 in
-the forward and T > 85 in the backward) keeps its working set in a global
-scratch of one slot per block, which the wrappers allocate
-(``csrc/fused_tail.cuh``), and past T = 6456 (5771 in the backward) its
-row buffers too: the tail takes any history length, as the JAX package's
-does.
+Three regimes (``tail_launch_plan``): at T <= 64 with heads of up to 64
+"resident", items of batch rows on row 15's resident attention, the bf16
+pooling products on tensor cores and row 16's resident kernel for the
+attention backward; past it the per-row kernels, "shared" while a row fits
+a block's shared memory (at the NRMS width T <= 86 in the forward, 85 in
+the backward), then "global", the working set in a global scratch of one
+slot per block, which the wrappers allocate (``csrc/fused_tail.cuh``), and
+past T = 6456 (5771 in the backward) its row buffers too: the tail takes
+any history length, as the JAX package's does.
 
 The rounding points are the TPU kernels': qkv arrives biased in the input
 dtype; per-head contexts are concatenated in f32, unrounded; dropout
@@ -31,10 +34,12 @@ key mask with the 1e-8 * exp(-max) term and weighs the f32 context; the
 output is rounded to qkv's dtype. The backward takes g in qkv's dtype,
 contracts dw1 from the f32 context, rounds d_z to w1's dtype for the
 d_z w1^T product, multiplies d_ctx by the keep mask and rounds it to qkv's
-dtype, then runs row 4's backward with the probs recomputed. One
-departure: db2, the sum of d_a, is r (1 - sum(alpha)) per row, 0 but for
-the normalisation's 1e-8 term; the TPU kernel's f32 sum of d_a leaves
-rounding noise in it, where the port takes the exact expression.
+dtype, then runs the attention backward with the probs recomputed (row
+16's resident kernel, or row 4's). In bf16 the resident regime's fc1 and
+d_z w1^T sum in the tensor core's order. One departure: db2, the sum of
+d_a, is r (1 - sum(alpha)) per row, 0 but for the normalisation's 1e-8
+term; the TPU kernel's f32 sum of d_a leaves rounding noise in it, where
+the port takes the exact expression.
 
 ``exp_mhsa_pool`` and ``exp_mhsa_pool_masked`` are the autograd entry
 points, with the JAX package's signatures (less ``block_rows``). A CPU
@@ -44,10 +49,14 @@ raises. Builds and launch counts: ``ops/kernels.py``.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 from torch.autograd.function import once_differentiable
 
 from newsrecommendation_tpu_torch.ops import blockwise
+from newsrecommendation_tpu_torch.ops import experimental_blanes as bl
 from newsrecommendation_tpu_torch.ops import fused_attention as fa
 from newsrecommendation_tpu_torch.ops import kernels
 from newsrecommendation_tpu_torch.ops.attention import masked_exp_normalize
@@ -225,6 +234,124 @@ def _check_launch(qkv, key_mask, w1, b1, w2, b2, seed, *more):
         raise TypeError(f"key_mask must be float32, got {key_mask.dtype}")
 
 
+# ---- the launch plan ------------------------------------------------------
+
+TAIL_REGIMES = ("resident", "shared", "global")
+# Blocks an SM holds of the resident kernels by itemsize: their registers
+# allow three in bf16 and two in f32 at heads of up to 24 lanes
+# (csrc/fused_tail.cuh tail_blocks), so a plan gains nothing from shared
+# memory for more.
+RESIDENT_BLOCKS = {2: 3, 4: 2}
+_WARPS = 8  # warps of a per-row block (csrc/fused_tail.cuh)
+_SMEM_FLOATS = kernels.MAX_SMEM // 4
+
+
+class TailPlan(NamedTuple):
+    """The regime of row 13 or 14 (``TAIL_REGIMES``) and, resident, its
+    launch: an item of one batch row walked as sub-items of ``heads``
+    heads, ``nbuf`` stage buffers, ``blocks`` blocks of ``smem`` bytes; in
+    the bf16 backward also row 16's plan (``attn``) for the attention
+    part."""
+    regime: str
+    heads: int = 0
+    nbuf: int = 0
+    blocks: int = 0
+    smem: int = 0
+    attn: bl.Plan | None = None
+
+    def args(self) -> tuple:
+        """The regime's code and the resident plan, as the C entry points
+        take them (zeros past the resident regime)."""
+        return (TAIL_REGIMES.index(self.regime), self.heads, self.nbuf,
+                self.blocks)
+
+    def attn_args(self) -> tuple:
+        """Row 16's (heads, nbuf, blocks), zeros where row 4 takes the
+        attention backward."""
+        a = self.attn
+        return (0, 0, 0) if a is None else (a.heads, a.nbuf, a.blocks)
+
+
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def resident_smem(kind: str, t: int, n_heads: int, d: int, q: int,
+                  itemsize: int, heads: int, nbuf: int) -> int:
+    """Shared bytes of a resident block (csrc/fused_tail.cuh ``tail_res``):
+    ``nbuf`` of row 15's stage buffers; row 15's f32 arrays sharing their
+    bytes with e (T rows of ``tail_es(Q)``, in the input dtype in the
+    forward, f32 in the backward); the f32 ctx (T rows of
+    ``tail_cs(HD)``); alpha, and in the backward d_alpha, g and 1 -
+    sum(alpha)."""
+    f32_arrays = bl.smem_bytes("fwd", t, d, itemsize, heads, t, 0)
+    stage = bl.smem_bytes("fwd", t, d, itemsize, heads, t, 1) - f32_arrays
+    hd = n_heads * d
+    cs = -(-hd // 32) * 32 + 16
+    es = -(-q // 32) * 32 + 16
+    e_bytes = t * es * (4 if kind == "bwd" else itemsize)
+    small = t if kind == "fwd" else 2 * t + hd + 1
+    return (nbuf * stage + _round16(max(f32_arrays, e_bytes))
+            + t * cs * 4 + _round16(4 * small))
+
+
+def _per_row_global(kind: str, t: int, n_heads: int, d: int, q: int) -> bool:
+    """Whether the per-row kernel keeps its working set in global memory
+    (csrc/fused_tail.cuh ``tail_fwd_global``, ``tail_bwd_global``)."""
+    big = t * n_heads * d + t * q + 3 * t * (d | 1)
+    small = ((_WARPS + 1) * t if kind == "fwd"
+             else (_WARPS + 2) * t + n_heads * d + 1)
+    return big + small > _SMEM_FLOATS
+
+
+def tail_regime(kind: str, t: int, n_heads: int, d: int, q: int,
+                itemsize: int) -> str:
+    """"resident" at T <= 64 with heads of up to 64 where one row, one head
+    and one buffer fit a block; else the per-row kernel, "shared" while its
+    row fits a block's shared memory (T <= 86 in the forward, 85 in the
+    backward at 20 heads of 20, Q = 200), then "global"."""
+    if (t <= bl.SHORT_T and d <= bl.MAX_HEAD and resident_smem(
+            kind, t, n_heads, d, q, itemsize, 1, 1) <= kernels.MAX_SMEM):
+        return "resident"
+    return "global" if _per_row_global(kind, t, n_heads, d, q) else "shared"
+
+
+@functools.lru_cache(maxsize=256)
+def tail_launch_plan(kind: str, n: int, t: int, n_heads: int, d: int, q: int,
+                     dtype, sms: int = 132) -> TailPlan:
+    """The regime and launch of row 13 (``kind`` "fwd") or row 14 ("bwd")
+    at (N, T, H, D, Q) in ``dtype``. Resident: items of one batch row; the
+    first of four heads a sub-item (then two, one) and two stage buffers
+    (then one) that puts on an SM as many blocks as the rows fill, up to
+    the most that fit (at most RESIDENT_BLOCKS); the grid the rows, at
+    most as many blocks as the SMs hold. The bf16 backward adds row 16's
+    plan (``experimental_blanes.launch_plan``); the f32 one takes row 4's
+    kernel. A function of the shapes and the card alone."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dtype {dtype} not supported (float32, bfloat16)")
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    regime = tail_regime(kind, t, n_heads, d, q, itemsize)
+    if regime != "resident":
+        return TailPlan(regime)
+    fits = []
+    for heads in dict.fromkeys(min(n_heads, g) for g in (4, 2, 1)):
+        for nbuf in (2, 1):
+            smem = resident_smem(kind, t, n_heads, d, q, itemsize, heads,
+                                 nbuf)
+            if smem <= kernels.MAX_SMEM:
+                fits.append((min(RESIDENT_BLOCKS[itemsize],
+                                 bl.SM_SMEM // (smem + 1024)),
+                             heads, nbuf, smem))
+    need = min(max(f[0] for f in fits), -(-n // sms))
+    per_sm, heads, nbuf, smem = next(f for f in fits if f[0] >= need)
+    attn = (bl.launch_plan("bwd", n, t, n_heads, d, itemsize, sms)
+            if kind == "bwd" and itemsize == 2 else None)
+    return TailPlan(regime, heads, nbuf, min(n, sms * per_sm), smem, attn)
+
+
+# ---- the kernels ----------------------------------------------------------
+
+
 def fused_tail_fwd(qkv, key_mask, w1, b1, w2, b2, seed, n_heads: int,
                    drop_rate: float, deterministic: bool):
     """Kernel row 13 on CUDA tensors, with the plain version's contract;
@@ -232,17 +359,25 @@ def fused_tail_fwd(qkv, key_mask, w1, b1, w2, b2, seed, n_heads: int,
     other devices."""
     n, t, d, q = _check(qkv, key_mask, w1, b1, w2, b2, seed, n_heads)
     _check_launch(qkv, key_mask, w1, b1, w2, b2, seed)
+    plan = tail_launch_plan("fwd", n, t, n_heads, d, q, qkv.dtype,
+                            blockwise._sms(qkv.device))
     out = torch.empty((n, n_heads * d), dtype=qkv.dtype, device=qkv.device)
-    scratch, slots = kernels.scratch("fused_tail_fwd",
-                                     "fused_tail_fwd_scratch_floats", n,
-                                     qkv.device, t, n_heads, d, q)
+    # (Q, HD): the tensor cores' fc1 reads w1's columns as B fragments
+    w1t = (w1.t().contiguous() if plan.regime == "resident"
+           and qkv.dtype == torch.bfloat16 else None)
+    scratch, slots = None, 0
+    if plan.regime == "global":
+        scratch, slots = kernels.scratch("fused_tail_fwd",
+                                         "fused_tail_fwd_scratch_floats", n,
+                                         qkv.device, t, n_heads, d, q)
     kernels.call("tail" if key_mask is None else "tail_masked",
                  kernels.entry("fused_tail_fwd", "fused_tail_fwd",
                                qkv.dtype),
-                 qkv.device, *map(kernels.ptr, (qkv, key_mask, w1, b1, w2,
-                                                b2, seed, out, scratch)),
-                 n, t, n_heads, d, q, slots,
-                 *_dropout_args(drop_rate, deterministic))
+                 qkv.device, *map(kernels.ptr, (qkv, key_mask, w1, w1t, b1,
+                                                w2, b2, seed, out, scratch)),
+                 n, t, n_heads, d, q, *plan.args(), slots,
+                 *_dropout_args(drop_rate, deterministic),
+                 regime=plan.regime)
     return out
 
 
@@ -269,6 +404,8 @@ def fused_tail_bwd(qkv, key_mask, w1, b1, w2, b2, seed, g, n_heads: int,
     _check_launch(qkv, key_mask, w1, b1, w2, b2, seed, g)
     dev = qkv.device
     splits = _n_splits(n * t, hd, q, dev)
+    plan = tail_launch_plan("bwd", n, t, n_heads, d, q, qkv.dtype,
+                            blockwise._sms(dev))
     f32 = dict(dtype=torch.float32, device=dev)
     scratch = (torch.empty((n, t, hd), dtype=qkv.dtype, device=dev),
                torch.empty((n, t, hd), **f32), torch.empty((n, t, q), **f32),
@@ -277,20 +414,25 @@ def fused_tail_bwd(qkv, key_mask, w1, b1, w2, b2, seed, g, n_heads: int,
     dqkv = torch.empty_like(qkv)
     dw1, db1 = torch.empty((hd, q), **f32), torch.empty((1, q), **f32)
     dw2, db2 = torch.empty((q, 1), **f32), torch.empty((1, 1), **f32)
-    w1t = w1.t().contiguous()  # (Q, HD): the d_z w1^T product reads rows
-    zero_bias = qkv.new_zeros(3 * hd)  # row 4's kernel adds a bias
-    # long rows: q, k, v of the per-row kernel and row 4's operands staged
-    # in global memory, one slot per block
-    stage, slots = kernels.scratch("fused_tail_bwd",
-                                   "fused_tail_bwd_stage_floats", n, dev, t,
-                                   n_heads, d, q)
-    # row 4's part in its regime: the plan and row stats on tensor cores,
-    # or its tiled kernel's global slots
-    plan = fa.bwd_launch_plan(n, t, n_heads, d, qkv.dtype,
-                              blockwise._sms(dev))
-    _, attn_stats, attn_stage, attn_slots = fa.bwd_work(
-        "fused_tail_bwd", "fused_tail_bwd_attn_stage_floats", plan, qkv, n,
-        t, n_heads, d, biased=True)
+    w1t = w1.t().contiguous()  # (Q, HD): fc1 and d_z w1^T read its rows
+    zero_bias = stage = attn_stage = attn_stats = None
+    slots = attn_slots = 0
+    row4 = (0,) * 6
+    if plan.attn is None:  # row 4's kernel takes the attention backward
+        zero_bias = qkv.new_zeros(3 * hd)  # row 4's kernel adds a bias
+        # long rows: q, k, v of the per-row kernel and row 4's operands
+        # staged in global memory, one slot per block
+        stage, slots = kernels.scratch("fused_tail_bwd",
+                                       "fused_tail_bwd_stage_floats", n, dev,
+                                       t, n_heads, d, q)
+        # row 4's part in its regime: the plan and row stats on tensor
+        # cores, or its tiled kernel's global slots
+        attn = fa.bwd_launch_plan(n, t, n_heads, d, qkv.dtype,
+                                  blockwise._sms(dev))
+        _, attn_stats, attn_stage, attn_slots = fa.bwd_work(
+            "fused_tail_bwd", "fused_tail_bwd_attn_stage_floats", attn, qkv,
+            n, t, n_heads, d, biased=True)
+        row4 = attn.args()
     kernels.call("tail_bwd" if key_mask is None else "tail_bwd_masked",
                  kernels.entry("fused_tail_bwd", "fused_tail_bwd",
                                qkv.dtype),
@@ -298,8 +440,9 @@ def fused_tail_bwd(qkv, key_mask, w1, b1, w2, b2, seed, g, n_heads: int,
                                          seed, g, zero_bias, dqkv, *scratch,
                                          dw1, db1, dw2, db2, stage,
                                          attn_stage, attn_stats)),
-                 n, t, n_heads, d, q, splits, slots, attn_slots,
-                 *plan.args(), *_dropout_args(drop_rate, deterministic),
+                 n, t, n_heads, d, q, splits, slots, attn_slots, *row4,
+                 *plan.args(), *plan.attn_args(),
+                 *_dropout_args(drop_rate, deterministic),
                  regime=plan.regime)
     return dqkv, dw1, db1, dw2, db2
 

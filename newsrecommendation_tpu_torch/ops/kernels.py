@@ -10,9 +10,10 @@ with the same sources reuses the libraries; a failed build raises.
 Each wrapper counts its launches per variant (``KERNELS``), so a run can
 show which kernels its path went through; a wrapper whose launch takes one
 of several regimes (rows 1-2 and 11: resident, tensor-core, tiled or
-row-wise kernels; rows 3-4, 12 and 14: resident, tensor-core or tiled;
+row-wise kernels; rows 3-4 and 12: resident, tensor-core or tiled;
 rows 5 and 7: row-wise, tensor-core or tiled; rows 6 and 8: resident,
-tensor-core or wide) also counts it per regime. A CPU tensor
+tensor-core or wide; rows 13-14: resident, shared or global) also counts
+it per regime. A CPU tensor
 takes a kernel's plain PyTorch version and counts nothing; a CUDA tensor
 launches the kernel or raises; any other device raises ``NoKernelError``.
 """
@@ -47,8 +48,8 @@ _ENTRY_POINTS = {
     "flash_fwd": {"flash_fwd": "p" * 7 + "i" * 9},
     "flash_bwd": {"flash_bwd": "p" * 11 + "i" * 11},
     "qkv2d": {"qkv2d_bwd": "p" * 8 + "i" * 11},
-    "fused_tail_fwd": {"fused_tail_fwd": "p" * 9 + "i" * 7 + "uf"},
-    "fused_tail_bwd": {"fused_tail_bwd": "p" * 23 + "i" * 15 + "uf"},
+    "fused_tail_fwd": {"fused_tail_fwd": "p" * 10 + "i" * 11 + "uf"},
+    "fused_tail_bwd": {"fused_tail_bwd": "p" * 23 + "i" * 22 + "uf"},
     "blanes": {"blanes_fwd": "p" * 3 + "i" * 8,
                "blanes_bwd": "p" * 5 + "i" * 11},
     "mhsa_sep": {"mhsa_sep_fwd": "p" * 6 + "i" * 13,
@@ -70,9 +71,13 @@ _SIZE_FUNCTIONS = {
                 "qkv_bwd_mma_smem_bytes": 5},
     "flash_fwd": {"flash_smem_bytes": 6, "flash_walk_task_count": 3},
     "qkv2d": {"qkv2d_bwd_slot_floats": 3},
-    "fused_tail_fwd": {"fused_tail_fwd_scratch_floats": 4},
+    "fused_tail_fwd": {"fused_tail_fwd_scratch_floats": 4,
+                       "fused_tail_fwd_regime": 5,
+                       "fused_tail_fwd_smem_bytes": 7},
     "fused_tail_bwd": {"fused_tail_bwd_stage_floats": 4,
-                       "fused_tail_bwd_attn_stage_floats": 3},
+                       "fused_tail_bwd_attn_stage_floats": 3,
+                       "fused_tail_bwd_regime": 5,
+                       "fused_tail_bwd_smem_bytes": 7},
     "blanes": {"blanes_smem_bytes": 7},
     "mhsa_sep": {"mhsa_sep_fwd_scratch_floats": 3,
                  "mhsa_sep_bwd_scratch_floats": 3,

@@ -4,7 +4,7 @@ and 15-16 beside them) on one NVIDIA GPU: run it from the root of each
 checkout in turn, in one process per run, on the same card (parent,
 change, change, parent) and compare the lines it prints.
 
-    python3 scripts/qkv_bwd_ab.py LABEL [--limits] [--plans]
+    python3 scripts/qkv_bwd_ab.py LABEL [--limits] [--plans] [--save DIR]
 
 It prints one line, ``AB {json}``, with:
   - rows 3 (qkv_bwd_probs) and 4 (qkv_bwd, unmasked and key-masked) at
@@ -18,13 +18,20 @@ It prints one line, ``AB {json}``, with:
     which row 4 differs from row 3 fed row 2's probs (``row3v4``: equal
     where both paths take one order of sums); row 11 (qkv2d_fwd) at
     (7040, 20) bf16;
-    rows 15-16 (blanes_fwd, blanes_bwd) at BLANES_CASES, hashes and ms;
+    rows 15-16 (blanes_fwd, blanes_bwd) at BLANES_CASES, hashes and ms,
+    and at T <= 64 the count of dqkv elements in which row 16 differs from
+    row 4 on the same biased qkv (``row16v4``);
+  - rows 13 (fused_tail_fwd) and 14 (fused_tail_bwd) at TAIL_CASES: a hash
+    of each output (out; dqkv, dw1, db1, dw2, db2), ms and launches per
+    regime; with --save DIR each case's outputs go to DIR the first time,
+    and a later run with another label counts the elements of each output
+    that differ from them (``tail_vs``);
   - the device ms (chip_smoke.profile_device) of two training steps of
     NRMS at its published width in bf16, batch 128, 1+4 candidates, on a
-    synthetic corpus of 8,192 news: with the fused encoder tail and
-    512-news histories (row 4's part of row 14 at T = 512), and with
-    300-news histories (rows 2-3 at T = 300), with their launches of rows
-    2-4 and 14.
+    synthetic corpus of 8,192 news: with the fused encoder tail at the
+    headline step's 50-news histories and at 512 (row 4's part of row 14
+    at T = 512), and with 300-news histories (rows 2-3 at T = 300), with
+    their launches of rows 2-4 and 13-14.
 With --limits (a checkout that takes those shapes) it also times, kernel
 and plain version, the paths past the old limits: rows 1 and 4 at 8 heads
 of 50 and T = 400 (f32: row 1's and row 4's working sets in global
@@ -69,6 +76,19 @@ FWD_CASES = (("float32", 1024, 20, (False,)),
 BLANES_CASES = (("bfloat16", 7040, 20), ("float32", 7040, 20),
                 ("bfloat16", 128, 50), ("float32", 128, 50),
                 ("float32", 128, 64), ("bfloat16", 64, 511))
+
+
+# Rows 13-14: (dtype, N, T, masked, dropout) at 20 heads of 20, Q = 200 --
+# the headline step's news and user encoders, the corpus encoder's chunk
+# and the served user encoder (f32, dropout off), and the user encoder over
+# 512-news histories.
+TAIL_CASES = (("bfloat16", 7040, 20, False, True),
+              ("bfloat16", 128, 50, False, True),
+              ("bfloat16", 128, 50, True, True),
+              ("float32", 1024, 20, False, False),
+              ("float32", 64, 50, False, False),
+              ("float32", 64, 50, True, False),
+              ("bfloat16", 128, 512, True, True))
 
 
 def _hash(x):
@@ -158,6 +178,67 @@ def _rows_1_2(cs, out):
 
             for row, fn in (("row15", row15), ("row16", row16)):
                 out[f"{row} {name}"] = [_hash(fn()), cs.time_ms(fn, 10)]
+            if t <= 64:
+                with torch.inference_mode():
+                    d16 = row16()
+                    d4 = fa.qkv_bwd(qkv, qkv.new_zeros(1200), mask, g, 20)
+                    out[f"row16v4 {name}"] = [int((d16 != d4).sum()),
+                                              d16.numel()]
+                del d16, d4
+
+
+def _tail(cs, out, label, save):
+    """Rows 13-14 at TAIL_CASES: hashes, ms, launches per regime; with
+    ``save`` the outputs saved, or counted against another label's."""
+    import torch
+
+    from newsrecommendation_tpu_torch.ops import (
+        experimental_fused_encoder as fe,
+    )
+    from newsrecommendation_tpu_torch.ops import kernels
+
+    names = ("out", "dqkv", "dw1", "db1", "dw2", "db2")
+    for dtype, n, t, masked, dropout in TAIL_CASES:
+        qkv, mask, pool, g = cs.tail_inputs(n, t, 20, 20, 200, dtype, masked,
+                                            3)
+        sd = torch.tensor([4242], dtype=torch.int32, device="cuda")
+        args = (qkv, mask, *pool, sd, 20, 0.2, not dropout)
+        name = f"{dtype} {n}x{t}{'m' if masked else ''}"
+
+        def row13():
+            return fe.fused_tail_fwd(*args)
+
+        def row14():
+            return fe.fused_tail_bwd(*args[:7], g, *args[7:])
+
+        kernels.reset_launch_counts()
+        with torch.inference_mode():
+            got = dict(zip(names, (row13(), *row14())))
+        regimes = {k: (kernels.regime_counts(k)
+                       if hasattr(kernels, "regime_counts") else {})
+                   for k in ("fused_tail_fwd", "fused_tail_bwd")}
+        iters = 3 if t > 100 else 10
+        out[f"row13 {name}"] = [_hash(got["out"]), cs.time_ms(row13, iters),
+                                regimes["fused_tail_fwd"]]
+        out[f"row14 {name}"] = [[_hash(got[k]) for k in names[1:]],
+                                cs.time_ms(row14, iters),
+                                regimes["fused_tail_bwd"]]
+        if save:
+            path = os.path.join(save, f"tail {name}.pt")
+            if not os.path.exists(path):
+                torch.save({"label": label,
+                            "outputs": {k: v.cpu() for k, v in got.items()}},
+                           path)
+            else:
+                old = torch.load(path)
+                if old["label"] != label:
+                    out[f"tail_vs {name}"] = {
+                        "against": old["label"],
+                        **{k: [int((got[k].cpu() != v).sum()), v.numel()]
+                           for k, v in old["outputs"].items()}}
+        print(f"  {name}: row13 {out[f'row13 {name}']} row14 "
+              f"{out[f'row14 {name}']}", flush=True)
+        del got
 
 
 def _limits(cs, out):
@@ -284,13 +365,14 @@ def _steps(cs, out):
                         max_history=600, seed=0)
         prepare_training_data(tmp, 1, cfg.npratio, seed=0)
         corpus = read_news(os.path.join(tmp, "news.tsv"), cfg)
-        for length in (512, 300):
+        for length in (50, 512, 300):
             samples[length] = TrainSamples.from_file(
                 os.path.join(tmp, f"behaviors_np{cfg.npratio}_0.tsv"),
                 corpus.news_index, cfg.replace(user_log_length=length))
     feats = torch.from_numpy(build_news_features(corpus, cfg)).cuda()
     table = random_word_embeddings(corpus.word_dict, cfg.word_embedding_dim)
-    for name, length, extra in (("fused_tail_l512", 512,
+    for name, length, extra in (("fused_tail", 50, {"fused_tail": "on"}),
+                                ("fused_tail_l512", 512,
                                  {"fused_tail": "on"}),
                                 ("l300", 300, {})):
         tcfg = cfg.replace(compute_dtype="bfloat16", batch_size=128,
@@ -310,7 +392,7 @@ def _steps(cs, out):
         out[f"step_{name}_launches"] = {
             k: fa.launch_counts(k) for k in (
                 "qkv_fwd_probs", "qkv_bwd_probs", "qkv_bwd",
-                "fused_tail_bwd")}
+                "fused_tail_fwd", "fused_tail_bwd")}
         out[f"step_{name}"] = cs.profile_device(
             lambda: step(state, batch, tcfg.seed, feats), reps=3)
 
@@ -318,8 +400,14 @@ def _steps(cs, out):
 def main() -> int:
     import torch
 
-    args = [a for a in sys.argv[1:]
-            if a not in ("--limits", "--plans")]
+    argv = sys.argv[1:]
+    save = None
+    if "--save" in argv:
+        i = argv.index("--save")
+        save = argv[i + 1]
+        argv = argv[:i] + argv[i + 2:]
+        os.makedirs(save, exist_ok=True)
+    args = [a for a in argv if a not in ("--limits", "--plans")]
     if len(args) != 1 or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 1
@@ -348,6 +436,7 @@ def main() -> int:
                 out[f"{row} {name}{'m' if masked else ''}"] = [
                     h, cs.time_ms(fn, 10)]
     _rows_1_2(cs, out)
+    _tail(cs, out, args[0], save)
     _steps(cs, out)
     if "--limits" in sys.argv:
         _limits(cs, out)

@@ -11,6 +11,8 @@ no JAX, so it runs where only PyTorch is installed:
 Elsewhere every test here skips: a CUDA kernel has no CPU mode.
 """
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -890,6 +892,243 @@ def test_fused_tail_launches_rows_13_14(masked):
         np.testing.assert_allclose(got.cpu().numpy(), ref_g.numpy(), **tol,
                                    err_msg=label)
 
+
+def _hash(x):
+    bits = x.contiguous().view(torch.int16 if x.dtype == torch.bfloat16
+                               else torch.int32)
+    return hashlib.sha256(bits.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+# Rows 13-14 in f32 at T <= 64 before the resident regime (the per-row
+# kernels, with row 4's kernel for the attention backward), on an H100, the
+# inputs of test_fused_tail_kernels_match_plain (seed 9, the dropout seed
+# 2^31 - 7): hashes of (out, dqkv, dw1), (db1, dw2, db2), by (N, T, H, D,
+# Q, masked, dropout).
+TAIL_F32_PINNED = {
+    (16, 20, 20, 20, 200, False, False): (
+        ('9e1d58a080cfce62', 'e0ed37bdda424225', 'aa12b607e96ab2a7'),
+        ('94666d55e4f316fe', 'bcb3537f48e3704e', '7bddfa0768dd25b2')),
+    (16, 20, 20, 20, 200, False, True): (
+        ('7c32ecf2acb93d64', '2ba91223a8fc8abc', 'b6fea60e7f2ce719'),
+        ('30684b534be432f1', '20e6fa8144c987ff', '1a77ba10b5a7b090')),
+    (16, 20, 20, 20, 200, True, False): (
+        ('971d3316071d7eb9', 'de6af5e21f1f696c', 'f01597d17b44fa83'),
+        ('693590d3450f9cd6', 'aa068b25af672966', '5e04c453cc359579')),
+    (16, 20, 20, 20, 200, True, True): (
+        ('6aee3a25a1387a12', '820259e5ecceb49f', '74f74beb0d28997c'),
+        ('ad844ecdb0033cbf', '6bac211b68d50aee', 'e17bd2545b9478c9')),
+    (33, 50, 20, 20, 200, False, False): (
+        ('55f099ecbb63c8c4', '2723368647bd8da9', '462b1f37e156259b'),
+        ('e5088102330eb17a', 'e7eb318510f56e8c', '7f9205f8fad22364')),
+    (33, 50, 20, 20, 200, False, True): (
+        ('a62e18a8d333b0c0', '906258a7cd228bad', 'e377c660818701d2'),
+        ('98cd3a8bcda44527', '929ca4c518e6601b', '75d2566d37f7db5f')),
+    (33, 50, 20, 20, 200, True, False): (
+        ('e2533fdce7e4b1af', 'a50b4dc67e03f818', 'fa80dcfd42107812'),
+        ('b2f6d615a29a552a', 'd8e17a746d5a68ff', '346d55a8f804f84e')),
+    (33, 50, 20, 20, 200, True, True): (
+        ('e137cae88714344f', '92777aa364e8f8fb', '76d3a57413915eee'),
+        ('ef4ee0f66ccf361c', '1ca5f78b94afe5e6', '4be8ced840d146f0')),
+    (128, 64, 20, 20, 200, False, False): (
+        ('bd15ffaac2f46257', 'a02bdb108556eb70', '893676b7fd7dcf34'),
+        ('f5532f61d881053d', 'acfaf22cbc7356ee', '65234be7938da09c')),
+    (128, 64, 20, 20, 200, False, True): (
+        ('b50dae18fbf547dd', 'd3a22ba1e2c3b1a7', '22cf067d03de6b9e'),
+        ('6f9e3bfa779eb7b6', '702cb27f73d5d79b', 'fd6cfebe6f0de34c')),
+    (128, 64, 20, 20, 200, True, False): (
+        ('94dcecfbc3b63733', 'bd833cefc9283586', '190a9cfe6ddbd668'),
+        ('1f7d366208646231', 'c591ffaf07796a56', 'de3e7fdadbcad4ca')),
+    (128, 64, 20, 20, 200, True, True): (
+        ('182d8b406e264979', '4408cf23e3b584d6', 'fa43d1aafbc1a205'),
+        ('7901092aae5628f5', 'd6ef01ff86f09390', 'd51c1f29f1d662ef')),
+    (7, 5, 3, 4, 7, False, False): (
+        ('6227ca80c7aa1971', '9b9851e502888b96', 'c086ae7822a6e5f8'),
+        ('1c3362436ce15373', '764f46ca0eb9982b', '008ee181f96e4d7c')),
+    (7, 5, 3, 4, 7, False, True): (
+        ('a3a856a49d196a9a', 'abc0de1acf549969', '87e1cbcbbd38c898'),
+        ('24a961a4dae3476c', '3be9526c1e121d7d', '155f48390d13a3ad')),
+    (7, 5, 3, 4, 7, True, False): (
+        ('426b4c747df1744a', 'a2394531adad612c', '4132896fe6fd4243'),
+        ('5a6a304a77ab3507', '84d9dd7a5dc358cb', 'e967ee2a309bc81a')),
+    (7, 5, 3, 4, 7, True, True): (
+        ('adcec8fbb8be23bb', 'dcd8c7d1b9fdaeaf', 'a0f234f38184db0e'),
+        ('245e0daf86730fc6', '126109a680d84fa0', '56f25495a9dba15f')),
+    (5, 13, 2, 33, 9, False, False): (
+        ('7b2159b6b76f756a', 'e3888902bc113abc', 'f45d7ac39bf4d146'),
+        ('22e9330481804192', 'ada61370b0af6109', 'c6cb5009f0853731')),
+    (5, 13, 2, 33, 9, False, True): (
+        ('d1d430345ed3446c', 'a02c70a7e8670dcd', '378efde34f85528b'),
+        ('a45a48ccf079507e', '830be17d6af413b9', 'd3f8fade98467f92')),
+    (5, 13, 2, 33, 9, True, False): (
+        ('b07d55521d12bc0e', '9a19874304bdf420', '3e180bc0be3f87e2'),
+        ('d1889917b4a7d783', '2d71c82a9b63a36a', 'acb7a4cfd4c4a700')),
+    (5, 13, 2, 33, 9, True, True): (
+        ('0e187813147fdd33', '1cdd998bb684dc1f', '84565f971c09230f'),
+        ('75c938563b199fa3', '77c2aa9dc3a3e484', '9622032490de43d5')),
+}
+
+
+@pytest.mark.parametrize("key", list(TAIL_F32_PINNED))
+def test_fused_tail_f32_keeps_its_bits(key):
+    """In f32 the resident regime sums every product in the per-row
+    kernels' order and keeps row 4's kernel for the attention backward:
+    out, dqkv and the pooling gradients equal the pinned run of the per-row
+    kernels bit for bit."""
+    n, t, heads, d, q, masked, dropout = key
+    qkv, mask, pool, g = _tail_inputs(n, t, heads, d, q, "float32", seed=9)
+    seed = torch.tensor([2 ** 31 - 7], dtype=torch.int32, device="cuda")
+    args = (qkv, mask if masked else None, *pool, seed, heads, 0.2,
+            not dropout)
+    kernels.reset_launch_counts()
+    got = [fe.fused_tail_fwd(*args)]
+    got += fe.fused_tail_bwd(*args[:7], g, *args[7:])
+    hashes = tuple(_hash(x) for x in got)
+    assert hashes == TAIL_F32_PINNED[key][0] + TAIL_F32_PINNED[key][1]
+    assert kernels.regime_counts("fused_tail_fwd") == {"resident": 1}
+    assert kernels.regime_counts("fused_tail_bwd") == {"resident": 1}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [64, 65])
+def test_fused_tail_both_sides_of_the_resident_regime(dtype, t):
+    """Rows 13-14 at (128, 64), the resident regime's longest row, and
+    (128, 65), the per-row kernels in shared memory, masked, dropout on,
+    against their plain versions, each launch counted in its regime."""
+    qkv, mask, pool, g = _tail_inputs(128, t, 20, 20, 200, dtype, seed=12)
+    seed = torch.tensor([991], dtype=torch.int32, device="cuda")
+    args = (qkv, mask, *pool, seed, 20, 0.2, False)
+    kernels.reset_launch_counts()
+    out = fe.fused_tail_fwd(*args)
+    grads = fe.fused_tail_bwd(*args[:7], g, *args[7:])
+    again = fe.fused_tail_bwd(*args[:7], g, *args[7:])
+    ref = fe.fused_tail_fwd_reference(*args)
+    refs = fe.fused_tail_bwd_reference(*args[:7], g, *args[7:])
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), **TOL[dtype])
+    np.testing.assert_allclose(grads[0].float().cpu().numpy(),
+                               refs[0].float().cpu().numpy(),
+                               **BWD_TOL[dtype])
+    tol = _summed_tol(refs[1:], dtype)
+    for got, want in zip(grads[1:], refs[1:]):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **tol)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    assert (out[::3] == 0).all() and (grads[0][::3] == 0).all()
+    regime = "resident" if t <= 64 else "shared"
+    assert kernels.regime_counts("fused_tail_fwd") == {regime: 1}
+    assert kernels.regime_counts("fused_tail_bwd") == {regime: 2}
+
+
+def test_tail_launch_plan_matches_the_kernels():
+    """tail_launch_plan's regime and resident shared bytes are the C
+    side's (fused_tail_*_regime, fused_tail_*_smem_bytes) at T up to 90
+    in both dtypes, and a launch in another regime than the shape's is
+    refused."""
+    for kind in ("fwd", "bwd"):
+        src = f"fused_tail_{kind}"
+        for dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
+            for t in (1, 5, 20, 50, 63, 64, 65, 85, 86, 87, 90):
+                for heads, d in ((20, 20), (2, 33), (3, 64), (1, 65)):
+                    want = kernels.size_of(src, f"{src}_regime", t, heads,
+                                           d, 200, size)
+                    plan = fe.tail_launch_plan(kind, 64, t, heads, d, 200,
+                                               dtype)
+                    assert fe.TAIL_REGIMES[want] == plan.regime, (kind, t)
+                    if plan.regime == "resident":
+                        assert plan.smem == kernels.size_of(
+                            src, f"{src}_smem_bytes", t, heads, d, 200,
+                            size, plan.heads, plan.nbuf)
+    qkv, mask, pool, g = _tail_inputs(4, 20, 2, 4, 5, "float32")
+    seed = torch.zeros(1, dtype=torch.int32, device="cuda")
+    args = (qkv, None, *pool, seed, 2, 0.0, True)
+    shared = fe.TailPlan("shared")
+    real = fe.tail_launch_plan
+    fe.tail_launch_plan = lambda *a, **k: shared
+    try:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fe.fused_tail_fwd(*args)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fe.fused_tail_bwd(*args[:7], g, *args[7:])
+    finally:
+        fe.tail_launch_plan = real
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n, t", [(64, 20), (33, 50), (16, 64)])
+def test_row_16_against_row_4_at_resident_lengths(dtype, masked, n, t):
+    """Row 16's resident kernel (row 14's attention backward in bf16 at
+    T <= 64) on the biased qkv against row 4's: the same dqkv bit for bit
+    while each lane holds one key (T <= 32); past that row 16 rounds each
+    product of r = sum(da a) before adding it, row 4 adds it in one fma, so
+    in f32 many elements differ by an ulp or two, and in bf16, where ds is
+    rounded, a few in a hundred thousand by at most 2^-8."""
+    from newsrecommendation_tpu_torch.ops import experimental_blanes as bl
+
+    qkv, _, mask = _inputs(n, t, 20, 20, dtype, seed=31)
+    km = mask if masked else None
+    g = _grad(n, t, 400, dtype, 32)
+    got = bl.blanes_bwd(qkv, km, g, 20)
+    want = fa.qkv_bwd(qkv, qkv.new_zeros(1200), km, g, 20)
+    if t <= 32:
+        assert torch.equal(got, want)
+    elif dtype == "float32":
+        assert (got - want).abs().max().item() <= 1e-6
+    else:
+        assert int((got != want).sum()) <= 1e-5 * got.numel()
+        assert (got.float() - want.float()).abs().max().item() <= 2 ** -8
+
+
+# Rows 15-16 at T <= 64 before rows 13-14 shared their kernels
+# (blanes_resident.cuh), on an H100, inputs _inputs(seed 41) and
+# _grad(seed 42): hashes of (out, dqkv) by (dtype, N, T, H, D, masked).
+BLANES_PINNED = {
+    ("float32", 64, 20, 20, 20, False):
+        ('6e33db985ebeb35f', 'abba2555536afa99'),
+    ("float32", 64, 20, 20, 20, True):
+        ('3b9a5219c0101121', 'ff040166f303b06d'),
+    ("float32", 33, 50, 20, 20, False):
+        ('210793d3899f6c46', 'ebe8006eb5ec4256'),
+    ("float32", 33, 50, 20, 20, True):
+        ('53a269410f4abddd', '705adf0036230e9b'),
+    ("float32", 16, 64, 20, 20, False):
+        ('135d6469f258bd1c', '2516eacf883645f4'),
+    ("float32", 16, 64, 20, 20, True):
+        ('687acb066721ecf7', '98ec4eb44dbbb401'),
+    ("float32", 5, 37, 2, 64, False): ('6b816e0d14d555eb', '6157cb6b78e103f4'),
+    ("float32", 5, 37, 2, 64, True): ('57758ca96bdb68a4', '44ba35d89a575408'),
+    ("bfloat16", 64, 20, 20, 20, False):
+        ('0591cd20da8853af', 'b91779777d461dad'),
+    ("bfloat16", 64, 20, 20, 20, True):
+        ('b94db94d4d41d873', '4819ea9f19c0ba77'),
+    ("bfloat16", 33, 50, 20, 20, False):
+        ('aa94ba84e84bdb04', 'e7d7bee77844d88a'),
+    ("bfloat16", 33, 50, 20, 20, True):
+        ('e69aec5d5e12638c', 'b6f1a3571a3fb48a'),
+    ("bfloat16", 16, 64, 20, 20, False):
+        ('39a68cfad5ed0f50', '572cf11e4b61c799'),
+    ("bfloat16", 16, 64, 20, 20, True):
+        ('4d84279039f1cfd0', 'fbc223d99fe1fb33'),
+    ("bfloat16", 5, 37, 2, 64, False):
+        ('092b4277db51a7ce', 'c0031a2dee7c26d3'),
+    ("bfloat16", 5, 37, 2, 64, True): ('2bb022ffa4834164', 'aacb91fbfab75c66'),
+}
+
+
+@pytest.mark.parametrize("key", list(BLANES_PINNED))
+def test_blanes_keeps_its_bits(key):
+    """Row 15's per-query pass, taken into a function rows 13-14 call, and
+    row 16's resident kernel, moved into the shared header, give the
+    pinned outputs bit for bit."""
+    from newsrecommendation_tpu_torch.ops import experimental_blanes as bl
+
+    dtype, n, t, heads, d, masked = key
+    qkv, _, mask = _inputs(n, t, heads, d, dtype, seed=41)
+    km = mask if masked else None
+    g = _grad(n, t, heads * d, dtype, 42)
+    assert (_hash(bl.blanes_fwd(qkv, km, heads)),
+            _hash(bl.blanes_bwd(qkv, km, g, heads))) == BLANES_PINNED[key]
 
 # ---- rows 15-16: batch-in-lanes attention -----------------------------------
 

@@ -284,7 +284,8 @@ def test_launches_are_counted_per_regime(fake_launch, t, dtype, regime):
     ({"user_log_length": 512}, {"qkv_fwd_probs": {"resident": 12},
                                 "qkv_bwd_probs": {"resident": 12}}),
     ({"user_log_length": 512, "fused_tail": "on"},
-     {"fused_tail_bwd": {"resident": 12, "mma": 12}}),
+     {"fused_tail_fwd": {"resident": 12, "global": 12},
+      "fused_tail_bwd": {"resident": 12, "global": 12}}),
     ({"user_log_length": 300, "compute_dtype": "float32"},
      {"qkv_fwd_probs": {"resident": 12, "tiled": 12},
       "qkv_bwd_probs": {"resident": 12, "tiled": 12}}),
@@ -295,7 +296,8 @@ def test_smoke_expects_each_encoders_regime(overrides, want):
     bwd_launch_plan) in the regime of its length's plan (the news encoder
     at 20 words, the user encoder at user_log_length), none for the user
     encoder on the flash route (512 news), none where rows 15-16 take
-    both or the fused tail takes the forward."""
+    both; with the fused tail rows 13-14 in their tail_launch_plan's
+    regimes (resident at 20 words, global at 512 news)."""
     import chip_smoke
 
     from newsrecommendation_tpu_torch.config import Config
