@@ -26,8 +26,9 @@
 // Design, by regime (tail_regime; the plan is ops/experimental_fused_
 // encoder.py:tail_launch_plan):
 //   resident (T <= 64, heads of up to 64): items of batch rows walked as
-//     row 15's sub-items, its attention pass reused; fc1 and d_z w1^T on
-//     tensor cores in bf16. The last section of this file.
+//     row 15's sub-items, its attention pass reused; fc1 in k order on
+//     CUDA cores, the backward's d_z w1^T on tensor cores in bf16. The
+//     last section of this file.
 //   shared, global (past it): one block per row, below. The heads run one
 //     after another, each head's q, k, v staged in shared memory (odd row
 //     stride) and one warp per query; the row's f32 context (T x HD), the
@@ -311,13 +312,14 @@ inline bool tail_bwd_small_global(int t_len, int n_heads, int d_head,
 // turn, the next one's q, k, v copied in by cp.async while the current one
 // computes. Each sub-item's context times keep goes into the row's f32
 // ctx; after its last sub-item the pooling runs over the row's T
-// positions: fc1 on tensor cores in bf16 (mma.sync.m16n8k16, A =
-// round(ctx) as the fragments load, B = w1 from global memory, f32 sums),
-// on CUDA cores in k order in f32 (tile_product, the per-row kernel's
-// arithmetic); then the scores, alpha and out (forward), or the pooling
-// backward and d_ctx (backward, d_ctx on tensor cores in bf16 as
-// round(d_z) w1^T). Items of two rows, which read w1 half as often, were
-// slower: their shared memory halves the blocks an SM holds (PERF.md).
+// positions: fc1 in k order on CUDA cores in both dtypes (tail_fma: the
+// per-row kernels' sums, so e rounds where the plain version's k-order
+// sums round it; on tensor cores it rounded apart often enough to put
+// dqkv outside the bf16 tolerance, PERF.md); then the scores, alpha and
+// out (forward), or the pooling backward and d_ctx (backward: round(d_z)
+// w1^T on tensor cores in bf16, in k order in f32). Items of two rows,
+// which read w1 half as often, were slower: their shared memory halves
+// the blocks an SM holds (PERF.md).
 //
 // Shared memory, in order: the stage buffers (nbuf of row 15's), row 15's
 // f32 arrays (K's copy in bf16, round(a)) sharing their bytes with e (T
@@ -389,7 +391,152 @@ inline bool tail_res_ok(const TailRes& r, int n_heads, int heads, int nbuf,
          nbuf <= 2 && blocks >= 1 && r.bytes <= (size_t)bl::kMaxSmem;
 }
 
-// The tensor-core products below take each k-step's 16 elements in the
+// Four elements of a row rounded to T and back (bf16: two packed
+// conversions, round_to's bits).
+template <typename T>
+__device__ __forceinline__ float4 tail_round4(float4 x) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const float2 lo = __bfloat1622float2(__floats2bfloat162_rn(x.x, x.y));
+    const float2 hi = __bfloat1622float2(__floats2bfloat162_rn(x.z, x.w));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  } else {
+    return x;
+  }
+}
+
+// Four elements n .. n + 3 of one row of B in T, as loaded: one 8-byte
+// (bf16) or 16-byte (f32) load where vec, else each column clamped to
+// N - 1; tail_b4_unpack gives them as f32.
+template <typename T>
+struct TailQuad {
+  using type = float4;
+};
+template <>
+struct TailQuad<__nv_bfloat16> {
+  using type = uint2;
+};
+
+template <typename T>
+__device__ __forceinline__ typename TailQuad<T>::type tail_b4_load(
+    const T* __restrict__ row, int n, int n_len, bool vec) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (vec) return __ldg(reinterpret_cast<const uint2*>(row + n));
+    const auto* u = reinterpret_cast<const unsigned short*>(row);
+    unsigned x[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[j] = __ldg(u + min(n + j, n_len - 1));
+    return make_uint2(x[0] | x[1] << 16, x[2] | x[3] << 16);
+  } else {
+    if (vec) return __ldg(reinterpret_cast<const float4*>(row + n));
+    return make_float4(__ldg(row + min(n, n_len - 1)),
+                       __ldg(row + min(n + 1, n_len - 1)),
+                       __ldg(row + min(n + 2, n_len - 1)),
+                       __ldg(row + min(n + 3, n_len - 1)));
+  }
+}
+
+__device__ __forceinline__ void tail_b4_unpack(uint2 x, float* v) {
+  v[0] = __uint_as_float(x.x << 16);
+  v[1] = __uint_as_float(x.x & 0xffff0000u);
+  v[2] = __uint_as_float(x.y << 16);
+  v[3] = __uint_as_float(x.y & 0xffff0000u);
+}
+__device__ __forceinline__ void tail_b4_unpack(float4 x, float* v) {
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+
+// C = round(A) B in k order on CUDA cores: A (M x K) f32 in shared memory,
+// rows lda floats apart (lda a multiple of 4, rows 16-byte aligned),
+// rounded to AR as it loads (float: as it is); B (K x N) in T in global
+// memory, rows ldb elements apart. A thread takes 4 rows by 4
+// neighbouring columns, so A loads as one float4 a row and 4 k, B as one
+// vector a row of B, and each element serves 4 FMAs; B's next 4 rows are
+// loaded while the current 4 are summed (faster than loading them as they
+// are used; 4 x 8 tiles and A two k at a time were not: PERF.md). Every
+// C(m, n) is one f32 FMA chain over k from 0, tile_product's: the per-row
+// kernels' sums, so f32 keeps their bits. epi(m, n, c) for m < M, n < N.
+template <typename AR, typename T, typename Epi>
+__device__ __forceinline__ void tail_fma(int m_len, int n_len, int k_len,
+                                         const float* a, int lda,
+                                         const T* __restrict__ b, int ldb,
+                                         Epi epi) {
+  using Quad = typename TailQuad<T>::type;
+  const int ng = (n_len + 3) / 4;
+  const int tiles = (m_len + 3) / 4 * ng;
+  const bool vec = n_len % 4 == 0 && ldb % 4 == 0 &&
+                   (uintptr_t)b % (4 * sizeof(T)) == 0;
+  const int k4 = k_len / 4 * 4;
+  for (int tile = threadIdx.x; tile < tiles; tile += bl::kThreads) {
+    const int m0 = tile / ng * 4;
+    const int n0 = tile % ng * 4;
+    const float* ar[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) ar[r] = a + min(m0 + r, m_len - 1) * lda;
+    float acc[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
+    Quad bn[4];
+    if (k4 > 0) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        bn[kk] = tail_b4_load(b + (int64_t)kk * ldb, n0, n_len, vec);
+    }
+    for (int k = 0; k < k4; k += 4) {
+      Quad bc[4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) bc[kk] = bn[kk];
+      if (k + 4 < k4) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          bn[kk] = tail_b4_load(b + (int64_t)(k + 4 + kk) * ldb, n0, n_len,
+                                vec);
+      }
+      float av[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float4 x =
+            tail_round4<AR>(*reinterpret_cast<const float4*>(ar[r] + k));
+        av[r][0] = x.x;
+        av[r][1] = x.y;
+        av[r][2] = x.z;
+        av[r][3] = x.w;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float bv[4];
+        tail_b4_unpack(bc[kk], bv);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[r][j] = fmaf(av[r][kk], bv[j], acc[r][j]);
+      }
+    }
+    for (int k = k4; k < k_len; ++k) {
+      float bv[4];
+      tail_b4_unpack(tail_b4_load(b + (int64_t)k * ldb, n0, n_len, false),
+                     bv);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float x = round_to<AR>(ar[r][k]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(x, bv[j], acc[r][j]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (m0 + r < m_len && n0 + j < n_len) epi(m0 + r, n0 + j, acc[r][j]);
+  }
+}
+
+// The tensor-core product below takes each k-step's 16 elements in the
 // order of the fragments' k slots permuted: lane tq's slots 2tq, 2tq + 1
 // hold k0 + 4tq, + 1 and its slots 2tq + 8, + 9 hold k0 + 4tq + 2, + 3, in A
 // and in B alike (the same 16 products, summed by the tensor core), so each
@@ -424,7 +571,8 @@ __device__ __forceinline__ uint2 tail_b_quad(const __nv_bfloat16* col, int k,
   return make_uint2(x[0] | x[1] << 16, x[2] | x[3] << 16);
 }
 
-// C = round(A) B on tensor cores, A (M x K) f32 rows lda floats apart
+// C = round(A) B on tensor cores (the backward's round(d_z) w1^T in
+// bf16), A (M x K) f32 rows lda floats apart
 // (lda a multiple of 4), B (K x N) bf16 given as its transpose bt (N x K,
 // rows ldb apart). A warp takes kMmaRows 16-row tiles by kMmaCols
 // 8-column tiles of C at a time (column tiles warp, warp + 8, ...), so
@@ -433,9 +581,8 @@ __device__ __forceinline__ uint2 tail_b_quad(const __nv_bfloat16* col, int k,
 // before the current step's products. K goes in steps of 16, in order:
 // each step's 16 products summed by the tensor core from 0, the steps
 // added in f32 (round to nearest). Accumulating in the tensor core instead
-// aligns every product to the running sum and drops its low bits: at
-// (16, 20) bf16 that flipped enough roundings of e for s, and so alpha and
-// d_z, to put d_ctx outside the bf16 tolerance. epi(m, n, c0, c1) gets
+// aligns every product to the running sum and drops its low bits, which
+// put d_ctx outside the bf16 tolerance at (16, 20). epi(m, n, c0, c1) gets
 // C(m, n) and C(m, n + 1); m may pass M and n + 1 may pass N.
 constexpr int kMmaRows = 2;
 constexpr int kMmaCols = 4;
@@ -516,32 +663,18 @@ __device__ __forceinline__ void tail_mma(int m_len, int n_len, int k_len,
 }
 
 // fc1 over the item's m_len positions: e (es a row, in E) =
-// tanh(round(ctx) w1 + b1), ctx cs floats a row; bf16 on tensor cores (B
-// from w1t, w1 transposed), f32 in k order on CUDA cores (w1), the
-// per-row kernels' arithmetic.
-template <typename T, typename E>
+// tanh(round(ctx) w1 + b1), ctx cs floats a row rounded to AR as it loads
+// (float where it is rounded already), w1 (HD x Q) in k order on CUDA
+// cores, the per-row kernels' arithmetic.
+template <typename AR, typename T, typename E>
 __device__ __forceinline__ void tail_fc1(E* e, int es, const float* ctx,
                                          int cs, int m_len, int hd, int q_dim,
                                          const T* __restrict__ w1,
-                                         const T* __restrict__ w1t,
                                          const float* __restrict__ b1) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    tail_mma(m_len, q_dim, hd, ctx, cs, w1t, hd,
-             [&](int m, int q, float z0, float z1) {
-               if (m < m_len && q < q_dim)
-                 e[m * es + q] = from_f32<E>(tanhf(z0 + b1[q]));
-               if (m < m_len && q + 1 < q_dim)
-                 e[m * es + q + 1] = from_f32<E>(tanhf(z1 + b1[q + 1]));
-             });
-  } else {
-    tile_product<bl::kThreads>(
-        m_len, q_dim, hd,
-        [&](int i, int c) { return round_to<T>(ctx[i * cs + c]); },
-        [&](int c, int q) { return to_f32(w1[(int64_t)c * q_dim + q]); },
-        [&](int i, int q, float z) {
-          e[i * es + q] = from_f32<E>(tanhf(z + b1[q]));
-        });
-  }
+  tail_fma<AR>(m_len, q_dim, hd, ctx, cs, w1, q_dim,
+               [&](int i, int q, float z) {
+                 e[i * es + q] = from_f32<E>(tanhf(z + b1[q]));
+               });
 }
 
 // Walks this block's rows (b, b + gridDim.x, ...), each as its sub-items
@@ -612,7 +745,7 @@ template <typename T, int DM>
 __global__ void __launch_bounds__(bl::kThreads, (tail_blocks<T, DM>()))
 tail_resident_fwd_kernel(const T* __restrict__ qkv,
                          const float* __restrict__ mask,
-                         const T* __restrict__ w1, const T* __restrict__ w1t,
+                         const T* __restrict__ w1,
                          const float* __restrict__ b1,
                          const T* __restrict__ w2,
                          const float* __restrict__ b2,
@@ -629,7 +762,7 @@ tail_resident_fwd_kernel(const T* __restrict__ qkv,
   T* e = reinterpret_cast<T*>(tail_smem + r.e_off);
   float* alpha = reinterpret_cast<float*>(tail_smem + r.small_off);
   tail_walk<T, DM>(qkv, mask, p, r, drop, [&](int64_t row) {
-    tail_fc1<T, T>(e, r.es, ctx, r.cs, p.t, hd, r.q, w1, w1t, b1);
+    tail_fc1<T>(e, r.es, ctx, r.cs, p.t, hd, r.q, w1, b1);
     __syncthreads();
     tail_scores<T, bl::kThreads>(alpha, e, r.es, p.t, r.q, w2, b2);
     __syncthreads();
@@ -670,7 +803,7 @@ tail_resident_bwd_kernel(const T* __restrict__ qkv,
   const int lane = threadIdx.x % 32;
   const TailDropout drop{use_dropout != 0,
                          use_dropout ? (uint32_t)seed[0] : 0u, thr, scale};
-  const float* ctx = reinterpret_cast<const float*>(tail_smem + r.ctx_off);
+  float* ctx = reinterpret_cast<float*>(tail_smem + r.ctx_off);
   float* e = reinterpret_cast<float*>(tail_smem + r.e_off);  // e, then d_z
   float* alpha = reinterpret_cast<float*>(tail_smem + r.small_off);
   float* dal = alpha + p.t;  // d_alpha, then d_a
@@ -680,12 +813,10 @@ tail_resident_bwd_kernel(const T* __restrict__ qkv,
     const float* mrow = mask ? mask + row * p.t : nullptr;
     for (int c = threadIdx.x; c < hd; c += bl::kThreads)
       gv[c] = to_f32(g[row * hd + c]);
-    tail_fc1<T, float>(e, r.es, ctx, r.cs, p.t, hd, q_dim, w1, w1t, b1);
     __syncthreads();
-    tail_scores<T, bl::kThreads>(alpha, e, r.es, p.t, q_dim, w2, b2);
-    __syncthreads();
-    if (warp == 0) tail_alpha(alpha, mrow, p.t, lane, rest);
-    // the f32 ctx for dw1, and d_alpha = ctx . g
+    // the f32 ctx for dw1, and d_alpha = ctx . g: the last reads of the
+    // f32 ctx, which is then rounded in place for fc1 (once, where the
+    // forward rounds each element as fc1 loads it: the same values)
     float* ctx_out = ctxs + row * p.t * hd;
     for (int idx = threadIdx.x; idx < p.t * hd; idx += bl::kThreads) {
       const int i = idx / hd;
@@ -698,6 +829,19 @@ tail_resident_bwd_kernel(const T* __restrict__ qkv,
       s = warp_sum(s);
       if (lane == 0) dal[i] = s;
     }
+    if constexpr (!std::is_same<T, float>::value) {
+      __syncthreads();
+      for (int idx = threadIdx.x; idx < p.t * hd; idx += bl::kThreads) {
+        float* x = ctx + idx / hd * r.cs + idx % hd;
+        *x = round_to<T>(*x);
+      }
+    }
+    __syncthreads();
+    tail_fc1<float>(e, r.es, ctx, r.cs, p.t, hd, q_dim, w1, b1);
+    __syncthreads();
+    tail_scores<T, bl::kThreads>(alpha, e, r.es, p.t, q_dim, w2, b2);
+    __syncthreads();
+    if (warp == 0) tail_alpha(alpha, mrow, p.t, lane, rest);
     __syncthreads();
     float* part = rowpart + row * (2 * q_dim + 1);
     if (warp == 0) {
@@ -744,11 +888,7 @@ tail_resident_bwd_kernel(const T* __restrict__ qkv,
                  if (i < p.t && c + 1 < hd) store(i, c + 1, x1);
                });
     } else {
-      tile_product<bl::kThreads>(
-          p.t, hd, q_dim,
-          [&](int i, int q) { return round_to<T>(e[i * r.es + q]); },
-          [&](int q, int c) { return to_f32(w1t[(int64_t)q * hd + c]); },
-          store);
+      tail_fma<T>(p.t, hd, q_dim, e, r.es, w1t, hd, store);
     }
   });
 }

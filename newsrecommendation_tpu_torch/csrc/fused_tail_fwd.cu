@@ -17,8 +17,8 @@
 //   resident (T <= 64, heads of up to 64): items of one batch row walked
 //     as row 15's sub-items (fused_tail.cuh, the resident regime): the
 //     attention is row 15's per-(head, query) pass with the f32 context
-//     times keep kept in shared memory, fc1 runs on tensor cores in bf16
-//     and in k order on CUDA cores in f32; only out leaves the block.
+//     times keep kept in shared memory, fc1 runs in k order on CUDA cores
+//     (tail_fma); only out leaves the block.
 //   shared (T up to 86 at the NRMS width): one block of 8 warps per row,
 //     the heads one after another (fused_tail.cuh's per-row phases), fc1
 //     as f32 FMAs on the CUDA cores.
@@ -100,7 +100,7 @@ size_t smem_bytes(int t_len, int n_heads, int d_head, int q_dim) {
 // Row 13 at T <= 64 under the resident plan (heads, nbuf, blocks).
 template <typename T>
 struct ResidentFwd {
-  const T *qkv, *w1, *w1t, *w2;
+  const T *qkv, *w1, *w2;
   const float *mask, *b1, *b2;
   const int* seed;
   T* out;
@@ -119,17 +119,15 @@ struct ResidentFwd {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)r.bytes);
     if (err != cudaSuccess) return (int)err;
     kernel<<<blocks, bl::kThreads, r.bytes, stream>>>(
-        qkv, mask, w1, w1t, b1, w2, b2, seed, out, p, r, use_dropout, thr,
-        scale);
+        qkv, mask, w1, b1, w2, b2, seed, out, p, r, use_dropout, thr, scale);
     return (int)cudaGetLastError();
   }
 };
 
 template <typename T>
 int launch(const void* qkv, const void* mask, const void* w1,
-           const void* w1t, const void* b1, const void* w2, const void* b2,
-           const void* seed, void* out,
-           void* scratch, int n, int t_len, int n_heads, int d_head,
+           const void* b1, const void* w2, const void* b2, const void* seed,
+           void* out, void* scratch, int n, int t_len, int n_heads, int d_head,
            int q_dim, int regime, int heads, int nbuf, int blocks, int slots,
            int use_dropout, unsigned thr, float scale, void* stream) {
   const int esize = (int)sizeof(T);
@@ -139,8 +137,7 @@ int launch(const void* qkv, const void* mask, const void* w1,
   if (regime == kTailResident) {
     const TailRes r = tail_res(0, t_len, n_heads, d_head, q_dim, esize,
                                heads, nbuf);
-    if (!tail_res_ok(r, n_heads, heads, nbuf, blocks) ||
-        (esize == 2 && w1t == nullptr))
+    if (!tail_res_ok(r, n_heads, heads, nbuf, blocks))
       return (int)cudaErrorInvalidValue;
     const bl::Params p = bl::params_of(bl::kFwd, n, t_len, n_heads, d_head,
                                        esize, heads, t_len, nbuf, qkv, qkv);
@@ -148,7 +145,7 @@ int launch(const void* qkv, const void* mask, const void* w1,
     return with_head_width(
         d_head,
         ResidentFwd<T>{static_cast<const T*>(qkv), static_cast<const T*>(w1),
-                       static_cast<const T*>(w1t), static_cast<const T*>(w2),
+                       static_cast<const T*>(w2),
                        static_cast<const float*>(mask),
                        static_cast<const float*>(b1),
                        static_cast<const float*>(b2),
@@ -184,8 +181,7 @@ int launch(const void* qkv, const void* mask, const void* w1,
 
 extern "C" {
 
-// mask may be null (the unmasked variant); w1t, w1 transposed (Q, HD), is
-// read only by the resident regime in bf16. regime: the shape's (0
+// mask may be null (the unmasked variant). regime: the shape's (0
 // resident, 1 the per-row kernel in shared memory, 2 with its working set
 // in global memory: fused_tail_fwd_regime), with the resident plan (heads,
 // nbuf, blocks) of ops/experimental_fused_encoder.py:tail_launch_plan
@@ -196,12 +192,12 @@ extern "C" {
 // that is not the shape's or a plan its kernel does not take.
 #define NRK_TAIL_FWD(SUFFIX, T)                                               \
   int fused_tail_fwd_##SUFFIX(                                                \
-      const void* qkv, const void* mask, const void* w1, const void* w1t,     \
-      const void* b1, const void* w2, const void* b2, const void* seed,       \
-      void* out, void* scratch, int n, int t_len, int n_heads, int d_head,    \
+      const void* qkv, const void* mask, const void* w1, const void* b1,      \
+      const void* w2, const void* b2, const void* seed, void* out,            \
+      void* scratch, int n, int t_len, int n_heads, int d_head,               \
       int q_dim, int regime, int heads, int nbuf, int blocks, int slots,      \
       int use_dropout, unsigned thr, float scale, void* stream) {             \
-    return launch<T>(qkv, mask, w1, w1t, b1, w2, b2, seed, out, scratch, n,   \
+    return launch<T>(qkv, mask, w1, b1, w2, b2, seed, out, scratch, n,        \
                      t_len, n_heads, d_head, q_dim, regime, heads, nbuf,      \
                      blocks, slots, use_dropout, thr, scale, stream);         \
   }

@@ -16,9 +16,9 @@ each element's global index and a seed read from a device tensor
 mask bit for bit. The backward writes the f32 context and d_z once to
 scratch for its dw1 product over all positions (``csrc/fused_tail_bwd.cu``).
 Three regimes (``tail_launch_plan``): at T <= 64 with heads of up to 64
-"resident", items of batch rows on row 15's resident attention, the bf16
-pooling products on tensor cores and row 16's resident kernel for the
-attention backward; past it the per-row kernels, "shared" while a row fits
+"resident", items of batch rows on row 15's resident attention, fc1 in k
+order on CUDA cores, the bf16 d_z w1^T product on tensor cores and row
+16's resident kernel for the bf16 attention backward; past it the per-row kernels, "shared" while a row fits
 a block's shared memory (at the NRMS width T <= 86 in the forward, 85 in
 the backward), then "global", the working set in a global scratch of one
 slot per block, which the wrappers allocate (``csrc/fused_tail.cuh``), and
@@ -35,8 +35,8 @@ output is rounded to qkv's dtype. The backward takes g in qkv's dtype,
 contracts dw1 from the f32 context, rounds d_z to w1's dtype for the
 d_z w1^T product, multiplies d_ctx by the keep mask and rounds it to qkv's
 dtype, then runs the attention backward with the probs recomputed (row
-16's resident kernel, or row 4's). In bf16 the resident regime's fc1 and
-d_z w1^T sum in the tensor core's order. One departure: db2, the sum of
+16's resident kernel, or row 4's). In bf16 the resident regime's d_z w1^T
+sums in the tensor core's order. One departure: db2, the sum of
 d_a, is r (1 - sum(alpha)) per row, 0 but for the normalisation's 1e-8
 term; the TPU kernel's f32 sum of d_a leaves rounding noise in it, where
 the port takes the exact expression.
@@ -362,9 +362,6 @@ def fused_tail_fwd(qkv, key_mask, w1, b1, w2, b2, seed, n_heads: int,
     plan = tail_launch_plan("fwd", n, t, n_heads, d, q, qkv.dtype,
                             blockwise._sms(qkv.device))
     out = torch.empty((n, n_heads * d), dtype=qkv.dtype, device=qkv.device)
-    # (Q, HD): the tensor cores' fc1 reads w1's columns as B fragments
-    w1t = (w1.t().contiguous() if plan.regime == "resident"
-           and qkv.dtype == torch.bfloat16 else None)
     scratch, slots = None, 0
     if plan.regime == "global":
         scratch, slots = kernels.scratch("fused_tail_fwd",
@@ -373,8 +370,8 @@ def fused_tail_fwd(qkv, key_mask, w1, b1, w2, b2, seed, n_heads: int,
     kernels.call("tail" if key_mask is None else "tail_masked",
                  kernels.entry("fused_tail_fwd", "fused_tail_fwd",
                                qkv.dtype),
-                 qkv.device, *map(kernels.ptr, (qkv, key_mask, w1, w1t, b1,
-                                                w2, b2, seed, out, scratch)),
+                 qkv.device, *map(kernels.ptr, (qkv, key_mask, w1, b1, w2,
+                                                b2, seed, out, scratch)),
                  n, t, n_heads, d, q, *plan.args(), slots,
                  *_dropout_args(drop_rate, deterministic),
                  regime=plan.regime)
@@ -414,7 +411,7 @@ def fused_tail_bwd(qkv, key_mask, w1, b1, w2, b2, seed, g, n_heads: int,
     dqkv = torch.empty_like(qkv)
     dw1, db1 = torch.empty((hd, q), **f32), torch.empty((1, q), **f32)
     dw2, db2 = torch.empty((q, 1), **f32), torch.empty((1, 1), **f32)
-    w1t = w1.t().contiguous()  # (Q, HD): fc1 and d_z w1^T read its rows
+    w1t = w1.t().contiguous()  # (Q, HD): the d_z w1^T product reads rows
     zero_bias = stage = attn_stage = attn_stats = None
     slots = attn_slots = 0
     row4 = (0,) * 6

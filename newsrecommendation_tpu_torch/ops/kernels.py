@@ -48,7 +48,7 @@ _ENTRY_POINTS = {
     "flash_fwd": {"flash_fwd": "p" * 7 + "i" * 9},
     "flash_bwd": {"flash_bwd": "p" * 11 + "i" * 11},
     "qkv2d": {"qkv2d_bwd": "p" * 8 + "i" * 11},
-    "fused_tail_fwd": {"fused_tail_fwd": "p" * 10 + "i" * 11 + "uf"},
+    "fused_tail_fwd": {"fused_tail_fwd": "p" * 9 + "i" * 11 + "uf"},
     "fused_tail_bwd": {"fused_tail_bwd": "p" * 23 + "i" * 22 + "uf"},
     "blanes": {"blanes_fwd": "p" * 3 + "i" * 8,
                "blanes_bwd": "p" * 5 + "i" * 11},

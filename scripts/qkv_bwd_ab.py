@@ -25,7 +25,12 @@ It prints one line, ``AB {json}``, with:
     of each output (out; dqkv, dw1, db1, dw2, db2), ms and launches per
     regime; with --save DIR each case's outputs go to DIR the first time,
     and a later run with another label counts the elements of each output
-    that differ from them (``tail_vs``);
+    that differ from them (``tail_vs``); and in bf16, masked, dropout 0.2,
+    at (128, T) for T = 64, 50, 20 on the card tests' inputs
+    (``tests/test_torch_kernel_gpu.py`` ``_tail_inputs``, seeds 12-14),
+    the elements of out and dqkv outside the card tests' bf16 tolerance
+    against the plain versions and the elements that differ from them
+    (``tail_precision``);
   - the device ms (chip_smoke.profile_device) of two training steps of
     NRMS at its published width in bf16, batch 128, 1+4 candidates, on a
     synthetic corpus of 8,192 news: with the fused encoder tail at the
@@ -241,6 +246,43 @@ def _tail(cs, out, label, save):
         del got
 
 
+def _tail_precision(out):
+    """Rows 13-14 in bf16 against their plain versions on the card tests'
+    inputs: per (T, seed), [out outside, dqkv outside, out differing, dqkv
+    differing], and their totals."""
+    import torch
+
+    from newsrecommendation_tpu_torch.ops import (
+        experimental_fused_encoder as fe,
+    )
+
+    sys.path.insert(0, os.path.join(os.getcwd(), "tests"))
+    from test_torch_kernel_gpu import BF16_TOL, _tail_inputs
+
+    def counts(got, want):
+        got, want = got.float(), want.float()
+        outside = (got - want).abs() > (BF16_TOL["atol"]
+                                        + BF16_TOL["rtol"] * want.abs())
+        return int(outside.sum()), int((got != want).sum())
+
+    res, total = {}, [0, 0, 0, 0]
+    for t in (64, 50, 20):
+        for seed in (12, 13, 14):
+            qkv, mask, pool, g = _tail_inputs(128, t, 20, 20, 200,
+                                              "bfloat16", seed=seed)
+            sd = torch.tensor([991], dtype=torch.int32, device="cuda")
+            args = (qkv, mask, *pool, sd, 20, 0.2, False)
+            bargs = (*args[:7], g, *args[7:])
+            o = counts(fe.fused_tail_fwd(*args),
+                       fe.fused_tail_fwd_reference(*args))
+            d = counts(fe.fused_tail_bwd(*bargs)[0],
+                       fe.fused_tail_bwd_reference(*bargs)[0])
+            res[f"T{t} s{seed}"] = [o[0], d[0], o[1], d[1]]
+            total = [x + y for x, y in zip(total, res[f"T{t} s{seed}"])]
+    out["tail_precision"] = {**res, "total": total}
+    print(f"  tail_precision total {total}", flush=True)
+
+
 def _limits(cs, out):
     import torch
 
@@ -437,6 +479,7 @@ def main() -> int:
                     h, cs.time_ms(fn, 10)]
     _rows_1_2(cs, out)
     _tail(cs, out, args[0], save)
+    _tail_precision(out)
     _steps(cs, out)
     if "--limits" in sys.argv:
         _limits(cs, out)

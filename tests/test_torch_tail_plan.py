@@ -177,8 +177,8 @@ def test_wrappers_launch_the_plan_and_count_its_regime(fake_launch,
                                                        monkeypatch, t, dtype,
                                                        regime):
     """Rows 13 and 14 hand the C entry points the regime's index and the
-    resident plan (zeros past it); row 13 w1 transposed only to the bf16
-    tensor cores, a global scratch only in the global regime; row 14,
+    resident plan (zeros past it); row 13 a global scratch only in the
+    global regime; row 14,
     resident in bf16, row 16's plan and no zero bias, no stage and no row 4
     plan; in f32 and past it, row 4's zero bias and plan. Each launch
     counts under its variant and its regime."""
@@ -201,12 +201,11 @@ def test_wrappers_launch_the_plan_and_count_its_regime(fake_launch,
     assert fwd.regime == bwd.regime == regime
     calls = list(fake_launch)
     assert len(calls) == 4
-    for args in calls[0::2]:  # row 13: 10 pointers, then 11 ints
-        assert args[10:15] == (n, t, heads, d, q)
-        assert args[15:19] == fwd.args()
-        assert (args[3] is None) == (regime != "resident" or dtype == F32)
-        assert (args[9] is None) == (regime != "global")
-        assert args[19] == (1 if regime == "global" else 0)
+    for args in calls[0::2]:  # row 13: 9 pointers, then 11 ints
+        assert args[9:14] == (n, t, heads, d, q)
+        assert args[14:18] == fwd.args()
+        assert (args[8] is None) == (regime != "global")
+        assert args[18] == (1 if regime == "global" else 0)
     for args in calls[1::2]:  # row 14: 23 pointers, then 22 ints
         ints = args[23:]
         assert ints[:6] == (n, t, heads, d, q, 3)
