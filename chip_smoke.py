@@ -5,7 +5,8 @@ version, serves NRMS at its published width over HTTP, then trains it at
 its published width, with 50-, 300- and 512-news histories, and with the
 fused encoder tail, the 2-D-I/O attention and the batch-in-lanes
 attention; drives multi-head self-attention at unequal q/k/v widths, and
-every kernel at the head widths and lengths it once refused.
+every kernel at the head widths and lengths it once refused; then runs the
+command line (train_test, checkpoints, test, serve with /reload).
 
     python3 chip_smoke.py        # from the repo root, on a machine with
                                  # one CUDA card and nvcc
@@ -152,6 +153,24 @@ Phases, each printing one line with its elapsed seconds:
            1024-row news-encoder chunk and of the headline, recompute,
            trained-table, fused-tail, 2-D-I/O, blanes, 512-history,
            512-history fused-tail and 300-history train steps
+  cli      the command-line path at the published width, user_log_mask
+           on, on a synthetic corpus of 4,000 news (dev impressions of 40
+           candidates): cli.main --mode train_test for one epoch (bf16,
+           B=128, 3k+1 steps, a save every k steps): the mid-epoch and
+           epoch-end checkpoints, train and eval lines in metrics.jsonl,
+           2 row-2 and 2 row-3 launches per step and no other in training,
+           row 1 (both variants) in the test; the newest checkpoint loaded
+           into a fresh state, every param and Adam moment bit-equal to
+           the live state; --mode test --load_ckpt_name latest, the same
+           eval line to its four decimals, launching row 1 only; again
+           with --fused_tail on, launching row 13 only, its metrics within
+           1e-3 of those; run_server from the newest checkpoint (f32),
+           /score against a CPU Recommender on the checkpoint's params; a
+           second epoch resumed from it through the CLI; POST /reload
+           (200, then the new checkpoint's scores; 409 while a reload is
+           in flight). A "[cli numbers]" line gives the train ex/s through
+           the CLI, the checkpoint's size, save and load seconds, eval
+           impressions/s and the reload's seconds, with the card
 Every backward row's library time is scaled_dot_product_attention's
 backward alone on the same q, k, v (its forward run outside the timed
 window), a yardstick the port never calls. Then one JSON line of
@@ -302,6 +321,16 @@ TRAIN_STEPS_MIN = 30
 # The device the training phases run on; a rehearsal without a card sets
 # it to "cpu" (the plain versions then stand in for the kernels).
 DEVICE = "cuda"
+# The cli phase: a synthetic corpus of CLI_NEWS news, at most
+# CLI_TRAIN_IMPRESSIONS training impressions (the longest head whose epoch
+# of B = 128 has 3k+1 steps, so the newest save, after step 3k, is the
+# final state), dev impressions of CLI_CANDIDATES candidates each.
+CLI_NEWS = 4000
+CLI_TRAIN_IMPRESSIONS = 1500
+CLI_DEV_IMPRESSIONS = 400
+CLI_CANDIDATES = 40
+CLI_ROUTE_TOL = 1e-3  # fused tail vs default route: metrics (not percent)
+CLI_FLAGS = []  # appended to every cli command line (a rehearsal's widths)
 
 _T0 = time.perf_counter()
 
@@ -2001,8 +2030,8 @@ def train_run(ctx, fa, samples="samples", fixed_batch=True, max_steps=None,
     return out, (cfg, model, state, step)
 
 
-def http_call(port, method, path, payload=None):
-    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+def http_call(port, method, path, payload=None, expect=200):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
     try:
         t0 = time.perf_counter()
         conn.request(method, path,
@@ -2013,8 +2042,8 @@ def http_call(port, method, path, payload=None):
         ms = (time.perf_counter() - t0) * 1e3
     finally:
         conn.close()
-    if resp.status != 200:
-        fail(f"{method} {path} -> {resp.status}: {body}")
+    if resp.status != expect:
+        fail(f"{method} {path} -> {resp.status} (expected {expect}): {body}")
     return body, ms
 
 
@@ -2148,6 +2177,292 @@ def serve_run(ctx, user_log_mask, user_log_length=None, **overrides):
         srv.batcher.close()
     return {"encode_s": encode_s, "latency_ms": lat,
             "max_abs_err_vs_cpu": max(checked), "stats": stats}, rec
+
+
+def cli_corpus(root):
+    """Synthetic MIND-format train and dev dirs under ``root`` for the cli
+    phase. The train dir keeps the longest head of its CLI_TRAIN_IMPRESSIONS
+    impressions whose training samples (one per click of an impression
+    with a click and a skip, as prepare_training_data makes them) fill
+    3k+1 batches of 128. Returns (train_dir, dev_dir, steps)."""
+    from newsrecommendation_tpu_torch.data.synthetic import generate_corpus
+
+    train_dir, dev_dir = (os.path.join(root, d) for d in ("train", "dev"))
+    generate_corpus(dev_dir, num_news=CLI_NEWS, num_users=200,
+                    num_impressions=CLI_DEV_IMPRESSIONS, title_len=20,
+                    max_history=80,
+                    candidates_per_impression=CLI_CANDIDATES, seed=2,
+                    split="dev")
+    generate_corpus(train_dir, num_news=CLI_NEWS, num_users=200,
+                    num_impressions=CLI_TRAIN_IMPRESSIONS, title_len=20,
+                    max_history=80, seed=1)
+    path = os.path.join(train_dir, "behaviors.tsv")
+    with open(path, encoding="utf-8") as f:
+        lines = f.readlines()
+    samples = 0
+    keep = steps = None
+    for i, line in enumerate(lines):
+        labels = [x.rsplit("-", 1)[1] for x in line.split("\t")[4].split()]
+        if "0" in labels and "1" in labels:
+            samples += labels.count("1")
+        if samples > 3 * 128 and -(-samples // 128) % 3 == 1:
+            keep, steps = i + 1, -(-samples // 128)
+    if keep is None:
+        fail("cli: no head of the impressions gives 3k+1 > 1 steps")
+    with open(path, "w", encoding="utf-8") as f:
+        f.writelines(lines[:keep])
+    return train_dir, dev_dir, steps
+
+
+def eval_line(model_dir, index=-1):
+    with open(os.path.join(model_dir, "metrics.jsonl")) as f:
+        lines = [json.loads(x) for x in f]
+    evals = [x for x in lines if x["kind"] == "eval"]
+    return evals[index] if evals else None, lines
+
+
+def cli_run(fa, card) -> dict:
+    """The command-line path at NRMS's published width on the card:
+    train_test through cli.main (bf16, B = 128, user_log_mask on, a third
+    of the epoch between saves), the newest checkpoint loaded back bit for
+    bit, --mode test from it (the same eval line), again with the fused
+    tail (row 13), then run_server from the newest checkpoint, a second
+    epoch resumed from it, POST /reload (200, then 409 with a reload in
+    flight), each served answer held against a CPU Recommender on the
+    checkpoint's params. Launch counts are reset just before each main
+    call and read just after."""
+    import logging
+
+    import torch
+
+    from newsrecommendation_tpu_torch import cli
+    from newsrecommendation_tpu_torch.ckpt import (
+        latest_checkpoint,
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from newsrecommendation_tpu_torch.config import Config, config_from_args
+    from newsrecommendation_tpu_torch.data import read_news
+    from newsrecommendation_tpu_torch.models import get_model
+    from newsrecommendation_tpu_torch.ops import kernel_config
+    from newsrecommendation_tpu_torch.serve import Recommender
+    from newsrecommendation_tpu_torch.server import run_server
+
+    root = logging.getLogger()
+    if not root.handlers:  # the CLI's log on stderr, stdout kept short
+        handler = logging.StreamHandler(sys.stderr)
+        handler.setFormatter(logging.Formatter("[%(asctime)s] %(message)s"))
+        root.addHandler(handler)
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        train_dir, dev_dir, steps = cli_corpus(tmp)
+        save_steps = (steps - 1) // 3
+        model_dir = os.path.join(tmp, "model")
+        dirs = ["--train_data_dir", train_dir, "--test_data_dir", dev_dir,
+                "--model_dir", model_dir, "--user_log_mask", "True"
+                ] + CLI_FLAGS
+        train_argv = dirs + ["--compute_dtype", "bfloat16", "--batch_size",
+                             "128", "--save_steps", str(save_steps),
+                             "--lr", "3e-4", "--log_steps", "10"]
+        out["corpus_s"] = time.perf_counter() - t
+        out["steps"], out["save_steps"] = steps, save_steps
+
+        # ---- train_test ---------------------------------------------------
+        captured, timed_eval = {}, []
+        real_train, real_eval = cli.run_train, cli.evaluate_impressions
+
+        def run_train(cfg, **kw):
+            captured["train"] = real_train(cfg, **kw)
+            return captured["train"]
+
+        def sync():
+            if DEVICE == "cuda":
+                torch.cuda.synchronize()
+
+        def evaluate(*args, **kw):
+            sync()
+            t0 = time.perf_counter()
+            res = real_eval(*args, **kw)
+            timed_eval.append((time.perf_counter() - t0,
+                               res["samples_seen"]))
+            return res
+
+        t = time.perf_counter()
+        fa.reset_launch_counts()
+        with mock.patch.multiple(cli, run_train=run_train,
+                                 evaluate_impressions=evaluate):
+            cli.main(["--mode", "train_test"] + train_argv, device=DEVICE)
+        launches = {k: fa.launch_counts(k) for k in fa.KERNELS}
+        regimes = {k: fa.regime_counts(k) for k in REGIME_KERNELS
+                   if fa.regime_counts(k)}
+        out["train_test_s"] = time.perf_counter() - t
+        state, _, stats = captured["train"]
+        first, lines = eval_line(model_dir)
+        summary = [x for x in lines if x["kind"] == "train_summary"]
+        names = sorted(f for f in os.listdir(model_dir)
+                       if f.endswith(".ckpt"))
+        want_names = sorted([f"epoch-1-{save_steps * i}.ckpt"
+                             for i in (1, 2, 3)] + ["epoch-1.ckpt"])
+        if stats["steps"] != steps or names != want_names:
+            fail(f"cli train_test: {stats['steps']} steps of {steps}, "
+                 f"checkpoints {names}, expected {want_names}")
+        if (not [x for x in lines if x["kind"] == "train"] or not summary
+                or first is None or len([x for x in lines
+                                         if x["kind"] == "eval"]) != 1
+                or not all(np.isfinite(first[k]) and 0 < first[k] <= 100
+                           for k in ("auc", "mrr", "ndcg5", "ndcg10"))):
+            fail(f"cli train_test: metrics.jsonl holds {lines}")
+        tcfg = config_from_args(["--mode", "train_test"] + train_argv)
+        want = expected_launches(steps, tcfg)
+        want["qkv_fwd_probs"] = {"bias_probs": steps,
+                                 "bias_masked_probs": steps}
+        row1 = launches.pop("qkv_fwd")
+        want.pop("qkv_fwd")
+        if launches != want or min(row1.values()) < 1:
+            fail(f"cli train_test: launches {launches}, row 1 {row1}; "
+                 f"expected {want} and row 1 in the test, both variants")
+        want_regimes = expected_regimes(steps, tcfg)
+        regimes.pop("qkv_fwd", None)
+        want_regimes.pop("qkv_fwd", None)
+        if regimes != want_regimes:
+            fail(f"cli train_test: regimes {regimes}, expected "
+                 f"{want_regimes}")
+        out.update(train_examples_per_sec=summary[0]["examples_per_sec"],
+                   train_final_loss=summary[0]["final_loss"],
+                   eval_line=first, launches={
+                       "qkv_fwd": row1, "qkv_fwd_probs":
+                           launches["qkv_fwd_probs"],
+                       "qkv_bwd_probs": launches["qkv_bwd_probs"]})
+
+        # ---- the newest checkpoint, loaded back -----------------------------
+        newest = latest_checkpoint(model_dir)
+        if not newest.endswith(f"epoch-1-{steps - 1}.ckpt"):
+            fail(f"cli: newest checkpoint {newest}")
+        corpus = read_news(os.path.join(train_dir, "news.tsv"), tcfg)
+        table = cli.build_embedding_table(tcfg, train_dir, corpus)
+        fresh = cli.init_state(tcfg, get_model("NRMS"), table, DEVICE)
+        sync()
+        t = time.perf_counter()
+        loaded, _ = load_checkpoint(newest, fresh, tcfg)
+        sync()
+        out["load_s"] = time.perf_counter() - t
+        if loaded.step != state.step:
+            fail(f"cli: loaded step {loaded.step}, live {state.step}")
+        for (path, a), (_, b) in zip(param_leaves(loaded.params),
+                                     param_leaves(state.params)):
+            if a.device != b.device or not torch.equal(a, b):
+                fail(f"cli: loaded param {path} differs from the live one")
+            sa = loaded.optimizer.state.get(a, {})
+            sb = state.optimizer.state.get(b, {})
+            if set(sa) != set(sb):
+                fail(f"cli: Adam state of {path}: {set(sa)} loaded, "
+                     f"{set(sb)} live")
+            for key in sb:
+                if not torch.equal(sa[key].cpu(), sb[key].cpu()):
+                    fail(f"cli: loaded Adam {key} of {path} differs")
+        t = time.perf_counter()
+        path = save_checkpoint(tmp, "save-timing.ckpt", state, tcfg)
+        out["save_s"] = time.perf_counter() - t
+        out["checkpoint_mb"] = os.path.getsize(newest) / 2 ** 20
+        os.remove(path)
+
+        # ---- --mode test from the newest checkpoint -------------------------
+        test_argv = ["--mode", "test", "--load_ckpt_name", "latest"]
+        for route, extra in (("default", []), ("fused_tail", [
+                "--fused_tail", "on"])):
+            t = time.perf_counter()
+            timed_eval.clear()
+            fa.reset_launch_counts()
+            with mock.patch.object(cli, "evaluate_impressions", evaluate):
+                cli.main(test_argv + train_argv + extra, device=DEVICE)
+            got = {k: fa.launch_counts(k) for k in fa.KERNELS
+                   if any(fa.launch_counts(k).values())}
+            line, _ = eval_line(model_dir)
+            s_eval, n_eval = timed_eval[0]
+            out[f"test_{route}"] = {
+                "s": time.perf_counter() - t, "eval_line": line,
+                "eval_impressions_per_sec": n_eval / s_eval,
+                "launches": got}
+            keys = ("auc", "mrr", "ndcg5", "ndcg10")
+            if route == "default":
+                if (set(got) != {"qkv_fwd"} or min(got["qkv_fwd"].values())
+                        < 1 or any(line[k] != first[k] for k in keys)):
+                    fail(f"cli test from {newest}: {line} with launches "
+                         f"{got}; train_test gave {first}")
+            elif (set(got) != {"fused_tail_fwd"}
+                  or min(got["fused_tail_fwd"].values()) < 1
+                  or any(abs(line[k] - first[k]) / 100 > CLI_ROUTE_TOL
+                         for k in keys)):
+                fail(f"cli test, fused tail: {line} with launches {got}; "
+                     f"the default route gave {first}")
+        kernel_config.apply(Config())
+
+        # ---- serve from the newest checkpoint, then /reload -----------------
+        scfg = config_from_args(["--mode", "serve", "--serve_port", "0",
+                                 "--load_ckpt_name", "latest",
+                                 "--serve_max_batch", str(MAX_BATCH),
+                                 "--serve_max_delay_ms", "2"] + dirs)
+        rng = np.random.default_rng(5)
+        ids = [f"N{i}" for i in rng.permutation(CLI_NEWS)[:400] + 1]
+        reqs = [(ids[i:i + 30], ids[100 + 3 * i:160 + 3 * i])
+                for i in range(0, 60, 20)]
+
+        def check(srv, ckpt, label):
+            cpu = Recommender.from_checkpoint(ckpt, scfg, dev_dir,
+                                              device="cpu")
+            errs = []
+            for hist, cands in reqs:
+                body, _ = http_call(srv.server_address[1], "POST", "/score",
+                                    {"history": hist, "candidates": cands})
+                errs.append(check_close(f"cli {label} /score",
+                                        body["scores"],
+                                        cpu.score(hist, cands)))
+            return max(errs)
+
+        t = time.perf_counter()
+        srv = run_server(scfg, block=False, device=DEVICE)
+        try:
+            port = srv.server_address[1]
+            out["serve_start_s"] = time.perf_counter() - t
+            out["serve_err_vs_cpu"] = check(srv, newest, "before /reload")
+            t = time.perf_counter()
+            cli.main(["--mode", "train", "--epochs", "2", "--start_epoch",
+                      "1", "--load_ckpt_name", "latest", "--prepare",
+                      "False"] + train_argv, device=DEVICE)
+            out["resume_train_s"] = time.perf_counter() - t
+            kernel_config.apply(Config())
+            newer = latest_checkpoint(model_dir)
+            if not newer.endswith(f"epoch-2-{steps - 1}.ckpt"):
+                fail(f"cli: after the resumed epoch the newest is {newer}")
+            t = time.perf_counter()
+            body, _ = http_call(port, "POST", "/reload", {})
+            out["reload_s"] = time.perf_counter() - t
+            if body.get("status") != "reloaded":
+                fail(f"cli /reload: {body}")
+            out["reload_err_vs_cpu"] = check(srv, newer, "after /reload")
+            if not srv.reload_lock.acquire(blocking=False):
+                fail("cli: the reload lock is held with no reload running")
+            try:
+                http_call(port, "POST", "/reload", {}, expect=409)
+            finally:
+                srv.reload_lock.release()
+            stats, _ = http_call(port, "GET", "/stats")
+            if stats["errors"]:
+                fail(f"cli serve: {stats}")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            srv.batcher.close()
+    return out
+
+
+def param_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from param_leaves(v, path + (k,))
+    else:
+        yield "/".join(path), tree
 
 
 def kernel_phases(fa, bw, bl, fe, q2) -> dict:
@@ -2614,6 +2929,21 @@ def main() -> int:
             f"train_step_l{MID_L}_b128_bf16": profile_device(
                 step_of("mid"), reps=3)}
     phase("profile", t, **{k: json.dumps(v) for k, v in prof.items()})
+
+    # ---- the command-line path: train_test, checkpoints, test, /reload ----
+    t = time.perf_counter()
+    cli = cli_run(fa, card)
+    phase("cli", t, **{k: json.dumps(v) for k, v in cli.items()})
+    print("[cli numbers] " + json.dumps({
+        "card": card, "train_examples_per_sec":
+            cli["train_examples_per_sec"],
+        "checkpoint_mb": cli["checkpoint_mb"], "save_s": cli["save_s"],
+        "load_s": cli["load_s"],
+        "eval_impressions_per_sec":
+            cli["test_default"]["eval_impressions_per_sec"],
+        "eval_impressions_per_sec_fused_tail":
+            cli["test_fused_tail"]["eval_impressions_per_sec"],
+        "reload_s": cli["reload_s"]}), flush=True)
 
     # ---- summary -----------------------------------------------------------
     def find(found_in, **key):

@@ -1,10 +1,20 @@
-"""Convert params between the JAX package's pytree and the port.
+"""Convert params, and a train state with its Adam moments, between the
+JAX package's pytrees and the port.
 
 Both sides hold a nested dict with the same keys, and the port keeps the
 JAX package's layouts: Linear weights stay input-major (in, out), as
 ``ops.common.linear`` reads them, so no transpose is needed. The JAX side
 is handed over as numpy arrays (``jax.tree.map(np.asarray, params)``), so
 this module imports no JAX.
+
+A JAX train state's optimizer state is optax's (train/state.py:
+make_optimizer, multi_transform of adam over the trainable leaves and
+set_to_zero over the frozen table); its Adam part holds ``count`` and the
+moment trees ``mu`` and ``nu``, which ``torch.optim.Adam`` keeps per
+trainable leaf as ``step``, ``exp_avg`` and ``exp_avg_sq``. Either the
+optax state itself (numpy or JAX leaves) or its flax state dict
+(``serialization.to_state_dict``) is taken; the way back gives the state
+dict, which ``serialization.from_state_dict`` turns into optax's state.
 """
 
 from __future__ import annotations
@@ -25,6 +35,102 @@ def params_from_jax(tree, device="cuda"):
         return torch.from_numpy(np.array(x, copy=True)).to(dev)
 
     return conv(tree)
+
+
+def _adam_part(tree):
+    """The (count, mu, nu) of the Adam state inside an optax state or its
+    state dict."""
+    if isinstance(tree, dict):
+        if {"count", "mu", "nu"} <= set(tree):
+            return tree["count"], tree["mu"], tree["nu"]
+        children = list(tree.values())
+    elif all(hasattr(tree, k) for k in ("count", "mu", "nu")):
+        return tree.count, tree.mu, tree.nu
+    elif isinstance(tree, (list, tuple)):
+        children = list(tree)
+    else:
+        return None
+    for child in children:
+        found = _adam_part(child)
+        if found is not None:
+            return found
+    return None
+
+
+def _paths(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def state_from_jax(params, opt_state, cfg, *, step=None, device="cuda"):
+    """A JAX train state -> the port's TrainState on ``device``: the params
+    bridged, an Adam optimizer over the trainable leaves (as
+    train/state.py:make_optimizer builds it, frozen table left out) whose
+    per-leaf step is the optax ``count`` and whose moments are ``mu`` and
+    ``nu``. ``step``: the state's step counter (default: the count)."""
+    from newsrecommendation_tpu_torch.train.state import (
+        create_train_state,
+        trainable_mask,
+    )
+
+    state = create_train_state(cfg, params_from_jax(params, device))
+    count, mu, nu = _adam_part(opt_state)
+    count = int(np.asarray(count))
+    mask = trainable_mask(state.params, cfg)
+    if count:
+        for path, leaf in _paths(state.params):
+            if not _at(mask, path):
+                continue
+            state.optimizer.state[leaf] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": torch.from_numpy(
+                    np.array(_at(mu, path), copy=True)).to(leaf.device),
+                "exp_avg_sq": torch.from_numpy(
+                    np.array(_at(nu, path), copy=True)).to(leaf.device)}
+    return state._replace(step=count if step is None else int(step))
+
+
+def state_to_jax(state, cfg):
+    """The port's TrainState -> (step, params, opt_state) for the JAX
+    package: numpy params and the flax state dict of optax's state for
+    the same config (``serialization.from_state_dict`` takes it)."""
+    from newsrecommendation_tpu_torch.train.state import trainable_mask
+
+    mask = trainable_mask(state.params, cfg)
+
+    def moments(key):
+        def walk(tree, path=()):
+            if isinstance(tree, dict):
+                return {k: walk(v, path + (k,)) for k, v in tree.items()}
+            if not _at(mask, path):
+                return {}  # optax's MaskedNode for a frozen leaf
+            st = state.optimizer.state.get(tree)
+            if not st:
+                return np.zeros(tuple(tree.shape), np.float32)
+            return st[key].detach().cpu().numpy()
+
+        return walk(state.params)
+
+    counts = {float(st["step"]) for st in state.optimizer.state.values()
+              if st}
+    if len(counts) > 1:
+        raise ValueError(f"leaves took different step counts: {counts}")
+    count = np.asarray(int(counts.pop()) if counts else 0, np.int32)
+    adam = {"count": count, "mu": moments("exp_avg"),
+            "nu": moments("exp_avg_sq")}
+    opt_state = {"inner_states": {
+        "frozen": {"inner_state": {}},
+        "train": {"inner_state": {"0": adam, "1": {}}}}}
+    return state.step, params_to_jax(state.params), opt_state
 
 
 def params_to_jax(params):

@@ -1,6 +1,8 @@
 """Host-side input: history and candidate index helpers shared by serving
-and training, and the training shards parsed once into dense numpy arrays
-(``TrainSamples``) with fixed-shape padded batches built by vectorised ops.
+and training, the training shards parsed once into dense numpy arrays
+(``TrainSamples``) with fixed-shape padded batches built by vectorised ops,
+and the eval shards (``EvalSamples``) with impressions padded to a fixed
+candidate width.
 
   - id -> index mapping with 0 for unknown news,
   - FRONT-padded, most-recent-L click history with a 0/1 float mask,
@@ -8,15 +10,36 @@ and training, and the training shards parsed once into dense numpy arrays
     sample and epoch, the slot index being the label,
   - the final partial batch padded, with a 0/1 ``weight`` per sample so a
     step sees one shape while the loss equals that of the ragged batch.
-Same arrays as the JAX package's loader for the same files and seeds.
+Same arrays as the JAX package's loader for the same files and seeds
+(its pure-Python parser; the native one is not ported).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, List
+import logging
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
+
+
+class CandidateTruncationError(ValueError):
+    """Raised when an eval impression has more candidates than the padded
+    width: dropping the excess would silently corrupt ranking metrics."""
+
+
+def _guard_truncation(path: str, truncated: int, max_width: int,
+                      width: int, allow: bool) -> None:
+    if truncated <= 0:
+        return
+    msg = (f"{path}: {truncated} impression(s) exceed the eval candidate "
+           f"width {width} (widest observed: {max_width}); their excess "
+           f"candidates would be silently dropped from AUC/MRR/nDCG. "
+           f"Raise max_candidates (--max_candidates) to >= {max_width}.")
+    if allow:
+        logging.warning("%s (allow_truncation=True: continuing)", msg)
+        return
+    raise CandidateTruncationError(msg)
 
 
 def trans_to_nindex(nids: List[str], news_index: Dict[str, int]) -> List[int]:
@@ -138,3 +161,73 @@ class TrainSamples:
         candidate_idx (B,1+K) int32 news indices, for a gather on the
         device (train/step.py:with_device_gather)."""
         return self._iter(None, batch_size, epoch, seed, shuffle, pad_final)
+
+
+@dataclasses.dataclass
+class EvalSamples:
+    """One eval shard (raw behaviors_{r}.tsv lines) as dense arrays:
+    candidates padded to a fixed width C with a 0/1 mask, labels from the
+    Nxxx-0/1 impression field (reference dataset.py:70-72)."""
+
+    history: np.ndarray         # (N, L) int32
+    history_mask: np.ndarray    # (N, L) float32
+    candidates: np.ndarray      # (N, C) int32 news indices (0-padded)
+    labels: np.ndarray          # (N, C) float32 0/1 (0 on padding)
+    candidate_mask: np.ndarray  # (N, C) float32
+
+    @property
+    def num_samples(self) -> int:
+        return self.history.shape[0]
+
+    @classmethod
+    def from_file(cls, path: str, news_index: Dict[str, int], cfg,
+                  max_candidates: Optional[int] = None,
+                  allow_truncation: bool = False) -> "EvalSamples":
+        """Parse one eval shard; candidates padded to ``max_candidates``
+        (default: the widest impression). An impression wider than that
+        raises CandidateTruncationError; ``allow_truncation=True`` logs a
+        warning and drops the excess instead."""
+        hist, mask, cand_lists, label_lists = [], [], [], []
+        with open(path, "r", encoding="utf-8") as f:
+            for line in f:
+                parts = line.rstrip("\n").split("\t")
+                h, m = pad_to_fix_len(
+                    trans_to_nindex(parts[3].split(), news_index),
+                    cfg.user_log_length)
+                hist.append(h)
+                mask.append(m)
+                items = parts[4].split()
+                cand_lists.append(trans_to_nindex(
+                    [i.split("-")[0] for i in items], news_index))
+                label_lists.append([int(i.split("-")[1]) for i in items])
+
+        width = max_candidates or max(len(c) for c in cand_lists)
+        n = len(hist)
+        widths = np.asarray([len(c) for c in cand_lists])
+        _guard_truncation(path, int(np.sum(widths > width)),
+                          int(widths.max(initial=0)), width, allow_truncation)
+        candidates = np.zeros((n, width), dtype=np.int32)
+        labels = np.zeros((n, width), dtype=np.float32)
+        cmask = np.zeros((n, width), dtype=np.float32)
+        for i, (cl, ll) in enumerate(zip(cand_lists, label_lists)):
+            w = min(len(cl), width)
+            candidates[i, :w] = cl[:w]
+            labels[i, :w] = ll[:w]
+            cmask[i, :w] = 1.0
+        return cls(history=np.asarray(hist, dtype=np.int32),
+                   history_mask=np.asarray(mask, dtype=np.float32),
+                   candidates=candidates, labels=labels,
+                   candidate_mask=cmask)
+
+    def iter_batches(self, batch_size: int) -> Iterator[dict]:
+        """Fixed-shape eval batches: the arrays' rows, zero-padded to
+        batch_size (a padded row has no real candidate, so the metrics
+        drop it), and num_real, the count of real rows."""
+        n = self.num_samples
+        for start in range(0, n, batch_size):
+            end = min(start + batch_size, n)
+            batch = {k: _pad_rows(getattr(self, k)[start:end], batch_size)
+                     for k in ("history", "history_mask", "candidates",
+                               "labels", "candidate_mask")}
+            batch["num_real"] = end - start
+            yield batch

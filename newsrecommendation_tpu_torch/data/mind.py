@@ -1,7 +1,6 @@
 """MIND corpus reading, vocab building, and fixed-shape news-feature matrices.
 
-The port's own copy of the JAX package's ``data/mind.py`` (the parts
-serving needs).
+The port's own copy of the JAX package's ``data/mind.py``.
 
 Behavioral parity with reference ``preprocess.py:16-72``:
   - news.tsv is 8 tab-separated columns: doc_id, category, subcategory,
@@ -22,6 +21,7 @@ the title columns hold ``num_words_title`` word ids (0-padded).
 from __future__ import annotations
 
 import dataclasses
+import os
 import re
 from collections import Counter
 from typing import Dict, List, Optional
@@ -154,6 +154,28 @@ def build_news_features(corpus: NewsCorpus, cfg) -> np.ndarray:
             subcat = corpus.categories[doc_id][1]
             out[idx, col] = corpus.subcategory_dict.get(subcat, 0)
     return out
+
+
+def load_glove_matrix(path: str, word_dict: Dict[str, int], dim: int):
+    """Stream a GloVe text file into a (V+1, dim) matrix (utils.py:64-80).
+
+    Returns (matrix, have_words). Rows for out-of-GloVe words, row 0 too,
+    stay zero; a missing file gives all zeros.
+    """
+    matrix = np.zeros((len(word_dict) + 1, dim), dtype=np.float32)
+    have = []
+    if path is not None and os.path.exists(path):
+        with open(path, "rb") as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                word = parts[0].decode("utf-8", errors="ignore")
+                if word in word_dict:
+                    matrix[word_dict[word]] = np.asarray(
+                        [float(x) for x in parts[1:]], dtype=np.float32)
+                    have.append(word)
+    return matrix, have
 
 
 def random_word_embeddings(word_dict: Dict[str, int], dim: int, seed: int = 0):

@@ -1,5 +1,5 @@
-"""Offline behaviors.tsv preparation for training: negative sampling and
-shard splitting.
+"""Offline behaviors.tsv preparation: negative sampling and shard
+splitting for training, shard splitting for testing.
 
 Per impression: split the clicked and non-clicked news, drop impressions
 lacking either, emit one line per positive with npratio sampled negatives
@@ -7,6 +7,8 @@ lacking either, emit one line per positive with npratio sampled negatives
 lines once, and split them round-robin into behaviors_np{K}_{shard}.tsv.
 The same seed gives files byte-identical to the JAX package's
 (newsrecommendation_tpu/data/prepare.py), so either side reads the other's.
+For testing, the raw behaviors.tsv lines are split round-robin into
+behaviors_{shard}.tsv.
 Each shard is written to a process-unique temp name and renamed into
 place, so a concurrent reader only ever sees a complete file.
 """
@@ -67,3 +69,17 @@ def _atomic_write_lines(path: str, lines: List[str]) -> None:
     with open(tmp, "w", encoding="utf-8") as f:
         f.writelines(lines)
     os.replace(tmp, path)
+
+
+def prepare_testing_data(test_data_dir: str, num_shards: int) -> int:
+    """Split {test_data_dir}/behaviors.tsv round-robin into
+    behaviors_{shard}.tsv; returns the number of lines."""
+    path = os.path.join(test_data_dir, "behaviors.tsv")
+    with open(path, "r", encoding="utf-8") as f:
+        lines = f.readlines()
+    for shard in range(num_shards):
+        shard_path = os.path.join(test_data_dir, f"behaviors_{shard}.tsv")
+        _atomic_write_lines(shard_path, lines[shard::num_shards])
+    logging.info("prepared %d testing samples into %d shards",
+                 len(lines), num_shards)
+    return len(lines)

@@ -1,8 +1,10 @@
 """Serving API: precomputed news-vector cache + batched impression scoring.
 
-Build once from live params, then score candidate sets for user histories
-with one gather + user-encode + dot computation on the device:
+Build once from a checkpoint or live params, then score candidate sets for
+user histories with one gather + user-encode + dot computation on the
+device:
 
+    rec = Recommender.from_checkpoint(ckpt_path, cfg, test_data_dir)
     rec = Recommender.from_state(cfg, params, news_index, news_features)
     scores = rec.score(history_doc_ids, candidate_doc_ids)
     ranked = rec.rank(history_doc_ids, candidate_doc_ids)
@@ -104,9 +106,40 @@ class Recommender:
         return cls(model, params, cfg, news_index, cache, device=dev, **kw)
 
     @classmethod
-    def from_checkpoint(cls, ckpt_path: str, cfg, data_dir: str, **kw):
-        raise NotImplementedError(
-            "checkpoints are not ported yet: build with Recommender.from_state")
+    def from_checkpoint(cls, ckpt_path: str, cfg, data_dir: str, *,
+                        device="cuda", **kw) -> "Recommender":
+        """Load a checkpoint and build the cache from data_dir's corpus:
+        the sidecar's vocabs read data_dir/news.tsv, the title table is
+        built for that corpus (cli.build_embedding_table), a model of that
+        shape takes the checkpoint's params (load_checkpoint), and
+        from_state encodes the corpus on ``device``."""
+        import json
+        import os
+
+        from newsrecommendation_tpu_torch.ckpt import load_checkpoint
+        from newsrecommendation_tpu_torch.cli import build_embedding_table
+        from newsrecommendation_tpu_torch.data import (
+            build_news_features,
+            read_news,
+        )
+        from newsrecommendation_tpu_torch.train import create_train_state
+
+        dev = resolve_device(device)
+        with open(ckpt_path + ".json", "r", encoding="utf-8") as f:
+            sidecar = json.load(f)
+        corpus = read_news(
+            os.path.join(data_dir, "news.tsv"), cfg, "test",
+            category_dict=sidecar.get("category_dict", {}),
+            subcategory_dict=sidecar.get("subcategory_dict", {}),
+            word_dict=sidecar.get("word_dict", {}))
+        table = build_embedding_table(cfg, data_dir, corpus)
+        model = get_model(cfg.model)
+        template = create_train_state(
+            cfg, model.init(cfg, table, seed=0, device=dev))
+        state, _ = load_checkpoint(ckpt_path, template, cfg)
+        return cls.from_state(cfg, state.params, corpus.news_index,
+                              build_news_features(corpus, cfg), device=dev,
+                              **kw)
 
     # ---- scoring ---------------------------------------------------------
 

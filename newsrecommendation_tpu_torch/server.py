@@ -8,12 +8,13 @@
   handful of shapes.
 - **HTTP API** (:func:`serve`): a stdlib ThreadingHTTPServer with JSON
   endpoints: ``POST /score`` (rank a candidate list), ``POST /recommend``
-  (corpus-wide top-k), ``GET /healthz``, ``GET /stats``. One thread per
-  connection feeds the shared batcher, so concurrency turns into device
-  batch size.
+  (corpus-wide top-k), ``POST /reload`` (rebuild from the newest
+  checkpoint and swap it in), ``GET /healthz``, ``GET /stats``. One thread
+  per connection feeds the shared batcher, so concurrency turns into
+  device batch size.
 
-``POST /reload`` and the checkpoint-based ``run_server`` wait for the
-checkpoint slice of the port.
+CLI: ``python -m newsrecommendation_tpu_torch.cli --mode serve
+--load_ckpt_name latest --serve_port 8000``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 
 def next_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -290,8 +292,10 @@ class BatchingScorer:
         cands = ([list(r.candidates)[:cand_width] for r in reqs]
                  + [[]] * (bb - n))
         self.stats.record_batch(n)
-        out = self.rec.score_batch_async(hists, cands,
-                                         max_candidates=cand_width)
+        # the whole batch runs against one rec, read once: a /reload swap
+        # of self.rec in between must not split it between two models
+        rec = self.rec
+        out = rec.score_batch_async(hists, cands, max_candidates=cand_width)
         return "score", reqs, out
 
     def _dispatch_recommend(self, reqs: List[_Request], k_width: int):
@@ -396,10 +400,38 @@ class _Handler(BaseHTTPRequestHandler):
         else:
             self._json(404, {"error": f"unknown path {self.path}"})
 
+    def _reload(self, batcher) -> None:
+        """Rebuild a Recommender from the rebuild source, run its batch
+        tiers once, then swap it into the batcher: batches already
+        dispatched finish on the old one, later ones score on the new."""
+        rebuild = self.server.rebuild  # type: ignore[attr-defined]
+        if rebuild is None:
+            self._json(501, {"error": "no rebuild source configured (server "
+                                      "started from a live Recommender, "
+                                      "not a checkpoint)"})
+            return
+        # one reload at a time; a second one gets 409 rather than a wait
+        lock = self.server.reload_lock  # type: ignore[attr-defined]
+        if not lock.acquire(blocking=False):
+            self._json(409, {"error": "a reload is already in flight"})
+            return
+        try:
+            new_rec = rebuild()
+            _warm_buckets(new_rec, batcher)
+            batcher.rec = new_rec
+            self.server.rec = new_rec  # type: ignore[attr-defined]
+        finally:
+            lock.release()
+        self._json(200, {"status": "reloaded",
+                         "corpus_size": new_rec.corpus_size})
+
     def do_POST(self):
         batcher = self.server.batcher  # type: ignore[attr-defined]
         try:
             req = self._read_json()
+            if self.path == "/reload":
+                self._reload(batcher)
+                return
             history = req.get("history", [])
             if not isinstance(history, list):
                 raise ValueError("history must be a list of doc-id strings")
@@ -439,7 +471,7 @@ class _Server(ThreadingHTTPServer):
 
 def serve(rec, host: str = "127.0.0.1", port: int = 8000,
           max_batch: int = 64, max_delay_ms: float = 2.0,
-          warmup: bool = True,
+          warmup: bool = True, rebuild=None,
           pipeline_depth: int = 2) -> ThreadingHTTPServer:
     """Start the HTTP recommender service on ``rec``'s device; returns the
     (started) server. ``port=0`` takes a free port
@@ -447,7 +479,9 @@ def serve(rec, host: str = "127.0.0.1", port: int = 8000,
 
     The caller owns shutdown: ``srv.shutdown(); srv.server_close();
     srv.batcher.close()``. ``warmup=True`` runs both batch tiers once
-    before the first request (see _warm_buckets).
+    before the first request (see _warm_buckets). ``rebuild``: a zero-arg
+    callable returning a fresh Recommender, which enables ``POST /reload``
+    (``srv.reload_lock`` held means a reload is in flight).
     """
     batcher = BatchingScorer(rec, max_batch=max_batch,
                              max_delay_ms=max_delay_ms,
@@ -458,6 +492,13 @@ def serve(rec, host: str = "127.0.0.1", port: int = 8000,
     srv = _Server((host, port), _Handler)
     srv.rec = rec                    # type: ignore[attr-defined]
     srv.batcher = batcher            # type: ignore[attr-defined]
+    srv.rebuild = rebuild            # type: ignore[attr-defined]
+    srv.reload_lock = threading.Lock()  # type: ignore[attr-defined]
+    if rebuild is not None and host not in ("127.0.0.1", "localhost", "::1"):
+        logging.warning(
+            "serving on non-loopback %s with /reload enabled: the reload "
+            "endpoint is unauthenticated; front it with an authenticating "
+            "proxy or bind to 127.0.0.1", host)
     t = threading.Thread(target=srv.serve_forever, daemon=True,
                          name="newsrec-http")
     t.start()
@@ -465,3 +506,66 @@ def serve(rec, host: str = "127.0.0.1", port: int = 8000,
                  host, srv.server_address[1], max_batch, max_delay_ms)
     return srv
 
+
+def run_server(cfg, state=None, vocabs: Optional[dict] = None,
+               block: bool = True, *, device="cuda"):
+    """CLI entry: build a Recommender on ``device`` and serve it.
+
+    With ``state`` and ``vocabs`` (fresh from run_train in the same
+    process) the live params serve cfg.test_data_dir's corpus, and
+    /reload has no source (501). Otherwise the checkpoint
+    cfg.load_ckpt_name in cfg.model_dir ("latest" or none: the newest,
+    resolved again at every /reload, so a reload picks up a newer
+    checkpoint) serves it. ``block=False`` returns the started server
+    instead of serving until interrupted."""
+    import os
+
+    from newsrecommendation_tpu_torch.serve import Recommender
+    from newsrecommendation_tpu_torch.utils import resolve_device
+
+    dev = resolve_device(device)
+    serve_kw = dict(scorer=cfg.serve_scorer, device=dev,
+                    cache_dtype=(None if cfg.serve_cache_dtype == "float32"
+                                 else cfg.serve_cache_dtype))
+    rebuild = None
+    if state is not None and vocabs is not None:
+        from newsrecommendation_tpu_torch.cli import build_embedding_table
+        from newsrecommendation_tpu_torch.data import (
+            build_news_features,
+            read_news,
+        )
+
+        corpus = read_news(os.path.join(cfg.test_data_dir, "news.tsv"), cfg,
+                           "test", **vocabs)
+        params = state.params
+        if cfg.title_source == "doc_table":
+            # the frozen per-title table is the serving corpus's own
+            params = dict(params)
+            params["embedding_table"] = torch.as_tensor(
+                build_embedding_table(cfg, cfg.test_data_dir, corpus),
+                dtype=torch.float32)
+        rec = Recommender.from_state(cfg, params, corpus.news_index,
+                                     build_news_features(corpus, cfg),
+                                     **serve_kw)
+    else:
+        from newsrecommendation_tpu_torch.cli import checkpoint_path
+
+        def rebuild():
+            return Recommender.from_checkpoint(
+                checkpoint_path(cfg), cfg, cfg.test_data_dir, **serve_kw)
+
+        rec = rebuild()
+    srv = serve(rec, host=cfg.serve_host, port=cfg.serve_port,
+                max_batch=cfg.serve_max_batch,
+                max_delay_ms=cfg.serve_max_delay_ms, rebuild=rebuild,
+                pipeline_depth=cfg.serve_pipeline_depth)
+    if not block:
+        return srv
+    try:
+        threading.Event().wait()  # serve until interrupted
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.batcher.close()  # type: ignore[attr-defined]

@@ -1,23 +1,27 @@
 """Host-side training loop: epochs over the batch iterator, train steps,
-logging with throughput counters.
+logging with throughput counters, and checkpoints.
 
 As the JAX package's loop: per-epoch iteration, loss/accuracy logging
-every log_steps (the only points where they are read to the host),
-examples/s counted from the end of the first step, an optional profiler
-trace, and batches built and copied to the device on a background thread
-(train/prefetch.py; cfg.prefetch_depth). Checkpoints are not ported yet.
+every log_steps (the only points where they are read to the host, and
+where ``metrics.jsonl`` takes a train line), examples/s counted from the
+end of the first step, checkpoints every save_steps and at each epoch's
+end written by a background thread, an optional profiler trace, and
+batches built and copied to the device on a background thread
+(train/prefetch.py; cfg.prefetch_depth).
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import threading
 import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from newsrecommendation_tpu_torch.ckpt import save_checkpoint, snapshot_state
 from newsrecommendation_tpu_torch.train.prefetch import stage_ahead
 from newsrecommendation_tpu_torch.train.step import (
     make_multi_step,
@@ -40,8 +44,49 @@ def _to_device(batch: dict, device) -> dict:
             for k, v in batch.items()}
 
 
+class _AsyncSaver:
+    """Checkpoint writes off the training thread.
+
+    The step updates the params and Adam moments in place, so the state is
+    first copied on the device (snapshot_state: one clone per tensor on the
+    step's stream, ordered after the step that made it and before the next
+    one); a single worker thread then copies the snapshot to the host and
+    writes it while training goes on. One save in flight at a time, which
+    bounds the device memory at twice the state; a failed write is raised
+    again at ``wait()``, which fit calls before it returns.
+    """
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, save_dir, name, state, cfg, **vocabs):
+        snap = snapshot_state(state, cfg)
+        self.wait()
+
+        def _write():
+            try:
+                save_checkpoint(save_dir, name, state, cfg, payload=snap,
+                                **vocabs)
+            except BaseException as e:  # noqa: BLE001 — re-raised in wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=_write, daemon=True,
+                                        name="ckpt-saver")
+        self._thread.start()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("background checkpoint write failed") from err
+
+
 def fit(cfg, model, state, samples, news_features, *, train_step=None,
-        multi_step=None, save_dir: Optional[str] = None,
+        multi_step=None, vocabs: Optional[dict] = None,
+        save_dir: Optional[str] = None,
         device_gather: Optional[bool] = None) -> Dict[str, float]:
     """Train for cfg.epochs over `samples`; returns (state, stats).
 
@@ -52,12 +97,14 @@ def fit(cfg, model, state, samples, news_features, *, train_step=None,
     rows on the device from a resident copy of news_features, shipping
     only int32 news indices per step; defaults to cfg.device_gather for
     the built-in step. The kernel switches cfg carries are set where the
-    step is built (make_train_step).
+    step is built (make_train_step). save_dir: write
+    ``epoch-{E}-{step}.ckpt`` every cfg.save_steps steps and
+    ``epoch-{E}.ckpt`` at each epoch's end there, with ``vocabs``
+    (category_dict, subcategory_dict, word_dict) in their sidecars, and
+    append the train log lines to ``metrics.jsonl``. Epochs run from
+    cfg.start_epoch; a resumed state carries its step, which seeds the
+    dropout draws.
     """
-    if save_dir is not None:
-        raise NotImplementedError(
-            "checkpoints are not ported yet: fit(save_dir=...) waits for "
-            "the checkpoint slice")
     custom_step = train_step is not None
     if device_gather is None:
         device_gather = not custom_step and bool(cfg.device_gather)
@@ -65,6 +112,13 @@ def fit(cfg, model, state, samples, news_features, *, train_step=None,
         train_step = make_train_step(cfg, model, device_gather=device_gather)
     device = _device_of(state.params)
     base_seed = cfg.seed
+    vocabs = vocabs or {}
+    mlog = None
+    if save_dir:
+        from newsrecommendation_tpu_torch.utils.logging import MetricsLog
+
+        mlog = MetricsLog(os.path.join(save_dir, "metrics.jsonl"))
+    saver = _AsyncSaver()
 
     total_examples = 0
     total_steps = 0
@@ -112,6 +166,13 @@ def fit(cfg, model, state, samples, news_features, *, train_step=None,
             logging.info("[%d] Ed: %d, train_loss: %.5f, acc: %.5f, "
                          "ex/s: %.1f", ep, cnt * cfg.batch_size, loss_v,
                          acc_v, eps)
+            if mlog is not None:
+                mlog.write("train", epoch=ep, step=cnt,
+                           loss=round(loss_v, 5), acc=round(acc_v, 5),
+                           examples_per_sec=round(eps, 1))
+        if save_dir and cnt != 0 and cnt % cfg.save_steps == 0:
+            saver.save(save_dir, f"epoch-{ep + 1}-{cnt}.ckpt", state, cfg,
+                       **vocabs)
 
     def iter_host_batches(ep):
         if device_gather:
@@ -156,6 +217,9 @@ def fit(cfg, model, state, samples, news_features, *, train_step=None,
                 grouped(), stage, depth=cfg.prefetch_depth):
             if kind == "epoch_end":
                 logging.info("epoch %d finished", ep)
+                if save_dir:
+                    saver.save(save_dir, f"epoch-{ep + 1}.ckpt", state, cfg,
+                               **vocabs)
                 cnt = -1
                 continue
             if kind == "single":
@@ -171,6 +235,7 @@ def fit(cfg, model, state, samples, news_features, *, train_step=None,
                 after_step(ep, cnt, lambda j=j: float(ms["loss"][j]),
                            lambda j=j: float(ms["acc"][j]), n)
     finally:
+        saver.wait()  # the checkpoint files are complete before fit returns
         if prof is not None:
             prof.stop()
             os.makedirs(cfg.profile_dir, exist_ok=True)
@@ -188,4 +253,8 @@ def fit(cfg, model, state, samples, news_features, *, train_step=None,
         "final_loss": final_loss,
         "final_acc": float(metrics["acc"]),
     }
+    if mlog is not None:
+        mlog.write("train_summary",
+                   **{k: round(float(v), 5) for k, v in stats.items()})
+        mlog.close()
     return state, stats

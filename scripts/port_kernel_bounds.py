@@ -54,7 +54,7 @@ def costs(row, n, t, dtype):
 
 # (row, call site under newsrecommendation_tpu/ops/pallas/, N, T, dtype):
 # rows 1-3 at the shapes the port's main paths give them; the others at
-# the news encoder's shape, except the flash pair (T >= 512 only), taken
+# the news encoder's shape (rows 13-14 also at their other shapes), except the flash pair (T >= 512 only), taken
 # at a user encoder over a 512-news history.
 ROWS = [
     (1, "fused_attention.py:680 _qkv_fwd_call", 1024, 20, "float32"),
@@ -76,6 +76,15 @@ ROWS = [
      "bfloat16"),
     (14, "experimental_fused_encoder.py:309 _bwd_call", 7040, 20,
      "bfloat16"),
+    # rows 13-14 at every other shape of their table rows: the user
+    # encoder in training (128, 50), the served corpus chunk (1024, 20)
+    # and user encoder (64, 50) in f32, and a 512-news history (128, 512)
+    # (masked or not: the mask's bytes are no part of the estimate)
+    *[(row, site, n, t, dtype)
+      for row, site in ((13, "experimental_fused_encoder.py:257 _fwd_call"),
+                        (14, "experimental_fused_encoder.py:309 _bwd_call"))
+      for n, t, dtype in ((128, 50, "bfloat16"), (1024, 20, "float32"),
+                          (64, 50, "float32"), (128, 512, "bfloat16"))],
     (15, "experimental_blanes.py:143 _blanes_fwd_call", 7040, 20,
      "bfloat16"),
     (16, "experimental_blanes.py:171 _blanes_bwd_call", 7040, 20,

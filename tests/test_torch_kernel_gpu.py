@@ -1932,3 +1932,214 @@ def test_bwd_launch_plan_matches_the_kernels():
     finally:
         fa.bwd_launch_plan = real
     assert not any(fa.launch_counts("qkv_bwd").values())
+
+
+# ---- the command-line path on the card: checkpoints, eval, /reload -------
+
+def _cli_setup(tmp_path, **overrides):
+    """A synthetic train/dev corpus at small widths, its config and table,
+    and params made on the CPU from a seed."""
+    from newsrecommendation_tpu_torch.config import Config
+    from newsrecommendation_tpu_torch.data import (
+        random_word_embeddings,
+        read_news,
+    )
+    from newsrecommendation_tpu_torch.data.synthetic import generate_corpus
+    from newsrecommendation_tpu_torch.models import nrms
+
+    for name, seed, n in (("train", 1, 200), ("dev", 2, 80)):
+        generate_corpus(str(tmp_path / name), num_news=120, num_users=30,
+                        num_impressions=n, title_len=8, seed=seed)
+    cfg = Config(num_words_title=8, user_log_length=10,
+                 word_embedding_dim=32, news_dim=40, num_attention_heads=4,
+                 news_query_vector_dim=16, user_query_vector_dim=16,
+                 filter_num=0, batch_size=16, drop_rate=0.2, lr=3e-3,
+                 user_log_mask=True, max_candidates=32, eval_batch_size=16,
+                 train_data_dir=str(tmp_path / "train"),
+                 test_data_dir=str(tmp_path / "dev"),
+                 model_dir=str(tmp_path / "model"), serve_port=0,
+                 serve_max_batch=8, serve_max_delay_ms=2.0,
+                 load_ckpt_name="latest").replace(**overrides)
+    corpus = read_news(str(tmp_path / "train" / "news.tsv"), cfg)
+    table = random_word_embeddings(corpus.word_dict, cfg.word_embedding_dim)
+    return cfg, corpus, table, nrms
+
+
+def _trained_state(cfg, table, nrms, device, steps=3):
+    from newsrecommendation_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+    )
+
+    state = create_train_state(cfg, nrms.init(cfg, table, seed=0,
+                                              device=device))
+    rng = np.random.default_rng(0)
+    b, L, k, t = (cfg.batch_size, cfg.user_log_length, cfg.npratio,
+                  cfg.num_words_title)
+    step = make_train_step(cfg, nrms_model())
+    for _ in range(steps):
+        batch = {
+            "history": rng.integers(0, table.shape[0], (b, L, t)),
+            "history_mask": (rng.random((b, L)) > 0.3).astype(np.float32),
+            "candidate": rng.integers(0, table.shape[0], (b, 1 + k, t)),
+            "label": rng.integers(0, k + 1, (b,)),
+            "weight": np.ones(b, np.float32)}
+        batch = {key: torch.from_numpy(v).to(device)
+                 for key, v in batch.items()}
+        batch["label"] = batch["label"].int()
+        for key in ("history", "candidate"):
+            batch[key] = batch[key].int()
+        state, _ = step(state, batch, 0)
+    return state
+
+
+def nrms_model():
+    from newsrecommendation_tpu_torch.models import get_model
+
+    return get_model("NRMS")
+
+
+@pytest.mark.parametrize("freeze", [True, False])
+def test_checkpoint_roundtrip_on_cuda(tmp_path, freeze):
+    """A state trained on the card, saved and loaded into a fresh state on
+    the card: every param and Adam moment bit-equal, on the card, and
+    the step restored."""
+    from newsrecommendation_tpu_torch.ckpt import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from newsrecommendation_tpu_torch.train import create_train_state
+
+    cfg, _, table, nrms = _cli_setup(tmp_path, freeze_embedding=freeze,
+                                     compute_dtype="bfloat16")
+    state = _trained_state(cfg, table, nrms, "cuda")
+    torch.cuda.synchronize()
+    path = save_checkpoint(cfg.model_dir, "epoch-1.ckpt", state, cfg)
+    fresh = create_train_state(cfg, nrms.init(cfg, table, seed=5,
+                                              device="cuda"))
+    restored, _ = load_checkpoint(path, fresh, cfg)
+    assert restored.step == state.step == 3
+
+    def walk(a, b):
+        if isinstance(a, dict):
+            for key in a:
+                walk(a[key], b[key])
+            return
+        assert a.is_cuda and b.is_cuda and torch.equal(a, b)
+        sa, sb = (restored.optimizer.state.get(a),
+                  state.optimizer.state.get(b))
+        assert bool(sa) == bool(sb)
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            if sa:
+                assert torch.equal(sa[key].cpu(), sb[key].cpu()), key
+        if sa:
+            assert sa["exp_avg"].is_cuda
+
+    walk(restored.params, state.params)
+
+
+@pytest.mark.parametrize("user_log_mask", [False, True])
+def test_evaluate_impressions_on_card_matches_cpu(tmp_path, user_log_mask):
+    """Phase 1 and 2 on the card (row 1 launching) against the same params
+    on the CPU (plain versions): the same valid count, metrics within
+    1e-4."""
+    import os
+
+    from newsrecommendation_tpu_torch.data import build_news_features
+    from newsrecommendation_tpu_torch.data.loader import EvalSamples
+    from newsrecommendation_tpu_torch.data.prepare import (
+        prepare_testing_data,
+    )
+    from newsrecommendation_tpu_torch.eval import (
+        compute_news_scoring,
+        evaluate_impressions,
+    )
+    from newsrecommendation_tpu_torch.utils import to_device
+
+    cfg, corpus, table, nrms = _cli_setup(tmp_path,
+                                          user_log_mask=user_log_mask)
+    state = _trained_state(cfg, table, nrms, "cpu")
+    prepare_testing_data(cfg.test_data_dir, 1)
+    from newsrecommendation_tpu_torch.data import read_news
+    dev = read_news(os.path.join(cfg.test_data_dir, "news.tsv"), cfg,
+                    "test", word_dict=corpus.word_dict)
+    es = EvalSamples.from_file(os.path.join(cfg.test_data_dir,
+                                            "behaviors_0.tsv"),
+                               dev.news_index, cfg,
+                               max_candidates=cfg.max_candidates)
+    feats = build_news_features(dev, cfg)
+    out = {}
+    for device in ("cuda", "cpu"):
+        params = to_device(state.params, device)
+        fa.reset_launch_counts()
+        scoring = compute_news_scoring(nrms_model(), params, cfg, feats)
+        out[device] = evaluate_impressions(nrms_model(), params, cfg, es,
+                                           scoring)
+        if device == "cuda":
+            launches = fa.launch_counts("qkv_fwd")
+            assert launches["bias"] >= 1
+            assert bool(launches["bias_masked"]) == user_log_mask
+    assert out["cuda"]["count"] == out["cpu"]["count"] > 0
+    for key in ("auc", "mrr", "ndcg5", "ndcg10"):
+        assert abs(out["cuda"][key] - out["cpu"][key]) <= 1e-4, key
+
+
+def test_reload_on_the_card(tmp_path):
+    """run_server on the card from the newest checkpoint: /score equal to
+    the same params scored on the CPU; a newer checkpoint, POST /reload,
+    then the new params' scores; 409 while a reload is in flight."""
+    import http.client
+    import json
+
+    from newsrecommendation_tpu_torch.ckpt import save_checkpoint
+    from newsrecommendation_tpu_torch.serve import Recommender
+    from newsrecommendation_tpu_torch.server import run_server
+
+    cfg, corpus, table, nrms = _cli_setup(tmp_path)
+    vocabs = dict(category_dict=corpus.category_dict,
+                  subcategory_dict=corpus.subcategory_dict,
+                  word_dict=corpus.word_dict)
+
+    def save(steps, name):
+        state = _trained_state(cfg, table, nrms, "cpu", steps=steps)
+        save_checkpoint(cfg.model_dir, name, state, cfg, **vocabs)
+        return Recommender.from_checkpoint(
+            f"{cfg.model_dir}/{name}", cfg, cfg.test_data_dir, device="cpu")
+
+    def post(srv, path, payload):
+        conn = http.client.HTTPConnection("127.0.0.1",
+                                          srv.server_address[1], timeout=60)
+        conn.request("POST", path, body=json.dumps(payload),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        body = json.loads(resp.read().decode())
+        conn.close()
+        return resp.status, body
+
+    cpu = save(2, "epoch-1.ckpt")
+    docs = list(cpu.news_index)
+    req = {"history": docs[:5], "candidates": docs[5:25]}
+    srv = run_server(cfg, block=False)
+    try:
+        assert srv.rec.device.type == "cuda"
+        status, body = post(srv, "/score", req)
+        assert status == 200
+        np.testing.assert_allclose(
+            body["scores"], cpu.score(req["history"], req["candidates"]),
+            rtol=1e-4, atol=1e-4)
+        newer = save(4, "epoch-2.ckpt")
+        status, body = post(srv, "/reload", {})
+        assert status == 200 and body["status"] == "reloaded"
+        status, body = post(srv, "/score", req)
+        np.testing.assert_allclose(
+            body["scores"], newer.score(req["history"], req["candidates"]),
+            rtol=1e-4, atol=1e-4)
+        assert srv.reload_lock.acquire(blocking=False)
+        try:
+            assert post(srv, "/reload", {})[0] == 409
+        finally:
+            srv.reload_lock.release()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.batcher.close()

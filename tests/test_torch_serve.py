@@ -139,8 +139,9 @@ def test_recommender_contract(recs):
     with pytest.raises(ValueError, match="dense 1-based"):
         Recommender(rec.model, rec.params, rec.cfg, {"N1": 1, "N2": 5},
                     rec.news_scoring, device="cpu")
-    with pytest.raises(NotImplementedError):
-        Recommender.from_checkpoint("x.ckpt", rec.cfg, "data")
+    # tests/test_torch_server_ckpt.py serves from checkpoints
+    with pytest.raises(FileNotFoundError):
+        Recommender.from_checkpoint("x.ckpt", rec.cfg, "data", device="cpu")
 
 
 def test_next_bucket():

@@ -2,9 +2,10 @@
 corpus through prepare_training_data and TrainSamples, against the JAX
 package's fit on the same params and data with dropout off, and the
 loop's own guarantees (prefetch and the device gather change nothing,
-k steps per call with leftovers, no checkpoints yet, profiler traces)."""
+k steps per call with leftovers, checkpoints written, profiler traces)."""
 
 import dataclasses
+import json
 import os
 
 import jax
@@ -141,11 +142,23 @@ def test_fit_end_to_end_from_a_corpus(tmp_path, tiny_cfg):
     assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
 
 
-def test_fit_save_dir_waits_for_the_checkpoint_slice(tiny_cfg):
-    cfg = port_cfg(tiny_cfg)
+def test_fit_save_dir_waits_for_the_checkpoint_slice(tiny_cfg, tmp_path):
+    """The checkpoint slice has landed: fit(save_dir=...) writes each
+    epoch's checkpoint with its vocab sidecar and the metrics lines
+    (tests/test_torch_ckpt.py holds their contents)."""
+    cfg = port_cfg(tiny_cfg, epochs=2)
     arrays, feats = tiny_samples(cfg, n=4)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        port_fit(cfg, jax_params(tiny_cfg), arrays, feats, save_dir="ckpt")
+    state, stats = port_fit(cfg, jax_params(tiny_cfg), arrays, feats,
+                            save_dir=str(tmp_path / "ckpt"),
+                            vocabs={"word_dict": {"w": 1}})
+    assert sorted(os.listdir(tmp_path / "ckpt")) == [
+        "epoch-1.ckpt", "epoch-1.ckpt.json", "epoch-2.ckpt",
+        "epoch-2.ckpt.json", "metrics.jsonl"]
+    sidecar = json.loads((tmp_path / "ckpt" / "epoch-2.ckpt.json")
+                         .read_text())
+    assert sidecar["word_dict"] == {"w": 1} and stats["steps"] == 2
+    assert torch.load(tmp_path / "ckpt" / "epoch-2.ckpt",
+                      weights_only=True)["step"] == state.step == 2
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",
