@@ -6,7 +6,9 @@ its published width, with 50-, 300- and 512-news histories, and with the
 fused encoder tail, the 2-D-I/O attention and the batch-in-lanes
 attention; drives multi-head self-attention at unequal q/k/v widths, and
 every kernel at the head widths and lengths it once refused; then runs the
-command line (train_test, checkpoints, test, serve with /reload).
+command line (train_test, checkpoints, test, serve with /reload); and NAML
+at its benchmark width (train, serve, the command line), which runs no
+kernel row.
 
     python3 chip_smoke.py        # from the repo root, on a machine with
                                  # one CUDA card and nvcc
@@ -147,12 +149,28 @@ Phases, each printing one line with its elapsed seconds:
            "on" (2 row-13 and 2 row-14 launches per step, no flash), and for
            12 steps with 300-news histories (rows 2-3 twice per step, the
            user encoder's on tensor cores)
+  naml-train-check  NAML (bench.py:381-388 with both category views: T =
+           20, 300-d words, 400-d news) one f32 step (dropout off, B=16)
+           on the card and on the CPU from the same params and batch, as
+           train-check, every leaf's gradient held (the category tables,
+           their dense layers and final_attn included): word ids with a
+           frozen table (both masks) and a trained one, and the doc_table
+           (both masks) holding the same titles' word vectors
+  naml-train  fit() at the NAML benchmark step (bf16, B=128, dropout 0.2,
+           lr 3e-4, frozen table) for one epoch, then 20 steps on one
+           batch whose loss must fall; again with the word table trained;
+           no kernel row may launch
+  naml-serve  Recommender.from_state over the 65,536 news with category
+           columns (f32), the HTTP server, both masks, answers checked
+           against the CPU; no kernel row may launch
   profile  device time, top kernels and device busy share (torch.profiler
            against an unprofiled wall clock) of one served batch of 64
            users x 300 candidates, of a 64-user corpus top-10, of one
            1024-row news-encoder chunk and of the headline, recompute,
            trained-table, fused-tail, 2-D-I/O, blanes, 512-history,
-           512-history fused-tail and 300-history train steps
+           512-history fused-tail and 300-history train steps, and of
+           the NAML served batch and train steps (frozen and trained
+           table)
   cli      the command-line path at the published width, user_log_mask
            on, on a synthetic corpus of 4,000 news (dev impressions of 40
            candidates): cli.main --mode train_test for one epoch (bf16,
@@ -171,6 +189,15 @@ Phases, each printing one line with its elapsed seconds:
            in flight). A "[cli numbers]" line gives the train ex/s through
            the CLI, the checkpoint's size, save and load seconds, eval
            impressions/s and the reload's seconds, with the card
+  naml-cli the fork's NAML demo flags (examples/demo.sh:15-19: doc_table,
+           both views, frozen table, user_log_mask False) at the published
+           width on cli's corpus: --mode create_embeddings with the hash
+           backend, train_test for one epoch (bf16, B=128), run_server from
+           the newest checkpoint against a CPU Recommender, a resumed epoch,
+           POST /reload; no kernel row may launch. A "[naml numbers]" line
+           gives the NAML train ex/s and step ms, the profiled NAML steps
+           and served batch, and the CLI's AUC, eval impressions/s, train
+           ex/s and reload seconds, with the card
 Every backward row's library time is scaled_dot_product_attention's
 backward alone on the same q, k, v (its forward run outside the timed
 window), a yardstick the port never calls. Then one JSON line of
@@ -381,10 +408,12 @@ def profile_device(fn, reps: int = 10) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    # device-side events only: a CPU op's entry repeats its kernels' time
+    # device-side events only: a CPU op's entry repeats its kernels' time,
+    # and so does a range annotated on the device (Optimizer.step's)
     dev = sorted(((e.key, e.self_device_time_total / 1e3 / reps)
                   for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA),
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)),
                  key=lambda kv: -kv[1])
     device_ms = sum(ms for _, ms in dev)
     if device_ms <= 0:
@@ -1759,12 +1788,18 @@ def timed(fn, plain, n_bytes, flops, dtype, iters=20, library=None) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def train_setup(cfg, table, seed, device):
-    from newsrecommendation_tpu_torch.models import get_model, nrms
+def train_setup(cfg, table, seed, device, num_category=0,
+                num_subcategory=0):
+    """cfg.model's params from ``seed`` around ``table`` (NAML's category
+    tables of the given vocabulary sizes) and a train state over them."""
+    from newsrecommendation_tpu_torch.models import get_model
     from newsrecommendation_tpu_torch.train import create_train_state
 
-    params = nrms.init(cfg, table, seed=seed, device=device)
-    return get_model("NRMS"), create_train_state(cfg, params)
+    model = get_model(cfg.model)
+    params = model.init(cfg, table, num_category=num_category,
+                        num_subcategory=num_subcategory, seed=seed,
+                        device=device)
+    return model, create_train_state(cfg, params)
 
 
 def train_check(ctx, user_log_mask, samples="samples", **overrides):
@@ -1785,7 +1820,8 @@ def train_check(ctx, user_log_mask, samples="samples", **overrides):
                                           epoch=0, seed=0))
     results = {}
     for device in (DEVICE, "cpu"):
-        model, state = train_setup(cfg, ctx["table"], 1, device)
+        model, state = train_setup(cfg, ctx["table"], 1, device,
+                                   *ctx["vocab_sizes"])
         batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
         state, metrics = make_train_step(cfg, model)(state, batch, 0)
         results[device] = (float(metrics["loss"]), state.params)
@@ -1835,17 +1871,20 @@ def train_check(ctx, user_log_mask, samples="samples", **overrides):
 
 def expected_launches(steps, cfg, attention_io="3d"):
     """Launches per kernel variant of an epoch of ``steps`` train steps
-    with user_log_mask off: the news encoder (20-word titles) and the user
-    encoder each run one forward and one backward per step: with
-    fused_tail "on" through rows 13-14 (the whole tail, at any length);
-    else, for a history of flash_min_seq keys or more, the user encoder
-    through rows 9-10, and each shorter sequence through rows 15-16
-    (attention_layout "blanes"), rows 11-12 (attention_io "2d"), rows 2-3
-    ("probs") or rows 1 and 4 ("recompute")."""
+    with user_log_mask off: none for NAML, which has no attention kernel;
+    for NRMS the news encoder (20-word titles) and the user encoder each
+    run one forward and one backward per step: with fused_tail "on"
+    through rows 13-14 (the whole tail, at any length); else, for a
+    history of flash_min_seq keys or more, the user encoder through rows
+    9-10, and each shorter sequence through rows 15-16 (attention_layout
+    "blanes"), rows 11-12 (attention_io "2d"), rows 2-3 ("probs") or rows
+    1 and 4 ("recompute")."""
     from newsrecommendation_tpu_torch.ops import kernel_config, kernels
 
     want = {k: {v: 0 for v in variants}
             for k, variants in kernels.KERNELS.items()}
+    if cfg.model == "NAML":
+        return want
     if cfg.fused_tail == "on":
         want["fused_tail_fwd"]["tail"] = 2 * steps
         want["fused_tail_bwd"]["tail_bwd"] = 2 * steps
@@ -1958,7 +1997,8 @@ def train_run(ctx, fa, samples="samples", fixed_batch=True, max_steps=None,
         samples = TrainSamples(history=samples.history[:cut],
                                history_mask=samples.history_mask[:cut],
                                pos=samples.pos[:cut], neg=samples.neg[:cut])
-    model, state = train_setup(cfg, ctx["table"], 2, DEVICE)
+    model, state = train_setup(cfg, ctx["table"], 2, DEVICE,
+                               *ctx["vocab_sizes"])
     step = make_train_step(cfg, model, device_gather=True)
     losses = []
 
@@ -2012,7 +2052,8 @@ def train_run(ctx, fa, samples="samples", fixed_batch=True, max_steps=None,
            "regimes": regimes}
     if fixed_batch:
         fixed_cfg = cfg.replace(deterministic=True)
-        _, fixed = train_setup(fixed_cfg, ctx["table"], 3, DEVICE)
+        _, fixed = train_setup(fixed_cfg, ctx["table"], 3, DEVICE,
+                               *ctx["vocab_sizes"])
         fixed_step = make_train_step(fixed_cfg, model, device_gather=True)
         feats_dev = torch.from_numpy(feats).to(DEVICE)
         batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in next(
@@ -2047,7 +2088,7 @@ def http_call(port, method, path, payload=None, expect=200):
     return body, ms
 
 
-def cpu_scores(nrms, cpu_params, cfg, feats, news_index, history, cands):
+def cpu_scores(model, cpu_params, cfg, feats, news_index, history, cands):
     """Scores of one request from the same params on the CPU, through the
     plain versions, encoding only the news rows the request touches."""
     import torch
@@ -2063,10 +2104,10 @@ def cpu_scores(nrms, cpu_params, cfg, feats, news_index, history, cands):
     rows = sorted(set(hist) | set(cand) | {0})
     pos = {r: i for i, r in enumerate(rows)}
     with torch.inference_mode():
-        vecs = nrms.news_encoder(cpu_params, cfg,
+        vecs = model.news_encoder(cpu_params, cfg,
                                  torch.from_numpy(feats[rows]))
         hv = vecs[[pos[r] for r in hist]][None]
-        user = nrms.user_encoder(cpu_params, cfg, hv,
+        user = model.user_encoder(cpu_params, cfg, hv,
                                  torch.from_numpy(mask)[None])[0]
         return (vecs[[pos[r] for r in cand]] @ user).numpy()
 
@@ -2129,7 +2170,7 @@ def serve_run(ctx, user_log_mask, user_log_length=None, **overrides):
             if c == 300 and len(checked) < 1:
                 checked.append(check_close(
                     "/score", body["scores"], cpu_scores(
-                        ctx["nrms"], ctx["cpu_params"], cfg, ctx["feats"],
+                        ctx["model"], ctx["cpu_params"], cfg, ctx["feats"],
                         ctx["news_index"], hist, cands)))
         # concurrent requests coalesce into one padded MAX_BATCH batch
         reqs = [request(100, 40) for _ in range(16)]
@@ -2151,7 +2192,7 @@ def serve_run(ctx, user_log_mask, user_log_length=None, **overrides):
         lat["score_concurrent"] = [ms for _, ms in results]
         checked.append(check_close(
             "/score (batched)", results[3][0]["scores"], cpu_scores(
-                ctx["nrms"], ctx["cpu_params"], cfg, ctx["feats"],
+                ctx["model"], ctx["cpu_params"], cfg, ctx["feats"],
                 ctx["news_index"], *reqs[3])))
         for h in (3, 25, 60):
             hist, _ = request(1, h)
@@ -2165,7 +2206,7 @@ def serve_run(ctx, user_log_mask, user_log_length=None, **overrides):
                 fail("/recommend scores are not in descending order")
             checked.append(check_close(
                 "/recommend", got, cpu_scores(
-                    ctx["nrms"], ctx["cpu_params"], cfg, ctx["feats"],
+                    ctx["model"], ctx["cpu_params"], cfg, ctx["feats"],
                     ctx["news_index"], hist, body["doc_ids"])))
         health, _ = http_call(port, "GET", "/healthz")
         stats, _ = http_call(port, "GET", "/stats")
@@ -2221,6 +2262,59 @@ def eval_line(model_dir, index=-1):
     return evals[index] if evals else None, lines
 
 
+def cli_logging():
+    """The CLI's log on stderr, stdout kept short."""
+    import logging
+
+    root = logging.getLogger()
+    if not root.handlers:
+        handler = logging.StreamHandler(sys.stderr)
+        handler.setFormatter(logging.Formatter("[%(asctime)s] %(message)s"))
+        root.addHandler(handler)
+
+
+def timed_evaluate(real_eval, timed):
+    """``real_eval`` (cli.evaluate_impressions) timed on the host clock
+    from a synchronised device: each call appends (seconds, impressions)
+    to ``timed``."""
+    import torch
+
+    def evaluate(*args, **kw):
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real_eval(*args, **kw)
+        timed.append((time.perf_counter() - t0, res["samples_seen"]))
+        return res
+
+    return evaluate
+
+
+def cli_requests(seed):
+    """Three /score requests of 30 history and 60 candidate news of the
+    cli corpus."""
+    rng = np.random.default_rng(seed)
+    ids = [f"N{i}" for i in rng.permutation(CLI_NEWS)[:400] + 1]
+    return [(ids[i:i + 30], ids[100 + 3 * i:160 + 3 * i])
+            for i in range(0, 60, 20)]
+
+
+def served_err_vs_cpu(srv, scfg, ckpt, data_dir, reqs, label):
+    """The largest difference of ``srv``'s /score answers from a CPU
+    Recommender on checkpoint ``ckpt`` (check_close fails past
+    SERVE_TOL)."""
+    from newsrecommendation_tpu_torch.serve import Recommender
+
+    cpu = Recommender.from_checkpoint(ckpt, scfg, data_dir, device="cpu")
+    errs = []
+    for hist, cands in reqs:
+        body, _ = http_call(srv.server_address[1], "POST", "/score",
+                            {"history": hist, "candidates": cands})
+        errs.append(check_close(f"{label} /score", body["scores"],
+                                cpu.score(hist, cands)))
+    return max(errs)
+
+
 def cli_run(fa, card) -> dict:
     """The command-line path at NRMS's published width on the card:
     train_test through cli.main (bf16, B = 128, user_log_mask on, a third
@@ -2231,8 +2325,6 @@ def cli_run(fa, card) -> dict:
     flight), each served answer held against a CPU Recommender on the
     checkpoint's params. Launch counts are reset just before each main
     call and read just after."""
-    import logging
-
     import torch
 
     from newsrecommendation_tpu_torch import cli
@@ -2245,14 +2337,9 @@ def cli_run(fa, card) -> dict:
     from newsrecommendation_tpu_torch.data import read_news
     from newsrecommendation_tpu_torch.models import get_model
     from newsrecommendation_tpu_torch.ops import kernel_config
-    from newsrecommendation_tpu_torch.serve import Recommender
     from newsrecommendation_tpu_torch.server import run_server
 
-    root = logging.getLogger()
-    if not root.handlers:  # the CLI's log on stderr, stdout kept short
-        handler = logging.StreamHandler(sys.stderr)
-        handler.setFormatter(logging.Formatter("[%(asctime)s] %(message)s"))
-        root.addHandler(handler)
+    cli_logging()
     out = {"card": card}
     with tempfile.TemporaryDirectory() as tmp:
         t = time.perf_counter()
@@ -2270,7 +2357,8 @@ def cli_run(fa, card) -> dict:
 
         # ---- train_test ---------------------------------------------------
         captured, timed_eval = {}, []
-        real_train, real_eval = cli.run_train, cli.evaluate_impressions
+        real_train = cli.run_train
+        evaluate = timed_evaluate(cli.evaluate_impressions, timed_eval)
 
         def run_train(cfg, **kw):
             captured["train"] = real_train(cfg, **kw)
@@ -2279,14 +2367,6 @@ def cli_run(fa, card) -> dict:
         def sync():
             if DEVICE == "cuda":
                 torch.cuda.synchronize()
-
-        def evaluate(*args, **kw):
-            sync()
-            t0 = time.perf_counter()
-            res = real_eval(*args, **kw)
-            timed_eval.append((time.perf_counter() - t0,
-                               res["samples_seen"]))
-            return res
 
         t = time.perf_counter()
         fa.reset_launch_counts()
@@ -2403,22 +2483,11 @@ def cli_run(fa, card) -> dict:
                                  "--load_ckpt_name", "latest",
                                  "--serve_max_batch", str(MAX_BATCH),
                                  "--serve_max_delay_ms", "2"] + dirs)
-        rng = np.random.default_rng(5)
-        ids = [f"N{i}" for i in rng.permutation(CLI_NEWS)[:400] + 1]
-        reqs = [(ids[i:i + 30], ids[100 + 3 * i:160 + 3 * i])
-                for i in range(0, 60, 20)]
+        reqs = cli_requests(5)
 
         def check(srv, ckpt, label):
-            cpu = Recommender.from_checkpoint(ckpt, scfg, dev_dir,
-                                              device="cpu")
-            errs = []
-            for hist, cands in reqs:
-                body, _ = http_call(srv.server_address[1], "POST", "/score",
-                                    {"history": hist, "candidates": cands})
-                errs.append(check_close(f"cli {label} /score",
-                                        body["scores"],
-                                        cpu.score(hist, cands)))
-            return max(errs)
+            return served_err_vs_cpu(srv, scfg, ckpt, dev_dir, reqs,
+                                     f"cli {label}")
 
         t = time.perf_counter()
         srv = run_server(scfg, block=False, device=DEVICE)
@@ -2454,6 +2523,211 @@ def cli_run(fa, card) -> dict:
             srv.shutdown()
             srv.server_close()
             srv.batcher.close()
+    return out
+
+
+def naml_config(cfg):
+    """NAML at the JAX benchmark's width (bench.py:381-388 with
+    ``model="NAML", use_category=True, use_subcategory=True``): the NRMS
+    config's T = 20, L = 50, 300-d words, 400-d news, 200-d queries, and
+    both category views (100-d)."""
+    return cfg.replace(model="NAML", use_category=True, use_subcategory=True)
+
+
+def naml_context(ctx, corpus, nrms_corpus):
+    """The NAML phases' context beside NRMS's ``ctx``: the same news,
+    samples and word table; features with the category columns of
+    ``corpus`` (the news of ``nrms_corpus`` read with the views on);
+    full-width NAML params from a seed on the card and their CPU copy."""
+    from newsrecommendation_tpu_torch.data import build_news_features
+    from newsrecommendation_tpu_torch.models import naml
+    from newsrecommendation_tpu_torch.utils import to_device
+
+    cfg = naml_config(ctx["cfg"])
+    if corpus.word_dict != nrms_corpus.word_dict or (
+            corpus.news_index != nrms_corpus.news_index):
+        fail("naml: the corpus read with category views has other words "
+             "or news")
+    sizes = (len(corpus.category_dict), len(corpus.subcategory_dict))
+    feats = build_news_features(corpus, cfg)
+    params = naml.init(cfg, ctx["table"], num_category=sizes[0],
+                       num_subcategory=sizes[1], seed=0, device=DEVICE)
+    return dict(ctx, cfg=cfg, feats=feats, params=params, model=naml,
+                vocab_sizes=sizes, cpu_params=to_device(params, "cpu"))
+
+
+def doc_table_context(ctx):
+    """``ctx`` (NAML) with title_source "doc_table": one doc-pointer
+    column and a frozen (num_news+1, T * 300) per-title table whose row i
+    is title i's word vectors, so both formats give one title tensor."""
+    cfg = ctx["cfg"].replace(title_source="doc_table")
+    t = cfg.num_words_title
+    table = ctx["table"][ctx["feats"][:, :t]].reshape(len(ctx["feats"]), -1)
+    feats = np.concatenate([np.arange(len(ctx["feats"]), dtype=np.int32)[
+        :, None], ctx["feats"][:, t:]], axis=1)
+    return dict(ctx, cfg=cfg, feats=feats, table=table)
+
+
+def naml_phases(ctx, fa) -> dict:
+    """naml-train-check, naml-train and naml-serve: NAML at the JAX
+    benchmark's width on the smoke's corpus, launching no kernel. Returns
+    the runs (train states and the served Recommender for the profile)."""
+    out = {}
+    checks = [("word_ids", {"user_log_mask": False}),
+              ("word_ids", {"user_log_mask": True}),
+              ("word_ids", {"user_log_mask": False,
+                            "freeze_embedding": False}),
+              ("doc_table", {"user_log_mask": False}),
+              ("doc_table", {"user_log_mask": True})]
+    doc_ctx = None
+    for title_source, kw in checks:
+        t = time.perf_counter()
+        if title_source == "doc_table" and doc_ctx is None:
+            doc_ctx = doc_table_context(ctx)
+        fa.reset_launch_counts()
+        res = train_check(ctx if title_source == "word_ids" else doc_ctx,
+                          **kw)
+        check_no_launch(fa, f"naml-train-check {title_source} {kw}")
+        label = " ".join(f"{k}={v}" for k, v in kw.items())
+        phase(f"naml-train-check title_source={title_source} {label}", t,
+              **{k: json.dumps(v) for k, v in res.items()})
+    del doc_ctx
+    for name, kw in (("naml", {}),
+                     ("naml_trainable", {"freeze_embedding": False,
+                                         "fixed_batch": False})):
+        t = time.perf_counter()
+        out[name] = train_run(ctx, fa, **kw)  # zero launches expected
+        phase(f"naml-train {name}", t,
+              **{k: json.dumps(v) for k, v in out[name][0].items()})
+    for user_log_mask in (False, True):
+        t = time.perf_counter()
+        fa.reset_launch_counts()
+        res, out["rec"] = serve_run(ctx, user_log_mask)
+        check_no_launch(fa, f"naml-serve user_log_mask={user_log_mask}")
+        phase(f"naml-serve user_log_mask={user_log_mask}", t,
+              **{k: json.dumps(v) for k, v in res.items()})
+    return out
+
+
+def check_no_launch(fa, where):
+    got = {k: fa.launch_counts(k) for k in fa.KERNELS
+           if any(fa.launch_counts(k).values())}
+    if got:
+        fail(f"{where}: NAML launched kernels {got}")
+
+
+def naml_cli_run(fa, card) -> dict:
+    """NAML through the command line on the card, the fork's demo flags
+    (examples/demo.sh:15-19) at the published width: --mode
+    create_embeddings with the hash backend on both dirs of cli_corpus,
+    train_test for one epoch (bf16, B = 128), --mode test from the newest
+    checkpoint (the same eval line), serve from it (f32) with /score
+    against a CPU Recommender, a second epoch resumed through the CLI,
+    POST /reload, /score again. No kernel launches in any of it."""
+    from newsrecommendation_tpu_torch import cli
+    from newsrecommendation_tpu_torch.ckpt import latest_checkpoint
+    from newsrecommendation_tpu_torch.config import Config, config_from_args
+    from newsrecommendation_tpu_torch.ops import kernel_config
+    from newsrecommendation_tpu_torch.server import run_server
+
+    cli_logging()
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        train_dir, dev_dir, steps = cli_corpus(tmp)
+        model_dir = os.path.join(tmp, "naml")
+        dirs = ["--train_data_dir", train_dir, "--test_data_dir", dev_dir,
+                "--model_dir", model_dir, "--model", "NAML",
+                "--title_source", "doc_table", "--use_category", "True",
+                "--use_subcategory", "True", "--freeze_embedding", "True",
+                "--user_log_mask", "False", "--embedding_backend", "hash"
+                ] + CLI_FLAGS
+        train_argv = dirs + ["--compute_dtype", "bfloat16", "--batch_size",
+                             "128", "--lr", "3e-4", "--log_steps", "10"]
+        out["corpus_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        fa.reset_launch_counts()
+        cli.main(["--mode", "create_embeddings"] + dirs, device=DEVICE)
+        out["create_embeddings_s"] = time.perf_counter() - t
+
+        timed_eval = []
+        evaluate = timed_evaluate(cli.evaluate_impressions, timed_eval)
+
+        t = time.perf_counter()
+        with mock.patch.object(cli, "evaluate_impressions", evaluate):
+            cli.main(["--mode", "train_test"] + train_argv, device=DEVICE)
+        out["train_test_s"] = time.perf_counter() - t
+        check_no_launch(fa, "naml-cli train_test")
+        line, lines = eval_line(model_dir)
+        summary = [x for x in lines if x["kind"] == "train_summary"]
+        if (line is None or not summary or summary[0]["steps"] != steps
+                or not all(np.isfinite(line[k]) and 0 < line[k] <= 100
+                           for k in ("auc", "mrr", "ndcg5", "ndcg10"))):
+            fail(f"naml-cli train_test: {steps} steps expected; "
+                 f"metrics.jsonl holds {lines}")
+        s_eval, n_eval = timed_eval[0]
+        out.update(steps=steps, eval_line=line,
+                   eval_impressions_per_sec=n_eval / s_eval,
+                   train_examples_per_sec=summary[0]["examples_per_sec"],
+                   train_final_loss=summary[0]["final_loss"])
+        newest = latest_checkpoint(model_dir)
+        if not newest.endswith("epoch-1.ckpt"):
+            fail(f"naml-cli: newest checkpoint {newest}")
+        t = time.perf_counter()
+        timed_eval.clear()
+        with mock.patch.object(cli, "evaluate_impressions", evaluate):
+            cli.main(["--mode", "test", "--load_ckpt_name", "latest"]
+                     + train_argv, device=DEVICE)
+        again, _ = eval_line(model_dir)
+        if any(again[k] != line[k] for k in ("auc", "mrr", "ndcg5",
+                                             "ndcg10")):
+            fail(f"naml-cli test from {newest}: {again}; train_test gave "
+                 f"{line}")
+        s_eval, n_eval = timed_eval[0]
+        out.update(test_s=time.perf_counter() - t,
+                   test_eval_impressions_per_sec=n_eval / s_eval)
+        kernel_config.apply(Config())
+
+        scfg = config_from_args(["--mode", "serve", "--serve_port", "0",
+                                 "--load_ckpt_name", "latest",
+                                 "--serve_max_batch", str(MAX_BATCH),
+                                 "--serve_max_delay_ms", "2"] + dirs)
+        reqs = cli_requests(6)
+
+        def check(srv, ckpt, label):
+            return served_err_vs_cpu(srv, scfg, ckpt, dev_dir, reqs,
+                                     f"naml-cli {label}")
+
+        t = time.perf_counter()
+        srv = run_server(scfg, block=False, device=DEVICE)
+        try:
+            out["serve_start_s"] = time.perf_counter() - t
+            out["serve_err_vs_cpu"] = check(srv, newest, "before /reload")
+            t = time.perf_counter()
+            cli.main(["--mode", "train", "--epochs", "2", "--start_epoch",
+                      "1", "--load_ckpt_name", "latest", "--prepare",
+                      "False"] + train_argv, device=DEVICE)
+            out["resume_train_s"] = time.perf_counter() - t
+            kernel_config.apply(Config())
+            newer = latest_checkpoint(model_dir)
+            if not newer.endswith("epoch-2.ckpt"):
+                fail(f"naml-cli: after the resumed epoch the newest is "
+                     f"{newer}")
+            t = time.perf_counter()
+            body, _ = http_call(srv.server_address[1], "POST", "/reload",
+                                {})
+            out["reload_s"] = time.perf_counter() - t
+            if body.get("status") != "reloaded":
+                fail(f"naml-cli /reload: {body}")
+            out["reload_err_vs_cpu"] = check(srv, newer, "after /reload")
+            stats, _ = http_call(srv.server_address[1], "GET", "/stats")
+            if stats["errors"]:
+                fail(f"naml-cli serve: {stats}")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            srv.batcher.close()
+        check_no_launch(fa, "naml-cli")
     return out
 
 
@@ -2714,6 +2988,8 @@ def main() -> int:
             if a.read() != b.read():
                 fail("the two draws of the corpus differ in their news")
         corpus = read_news(news[0], cfg)
+        # NAML reads the same news with its category views on
+        naml_corpus = read_news(news[0], naml_config(cfg))
         samples = TrainSamples.from_file(shards["samples"],
                                          corpus.news_index, cfg)
         samples_long = TrainSamples.from_file(
@@ -2725,7 +3001,8 @@ def main() -> int:
     feats = build_news_features(corpus, cfg)
     table = random_word_embeddings(corpus.word_dict, cfg.word_embedding_dim)
     params = nrms.init(cfg, table, seed=0, device="cuda")
-    ctx = {"cfg": cfg, "params": params, "feats": feats, "nrms": nrms,
+    ctx = {"cfg": cfg, "params": params, "feats": feats, "model": nrms,
+           "vocab_sizes": (0, 0),
            "news_index": corpus.news_index, "table": table,
            "samples": samples, "samples_long": samples_long,
            "samples_mid": samples_mid,
@@ -2875,6 +3152,11 @@ def main() -> int:
               **{k: json.dumps(v) for k, v in trains[name][0].items()})
     train = trains["probs"][0]
 
+    # ---- NAML at the JAX benchmark's width: no kernel on its path ----------
+    naml_ctx = naml_context(ctx, naml_corpus, corpus)
+    naml = naml_phases(naml_ctx, fa)
+    trains.update(naml=naml["naml"], naml_trainable=naml["naml_trainable"])
+
     # ---- where the device time goes (after the counts were read) ----------
     t = time.perf_counter()
     rng = np.random.default_rng(11)
@@ -2890,8 +3172,9 @@ def main() -> int:
             nrms.news_encoder(rec.params, cfg, chunk)
 
     train_feats = torch.from_numpy(feats).cuda()
+    naml_feats = torch.from_numpy(naml_ctx["feats"]).cuda()
 
-    def step_of(name, io="3d"):
+    def step_of(name, io="3d", feats=train_feats):
         # built again: building a step sets the kernel switches its config
         # carries (kernel_config.apply), which the later runs have changed
         tcfg, tmodel, tstate, _ = trains[name][1]
@@ -2904,7 +3187,7 @@ def main() -> int:
 
         def run():
             with attention_io(io):
-                return tstep(tstate, batch, tcfg.seed, train_feats)
+                return tstep(tstate, batch, tcfg.seed, feats)
 
         return run
 
@@ -2927,7 +3210,13 @@ def main() -> int:
             f"train_step_l{LONG_L}_b128_bf16": profile_device(
                 step_of("long"), reps=3),
             f"train_step_l{MID_L}_b128_bf16": profile_device(
-                step_of("mid"), reps=3)}
+                step_of("mid"), reps=3),
+            "naml_score_batch_64x300": profile_device(
+                lambda: naml["rec"].score_batch(hists, cands)),
+            "naml_train_step_b128_bf16": profile_device(
+                step_of("naml", feats=naml_feats)),
+            "naml_train_step_trainable_b128_bf16": profile_device(
+                step_of("naml_trainable", feats=naml_feats))}
     phase("profile", t, **{k: json.dumps(v) for k, v in prof.items()})
 
     # ---- the command-line path: train_test, checkpoints, test, /reload ----
@@ -2944,6 +3233,29 @@ def main() -> int:
         "eval_impressions_per_sec_fused_tail":
             cli["test_fused_tail"]["eval_impressions_per_sec"],
         "reload_s": cli["reload_s"]}), flush=True)
+
+    # ---- NAML through the command line: the fork's demo flags ---------------
+    t = time.perf_counter()
+    naml_cli = naml_cli_run(fa, card)
+    phase("naml-cli", t, **{k: json.dumps(v) for k, v in naml_cli.items()})
+    naml_prof = {k: prof[k] for k in ("naml_score_batch_64x300",
+                                      "naml_train_step_b128_bf16",
+                                      "naml_train_step_trainable_b128_bf16")}
+    print("[naml numbers] " + json.dumps({
+        "card": card,
+        "train_examples_per_sec": naml["naml"][0]["examples_per_sec"],
+        "train_step_ms": naml["naml"][0]["step_ms"],
+        "trainable_examples_per_sec":
+            naml["naml_trainable"][0]["examples_per_sec"],
+        **{k: {x: v[x] for x in ("wall_ms", "device_ms", "busy_share")}
+           for k, v in naml_prof.items()},
+        "cli_auc": naml_cli["eval_line"]["auc"],
+        "cli_eval_impressions_per_sec":
+            naml_cli["eval_impressions_per_sec"],
+        "cli_test_eval_impressions_per_sec":
+            naml_cli["test_eval_impressions_per_sec"],
+        "cli_train_examples_per_sec": naml_cli["train_examples_per_sec"],
+        "cli_reload_s": naml_cli["reload_s"]}), flush=True)
 
     # ---- summary -----------------------------------------------------------
     def find(found_in, **key):

@@ -82,11 +82,15 @@ def build_embedding_table(cfg, data_dir: str, corpus) -> np.ndarray:
                                   cfg.seed)
 
 
-def init_state(cfg, model, table, device):
+def init_state(cfg, model, table, device, num_category=0,
+               num_subcategory=0):
     """A train state at step 0: the model's params drawn from cfg.seed
-    around ``table``, on ``device``."""
+    around ``table``, on ``device``; NAML's category tables sized by the
+    vocabularies (num_category, num_subcategory entries besides row 0)."""
     return create_train_state(
-        cfg, model.init(cfg, table, seed=cfg.seed, device=device))
+        cfg, model.init(cfg, table, num_category=num_category,
+                        num_subcategory=num_subcategory, seed=cfg.seed,
+                        device=device))
 
 
 def checkpoint_path(cfg) -> str:
@@ -119,7 +123,9 @@ def run_train(cfg: Config, *, device="cuda"):
     news_features = build_news_features(corpus, cfg)
     table = build_embedding_table(cfg, cfg.train_data_dir, corpus)
     model = get_model(cfg.model)
-    state = init_state(cfg, model, table, dev)
+    state = init_state(cfg, model, table, dev,
+                       num_category=len(corpus.category_dict),
+                       num_subcategory=len(corpus.subcategory_dict))
     logging.info("Model parameters:")
     for name, shape in _param_shapes(state.params):
         logging.info("  %s \t %s", name, shape)
@@ -167,7 +173,10 @@ def run_test(cfg: Config, state=None, vocabs: Optional[dict] = None, *,
     table = build_embedding_table(cfg, cfg.test_data_dir, corpus)
     if state is None:
         state, _ = load_checkpoint(
-            ckpt_path, init_state(cfg, model, table, dev), cfg)
+            ckpt_path, init_state(
+                cfg, model, table, dev,
+                num_category=len(corpus.category_dict),
+                num_subcategory=len(corpus.subcategory_dict)), cfg)
     params = state.params
     if cfg.title_source == "doc_table":
         # the per-title table has the test corpus's rows; the weights are

@@ -3,10 +3,10 @@
 Every field of the JAX package's Config, under its names and with its
 defaults and checks, so one set of keyword arguments builds a config for
 either side and ``config_from_args`` parses the same command line. The
-fields of what the port does not run yet (NAML, data parallelism over
-several cards, row-sharded tables, the plain route on the card) are
-parsed, and ``check_supported`` refuses their values with the queue item
-of ``ROADMAP.md`` they wait for.
+fields of what the port does not run yet (data parallelism over several
+cards, row-sharded tables, the plain route on the card) are parsed, and
+``check_supported`` refuses their values with the queue item of
+``ROADMAP.md`` they wait for.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class Config:
     # ---- model family ------------------------------------------------------
-    model: str = "NRMS"  # registry key: "NRMS" | "NAML" (not ported yet)
+    model: str = "NRMS"  # registry key: "NRMS" | "NAML"
     # "word_ids": (num_news+1, num_words_title) word ids into a word table;
     # "doc_table": one doc-index column into a frozen per-title table of
     # shape (num_news+1, num_words_title*word_embedding_dim).
@@ -184,9 +184,6 @@ def check_supported(cfg: Config, device=None) -> None:
     queue item of ROADMAP.md it waits for, rather than ignore it.
     ``device``: where the run goes; "off" is refused on CUDA only, since on
     the CPU every kernel takes its plain version anyway."""
-    if cfg.model != "NRMS":
-        raise ValueError(f"--model {cfg.model} is not ported yet: it waits "
-                         "for ROADMAP.md queue A item 4 (NAML)")
     if cfg.data_parallel > 1 or cfg.nGPU > 1:
         raise ValueError(
             f"--data_parallel {cfg.data_parallel} / --nGPU {cfg.nGPU}: data "

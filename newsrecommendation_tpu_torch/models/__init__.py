@@ -5,7 +5,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-from newsrecommendation_tpu_torch.models import nrms
+from newsrecommendation_tpu_torch.models import naml, nrms
 
 
 @dataclasses.dataclass(frozen=True)
@@ -20,12 +20,12 @@ class ModelDef:
 REGISTRY = {
     "NRMS": ModelDef("NRMS", nrms.init, nrms.news_encoder, nrms.user_encoder,
                      nrms.forward),
+    "NAML": ModelDef("NAML", naml.init, naml.news_encoder, naml.user_encoder,
+                     naml.forward),
 }
 
 
 def get_model(name: str) -> ModelDef:
-    if name == "NAML":
-        raise NotImplementedError("NAML is not yet ported to PyTorch")
     try:
         return REGISTRY[name]
     except KeyError:

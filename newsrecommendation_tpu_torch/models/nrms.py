@@ -23,9 +23,11 @@ from newsrecommendation_tpu_torch.utils import init as pinit
 from newsrecommendation_tpu_torch.utils import resolve_device, to_device
 
 
-def init(cfg, embedding_table, *, seed: int = 0, device="cuda"):
+def init(cfg, embedding_table, *, num_category: int = 0,
+         num_subcategory: int = 0, seed: int = 0, device="cuda"):
     """Build the NRMS param dict on ``device`` (raises if it is "cuda" and
-    CUDA is missing).
+    CUDA is missing). num_category and num_subcategory are taken and
+    ignored, so every model's init has NAML's signature.
 
     embedding_table: (V+1, word_dim) word table for title_source="word_ids",
     or the flattened per-title table (num_news+1, T*word_dim) for

@@ -6,6 +6,10 @@ from newsrecommendation_tpu_torch.ops.attention import (  # noqa: F401
     mhsa_dropout_pool,
 )
 from newsrecommendation_tpu_torch.ops.common import dropout, linear  # noqa: F401
+from newsrecommendation_tpu_torch.ops.conv import (  # noqa: F401
+    conv1d_same,
+    init_conv1d,
+)
 from newsrecommendation_tpu_torch.ops.experimental_blanes import (  # noqa: F401
     exp_mhsa_qkv_blanes,
     exp_mhsa_qkv_blanes_masked,

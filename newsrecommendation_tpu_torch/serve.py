@@ -135,7 +135,10 @@ class Recommender:
         table = build_embedding_table(cfg, data_dir, corpus)
         model = get_model(cfg.model)
         template = create_train_state(
-            cfg, model.init(cfg, table, seed=0, device=dev))
+            cfg, model.init(cfg, table,
+                            num_category=len(corpus.category_dict),
+                            num_subcategory=len(corpus.subcategory_dict),
+                            seed=0, device=dev))
         state, _ = load_checkpoint(ckpt_path, template, cfg)
         return cls.from_state(cfg, state.params, corpus.news_index,
                               build_news_features(corpus, cfg), device=dev,

@@ -2,7 +2,8 @@
 explicit ``torch.Generator``.
 
   - torch nn.Linear default: weight and bias ~ U(-1/sqrt(fan_in),
-    1/sqrt(fan_in)).
+    1/sqrt(fan_in)); nn.Conv1d the same with fan_in = in_channels *
+    kernel_size.
   - the MHSA projections: xavier_uniform weight (gain 1), default bias.
   - embeddings: N(0, 1) with row 0 zeroed (padding_idx 0).
   - the user encoder's pad_doc: U(-1, 1).
@@ -41,6 +42,19 @@ def xavier_linear(gen, fan_in: int, fan_out: int, dtype=torch.float32):
         "w": uniform(gen, (fan_in, fan_out),
                      math.sqrt(6.0 / (fan_in + fan_out)), dtype),
         "b": uniform(gen, (fan_out,), 1.0 / math.sqrt(fan_in), dtype),
+    }
+
+
+def torch_conv1d(gen, in_channels: int, out_channels: int,
+                 kernel_size: int, dtype=torch.float32):
+    """Conv1d params with torch defaults: {'w': (kernel_size, in_channels,
+    out_channels), 'b': (out_channels,)}, the JAX package's (width, in,
+    out) layout, both ~ U(+-1/sqrt(in_channels * kernel_size))."""
+    bound = 1.0 / math.sqrt(in_channels * kernel_size)
+    return {
+        "w": uniform(gen, (kernel_size, in_channels, out_channels), bound,
+                     dtype),
+        "b": uniform(gen, (out_channels,), bound, dtype),
     }
 
 

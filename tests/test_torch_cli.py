@@ -97,7 +97,6 @@ class TestConfig:
             config_from_args(argv)
 
     @pytest.mark.parametrize("argv, item", [
-        (["--model", "NAML"], "item 4"),
         (["--data_parallel", "2"], "item 5"),
         (["--nGPU", "4"], "item 5"),
         (["--table_shards", "2"], "item 5"),
@@ -105,6 +104,19 @@ class TestConfig:
     def test_what_the_port_cannot_run_raises(self, argv, item):
         with pytest.raises(ValueError, match=item):
             config_from_args(argv)
+
+    def test_naml_parses_as_jax_and_runs(self):
+        """--model NAML (the fork's demo flags) parses to the JAX
+        package's config and passes check_supported on either device."""
+        argv = ["--model", "NAML", "--title_source", "doc_table",
+                "--use_category", "True", "--use_subcategory", "True",
+                "--freeze_embedding", "True", "--user_log_mask", "False",
+                "--embedding_backend", "hash"]
+        cfg = config_from_args(argv)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jax_args(argv))
+        assert cfg.model == "NAML" and cfg.news_feature_width == 3
+        for device in ("cpu", "cuda", torch.device("cuda", 0)):
+            check_supported(cfg, device)
 
     def test_use_pallas_off_is_refused_on_the_card_only(self):
         cfg = config_from_args(["--use_pallas", "off"])
@@ -149,11 +161,13 @@ def test_switches_wired(synthetic_dirs, tmp_path, switches):
 
 def bridged_init(jcfg):
     """cli.init_state drawing the JAX package's initial weights (its
-    model.init from PRNGKey(seed)), bridged: both mains start from the
-    same params."""
-    def init_state(cfg, model, table, device):
+    model.init from PRNGKey(seed), NAML's tables sized as cli.init_state
+    is told), bridged: both mains start from the same params."""
+    def init_state(cfg, model, table, device, num_category=0,
+                   num_subcategory=0):
         jparams = jax_get_model(cfg.model).init(
-            jax.random.PRNGKey(cfg.seed), jcfg, table)
+            jax.random.PRNGKey(cfg.seed), jcfg, table, num_category,
+            num_subcategory)
         return create_train_state(cfg, params_from_jax(
             jax.tree.map(np.asarray, jparams), device=device))
 
@@ -216,6 +230,56 @@ def test_train_test_matches_jax_main(synthetic_dirs, tmp_path, monkeypatch,
     # newest by (epoch, step): the mid-epoch save after the last step
     assert cli.latest_checkpoint(str(tmp_path / "port")).endswith(
         "epoch-2-20.ckpt")
+
+
+def test_naml_train_test_matches_jax_main(synthetic_dirs, tmp_path,
+                                         monkeypatch, jax_main, switches):
+    """NAML through the command line, the fork's demo flags at tiny
+    widths (the hash per-title table made by --mode create_embeddings,
+    both category views, a frozen table, the pad-doc user path), dropout
+    off, two epochs: the port's eval and train lines against the JAX
+    package's main, as for NRMS; then --mode test from the newest
+    checkpoint, whose tables take the sidecar's vocabulary sizes."""
+    cli.main(["--mode", "create_embeddings", "--embedding_backend", "hash"]
+             + TINY + dirs_args(synthetic_dirs, tmp_path / "emb"),
+             device="cpu")
+    argv = (["--mode", "train_test", "--epochs", "2", "--deterministic",
+             "True", "--data_parallel", "1", "--model", "NAML",
+             "--title_source", "doc_table", "--embedding_backend", "hash",
+             "--use_category", "True", "--use_subcategory", "True",
+             "--category_emb_dim", "8", "--freeze_embedding", "True",
+             "--user_log_mask", "False"] + TINY)
+    jax_main(argv + dirs_args(synthetic_dirs, tmp_path / "jax"))
+    jcfg = jax_args(argv + dirs_args(synthetic_dirs, tmp_path / "jax"))
+    monkeypatch.setattr(cli, "init_state", bridged_init(jcfg))
+    cli.main(argv + dirs_args(synthetic_dirs, tmp_path / "port"),
+             device="cpu")
+    (want,), (got,) = (read_lines(tmp_path / s, "eval")
+                       for s in ("jax", "port"))
+    assert got["samples"] == want["samples"] == 60
+    for key in ("auc", "mrr", "ndcg5", "ndcg10"):
+        assert abs(got[key] - want[key]) <= 1e-4 + 1e-9, key
+    assert got["doc_sim"] == pytest.approx(want["doc_sim"], abs=1e-3)
+    jt, pt = (read_lines(tmp_path / s, "train") for s in ("jax", "port"))
+    assert [(x["epoch"], x["step"]) for x in pt] == [
+        (x["epoch"], x["step"]) for x in jt] and pt
+    np.testing.assert_allclose([x["loss"] for x in pt],
+                               [x["loss"] for x in jt], atol=2e-4)
+    blob = torch.load(tmp_path / "port" / "epoch-2.ckpt", weights_only=True)
+    with open(tmp_path / "port" / "epoch-2.ckpt.json") as f:
+        sidecar = json.load(f)
+    ne = blob["params"]["news_encoder"]
+    assert blob["frozen_table_excluded"] is True
+    assert ne["category_emb"].shape[0] == len(sidecar["category_dict"]) + 1
+    assert ne["subcategory_emb"].shape[0] == (
+        len(sidecar["subcategory_dict"]) + 1)
+    monkeypatch.undo()
+    cli.main(["--mode", "test", "--load_ckpt_name", "epoch-2.ckpt"]
+             + argv[2:] + dirs_args(synthetic_dirs, tmp_path / "port"),
+             device="cpu")
+    again = read_lines(tmp_path / "port", "eval")[-1]
+    for key in ("auc", "mrr", "ndcg5", "ndcg10"):
+        assert again[key] == got[key], key
 
 
 def test_train_resume_and_embeddings_modes(synthetic_dirs, tmp_path,
@@ -300,9 +364,10 @@ def test_python_dash_m_entry_point():
     and refuses what the port does not run, before any device work."""
     proc = subprocess.run(
         [sys.executable, "-m", "newsrecommendation_tpu_torch.cli",
-         "--model", "NAML"], capture_output=True, text=True, timeout=120,
+         "--table_shards", "2"], capture_output=True, text=True,
+        timeout=120,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    assert proc.returncode != 0 and "queue A item 4" in proc.stderr
+    assert proc.returncode != 0 and "queue A item 5" in proc.stderr
 
 
 class TestTitleStore:

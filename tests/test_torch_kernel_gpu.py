@@ -2143,3 +2143,142 @@ def test_reload_on_the_card(tmp_path):
         srv.shutdown()
         srv.server_close()
         srv.batcher.close()
+
+
+# ---- NAML on the card: the title CNN in f32, a bf16 step, no kernel ------
+
+def _naml_setup(compute_dtype="float32", user_log_mask=False, n_news=256):
+    """NAML at its published width (300-d words, 400-d news, T = 20,
+    category and subcategory views, word ids into a frozen table), CPU
+    params from a seed, and (n_news + 1, F) features with id-0 rows."""
+    from newsrecommendation_tpu_torch.config import Config
+    from newsrecommendation_tpu_torch.models import naml
+
+    cfg = Config(model="NAML", use_category=True, use_subcategory=True,
+                 freeze_embedding=True, compute_dtype=compute_dtype,
+                 user_log_mask=user_log_mask, batch_size=8)
+    rng = np.random.default_rng(0)
+    table = rng.normal(scale=0.5, size=(500, 300)).astype(np.float32)
+    table[0] = 0.0
+    params = naml.init(cfg, table, num_category=12, num_subcategory=40,
+                       seed=1, device="cpu")
+    title = rng.integers(0, 500, size=(n_news + 1, 20))
+    title[:, 15:] = 0
+    feats = np.concatenate([title, rng.integers(0, 13, (n_news + 1, 1)),
+                            rng.integers(0, 41, (n_news + 1, 1))], 1)
+    feats[0] = 0
+    return cfg, params, feats.astype(np.int32)
+
+
+def _naml_batch(cfg, feats, device, seed=3):
+    rng = np.random.default_rng(seed)
+    b, L, k = cfg.batch_size, cfg.user_log_length, cfg.npratio
+    batch = {"history": feats[rng.integers(0, len(feats), (b, L))],
+             "history_mask": (rng.random((b, L)) > 0.3).astype(np.float32),
+             "candidate": feats[rng.integers(0, len(feats), (b, 1 + k))],
+             "label": rng.integers(0, k + 1, (b,)).astype(np.int32),
+             "weight": np.ones(b, np.float32)}
+    return {key: torch.from_numpy(v).to(device) for key, v in batch.items()}
+
+
+@pytest.fixture
+def torch_default_flags():
+    """torch's default backend flags (cuDNN may use TF32, matmuls may
+    not), whatever the process had; put back afterwards."""
+    cudnn, matmul = (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = cudnn
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+def test_naml_news_encoder_f32_under_default_flags(torch_default_flags):
+    """The NAML news encoder in f32 on the card, under torch's default
+    flags, against the CPU at the f32 tolerance: the title CNN must not
+    round to TF32. Control: the same encoder with TF32 allowed in the
+    matmuls must miss that tolerance."""
+    from newsrecommendation_tpu_torch.models import naml
+    from newsrecommendation_tpu_torch.utils import to_device
+
+    cfg, params, feats = _naml_setup(n_news=1024)
+    x = torch.from_numpy(feats)
+    with torch.inference_mode():
+        want = naml.news_encoder(params, cfg, x)
+        card = to_device(params, "cuda")
+        got = naml.news_encoder(card, cfg, x.cuda())
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32 = naml.news_encoder(card, cfg, x.cuda())
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert got.dtype == torch.float32 and got.shape == (1025, 400)
+    torch.testing.assert_close(got.cpu(), want, **TOL["float32"])
+    err = (tf32.cpu() - want).abs()
+    assert (err > TOL["float32"]["atol"] + TOL["float32"]["rtol"]
+            * want.abs()).sum() > 100, float(err.max())
+
+
+@pytest.mark.parametrize("user_log_mask", [False, True])
+def test_naml_bf16_step_on_card_matches_cpu(user_log_mask):
+    """One bf16 NAML train step (dropout off) on the card and on the CPU
+    from the same params and batch: finite, the loss within 5e-2, each
+    leaf's gradient within 5e-2 of the largest gradient."""
+    from newsrecommendation_tpu_torch.models import get_model
+    from newsrecommendation_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+    )
+    from newsrecommendation_tpu_torch.utils import to_device
+
+    cfg, params, feats = _naml_setup("bfloat16", user_log_mask)
+    cfg = cfg.replace(deterministic=True, lr=3e-4)
+    out = {}
+    for device in ("cuda", "cpu"):
+        state = create_train_state(cfg, to_device(params, device))
+        state, m = make_train_step(cfg, get_model("NAML"))(
+            state, _naml_batch(cfg, feats, device), 0)
+        grads = {}
+
+        def walk(tree, path=()):
+            if isinstance(tree, dict):
+                for key in tree:
+                    walk(tree[key], path + (key,))
+            elif tree.grad is not None:
+                grads[path] = tree.grad.float().cpu()
+
+        walk(state.params)
+        out[device] = (float(m["loss"]), grads)
+    (loss, grads), (cpu_loss, cpu_grads) = out["cuda"], out["cpu"]
+    assert np.isfinite(loss) and abs(loss - cpu_loss) <= 5e-2 * abs(cpu_loss)
+    assert set(grads) == set(cpu_grads) and ("embedding_table",) not in grads
+    largest = max(g.abs().max().item() for g in cpu_grads.values())
+    for path, g in grads.items():
+        assert torch.isfinite(g).all(), path
+        assert (g - cpu_grads[path]).abs().max().item() <= 5e-2 * largest, (
+            path)
+
+
+def test_naml_launches_no_kernel():
+    """A NAML train step (bf16, dropout on) and a NAML score_batch on the
+    card launch none of the port's kernels."""
+    from newsrecommendation_tpu_torch.models import get_model
+    from newsrecommendation_tpu_torch.serve import Recommender
+    from newsrecommendation_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+    )
+    from newsrecommendation_tpu_torch.utils import to_device
+
+    cfg, params, feats = _naml_setup("bfloat16")
+    fa.reset_launch_counts()
+    state = create_train_state(cfg, to_device(params, "cuda"))
+    state, m = make_train_step(cfg, get_model("NAML"))(
+        state, _naml_batch(cfg, feats, "cuda"), 0)
+    assert torch.isfinite(m["loss"])
+    index = {f"N{i}": i for i in range(1, len(feats))}
+    rec = Recommender.from_state(cfg.replace(compute_dtype="float32"),
+                                 params, index, feats, device="cuda")
+    scores = rec.score_batch([["N1", "N2", "N3"], []],
+                             [["N4", "N5", "N6"], ["N7", "N8", "N9"]])
+    assert scores.shape == (2, 3) and np.isfinite(scores).all()
+    assert not any(any(fa.launch_counts(k).values()) for k in fa.KERNELS)

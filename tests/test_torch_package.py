@@ -17,7 +17,7 @@ from newsrecommendation_tpu.config import Config as JaxConfig
 from newsrecommendation_tpu.models import nrms as jax_nrms
 from newsrecommendation_tpu_torch.bridge import params_from_jax, params_to_jax
 from newsrecommendation_tpu_torch.config import Config
-from newsrecommendation_tpu_torch.models import get_model, nrms
+from newsrecommendation_tpu_torch.models import get_model, naml, nrms
 from newsrecommendation_tpu_torch.serve import Recommender
 
 PKG = pathlib.Path(newsrecommendation_tpu_torch.__file__).parent
@@ -108,5 +108,6 @@ def test_config_validation_and_registry():
         Config(compute_dtype="float16")
     assert Config().dim_per_head == 20
     assert get_model("NRMS").news_encoder is nrms.news_encoder
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_model("NAML")
+    assert get_model("NAML").news_encoder is naml.news_encoder
+    with pytest.raises(KeyError, match="unknown model"):
+        get_model("LSTUR")

@@ -237,3 +237,114 @@ def test_batches_keep_their_model_across_a_reload(setup):
             np.testing.assert_allclose(body["scores"], want["new"][i], **F32)
     finally:
         _stop(srv)
+
+
+def test_naml_checkpoint_saved_resumed_served_and_reloaded(tmp_path):
+    """A NAML checkpoint with both category views and a trained word
+    table: written by each side from one set of JAX params (the port's
+    through bridge.state_from_jax), resumed by the port into a fresh
+    cli.init_state sized by the sidecar's vocabularies (one more step
+    then agrees with JAX's), loaded by Recommender.from_checkpoint and
+    served by run_server against the JAX package's, and after POST
+    /reload to a newer checkpoint still equal to JAX's."""
+    import torch
+
+    from newsrecommendation_tpu.ckpt import load_checkpoint as jax_load
+    from newsrecommendation_tpu.train.step import make_train_step as jstep
+    from newsrecommendation_tpu_torch import cli
+    from newsrecommendation_tpu_torch.ckpt import load_checkpoint
+    from newsrecommendation_tpu_torch.data import build_news_features
+    from newsrecommendation_tpu_torch.models import get_model
+    from newsrecommendation_tpu_torch.train import make_train_step
+
+    data_dir = str(tmp_path / "dev")
+    generate_corpus(data_dir, num_news=50, num_users=10, num_impressions=40,
+                    seed=5)
+    kw = dict(DIMS, model="NAML", use_category=True, use_subcategory=True,
+              category_emb_dim=6, freeze_embedding=False, mode="serve",
+              test_data_dir=data_dir, load_ckpt_name="latest", lr=3e-4)
+    jcfg = JaxConfig(**kw, model_dir=str(tmp_path / "jax"))
+    cfg = Config(**kw, model_dir=str(tmp_path / "port"))
+    corpus = jax_read_news(f"{data_dir}/news.tsv", jcfg, "train")
+    vocabs = dict(category_dict=corpus.category_dict,
+                  subcategory_dict=corpus.subcategory_dict,
+                  word_dict=corpus.word_dict)
+    n_cat, n_sub = len(corpus.category_dict), len(corpus.subcategory_dict)
+    assert n_cat > 1 and n_sub > 1
+    table = np.random.default_rng(0).normal(
+        0, 0.1, size=(len(corpus.word_dict) + 1, 16)).astype(np.float32)
+    table[0] = 0.0
+
+    def save(seed, name):
+        jst = jax_state(jcfg, jax_get_model("NAML").init(
+            jax.random.PRNGKey(seed), jcfg, table, n_cat, n_sub))
+        jax_save(jcfg.model_dir, name, jst, jcfg, **vocabs)
+        state = state_from_jax(jax.tree.map(np.asarray, jst.params),
+                               jst.opt_state, cfg, device="cpu")
+        save_checkpoint(cfg.model_dir, name, state, cfg, **vocabs)
+        return jst
+
+    jst = save(0, "epoch-1.ckpt")
+    path = f"{cfg.model_dir}/epoch-1.ckpt"
+
+    # resumed: a fresh state of the sidecar's shape takes the checkpoint
+    with open(path + ".json") as f:
+        sidecar = json.load(f)
+    fresh = cli.init_state(cfg, get_model("NAML"), table, "cpu",
+                           num_category=len(sidecar["category_dict"]),
+                           num_subcategory=len(sidecar["subcategory_dict"]))
+    state, _ = load_checkpoint(path, fresh, cfg)
+    ne = state.params["news_encoder"]
+    assert ne["category_emb"].shape == (n_cat + 1, 6)
+    assert ne["subcategory_emb"].shape == (n_sub + 1, 6)
+    jst, _ = jax_load(f"{jcfg.model_dir}/epoch-1.ckpt", jst, jcfg)
+    rng = np.random.default_rng(1)
+    feats = build_news_features(corpus, cfg)
+    L, k, b = cfg.user_log_length, jcfg.npratio, 4
+    batch = {"history": feats[rng.integers(0, 51, (b, L))],
+             "history_mask": (rng.random((b, L)) > 0.3).astype(np.float32),
+             "candidate": feats[rng.integers(0, 51, (b, 1 + k))],
+             "label": np.zeros(b, np.int32),
+             "weight": np.ones(b, np.float32)}
+    step_cfg = cfg.replace(deterministic=True)
+    state, m = make_train_step(step_cfg, get_model("NAML"))(
+        state, {key: torch.from_numpy(v) for key, v in batch.items()}, 0)
+    jst, jm = jstep(jcfg.replace(deterministic=True, donate_state=False),
+                    jax_get_model("NAML"))(
+        jst, {key: jax.numpy.asarray(v) for key, v in batch.items()},
+        jax.random.PRNGKey(0))
+    assert state.step == int(jst.step) == 1
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(
+        ne["category_dense"]["w"].detach().numpy(),
+        np.asarray(jst.params["news_encoder"]["category_dense"]["w"]),
+        rtol=5e-4, atol=2e-6)
+
+    # loaded and served, then reloaded
+    docs = list(corpus.news_index)
+    req = {"history": docs[:3], "candidates": docs[3:9]}
+    rec = Recommender.from_checkpoint(path, cfg, data_dir, device="cpu")
+    jrec = JaxRecommender.from_checkpoint(f"{jcfg.model_dir}/epoch-1.ckpt",
+                                          jcfg, data_dir)
+    np.testing.assert_allclose(rec.news_scoring.numpy(),
+                               np.asarray(jrec.news_scoring), **F32)
+    srv = run_server(cfg, block=False, device="cpu")
+    jsrv = jax_run_server(jcfg, block=False)
+    try:
+        (status, before), (_, jbefore) = (_call(s, "POST", "/score", req)
+                                          for s in (srv, jsrv))
+        assert status == 200
+        np.testing.assert_allclose(before["scores"], jbefore["scores"],
+                                   **F32)
+        save(7, "epoch-1-5.ckpt")
+        for s in (srv, jsrv):
+            assert _call(s, "POST", "/reload", {})[0] == 200
+        (_, after), (_, jafter) = (_call(s, "POST", "/score", req)
+                                   for s in (srv, jsrv))
+        np.testing.assert_allclose(after["scores"], jafter["scores"], **F32)
+        assert not np.allclose(after["scores"], before["scores"])
+    finally:
+        _stop(srv)
+        jsrv.shutdown()
+        jsrv.batcher.close()
