@@ -6,9 +6,9 @@ its published width, with 50-, 300- and 512-news histories, and with the
 fused encoder tail, the 2-D-I/O attention and the batch-in-lanes
 attention; drives multi-head self-attention at unequal q/k/v widths, and
 every kernel at the head widths and lengths it once refused; then runs the
-command line (train_test, checkpoints, test, serve with /reload); and NAML
+command line (train_test, checkpoints, test, serve with /reload); NAML
 at its benchmark width (train, serve, the command line), which runs no
-kernel row.
+kernel row; and data parallelism with row-sharded tables over ranks.
 
     python3 chip_smoke.py        # from the repo root, on a machine with
                                  # one CUDA card and nvcc
@@ -198,6 +198,32 @@ Phases, each printing one line with its elapsed seconds:
            gives the NAML train ex/s and step ms, the profiled NAML steps
            and served batch, and the CLI's AUC, eval impressions/s, train
            ex/s and reload seconds, with the card
+  ddp-nccl-1  an NCCL group of one rank on cuda:0: one f32 spmd step
+           (its collectives issued) at the headline width against the
+           plain step (loss rel 1e-5, each gradient as train-check, every
+           leaf rtol 1e-4 / atol 1e-6, an element whose gradient is
+           summation noise within Adam's bound), rows 2-3 twice each;
+           then DDP_BF16_STEPS bf16 steps: finite losses, step ms, ex/s,
+           and one step's device ms and busy share (profiler)
+  ddp-gloo two spawned gloo ranks sharing cuda:0 at meshes (2, 1) (64
+           rows a rank, frozen table) and (1, 2) (64 rows, the word table
+           trained and split over the ranks): one f32 step against the
+           one-process step on the same rows, as ddp-nccl-1, the table's
+           rows from both ranks; rows 2-3 twice each; at (1, 2) a bf16
+           step too (gloo all-reduces the gathered rows in bf16)
+  ddp-eval the same two ranks at (1, 2) over a 65,536-news doc_table
+           (1.57 GB f32, half a rank): phase 1 with the sharded encoder
+           against the one-process cache, phase 2 over each rank's half
+           of 2,048 impressions with cross_process_sum against one pass;
+           row 1 only
+  ddp-cli  the same two ranks: cli.main --mode train_test --table_shards
+           2 on cli's corpus: one metrics.jsonl, every checkpoint's two
+           shard files, rows 1-3 launched; then --mode test on one
+           process from the newest checkpoint repeats the eval line
+           (within 1e-3 of a percentage point). With two cards or more,
+           also the CLI's own spawn over NCCL (--nGPU 2); with one, a
+           line saying it was not run. A "[ddp numbers]" line gives each
+           phase's step ms and ex/s with the card
 Every backward row's library time is scaled_dot_product_attention's
 backward alone on the same q, k, v (its forward run outside the timed
 window), a yardstick the port never calls. Then one JSON line of
@@ -358,6 +384,9 @@ CLI_DEV_IMPRESSIONS = 400
 CLI_CANDIDATES = 40
 CLI_ROUTE_TOL = 1e-3  # fused tail vs default route: metrics (not percent)
 CLI_FLAGS = []  # appended to every cli command line (a rehearsal's widths)
+# the single-card cli phases stay on one card where there are more: with
+# --data_parallel 0 the CLI spawns a rank on every card, as JAX's mesh
+ONE_CARD = ["--data_parallel", "1"]
 
 _T0 = time.perf_counter()
 
@@ -2348,7 +2377,7 @@ def cli_run(fa, card) -> dict:
         model_dir = os.path.join(tmp, "model")
         dirs = ["--train_data_dir", train_dir, "--test_data_dir", dev_dir,
                 "--model_dir", model_dir, "--user_log_mask", "True"
-                ] + CLI_FLAGS
+                ] + ONE_CARD + CLI_FLAGS
         train_argv = dirs + ["--compute_dtype", "bfloat16", "--batch_size",
                              "128", "--save_steps", str(save_steps),
                              "--lr", "3e-4", "--log_steps", "10"]
@@ -2641,7 +2670,7 @@ def naml_cli_run(fa, card) -> dict:
                 "--title_source", "doc_table", "--use_category", "True",
                 "--use_subcategory", "True", "--freeze_embedding", "True",
                 "--user_log_mask", "False", "--embedding_backend", "hash"
-                ] + CLI_FLAGS
+                ] + ONE_CARD + CLI_FLAGS
         train_argv = dirs + ["--compute_dtype", "bfloat16", "--batch_size",
                              "128", "--lr", "3e-4", "--log_steps", "10"]
         out["corpus_s"] = time.perf_counter() - t
@@ -2737,6 +2766,545 @@ def param_leaves(tree, path=()):
             yield from param_leaves(v, path + (k,))
     else:
         yield "/".join(path), tree
+
+
+# ---- data parallelism and row-sharded tables ------------------------------
+
+DDP_ROWS = 64  # rows each rank takes in the ddp-gloo phases
+DDP_TIME_STEPS = 3  # timed steps after each check step
+DDP_BF16_STEPS = 8  # bf16 steps of ddp-nccl-1
+DDP_LEAF_TOL = (1e-4, 1e-6)  # every updated leaf (tests/test_sharding.py)
+DDP_EVAL_IMPRESSIONS = 2048
+DDP_EVAL_CANDIDATES = 40
+DDP_CLI_TOL = 1e-3  # two-rank eval line vs one process: percentage points
+DDP_TIMEOUT_S = 300  # every collective of the ddp phases
+
+
+def ddp_state_of(state, metrics) -> dict:
+    """Loss, accuracy, every leaf and its gradient of a state after one
+    step, on the host."""
+    return {"loss": float(metrics["loss"]), "acc": float(metrics["acc"]),
+            "params": {k: v.detach().cpu().clone() for k, v in
+                       param_leaves(state.params)},
+            "grads": {k: v.grad.detach().cpu().clone() for k, v in
+                      param_leaves(state.params) if v.grad is not None}}
+
+
+def ddp_sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def ddp_reference(cfg, table, host):
+    """The single-process card step (dropout off) on ``host``."""
+    import torch
+
+    from newsrecommendation_tpu_torch.train import make_train_step
+
+    model, state = train_setup(cfg, table, 1, DEVICE)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in host.items()}
+    state, metrics = make_train_step(cfg, model)(state, batch, 0)
+    return ddp_state_of(state, metrics)
+
+
+def ddp_compare(where, want, got, lr) -> dict:
+    """A data-parallel step held to the single-process one: loss and
+    accuracy within rel 1e-5; each gradient within TRAIN_GRAD_SHARE of
+    its largest element (or TRAIN_GRAD_FLOOR of the largest of all), as
+    train-check holds the card to the CPU; every updated leaf within
+    DDP_LEAF_TOL. Adam's first step moves an element by lr g / (|g| +
+    eps), so a gradient element off by a share r of itself moves the
+    update by up to 2 r lr (2 lr at most, where the signs differ): an
+    element whose gradient is at the level of the summation noise passes
+    the leaf check within that bound, and is counted."""
+    import torch
+
+    if not abs(got["loss"] - want["loss"]) <= TRAIN_LOSS_RTOL * abs(
+            want["loss"]):
+        fail(f"{where}: loss {got['loss']}, single process {want['loss']}")
+    if not abs(got["acc"] - want["acc"]) <= 1e-5 * abs(want["acc"]):
+        fail(f"{where}: acc {got['acc']}, single process {want['acc']}")
+    if set(got["grads"]) != set(want["grads"]):
+        fail(f"{where}: gradients of {sorted(got['grads'])}, single "
+             f"process {sorted(want['grads'])}")
+    largest = max(g.abs().max().item() for g in want["grads"].values())
+    worst, noise = 0.0, 0
+    rtol, atol = DDP_LEAF_TOL
+    for key, w in want["params"].items():
+        gw, gg = want["grads"].get(key), got["grads"].get(key)
+        if gw is not None:
+            scale = gw.abs().max().item()
+            err = (gg - gw).abs().max().item()
+            if not err <= max(TRAIN_GRAD_SHARE * scale,
+                              TRAIN_GRAD_FLOOR * largest):
+                fail(f"{where}: {key} gradient differs by {err:.3e} "
+                     f"(max {scale:.3e})")
+            worst = max(worst, err / max(scale, 1e-30))
+        diff = (got["params"][key] - w).abs()
+        bad = ~(diff <= atol + rtol * w.abs())
+        if not bad.any():
+            continue
+        if gw is None:
+            fail(f"{where}: {key} (no gradient) differs by "
+                 f"{diff.max().item():.3e}")
+        share = (gg - gw).abs() / gw.abs()  # inf where gw is 0
+        bound = atol + rtol * w.abs() + lr * torch.clamp(2 * share, max=2.0)
+        if (diff[bad] > bound[bad] * (1 + 1e-3)).any():
+            fail(f"{where}: {key} differs by {diff.max().item():.3e} in "
+                 f"{int(bad.sum())} elements")
+        noise += int(bad.sum())
+    return {"loss": got["loss"], "single_loss": want["loss"],
+            "worst_grad_share": worst, "noise_elements": noise}
+
+
+def ddp_timed_steps(step, state, batches, device, feats=()) -> tuple:
+    """(state, losses, ms a step) over ``batches``: the wall time of all
+    but the first (not timed), from a synchronised device to one."""
+    losses = []
+    state, m = step(state, batches[0], 0, *feats)
+    losses.append(float(m["loss"]))
+    ddp_sync(device)
+    t = time.perf_counter()
+    outs = []
+    for b in batches[1:]:
+        state, m = step(state, b, 0, *feats)
+        outs.append(m["loss"])
+    ddp_sync(device)
+    ms = (time.perf_counter() - t) * 1e3 / max(len(batches) - 1, 1)
+    return state, losses + [float(x) for x in outs], ms
+
+
+def ddp_launched(fa) -> dict:
+    return {k: sum(fa.launch_counts(k).values()) for k in fa.KERNELS
+            if sum(fa.launch_counts(k).values())}
+
+
+def ddp_nccl_one(ctx, fa, tmp, device) -> dict:
+    """An NCCL group of one rank on cuda:0: the spmd step (its collectives
+    issued, not the one-rank shortcut) at the headline width, in f32
+    against the plain step, then DDP_BF16_STEPS bf16 steps. (gloo on the
+    CPU, for a rehearsal.)"""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from newsrecommendation_tpu_torch.parallel import make_mesh
+    from newsrecommendation_tpu_torch.parallel.spmd import (
+        make_spmd_train_step,
+        place_state,
+    )
+
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    dist.init_process_group(
+        backend, init_method=f"file://{tmp}/nccl_init", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=DDP_TIMEOUT_S))
+    try:
+        cfg = ctx["cfg"].replace(batch_size=2 * DDP_ROWS, deterministic=True,
+                                 lr=3e-4, freeze_embedding=True)
+        mesh = make_mesh(cfg, device=device)
+        if mesh.trivial or dist.get_backend() != backend:
+            fail(f"ddp-nccl-1: the mesh has no {backend} group")
+        host = next(ctx["samples"].iter_batches(
+            ctx["feats"], cfg.batch_size, epoch=0, seed=0))
+        want = ddp_reference(cfg, ctx["table"], host)
+        model, state = train_setup(cfg, ctx["table"], 1, DEVICE)
+        state = place_state(state, cfg, mesh)
+        batch = {k: torch.from_numpy(v).to(mesh.device)
+                 for k, v in host.items()}
+        fa.reset_launch_counts()
+        state, metrics = make_spmd_train_step(cfg, model, mesh)(
+            state, batch, 0)
+        out = {"f32": ddp_compare("ddp-nccl-1 f32", want,
+                                  ddp_state_of(state, metrics), cfg.lr),
+               "f32_launches": ddp_launched(fa)}
+        if out["f32_launches"] != {"qkv_fwd_probs": 2, "qkv_bwd_probs": 2}:
+            fail(f"ddp-nccl-1: launches {out['f32_launches']}, expected "
+                 "rows 2-3 twice each")
+        bcfg = ctx["cfg"].replace(batch_size=2 * DDP_ROWS,
+                                  compute_dtype="bfloat16", lr=3e-4,
+                                  freeze_embedding=True)
+        model, state = train_setup(bcfg, ctx["table"], 1, DEVICE)
+        state = place_state(state, bcfg, mesh)
+        it = ctx["samples"].iter_index_batches(bcfg.batch_size, epoch=0,
+                                               seed=1)
+        batches = [{k: torch.from_numpy(v).to(mesh.device)
+                    for k, v in next(it).items()}
+                   for _ in range(DDP_BF16_STEPS)]
+        feats = (torch.from_numpy(ctx["feats"]).to(mesh.device),)
+        fa.reset_launch_counts()
+        step = make_spmd_train_step(bcfg, model, mesh, device_gather=True)
+        state, losses, ms = ddp_timed_steps(step, state, batches, device,
+                                            feats)
+        launched = ddp_launched(fa)
+        if launched != {"qkv_fwd_probs": 2 * DDP_BF16_STEPS,
+                        "qkv_bwd_probs": 2 * DDP_BF16_STEPS}:
+            fail(f"ddp-nccl-1 bf16: launches {launched}")
+        if not np.isfinite(losses).all():
+            fail(f"ddp-nccl-1 bf16: losses {losses}")
+        out.update(bf16_losses=losses, bf16_step_ms=ms,
+                   bf16_examples_per_sec=bcfg.batch_size / ms * 1e3,
+                   bf16_launches=launched)
+        if torch.device(device).type == "cuda":
+            prof = profile_device(lambda: step(state, batches[0], 0, *feats),
+                                  reps=5)
+            out["bf16_profile"] = {k: prof[k] for k in (
+                "wall_ms", "device_ms", "busy_share")}
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def ddp_gloo_case(cfg, dp, ts, host, table, fa, device) -> dict:
+    """One rank of a (dp, ts) mesh of gloo ranks on cuda:0: one f32 spmd
+    step on its rows of ``host`` (DDP_ROWS x dp rows), then
+    DDP_TIME_STEPS more for time; at ts = 2 a bf16 step too: gloo
+    all-reduces the gathered rows in bf16, on the card."""
+    import torch
+
+    from newsrecommendation_tpu_torch.parallel import make_mesh, shard_batch
+    from newsrecommendation_tpu_torch.parallel.spmd import (
+        make_spmd_train_step,
+        place_state,
+    )
+
+    mcfg = cfg.replace(data_parallel=dp, table_shards=ts)
+    mesh = make_mesh(mcfg, device=device)
+    rows = {k: v[:DDP_ROWS * dp] for k, v in host.items()}
+    model, state = train_setup(mcfg, table, 1, mesh.device)
+    state = place_state(state, mcfg, mesh)
+    local = shard_batch(mesh, rows)
+    step = make_spmd_train_step(mcfg, model, mesh)
+    fa.reset_launch_counts()
+    state, metrics = step(state, local, 0)
+    got = ddp_state_of(state, metrics)
+    launched = ddp_launched(fa)
+    _, _, ms = ddp_timed_steps(step, state, [local] * (DDP_TIME_STEPS + 1),
+                               device)
+    out = {"got": got, "launches": launched, "step_ms": ms,
+           "examples_per_sec": DDP_ROWS * dp / ms * 1e3,
+           "table_rows": int(state.params["embedding_table"].shape[0])}
+    if ts > 1:
+        bcfg = mcfg.replace(compute_dtype="bfloat16")
+        model, state = train_setup(bcfg, table, 1, mesh.device)
+        state = place_state(state, bcfg, mesh)
+        state, metrics = make_spmd_train_step(bcfg, model, mesh)(
+            state, local, 0)
+        out["bf16_loss"] = float(metrics["loss"])
+    return out
+
+
+def ddp_eval_table(cfg, num_news, device):
+    """The num_news-news doc_table (num_news + 1 rows of T x D, row 0
+    zero), drawn on the device from a seed."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    table = torch.randn((num_news + 1, cfg.num_words_title
+                         * cfg.word_embedding_dim), generator=gen,
+                        device=device) * 0.1
+    table[0] = 0.0
+    return table
+
+
+def ddp_eval_samples(cfg, num_news):
+    """DDP_EVAL_IMPRESSIONS impressions over the doc_table's news: 50-news
+    histories (some shorter), DDP_EVAL_CANDIDATES candidates with both
+    labels, a few padded slots."""
+    from newsrecommendation_tpu_torch.data.loader import EvalSamples
+
+    rng = np.random.default_rng(17)
+    n, L, c = DDP_EVAL_IMPRESSIONS, cfg.user_log_length, DDP_EVAL_CANDIDATES
+    hist = rng.integers(1, num_news + 1, size=(n, L)).astype(np.int32)
+    mask = np.ones((n, L), np.float32)
+    for i, k in enumerate(rng.integers(0, L, size=n)):
+        hist[i, :k] = 0
+        mask[i, :k] = 0.0
+    cands = rng.integers(1, num_news + 1, size=(n, c)).astype(np.int32)
+    labels = (rng.random((n, c)) < 0.1).astype(np.float32)
+    labels[:, 0] = 1.0
+    cmask = np.ones((n, c), np.float32)
+    cmask[::7, -5:] = 0.0
+    cands[cmask == 0] = 0
+    labels[cmask == 0] = 0.0
+    return EvalSamples(history=hist, history_mask=mask, candidates=cands,
+                       labels=labels, candidate_mask=cmask)
+
+
+def ddp_eval_case(rank, fa, device, num_news) -> dict:
+    """Mesh (1, 2) over the num_news-news doc_table: phase 1 with the
+    sharded encoder (each rank holds half the table), phase 2 over the
+    rank's half of the impressions with cross_process_sum; rank 0 then
+    runs both phases in one pass over the whole table and impressions."""
+    import torch
+
+    from newsrecommendation_tpu_torch.config import Config
+    from newsrecommendation_tpu_torch.eval import (
+        compute_news_scoring,
+        evaluate_impressions,
+        summarize_metric_sums,
+    )
+    from newsrecommendation_tpu_torch.models import nrms
+    from newsrecommendation_tpu_torch.parallel import make_mesh
+    from newsrecommendation_tpu_torch.parallel.sharded_embedding import (
+        local_rows,
+    )
+    from newsrecommendation_tpu_torch.parallel.spmd import (
+        make_spmd_news_encoder,
+    )
+
+    cfg = Config(title_source="doc_table", freeze_embedding=True,
+                 user_log_mask=True, table_shards=2)
+    mesh = make_mesh(cfg, device=device)
+    whole = ddp_eval_table(cfg, num_news, mesh.device)
+    params = nrms.init(cfg, np.zeros((1, whole.shape[1]), np.float32),
+                       seed=3, device=mesh.device)
+    params["embedding_table"] = local_rows(whole, 2, mesh.table_index
+                                           ).clone()
+    feats = np.arange(num_news + 1, dtype=np.int32)[:, None]
+    samples = ddp_eval_samples(cfg, num_news)
+    mine = type(samples)(**{k: getattr(samples, k)[rank::2] for k in (
+        "history", "history_mask", "candidates", "labels",
+        "candidate_mask")})
+    fa.reset_launch_counts()
+    ddp_sync(device)
+    t = time.perf_counter()
+    cache = compute_news_scoring(
+        nrms, params, cfg, feats,
+        encode_fn=make_spmd_news_encoder(cfg, nrms, mesh))
+    ddp_sync(device)
+    out = {"phase1_s": time.perf_counter() - t,
+           "table_bytes_rank": params["embedding_table"].numel() * 4,
+           "table_bytes": whole.numel() * 4}
+    t = time.perf_counter()
+    out["metrics"] = evaluate_impressions(nrms, params, cfg, mine, cache)
+    out["phase2_s"] = time.perf_counter() - t
+    out["launches"] = ddp_launched(fa)
+    if rank == 0:
+        params["embedding_table"] = whole
+        dense = compute_news_scoring(nrms, params, cfg, feats)
+        out["cache_max_abs_err"] = (cache - dense).abs().max().item()
+        out["cache_n_differ"] = int((cache != dense).sum().item())
+        sums = evaluate_impressions(nrms, params, cfg, samples, dense,
+                                    return_sums=True)
+        seen = sums.pop("samples_seen")
+        out["one_pass"] = summarize_metric_sums(sums, seen)
+    return out
+
+
+def ddp_worker(rank, tmp, cfg, cli_argv, device, num_news):
+    """One of two gloo ranks sharing ``device`` (cuda:0; spawned by
+    ddp_spawn_phases): the ddp-gloo cases at (2, 1) and (1, 2), ddp-eval,
+    and ddp-cli's two-rank train_test; what each returns goes to
+    tmp/ddp_rank{rank}.pt."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from newsrecommendation_tpu_torch import cli
+    from newsrecommendation_tpu_torch.ops import fused_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["LOCAL_RANK"] = str(rank)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{tmp}/gloo_init", rank=rank,
+        world_size=2, timeout=datetime.timedelta(seconds=DDP_TIMEOUT_S))
+    try:
+        with np.load(os.path.join(tmp, "inputs.npz")) as z:
+            table = z["table"]
+            host = {k[5:]: z[k] for k in z.files if k.startswith("host/")}
+        out = {"gloo": {}}
+        for dp, ts in ((2, 1), (1, 2)):
+            out["gloo"][f"{dp}x{ts}"] = ddp_gloo_case(
+                cfg.replace(freeze_embedding=ts == 1), dp, ts, host, table,
+                fa, device)
+        out["eval"] = ddp_eval_case(rank, fa, device, num_news)
+        fa.reset_launch_counts()
+        ddp_sync(device)
+        t = time.perf_counter()
+        cli.main(cli_argv, device=device)
+        out["cli"] = {"s": time.perf_counter() - t,
+                      "launches": {k: fa.launch_counts(k)
+                                   for k in fa.KERNELS
+                                   if any(fa.launch_counts(k).values())}}
+        torch.save(out, os.path.join(tmp, f"ddp_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def ddp_spawn_phases(ctx, fa, card, device="cuda:0",
+                     num_news=NUM_NEWS) -> dict:
+    """ddp-nccl-1 here; ddp-gloo, ddp-eval and ddp-cli in two spawned gloo
+    ranks sharing ``device``, each phase's results checked here; the
+    CLI's own spawn over NCCL where there are two cards or more. (A
+    rehearsal passes device "cpu" and a small num_news.)"""
+    import torch
+    import torch.multiprocessing as mp
+
+    from newsrecommendation_tpu_torch import cli
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        res["nccl1"] = ddp_nccl_one(ctx, fa, tmp, device)
+        phase("ddp-nccl-1", t, **{k: json.dumps(v)
+                                  for k, v in res["nccl1"].items()})
+
+        cfg = ctx["cfg"].replace(batch_size=DDP_ROWS, deterministic=True,
+                                 lr=3e-4)
+        host = next(ctx["samples"].iter_batches(
+            ctx["feats"], 2 * DDP_ROWS, epoch=0, seed=0))
+        refs = {"2x1": ddp_reference(cfg.replace(
+                    batch_size=2 * DDP_ROWS, freeze_embedding=True),
+                    ctx["table"], host),
+                "1x2": ddp_reference(cfg.replace(freeze_embedding=False),
+                                     ctx["table"], {
+                    k: v[:DDP_ROWS] for k, v in host.items()})}
+        np.savez(os.path.join(tmp, "inputs.npz"), table=ctx["table"],
+                 **{f"host/{k}": v for k, v in host.items()})
+        cli_logging()
+        train_dir, dev_dir, steps = cli_corpus(os.path.join(tmp, "cli"))
+        model_dir = os.path.join(tmp, "cli", "model")
+        flags = (["--train_data_dir", train_dir, "--test_data_dir", dev_dir,
+                  "--user_log_mask", "True", "--compute_dtype", "bfloat16",
+                  "--batch_size", "128", "--lr", "3e-4", "--log_steps", "10",
+                  "--save_steps", str((steps - 1) // 3)] + ONE_CARD
+                 + CLI_FLAGS)
+        argv = ["--model_dir", model_dir] + flags
+        t = time.perf_counter()
+        mp.spawn(ddp_worker, nprocs=2, args=(
+            tmp, cfg, ["--mode", "train_test", "--table_shards", "2"]
+            + argv, device, num_news))
+        ranks = [torch.load(os.path.join(tmp, f"ddp_rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+        res["spawn_s"] = time.perf_counter() - t
+
+        t = time.perf_counter()
+        gloo = {}
+        for mesh, want in refs.items():
+            outs = [r["gloo"][mesh] for r in ranks]
+            got = outs[0]["got"]
+            if mesh == "1x2":  # the table's rows from both ranks
+                got = dict(got, params=dict(got["params"]),
+                           grads=dict(got["grads"]))
+                for key in ("params", "grads"):
+                    whole = torch.cat([o["got"][key]["embedding_table"]
+                                       for o in outs])
+                    got[key]["embedding_table"] = whole[
+                        :want[key]["embedding_table"].shape[0]]
+            gloo[mesh] = ddp_compare(f"ddp-gloo {mesh}", want, got, cfg.lr)
+            for o in outs:
+                if o["launches"] != {"qkv_fwd_probs": 2, "qkv_bwd_probs": 2}:
+                    fail(f"ddp-gloo {mesh}: launches {o['launches']}")
+                if o["got"]["loss"] != got["loss"]:
+                    fail(f"ddp-gloo {mesh}: the ranks' losses differ")
+            for key, v in outs[0]["got"]["params"].items():
+                if not (mesh == "1x2" and key == "embedding_table") and (
+                        not torch.equal(v, outs[1]["got"]["params"][key])):
+                    fail(f"ddp-gloo {mesh}: {key} differs between the ranks")
+            gloo[mesh].update(
+                step_ms=outs[0]["step_ms"],
+                examples_per_sec=outs[0]["examples_per_sec"],
+                table_rows_rank=outs[0]["table_rows"])
+            if mesh == "1x2":
+                if not np.isfinite(outs[0]["bf16_loss"]):
+                    fail(f"ddp-gloo 1x2 bf16: loss {outs[0]['bf16_loss']}")
+                gloo[mesh]["bf16_loss"] = outs[0]["bf16_loss"]
+            phase(f"ddp-gloo {mesh}", t, **{
+                k: json.dumps(v) for k, v in gloo[mesh].items()})
+        res["gloo"] = gloo
+
+        t = time.perf_counter()
+        ev = [r["eval"] for r in ranks]
+        one = ev[0]["one_pass"]
+        for k in ("auc", "mrr", "ndcg5", "ndcg10", "count", "samples_seen"):
+            for e in ev:
+                if not abs(e["metrics"][k] - one[k]) <= 1e-5 * abs(one[k]):
+                    fail(f"ddp-eval: {k} {e['metrics'][k]} over two ranks, "
+                         f"{one[k]} in one pass")
+        if not ev[0]["cache_max_abs_err"] <= 1e-5:
+            fail(f"ddp-eval: sharded cache vs dense {ev[0]}")
+        for e in ev:
+            if set(e["launches"]) != {"qkv_fwd"}:
+                fail(f"ddp-eval: launches {e['launches']}, expected row 1")
+        res["eval"] = {
+            "metrics": ev[0]["metrics"], "one_pass": one,
+            "cache_max_abs_err": ev[0]["cache_max_abs_err"],
+            "cache_n_differ": ev[0]["cache_n_differ"],
+            "phase1_s": ev[0]["phase1_s"], "phase2_s": ev[0]["phase2_s"],
+            "news_per_sec_phase1": (num_news + 1) / ev[0]["phase1_s"],
+            "table_gb": ev[0]["table_bytes"] / 1e9,
+            "table_gb_rank": ev[0]["table_bytes_rank"] / 1e9,
+            "launches": ev[0]["launches"]}
+        phase("ddp-eval", t, **{k: json.dumps(v)
+                                for k, v in res["eval"].items()})
+
+        t = time.perf_counter()
+        files = sorted(os.listdir(model_dir))
+        line, lines = eval_line(model_dir)
+        ckpts = [f for f in files if f.endswith(".ckpt")]
+        evals = [x for x in lines if x["kind"] == "eval"]
+        if (len(evals) != 1 or not ckpts
+                or not [x for x in lines if x["kind"] == "train"]
+                or any(f"{c}.shards{i}.pt" not in files
+                       for c in ckpts for i in range(2))):
+            fail(f"ddp-cli: files {files}, metrics.jsonl {lines}")
+        for r in ranks:
+            got = r["cli"]["launches"]
+            if (sum(got.get("qkv_fwd_probs", {}).values()) < 2 * steps
+                    or sum(got.get("qkv_bwd_probs", {}).values()) != 2 * steps
+                    or min(got.get("qkv_fwd", {"x": 0}).values()) < 1):
+                fail(f"ddp-cli: launches {got}")
+        os.remove(os.path.join(model_dir, "metrics.jsonl"))
+        cli.main(["--mode", "test", "--load_ckpt_name", "latest"] + argv,
+                 device=device)
+        single, _ = eval_line(model_dir)
+        keys = ("auc", "mrr", "ndcg5", "ndcg10")
+        if single["samples"] != line["samples"] or any(
+                abs(single[k] - line[k]) > DDP_CLI_TOL for k in keys):
+            fail(f"ddp-cli: one process {single}, two ranks {line}")
+        summary = [x for x in lines if x["kind"] == "train_summary"][0]
+        res["cli"] = {"eval_line": line, "one_process": single,
+                      "checkpoints": ckpts, "train_test_s":
+                          ranks[0]["cli"]["s"],
+                      "train_examples_per_sec": summary["examples_per_sec"],
+                      "launches": ranks[0]["cli"]["launches"]}
+        phase("ddp-cli", t, **{k: json.dumps(v)
+                               for k, v in res["cli"].items()})
+
+        t = time.perf_counter()
+        if torch.cuda.is_available() and torch.cuda.device_count() >= 2:
+            spawn_dir = os.path.join(tmp, "cli", "model_nccl")
+            cli.main(["--mode", "train_test", "--model_dir", spawn_dir]
+                     + flags + ["--data_parallel", "0", "--nGPU", "2"],
+                     device="cuda")
+            line2, _ = eval_line(spawn_dir)
+            if line2 is None:
+                fail("ddp-spawn-nccl: no eval line")
+            res["spawn_nccl"] = {"eval_line": line2}
+            phase("ddp-spawn-nccl", t, eval_line=json.dumps(line2))
+        else:
+            print("[ddp-spawn-nccl] not run: one card; the CLI's own spawn "
+                  "route puts one NCCL rank on each card and NCCL takes no "
+                  "two ranks on one card", flush=True)
+    print("[ddp numbers] " + json.dumps({
+        "card": card, "note": "ranks share one card: correctness, not "
+                              "scaling",
+        "nccl1_bf16_step_ms": res["nccl1"]["bf16_step_ms"],
+        "nccl1_bf16_device_ms": res["nccl1"].get("bf16_profile", {}).get(
+            "device_ms"),
+        "nccl1_bf16_examples_per_sec": res["nccl1"]["bf16_examples_per_sec"],
+        **{f"gloo_{m}_{k}": g[k] for m, g in res["gloo"].items()
+           for k in ("step_ms", "examples_per_sec")},
+        "eval_phase1_s": res["eval"]["phase1_s"],
+        "eval_phase2_s": res["eval"]["phase2_s"],
+        "cli_train_examples_per_sec": res["cli"]["train_examples_per_sec"],
+        "spawn_s": res["spawn_s"]}), flush=True)
+    return res
 
 
 def kernel_phases(fa, bw, bl, fe, q2) -> dict:
@@ -3256,6 +3824,9 @@ def main() -> int:
             naml_cli["test_eval_impressions_per_sec"],
         "cli_train_examples_per_sec": naml_cli["train_examples_per_sec"],
         "cli_reload_s": naml_cli["reload_s"]}), flush=True)
+
+    # ---- data parallelism and row-sharded tables ----------------------------
+    ddp_spawn_phases(ctx, fa, card)
 
     # ---- summary -----------------------------------------------------------
     def find(found_in, **key):

@@ -6,7 +6,8 @@ Ported so far: NRMS and NAML (models/), both title formats, serving
 micro-batching HTTP server with /reload), training (train/:
 create_train_state, make_train_step / make_multi_step, fit over
 TrainSamples from a prepared behaviors shard), two-phase evaluation,
-checkpoints and the command line (cli.py). Every attention kernel of the
+checkpoints and the command line (cli.py), data parallelism and
+row-sharded tables over ranks (parallel/). Every attention kernel of the
 JAX package is a CUDA kernel (csrc/, ops/); NAML runs none of them.
 Entry points run on ``device="cuda"`` unless told ``device="cpu"``.
 """

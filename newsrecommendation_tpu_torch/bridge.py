@@ -15,6 +15,11 @@ trainable leaf as ``step``, ``exp_avg`` and ``exp_avg_sq``. Either the
 optax state itself (numpy or JAX leaves) or its flax state dict
 (``serialization.to_state_dict``) is taken; the way back gives the state
 dict, which ``serialization.from_state_dict`` turns into optax's state.
+
+On a mesh with table shards (parallel/mesh.py) the JAX state's table is
+the padded global one (the JAX CLI pads before init): ``state_from_jax``
+gives each rank its rows of it and of its moments, and ``state_to_jax``
+gathers them back from every rank of the table group.
 """
 
 from __future__ import annotations
@@ -71,17 +76,26 @@ def _at(tree, path):
     return tree
 
 
-def state_from_jax(params, opt_state, cfg, *, step=None, device="cuda"):
+def state_from_jax(params, opt_state, cfg, *, step=None, device="cuda",
+                   mesh=None):
     """A JAX train state -> the port's TrainState on ``device``: the params
     bridged, an Adam optimizer over the trainable leaves (as
     train/state.py:make_optimizer builds it, frozen table left out) whose
     per-leaf step is the optax ``count`` and whose moments are ``mu`` and
-    ``nu``. ``step``: the state's step counter (default: the count)."""
+    ``nu``. ``step``: the state's step counter (default: the count).
+    ``mesh``: the rank's state on the mesh's device instead
+    (parallel/spmd.py:place_state), its table rows of a sharded table."""
     from newsrecommendation_tpu_torch.train.state import (
         create_train_state,
         trainable_mask,
     )
 
+    if mesh is not None:
+        from newsrecommendation_tpu_torch.parallel.spmd import place_state
+
+        whole = state_from_jax(params, opt_state, cfg, step=step,
+                               device="cpu")
+        return place_state(whole, cfg, mesh)
     state = create_train_state(cfg, params_from_jax(params, device))
     count, mu, nu = _adam_part(opt_state)
     count = int(np.asarray(count))
@@ -99,12 +113,28 @@ def state_from_jax(params, opt_state, cfg, *, step=None, device="cuda"):
     return state._replace(step=count if step is None else int(step))
 
 
-def state_to_jax(state, cfg):
+def _whole_table(x, mesh):
+    """The global rows of a row-sharded leaf, gathered from every rank of
+    the table group (a collective: each rank of the group calls it)."""
+    import torch.distributed as dist
+
+    if mesh is None or mesh.ts == 1:
+        return x.detach()
+    parts = [torch.empty_like(x) for _ in range(mesh.ts)]
+    dist.all_gather(parts, x.detach().contiguous(), group=mesh.table_group)
+    return torch.cat(parts)
+
+
+def state_to_jax(state, cfg, mesh=None):
     """The port's TrainState -> (step, params, opt_state) for the JAX
     package: numpy params and the flax state dict of optax's state for
-    the same config (``serialization.from_state_dict`` takes it)."""
+    the same config (``serialization.from_state_dict`` takes it). On a
+    ``mesh`` with table shards every rank of a table group calls it
+    together and gets the whole state, the table's padded global rows
+    gathered from the ranks."""
     from newsrecommendation_tpu_torch.train.state import trainable_mask
 
+    table = state.params.get("embedding_table")
     mask = trainable_mask(state.params, cfg)
 
     def moments(key):
@@ -114,6 +144,9 @@ def state_to_jax(state, cfg):
             if not _at(mask, path):
                 return {}  # optax's MaskedNode for a frozen leaf
             st = state.optimizer.state.get(tree)
+            if tree is table:
+                v = st[key] if st else torch.zeros_like(tree)
+                return _whole_table(v, mesh).cpu().numpy()
             if not st:
                 return np.zeros(tuple(tree.shape), np.float32)
             return st[key].detach().cpu().numpy()
@@ -130,7 +163,10 @@ def state_to_jax(state, cfg):
     opt_state = {"inner_states": {
         "frozen": {"inner_state": {}},
         "train": {"inner_state": {"0": adam, "1": {}}}}}
-    return state.step, params_to_jax(state.params), opt_state
+    params = dict(state.params)
+    if table is not None:
+        params["embedding_table"] = _whole_table(table, mesh)
+    return state.step, params_to_jax(params), opt_state
 
 
 def params_to_jax(params):

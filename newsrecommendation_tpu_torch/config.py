@@ -2,11 +2,9 @@
 
 Every field of the JAX package's Config, under its names and with its
 defaults and checks, so one set of keyword arguments builds a config for
-either side and ``config_from_args`` parses the same command line. The
-fields of what the port does not run yet (data parallelism over several
-cards, row-sharded tables, the plain route on the card) are parsed, and
-``check_supported`` refuses their values with the queue item of
-``ROADMAP.md`` they wait for.
+either side and ``config_from_args`` parses the same command line.
+``check_supported`` refuses the values the port does not run: params
+other than f32, and the plain route on the card.
 """
 
 from __future__ import annotations
@@ -77,8 +75,9 @@ class Config:
     tokenizer: str = "treebank"  # "treebank" | "regex"
 
     # ---- execution ---------------------------------------------------------
-    data_parallel: int = 0  # cards on the data axis; 0 and 1: one card
-    table_shards: int = 1  # >1: row-sharded tables (not ported)
+    # ranks on the data axis; 0: every card left after table sharding
+    data_parallel: int = 0
+    table_shards: int = 1  # >1: the title table row-sharded over ranks
     compute_dtype: str = "float32"  # "float32" | "bfloat16" activations
     param_dtype: str = "float32"  # params stay f32
     eval_batch_size: int = 128  # impressions per eval batch
@@ -113,7 +112,7 @@ class Config:
     debug_nans: bool = False  # autograd anomaly detection: fail at a NaN
 
     # ---- the reference's flags kept for its command lines -------------------
-    nGPU: int = 1  # device count; more than 1 is refused
+    nGPU: int = 1  # N > 1: data_parallel min(N, cards) when it is 0
     enable_gpu: bool = True  # ignored: the entry points' device decides
 
     def __post_init__(self):
@@ -180,19 +179,9 @@ class Config:
 
 
 def check_supported(cfg: Config, device=None) -> None:
-    """Raise ValueError for a setting the port does not run yet, naming the
-    queue item of ROADMAP.md it waits for, rather than ignore it.
-    ``device``: where the run goes; "off" is refused on CUDA only, since on
-    the CPU every kernel takes its plain version anyway."""
-    if cfg.data_parallel > 1 or cfg.nGPU > 1:
-        raise ValueError(
-            f"--data_parallel {cfg.data_parallel} / --nGPU {cfg.nGPU}: data "
-            "parallelism over several cards waits for ROADMAP.md queue A "
-            "item 5 (multi-GPU); the port runs on one card")
-    if cfg.table_shards > 1:
-        raise ValueError(
-            f"--table_shards {cfg.table_shards}: row-sharded tables wait "
-            "for ROADMAP.md queue A item 5 (multi-GPU)")
+    """Raise ValueError for a setting the port does not run, rather than
+    ignore it. ``device``: where the run goes; "off" is refused on CUDA
+    only, since on the CPU every kernel takes its plain version anyway."""
     if cfg.param_dtype != "float32":
         raise ValueError(f"--param_dtype {cfg.param_dtype}: the port keeps "
                          "its params in float32")
@@ -207,7 +196,7 @@ def check_supported(cfg: Config, device=None) -> None:
 def config_from_args(argv=None) -> Config:
     """Parse the JAX package's command line (the reference's flag names)
     into a Config: one flag per field, booleans as yes/no words. Settings
-    the port does not run yet raise (check_supported)."""
+    the port does not run raise (check_supported)."""
     import argparse
 
     def str2bool(v):

@@ -33,20 +33,27 @@ _FOLD_EVERY = 64  # batches between folds of the device sums into float64
 
 
 @torch.inference_mode()
-def compute_news_scoring(model, params, cfg,
-                         news_features: np.ndarray) -> torch.Tensor:
+def compute_news_scoring(model, params, cfg, news_features: np.ndarray,
+                         encode_fn=None) -> torch.Tensor:
     """Encode the whole corpus -> (num_news+1, news_dim) cache on the
     params' device.
 
     The feature matrix crosses to the device once; each chunk is a slice of
     it. Row 0 is the unknown-news vector: the reference computes it from
     the zero feature row (not forced to zero), so it is kept as encoded.
+    encode_fn(params, features): the encoder to run (default
+    model.news_encoder); parallel/spmd.py:make_spmd_news_encoder's on a
+    row-sharded table, which every rank of a table group runs over the
+    same chunks.
     """
+    if encode_fn is None:
+        def encode_fn(p, f):
+            return model.news_encoder(p, cfg, f)
     device = params["embedding_table"].device
     feats = torch.from_numpy(np.ascontiguousarray(news_features)).to(device)
     n = feats.shape[0]
     chunk = max(min(cfg.eval_news_chunk, n), 1)
-    outs = [model.news_encoder(params, cfg, feats[start:start + chunk])
+    outs = [encode_fn(params, feats[start:start + chunk])
             for start in range(0, n, chunk)]
     return torch.cat(outs, dim=0)
 
@@ -139,15 +146,22 @@ def combine_metric_sums(per_shard_sums) -> Dict[str, float]:
 
 
 def cross_process_sum(sums: Dict[str, float]) -> Dict[str, float]:
-    """Metric sums over every process of a run: the identity for one
-    process. Several processes (per-process eval shards) wait for
-    ROADMAP.md queue A item 5."""
-    if (torch.distributed.is_available()
-            and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            "multi-process evaluation waits for ROADMAP.md queue A item 5")
-    return dict(sums)
+    """Metric sums over every process of a run: each evaluates its own
+    behaviors_{rank}.tsv shard, and one all-reduce (SUM, float64) over the
+    world adds them up on every rank (the reference's dist.reduce to rank
+    0, main.py:269-275, with the result on every rank). The identity
+    without a process group of several ranks."""
+    dist = torch.distributed
+    if not (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        return dict(sums)
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else torch.device("cpu"))
+    keys = sorted(sums)
+    total = torch.tensor([float(sums[k]) for k in keys],
+                         dtype=torch.float64, device=device)
+    dist.all_reduce(total)
+    return dict(zip(keys, total.cpu().tolist()))
 
 
 def summarize_metric_sums(sums: Dict[str, float],

@@ -17,7 +17,8 @@ def frozen_table(table: torch.Tensor, cfg) -> torch.Tensor:
 
     The cast to cfg.compute_dtype happens BEFORE the gather: converting the
     (V, D) table once is cheaper than converting every gathered row, and a
-    bf16 gather moves half the bytes.
+    bf16 gather moves half the bytes. On a mesh with table shards the
+    table is the rank's shard, and only that is cast.
     """
     if cfg.freeze_embedding:
         table = table.detach()  # no gradient, not even a zero one

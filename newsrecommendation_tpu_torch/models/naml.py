@@ -126,15 +126,17 @@ def user_encoder(params, cfg, news_vecs, log_mask):
     return attention_pooling(p["attn"], padded, None)
 
 
-def forward(params, cfg, batch, *, generator=None, deterministic=True):
+def forward(params, cfg, batch, *, generator=None, deterministic=True,
+            lookup=common.default_lookup):
     """Training forward: (loss, scores); the batch and the dropout draws
-    as in nrms.forward, candidates and history in one news-encoder call."""
+    as in nrms.forward, candidates and history in one news-encoder call;
+    lookup as in nrms.forward."""
     b, n_slots, feat = batch["candidate"].shape
     n_cand = b * n_slots
     all_flat = torch.cat([batch["candidate"].reshape(-1, feat),
                           batch["history"].reshape(-1, feat)], dim=0)
     all_vecs = news_encoder(params, cfg, all_flat, generator=generator,
-                            deterministic=deterministic)
+                            deterministic=deterministic, lookup=lookup)
     cand_vecs = all_vecs[:n_cand].reshape(b, n_slots, cfg.news_dim)
     hist_vecs = all_vecs[n_cand:].reshape(b, cfg.user_log_length,
                                           cfg.news_dim)

@@ -83,7 +83,8 @@ def user_encoder(params, cfg, news_vecs, log_mask):
                              n_heads=cfg.num_attention_heads)
 
 
-def forward(params, cfg, batch, *, generator=None, deterministic=True):
+def forward(params, cfg, batch, *, generator=None, deterministic=True,
+            lookup=common.default_lookup):
     """Training forward: (loss, scores).
 
     batch: history (B,L,F) int, history_mask (B,L) f32, candidate
@@ -91,13 +92,15 @@ def forward(params, cfg, batch, *, generator=None, deterministic=True):
     history are encoded in one news-encoder call, as in the JAX package.
     deterministic=False applies the news encoder's two dropouts, drawing
     from ``generator`` (on the batch's device; None: torch's default).
+    lookup: the title-table gather (the row-sharded one on a mesh with
+    table shards, parallel/spmd.py:table_lookup).
     """
     b, n_slots, feat = batch["candidate"].shape
     n_cand = b * n_slots
     all_flat = torch.cat([batch["candidate"].reshape(-1, feat),
                           batch["history"].reshape(-1, feat)], dim=0)
     all_vecs = news_encoder(params, cfg, all_flat, generator=generator,
-                            deterministic=deterministic)
+                            deterministic=deterministic, lookup=lookup)
     cand_vecs = all_vecs[:n_cand].reshape(b, n_slots, cfg.news_dim)
     hist_vecs = all_vecs[n_cand:].reshape(b, cfg.user_log_length,
                                           cfg.news_dim)

@@ -111,7 +111,8 @@ class Recommender:
         """Load a checkpoint and build the cache from data_dir's corpus:
         the sidecar's vocabs read data_dir/news.tsv, the title table is
         built for that corpus (cli.build_embedding_table), a model of that
-        shape takes the checkpoint's params (load_checkpoint), and
+        shape takes the checkpoint's params (load_checkpoint; a table a
+        run on several ranks saved in shards comes in whole), and
         from_state encodes the corpus on ``device``."""
         import json
         import os

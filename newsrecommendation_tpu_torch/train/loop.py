@@ -8,6 +8,15 @@ end of the first step, checkpoints every save_steps and at each epoch's
 end written by a background thread, an optional profiler trace, and
 batches built and copied to the device on a background thread
 (train/prefetch.py; cfg.prefetch_depth).
+
+On a mesh (parallel/mesh.py) every rank runs fit over its own data
+index's samples with the spmd step; rank 0 alone writes metrics.jsonl
+and the main checkpoint file, saves are synchronous, and the collectives
+run on the main thread only (the prefetch thread only stages batches).
+The ranks agree on the epoch's batch count first (one all-reduce, MAX): a
+shard one batch short feeds an all-padding batch (weight 0), which the
+globally weighted loss leaves out of the math, since a rank that steps
+once more than the others would wait in its all-reduce forever.
 """
 
 from __future__ import annotations
@@ -20,8 +29,14 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from newsrecommendation_tpu_torch.ckpt import save_checkpoint, snapshot_state
+from newsrecommendation_tpu_torch.parallel.mesh import barrier
+from newsrecommendation_tpu_torch.parallel.spmd import (
+    make_spmd_multi_step,
+    make_spmd_train_step,
+)
 from newsrecommendation_tpu_torch.train.prefetch import stage_ahead
 from newsrecommendation_tpu_torch.train.step import (
     make_multi_step,
@@ -53,14 +68,21 @@ class _AsyncSaver:
     one); a single worker thread then copies the snapshot to the host and
     writes it while training goes on. One save in flight at a time, which
     bounds the device memory at twice the state; a failed write is raised
-    again at ``wait()``, which fit calls before it returns.
+    again at ``wait()``, which fit calls before it returns. On a mesh of
+    several ranks the save is synchronous: every rank must have written
+    its files before any leaves fit.
     """
 
-    def __init__(self):
+    def __init__(self, mesh=None):
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._mesh = mesh
 
     def save(self, save_dir, name, state, cfg, **vocabs):
+        if self._mesh is not None and not self._mesh.trivial:
+            save_checkpoint(save_dir, name, state, cfg, mesh=self._mesh,
+                            **vocabs)
+            return
         snap = snapshot_state(state, cfg)
         self.wait()
 
@@ -84,14 +106,45 @@ class _AsyncSaver:
             raise RuntimeError("background checkpoint write failed") from err
 
 
-def fit(cfg, model, state, samples, news_features, *, train_step=None,
-        multi_step=None, vocabs: Optional[dict] = None,
+def _padding_batch(cfg, news_features, device_gather: bool) -> dict:
+    """A batch of cfg.batch_size padding rows (weight 0, all zeros)."""
+    b, hist, cand = cfg.batch_size, (cfg.user_log_length,), (1 + cfg.npratio,)
+    if device_gather:
+        batch = {"history_idx": np.zeros((b,) + hist, np.int32),
+                 "candidate_idx": np.zeros((b,) + cand, np.int32)}
+    else:
+        f = np.asarray(news_features).shape[1:]
+        batch = {"history": np.zeros((b,) + hist + f, news_features.dtype),
+                 "candidate": np.zeros((b,) + cand + f,
+                                       news_features.dtype)}
+    batch.update(history_mask=np.zeros((b,) + hist, np.float32),
+                 label=np.zeros(b, np.int32), weight=np.zeros(b, np.float32))
+    return batch
+
+
+def agreed_batch_count(samples, batch_size: int, mesh, device) -> int:
+    """The epoch's batch count on every rank of ``mesh``: the largest of
+    the ranks' own (one all-reduce, MAX); this rank's own without one."""
+    own = -(-samples.num_samples // batch_size)
+    if mesh is None or mesh.trivial:
+        return own
+    n = torch.tensor([own], dtype=torch.int64, device=device)
+    dist.all_reduce(n, op=dist.ReduceOp.MAX)
+    return int(n.item())
+
+
+def fit(cfg, model, state, samples, news_features, *, mesh=None,
+        train_step=None, multi_step=None, vocabs: Optional[dict] = None,
         save_dir: Optional[str] = None,
         device_gather: Optional[bool] = None) -> Dict[str, float]:
     """Train for cfg.epochs over `samples`; returns (state, stats).
 
     samples: data.loader.TrainSamples; news_features: the combined feature
-    matrix. The device is that of the state's params. train_step /
+    matrix. The device is that of the state's params. mesh: this rank's
+    place on a (data, table) mesh (parallel/mesh.py); the state is the
+    rank's (parallel/spmd.py:place_state), samples its data index's shard,
+    and the built-in step the spmd one unless the mesh is trivial.
+    train_step /
     multi_step: optional pre-built steps (a custom train_step without a
     multi_step runs one step per call). device_gather: gather feature
     rows on the device from a resident copy of news_features, shipping
@@ -108,17 +161,20 @@ def fit(cfg, model, state, samples, news_features, *, train_step=None,
     custom_step = train_step is not None
     if device_gather is None:
         device_gather = not custom_step and bool(cfg.device_gather)
+    spmd = mesh is not None and not mesh.trivial
     if train_step is None:
-        train_step = make_train_step(cfg, model, device_gather=device_gather)
+        train_step = (make_spmd_train_step(cfg, model, mesh, device_gather)
+                      if spmd else
+                      make_train_step(cfg, model, device_gather=device_gather))
     device = _device_of(state.params)
     base_seed = cfg.seed
     vocabs = vocabs or {}
     mlog = None
-    if save_dir:
+    if save_dir and (mesh is None or mesh.rank == 0):
         from newsrecommendation_tpu_torch.utils.logging import MetricsLog
 
         mlog = MetricsLog(os.path.join(save_dir, "metrics.jsonl"))
-    saver = _AsyncSaver()
+    saver = _AsyncSaver(mesh)
 
     total_examples = 0
     total_steps = 0
@@ -142,9 +198,13 @@ def fit(cfg, model, state, samples, news_features, *, train_step=None,
                 "steps_per_call=%d ignored: a custom train_step was supplied "
                 "without a matching multi_step", k)
             k = 1
+        elif spmd:
+            multi_step = make_spmd_multi_step(cfg, model, mesh, k,
+                                              device_gather)
         else:
             multi_step = make_multi_step(cfg, model, k,
                                          device_gather=device_gather)
+    n_batches = agreed_batch_count(samples, cfg.batch_size, mesh, device)
     feats = ()
     if device_gather:
         # one copy for the whole run; every step gathers from it
@@ -176,10 +236,17 @@ def fit(cfg, model, state, samples, news_features, *, train_step=None,
 
     def iter_host_batches(ep):
         if device_gather:
-            return samples.iter_index_batches(cfg.batch_size, epoch=ep,
-                                              seed=cfg.seed)
-        return samples.iter_batches(news_features, cfg.batch_size,
-                                    epoch=ep, seed=cfg.seed)
+            own = samples.iter_index_batches(cfg.batch_size, epoch=ep,
+                                             seed=cfg.seed)
+        else:
+            own = samples.iter_batches(news_features, cfg.batch_size,
+                                       epoch=ep, seed=cfg.seed)
+        n = 0
+        for batch in own:
+            n += 1
+            yield batch
+        for _ in range(n, n_batches):  # a short shard pads to the count
+            yield _padding_batch(cfg, news_features, device_gather)
 
     def grouped():
         """All epochs' host batches, k-stacked, with epoch-end markers, in
@@ -242,6 +309,8 @@ def fit(cfg, model, state, samples, news_features, *, train_step=None,
             prof.export_chrome_trace(
                 os.path.join(cfg.profile_dir, "trace.json"))
 
+    if spmd:
+        barrier(mesh)  # every rank's shard files are written
     final_loss = float(metrics["loss"])  # waits for the last step
     elapsed = (time.perf_counter() - t_start) if t_start else 0.0
     stats = {

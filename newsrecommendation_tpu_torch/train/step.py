@@ -22,9 +22,12 @@ def weighted_accuracy(labels, scores, weights):
     return (hit * w).sum() / torch.clamp(w.sum(), min=1.0)
 
 
-def _dropout_generator(device, seed: int, step: int) -> torch.Generator:
-    """The generator of one step's dropout masks, on ``device``."""
-    key = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
+def _dropout_generator(device, seed: int, step: int,
+                       shard=None) -> torch.Generator:
+    """The generator of one step's dropout masks, on ``device``; ``shard``
+    (a data index) gives each data-parallel rank a stream of its own."""
+    entropy = [seed, step] + ([] if shard is None else [shard])
+    key = np.random.SeedSequence(entropy).generate_state(1, np.uint64)
     return torch.Generator(device=device).manual_seed(int(key[0]))
 
 

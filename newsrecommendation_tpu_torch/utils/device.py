@@ -19,6 +19,27 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def rank_device(device="cuda", local_rank: int = 0,
+                backend=None) -> torch.device:
+    """The device of one rank: "cuda" without an index is
+    ``cuda:{local_rank}``; an explicit index is kept (two gloo ranks may
+    share a card). Under NCCL a rank past the cards raises, since NCCL
+    refuses two ranks on one card; the rank's card becomes the current
+    one, where NCCL's collectives run."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return dev
+    if dev.index is None:
+        if backend == "nccl" and local_rank >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"local rank {local_rank} has no card of its own: "
+                f"{torch.cuda.device_count()} cards, and NCCL takes one "
+                "rank per card")
+        dev = torch.device("cuda", local_rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    return dev
+
+
 def to_device(params, device):
     """A nested dict of tensors with every tensor moved to ``device``."""
     if isinstance(params, dict):

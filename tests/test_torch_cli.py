@@ -97,13 +97,22 @@ class TestConfig:
             config_from_args(argv)
 
     @pytest.mark.parametrize("argv, item", [
-        (["--data_parallel", "2"], "item 5"),
-        (["--nGPU", "4"], "item 5"),
-        (["--table_shards", "2"], "item 5"),
-        (["--param_dtype", "bfloat16"], "float32")])
+        (["--param_dtype", "bfloat16"], "float32"),
+        (["--param_dtype", "float16"], "float32")])
     def test_what_the_port_cannot_run_raises(self, argv, item):
         with pytest.raises(ValueError, match=item):
             config_from_args(argv)
+
+    @pytest.mark.parametrize("argv", [["--data_parallel", "2"],
+                                      ["--nGPU", "4"],
+                                      ["--table_shards", "2"]])
+    def test_multi_gpu_flags_parse_as_jax(self, argv):
+        """The mesh flags parse to the JAX package's config and pass
+        check_supported on either device."""
+        cfg = config_from_args(argv)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jax_args(argv))
+        check_supported(cfg, "cpu")
+        check_supported(cfg, "cuda")
 
     def test_naml_parses_as_jax_and_runs(self):
         """--model NAML (the fork's demo flags) parses to the JAX
@@ -364,10 +373,11 @@ def test_python_dash_m_entry_point():
     and refuses what the port does not run, before any device work."""
     proc = subprocess.run(
         [sys.executable, "-m", "newsrecommendation_tpu_torch.cli",
-         "--table_shards", "2"], capture_output=True, text=True,
+         "--param_dtype", "bfloat16"], capture_output=True, text=True,
         timeout=120,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    assert proc.returncode != 0 and "queue A item 5" in proc.stderr
+    assert proc.returncode != 0 and "keeps its params in float32" in (
+        proc.stderr)
 
 
 class TestTitleStore:

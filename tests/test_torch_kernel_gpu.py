@@ -2282,3 +2282,206 @@ def test_naml_launches_no_kernel():
                              [["N4", "N5", "N6"], ["N7", "N8", "N9"]])
     assert scores.shape == (2, 3) and np.isfinite(scores).all()
     assert not any(any(fa.launch_counts(k).values()) for k in fa.KERNELS)
+
+
+# ---- data parallelism and row-sharded tables on the card ----------------
+
+DDP_VOCAB = 31
+DDP_CFG = dict(num_words_title=6, user_log_length=8, word_embedding_dim=16,
+               news_dim=24, news_query_vector_dim=10,
+               user_query_vector_dim=10, num_attention_heads=4, npratio=3,
+               batch_size=4, drop_rate=0.0, deterministic=True, lr=3e-4,
+               freeze_embedding=False)
+# the leaves whose gradient is 0 analytically: rounding noise, which
+# Adam's step turns into updates of either sign of about lr
+DDP_ZERO_GRAD = {"news_encoder/mhsa/wk/b", "user_encoder/mhsa/wk/b",
+                 "news_encoder/attn/fc2/b", "user_encoder/attn/fc2/b"}
+
+
+def _ddp_batch(b, seed):
+    rng = np.random.default_rng(seed)
+    L, k, t = (DDP_CFG["user_log_length"], DDP_CFG["npratio"],
+               DDP_CFG["num_words_title"])
+    mask = (rng.random((b, L)) > 0.3).astype(np.float32)
+    mask[0] = 0.0
+    return {"history": rng.integers(0, DDP_VOCAB, (b, L, t)).astype(
+                np.int32),
+            "history_mask": mask,
+            "candidate": rng.integers(0, DDP_VOCAB, (b, 1 + k, t)).astype(
+                np.int32),
+            "label": rng.integers(0, k + 1, (b,)).astype(np.int32),
+            "weight": np.ones(b, np.float32)}
+
+
+def _ddp_params():
+    from newsrecommendation_tpu_torch.config import Config
+    from newsrecommendation_tpu_torch.models import nrms
+
+    table = np.random.default_rng(0).normal(
+        size=(DDP_VOCAB, DDP_CFG["word_embedding_dim"])).astype(np.float32)
+    table[0] = 0.0
+    return nrms.init(Config(**DDP_CFG), table, seed=0, device="cpu")
+
+
+def _flat(tree, path=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, path + (k,)))
+        return out
+    return {"/".join(path): tree}
+
+
+@pytest.fixture(scope="module")
+def ddp_card_run(tmp_path_factory):
+    """Two gloo ranks sharing card 0 (tests/torch_mp_worker.py): the row
+    gather at ts = 2 and two f32 spmd steps at (2, 1) and (1, 2)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from newsrecommendation_tpu_torch.config import Config
+
+    d = tmp_path_factory.mktemp("ddp_card")
+    np.savez(d / "params.npz", **{k: v.numpy() for k, v in
+                                  _flat(_ddp_params()).items()})
+    cfg = {k: v for k, v in vars(Config(**DDP_CFG)).items()}
+    jobs = []
+    for dp, ts in ((2, 1), (1, 2)):
+        np.savez(d / f"batches_{dp}x{ts}.npz", **{
+            f"{i}/{k}": v for i, s in enumerate((1, 2))
+            for k, v in _ddp_batch(4 * dp, s).items()})
+        jobs.append({"name": f"step_{dp}x{ts}", "kind": "step", "cfg": cfg,
+                     "dp": dp, "ts": ts, "params": "params.npz",
+                     "batches": f"batches_{dp}x{ts}.npz",
+                     "device": "cuda:0"})
+    rng = np.random.default_rng(2)
+    np.savez(d / "gather.npz",
+             table=rng.normal(size=(32, 8)).astype(np.float32),
+             ids=rng.integers(0, 31, (5, 7)).astype(np.int32),
+             g=rng.normal(size=(5, 7, 8)).astype(np.float32))
+    jobs.append({"name": "gather", "kind": "gather", "cfg": cfg, "ts": 2,
+                 "inputs": "gather.npz", "device": "cuda:0"})
+    with open(d / "jobs_2.json", "w", encoding="utf-8") as f:
+        json.dump(jobs, f)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(repo, "tests", "torch_mp_worker.py"),
+         str(r), "2", str(d)], stderr=subprocess.PIPE, text=True, env=env,
+        cwd=repo) for r in range(2)]
+    errs = [p.communicate(timeout=600)[1] for p in procs]
+    for p, err in zip(procs, errs):
+        assert p.returncode == 0, err[-4000:]
+    return d
+
+
+def _ddp_out(d, name, rank):
+    return torch.load(d / "out" / f"{name}.rank{rank}.pt",
+                      map_location="cpu", weights_only=False)
+
+
+def test_gather_rows_sharded_in_a_one_rank_nccl_group(tmp_path):
+    """gather_rows_sharded on CUDA in an NCCL group of one rank: the dense
+    take, and its backward the dense scatter-add."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from newsrecommendation_tpu_torch.config import Config
+    from newsrecommendation_tpu_torch.parallel import make_mesh
+    from newsrecommendation_tpu_torch.parallel.sharded_embedding import (
+        gather_rows_sharded,
+    )
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/init",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_mesh(Config(), device="cuda:0")
+        rng = np.random.default_rng(1)
+        table = torch.from_numpy(rng.normal(size=(40, 16)).astype(
+            np.float32)).cuda()
+        ids = torch.from_numpy(rng.integers(0, 40, (6, 9))).cuda()
+        a = table.clone().requires_grad_(True)
+        b = table.clone().requires_grad_(True)
+        out = gather_rows_sharded(a, ids, mesh)
+        assert torch.equal(out, b[ids])
+        g = torch.randn(6, 9, 16, device="cuda")
+        out.backward(g)
+        b[ids].backward(g)
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-6, atol=1e-6)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_gather_rows_sharded_two_gloo_ranks_on_one_card(ddp_card_run):
+    with np.load(ddp_card_run / "gather.npz") as z:
+        table, ids, g = z["table"], z["ids"], z["g"]
+    want = np.zeros_like(table)
+    np.add.at(want, ids.reshape(-1), g.reshape(-1, 8))
+    outs = [_ddp_out(ddp_card_run, "gather", r) for r in range(2)]
+    for o in outs:
+        np.testing.assert_array_equal(o["rows"].numpy(), table[ids])
+    grad = np.concatenate([o["grad"].numpy() for o in outs])
+    np.testing.assert_allclose(grad, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dp, ts", [(2, 1), (1, 2)])
+def test_ddp_f32_steps_match_the_single_process_step(ddp_card_run, dp, ts):
+    """Two f32 spmd steps of two gloo ranks on one card against the
+    single-process card step on the concatenated batch: loss and accuracy
+    (rel 1e-5), the gradients (rtol 1e-4 / atol 1e-5), every leaf (rtol
+    1e-4 / atol 1e-6), the trained table's rows from both ranks at ts =
+    2; and the launch counters: rows 2-3 twice a step, no other kernel."""
+    from newsrecommendation_tpu_torch.config import Config
+    from newsrecommendation_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+    )
+
+    cfg = Config(**DDP_CFG)
+    state = create_train_state(cfg, {k: v for k, v in _to_cuda(
+        _ddp_params()).items()})
+    step = make_train_step(cfg, nrms_model())
+    losses, accs = [], []
+    for s in (1, 2):
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in _ddp_batch(4 * dp, s).items()}
+        state, m = step(state, batch, 0)
+        losses.append(float(m["loss"]))
+        accs.append(float(m["acc"]))
+    outs = [_ddp_out(ddp_card_run, f"step_{dp}x{ts}", r) for r in range(2)]
+    np.testing.assert_allclose(outs[0]["loss"], losses, rtol=1e-5)
+    np.testing.assert_allclose(outs[0]["acc"], accs, rtol=1e-5)
+    for key, want in _flat(state.params).items():
+        parts = [o["params"][key] for o in outs]
+        grads = [o["grads"][key] for o in outs]
+        if key == "embedding_table" and ts > 1:  # padded to 2 x 16 rows
+            rows = want.shape[0]
+            got, grad = torch.cat(parts)[:rows], torch.cat(grads)[:rows]
+        else:
+            assert torch.equal(parts[0], parts[1]), key
+            got, grad = parts[0], grads[0]
+        torch.testing.assert_close(grad, want.grad.cpu(), rtol=1e-4,
+                                   atol=1e-5, msg=lambda m: f"{key}: {m}")
+        if key in DDP_ZERO_GRAD:
+            assert float((got - want.detach().cpu()).abs().max()) < (
+                4 * cfg.lr)
+            continue
+        torch.testing.assert_close(got, want.detach().cpu(), rtol=1e-4,
+                                   atol=1e-6, msg=lambda m: f"{key}: {m}")
+    for o in outs:
+        launched = {k: sum(v.values()) for k, v in o["launches"].items()
+                    if sum(v.values())}
+        assert launched == {"qkv_fwd_probs": 4, "qkv_bwd_probs": 4}, launched
+
+
+def _to_cuda(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cuda(v) for k, v in tree.items()}
+    return tree.cuda()
