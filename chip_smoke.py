@@ -9,6 +9,8 @@ every kernel at the head widths and lengths it once refused; then runs the
 command line (train_test, checkpoints, test, serve with /reload); NAML
 at its benchmark width (train, serve, the command line), which runs no
 kernel row; and data parallelism with row-sharded tables over ranks.
+Every behaviors shard the command line reads goes through the native
+parser (csrc/mindio.cpp, built with g++), held against the Python one.
 
     python3 chip_smoke.py        # from the repo root, on a machine with
                                  # one CUDA card and nvcc
@@ -17,6 +19,14 @@ Phases, each printing one line with its elapsed seconds:
   device   nvidia-smi name and power limit; TF32 off for matmuls and convs
   build    one nvcc per kernel source (csrc/*.cu) for sm_90a, all started
            together (skipped if built)
+  native-parse  the native behaviors parser (csrc/mindio.cpp) built with
+           g++ (fails if it cannot be); a prepared train shard of at least
+           PARSE_TRAIN_MB and a raw dev shard of at least PARSE_DEV_MB
+           (cli_corpus's files repeated) parsed at L = 50, K = 4, C = 384
+           by the native and the Python parser: every array equal in
+           value and dtype. A "[parse numbers]" line gives each parser's
+           seconds and MB/s, the speedup and the build's seconds, with
+           the card
   kernel   row 1 (the forward without probs), both variants vs the plain
            version, f32 and bf16, at the shapes the serving path gives it
            and past T = 64 at 128 x 300 and 64 x 511, with the count of
@@ -186,18 +196,21 @@ Phases, each printing one line with its elapsed seconds:
            /score against a CPU Recommender on the checkpoint's params; a
            second epoch resumed from it through the CLI; POST /reload
            (200, then the new checkpoint's scores; 409 while a reload is
-           in flight). A "[cli numbers]" line gives the train ex/s through
-           the CLI, the checkpoint's size, save and load seconds, eval
-           impressions/s and the reload's seconds, with the card
+           in flight); every behaviors parse of each cli.main call
+           native. A "[cli numbers]" line gives the train ex/s through the
+           CLI, the checkpoint's size, save and load seconds, eval
+           impressions/s, the reload's seconds and train_test's seconds,
+           with the card
   naml-cli the fork's NAML demo flags (examples/demo.sh:15-19: doc_table,
            both views, frozen table, user_log_mask False) at the published
            width on cli's corpus: --mode create_embeddings with the hash
            backend, train_test for one epoch (bf16, B=128), run_server from
            the newest checkpoint against a CPU Recommender, a resumed epoch,
-           POST /reload; no kernel row may launch. A "[naml numbers]" line
-           gives the NAML train ex/s and step ms, the profiled NAML steps
-           and served batch, and the CLI's AUC, eval impressions/s, train
-           ex/s and reload seconds, with the card
+           POST /reload; no kernel row may launch; every behaviors parse
+           native. A "[naml numbers]" line gives the NAML train ex/s and
+           step ms, the profiled NAML steps and served batch, and the
+           CLI's AUC, eval impressions/s, train ex/s and reload seconds,
+           with the card
   ddp-nccl-1  an NCCL group of one rank on cuda:0: one f32 spmd step
            (its collectives issued) at the headline width against the
            plain step (loss rel 1e-5, each gradient as train-check, every
@@ -220,8 +233,9 @@ Phases, each printing one line with its elapsed seconds:
            2 on cli's corpus: one metrics.jsonl, every checkpoint's two
            shard files, rows 1-3 launched; then --mode test on one
            process from the newest checkpoint repeats the eval line
-           (within 1e-3 of a percentage point). With two cards or more,
-           also the CLI's own spawn over NCCL (--nGPU 2); with one, a
+           (within 1e-3 of a percentage point); every behaviors parse, on
+           each rank and in the one process, native. With two cards or
+           more, also the CLI's own spawn over NCCL (--nGPU 2); with one, a
            line saying it was not run. A "[ddp numbers]" line gives each
            phase's step ms and ex/s with the card
 Every backward row's library time is scaled_dot_product_attention's
@@ -384,6 +398,10 @@ CLI_DEV_IMPRESSIONS = 400
 CLI_CANDIDATES = 40
 CLI_ROUTE_TOL = 1e-3  # fused tail vs default route: metrics (not percent)
 CLI_FLAGS = []  # appended to every cli command line (a rehearsal's widths)
+# native-parse: the shards' least sizes in MB (10^6 bytes): about
+# MIND-small's prepared train shard at K = 4, and a large dev shard
+PARSE_TRAIN_MB = 200
+PARSE_DEV_MB = 50
 # the single-card cli phases stay on one card where there are more: with
 # --data_parallel 0 the CLI spawns a rank on every card, as JAX's mesh
 ONE_CARD = ["--data_parallel", "1"]
@@ -2302,6 +2320,100 @@ def cli_logging():
         root.addHandler(handler)
 
 
+def reset_parses() -> None:
+    from newsrecommendation_tpu_torch.data import native_loader
+
+    native_loader.reset_parser_counts()
+
+
+def check_native_parses(where, want) -> dict:
+    """Fail unless the behaviors parses since reset_parses() were ``want``
+    parses, every one by the native parser."""
+    from newsrecommendation_tpu_torch.data import native_loader
+
+    got = native_loader.parser_counts()
+    if got != {"native": want, "python": 0}:
+        fail(f"{where}: behaviors parses {got}; expected {want}, every one "
+             f"by the native parser")
+    return got
+
+
+def native_parse_run(card) -> dict:
+    """The port's native behaviors parser on the card's host: built with
+    g++ (fail if it cannot be); then a prepared train shard of at least
+    PARSE_TRAIN_MB and a raw dev shard of at least PARSE_DEV_MB, cli_corpus's
+    files repeated, parsed at L = 50, K = 4, C = 384 by the native and the
+    Python parser, whose arrays must be equal in every element and
+    dtype. Both parsers read files this process just wrote (warm page
+    cache)."""
+    from newsrecommendation_tpu_torch.config import Config
+    from newsrecommendation_tpu_torch.data import (
+        EvalSamples,
+        TrainSamples,
+        native_loader,
+        prepare_testing_data,
+        prepare_training_data,
+        read_news,
+    )
+
+    t = time.perf_counter()
+    if not native_loader.available():
+        fail("native-parse: the native parser did not build (the warning "
+             "above says why)")
+    out = {"card": card, "build_s": native_loader.build_seconds,
+           "build_and_load_s": time.perf_counter() - t,
+           "so": os.path.relpath(native_loader.so_path())}
+    cfg = Config(user_log_length=50, npratio=4, max_candidates=384)
+    keys = {"train": ("history", "history_mask", "pos", "neg"),
+            "eval": ("history", "history_mask", "candidates", "labels",
+                     "candidate_mask")}
+    with tempfile.TemporaryDirectory() as tmp:
+        train_dir, dev_dir, _ = cli_corpus(tmp)
+        prepare_training_data(train_dir, 1, cfg.npratio, 0)
+        prepare_testing_data(dev_dir, 1)
+        reset_parses()
+        for kind, d, name, mb in (
+                ("train", train_dir, f"behaviors_np{cfg.npratio}_0.tsv",
+                 PARSE_TRAIN_MB),
+                ("eval", dev_dir, "behaviors_0.tsv", PARSE_DEV_MB)):
+            with open(os.path.join(d, name), "rb") as f:
+                chunk = f.read()
+            path = os.path.join(tmp, f"{kind}_big.tsv")
+            with open(path, "wb") as f:
+                f.write(chunk * -(-mb * 10 ** 6 // len(chunk)))
+            del chunk
+            index = read_news(os.path.join(d, "news.tsv"), cfg).news_index
+            parsed, secs = {}, {}
+            for parser in ("native", "python"):
+                t0 = time.perf_counter()
+                if kind == "train":
+                    parsed[parser] = TrainSamples.from_file(
+                        path, index, cfg, use_native=parser == "native")
+                else:
+                    parsed[parser] = EvalSamples.from_file(
+                        path, index, cfg, max_candidates=cfg.max_candidates,
+                        use_native=parser == "native")
+                secs[parser] = time.perf_counter() - t0
+            for k in keys[kind]:
+                a, b = (getattr(parsed[p], k) for p in ("native", "python"))
+                if a.dtype != b.dtype or not np.array_equal(a, b):
+                    fail(f"native-parse {kind}: {k} differs between the "
+                         f"parsers ({a.dtype} {a.shape}, {b.dtype} "
+                         f"{b.shape})")
+            size = os.path.getsize(path) / 1e6
+            out[kind] = {
+                "mb": size, "rows": parsed["native"].num_samples,
+                "native_s": secs["native"], "python_s": secs["python"],
+                "native_mb_per_s": size / secs["native"],
+                "python_mb_per_s": size / secs["python"],
+                "speedup": secs["python"] / secs["native"]}
+            del parsed
+            os.remove(path)
+        if native_loader.parser_counts() != {"native": 2, "python": 2}:
+            fail(f"native-parse: parses {native_loader.parser_counts()}")
+    return out
+
+
 def timed_evaluate(real_eval, timed):
     """``real_eval`` (cli.evaluate_impressions) timed on the host clock
     from a synchronised device: each call appends (seconds, impressions)
@@ -2399,6 +2511,7 @@ def cli_run(fa, card) -> dict:
 
         t = time.perf_counter()
         fa.reset_launch_counts()
+        reset_parses()
         with mock.patch.multiple(cli, run_train=run_train,
                                  evaluate_impressions=evaluate):
             cli.main(["--mode", "train_test"] + train_argv, device=DEVICE)
@@ -2406,6 +2519,7 @@ def cli_run(fa, card) -> dict:
         regimes = {k: fa.regime_counts(k) for k in REGIME_KERNELS
                    if fa.regime_counts(k)}
         out["train_test_s"] = time.perf_counter() - t
+        out["parses"] = check_native_parses("cli train_test", 2)
         state, _, stats = captured["train"]
         first, lines = eval_line(model_dir)
         summary = [x for x in lines if x["kind"] == "train_summary"]
@@ -2483,8 +2597,10 @@ def cli_run(fa, card) -> dict:
             t = time.perf_counter()
             timed_eval.clear()
             fa.reset_launch_counts()
+            reset_parses()
             with mock.patch.object(cli, "evaluate_impressions", evaluate):
                 cli.main(test_argv + train_argv + extra, device=DEVICE)
+            check_native_parses(f"cli test {route}", 1)
             got = {k: fa.launch_counts(k) for k in fa.KERNELS
                    if any(fa.launch_counts(k).values())}
             line, _ = eval_line(model_dir)
@@ -2525,10 +2641,12 @@ def cli_run(fa, card) -> dict:
             out["serve_start_s"] = time.perf_counter() - t
             out["serve_err_vs_cpu"] = check(srv, newest, "before /reload")
             t = time.perf_counter()
+            reset_parses()
             cli.main(["--mode", "train", "--epochs", "2", "--start_epoch",
                       "1", "--load_ckpt_name", "latest", "--prepare",
                       "False"] + train_argv, device=DEVICE)
             out["resume_train_s"] = time.perf_counter() - t
+            check_native_parses("cli resumed train", 1)
             kernel_config.apply(Config())
             newer = latest_checkpoint(model_dir)
             if not newer.endswith(f"epoch-2-{steps - 1}.ckpt"):
@@ -2683,9 +2801,11 @@ def naml_cli_run(fa, card) -> dict:
         evaluate = timed_evaluate(cli.evaluate_impressions, timed_eval)
 
         t = time.perf_counter()
+        reset_parses()
         with mock.patch.object(cli, "evaluate_impressions", evaluate):
             cli.main(["--mode", "train_test"] + train_argv, device=DEVICE)
         out["train_test_s"] = time.perf_counter() - t
+        out["parses"] = check_native_parses("naml-cli train_test", 2)
         check_no_launch(fa, "naml-cli train_test")
         line, lines = eval_line(model_dir)
         summary = [x for x in lines if x["kind"] == "train_summary"]
@@ -2704,9 +2824,11 @@ def naml_cli_run(fa, card) -> dict:
             fail(f"naml-cli: newest checkpoint {newest}")
         t = time.perf_counter()
         timed_eval.clear()
+        reset_parses()
         with mock.patch.object(cli, "evaluate_impressions", evaluate):
             cli.main(["--mode", "test", "--load_ckpt_name", "latest"]
                      + train_argv, device=DEVICE)
+        check_native_parses("naml-cli test", 1)
         again, _ = eval_line(model_dir)
         if any(again[k] != line[k] for k in ("auc", "mrr", "ndcg5",
                                              "ndcg10")):
@@ -2733,10 +2855,12 @@ def naml_cli_run(fa, card) -> dict:
             out["serve_start_s"] = time.perf_counter() - t
             out["serve_err_vs_cpu"] = check(srv, newest, "before /reload")
             t = time.perf_counter()
+            reset_parses()
             cli.main(["--mode", "train", "--epochs", "2", "--start_epoch",
                       "1", "--load_ckpt_name", "latest", "--prepare",
                       "False"] + train_argv, device=DEVICE)
             out["resume_train_s"] = time.perf_counter() - t
+            check_native_parses("naml-cli resumed train", 1)
             kernel_config.apply(Config())
             newer = latest_checkpoint(model_dir)
             if not newer.endswith("epoch-2.ckpt"):
@@ -3105,6 +3229,7 @@ def ddp_worker(rank, tmp, cfg, cli_argv, device, num_news):
     import torch.distributed as dist
 
     from newsrecommendation_tpu_torch import cli
+    from newsrecommendation_tpu_torch.data import native_loader
     from newsrecommendation_tpu_torch.ops import fused_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3124,13 +3249,15 @@ def ddp_worker(rank, tmp, cfg, cli_argv, device, num_news):
                 fa, device)
         out["eval"] = ddp_eval_case(rank, fa, device, num_news)
         fa.reset_launch_counts()
+        reset_parses()
         ddp_sync(device)
         t = time.perf_counter()
         cli.main(cli_argv, device=device)
         out["cli"] = {"s": time.perf_counter() - t,
                       "launches": {k: fa.launch_counts(k)
                                    for k in fa.KERNELS
-                                   if any(fa.launch_counts(k).values())}}
+                                   if any(fa.launch_counts(k).values())},
+                      "parses": native_loader.parser_counts()}
         torch.save(out, os.path.join(tmp, f"ddp_rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -3253,15 +3380,20 @@ def ddp_spawn_phases(ctx, fa, card, device="cuda:0",
                 or any(f"{c}.shards{i}.pt" not in files
                        for c in ckpts for i in range(2))):
             fail(f"ddp-cli: files {files}, metrics.jsonl {lines}")
-        for r in ranks:
+        for rank, r in enumerate(ranks):
+            if r["cli"]["parses"] != {"native": 2, "python": 0}:
+                fail(f"ddp-cli rank {rank}: behaviors parses "
+                     f"{r['cli']['parses']}; expected 2, both native")
             got = r["cli"]["launches"]
             if (sum(got.get("qkv_fwd_probs", {}).values()) < 2 * steps
                     or sum(got.get("qkv_bwd_probs", {}).values()) != 2 * steps
                     or min(got.get("qkv_fwd", {"x": 0}).values()) < 1):
                 fail(f"ddp-cli: launches {got}")
         os.remove(os.path.join(model_dir, "metrics.jsonl"))
+        reset_parses()
         cli.main(["--mode", "test", "--load_ckpt_name", "latest"] + argv,
                  device=device)
+        check_native_parses("ddp-cli one-process test", 1)
         single, _ = eval_line(model_dir)
         keys = ("auc", "mrr", "ndcg5", "ndcg10")
         if single["samples"] != line["samples"] or any(
@@ -3272,7 +3404,8 @@ def ddp_spawn_phases(ctx, fa, card, device="cuda:0",
                       "checkpoints": ckpts, "train_test_s":
                           ranks[0]["cli"]["s"],
                       "train_examples_per_sec": summary["examples_per_sec"],
-                      "launches": ranks[0]["cli"]["launches"]}
+                      "launches": ranks[0]["cli"]["launches"],
+                      "parses": [r["cli"]["parses"] for r in ranks]}
         phase("ddp-cli", t, **{k: json.dumps(v)
                                for k, v in res["cli"].items()})
 
@@ -3502,6 +3635,12 @@ def main() -> int:
     print("[build seconds] " + json.dumps(
         {k: round(v, 1) for k, v in fa.kernels.build_seconds.items()}),
         flush=True)
+
+    # ---- the native behaviors parser ---------------------------------------
+    t = time.perf_counter()
+    parse = native_parse_run(card)
+    phase("native-parse", t, **{k: json.dumps(v) for k, v in parse.items()})
+    print("[parse numbers] " + json.dumps(parse), flush=True)
 
     kc = kernel_phases(fa, bw, bl, fe, q2)
     cases, train_cases, recompute_cases = (
@@ -3800,7 +3939,8 @@ def main() -> int:
             cli["test_default"]["eval_impressions_per_sec"],
         "eval_impressions_per_sec_fused_tail":
             cli["test_fused_tail"]["eval_impressions_per_sec"],
-        "reload_s": cli["reload_s"]}), flush=True)
+        "reload_s": cli["reload_s"],
+        "train_test_s": cli["train_test_s"]}), flush=True)
 
     # ---- NAML through the command line: the fork's demo flags ---------------
     t = time.perf_counter()

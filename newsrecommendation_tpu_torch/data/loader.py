@@ -10,17 +10,28 @@ candidate width.
     sample and epoch, the slot index being the label,
   - the final partial batch padded, with a 0/1 ``weight`` per sample so a
     step sees one shape while the loss equals that of the ragged batch.
-Same arrays as the JAX package's loader for the same files and seeds
-(its pure-Python parser; the native one is not ported).
+Same arrays as the JAX package's loader for the same files and seeds.
+
+Two parsers give the same arrays: the native one (``native_loader``,
+``csrc/mindio.cpp``), taken by default, and the pure-Python one, taken
+with ``use_native=False``, for an eval shard without ``max_candidates``,
+or when the native library cannot be built. Each parse logs its parser,
+path, rows and seconds and notes the parser in ``native_loader``. A line
+with too few fields raises ``ParseError`` (a ValueError) naming the file
+and line; an empty file gives arrays of 0 rows.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import time
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
+
+from newsrecommendation_tpu_torch.data import native_loader
+from newsrecommendation_tpu_torch.data.native_loader import ParseError
 
 
 class CandidateTruncationError(ValueError):
@@ -60,6 +71,36 @@ def pad_to_fix_len(x: List[int], fix_length: int, padding_front: bool = True,
     return pad_x, np.asarray(mask, dtype=np.float32)
 
 
+def _parse_lines(path: str, min_fields: int, parse) -> None:
+    """parse(fields) on each line of ``path``, split on tabs. A line with
+    fewer than ``min_fields`` fields, or that ``parse`` cannot read,
+    raises ParseError naming the file and the 1-based line, as the native
+    parser does."""
+    with open(path, "r", encoding="utf-8") as f:
+        for lineno, line in enumerate(f, 1):
+            parts = line.rstrip("\n").split("\t")
+            try:
+                if len(parts) < min_fields:
+                    raise IndexError(len(parts))
+                parse(parts)
+            except (IndexError, ValueError):
+                raise ParseError(f"{path}:{lineno}: malformed behaviors "
+                                 f"line") from None
+
+
+def _rows(rows: list, dtype, width: int) -> np.ndarray:
+    """The rows as an (N, width) array; (0, width) when there are none."""
+    if not rows:
+        return np.zeros((0, width), dtype)
+    return np.asarray(rows, dtype=dtype)
+
+
+def _note(parser: str, path: str, rows: int, t0: float) -> None:
+    native_loader.record(parser)
+    logging.info("%s: %d rows by the %s parser in %.3f s", path, rows,
+                 parser, time.perf_counter() - t0)
+
+
 def _pad_rows(x: np.ndarray, n: int) -> np.ndarray:
     """x with zero rows appended up to n rows (x itself when it has n)."""
     if x.shape[0] == n:
@@ -86,24 +127,38 @@ class TrainSamples:
         return self.neg.shape[1]
 
     @classmethod
-    def from_file(cls, path: str, news_index: Dict[str, int],
-                  cfg) -> "TrainSamples":
-        """Parse a prepared shard (iid, uid, time, history, pos, negs)."""
+    def from_file(cls, path: str, news_index: Dict[str, int], cfg,
+                  use_native: bool = True) -> "TrainSamples":
+        """Parse a prepared shard (iid, uid, time, history, pos, negs),
+        natively unless ``use_native`` is False or the native library
+        cannot be built."""
+        t0 = time.perf_counter()
+        L, K = cfg.user_log_length, cfg.npratio
+        if use_native:
+            parsed = native_loader.parse_train_file(path, news_index, L, K)
+            if parsed is not None:
+                h, m, p, n = parsed
+                out = cls(history=h, history_mask=m, pos=p, neg=n)
+                _note("native", path, out.num_samples, t0)
+                return out
         hist, mask, pos, neg = [], [], [], []
-        with open(path, "r", encoding="utf-8") as f:
-            for line in f:
-                parts = line.rstrip("\n").split("\t")
-                h, m = pad_to_fix_len(
-                    trans_to_nindex(parts[3].split(), news_index),
-                    cfg.user_log_length)
-                hist.append(h)
-                mask.append(m)
-                pos.append(trans_to_nindex(parts[4].split(), news_index)[0])
-                neg.append(trans_to_nindex(parts[5].split(), news_index))
-        return cls(history=np.asarray(hist, dtype=np.int32),
-                   history_mask=np.asarray(mask, dtype=np.float32),
-                   pos=np.asarray(pos, dtype=np.int32),
-                   neg=np.asarray(neg, dtype=np.int32))
+
+        def parse(parts):
+            h, m = pad_to_fix_len(
+                trans_to_nindex(parts[3].split(), news_index), L)
+            p = trans_to_nindex(parts[4].split(), news_index)[0]
+            hist.append(h)
+            mask.append(m)
+            pos.append(p)
+            neg.append(trans_to_nindex(parts[5].split(), news_index))
+
+        _parse_lines(path, 6, parse)
+        out = cls(history=_rows(hist, np.int32, L),
+                  history_mask=_rows(mask, np.float32, L),
+                  pos=np.asarray(pos, dtype=np.int32),
+                  neg=_rows(neg, np.int32, K))
+        _note("python", path, out.num_samples, t0)
+        return out
 
     def epoch_arrays(self, epoch: int, seed: int, shuffle: bool = False):
         """(history, history_mask, candidate (N, 1+K), label (N,)) with a
@@ -182,28 +237,43 @@ class EvalSamples:
     @classmethod
     def from_file(cls, path: str, news_index: Dict[str, int], cfg,
                   max_candidates: Optional[int] = None,
+                  use_native: bool = True,
                   allow_truncation: bool = False) -> "EvalSamples":
         """Parse one eval shard; candidates padded to ``max_candidates``
         (default: the widest impression). An impression wider than that
         raises CandidateTruncationError; ``allow_truncation=True`` logs a
-        warning and drops the excess instead."""
+        warning and drops the excess instead. The native parser runs when
+        ``max_candidates`` is given and ``use_native`` is True."""
+        t0 = time.perf_counter()
+        L = cfg.user_log_length
+        if use_native and max_candidates is not None:
+            parsed = native_loader.parse_eval_file(path, news_index, L,
+                                                   max_candidates)
+            if parsed is not None:
+                h, m, c, lb, cm, truncated, max_width = parsed
+                _guard_truncation(path, truncated, max_width,
+                                  max_candidates, allow_truncation)
+                out = cls(history=h, history_mask=m, candidates=c,
+                          labels=lb, candidate_mask=cm)
+                _note("native", path, out.num_samples, t0)
+                return out
         hist, mask, cand_lists, label_lists = [], [], [], []
-        with open(path, "r", encoding="utf-8") as f:
-            for line in f:
-                parts = line.rstrip("\n").split("\t")
-                h, m = pad_to_fix_len(
-                    trans_to_nindex(parts[3].split(), news_index),
-                    cfg.user_log_length)
-                hist.append(h)
-                mask.append(m)
-                items = parts[4].split()
-                cand_lists.append(trans_to_nindex(
-                    [i.split("-")[0] for i in items], news_index))
-                label_lists.append([int(i.split("-")[1]) for i in items])
 
-        width = max_candidates or max(len(c) for c in cand_lists)
-        n = len(hist)
+        def parse(parts):
+            h, m = pad_to_fix_len(
+                trans_to_nindex(parts[3].split(), news_index), L)
+            items = parts[4].split()
+            labels = [int(i.split("-")[1]) for i in items]
+            hist.append(h)
+            mask.append(m)
+            cand_lists.append(trans_to_nindex(
+                [i.split("-")[0] for i in items], news_index))
+            label_lists.append(labels)
+
+        _parse_lines(path, 5, parse)
         widths = np.asarray([len(c) for c in cand_lists])
+        width = max_candidates or int(widths.max(initial=0))
+        n = len(hist)
         _guard_truncation(path, int(np.sum(widths > width)),
                           int(widths.max(initial=0)), width, allow_truncation)
         candidates = np.zeros((n, width), dtype=np.int32)
@@ -214,10 +284,11 @@ class EvalSamples:
             candidates[i, :w] = cl[:w]
             labels[i, :w] = ll[:w]
             cmask[i, :w] = 1.0
-        return cls(history=np.asarray(hist, dtype=np.int32),
-                   history_mask=np.asarray(mask, dtype=np.float32),
-                   candidates=candidates, labels=labels,
-                   candidate_mask=cmask)
+        out = cls(history=_rows(hist, np.int32, L),
+                  history_mask=_rows(mask, np.float32, L),
+                  candidates=candidates, labels=labels, candidate_mask=cmask)
+        _note("python", path, out.num_samples, t0)
+        return out
 
     def iter_batches(self, batch_size: int) -> Iterator[dict]:
         """Fixed-shape eval batches: the arrays' rows, zero-padded to

@@ -23,6 +23,7 @@ import json
 import logging
 import queue
 import threading
+import time
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Sequence
@@ -99,14 +100,22 @@ class BatchingScorer:
     back, so results are identical to unbatched calls (row-wise scoring is
     batch-invariant: user encoding and dot-product scoring have no
     cross-row interaction).
+
+    ``close()`` waits ``close_join_s`` for the worker, and with a pipeline
+    up to ``close_grace_s`` more while it hands over its last batch. A
+    worker still busy then is wedged: every request not yet answered
+    fails with a RuntimeError before the completer stops.
     """
 
     def __init__(self, rec, max_batch: int = 64, max_delay_ms: float = 2.0,
                  cand_buckets: Sequence[int] = (8, 32, 128, 384),
                  k_buckets: Sequence[int] = (16, 128),
                  stats: Optional[ServerStats] = None,
-                 pipeline_depth: int = 2):
+                 pipeline_depth: int = 2, close_join_s: float = 5.0,
+                 close_grace_s: float = 30.0):
         self.rec = rec
+        self.close_join_s = float(close_join_s)
+        self.close_grace_s = float(close_grace_s)
         self.max_batch = int(max_batch)
         self.max_delay_s = float(max_delay_ms) / 1e3
         # Two batch tiers only: 1 (single-request latency path) and
@@ -119,6 +128,9 @@ class BatchingScorer:
         self.stats = stats or ServerStats()
         self._q: "queue.Queue[_Request]" = queue.Queue()
         self._stop = threading.Event()
+        # every submitted request until its caller has its answer
+        self._pending_lock = threading.Lock()
+        self._pending: Dict[int, _Request] = {}
         # Dispatch/completion pipeline: the collector thread encodes and
         # QUEUES each device batch (CUDA work is asynchronous: the call
         # returns device tensors at once), then hands (reqs, device_out) to
@@ -171,23 +183,38 @@ class BatchingScorer:
         self._stop.set()
         # unblock the worker's queue.get
         self._q.put(_Request("stop", []))
-        self._worker.join(timeout=5)
+        self._worker.join(timeout=self.close_join_s)
         if self._completer is not None:
-            # Only sentinel once the worker is confirmed dead: if the join
-            # above timed out while the worker was still blocked putting an
-            # in-flight batch into the bounded _done_q, a sentinel enqueued
-            # now could win the race into the freed slot and the completer
-            # would exit before delivering that batch's results. The
-            # completer is still consuming, so the worker's pending put
-            # drains — extend the grace period until it exits.
-            import time as _time
-            deadline = _time.monotonic() + 30
-            while self._worker.is_alive() and _time.monotonic() < deadline:
+            # The worker may still be putting an in-flight batch into the
+            # bounded _done_q; the completer drains it, so wait a while
+            # longer for the worker to exit.
+            deadline = time.monotonic() + self.close_grace_s
+            while self._worker.is_alive() and time.monotonic() < deadline:
                 self._worker.join(timeout=0.5)
-            # FIFO: the sentinel lands after any in-flight batches, so
+        if self._worker.is_alive():
+            # wedged: a sentinel now could overtake its batch and leave
+            # that batch's callers without an answer, so fail them first
+            with self._pending_lock:
+                stranded = [r for r in self._pending.values()
+                            if not r.done.is_set()]
+            logging.warning("BatchingScorer.close: the worker is still busy "
+                            "after %.1f s; failing %d request(s) in flight",
+                            self.close_join_s + (self.close_grace_s
+                                                 if self._completer else 0),
+                            len(stranded))
+            for r in stranded:
+                r.error = RuntimeError(
+                    "BatchingScorer closed with the batch in flight")
+                r.done.set()
+        if self._completer is not None:
+            # FIFO: the sentinel lands after any batches handed over, so
             # their callers still get results before the completer exits
-            self._done_q.put(None)
-            self._completer.join(timeout=10)
+            try:
+                self._done_q.put(None, timeout=self.close_join_s)
+            except queue.Full:
+                logging.warning("BatchingScorer.close: the completer is "
+                                "busy; leaving it to exit with the process")
+            self._completer.join(timeout=self.close_join_s)
         # fail anything enqueued after the worker's own drain (the
         # _submit liveness re-check unblocks those callers regardless,
         # but deliver a clean error where possible)
@@ -204,15 +231,21 @@ class BatchingScorer:
         if self._stop.is_set():
             raise RuntimeError("BatchingScorer is closed")
         self.stats.record_request()
-        self._q.put(req)
-        # periodic liveness re-check: a request enqueued in the window
-        # between close()'s stop flag and the worker's final drain would
-        # otherwise block its caller forever
-        while not req.done.wait(timeout=0.5):
-            if (self._stop.is_set() and not self._worker.is_alive()
-                    and (self._completer is None
-                         or not self._completer.is_alive())):
-                raise RuntimeError("BatchingScorer closed mid-request")
+        with self._pending_lock:
+            self._pending[id(req)] = req
+        try:
+            self._q.put(req)
+            # periodic liveness re-check: a request enqueued in the window
+            # between close()'s stop flag and the worker's final drain
+            # would otherwise block its caller forever
+            while not req.done.wait(timeout=0.5):
+                if (self._stop.is_set() and not self._worker.is_alive()
+                        and (self._completer is None
+                             or not self._completer.is_alive())):
+                    raise RuntimeError("BatchingScorer closed mid-request")
+        finally:
+            with self._pending_lock:
+                del self._pending[id(req)]
         if req.error is not None:
             raise req.error
         return req.result
@@ -220,7 +253,6 @@ class BatchingScorer:
     # ---- worker ----------------------------------------------------------
 
     def _run(self):
-        import time
         while not self._stop.is_set():
             try:
                 first = self._q.get(timeout=0.1)

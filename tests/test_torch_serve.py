@@ -5,10 +5,12 @@ params made by the JAX ``nrms.init`` and bridged to the port."""
 import http.client
 import json
 import threading
+import time
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from newsrecommendation_tpu.config import Config as JaxConfig
 from newsrecommendation_tpu.data import build_news_features as jax_features
@@ -179,6 +181,53 @@ def test_batching_matches_direct(recs):
             batcher.score(["N1"], ["N2"] * 1000)
     finally:
         batcher.close()
+
+
+class _WedgedRec:
+    """A Recommender stand-in whose device call blocks until released."""
+
+    def __init__(self):
+        self.entered, self.release = threading.Event(), threading.Event()
+
+    def score_batch_async(self, hists, cands, max_candidates):
+        self.entered.set()
+        self.release.wait(timeout=60)
+        return torch.zeros((len(hists), max_candidates))
+
+
+@pytest.mark.parametrize("pipeline_depth", [0, 2])
+def test_close_fails_a_wedged_batch_in_flight(pipeline_depth):
+    """A worker wedged in its device call past close()'s deadline: every
+    caller gets an error, and close() returns at the deadline."""
+    rec = _WedgedRec()
+    batcher = BatchingScorer(rec, max_batch=4, max_delay_ms=1.0,
+                             pipeline_depth=pipeline_depth,
+                             close_join_s=0.3, close_grace_s=0.5)
+    errors, threads = [], []
+
+    def work():
+        try:
+            batcher.score(["N1"], ["N2", "N3"])
+        except RuntimeError as e:
+            errors.append(str(e))
+
+    try:
+        for _ in range(3):
+            threads.append(threading.Thread(target=work))
+            threads[-1].start()
+            if not rec.entered.is_set():
+                assert rec.entered.wait(timeout=10)
+        t0 = time.monotonic()
+        batcher.close()
+        took = time.monotonic() - t0
+        for t in threads:
+            t.join(timeout=10)
+        assert not any(t.is_alive() for t in threads)
+        assert len(errors) == 3 and all("closed" in e for e in errors)
+        assert any("in flight" in e for e in errors)
+        assert took < 0.3 + (0.5 if pipeline_depth else 0) + 2.0
+    finally:
+        rec.release.set()
 
 
 def _call(srv, method, path, payload=None):
