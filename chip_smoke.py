@@ -66,7 +66,9 @@ Phases, each printing one line with its elapsed seconds:
            bf16 dv from the unrounded a, and e rounded against a max taken
            per 64-key tile inside each key block and rescaled, whose count
            of elements of o that differ from the plain version must be at
-           least 10x the kernel's); bf16 counts of differing elements
+           least 10x the kernel's); each launch in its plan's regime
+           (tensor cores in bf16, CUDA cores in f32); bf16 counts of
+           differing elements
   kernel-2d  rows 11-12 (the 2-D-I/O forward and backward) at 7040 x 20
            and 128 x 50, f32 and bf16: equal to rows 2-3 on the 3-D view in
            every element, and vs their plain versions; times and bounds
@@ -130,8 +132,11 @@ Phases, each printing one line with its elapsed seconds:
   serve attention_layout=blanes  the same with attention_layout "blanes":
            row 15 only, both variants
   serve-long  the same with user_log_length 512: the user encoder takes
-           the flash forward (row 9), whose launches are counted; then once
-           with fused_tail "on": row 13 on both encoders, no flash
+           the flash forward (row 9) in f32, on CUDA cores, whose launches
+           and their regime are counted; the device and wall ms of one
+           score_batch of 64 users with 512-news histories x 300
+           candidates (profiler); then once with fused_tail "on": row 13
+           on both encoders, no flash
   serve heads=8  the same with 8 heads of 50 and user_log_length 400: row
            1 only, on the tiled kernel past T = 64 on the user encoder
   train-check  one f32 train step (dropout off, B=16, full width) on the
@@ -155,7 +160,9 @@ Phases, each printing one line with its elapsed seconds:
            with attention_layout "blanes" (2 row-15 and 2 row-16 launches
            per step), for 12 steps with 512-news histories (one row-9 and
            one row-10 launch per step, rows 2-3 once per step for the news
-           encoder), for 6 steps with 512-news histories and fused_tail
+           encoder), the same 12 steps in f32 (the CLI's default dtype:
+           rows 9-10 on CUDA cores, each launch counted in that regime),
+           for 6 steps with 512-news histories and fused_tail
            "on" (2 row-13 and 2 row-14 launches per step, no flash), and for
            12 steps with 300-news histories (rows 2-3 twice per step, the
            user encoder's on tensor cores)
@@ -177,8 +184,9 @@ Phases, each printing one line with its elapsed seconds:
            against an unprofiled wall clock) of one served batch of 64
            users x 300 candidates, of a 64-user corpus top-10, of one
            1024-row news-encoder chunk and of the headline, recompute,
-           trained-table, fused-tail, 2-D-I/O, blanes, 512-history,
-           512-history fused-tail and 300-history train steps, and of
+           trained-table, fused-tail, 2-D-I/O, blanes, 512-history (bf16
+           and f32), 512-history fused-tail and 300-history train steps,
+           and of
            the NAML served batch and train steps (frozen and trained
            table)
   cli      the command-line path at the published width, user_log_mask
@@ -921,6 +929,8 @@ def flash_kernel_case(bw, masked, n, t, heads, d, dtype, seed):
     import torch
     import torch.nn.functional as F
 
+    from newsrecommendation_tpu_torch.ops import kernels
+
     tdt = getattr(torch, dtype)
     gen = torch.Generator(device=DEVICE).manual_seed(300 + seed)
     hd = heads * d
@@ -936,15 +946,22 @@ def flash_kernel_case(bw, masked, n, t, heads, d, dtype, seed):
     where = f"flash{'_masked' if masked else ''} {dtype} N={n} T={t}"
     bkv = bw.kv_block(t)
 
+    kernels.reset_launch_counts()
     o, m, den = bw.flash_fwd(q, k, v, mask, heads)
     ro, rm, rden = bw.flash_fwd_reference(q, k, v, mask, heads)
     delta = bw.delta_of(g, ro, heads)
     grads = bw.flash_bwd(q, k, v, mask, g, rm, rden, delta, heads)
     refs = bw.flash_bwd_reference(q, k, v, mask, g, rm, rden, delta, heads)
     grads[0].sum().item()  # waits for the kernels
+    regime = bw.launch_plan(n, t, heads, d, tdt).regime
+    for kernel in FLASH_REGIME_KERNELS:
+        if kernels.regime_counts(kernel) != {regime: 1}:
+            fail(f"{where}: {kernel} launched "
+                 f"{kernels.regime_counts(kernel)}, its plan {regime}")
     stat_tol = TRAIN_TOL["float32"][0]
     out = {"variant": "flash_masked" if masked else "flash",
            "shape": [n, t, heads, d], "dtype": dtype, "block_kv": bkv,
+           "regime": regime,
            "o": compare(where, "o", o, ro, f_rtol, f_atol),
            "m": compare(where, "m", m, rm, *stat_tol),
            "den": compare(where, "den", den, rden, *stat_tol)}
@@ -1957,11 +1974,14 @@ def expected_launches(steps, cfg, attention_io="3d"):
 
 # Kernels whose launch takes one of several regimes, counted per regime
 # (kernels.regime_counts): rows 1, 2, 11 (fwd_launch_plan), 3, 4, 12
-# (bwd_launch_plan) and 13, 14 (tail_launch_plan).
+# (bwd_launch_plan), 13, 14 (tail_launch_plan) and 9, 10
+# (blockwise.launch_plan: "mma", "cuda_core", "wide").
 FWD_REGIME_KERNELS = ("qkv_fwd", "qkv_fwd_probs", "qkv2d_fwd")
 TAIL_REGIME_KERNELS = {"fused_tail_fwd": "fwd", "fused_tail_bwd": "bwd"}
+FLASH_REGIME_KERNELS = ("flash_fwd", "flash_bwd")
 REGIME_KERNELS = FWD_REGIME_KERNELS + ("qkv_bwd_probs", "qkv_bwd",
-                                       "qkv2d_bwd", *TAIL_REGIME_KERNELS)
+                                       "qkv2d_bwd", *TAIL_REGIME_KERNELS,
+                                       *FLASH_REGIME_KERNELS)
 
 
 def expected_regimes(steps, cfg, attention_io="3d"):
@@ -1969,8 +1989,10 @@ def expected_regimes(steps, cfg, attention_io="3d"):
     train steps (as expected_launches routes them): each launch takes its
     plan's regime at its encoder's length (fwd_launch_plan for rows 1, 2
     and 11, bwd_launch_plan for rows 3, 4 and 12, tail_launch_plan for
-    rows 13-14), the news encoder at num_words_title, the user encoder at
-    user_log_length."""
+    rows 13-14, blockwise.launch_plan for rows 9-10, which run on the user
+    encoder alone), the news encoder at num_words_title, the user encoder
+    at user_log_length."""
+    from newsrecommendation_tpu_torch.ops import blockwise as bw
     from newsrecommendation_tpu_torch.ops import (
         experimental_fused_encoder as fe,
     )
@@ -1984,6 +2006,10 @@ def expected_regimes(steps, cfg, attention_io="3d"):
     for k in REGIME_KERNELS:
         n = sum(want[k].values())
         if not n:
+            continue
+        if k in FLASH_REGIME_KERNELS:
+            out[k] = {bw.launch_plan(1, cfg.user_log_length, heads, d,
+                                     dtype).regime: n}
             continue
         # one launch per encoder and step; the first is the news encoder
         encoders = [(cfg.num_words_title, cfg.news_query_vector_dim),
@@ -3766,17 +3792,33 @@ def main() -> int:
           **{k: json.dumps(v) for k, v in serve_blanes.items()})
 
     # ---- serve with a history of LONG_L news: the flash forward ------------
+    long_scores = {}
     for user_log_mask in (False, True):
         t = time.perf_counter()
         fa.reset_launch_counts()
-        run, _ = serve_run(ctx, user_log_mask, user_log_length=LONG_L)
+        run, rec_long = serve_run(ctx, user_log_mask, user_log_length=LONG_L)
         run["launches"] = {k: fa.launch_counts(k)
                            for k in ("qkv_fwd", "flash_fwd")}
+        run["flash_regimes"] = fa.regime_counts("flash_fwd")
         flash = run["launches"]["flash_fwd"]
         if not flash["flash_masked" if user_log_mask else "flash"] or (
                 flash["flash" if user_log_mask else "flash_masked"]):
             fail(f"serve-long: flash launches {flash} do not follow "
                  f"user_log_mask={user_log_mask}")
+        if run["flash_regimes"] != {"cuda_core": sum(flash.values())}:
+            fail(f"serve-long: flash launches per regime "
+                 f"{run['flash_regimes']}, expected cuda_core only (f32)")
+        # one served batch at full size: 64 users, LONG_L-news histories
+        rng = np.random.default_rng(13)
+        ids = [f"N{i}" for i in range(1, NUM_NEWS + 1)]
+        hists = [[ids[j] for j in rng.integers(0, NUM_NEWS, LONG_L)]
+                 for _ in range(MAX_BATCH)]
+        cands = [[ids[j] for j in rng.choice(NUM_NEWS, 300, replace=False)]
+                 for _ in range(MAX_BATCH)]
+        long_scores[user_log_mask] = profile_device(
+            lambda: rec_long.score_batch(hists, cands))
+        run["score_batch_64x300"] = long_scores[user_log_mask]
+        del rec_long
         phase(f"serve-long user_log_mask={user_log_mask}", t,
               **{k: json.dumps(v) for k, v in run.items()})
     t = time.perf_counter()
@@ -3844,6 +3886,11 @@ def main() -> int:
                                "samples": "samples_long",
                                "max_steps": LONG_STEPS,
                                "fixed_batch": False}),
+                     ("long_f32", {"user_log_length": LONG_L,
+                                   "compute_dtype": "float32",
+                                   "samples": "samples_long",
+                                   "max_steps": LONG_STEPS,
+                                   "fixed_batch": False}),
                      ("mid", {"user_log_length": MID_L,
                               "samples": "samples_mid",
                               "max_steps": MID_STEPS,
@@ -3916,6 +3963,8 @@ def main() -> int:
                 step_of("fused_tail_long"), reps=2),
             f"train_step_l{LONG_L}_b128_bf16": profile_device(
                 step_of("long"), reps=3),
+            f"train_step_l{LONG_L}_b128_f32": profile_device(
+                step_of("long_f32"), reps=3),
             f"train_step_l{MID_L}_b128_bf16": profile_device(
                 step_of("mid"), reps=3),
             "naml_score_batch_64x300": profile_device(
@@ -3925,6 +3974,16 @@ def main() -> int:
             "naml_train_step_trainable_b128_bf16": profile_device(
                 step_of("naml_trainable", feats=naml_feats))}
     phase("profile", t, **{k: json.dumps(v) for k, v in prof.items()})
+    print("[flash f32 numbers] " + json.dumps({
+        "card": card,
+        "train_long_f32": {k: trains["long_f32"][0][k] for k in (
+            "steps", "step_ms", "examples_per_sec", "first_loss",
+            "final_loss", "max_memory_allocated_gb", "launches",
+            "regimes")},
+        "train_step_l512_f32": prof[f"train_step_l{LONG_L}_b128_f32"],
+        "serve_long_score_batch": {str(k): v
+                                   for k, v in long_scores.items()}}),
+          flush=True)
 
     # ---- the command-line path: train_test, checkpoints, test, /reload ----
     t = time.perf_counter()
@@ -4062,6 +4121,18 @@ def main() -> int:
     kernels.append(row("flash_exp_mhsa_bwd", FLASH_BWD_SOURCE,
                        f"{FLASH_KERNELS}:215",
                        sum(long_launches["flash_bwd"].values()), c["dq"],
+                       c["bwd"], c))
+    # and in f32 (CUDA cores), launched in the f32 LONG_L run
+    c = find(flash_cases, variant="flash", shape=[128, LONG_L],
+             dtype="float32")
+    f32_launches = trains["long_f32"][0]["launches"]
+    kernels.append(row("flash_exp_mhsa_fwd_f32", FLASH_FWD_SOURCE,
+                       f"{FLASH_KERNELS}:156",
+                       sum(f32_launches["flash_fwd"].values()), c["o"],
+                       c["fwd"], c))
+    kernels.append(row("flash_exp_mhsa_bwd_f32", FLASH_BWD_SOURCE,
+                       f"{FLASH_KERNELS}:215",
+                       sum(f32_launches["flash_bwd"].values()), c["dq"],
                        c["bwd"], c))
     # rows 11-12 and 13-14 at the news encoder's shape in the headline step,
     # launched on their own paths (attention_io "2d", fused_tail "on")

@@ -1,7 +1,7 @@
 // What the key-blocked ("flash") exp-MHSA kernels share (flash_fwd.cu,
 // flash_bwd.cu): the launch plan's layout, the walk over key blocks, the
-// staging of head rows, and the CUDA-core kernels' tile loader and dispatch
-// on the head width.
+// staging of head rows, and the CUDA-core kernels' dispatch on the head
+// width and their 16-lane sum.
 //
 // Layout: q, k, v are (N, T, H*D) with head h at lanes [h*D, (h+1)*D); rows
 // of (n, t) lie `ld` elements apart (ld = H*D when contiguous, 3*H*D when
@@ -9,19 +9,23 @@
 // other operand is contiguous: mask (N, T) f32 or null; o, g, dq, dk, dv
 // (N, T, H*D); m, den, delta (N, T, H) f32.
 //
-// Two regimes, chosen from the dtype and D (the launch plan is
+// Two regimes up to D = 64, chosen from the dtype (the launch plan is
 // ops/blockwise.py:launch_plan, which this file's layout mirrors):
-//   tensor cores (bf16, D <= 64): a block takes one (row, head) and a tile
-//     of 64 or 128 of its own rows (queries; keys in the backward's key
-//     side), a warp 16 of them, its A fragments loaded once; the other
-//     side's rows are staged in chunks of up to 256 by cp.async in their
-//     own dtype, one or two buffers, heads padded with zeros to whole
-//     k-steps of 16 and rows an odd number of 16-byte units apart;
-//   CUDA cores (f32): one thread owns one query (or one key) of one (row,
-//     head), holding its D-vectors in registers, padded with zeros to DM, a
-//     compile-time width (8, 16, 24, 32 or 64): the padded terms add exact
-//     zeros, so every dot is the sequential f32 sum over the D real lanes.
-//     Tiles of 128 threads, 256 rows staged as f32, one buffer.
+//   tensor cores (bf16): a block takes one (row, head) and a tile of 64 or
+//     128 of its own rows (queries; keys in the backward's key side), a
+//     warp 16 of them, its A fragments loaded once; the other side's rows
+//     are staged in chunks of up to 256 by cp.async in their own dtype,
+//     one or two buffers, heads padded with zeros to whole k-steps of 16
+//     and rows an odd number of 16-byte units apart;
+//   CUDA cores (f32): the other side's rows are staged in chunks of 256 by
+//     16-byte cp.async as f32 rows of core_row_floats, one or two buffers,
+//     and read as float4, so each shared-memory load feeds four or more
+//     FMAs; the head is summed over core_dm lanes (D itself at 8, 16, 20,
+//     24, 32 and 64; zeros pad the rest, adding exact zeros). The forward
+//     holds a tile of queries' scores for a whole chunk of keys in
+//     registers, split over 16 lanes; the backward's two sides (128
+//     threads) hold one own row a thread and walk the other side in
+//     order.
 #pragma once
 
 #include "common.cuh"
@@ -31,10 +35,6 @@
 
 namespace nrk {
 
-constexpr int kFlashThreads = 128;
-// Keys (or queries) staged in shared memory at once: JAX's default key
-// block, so a key block of up to 256 is loaded once per block.
-constexpr int kFlashTile = 256;
 constexpr float kNegBig = -1e30f;  // the running max before any key
 
 // rows [t0, t1) of head h of x (row `row`), as f32 padded to DM lanes
@@ -48,14 +48,6 @@ __device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ x,
     const int d = idx - j * DM;
     dst[idx] = d < d_head ? to_f32(x[base + (int64_t)(t0 + j) * ld + d]) : 0.f;
   }
-}
-
-template <int DM>
-__device__ __forceinline__ float dot(const float* a, const float* b) {
-  float acc = 0.f;
-#pragma unroll
-  for (int d = 0; d < DM; ++d) acc = fmaf(a[d], b[d], acc);
-  return acc;
 }
 
 // ---- the launch plan's layout ----------------------------------------------
@@ -108,6 +100,42 @@ inline int flash_row_elems(int d_head) {
   return rb / 2;
 }
 
+// ---- the CUDA-core (f32) kernels' shapes ------------------------------------
+
+constexpr int kCoreChunk = 256;       // rows of the other side staged at once
+constexpr int kCoreKeys = kCoreChunk / 16;  // keys of a chunk per key lane
+constexpr int kCoreBwdThreads = 128;  // a backward side: one own row each
+
+// The f32 kernels' compile-time width DM (with_core_width): D itself at 8,
+// 16, 20, 24, 32 and 64, else the next of those.
+__host__ __device__ constexpr int core_dm(int d_head) {
+  return d_head <= 8 ? 8 : d_head <= 16 ? 16 : d_head <= 20 ? 20
+         : d_head <= 24 ? 24 : d_head <= 32 ? 32 : 64;
+}
+
+// Floats between two staged f32 rows: DM, or DM + 4 where DM / 4 is even,
+// so that the float4 reads of eight neighbouring rows (the forward's key
+// lanes) fall on 32 different banks.
+__host__ __device__ constexpr int core_row_floats(int dm) {
+  return dm / 4 % 2 ? dm : dm + 4;
+}
+
+// Queries a forward thread holds: 4 up to DM = 24, 2 past it (their scores
+// and o share the registers).
+__host__ __device__ constexpr int core_fwd_rows(int dm) {
+  return dm <= 24 ? 4 : 2;
+}
+
+constexpr int kCoreFwdGroups = 16;  // forward query groups: 256 threads
+
+// The tiles the CUDA-core kernels take: the forward 16 query groups of
+// core_fwd_rows queries (16 key lanes a group), a backward side 128 own
+// rows, one a thread.
+__host__ __device__ constexpr bool core_tile_ok(int kind, int dm, int tile) {
+  return tile == (kind == kFlashFwd ? kCoreFwdGroups * core_fwd_rows(dm)
+                                    : kCoreBwdThreads);
+}
+
 // Bytes of a block's own rows and of one stage buffer of the other side's
 // rows, on tensor cores (bf16 rows of flash_row_elems):
 //   fwd:        own Q [tile];      stage K, V [chunk], mask [chunk]
@@ -117,9 +145,12 @@ inline int flash_row_elems(int d_head) {
 // (f32 arrays each padded to 16 bytes); row 3's key side also stages the
 // probs of [chunk] queries over its [tile] keys and its query side those
 // of its [tile] queries over [chunk] keys, f32 rows qkv_probs_stride
-// apart. On CUDA cores one f32 buffer of
-// 256 rows of two operands and one (fwd, query side) or three (key side)
-// per-row floats, nothing of its own.
+// apart. On CUDA cores, f32 rows of core_row_floats:
+//   fwd:        own Q [tile];      stage K, V [chunk], mask [chunk]
+//   bwd key:    nothing own;       stage Q, g [chunk], (m, den, 1/den,
+//                                  delta) as one float4 [chunk]
+//   bwd query:  nothing own;       stage K, V [chunk], mask [chunk]
+// (the backward's own rows live in registers).
 struct FlashLayout {
   size_t own, stage;
 };
@@ -128,9 +159,10 @@ inline FlashLayout flash_layout(int kind, int d_head, int esize, int tile,
                                 int chunk) {
   if (flash_wide(d_head)) return {0, 0};  // nothing staged
   if (!flash_mma(d_head, esize)) {
-    const size_t per_row = kind == kFlashBwdKey ? 3 : 1;
-    return {0, sizeof(float) * (2 * (size_t)kFlashTile * flash_dm(d_head) +
-                                per_row * kFlashTile)};
+    const size_t rs = core_row_floats(core_dm(d_head));
+    const size_t per_row = kind == kFlashBwdKey ? 4 : 1;
+    return {kind == kFlashFwd ? sizeof(float) * tile * rs : 0,
+            sizeof(float) * (2 * (size_t)chunk * rs + per_row * chunk)};
   }
   const size_t rb = 2 * (size_t)flash_row_elems(d_head);
   const bool key = kind == kFlashBwdKey || kind == kQkvProbsKey;
@@ -145,19 +177,23 @@ inline FlashLayout flash_layout(int kind, int d_head, int esize, int tile,
 }
 
 // Whether a plan (tile, chunk, nbuf) is one the kernels take: on tensor
-// cores tiles of 64 or 128 rows, chunks of 16 to 256 rows in steps of 16,
-// one or two buffers, within a block's shared memory; on CUDA cores the
-// fixed tile of 128 threads and 256 staged rows, one buffer; past D = 64 a
-// tile of kFlashWideWarps rows, nothing staged.
+// cores tiles of 64 or 128 rows, chunks of 16 to 256 rows in steps of 16;
+// on CUDA cores core_tile_ok's tiles and chunks of kCoreChunk rows; one or
+// two buffers, within a block's shared memory; past D = 64 a tile of
+// kFlashWideWarps rows, nothing staged.
 inline bool flash_plan_ok(int kind, int d_head, int esize, int tile,
                           int chunk, int nbuf) {
   if (flash_wide(d_head))
     return tile == kFlashWideWarps && chunk == 0 && nbuf == 0;
-  if (!flash_mma(d_head, esize))
-    return tile == kFlashThreads && chunk == kFlashTile && nbuf == 1;
-  if ((tile != 64 && tile != 128) || chunk < 16 || chunk > kFlashMaxChunk ||
-      chunk % 16 != 0 || nbuf < 1 || nbuf > 2)
+  if (!flash_mma(d_head, esize)) {
+    if (kind > kFlashBwdQuery || !core_tile_ok(kind, core_dm(d_head), tile) ||
+        chunk != kCoreChunk || nbuf < 1 || nbuf > 2)
+      return false;
+  } else if ((tile != 64 && tile != 128) || chunk < 16 ||
+             chunk > kFlashMaxChunk || chunk % 16 != 0 || nbuf < 1 ||
+             nbuf > 2) {
     return false;
+  }
   const FlashLayout lay = flash_layout(kind, d_head, esize, tile, chunk);
   return lay.own + nbuf * lay.stage <= (size_t)kFlashMaxSmem;
 }
@@ -331,6 +367,65 @@ __device__ __forceinline__ void walk_tasks(int n, int nbuf, Stage stage,
     }
   }
   cp_wait<0>();
+}
+
+// ---- CUDA-core helpers ------------------------------------------------------
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// One halving step of reduce_scatter16 over v[0, 2 HALF): the lane whose
+// bit `bit` is set keeps the upper half, the other the lower, each adding
+// the partner lane's copy of it; then the next step on v[0, HALF). Each
+// step a template of its own, so every index is a constant and v stays in
+// registers.
+template <int HALF, int N>
+__device__ __forceinline__ void reduce_half(float (&v)[N], int kg) {
+  constexpr int bit = HALF * 16 / N;
+  const bool up = kg & bit;
+#pragma unroll
+  for (int x = 0; x < HALF; ++x) {
+    const float send = up ? v[x] : v[x + HALF];
+    const float keep = up ? v[x + HALF] : v[x];
+    v[x] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
+  }
+  if constexpr (bit > 1) reduce_half<HALF / 2>(v, kg);
+}
+
+// Sums v over the 16 lanes of a half-warp (lanes that differ in bits 0-3,
+// kg = lane % 16) and leaves lane kg the sums of v[kg * N / 16, (kg + 1) *
+// N / 16) in v[0, N / 16): four halving steps (reduce_half), so every sum
+// is taken in one fixed tree, the same on every run.
+template <int N>
+__device__ __forceinline__ void reduce_scatter16(float (&v)[N], int kg) {
+  static_assert(N % 16 == 0, "16 lanes share the sums");
+  reduce_half<N / 2>(v, kg);
+}
+
+// The sum (max) of x over the 16 lanes of a half-warp, on every one of them.
+__device__ __forceinline__ float sum16(float x) {
+  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float max16(float x) {
+  for (int o = 1; o < 16; o <<= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// Calls body.template operator()<DM>() with DM = core_dm(d_head); returns
+// cudaErrorInvalidValue for d_head > 64.
+template <typename Body>
+int with_core_width(int d_head, Body body) {
+  if (d_head <= 8) return body.template operator()<8>();
+  if (d_head <= 16) return body.template operator()<16>();
+  if (d_head <= 20) return body.template operator()<20>();
+  if (d_head <= 24) return body.template operator()<24>();
+  if (d_head <= 32) return body.template operator()<32>();
+  if (d_head <= 64) return body.template operator()<64>();
+  return (int)cudaErrorInvalidValue;
 }
 
 // Calls body.template operator()<DM>() with the least DM >= d_head; returns

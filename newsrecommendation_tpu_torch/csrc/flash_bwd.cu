@@ -16,7 +16,8 @@
 // Bound: at N=128, T=512, H=20, D=20 in bf16 it reads q, k, v, g and
 // writes dq, dk, dv (7 * 52 MB) and reads m, den, delta (15.7 MB): 0.114
 // ms at 3.35 TB/s, while the 10*N*H*T*T*D = 134 GFLOP take 0.136 ms on
-// bf16 tensor cores, so operations bound it.
+// bf16 tensor cores, so operations bound it; in f32 they take 2.00 ms at
+// 67 TFLOP/s on CUDA cores.
 //
 // Design: the TPU kernel sums dq over the key blocks of a sequential grid
 // axis in scratch. Blocks of a GPU run in no order, so this is two
@@ -43,13 +44,22 @@
 //     The order of the f32 sums of s and da changes (the tensor core's),
 //     so a rounded a or ds may flip by one ulp where it sits on a rounding
 //     edge, far below the bf16 tolerance.
-//   f32: CUDA cores (TF32 would change the result).
-//     dk/dv: one thread per key j (128 keys of one (row, head) per block)
-//       holds k_j, v_j and the two accumulators in registers and walks all
-//       queries in tiles of 256 staged in shared memory (q, g, m, den,
-//       delta);
-//     dq: one thread per query i holds q_i, g_i and dq_i and walks all keys
-//       in tiles of 256 (k, v, mask).
+//   f32: CUDA cores (TF32 would change the result; f32 FMAs only). A block
+//     of 128 threads takes one (row, head) and a tile of 128 own rows, one
+//     a thread, held in registers with its D-vectors -- a key's k, v and
+//     sums dk, dv on the key side; a query's q, g, m, den, 1/den, delta and
+//     dq on the query side -- and walks every row of the other side in
+//     ascending order, staged in chunks of 256 by 16-byte cp.async as f32
+//     rows (flash.cuh core_row_floats), one or two buffers; the key side
+//     stages each query's m, den, 1/den and delta as one float4. Every
+//     staged row is read as float4s, all threads at once (broadcasts).
+//     The dots sum d in order from 0 and every dk, dv, dq sums the other
+//     side in ascending order, one FMA at a time, and a = e / den is
+//     div_by's IEEE quotient: the bits of a plain per-row walk (pinned by
+//     tests/test_torch_kernel_gpu.py). Per (query, key) pair: 7 D FMAs over the two sides (5 D counted),
+//     two expfs. Two rows a thread (each staged row feeding twice the
+//     FMAs) ran slower on the H100: twice the registers halved the blocks
+//     an SM holds.
 
 #include "flash.cuh"
 #include "flash_wide.cuh"
@@ -60,134 +70,220 @@ namespace {
 
 using namespace nrk;
 
-template <typename T, int DM>
-__global__ void __launch_bounds__(kFlashThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v,
-                      const float* __restrict__ mask,
-                      const T* __restrict__ g, const float* __restrict__ m,
-                      const float* __restrict__ den,
-                      const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, int n_heads, int t_len, int d_head,
-                      int ld, float inv) {
-  extern __shared__ float smem[];
-  float* qs = smem;                  // (kFlashTile, DM)
-  float* gs = qs + kFlashTile * DM;  // (kFlashTile, DM)
-  float* ms = gs + kFlashTile * DM;  // (kFlashTile) m, den, delta
-  float* dens = ms + kFlashTile;
-  float* dls = dens + kFlashTile;
-  const int row = blockIdx.x / n_heads;
-  const int h = blockIdx.x % n_heads;
-  const int hd = n_heads * d_head;
-  const int j = blockIdx.y * kFlashThreads + threadIdx.x;
-  const bool active = j < t_len;
-  const int64_t base = (int64_t)row * t_len * ld + h * d_head;
-  const int64_t gbase = (int64_t)row * t_len * hd + h * d_head;
-  const float mask_j = mask && active ? mask[(int64_t)row * t_len + j] : 1.f;
+// Blocks of a CUDA-core side an SM holds by registers: a thread's own row
+// and its sums take ~125 registers up to D = 24, ~165 at 32.
+__host__ __device__ constexpr int core_bwd_blocks(int dm) {
+  return dm <= 24 ? 4 : dm <= 32 ? 3 : 1;
+}
+
+// f32 with D <= 64, the key side: one (row, head) and a tile of 128 keys
+// per block, a key a thread; Q, g and the queries' (m, den, 1/den, delta)
+// staged per chunk of queries.
+template <int DM>
+__global__ void __launch_bounds__(kCoreBwdThreads, core_bwd_blocks(DM))
+flash_bwd_key_core_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ mask,
+                          const float* __restrict__ g,
+                          const float* __restrict__ m,
+                          const float* __restrict__ den,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          FlashParams p) {
+  constexpr int NU = DM / 4;               // float4s of a head row
+  constexpr int RS = core_row_floats(DM);  // floats of a staged row
+  extern __shared__ __align__(16) float core_smem[];
+  const int row = blockIdx.x / p.h;
+  const int h = blockIdx.x - row * p.h;
+  const int hd = p.h * p.d;
+  const int j = blockIdx.y * p.tile + threadIdx.x;  // the thread's key
+  const bool active = j < p.t;
+  const int64_t base = (int64_t)row * p.t * p.ld + h * p.d;
+  const int64_t gbase = (int64_t)row * p.t * hd + h * p.d;
+  const int64_t sbase = (int64_t)row * p.t * p.h + h;  // m, den, delta
+  auto qbuf = [&](int b) {
+    return core_smem + (size_t)b * p.stage / sizeof(float);
+  };
+
+  zero_smem(reinterpret_cast<unsigned char*>(core_smem),
+            (size_t)p.nbuf * p.stage);
+  auto stage = [&](int c, int b) {
+    const int i0 = c * p.chunk;
+    const int ni = min(p.chunk, p.t - i0);
+    float* qs = qbuf(b);
+    stage_rows(qs, p.rs, q + base + (int64_t)i0 * p.ld, p.ld, ni, p.d,
+               p.piece);
+    stage_rows(qs + p.chunk * p.rs, p.rs, g + gbase + (int64_t)i0 * hd, hd,
+               ni, p.d, p.piece);
+    float4* st = reinterpret_cast<float4*>(qs + 2 * p.chunk * p.rs);
+    for (int i = threadIdx.x; i < ni; i += blockDim.x) {
+      const int64_t at = sbase + (int64_t)(i0 + i) * p.h;
+      const float dn = den[at];
+      st[i] = make_float4(m[at], dn, rcp_or_zero(dn), delta[at]);
+    }
+  };
+  stage(0, 0);
 
   float kj[DM], vj[DM], dkj[DM], dvj[DM];
+  const float mask_j = mask && active ? mask[(int64_t)row * p.t + j] : 1.f;
 #pragma unroll
   for (int d = 0; d < DM; ++d) {
-    const bool in = active && d < d_head;
-    kj[d] = in ? to_f32(k[base + (int64_t)j * ld + d]) : 0.f;
-    vj[d] = in ? to_f32(v[base + (int64_t)j * ld + d]) : 0.f;
+    const bool in = active && d < p.d;
+    kj[d] = in ? k[base + (int64_t)j * p.ld + d] : 0.f;
+    vj[d] = in ? v[base + (int64_t)j * p.ld + d] : 0.f;
     dkj[d] = dvj[d] = 0.f;
   }
-
-  for (int t0 = 0; t0 < t_len; t0 += kFlashTile) {
-    const int t1 = min(t0 + kFlashTile, t_len);
-    __syncthreads();  // the previous tile is no longer read
-    load_rows<T, DM>(qs, q, base, ld, t0, t1, d_head);
-    load_rows<T, DM>(gs, g, gbase, hd, t0, t1, d_head);
-    for (int i = threadIdx.x; i < t1 - t0; i += blockDim.x) {
-      const int64_t at = ((int64_t)row * t_len + t0 + i) * n_heads + h;
-      ms[i] = m[at];
-      dens[i] = den[at];
-      dls[i] = delta[at];
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int i = 0; i < t1 - t0; ++i) {
-      const float* qi = qs + i * DM;
-      const float* gi = gs + i * DM;
-      const float e = expf(__fmul_rn(dot<DM>(qi, kj), inv) - ms[i]) * mask_j;
-      const float a = dens[i] > 0.f ? e / dens[i] : 0.f;
-      const float al = round_to<T>(a);  // a in g's dtype, for dv
-      const float ds = round_to<T>((dot<DM>(gi, vj) - dls[i]) * a * inv);
+  auto compute = [&](int c, int b) {
+    if (!active) return;
+    const float* qs = qbuf(b);
+    const float* gs = qs + kCoreChunk * RS;
+    const float4* st = reinterpret_cast<const float4*>(gs + kCoreChunk * RS);
+    const int ni = min(kCoreChunk, p.t - c * kCoreChunk);
+    for (int i = 0; i < ni; ++i) {
+      const float* qi = qs + i * RS;
+      const float* gi = gs + i * RS;
+      float sx = 0.f, da = 0.f;
 #pragma unroll
-      for (int d = 0; d < DM; ++d) {
-        dvj[d] = fmaf(al, gi[d], dvj[d]);
-        dkj[d] = fmaf(ds, qi[d], dkj[d]);
+      for (int u = 0; u < NU; ++u) {
+        const float4 qv = ld4(qi + 4 * u);
+        const float4 gv = ld4(gi + 4 * u);
+        sx = fmaf(qv.x, kj[4 * u], sx);
+        sx = fmaf(qv.y, kj[4 * u + 1], sx);
+        sx = fmaf(qv.z, kj[4 * u + 2], sx);
+        sx = fmaf(qv.w, kj[4 * u + 3], sx);
+        da = fmaf(gv.x, vj[4 * u], da);
+        da = fmaf(gv.y, vj[4 * u + 1], da);
+        da = fmaf(gv.z, vj[4 * u + 2], da);
+        da = fmaf(gv.w, vj[4 * u + 3], da);
+      }
+      const float4 si = st[i];  // m, den, 1/den, delta of query i
+      const float e = expf(__fmul_rn(sx, p.inv) - si.x) * mask_j;
+      const float a = div_by(e, si.y, si.z);
+      const float ds = (da - si.w) * a * p.inv;
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {  // q and g again (the registers allow)
+        const float4 qv = ld4(qi + 4 * u);
+        const float4 gv = ld4(gi + 4 * u);
+        dvj[4 * u] = fmaf(a, gv.x, dvj[4 * u]);
+        dvj[4 * u + 1] = fmaf(a, gv.y, dvj[4 * u + 1]);
+        dvj[4 * u + 2] = fmaf(a, gv.z, dvj[4 * u + 2]);
+        dvj[4 * u + 3] = fmaf(a, gv.w, dvj[4 * u + 3]);
+        dkj[4 * u] = fmaf(ds, qv.x, dkj[4 * u]);
+        dkj[4 * u + 1] = fmaf(ds, qv.y, dkj[4 * u + 1]);
+        dkj[4 * u + 2] = fmaf(ds, qv.z, dkj[4 * u + 2]);
+        dkj[4 * u + 3] = fmaf(ds, qv.w, dkj[4 * u + 3]);
       }
     }
-  }
+  };
+  walk_tasks((p.t + p.chunk - 1) / p.chunk, p.nbuf, stage, compute);
   if (!active) return;
   const int64_t at = gbase + (int64_t)j * hd;
 #pragma unroll
   for (int d = 0; d < DM; ++d)
-    if (d < d_head) {
-      dk[at + d] = from_f32<T>(dkj[d]);
-      dv[at + d] = from_f32<T>(dvj[d]);
+    if (d < p.d) {
+      dk[at + d] = dkj[d];
+      dv[at + d] = dvj[d];
     }
 }
 
-template <typename T, int DM>
-__global__ void __launch_bounds__(kFlashThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const float* __restrict__ mask,
-                    const T* __restrict__ g, const float* __restrict__ m,
-                    const float* __restrict__ den,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int n_heads, int t_len, int d_head, int ld, float inv) {
-  extern __shared__ float smem[];
-  float* ks = smem;                  // (kFlashTile, DM)
-  float* vs = ks + kFlashTile * DM;  // (kFlashTile, DM)
-  float* mk = vs + kFlashTile * DM;  // (kFlashTile)
-  const int row = blockIdx.x / n_heads;
-  const int h = blockIdx.x % n_heads;
-  const int hd = n_heads * d_head;
-  const int i = blockIdx.y * kFlashThreads + threadIdx.x;
-  const bool active = i < t_len;
-  const int64_t base = (int64_t)row * t_len * ld + h * d_head;
-  const int64_t gbase = (int64_t)row * t_len * hd + h * d_head;
-  const float* mrow = mask ? mask + (int64_t)row * t_len : nullptr;
-  const int64_t at = ((int64_t)row * t_len + i) * n_heads + h;
+// f32 with D <= 64, the query side: one (row, head) and a tile of 128
+// queries per block, a query a thread; K, V and the mask staged per chunk
+// of keys.
+template <int DM>
+__global__ void __launch_bounds__(kCoreBwdThreads, core_bwd_blocks(DM))
+flash_bwd_query_core_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ mask,
+                            const float* __restrict__ g,
+                            const float* __restrict__ m,
+                            const float* __restrict__ den,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dq, FlashParams p) {
+  constexpr int NU = DM / 4;
+  constexpr int RS = core_row_floats(DM);
+  extern __shared__ __align__(16) float core_smem[];
+  const int row = blockIdx.x / p.h;
+  const int h = blockIdx.x - row * p.h;
+  const int hd = p.h * p.d;
+  const int i = blockIdx.y * p.tile + threadIdx.x;  // the thread's query
+  const bool active = i < p.t;
+  const int64_t base = (int64_t)row * p.t * p.ld + h * p.d;
+  const int64_t gbase = (int64_t)row * p.t * hd + h * p.d;
+  const float* mrow = mask ? mask + (int64_t)row * p.t : nullptr;
+  auto kbuf = [&](int b) {
+    return core_smem + (size_t)b * p.stage / sizeof(float);
+  };
+
+  zero_smem(reinterpret_cast<unsigned char*>(core_smem),
+            (size_t)p.nbuf * p.stage);
+  auto stage = [&](int c, int b) {
+    const int j0 = c * p.chunk;
+    const int nj = min(p.chunk, p.t - j0);
+    float* ks = kbuf(b);
+    stage_rows(ks, p.rs, k + base + (int64_t)j0 * p.ld, p.ld, nj, p.d,
+               p.piece);
+    stage_rows(ks + p.chunk * p.rs, p.rs, v + base + (int64_t)j0 * p.ld,
+               p.ld, nj, p.d, p.piece);
+    if (mrow) stage_floats(ks + 2 * p.chunk * p.rs, mrow + j0, nj, 1);
+  };
+  stage(0, 0);
+
+  const int64_t at = ((int64_t)row * p.t + i) * p.h + h;
   const float m_i = active ? m[at] : 0.f;
   const float den_i = active ? den[at] : 1.f;
+  const float rcp_i = rcp_or_zero(den_i);
   const float delta_i = active ? delta[at] : 0.f;
-
   float qi[DM], gi[DM], dqi[DM];
 #pragma unroll
   for (int d = 0; d < DM; ++d) {
-    const bool in = active && d < d_head;
-    qi[d] = in ? to_f32(q[base + (int64_t)i * ld + d]) : 0.f;
-    gi[d] = in ? to_f32(g[gbase + (int64_t)i * hd + d]) : 0.f;
+    const bool in = active && d < p.d;
+    qi[d] = in ? q[base + (int64_t)i * p.ld + d] : 0.f;
+    gi[d] = in ? g[gbase + (int64_t)i * hd + d] : 0.f;
     dqi[d] = 0.f;
   }
-
-  for (int t0 = 0; t0 < t_len; t0 += kFlashTile) {
-    const int t1 = min(t0 + kFlashTile, t_len);
-    __syncthreads();
-    load_rows<T, DM>(ks, k, base, ld, t0, t1, d_head);
-    load_rows<T, DM>(vs, v, base, ld, t0, t1, d_head);
-    for (int j = threadIdx.x; j < t1 - t0; j += blockDim.x)
-      mk[j] = mrow ? mrow[t0 + j] : 1.f;
-    __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < t1 - t0; ++j) {
-      const float* kj = ks + j * DM;
-      const float e = expf(__fmul_rn(dot<DM>(qi, kj), inv) - m_i) * mk[j];
-      const float a = den_i > 0.f ? e / den_i : 0.f;
-      const float ds =
-          round_to<T>((dot<DM>(gi, vs + j * DM) - delta_i) * a * inv);
+  auto compute = [&](int c, int b) {
+    if (!active) return;
+    const float* ks = kbuf(b);
+    const float* vs = ks + kCoreChunk * RS;
+    const float* mk = vs + kCoreChunk * RS;
+    const int nj = min(kCoreChunk, p.t - c * kCoreChunk);
+    for (int j = 0; j < nj; ++j) {
+      const float* kj = ks + j * RS;
+      const float* vj = vs + j * RS;
+      float4 kv[NU];  // key j's k, read once
+      float sx = 0.f, da = 0.f;
 #pragma unroll
-      for (int d = 0; d < DM; ++d) dqi[d] = fmaf(ds, kj[d], dqi[d]);
+      for (int u = 0; u < NU; ++u) {
+        kv[u] = ld4(kj + 4 * u);
+        const float4 vv = ld4(vj + 4 * u);
+        sx = fmaf(qi[4 * u], kv[u].x, sx);
+        sx = fmaf(qi[4 * u + 1], kv[u].y, sx);
+        sx = fmaf(qi[4 * u + 2], kv[u].z, sx);
+        sx = fmaf(qi[4 * u + 3], kv[u].w, sx);
+        da = fmaf(gi[4 * u], vv.x, da);
+        da = fmaf(gi[4 * u + 1], vv.y, da);
+        da = fmaf(gi[4 * u + 2], vv.z, da);
+        da = fmaf(gi[4 * u + 3], vv.w, da);
+      }
+      const float e =
+          expf(__fmul_rn(sx, p.inv) - m_i) * (mrow ? mk[j] : 1.f);
+      const float ds = (da - delta_i) * div_by(e, den_i, rcp_i) * p.inv;
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        dqi[4 * u] = fmaf(ds, kv[u].x, dqi[4 * u]);
+        dqi[4 * u + 1] = fmaf(ds, kv[u].y, dqi[4 * u + 1]);
+        dqi[4 * u + 2] = fmaf(ds, kv[u].z, dqi[4 * u + 2]);
+        dqi[4 * u + 3] = fmaf(ds, kv[u].w, dqi[4 * u + 3]);
+      }
     }
-  }
+  };
+  walk_tasks((p.t + p.chunk - 1) / p.chunk, p.nbuf, stage, compute);
   if (!active) return;
 #pragma unroll
   for (int d = 0; d < DM; ++d)
-    if (d < d_head) dq[gbase + (int64_t)i * hd + d] = from_f32<T>(dqi[d]);
+    if (d < p.d) dq[gbase + (int64_t)i * hd + d] = dqi[d];
 }
 
 // bf16 with D <= 64, the key side: one (row, head) and a tile of keys per
@@ -473,12 +569,12 @@ struct Launch {
                 *fdelta = static_cast<const float*>(delta);
     T *tdq = static_cast<T*>(dq), *tdk = static_cast<T*>(dk),
       *tdv = static_cast<T*>(dv);
+    const void* ptrs[4] = {q, k, v, g};
+    const int piece = flash_piece(d_head, esize, ld, n_heads * d_head, ptrs,
+                                  4);
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
       // bf16 heads of up to 64 (every head the wrapper takes) are all on
       // tensor cores
-      const void* ptrs[4] = {q, k, v, g};
-      const int piece = flash_piece(d_head, esize, ld, n_heads * d_head,
-                                    ptrs, 4);
       const int rs = flash_row_elems(d_head);
       const FlashParams kp{n_heads, t_len, d_head, ld, t_len, key_tile,
                            key_chunk, key_nbuf, rs, piece, (int)kl.own,
@@ -500,13 +596,20 @@ struct Launch {
                        2 * q_tile, q_smem, tq, tk, tv, fmask, tg, fm, fden,
                        fdelta, tdq, qp);
     } else {
-      int err = go(flash_bwd_dkdv_kernel<T, DM>, key_grid, kFlashThreads,
-                   key_smem, tq, tk, tv, fmask, tg, fm, fden, fdelta, tdk,
-                   tdv, n_heads, t_len, d_head, ld, inv);
+      // f32 on CUDA cores at DM = core_dm(D), an own row a thread
+      const int rs = core_row_floats(DM);
+      const FlashParams kp{n_heads, t_len, d_head, ld, t_len, key_tile,
+                           key_chunk, key_nbuf, rs, piece, (int)kl.own,
+                           (int)kl.stage, inv};
+      const FlashParams qp{n_heads, t_len, d_head, ld, t_len, q_tile,
+                           q_chunk, q_nbuf, rs, piece, (int)ql.own,
+                           (int)ql.stage, inv};
+      const int err = go(flash_bwd_key_core_kernel<DM>, key_grid,
+                         kCoreBwdThreads, key_smem, tq, tk, tv, fmask, tg,
+                         fm, fden, fdelta, tdk, tdv, kp);
       if (err != (int)cudaSuccess) return err;
-      return go(flash_bwd_dq_kernel<T, DM>, q_grid, kFlashThreads, q_smem,
-                tq, tk, tv, fmask, tg, fm, fden, fdelta, tdq, n_heads, t_len,
-                d_head, ld, inv);
+      return go(flash_bwd_query_core_kernel<DM>, q_grid, kCoreBwdThreads,
+                q_smem, tq, tk, tv, fmask, tg, fm, fden, fdelta, tdq, qp);
     }
   }
 };
@@ -573,10 +676,14 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
                    d_head, ld, inv, dim3((unsigned)rows, (unsigned)tiles),
                    (cudaStream_t)stream});
   }
-  return with_head_width(
-      d_head, Launch<T>{q, k, v, mask, g, m, den, delta, dq, dk, dv, n, t_len,
-                        n_heads, d_head, ld, key_tile, key_chunk, key_nbuf,
-                        q_tile, q_chunk, q_nbuf, (cudaStream_t)stream});
+  const Launch<T> body{q, k, v, mask, g, m, den, delta, dq, dk, dv, n,
+                       t_len, n_heads, d_head, ld, key_tile, key_chunk,
+                       key_nbuf, q_tile, q_chunk, q_nbuf,
+                       (cudaStream_t)stream};
+  if constexpr (std::is_same<T, float>::value)
+    return with_core_width(d_head, body);
+  else
+    return with_head_width(d_head, body);
 }
 
 }  // namespace
@@ -586,8 +693,8 @@ extern "C" {
 // mask may be null. (key_tile, key_chunk, key_nbuf) and (q_tile, q_chunk,
 // q_nbuf) are the plans of ops/blockwise.py:launch_plan for the key side
 // and the query side. Returns cudaGetLastError() after the two launches: 0
-// when both kernels were queued; cudaErrorInvalidValue for D > 64 or a
-// plan the kernels do not take.
+// when both kernels were queued; cudaErrorInvalidValue for a plan the
+// kernels do not take.
 int flash_bwd_f32(const void* q, const void* k, const void* v,
                   const void* mask, const void* g, const void* m,
                   const void* den, const void* delta, void* dq, void* dk,

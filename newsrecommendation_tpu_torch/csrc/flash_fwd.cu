@@ -22,7 +22,9 @@
 //
 // Bound: at N=128, T=512, H=20, D=20 in bf16 it reads q, k, v and writes
 // o (4 * 52 MB) and m, den (10.5 MB): about 0.066 ms at 3.35 TB/s, while
-// the 4*N*H*T*T*D = 53.7 GFLOP take 0.054 ms on bf16 tensor cores.
+// the 4*N*H*T*T*D = 53.7 GFLOP take 0.054 ms on bf16 tensor cores. In f32
+// the same 53.7 GFLOP take 0.80 ms at 67 TFLOP/s on CUDA cores (the bytes
+// 0.13 ms): operations bound it.
 //
 // Design. Two regimes (flash.cuh; the plan is ops/blockwise.py:
 // launch_plan):
@@ -39,14 +41,28 @@
 //     partial one, whatever the chunk. Each score is computed twice and
 //     every product is on the tensor cores; what is left is issue-bound:
 //     the expf, the mask and the sum of each e.
-//   f32: CUDA cores (TF32 would change the result). One thread per query,
-//     128 queries of one (row, head) per block; q_i and the two
-//     accumulators (acc and the block's e@v) live in registers, padded to
-//     DM lanes. Per key block, the block stages up to 256 keys of k, v and
-//     the mask in shared memory as f32; a first pass over them takes the
-//     block max of s, a second recomputes s, e and accumulates. Every
-//     thread reads the same key at once, so the shared-memory reads are
-//     broadcasts.
+//   f32: CUDA cores (TF32 would change the result; f32 FMAs only). A
+//     block of 256 threads takes one (row, head) and a tile of 64 queries
+//     (32 past D = 24); thread (qg, kg) -- qg = warp * 2 + lane / 16, kg =
+//     lane % 16 -- holds QT = 4 of them (2 past D = 24), qg * QT on. K, V
+//     (and the mask) are staged in chunks of 256 keys by 16-byte cp.async
+//     as f32 rows (flash.cuh core_row_floats, a compile-time stride), two
+//     buffers, on the same walk over key blocks as the tensor cores; of
+//     each chunk the thread takes keys kg, kg + 16, ..., kg + 240. Q is
+//     staged once. The scores of its QT queries over its 16 keys stay in
+//     registers between the max walk and the exp walk, so a key block that
+//     fits a chunk (every block but one of more than 256 keys, which is
+//     walked twice) has QK^T computed once. s = q . k sums d in order from
+//     0, as the plain version's dot, one float4 of q and of k a load, 16
+//     FMAs each; the block max is the 16 key lanes' (shuffles); e@V reads
+//     V as float4s, 16 FMAs each, into the thread's share of o, rescaled
+//     where the running max grows and at the end summed over the 16 key
+//     lanes in one fixed tree (flash.cuh reduce_scatter16), as are the
+//     shares of l. So m equals the plain version's to the bit; o and den
+//     move within the f32 tolerance. Per score: 2 D FMAs, an expf, a max
+//     and a sum, and 2 D / 16 loads. Registers bound it (the scores and o fill 255: one block an SM).
+//     Split-tf32 tensor cores (three products per product) met the f32
+//     tolerance but ran slower on the H100 at D = 20.
 
 #include "flash.cuh"
 #include "flash_wide.cuh"
@@ -57,90 +73,196 @@ namespace {
 
 using namespace nrk;
 
-template <typename T, int DM>
-__global__ void __launch_bounds__(kFlashThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ mask,
-                 T* __restrict__ out, float* __restrict__ m_out,
-                 float* __restrict__ den_out, int n_heads, int t_len,
-                 int d_head, int ld, int block_kv, float inv) {
-  extern __shared__ float smem[];
-  float* ks = smem;                  // (kFlashTile, DM)
-  float* vs = ks + kFlashTile * DM;  // (kFlashTile, DM)
-  float* mk = vs + kFlashTile * DM;  // (kFlashTile)
-  const int row = blockIdx.x / n_heads;
-  const int h = blockIdx.x % n_heads;
-  const int i = blockIdx.y * kFlashThreads + threadIdx.x;
-  const bool active = i < t_len;
-  const int64_t base = (int64_t)row * t_len * ld + h * d_head;
-  const float* mrow = mask ? mask + (int64_t)row * t_len : nullptr;
+// f32 with D <= 64: one (row, head) and a tile of 16 QT queries per block;
+// thread (qg, kg) holds queries qg QT .. qg QT + QT - 1 and keys kg + 16 c
+// of each chunk; K, V (and the mask) staged per task of the key walk.
+template <int DM>
+__global__ void __launch_bounds__(16 * kCoreFwdGroups, 1)
+flash_fwd_core_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ mask, float* __restrict__ out,
+                      float* __restrict__ m_out, float* __restrict__ den_out,
+                      FlashParams p) {
+  constexpr int QT = core_fwd_rows(DM);        // queries a thread
+  constexpr int KT = kCoreKeys;                 // keys of a chunk a thread
+  constexpr int NU = DM / 4;                    // float4s of a head row
+  constexpr int RS = core_row_floats(DM);       // floats of a staged row
+  constexpr int NO = (QT * DM + 15) / 16 * 16;  // o's share, whole 16ths
+  extern __shared__ __align__(16) float core_smem[];
+  const int lane = threadIdx.x % 32;
+  const int kg = lane % 16;
+  const int qg = threadIdx.x / 32 * 2 + lane / 16;
+  const int row = blockIdx.x / p.h;
+  const int h = blockIdx.x - row * p.h;
+  const int i0 = blockIdx.y * p.tile;  // the tile's first query
+  const int nq = min(p.tile, p.t - i0);
+  const int64_t base = (int64_t)row * p.t * p.ld + h * p.d;
+  const float* mrow = mask ? mask + (int64_t)row * p.t : nullptr;
+  float* qs = core_smem;
+  auto kbuf = [&](int b) {
+    return core_smem + (p.own + (size_t)b * p.stage) / sizeof(float);
+  };
 
-  float qi[DM], acc[DM], pv[DM];
-#pragma unroll
-  for (int d = 0; d < DM; ++d) {
-    qi[d] = active && d < d_head ? to_f32(q[base + (int64_t)i * ld + d]) : 0.f;
-    acc[d] = 0.f;
-  }
-  float m_run = kNegBig, l = 0.f;
+  // the pads past D are read as zeros; rows past a chunk's keys are read
+  // and then ignored
+  zero_smem(reinterpret_cast<unsigned char*>(core_smem),
+            p.own + (size_t)p.nbuf * p.stage);
+  auto stage = [&](int idx, int b) {
+    const FlashTask tk = flash_task(idx, p.block, p.chunk);
+    float* ks = kbuf(b);
+    stage_rows(ks, p.rs, k + base + (int64_t)tk.key0 * p.ld, p.ld, tk.nkeys,
+               p.d, p.piece);
+    if (tk.exp_pass) {
+      stage_rows(ks + p.chunk * p.rs, p.rs,
+                 v + base + (int64_t)tk.key0 * p.ld, p.ld, tk.nkeys, p.d,
+                 p.piece);
+      if (mrow)
+        stage_floats(ks + 2 * p.chunk * p.rs, mrow + tk.key0, tk.nkeys, 1);
+    }
+  };
+  stage_rows(qs, p.rs, q + base + (int64_t)i0 * p.ld, p.ld, nq, p.d, p.piece);
+  stage(0, 0);
 
-  for (int b0 = 0; b0 < t_len; b0 += block_kv) {
-    const int b1 = min(b0 + block_kv, t_len);
-    const bool one_tile = b1 - b0 <= kFlashTile;
-    // pass 1: the block max of s
-    float mx = -INFINITY;
-    for (int t0 = b0; t0 < b1; t0 += kFlashTile) {
-      const int t1 = min(t0 + kFlashTile, b1);
-      __syncthreads();  // the previous tile is no longer read
-      load_rows<T, DM>(ks, k, base, ld, t0, t1, d_head);
-      load_rows<T, DM>(vs, v, base, ld, t0, t1, d_head);
-      for (int j = threadIdx.x; j < t1 - t0; j += blockDim.x)
-        mk[j] = mrow ? mrow[t0 + j] : 1.f;
-      __syncthreads();
-      if (active)
-        for (int j = 0; j < t1 - t0; ++j)
-          mx = fmaxf(mx, __fmul_rn(dot<DM>(qi, ks + j * DM), inv));
-    }
-    const float m_new = fmaxf(m_run, mx);
-    const float scale = expf(m_run - m_new);
-    // pass 2: e against the new max, and e@v
-    float lsum = 0.f;
+  const float* qrow = qs + qg * QT * RS;
+  float s[QT][KT];  // the scores of the task's chunk, then its e
+  float o[NO] = {}, l[QT] = {}, m_run[QT], mx[QT];
 #pragma unroll
-    for (int d = 0; d < DM; ++d) pv[d] = 0.f;
-    for (int t0 = b0; t0 < b1; t0 += kFlashTile) {
-      const int t1 = min(t0 + kFlashTile, b1);
-      if (!one_tile) {
-        __syncthreads();
-        load_rows<T, DM>(ks, k, base, ld, t0, t1, d_head);
-        load_rows<T, DM>(vs, v, base, ld, t0, t1, d_head);
-        for (int j = threadIdx.x; j < t1 - t0; j += blockDim.x)
-          mk[j] = mrow ? mrow[t0 + j] : 1.f;
-        __syncthreads();
-      }
-      if (!active) continue;
-      for (int j = 0; j < t1 - t0; ++j) {
-        const float s = __fmul_rn(dot<DM>(qi, ks + j * DM), inv);
-        const float e = expf(s - m_new) * mk[j];
-        lsum += e;
-        const float er = round_to<T>(e);  // e in v's dtype
-        const float* vj = vs + j * DM;
+  for (int a = 0; a < QT; ++a) m_run[a] = kNegBig;
+
+  // s = (q . k) / sqrt(D) over the chunk's nk keys; `full` a whole chunk
+  auto scores = [&](const float* ks, int nk, auto full) {
 #pragma unroll
-        for (int d = 0; d < DM; ++d) pv[d] = fmaf(er, vj[d], pv[d]);
+    for (int a = 0; a < QT; ++a)
+#pragma unroll
+      for (int c = 0; c < KT; ++c) s[a][c] = 0.f;
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      float4 qv[QT];
+#pragma unroll
+      for (int a = 0; a < QT; ++a) qv[a] = ld4(qrow + a * RS + 4 * u);
+#pragma unroll
+      for (int c = 0; c < KT; ++c) {
+        if (!decltype(full)::value && 16 * c >= nk) continue;
+        const float4 kv = ld4(ks + (kg + 16 * c) * RS + 4 * u);
+#pragma unroll
+        for (int a = 0; a < QT; ++a) {
+          s[a][c] = fmaf(qv[a].x, kv.x, s[a][c]);
+          s[a][c] = fmaf(qv[a].y, kv.y, s[a][c]);
+          s[a][c] = fmaf(qv[a].z, kv.z, s[a][c]);
+          s[a][c] = fmaf(qv[a].w, kv.w, s[a][c]);
+        }
       }
     }
-    l = l * scale + lsum;
 #pragma unroll
-    for (int d = 0; d < DM; ++d) acc[d] = acc[d] * scale + pv[d];
-    m_run = m_new;
+    for (int a = 0; a < QT; ++a)
+#pragma unroll
+      for (int c = 0; c < KT; ++c) s[a][c] = __fmul_rn(s[a][c], p.inv);
+  };
+  // e against the block's max, l and o (the thread's shares)
+  auto exps = [&](const float* vs, const float* mk, int nk, auto full) {
+#pragma unroll
+    for (int c = 0; c < KT; ++c) {
+      if (!decltype(full)::value && 16 * c >= nk) continue;
+      const int j = kg + 16 * c;
+      const bool in = decltype(full)::value || j < nk;
+      const float mj = mrow && in ? mk[j] : 1.f;
+#pragma unroll
+      for (int a = 0; a < QT; ++a) {
+        const float e = in ? expf(s[a][c] - m_run[a]) * mj : 0.f;
+        l[a] += e;
+        s[a][c] = e;
+      }
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        const float4 vv = ld4(vs + j * RS + 4 * u);
+#pragma unroll
+        for (int a = 0; a < QT; ++a) {
+          const int at = a * DM + 4 * u;
+          o[at] = fmaf(s[a][c], vv.x, o[at]);
+          o[at + 1] = fmaf(s[a][c], vv.y, o[at + 1]);
+          o[at + 2] = fmaf(s[a][c], vv.z, o[at + 2]);
+          o[at + 3] = fmaf(s[a][c], vv.w, o[at + 3]);
+        }
+      }
+    }
+  };
+  auto compute = [&](int idx, int b) {
+    const FlashTask tk = flash_task(idx, p.block, p.chunk);
+    const float* ks = kbuf(b);
+    const float* vs = ks + kCoreChunk * RS;
+    const float* mk = vs + kCoreChunk * RS;
+    const int nk = tk.nkeys;
+    const bool full = nk == kCoreChunk;
+    if (full)
+      scores(ks, nk, std::true_type{});
+    else
+      scores(ks, nk, std::false_type{});
+    if (tk.first) {
+#pragma unroll
+      for (int a = 0; a < QT; ++a) mx[a] = -INFINITY;
+    }
+    if (tk.max_pass) {
+#pragma unroll
+      for (int c = 0; c < KT; ++c)
+        if (kg + 16 * c < nk) {
+#pragma unroll
+          for (int a = 0; a < QT; ++a) mx[a] = fmaxf(mx[a], s[a][c]);
+        }
+    }
+    if (tk.exp_first) {  // the block's max is whole: m', and the rescale
+#pragma unroll
+      for (int a = 0; a < QT; ++a) {
+        const float m_new = fmaxf(m_run[a], max16(mx[a]));
+        const float scale = expf(m_run[a] - m_new);
+        l[a] *= scale;
+#pragma unroll
+        for (int d = 0; d < DM; ++d) o[a * DM + d] *= scale;
+        m_run[a] = m_new;
+      }
+    }
+    if (tk.exp_pass) {
+      if (full)
+        exps(vs, mk, nk, std::true_type{});
+      else
+        exps(vs, mk, nk, std::false_type{});
+    }
+  };
+  walk_tasks(flash_walk_tasks(p.t, p.block, p.chunk), p.nbuf, stage,
+             compute);
+
+  // the 16 key lanes' shares: l on every lane, o a 16th on each
+#pragma unroll
+  for (int a = 0; a < QT; ++a) l[a] = sum16(l[a]);
+  reduce_scatter16(o, kg);
+  float den[QT];
+#pragma unroll
+  for (int a = 0; a < QT; ++a) den[a] = l[a] + kEps * expf(-m_run[a]);
+  const int hd = p.h * p.d;
+#pragma unroll
+  for (int x = 0; x < NO / 16; ++x) {
+    const int idx = kg * (NO / 16) + x;  // of o[a * DM + d]
+    const int a = idx / DM;
+    const int d = idx - a * DM;
+    const int i = qg * QT + a;
+    float dn = den[0];
+#pragma unroll
+    for (int b = 1; b < QT; ++b)
+      if (a == b) dn = den[b];
+    if (a < QT && d < p.d && i < nq)
+      out[((int64_t)row * p.t + i0 + i) * hd + h * p.d + d] =
+          dn > 0.f ? o[x] / dn : 0.f;
   }
-  if (!active) return;
-  const float den = l + kEps * expf(-m_run);
-  const int64_t at = (int64_t)row * t_len + i;
-  m_out[at * n_heads + h] = m_run;
-  den_out[at * n_heads + h] = den;
-  T* o = out + at * n_heads * d_head + h * d_head;
+  if (kg == 0) {
 #pragma unroll
-  for (int d = 0; d < DM; ++d)
-    if (d < d_head) o[d] = from_f32<T>(den > 0.f ? acc[d] / den : 0.f);
+    for (int a = 0; a < QT; ++a) {
+      const int i = qg * QT + a;
+      if (i < nq) {
+        const int64_t at = ((int64_t)row * p.t + i0 + i) * p.h + h;
+        m_out[at] = m_run[a];
+        den_out[at] = den[a];
+      }
+    }
+  }
 }
 
 // bf16 with D <= 64: one (row, head) and a tile of queries per block, a warp
@@ -323,40 +445,34 @@ struct Launch {
                                          chunk);
     const size_t smem = lay.own + nbuf * lay.stage;
     const dim3 grid((unsigned)rows, (unsigned)tiles);
-    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-      // bf16 heads of up to 64 (every head the wrapper takes) are all on
-      // tensor cores
-      const void* ptrs[3] = {q, k, v};
-      FlashParams p{n_heads, t_len, d_head, ld, block_kv, tile, chunk,
-                    nbuf, flash_row_elems(d_head),
-                    flash_piece(d_head, esize, ld, ld, ptrs, 3),
-                    (int)lay.own, (int)lay.stage, inv};
-      auto go = [&](auto kernel) {
-        cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        kernel<<<grid, 2 * tile, smem, stream>>>(
-            static_cast<const T*>(q), static_cast<const T*>(k),
-            static_cast<const T*>(v), static_cast<const float*>(mask),
-            static_cast<T*>(out), static_cast<float*>(m),
-            static_cast<float*>(den), p);
-        return (int)cudaGetLastError();
-      };
-      return mask ? go(flash_fwd_mma_kernel<DM, true>)
-                  : go(flash_fwd_mma_kernel<DM, false>);
-    } else {
+    const void* ptrs[3] = {q, k, v};
+    const int piece = flash_piece(d_head, esize, ld, ld, ptrs, 3);
+    auto go = [&](auto kernel, int threads, const FlashParams& p) {
       cudaError_t err = cudaFuncSetAttribute(
-          flash_fwd_kernel<T, DM>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return (int)err;
-      flash_fwd_kernel<T, DM><<<grid, kFlashThreads, smem, stream>>>(
+      kernel<<<grid, threads, smem, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<const float*>(mask),
           static_cast<T*>(out), static_cast<float*>(m),
-          static_cast<float*>(den), n_heads, t_len, d_head, ld, block_kv,
-          inv);
+          static_cast<float*>(den), p);
       return (int)cudaGetLastError();
+    };
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      // bf16 heads of up to 64 (every head the wrapper takes) are all on
+      // tensor cores
+      const FlashParams p{n_heads, t_len, d_head, ld, block_kv, tile, chunk,
+                          nbuf, flash_row_elems(d_head), piece,
+                          (int)lay.own, (int)lay.stage, inv};
+      return mask ? go(flash_fwd_mma_kernel<DM, true>, 2 * tile, p)
+                  : go(flash_fwd_mma_kernel<DM, false>, 2 * tile, p);
+    } else {
+      // f32 on CUDA cores at DM = core_dm(D): 16 query groups of
+      // core_fwd_rows(DM) queries (flash_plan_ok took the tile)
+      const FlashParams p{n_heads, t_len, d_head, ld, block_kv, tile, chunk,
+                          nbuf, core_row_floats(DM), piece, (int)lay.own,
+                          (int)lay.stage, inv};
+      return go(flash_fwd_core_kernel<DM>, 16 * kCoreFwdGroups, p);
     }
   }
 };
@@ -409,10 +525,13 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
                            dim3((unsigned)rows, (unsigned)tiles),
                            (cudaStream_t)stream});
   }
-  return with_head_width(
-      d_head, Launch<T>{q, k, v, mask, out, m, den, n, t_len, n_heads,
-                        d_head, ld, block_kv, tile, chunk, nbuf,
-                        (cudaStream_t)stream});
+  const Launch<T> body{q, k, v, mask, out, m, den, n, t_len, n_heads,
+                       d_head, ld, block_kv, tile, chunk, nbuf,
+                       (cudaStream_t)stream};
+  if constexpr (std::is_same<T, float>::value)
+    return with_core_width(d_head, body);
+  else
+    return with_head_width(d_head, body);
 }
 
 }  // namespace
@@ -421,8 +540,8 @@ extern "C" {
 
 // mask may be null. (tile, chunk, nbuf) is the plan of ops/blockwise.py:
 // launch_plan. Returns cudaGetLastError() after the launch: 0 when the
-// kernel was queued; cudaErrorInvalidValue for D > 64 or a plan the
-// kernel does not take.
+// kernel was queued; cudaErrorInvalidValue for a plan the kernel does not
+// take.
 int flash_fwd_f32(const void* q, const void* k, const void* v,
                   const void* mask, void* out, void* m, void* den, int n,
                   int t_len, int n_heads, int d_head, int ld, int block_kv,

@@ -30,3 +30,10 @@ def get_model(name: str) -> ModelDef:
         return REGISTRY[name]
     except KeyError:
         raise KeyError(f"unknown model {name!r}; available: {sorted(REGISTRY)}")
+
+
+def register_model(model: ModelDef) -> None:
+    """Add ``model`` to the registry under its name (replacing one of the
+    same name), where get_model and every entry point that takes a model
+    name find it."""
+    REGISTRY[model.name] = model

@@ -19,10 +19,14 @@ key block (JAX's ``_block_rows(t, block_kv)``) is part of the contract.
 The kernels take three regimes, chosen by ``launch_plan`` from the dtype
 and D: bf16 heads of up to 64 on tensor cores (a block a (row, head) and a
 tile of queries or keys, the other side staged in chunks that never cross
-a key block in the forward), f32 heads of up to 64 on CUDA cores, and
-heads past 64, of any width, in either dtype on the wide kernels
-(``csrc/flash_wide.cuh``: a warp per row, its lanes over D). The C side
-computes the same layout and refuses a plan it does not take.
+a key block in the forward), f32 heads of up to 64 on CUDA cores (the
+forward a tile of queries' scores over a chunk of 256 keys in registers,
+split over 16 lanes; each side of the backward one own row a thread,
+walking the other side in order), and heads past 64, of any width, in
+either dtype on the wide kernels (``csrc/flash_wide.cuh``: a warp per
+row, its lanes over D). The C side computes the same layout and refuses
+a plan it does not take. Each launch counts under its variant and its
+plan's regime.
 
 q, k and v are (N, T, H*D) and may be views of one fused projection: their
 lanes must be contiguous and their rows a common stride apart. A CPU tensor
@@ -45,7 +49,10 @@ BLOCK_KV = 256  # the JAX package's default key block
 MAX_HEAD = 64  # widest head of the tensor-core and CUDA-core kernels
 WIDE_WARPS = 8  # rows (a warp each) of a wide kernel's block (D > MAX_HEAD)
 MAX_CHUNK = 256  # rows of the other side staged at once (tensor cores)
-CORE_TILE, CORE_CHUNK = 128, 256  # the CUDA-core kernels' fixed tile, stage
+# The CUDA-core (f32) kernels (csrc/flash.cuh): rows of the other side staged
+# at once, and threads a block of the forward and of a backward side.
+CORE_CHUNK = 256
+CORE_FWD_THREADS, CORE_BWD_THREADS = 256, 128
 SM_SMEM = 233472  # shared memory of one SM; a block takes 1 KB more
 MAX_SMEM = 232448  # what one block may use (ops/kernels.py MAX_SMEM)
 # Blocks of 256 threads an SM holds by registers: the forward and the
@@ -92,6 +99,43 @@ def _row_bytes(d):
     return rb + 16 if (rb // 16) % 2 == 0 else rb
 
 
+def _core_width(d):
+    """The CUDA-core kernels' compile-time width: D itself at 8, 16, 20,
+    24, 32 and 64, else the next of those (csrc/flash.cuh ``core_dm``)."""
+    return next(w for w in (8, 16, 20, 24, 32, 64) if d <= w)
+
+
+def core_row_floats(d):
+    """Floats between two staged f32 rows on CUDA cores: the width, or 4
+    more where its float4s are an even count (``core_row_floats``)."""
+    w = _core_width(d)
+    return w if (w // 4) % 2 else w + 4
+
+
+def core_rows(d: int) -> int:
+    """Queries a CUDA-core forward thread holds: 4 up to a width of 24, 2
+    past it (csrc/flash.cuh ``core_fwd_rows``)."""
+    return 4 if _core_width(d) <= 24 else 2
+
+
+def core_tile(kind: str, d: int) -> int:
+    """The tile the CUDA-core kernels take for ``kind`` at D (csrc/flash.cuh
+    ``core_tile_ok``): the forward 16 query groups of core_rows(d)
+    queries, 16 key lanes a group (CORE_FWD_THREADS threads); a backward
+    side 128 own rows, one a thread."""
+    return 16 * core_rows(d) if kind == "fwd" else CORE_BWD_THREADS
+
+
+def core_resident(kind: str, d: int) -> int:
+    """Blocks of a CUDA-core kernel an SM holds by the registers its
+    ``__launch_bounds__`` allow (flash_fwd.cu; flash_bwd.cu
+    ``core_bwd_blocks``)."""
+    w = _core_width(d)
+    if kind == "fwd":
+        return 1
+    return 4 if w <= 24 else 3 if w <= 32 else 1
+
+
 def smem_bytes(kind: str, d: int, itemsize: int, tile: int, chunk: int,
                nbuf: int) -> int:
     """Shared bytes of one block of ``kind`` (csrc/flash.cuh
@@ -101,15 +145,18 @@ def smem_bytes(kind: str, d: int, itemsize: int, tile: int, chunk: int,
     per-row floats (fwd and query side: the mask; key side: m, den, 1/den,
     delta); rows 3's sides ("bwd_key_probs", "bwd_query_probs") also the
     f32 probs of the chunk's rows over the tile's, rows 4 floats longer
-    than they are wide. On CUDA cores: one f32 buffer of 256 rows of two
-    operands and one or three per-row floats. The wide kernels
-    (D > MAX_HEAD) stage nothing."""
+    than they are wide. On CUDA cores f32 rows of ``core_row_floats``: the
+    forward's own Q, then ``nbuf`` buffers of ``chunk`` rows of two
+    operands and one per-row float (four on the key side); the backward
+    holds its own rows in registers. The wide kernels (D > MAX_HEAD)
+    stage nothing."""
     if d > MAX_HEAD:
         return 0
     key = kind in ("bwd_key", "bwd_key_probs")
     if not uses_mma(d, itemsize):
-        floats = 3 if key else 1
-        return 4 * (2 * CORE_CHUNK * _width(d) + floats * CORE_CHUNK)
+        rs = core_row_floats(d)
+        own = tile * rs if kind == "fwd" else 0
+        return 4 * (own + nbuf * (2 * chunk * rs + (4 if key else 1) * chunk))
     floats = 4 if key else 1
     rb = _row_bytes(d)
     own = (1 if kind == "fwd" else 2) * tile * rb
@@ -194,6 +241,26 @@ def mma_launch(kind: str, d: int, itemsize: int, tile: int,
     return Launch(kind, tile, chunk, nbuf, smem, grid, 2 * tile)
 
 
+def core_launch(kind: str, d: int, t: int, rows: int) -> Launch:
+    """The CUDA-core launch of ``kind`` at D over ``rows`` (row, head)
+    items of t rows: core_tile's own rows a block, chunks of CORE_CHUNK
+    rows of the other side, two buffers where they leave room for the
+    blocks its registers allow on an SM (core_resident), else one."""
+    tile = core_tile(kind, d)
+    for nbuf in (2, 1):
+        smem = smem_bytes(kind, d, 4, tile, CORE_CHUNK, nbuf)
+        if nbuf == 1 or (smem <= MAX_SMEM and SM_SMEM // (smem + 1024)
+                         >= core_resident(kind, d)):
+            break
+    if smem > MAX_SMEM:
+        raise NotImplementedError(
+            f"D={d}: the {kind} kernel needs more than {MAX_SMEM} bytes of "
+            "shared memory per block")
+    threads = CORE_FWD_THREADS if kind == "fwd" else CORE_BWD_THREADS
+    return Launch(kind, tile, CORE_CHUNK, nbuf, smem, (rows, -(-t // tile)),
+                  threads)
+
+
 def launch_plan(n: int, t: int, heads: int, d: int, dtype,
                 block_kv: int = BLOCK_KV, sms: int = 132) -> FlashPlan:
     """The launches of rows 9-10 at (N, T, H, D) in ``dtype`` (float32 or
@@ -203,9 +270,9 @@ def launch_plan(n: int, t: int, heads: int, d: int, dtype,
     or halves of that; of those chunks and one or two buffers, the plan
     that leaves room for the most blocks on an SM by shared memory, up to
     RESIDENT, then the largest chunk (fewest copies), then two buffers. On
-    CUDA cores the kernels' fixed plan; past MAX_HEAD the wide kernels',
-    WIDE_WARPS rows a block and nothing staged. Raises NotImplementedError
-    for a plan that fits no block."""
+    CUDA cores core_launch's plan of each kind; past MAX_HEAD the wide
+    kernels', WIDE_WARPS rows a block and nothing staged. Raises
+    NotImplementedError for a plan that fits no block."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"dtype {dtype} not supported (float32, bfloat16)")
     itemsize = 2 if dtype == torch.bfloat16 else 4
@@ -216,11 +283,8 @@ def launch_plan(n: int, t: int, heads: int, d: int, dtype,
             Launch(kind, WIDE_WARPS, 0, 0, 0, grid, 32 * WIDE_WARPS)
             for kind in KINDS))
     if not uses_mma(d, itemsize):
-        grid = (rows, -(-t // CORE_TILE))
-        return FlashPlan("cuda_core", *(
-            Launch(kind, CORE_TILE, CORE_CHUNK, 1,
-                   smem_bytes(kind, d, itemsize, CORE_TILE, CORE_CHUNK, 1),
-                   grid, CORE_TILE) for kind in KINDS))
+        return FlashPlan("cuda_core", *(core_launch(kind, d, t, rows)
+                                        for kind in KINDS))
     tile = mma_tile(rows, t, sms)
     grid = (rows, -(-t // tile))
 
@@ -348,8 +412,8 @@ def flash_fwd(q, k, v, key_mask, n_heads: int, block_kv: int = BLOCK_KV):
     Raises for other devices."""
     n, t, d = _check(q, k, v, key_mask, n_heads)
     ld = _check_launch(q, k, v, key_mask, d)
-    p = launch_plan(n, t, n_heads, d, q.dtype, block_kv,
-                    _sms(q.device)).fwd
+    plan = launch_plan(n, t, n_heads, d, q.dtype, block_kv, _sms(q.device))
+    p = plan.fwd
     o = torch.empty((n, t, n_heads * d), dtype=q.dtype, device=q.device)
     m = torch.empty((n, t, n_heads), dtype=torch.float32, device=q.device)
     den = torch.empty_like(m)
@@ -358,7 +422,8 @@ def flash_fwd(q, k, v, key_mask, n_heads: int, block_kv: int = BLOCK_KV):
                  q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  kernels.ptr(key_mask), o.data_ptr(), m.data_ptr(),
                  den.data_ptr(), n, t, n_heads, d, ld, kv_block(t, block_kv),
-                 p.tile, p.chunk, p.nbuf)
+                 p.tile, p.chunk, p.nbuf,
+                 regime=plan.regime)
     return o, m, den
 
 
@@ -385,7 +450,8 @@ def flash_bwd(q, k, v, key_mask, g, m, den, delta, n_heads: int):
                  kernels.ptr(key_mask), g.data_ptr(), m.data_ptr(),
                  den.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                  dk.data_ptr(), dv.data_ptr(), n, t, n_heads, d, ld,
-                 kp.tile, kp.chunk, kp.nbuf, qp.tile, qp.chunk, qp.nbuf)
+                 kp.tile, kp.chunk, kp.nbuf, qp.tile, qp.chunk, qp.nbuf,
+                 regime=plan.regime)
     return dq, dk, dv
 
 

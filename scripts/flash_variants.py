@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time of the key-blocked flash kernels (rows 9-10, bf16, 20
-heads of 20) goes on one NVIDIA GPU: the measurements behind their launch
-plan and their division.
+"""Where the time of the key-blocked flash kernels (rows 9-10, 20 heads of
+20) goes on one NVIDIA GPU: the measurements behind their launch plan and
+their division in bf16, and the parts of the f32 forward.
 
     python3 scripts/flash_variants.py plans
     python3 scripts/flash_variants.py division
+    python3 scripts/flash_variants.py f32
 
 plans: rows 9 and 10 (ms, CUDA events over 10 calls) at (128, 512)
   unmasked and key-masked and (32, 2048) under forced launch plans (tile,
@@ -20,6 +21,13 @@ division: builds two variants of csrc/flash_bwd.cu beside the package's
   random, every 7th row fully masked, and both. The variants are made by
   rewriting the source's div_by calls; the script stops if a rewrite
   matches nothing.
+f32: builds variants of csrc/flash_fwd.cu beside the package's own, each
+  with one part of the f32 (CUDA-core) forward cut out, whose results are
+  then wrong and only its time counts: "no_qk" (no QK^T FMAs, the scores
+  stay 0), "no_max" (no block max), "no_exp" (e = s - m, no expf),
+  "no_pv" (no e@V FMAs); each build ("base" is the source as it is) is
+  loaded in turn and row 9 timed in f32 at (128, 512) unmasked and
+  key-masked (30% of keys at random, every 7th row fully masked).
 Run from the repo root. Prints one line per measurement; exits 1 without
 CUDA.
 """
@@ -53,6 +61,17 @@ VARIANTS = {
               (QUERY_SIDE, r"div_nz(\1, deni[r])")],
 }
 MASKS = ("none", "ones", "random", "full", "random_full")
+# The f32 forward's parts, each cut out of flash_fwd_core_kernel by one
+# rewrite (f32 mode)
+F32_VARIANTS = {
+    "no_qk": [(r"s\[a\]\[c\] = fmaf\(qv\[a\]\.[xyzw], kv\.[xyzw], "
+               r"s\[a\]\[c\]\);", "")],
+    "no_max": [(r"mx\[a\] = fmaxf\(mx\[a\], s\[a\]\[c\]\);", ";")],
+    "no_exp": [(r"expf\(s\[a\]\[c\] - m_run\[a\]\)",
+                "(s[a][c] - m_run[a])")],
+    "no_pv": [(r"o\[at(?: \+ \d)?\] = fmaf\(s\[a\]\[c\], vv\.[xyzw], "
+               r"o\[at(?: \+ \d)?\]\);", "")],
+}
 
 
 def inputs(n, t, mask_kind, seed=0):
@@ -207,16 +226,76 @@ def _division(tmp, cs, bw, kernels):
                   flush=True)
 
 
+def build_variants(tmp, kernels, name, builds):
+    """Each build of ``builds`` ({label: [(pattern, replacement)]}) as a copy
+    of csrc with the rewrites applied, ``name``.cu compiled from it; stops
+    when a rewrite matches nothing. Returns {label: .so path}."""
+    procs = {}
+    for label, subs in builds.items():
+        d = os.path.join(tmp, label)
+        os.makedirs(d)
+        hits = [0] * len(subs)
+        for f in os.listdir(kernels._CSRC):
+            with open(os.path.join(kernels._CSRC, f)) as fh:
+                src = fh.read()
+            for i, (pattern, repl) in enumerate(subs):
+                src, n = re.subn(pattern, repl, src)
+                hits[i] += n
+            with open(os.path.join(d, f), "w") as fh:
+                fh.write(src)
+        if not all(hits):
+            raise SystemExit(f"{label}: a pattern matches nothing in the "
+                             "sources")
+        so = os.path.join(d, f"lib{name}.so")
+        procs[label] = (so, subprocess.Popen(
+            [kernels._nvcc(), *kernels._NVCC_FLAGS, "-o", so,
+             os.path.join(d, f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    out = {}
+    for label, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed on {label}:\n{log[-3000:]}")
+        out[label] = so
+    return out
+
+
+def f32_parts():
+    import torch
+
+    import chip_smoke as cs
+    from newsrecommendation_tpu_torch.ops import blockwise as bw
+    from newsrecommendation_tpu_torch.ops import kernels
+
+    kernels.build(["flash_fwd"])
+    with tempfile.TemporaryDirectory(prefix="flash_variants_") as tmp:
+        sos = build_variants(tmp, kernels, "flash_fwd",
+                             {"base": [], **F32_VARIANTS})
+        for mask_kind in ("none", "random_full"):
+            _, _, _, _, mask = inputs(128, 512, mask_kind)
+            gen = torch.Generator(device="cuda").manual_seed(300)
+            q, k, v = torch.split(torch.randn((128, 512, 1200), generator=gen,
+                                              device="cuda"), 400, dim=-1)
+            for label, so in sos.items():
+                kernels._libs["flash_fwd"] = load(so, "flash_fwd")
+                ms = cs.time_ms(lambda: bw.flash_fwd(q, k, v, mask, 20), 10)
+                print("F32 " + json.dumps({"build": label,
+                                           "mask": mask_kind,
+                                           "fwd_ms": ms}), flush=True)
+        torch.cuda.synchronize()
+
+
 def main() -> int:
     import torch
 
-    if len(sys.argv) != 2 or sys.argv[1] not in ("plans", "division") or (
+    modes = {"plans": plans, "division": division, "f32": f32_parts}
+    if len(sys.argv) != 2 or sys.argv[1] not in modes or (
             not torch.cuda.is_available()):
         print(__doc__, file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     print(torch.cuda.get_device_name(0), flush=True)
-    plans() if sys.argv[1] == "plans" else division()
+    modes[sys.argv[1]]()
     return 0
 
 

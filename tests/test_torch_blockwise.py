@@ -23,6 +23,7 @@ from newsrecommendation_tpu.ops.pallas import config as jax_config
 from newsrecommendation_tpu_torch.ops import attention as torch_attention
 from newsrecommendation_tpu_torch.ops import blockwise as bw
 from newsrecommendation_tpu_torch.ops import kernel_config, kernels
+from tests.test_torch_mhsa_sep_plan import fake_launch  # noqa: F401
 
 N, T, HEADS, D = 6, 24, 3, 8
 BLOCK = 8  # key block: three blocks of 24 keys
@@ -328,30 +329,84 @@ SMS = 132  # the H100's SMs
     (torch.float32, 20, "cuda_core"), (torch.float32, 64, "cuda_core")])
 def test_launch_plan_regime_by_dtype_and_width(dtype, d, regime):
     """bf16 heads of up to 64 run on tensor cores (padded to whole k-steps
-    of 16), f32 on CUDA cores with the kernels' fixed tile."""
+    of 16); f32 on CUDA cores, chunks of 256 rows of the other side: the
+    forward 256 threads over 64 queries (4 a thread) up to D = 24 and 32
+    (2 a thread) past it, each backward side 128 threads over 128 own
+    rows."""
     plan = bw.launch_plan(64, 512, 4, d, dtype)
     assert plan.regime == regime
     assert bw.uses_mma(d, torch.empty((), dtype=dtype).element_size()) == (
         regime == "mma")
     for p in plan[1:]:
         if regime == "cuda_core":
-            assert (p.tile, p.chunk, p.nbuf, p.threads) == (128, 256, 1, 128)
+            assert p.chunk == bw.CORE_CHUNK == 256 and p.nbuf in (1, 2)
+            want = ((64 if d <= 24 else 32, 256) if p.kind == "fwd"
+                    else (128, 128))
+            assert (p.tile, p.threads) == want
         else:
             assert p.tile in (64, 128) and p.threads == 2 * p.tile
             assert p.nbuf in (1, 2) and p.chunk % 16 == 0
             assert 16 <= p.chunk <= bw.MAX_CHUNK
 
 
+# The CUDA-core plan at the main path's T and ragged ones, at D = 8, 20, 64:
+# (fwd tile, nbuf of fwd, bwd_key, bwd_query), f32 rows of (12, 20, 68)
+# floats (a width of 8, 20, 64, plus 4 where its float4s are even).
+CORE_PLANS = {8: (64, 2, 2, 2), 20: (64, 2, 1, 1), 64: (32, 1, 1, 1)}
+
+
+@pytest.mark.parametrize("t", [512, 513, 1000, 2048])
+@pytest.mark.parametrize("d", [8, 20, 64])
+def test_core_plan_tiles_smem_and_grid(t, d):
+    """The f32 plan at T = 512, 513, 1000, 2048 and D = 8, 20, 64: its
+    tiles, buffers, shared bytes (own Q rows and per buffer 256 rows of two
+    operands and 1 float a row, 4 on the key side, as f32 rows of
+    core_row_floats) and grid (N*H, tiles over T); two buffers only where
+    they leave room for the blocks the kernel's registers allow on an SM;
+    the forward walks each key block in chunks of 256 that never cross it."""
+    n, heads = 128, 20
+    plan = bw.launch_plan(n, t, heads, d, torch.float32, sms=SMS)
+    assert plan.regime == "cuda_core"
+    rs = {8: 12, 20: 20, 64: 68}[d]
+    assert bw.core_row_floats(d) == rs
+    fwd_tile, *nbufs = CORE_PLANS[d]
+    for p, nbuf in zip(plan[1:], nbufs):
+        tile = fwd_tile if p.kind == "fwd" else 128
+        assert (p.tile, p.chunk, p.nbuf) == (tile, 256, nbuf)
+        assert p.threads == (256 if p.kind == "fwd" else 128)
+        assert p.grid == (n * heads, -(-t // tile))
+        own = tile * rs if p.kind == "fwd" else 0
+        per_row = 4 if p.kind == "bwd_key" else 1
+        assert p.smem == 4 * (own + nbuf * (2 * 256 * rs + per_row * 256))
+        assert p.smem <= bw.MAX_SMEM
+        assert bw.SM_SMEM // (p.smem + 1024) >= bw.core_resident(p.kind, d)
+        if nbuf == 1:
+            two = bw.smem_bytes(p.kind, d, 4, tile, 256, 2)
+            assert (two > bw.MAX_SMEM or bw.SM_SMEM // (two + 1024)
+                    < bw.core_resident(p.kind, d))
+    block = bw.kv_block(t)
+    walk = bw.key_walk(t, block, plan.fwd.chunk)
+    for b0 in range(0, t, block):
+        tasks = [w for w in walk if b0 <= w[0] < b0 + block]
+        assert all(k0 + nk <= b0 + block and nk <= 256
+                   for k0, nk, _, _ in tasks)
+        # a block of up to 256 keys is one task: its scores stay in
+        # registers between the max walk and the exp walk
+        assert (len(tasks) == 1) == (block <= 256)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("t", [512, 513, 1000, 2048])
 @pytest.mark.parametrize("n, heads, d", [(128, 20, 20), (32, 20, 20),
                                          (3, 4, 64), (2, 3, 8)])
-def test_launch_plan_covers_every_row_and_key_block(t, n, heads, d):
+def test_launch_plan_covers_every_row_and_key_block(t, n, heads, d, dtype):
     """The tiles cover every (row, head, query) (and key, on the backward's
     key side) once; the forward's key walk covers every key block once in a
     max walk and then once in an exp walk, its chunks clipped at the key
     block's edges (kv_block: 256 at T = 512 and 2048, 200 at 1000, T itself
-    at 513); the backward's chunks cover every row of the other side."""
-    plan = bw.launch_plan(n, t, heads, d, torch.bfloat16, sms=SMS)
+    at 513); the backward's chunks cover every row of the other side. In
+    bf16 and in f32."""
+    plan = bw.launch_plan(n, t, heads, d, dtype, sms=SMS)
     for p in plan[1:]:
         rows, tiles = p.grid
         assert rows == n * heads
@@ -438,6 +493,50 @@ def test_launch_plan_refuses_what_the_kernels_do_not_take(d, dtype):
         bw.launch_plan(2, 512, 2, 20, torch.float16)
     # the C side's own refusals (a tile, chunk or buffer count it does not
     # take) raise in the wrapper on the card: tests/test_torch_kernel_gpu.py
+
+
+@pytest.mark.parametrize("dtype, d, regime", [
+    (torch.float32, 20, "cuda_core"), (torch.bfloat16, 20, "mma"),
+    (torch.float32, 80, "wide"), (torch.bfloat16, 80, "wide")])
+def test_flash_wrappers_launch_the_plan_and_count_its_regime(
+        fake_launch, dtype, d, regime):
+    """Rows 9 and 10 hand the C entry points the operands, the shape, the
+    row stride of q, k, v cut from one projection, (the forward) the key
+    block, and the plan's ints: the forward's tile, chunk and buffers, the
+    backward's for its key side and then its query side. Each launch counts
+    under its variant and its plan's regime."""
+    n, t, heads = 2, 512, 3
+    q, k, v = torch.split(torch.zeros((n, t, 3 * heads * d), dtype=dtype),
+                          heads * d, -1)
+    g = torch.zeros((n, t, heads * d), dtype=dtype)
+    m, den, delta = (torch.zeros((n, t, heads)) for _ in range(3))
+    mask = torch.ones((n, t))
+    for km in (None, mask, mask):
+        o, m_out, den_out = bw.flash_fwd(q, k, v, km, heads)
+        assert o.shape == q.shape and o.dtype == dtype
+        assert m_out.shape == den_out.shape == (n, t, heads)
+        grads = bw.flash_bwd(q, k, v, km, g, m, den, delta, heads)
+        assert all(x.shape == q.shape and x.dtype == dtype for x in grads)
+    plan = bw.launch_plan(n, t, heads, d, dtype, sms=SMS)
+    assert plan.regime == regime
+    fwd_calls, bwd_calls = fake_launch[0::2], fake_launch[1::2]
+    for args, km in zip(fwd_calls, (None, mask, mask)):
+        assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            None if km is None else km.data_ptr())
+        assert args[7:] == (n, t, heads, d, 3 * heads * d, bw.kv_block(t),
+                            plan.fwd.tile, plan.fwd.chunk, plan.fwd.nbuf, 0)
+    kp, qp = plan.bwd_key, plan.bwd_query
+    for args, km in zip(bwd_calls, (None, mask, mask)):
+        assert args[3] == (None if km is None else km.data_ptr())
+        assert args[4] == g.data_ptr()
+        assert args[11:] == (n, t, heads, d, 3 * heads * d, kp.tile,
+                             kp.chunk, kp.nbuf, qp.tile, qp.chunk, qp.nbuf, 0)
+    assert kernels.launch_counts("flash_fwd") == {"flash": 1,
+                                                  "flash_masked": 2}
+    assert kernels.launch_counts("flash_bwd") == {"flash_bwd": 1,
+                                                  "flash_bwd_masked": 2}
+    assert kernels.regime_counts("flash_fwd") == {regime: 3}
+    assert kernels.regime_counts("flash_bwd") == {regime: 3}
 
 
 def _rn32(x):

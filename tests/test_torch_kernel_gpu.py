@@ -487,8 +487,19 @@ def test_flash_launch_plan_matches_the_kernels_layout():
                               (128, 256, 3)]:
         assert kernels.size_of("flash_fwd", "flash_smem_bytes", 0, 20, 2,
                                tile, chunk, nbuf) == -1
-    assert kernels.size_of("flash_fwd", "flash_smem_bytes", 0, 20, 4, 128,
-                           128, 1) == -1  # f32 takes only the fixed plan
+    # f32 (CUDA cores): the forward's tile of 16 query groups (64 queries
+    # up to D = 24, 32 past it), a backward side's 128 rows, chunks of 256
+    for kind, d, tile, chunk, nbuf in [(0, 20, 128, 128, 1),
+                                       (0, 20, 32, 256, 2),
+                                       (0, 32, 64, 256, 1),
+                                       (0, 20, 64, 128, 2),
+                                       (0, 20, 64, 256, 3),
+                                       (1, 20, 256, 256, 1),
+                                       (2, 8, 64, 256, 2)]:
+        assert kernels.size_of("flash_fwd", "flash_smem_bytes", kind, d, 4,
+                               tile, chunk, nbuf) == -1, (kind, d, tile)
+    assert kernels.size_of("flash_fwd", "flash_smem_bytes", 0, 20, 4, 64,
+                           256, 2) == 4 * (64 * 20 + 2 * (2 * 256 * 20 + 256))
     # past D = 64: the wide kernels' fixed plan, any head
     assert kernels.size_of("flash_fwd", "flash_smem_bytes", 0, 80, 2, 8, 0,
                            0) == 0
@@ -557,6 +568,158 @@ def test_flash_bwd_repeats_bit_for_bit():
     for _ in range(50):
         again = bw.flash_bwd(q, k, v, mask, g, m, den, delta, 20)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n, t, heads, d", [
+    (4, 512, 20, 20), (3, 513, 4, 8), (2, 1000, 4, 20), (2, 513, 2, 64),
+    (2, 1000, 3, 64), (3, 600, 2, 33)])
+def test_flash_f32_on_cuda_cores_matches_plain(n, t, heads, d, masked):
+    """Rows 9-10 in f32 on CUDA cores (one launch each, in the "cuda_core"
+    regime) against their plain versions at the f32 tolerances: ragged T
+    (513: one key block walked twice; 1000: key blocks of 200, a chunk
+    part-filled), D of 8, 20, 33 (padded to 64) and 64, q, k, v cut from one
+    fused projection; masked, every third row fully masked gives 0."""
+    q, k, v, mask = _flash_inputs(n, t, heads, d, "float32", seed=6,
+                                  fused=True)
+    km = mask if masked else None
+    kernels.reset_launch_counts()
+    o, m, den = bw.flash_fwd(q, k, v, km, heads)
+    ro, rm, rden = bw.flash_fwd_reference(q, k, v, km, heads)
+    g = torch.randn((n, t, heads * d), device="cuda")
+    delta = bw.delta_of(g, ro, heads)
+    grads = bw.flash_bwd(q, k, v, km, g, rm, rden, delta, heads)
+    refs = bw.flash_bwd_reference(q, k, v, km, g, rm, rden, delta, heads)
+    torch.cuda.synchronize()
+    assert kernels.regime_counts("flash_fwd") == {"cuda_core": 1}
+    assert kernels.regime_counts("flash_bwd") == {"cuda_core": 1}
+    for got, want in ((o, ro), (m, rm), (den, rden)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **TOL["float32"])
+    for got, want in zip(grads, refs):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **BWD_TOL["float32"])
+    if masked:
+        assert (o[::3] == 0).all()
+        assert all((x[::3] == 0).all() for x in grads)
+
+
+def test_flash_f32_fully_masked_rows_on_cuda_cores():
+    """f32 rows whose keys are all masked give o = 0 and zero gradients,
+    also where the max is so large that 1e-8 exp(-m) underflows and den is
+    0 (rows 0 and 3), as in the plain version."""
+    q, k, v, mask = _flash_inputs(6, 513, 4, 20, "float32", seed=9,
+                                  fused=True)
+    mask[0] = mask[3] = mask[4] = 0.0
+    for x in (q, k):
+        x[0] *= 40.0
+        x[3] *= 40.0
+    o, m, den = bw.flash_fwd(q, k, v, mask, 4)
+    ro, rm, rden = bw.flash_fwd_reference(q, k, v, mask, 4)
+    g = torch.randn((6, 513, 80), device="cuda")
+    delta = bw.delta_of(g, ro, 4)
+    grads = bw.flash_bwd(q, k, v, mask, g, rm, rden, delta, 4)
+    torch.cuda.synchronize()
+    assert (rden[0] == 0).any() and (rden[3] == 0).any()
+    for i in (0, 3, 4):
+        assert (o[i] == 0).all() and all((x[i] == 0).all() for x in grads)
+    for got, want in ((o, ro), (m, rm), (den, rden)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **TOL["float32"])
+
+
+def test_flash_f32_repeats_bit_for_bit():
+    """No atomics: 20 calls of rows 9 and 10 in f32 give the same o, m,
+    den and dq, dk, dv to the bit (the forward's 16 key lanes are summed in
+    one fixed tree)."""
+    q, k, v, mask = _flash_inputs(8, 1000, 20, 20, "float32", seed=3,
+                                  fused=True)
+    g = torch.randn((8, 1000, 400), device="cuda")
+    fwd = bw.flash_fwd(q, k, v, mask, 20)
+    delta = bw.delta_of(g, fwd[0], 20)
+    bwd = bw.flash_bwd(q, k, v, mask, g, fwd[1], fwd[2], delta, 20)
+    for _ in range(20):
+        assert all(torch.equal(a, b) for a, b in zip(
+            fwd, bw.flash_fwd(q, k, v, mask, 20)))
+        assert all(torch.equal(a, b) for a, b in zip(
+            bwd, bw.flash_bwd(q, k, v, mask, g, fwd[1], fwd[2], delta, 20)))
+
+
+def _pinned_inputs(n, t, heads, d, dtype, masked):
+    """q, k, v (views of one projection), the mask (every third row fully
+    masked) or None, g, and the backward's m, den, delta, from a numpy
+    seed: scripts/flash_ab.py's pinned_inputs."""
+    rng = np.random.default_rng(17)
+    hd = heads * d
+    tdt = getattr(torch, dtype)
+    qkv = torch.from_numpy(rng.normal(size=(n, t, 3 * hd)).astype(
+        np.float32)).to(tdt).cuda()
+    g = torch.from_numpy(rng.normal(size=(n, t, hd)).astype(
+        np.float32)).to(tdt).cuda()
+    mask = (rng.random((n, t)) > 0.3).astype(np.float32)
+    mask[:, 0] = 1.0
+    mask[::3] = 0.0
+    stats = [rng.normal(size=(n, t, heads)) * 0.5 + 3.0,
+             rng.uniform(50.0, 300.0, size=(n, t, heads)),
+             rng.normal(size=(n, t, heads))]
+    m, den, delta = (torch.from_numpy(x.astype(np.float32)).cuda()
+                     for x in stats)
+    q, k, v = torch.split(qkv, hd, dim=-1)
+    return (q, k, v, torch.from_numpy(mask).cuda() if masked else None, g,
+            m, den, delta)
+
+
+# Rows 9-10 on an H100 on _pinned_inputs, as the per-row f32 kernels (one
+# query or key a thread, every sum in order) and the bf16 and wide kernels
+# gave them (scripts/flash_ab.py): hashes of o, m, den (in f32 m alone: the
+# CUDA-core forward sums o and den over its key lanes in a tree) and of dq,
+# dk, dv from the pinned m, den, delta, by (N, T, heads, D, dtype, masked).
+FLASH_PINNED = {
+    (4, 512, 20, 20, "bfloat16", False): (
+        '4317d7a9dea1075d', 'a16bceccfcd16a0c', '71088c585f8e1f5e',
+        '9f8ce23518375373', 'c070bfcacae95665', 'b9afe7c41a26e201'),
+    (4, 512, 20, 20, "bfloat16", True): (
+        '0b7bd42cd10edcc6', 'a16bceccfcd16a0c', '6db0cb6bbde3ab94',
+        '01fd30a567ae6381', 'e5b7643b005a4229', '02a2d3e538e1e89d'),
+    (3, 1000, 4, 20, "bfloat16", True): (
+        'b33673084b6ec9c2', 'c926748246e67f97', '4d2bdab81ee8e876',
+        'c63aec7e34889b55', '49e0804b21e878c3', '04a6021ddba82062'),
+    (2, 513, 4, 64, "bfloat16", True): (
+        'a3853eb2c5ec7225', 'ba02292694d903ca', '0a8f57b77353c3cb',
+        '1238733a12572397', '1bae11d1e3e3ac09', '8ea7ef2b3ce2534d'),
+    (2, 512, 2, 80, "float32", True): (
+        '6f2ea1baaeaccf7b', 'a939a9c0022a9b03', '8b85fc089abdea60',
+        '6da874b9eb866c9a', '0b2a93899c40366f', '2a775ce14cf17460'),
+    (2, 512, 2, 80, "bfloat16", True): (
+        'e4015112784ca7e0', 'b446f59e15173172', '7825ee4e42fa2349',
+        '3f1f71fd913f51a0', '5db046ed2b2bcbf4', 'efb52adc8d840d66'),
+    (4, 512, 20, 20, "float32", False): (
+        'c2bb15a8175a45d0', 'c20042fdab6c03b2', '1b5a49d16111ec93',
+        '3822a9ceb2927f32'),
+    (4, 512, 20, 20, "float32", True): (
+        'c2bb15a8175a45d0', '110310e9ed9b3528', 'ae352e011bab4d10',
+        '96f29d03ebb5c220'),
+    (3, 1000, 4, 8, "float32", True): (
+        'c74c9867b09cec0b', 'cae0d4e6e4326afa', 'ba8fb2ec146d0629',
+        'b95f689f94d48d59'),
+    (2, 513, 2, 64, "float32", True): (
+        'b7ae8ef4d8f17357', '797d2a57c7c10dfe', '1af9ec6f906ac909',
+        '55deeb75b3d4ec3c'),
+}
+
+
+@pytest.mark.parametrize("key", list(FLASH_PINNED))
+def test_flash_keeps_its_pinned_bits(key):
+    """The bf16 tensor-core kernels and the wide kernels (D > 64) give the
+    pinned o, m, den, dq, dk and dv bit for bit; the f32 CUDA-core kernels
+    the pinned m, dq, dk and dv (the backward sums in the per-row order)."""
+    n, t, heads, d, dtype, masked = key
+    q, k, v, mask, g, m, den, delta = _pinned_inputs(*key)
+    fwd = bw.flash_fwd(q, k, v, mask, heads)
+    if dtype == "float32" and d <= 64:
+        fwd = fwd[1:2]
+    grads = bw.flash_bwd(q, k, v, mask, g, m, den, delta, heads)
+    assert tuple(_hash(x) for x in (*fwd, *grads)) == FLASH_PINNED[key]
 
 
 def test_long_sequences_route_to_flash_under_grad():

@@ -111,3 +111,34 @@ def test_config_validation_and_registry():
     assert get_model("NAML").news_encoder is naml.news_encoder
     with pytest.raises(KeyError, match="unknown model"):
         get_model("LSTUR")
+
+
+def test_register_model_adds_and_gets_back():
+    """register_model puts a model under its name, get_model returns it,
+    and registering the name again replaces it, as the JAX package's
+    register_model does; the registry is restored after."""
+    from newsrecommendation_tpu import models as jax_models
+    from newsrecommendation_tpu_torch import models
+
+    saved, jax_saved = dict(models.REGISTRY), dict(jax_models.REGISTRY)
+    try:
+        tiny = models.ModelDef("TINY", nrms.init, nrms.news_encoder,
+                               nrms.user_encoder, nrms.forward)
+        models.register_model(tiny)
+        assert get_model("TINY") is tiny
+        again = models.ModelDef("TINY", naml.init, naml.news_encoder,
+                                naml.user_encoder, naml.forward)
+        models.register_model(again)
+        assert get_model("TINY") is again
+        assert get_model("NRMS").forward is nrms.forward
+        jax_models.register_model(jax_models.ModelDef(
+            "TINY", *(getattr(jax_nrms, f) for f in (
+                "init", "news_encoder", "user_encoder", "forward"))))
+        assert sorted(models.REGISTRY) == sorted(jax_models.REGISTRY)
+    finally:
+        models.REGISTRY.clear()
+        models.REGISTRY.update(saved)
+        jax_models.REGISTRY.clear()
+        jax_models.REGISTRY.update(jax_saved)
+    with pytest.raises(KeyError, match="unknown model"):
+        get_model("TINY")

@@ -282,7 +282,12 @@ def test_launches_are_counted_per_regime(fake_launch, t, dtype, regime):
      {"qkv_fwd": {"resident": 12, "mma": 12},
       "qkv_bwd": {"resident": 12, "mma": 12}}),
     ({"user_log_length": 512}, {"qkv_fwd_probs": {"resident": 12},
-                                "qkv_bwd_probs": {"resident": 12}}),
+                                "qkv_bwd_probs": {"resident": 12},
+                                "flash_fwd": {"mma": 12},
+                                "flash_bwd": {"mma": 12}}),
+    ({"user_log_length": 512, "compute_dtype": "float32"},
+     {"qkv_fwd_probs": {"resident": 12}, "qkv_bwd_probs": {"resident": 12},
+      "flash_fwd": {"cuda_core": 12}, "flash_bwd": {"cuda_core": 12}}),
     ({"user_log_length": 512, "fused_tail": "on"},
      {"fused_tail_fwd": {"resident": 12, "global": 12},
       "fused_tail_bwd": {"resident": 12, "global": 12}}),
@@ -295,9 +300,11 @@ def test_smoke_expects_each_encoders_regime(overrides, want):
     encoder's forward (rows 1-2, fwd_launch_plan) and backward (rows 3-4,
     bwd_launch_plan) in the regime of its length's plan (the news encoder
     at 20 words, the user encoder at user_log_length), none for the user
-    encoder on the flash route (512 news), none where rows 15-16 take
-    both; with the fused tail rows 13-14 in their tail_launch_plan's
-    regimes (resident at 20 words, global at 512 news)."""
+    encoder on the flash route (512 news), where rows 9-10 take it in
+    blockwise.launch_plan's regime (tensor cores in bf16, CUDA cores in
+    f32), none where rows 15-16 take both; with the fused tail rows 13-14
+    in their tail_launch_plan's regimes (resident at 20 words, global at
+    512 news)."""
     import chip_smoke
 
     from newsrecommendation_tpu_torch.config import Config
