@@ -47,7 +47,7 @@ Phases, each printing one line with its elapsed seconds:
            (probs transposed per head, ds without its row-sum term, past
            one staged chunk r summed over the first chunk only, and in bf16
            dv from the unrounded a); kernel / plain times and bounds; bf16
-           counts of differing elements; rows 1 and 2 each in its plan's
+           counts of differing elements; rows 1, 2 and 3 each in its plan's
            regime, and on tensor cores a context from the unrounded f32 a
            as a further control
   kernel-recompute  row 4 (the backward that recomputes the probs) vs its
@@ -56,7 +56,8 @@ Phases, each printing one line with its elapsed seconds:
            differ from row 3's dqkv fed row 2's probs; controls (ds without
            its row-sum term, mask dropped, past one chunk r or den summed
            over the first chunk only, in bf16 dv from the unrounded a);
-           bf16 counts of differing elements
+           each launch in its plan's regime; bf16 counts of differing
+           elements
   kernel-flash  rows 9-10 (the key-blocked forward and backward) vs their
            plain versions at 128 x 512, 128 x 513 (one key block of 513),
            128 x 1000 (key blocks of 200, not a multiple of the kernels'
@@ -71,8 +72,9 @@ Phases, each printing one line with its elapsed seconds:
            differing elements
   kernel-2d  rows 11-12 (the 2-D-I/O forward and backward) at 7040 x 20
            and 128 x 50, f32 and bf16: equal to rows 2-3 on the 3-D view in
-           every element, and vs their plain versions; times and bounds
-           (the backward's beside scaled_dot_product_attention's)
+           every element, and vs their plain versions; each launch in its
+           plan's regime; times and bounds (the backward's beside
+           scaled_dot_product_attention's)
   kernel-fused-tail  rows 13-14 (the fused encoder tail) vs their plain
            versions at TAIL_SHAPES: 7040 x 20 and 128 x 50 (masked and
            not), 1024 x 20 in f32, 128 x 64 (the resident regime's
@@ -114,10 +116,12 @@ Phases, each printing one line with its elapsed seconds:
   mhsa-unequal  multi_head_self_attention at d_k = 20, d_v = 32 (1024 x
            20, 20 heads, both masks), forward and backward on the card
            against the CPU, launching rows 5-8 only (the row-wise and
-           resident regimes); on a mismatch first a
-           diagnosis line: the card's q, k, v projection against the
-           CPU's, and rows 5-8 on the card's projection against their
-           plain versions on the same values
+           resident regimes); each run keeps a diagnosis (the card's
+           q, k, v projection against the CPU's and each against float64,
+           each side's output against the plain version on the float64
+           projection, rows 5-8 on the card's projection against their
+           plain versions on the same values, the host), which a mismatch
+           prints first, on both streams, and carries in its failure
   corpus   a 65,536-news synthetic corpus, full-width NRMS params from a
            seed, and two draws of its behaviors prepared into training
            samples: histories of up to 80 news cut to 50, and of up to 600
@@ -154,7 +158,8 @@ Phases, each printing one line with its elapsed seconds:
            row-2 and 2 row-3 launches per step and no other) and none
            else; then 20 steps on one batch with dropout off, whose loss
            must fall. Again with bwd_residuals "recompute" (2 row-1 and 2
-           row-4 launches per step), with the word table trained, with
+           row-4 launches per step), the same for 6 steps in f32 (row 4's
+           f32 launches), with the word table trained, with
            fused_tail "on" (2 row-13 and 2 row-14 launches per step), with
            attention_io "2d" (2 row-11 and 2 row-12 launches per step),
            with attention_layout "blanes" (2 row-15 and 2 row-16 launches
@@ -315,7 +320,6 @@ QKV2D_KERNELS = "newsrecommendation_tpu/ops/pallas/experimental_qkv2d.py"
 TAIL_KERNELS = ("newsrecommendation_tpu/ops/pallas/"
                 "experimental_fused_encoder.py")
 BLANES_KERNELS = "newsrecommendation_tpu/ops/pallas/experimental_blanes.py"
-QKV2D_SOURCE = f"{CSRC}/qkv2d.cu"
 TAIL_FWD_SOURCE = f"{CSRC}/fused_tail_fwd.cu"
 TAIL_BWD_SOURCE = f"{CSRC}/fused_tail_bwd.cu"
 SEP_SOURCE = f"{CSRC}/mhsa_sep.cu"
@@ -342,6 +346,9 @@ TAIL_LONG = ((128, 87, True, ("float32", "bfloat16")),
              (128, LONG_L, True, ("float32", "bfloat16")),
              (32, 1000, False, ("float32",)))
 FUSED_LONG_STEPS = 6  # train steps with the fused tail at LONG_L
+# train steps of the headline step in f32 with bwd_residuals "recompute":
+# row 4's f32 launches on its main path
+F32_RECOMPUTE_STEPS = 6
 # Rows 13-14 at the main paths' shapes and on both sides of the resident
 # regime's end (T = 64): (masked, N, T, dtypes) -- the headline step's news
 # and user encoders, the corpus encoder's chunk (f32, serving), then
@@ -689,6 +696,7 @@ def train_kernel_case(fa, variant, n, t, heads, d, dtype, seed):
     ref_ctx, ref_probs = fa.exp_mhsa_qkv_bias_probs_reference(qkv, bias,
                                                               mask, heads)
     dqkv = fa.qkv_bwd_probs(qkv, bias, ref_probs, g, heads)
+    check_bwd_regime(where, fa, "qkv_bwd_probs", n, t, heads, d, tdt, True)
     ref_dqkv = fa.qkv_bwd_probs_reference(qkv, bias, ref_probs, g, heads)
     dqkv.sum().item()  # waits for the kernels
     if not torch.equal(ctx, row1):
@@ -768,7 +776,9 @@ def recompute_kernel_case(fa, variant, n, t, heads, d, dtype, seed):
     _, b_tol = TRAIN_TOL[dtype]
     where = f"{variant} {dtype} N={n} T={t}"
 
+    fa.reset_launch_counts()
     dqkv = fa.qkv_bwd(qkv, bias, mask, g, heads)
+    check_bwd_regime(where, fa, "qkv_bwd", n, t, heads, d, tdt, False)
     ref = fa.qkv_bwd_reference(qkv, bias, mask, g, heads)
     fa.reset_launch_counts()
     _, probs = fa.qkv_fwd_probs(qkv, bias, mask, heads)
@@ -1044,8 +1054,11 @@ def qkv2d_kernel_case(q2, fa, n, t, heads, d, dtype, seed):
     (f_rtol, f_atol), (b_rtol, b_atol) = TRAIN_TOL[dtype]
     where = f"qkv2d {dtype} N={n} T={t}"
 
+    fa.reset_launch_counts()
     out, probs = q2.qkv2d_fwd(qkv2d, bias, heads, t)
     dqkv = q2.qkv2d_bwd(qkv2d, bias, probs, g, heads, t)
+    check_fwd_regimes(where, fa, n, t, heads, d, tdt, ("qkv2d_fwd",))
+    check_bwd_regime(where, fa, "qkv2d_bwd", n, t, heads, d, tdt, True)
     out3, probs3 = fa.qkv_fwd_probs(qkv2d.view(n, t, -1), bias, None, heads)
     dqkv3 = fa.qkv_bwd_probs(qkv2d.view(n, t, -1), bias, probs3, g, heads)
     ref, ref_probs = q2.qkv2d_fwd_reference(qkv2d, bias, heads, t)
@@ -1617,7 +1630,8 @@ def unequal_run(masked, n=1024, t=20, heads=20, dk=20, dv=32, d_model=300):
     weight's gradient within TRAIN_GRAD_SHARE of its largest element. Each
     run keeps its own projection and forward operands (references, and a
     copy of the forward's output before the backward) for
-    unequal_diagnosis, which a mismatch prints first."""
+    unequal_diagnosis, which every run keeps in its result and a mismatch
+    prints first, on both streams, and carries in its failure."""
     import torch
 
     from newsrecommendation_tpu_torch.ops import attention, kernels
@@ -1633,29 +1647,32 @@ def unequal_run(masked, n=1024, t=20, heads=20, dk=20, dv=32, d_model=300):
         mask[:, -1] = 1.0
         mask[::7] = 0.0
     g = torch.randn((n, t, heads * dv), generator=gen)
-    res, kept, regimes = {}, {}, {}
     real_qkv = attention._fused_qkv
-    for dev in (DEVICE, "cpu"):
-        own = kept[dev] = {}
+
+    def run(dev):
+        """One forward and backward on ``dev``: (its own kept values, its
+        results, its regime counts)."""
+        own = {}
         # the forward rows 5 and 7 take there: the kernel, or on the CPU
         # the plain version
         fwd_name = ("exp_mhsa_reference" if torch.device(dev).type == "cpu"
                     else "mhsa_sep_fwd")
 
-        def fused_qkv(p, xs, _own=own):
+        def fused_qkv(p, xs):
             r = real_qkv(p, xs)
-            _own["qkv_2d"] = r[0].detach()
+            own["qkv_2d"] = r[0].detach()
             return r
 
-        def fwd(q, k, v, m, h, _own=own, _fwd=getattr(fa, fwd_name)):
+        def fwd(q, k, v, m, h, _fwd=getattr(fa, fwd_name)):
             o = _fwd(q, k, v, m, h)
-            _own["qkv"] = [y.detach() for y in (q, k, v)]
-            _own["out"] = o.detach().clone()
+            own["qkv"] = [y.detach() for y in (q, k, v)]
+            own["out"] = o.detach().clone()
             return o
 
-        p = {k: {nm: w.to(dev).requires_grad_() for nm, w in v.items()}
-             for k, v in params.items()}
-        xx = x.to(dev).requires_grad_()
+        # leaves of this run only: a CPU run's gradients start from none
+        p = {k: {nm: w.detach().to(dev).requires_grad_()
+                 for nm, w in v.items()} for k, v in params.items()}
+        xx = x.detach().to(dev).requires_grad_()
         kernels.reset_launch_counts()
         with mock.patch.object(attention, "_fused_qkv", fused_qkv), \
                 mock.patch.object(fa, fwd_name, fwd):
@@ -1666,21 +1683,33 @@ def unequal_run(masked, n=1024, t=20, heads=20, dk=20, dv=32, d_model=300):
         xx.grad.sum().item()  # waits for the kernels
         launches = {k: kernels.launch_counts(k) for k in kernels.KERNELS
                     if any(kernels.launch_counts(k).values())}
-        regimes[dev] = {k: kernels.regime_counts(k)
-                        for k in ("mhsa_fwd", "mhsa_bwd")}
-        res[dev] = (out.detach().cpu(), xx.grad.cpu(),
-                    {k: p[k]["w"].grad.cpu() for k in p}, launches)
+        regime = {k: kernels.regime_counts(k)
+                  for k in ("mhsa_fwd", "mhsa_bwd")}
+        return own, (out.detach().cpu(), xx.grad.cpu(),
+                     {k: p[k]["w"].grad.cpu() for k in p}, launches), regime
+
+    res, kept, regimes = {}, {}, {}
+    kept[DEVICE], res[DEVICE], regimes[DEVICE] = run(DEVICE)
+    kept["cpu"], res["cpu"], regimes["cpu"], cpu_vote = cpu_reference(
+        run, f"mhsa-unequal masked={masked}")
     where = f"mhsa-unequal masked={masked}"
     (f_rtol, f_atol), (b_rtol, b_atol) = TRAIN_TOL["float32"]
+    diagnosis = unequal_diagnosis(kept, res, mask, g, heads, params, x)
     if (n_outside(res[DEVICE][0], res["cpu"][0], f_rtol, f_atol)
             or n_outside(res[DEVICE][1], res["cpu"][1], b_rtol, b_atol)):
-        print(f"  {where} diagnosis " + json.dumps(unequal_diagnosis(
-            kept, res, mask, g, heads)), flush=True)
-    out = {"shape": [n, t, heads, dk, dv],
-           "ctx": compare(where, "ctx", res[DEVICE][0], res["cpu"][0],
-                          f_rtol, f_atol),
-           "dx": compare(where, "dx", res[DEVICE][1], res["cpu"][1], b_rtol,
-                         b_atol)}
+        line = f"  {where} diagnosis " + json.dumps(diagnosis)
+        print(line, flush=True)
+        print(line, file=sys.stderr, flush=True)
+    try:
+        out = {"shape": [n, t, heads, dk, dv],
+               "ctx": compare(where, "ctx", res[DEVICE][0], res["cpu"][0],
+                              f_rtol, f_atol),
+               "dx": compare(where, "dx", res[DEVICE][1], res["cpu"][1],
+                             b_rtol, b_atol)}
+    except RuntimeError as e:
+        fail(f"{e}; diagnosis {json.dumps(diagnosis)}")
+    out["diagnosis"] = diagnosis
+    out["cpu_reference"] = cpu_vote
     worst = 0.0
     for k, got in res[DEVICE][2].items():
         want = res["cpu"][2][k]
@@ -1709,17 +1738,80 @@ def unequal_run(masked, n=1024, t=20, heads=20, dk=20, dv=32, d_model=300):
     return out
 
 
-def unequal_diagnosis(kept, res, mask, g, heads) -> dict:
+def cpu_reference(run, where):
+    """The CPU side of a card-against-CPU check, voted: ``run("cpu")``
+    twice, and a third time if the two differ in any bit; the result two
+    runs give bit for bit, else a failure. The same code on the same
+    inputs repeats its bits on one host, so a run that does not is a fault
+    of that run, not of the program under test: on the card's host one in
+    forty fresh processes gave an output 8.1e-5 off in its first CPU run
+    while the card and every recomputation agreed with the float64
+    reference (scripts/mismatch_repeat.py --fresh). Returns run's triple
+    and the vote (runs, and where the odd one differed), which a
+    disagreement also prints on both streams."""
+    runs = [run("cpu"), run("cpu")]
+    vote = {"runs": 2}
+    if not _same_bits(runs[0][1], runs[1][1]):
+        runs.append(run("cpu"))
+        vote["runs"] = 3
+        pairs = [(i, j) for i in range(3) for j in range(i + 1, 3)
+                 if _same_bits(runs[i][1], runs[j][1])]
+        if not pairs:
+            fail(f"{where}: three CPU reference runs differ: "
+                 + json.dumps([_bits_apart(runs[0][1], r[1])
+                               for r in runs[1:]]))
+        i, _ = pairs[0]
+        odd = ({0, 1, 2} - set(pairs[0])).pop()
+        vote["odd_run"] = odd
+        vote["odd_apart"] = _bits_apart(runs[i][1], runs[odd][1])
+        line = f"  {where} CPU reference vote " + json.dumps(vote)
+        print(line, flush=True)
+        print(line, file=sys.stderr, flush=True)
+        return (*runs[i], vote)
+    return (*runs[0], vote)
+
+
+def _same_bits(a, b) -> bool:
+    """Whether two of unequal_run's results (out, dx, weight grads) are
+    equal bit for bit."""
+    import torch
+
+    return (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            and all(torch.equal(a[2][k], b[2][k]) for k in a[2]))
+
+
+def _bits_apart(a, b) -> dict:
+    """Where two of unequal_run's results differ: per output the count of
+    differing elements, the largest difference and the first and last
+    batch row that differ."""
+    import torch
+
+    out = {}
+    for name, x, y in (("out", a[0], b[0]), ("dx", a[1], b[1]),
+                       *((k, a[2][k], b[2][k]) for k in a[2])):
+        diff = (x - y).abs()
+        rows = torch.nonzero(diff.reshape(diff.shape[0], -1).amax(1))
+        out[name] = {"n": int((diff > 0).sum()), "max": diff.max().item(),
+                     "rows": [int(rows.min()), int(rows.max())]
+                     if rows.numel() else []}
+    return out
+
+
+def unequal_diagnosis(kept, res, mask, g, heads, params, x) -> dict:
     """Where a card/CPU mismatch of unequal_run entered, from each run's own
     values (``kept``: the un-biased projection qkv_2d, the forward's q, k,
     v and its output before the backward; ``res``: unequal_run's results
     after the backward): the card's projection against the CPU's (the
-    GEMM); the card's forward output against rows 5 and 7's plain version
-    on the card's own q, k, v, copied to the CPU, and the same for rows 6
-    and 8 with g (the kernels); whether the forward's output changed
-    during the backward; whether the forward repeats its bits; and the
-    worst output element (row, position, lane) and the count outside the
-    tolerance. Largest differences throughout."""
+    GEMM), and each against the projection in float64 from the same
+    ``params`` and ``x``; each side's output against rows 5 and 7's plain
+    version on the float64 projection rounded to f32 (which side moved);
+    the card's forward output against rows 5 and 7's plain version on the
+    card's own q, k, v, copied to the CPU, and the same for rows 6 and 8
+    with g (the kernels); whether the forward's output changed during the
+    backward; whether the forward repeats its bits; the worst output
+    element (row, position, lane) and the count outside the tolerance;
+    and the host (torch's CPU capability and threads, the f32 matmul
+    settings). Largest differences throughout."""
     import torch
 
     from newsrecommendation_tpu_torch.ops import fused_attention as fa
@@ -1729,6 +1821,14 @@ def unequal_diagnosis(kept, res, mask, g, heads) -> dict:
     q, k, v = card["qkv"]
     dmask = None if mask is None else mask.to(DEVICE)
     with torch.no_grad():
+        names = ("wq", "wk", "wv")
+        w = torch.cat([params[nm]["w"].detach() for nm in names], 1)
+        bias = torch.cat([params[nm]["b"].detach() for nm in names])
+        exact = x.detach().reshape(-1, x.shape[-1]).double() @ w.double()
+        qkv_exact = exact.float().reshape(*x.shape[:2], -1) + bias
+        ctx_exact = fa.exp_mhsa_reference(
+            *torch.split(qkv_exact, [q.shape[-1], k.shape[-1], v.shape[-1]],
+                         dim=-1), mask, heads)
         qc, kc, vc = (y.cpu() for y in (q, k, v))
         ctx_ref = fa.exp_mhsa_reference(qc, kc, vc, mask, heads)
         refs = fa.exp_mhsa_bwd_reference(qc, kc, vc, mask, g, heads)
@@ -1740,6 +1840,14 @@ def unequal_diagnosis(kept, res, mask, g, heads) -> dict:
         worst = divmod(int(err.argmax()), err.shape[-1])
     return {
         "proj_max_err": (card["qkv_2d"].cpu() - cpu["qkv_2d"]).abs().max()
+        .item(),
+        "proj_card_vs_f64": (card["qkv_2d"].cpu().double() - exact).abs()
+        .max().item(),
+        "proj_cpu_vs_f64": (cpu["qkv_2d"].double() - exact).abs().max()
+        .item(),
+        "ctx_card_vs_f64_proj": (res[DEVICE][0] - ctx_exact).abs().max()
+        .item(),
+        "ctx_cpu_vs_f64_proj": (res["cpu"][0] - ctx_exact).abs().max()
         .item(),
         "proj_outside": n_outside(card["qkv_2d"].cpu(), cpu["qkv_2d"],
                                   f_rtol, f_atol),
@@ -1758,7 +1866,12 @@ def unequal_diagnosis(kept, res, mask, g, heads) -> dict:
                                  f_atol),
         "ctx_worst": {"row": worst[0] // err.shape[1],
                       "pos": worst[0] % err.shape[1], "lane": worst[1],
-                      "err": err.max().item()}}
+                      "err": err.max().item()},
+        "host": {"cpu_capability": torch.backends.cpu.get_cpu_capability(),
+                 "threads": torch.get_num_threads(),
+                 "cuda_matmul_tf32": torch.backends.cuda.matmul.allow_tf32,
+                 "f32_matmul_precision":
+                 torch.get_float32_matmul_precision()}}
 
 
 def compare(where, name, got, want, rtol, atol):
@@ -1805,6 +1918,16 @@ def check_fwd_regimes(where, fa, n, t, heads, d, dtype, kernels) -> None:
         if fa.regime_counts(k) != {want: 1}:
             fail(f"{where}: {k} launched {fa.regime_counts(k)}, its plan "
                  f"{want}")
+
+
+def check_bwd_regime(where, fa, kernel, n, t, heads, d, dtype,
+                     probs) -> None:
+    """Rows 3-4's (or 12's) ``kernel`` launched once since the counts were
+    reset, in the regime of bwd_launch_plan (``probs``: row 3's plan)."""
+    want = fa.bwd_launch_plan(n, t, heads, d, dtype, probs=probs).regime
+    if fa.regime_counts(kernel) != {want: 1}:
+        fail(f"{where}: {kernel} launched {fa.regime_counts(kernel)}, its "
+             f"plan {want}")
 
 
 def check_caught(where, caught) -> None:
@@ -3642,9 +3765,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.init()
+    # which card and host this run had, to match a failure to its machine
+    gpu_id = subprocess.run(
+        ["nvidia-smi", "--query-gpu=uuid,driver_version,vbios_version",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
     phase("device", t, name=repr(torch.cuda.get_device_name(0)),
           count=torch.cuda.device_count(), torch=torch.__version__,
-          cuda=torch.version.cuda)
+          cuda=torch.version.cuda, gpu=repr(gpu_id.strip()),
+          cpu=torch.backends.cpu.get_cpu_capability(),
+          cpu_threads=torch.get_num_threads())
 
     from newsrecommendation_tpu_torch.ops import blockwise as bw
     from newsrecommendation_tpu_torch.ops import experimental_blanes as bl
@@ -3871,6 +4000,10 @@ def main() -> int:
     trains = {}
     for name, kw in [("probs", {}),
                      ("recompute", {"bwd_residuals": "recompute"}),
+                     ("recompute_f32", {"bwd_residuals": "recompute",
+                                        "compute_dtype": "float32",
+                                        "max_steps": F32_RECOMPUTE_STEPS,
+                                        "fixed_batch": False}),
                      ("trainable", {"freeze_embedding": False,
                                     "fixed_batch": False}),
                      ("fused_tail", {"fused_tail": "on"}),
@@ -4062,6 +4195,13 @@ def main() -> int:
                        f"{TPU_KERNELS}:642",
                        train["regimes"]["qkv_bwd_probs"]["resident"],
                        c["dqkv"], c["bwd"], c))
+    # and in f32 (the CLI's default dtype), launched on the news encoder of
+    # the f32 LONG_L run
+    c = find(train_cases, variant="bias", shape=[7040, 20], dtype="float32")
+    kernels.append(row("qkv_bwd_probs_f32", BWD_PROBS_SOURCE,
+                       f"{TPU_KERNELS}:642",
+                       trains["long_f32"][0]["regimes"]["qkv_bwd_probs"][
+                           "resident"], c["dqkv"], c["bwd"], c))
     # row 2 at the user encoder over MID_L-news histories (bf16, tensor
     # cores), with its tensor-core launches in the MID_L run
     c = find(train_cases, variant="bias", shape=[128, MID_L],
@@ -4074,6 +4214,11 @@ def main() -> int:
              dtype="bfloat16")
     kernels.append(row("qkv_bwd", BWD_SOURCE, f"{TPU_KERNELS}:712",
                        trains["recompute"][0]["regimes"]["qkv_bwd"][
+                           "resident"], c["dqkv"], c["bwd"], c))
+    c = find(recompute_cases, variant="bwd", shape=[7040, 20],
+             dtype="float32")
+    kernels.append(row("qkv_bwd_f32", BWD_SOURCE, f"{TPU_KERNELS}:712",
+                       trains["recompute_f32"][0]["regimes"]["qkv_bwd"][
                            "resident"], c["dqkv"], c["bwd"], c))
     # rows 3-4 at a user encoder over 511-news histories (bf16, tensor
     # cores), with the launches of their tensor-core regime in the MID_L
@@ -4142,7 +4287,7 @@ def main() -> int:
                        f"{QKV2D_KERNELS}:145",
                        sum(io_launches["qkv2d_fwd"].values()), c["ctx"],
                        c["fwd"], c))
-    kernels.append(row("exp_mhsa_qkv_bias_2d_bwd", QKV2D_SOURCE,
+    kernels.append(row("exp_mhsa_qkv_bias_2d_bwd", BWD_PROBS_SOURCE,
                        f"{QKV2D_KERNELS}:193",
                        sum(io_launches["qkv2d_bwd"].values()), c["dqkv"],
                        c["bwd"], c))

@@ -77,8 +77,9 @@
 // Past both regimes (heads wider than 64, or one head's K and V past a
 // block's shared memory: f32 D = 64 past T = 318, f32 D = 20 past 941,
 // bf16 D <= 32 past 1,232): the same function by row 1's launch (in the
-// regime of its own plan: tensor cores, tiled or row-wise) and row 4's
-// kernels on qkv with a zero bias (qkv_fwd.cu, qkv_bwd.cu), which the
+// regime of its own plan: tensor cores, tiled or row-wise) with a zero
+// bias and row 4's kernels on qkv (qkv_fwd.cu, qkv_bwd.cu; no bias in row
+// 4's resident regime, a zero bias past it), which the
 // wrappers launch under rows 15-16's counts
 // (ops/experimental_blanes.py:regime).
 // At T <= 64 no tensor cores: the FMA work is below the memory bound and

@@ -200,9 +200,10 @@ __device__ __forceinline__ void widen(float* dst, const T* src, int rows,
 // Walks this block's items from `first` on, next(item) after each, while
 // below p.items: item k's operands are staged (stage(item, buffer)) while
 // item k - 1 is computed when there are two buffers. The stage buffers are
-// zeroed first: the pads past D are never copied.
-template <typename Next, typename Stage, typename Compute>
-__device__ __forceinline__ void walk_items(const Params& p,
+// zeroed first: the pads past D are never copied. P: Params, or any with
+// items, nbuf and stage (bytes of one buffer).
+template <typename P, typename Next, typename Stage, typename Compute>
+__device__ __forceinline__ void walk_items(const P& p,
                                            unsigned char* smem, int first,
                                            Next next, Stage stage,
                                            Compute compute) {

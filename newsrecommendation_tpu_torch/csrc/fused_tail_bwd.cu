@@ -47,8 +47,9 @@
 //      probs recomputed as rows 1 and 15 compute them: resident, in bf16
 //      row 16's resident kernel (blanes_resident.cuh) under row 16's plan,
 //      in f32 row 4's (per_row_and_attention says why); past it row 4's
-//      kernels (qkv_bwd.cuh) with a zero bias, in row 4's regime for
-//      (T, D, dtype) -- past T = 201 at D = 20 in bf16 its tensor-core
+//      kernels (qkv_bwd.cuh), in row 4's regime for (T, D, dtype), with no
+//      bias in its resident regime and a zero bias past it -- past T = 201
+//      at D = 20 in bf16 its tensor-core
 //      kernels with the plan `attn_plan` and the row stats in
 //      `attn_stats`; in f32 past T = 599 its tiled kernel with its whole
 //      working set in `attn_stage`, `attn_slots` blocks walking the items;
@@ -389,13 +390,13 @@ struct ResidentBwd {
 // The first two launches: the per-row work, then the attention backward on
 // d_ctx. Resident (T <= 64): tail_resident_bwd_kernel, then in bf16 row
 // 16's resident kernel on the biased qkv (blanes_resident.cuh) under its
-// plan (a_heads, a_nbuf, a_blocks), in f32 row 4's kernel with a zero bias:
-// row 16 sums each query's r (and den's 1e-8 term) with the product
+// plan (a_heads, a_nbuf, a_blocks), in f32 row 4's resident kernel (no
+// bias): row 16 sums each query's r (and den's 1e-8 term) with the product
 // rounded before the add, row 4 in one fma, so past T = 32 (two keys a
 // lane) their f32 dqkv differ in 8-18% of the elements (PERF.md), where
 // bf16's rounding of ds hides all but a few. Past the resident regime:
-// the per-row kernel, then row 4's kernel with a zero bias, in row 4's
-// regime.
+// the per-row kernel, then row 4's kernel in row 4's regime (no bias in
+// its resident regime, a zero bias past it).
 template <typename T>
 int per_row_and_attention(
     const void* qkv, const void* mask, const void* w1, const void* w1t,
@@ -409,8 +410,9 @@ int per_row_and_attention(
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   const int esize = (int)sizeof(T);
   auto* cs = (cudaStream_t)stream;
-  // row 4's kernel on the biased qkv (a zero bias) and d_ctx, the probs
-  // recomputed as the forward computes them
+  // row 4's kernel on the biased qkv (zero_bias: null, or zeros past row
+  // 4's resident regime) and d_ctx, the probs recomputed as the forward
+  // computes them
   auto row4 = [&]() {
     return qkv_bwd_launch<T, true>(
         qkv, zero_bias, nullptr, mask, dctx, dqkv, n, t_len, n_heads, d_head,
@@ -535,9 +537,10 @@ extern "C" {
 // (heads, nbuf, blocks) of ops/experimental_fused_encoder.py:
 // tail_launch_plan; in bf16 row 16's (a_heads, a_nbuf, a_blocks), and
 // zero_bias, stage, attn_stage, attn_stats and row 4's plan are not read;
-// in f32 row 16's plan is zeros and row 4 takes zero_bias (3HD zeros in
-// qkv's dtype) in its resident regime. Past it the resident plans are
-// zeros; row 4 takes zero_bias; stage
+// in f32 row 16's plan is zeros and row 4 takes its resident plan and a
+// null zero_bias. Past it the resident plans are zeros; row 4 takes
+// zero_bias (null in row 4's resident regime, else 3HD zeros in qkv's
+// dtype); stage
 // (`slots` slots of fused_tail_bwd_stage_floats) and attn_stage
 // (`attn_slots` slots of fused_tail_bwd_attn_stage_floats) are read only
 // when those are not 0; attn_stats (3, N*H, T) f32 and the tensor-core plan

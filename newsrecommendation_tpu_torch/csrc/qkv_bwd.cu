@@ -12,12 +12,14 @@
 
 extern "C" {
 
-// mask may be null. plan: the tensor-core plan of each side (q_tile,
-// q_chunk, q_nbuf, k_tile, k_chunk, k_nbuf); biased, stats: the
-// tensor-core regime's scratch; stage, slots: the tiled kernel's global
-// slots (qkv_bwd.cuh QkvBwdWork). Returns cudaGetLastError() after the
-// launches: 0 when they were queued; cudaErrorInvalidValue for a plan or
-// scratch the regime does not get.
+// mask may be null; bias may be null in the resident regime (qkv carries
+// it). plan: the resident plan (heads, nbuf, blocks, threads, shared
+// bytes, 0) or the tensor-core plan of each side (q_tile, q_chunk, q_nbuf,
+// k_tile, k_chunk, k_nbuf); biased, stats: the tensor-core regime's
+// scratch; stage, slots: the tiled kernel's global slots (qkv_bwd.cuh
+// QkvBwdWork). Returns cudaGetLastError() after the launches: 0 when they
+// were queued; cudaErrorInvalidValue for a plan or scratch the regime does
+// not get.
 #define NRK_QKV_BWD(SUFFIX, T)                                               \
   int qkv_bwd_##SUFFIX(const void* qkv, const void* bias, const void* mask, \
                        const void* g, void* dqkv, void* biased, void* stats, \
@@ -44,6 +46,16 @@ int qkv_bwd_regime(int t_len, int d_head, int esize) {
 // floats of one global slot (0 unless the tiled kernel runs there)
 int qkv_bwd_slot_floats(int t_len, int d_head, int esize) {
   return (int)nrk::qkv_bwd_slot_floats_for(t_len, d_head, esize);
+}
+
+// shared bytes of the short resident kernel (T <= 64, D <= 32) at `heads`
+// heads an item and `nbuf` stage buffers, row 3's (probs) or row 4's; 0
+// for a shape it does not take
+int qkv_bwd_resident_smem_bytes(int t_len, int d_head, int esize, int heads,
+                                int nbuf, int probs) {
+  if (!nrk::qb::short_shape(t_len, d_head)) return 0;
+  return (int)nrk::qb::smem_bytes(
+      nrk::qb::shape_of(t_len, d_head, esize, heads, probs != 0), nbuf);
 }
 
 // shared bytes of a tensor-core side (kind 1 key, 2 query), as flash.cuh

@@ -5,6 +5,9 @@
 // Replaces the TPU kernel newsrecommendation_tpu/ops/pallas/fused_attention.py
 // :_qkv_bwd_probs_kernel (called by _qkv_bwd_probs_call, bias variant).
 // Contract, bound and design: qkv_bwd.cuh, which row 4 (qkv_bwd.cu) shares.
+// Row 12 (experimental_qkv2d.py:_bwd2d_call) is this launch on the
+// (N, T, 3HD) view of its (N*T, 3HD) operands (ops/experimental_qkv2d.py):
+// a row-major (N*T, 3HD) tensor is that view byte for byte.
 
 #include "qkv_bwd.cuh"
 

@@ -22,8 +22,9 @@ keys, or past SHORT_T in bf16 16 queries on tensor cores, in two regimes
 chosen from T by ``launch_plan``. Past what those layouts hold (heads
 wider than MAX_HEAD, or one head's K and V past a block's shared memory;
 ``regime``) the same entry points run the fused-qkv kernels' templates
-with a zero bias (rows 1 and 4, ``csrc/qkv_fwd.cuh`` and
-``csrc/qkv_bwd.cuh``), which compute the same function. The backward always
+(rows 1 and 4, ``csrc/qkv_fwd.cuh`` and ``csrc/qkv_bwd.cuh``; row 1 with a
+zero bias, row 4 with none in its resident regime and a zero bias past
+it), which compute the same function. The backward always
 recomputes, whatever ``bwd_residuals`` says, as the JAX package's custom
 VJPs do.
 
@@ -234,11 +235,11 @@ def blanes_bwd(qkv, key_mask, g, n_heads: int):
     _check_launch(qkv, key_mask, g)
     variant = "blanes_bwd" if key_mask is None else "blanes_bwd_masked"
     if regime(t, d, qkv.element_size()) == "qkv":
-        # row 4's kernels with a zero bias, counted as row 16
+        # row 4's kernels on qkv as it is (no bias; a zero bias past the
+        # resident regime), counted as row 16
         dqkv = torch.empty_like(qkv)
-        fa._bwd_call(variant, "qkv_bwd", "qkv_bwd", qkv,
-                     qkv.new_zeros(qkv.shape[-1]), key_mask, g, dqkv, n, t,
-                     n_heads, d)
+        fa._bwd_call(variant, "qkv_bwd", "qkv_bwd", qkv, None, key_mask, g,
+                     dqkv, n, t, n_heads, d)
         return dqkv
     plans = launch_plans(n, t, n_heads, d, qkv.element_size(),
                          _sms(qkv.device))["bwd"]

@@ -416,7 +416,6 @@ def fused_tail_bwd(qkv, key_mask, w1, b1, w2, b2, seed, g, n_heads: int,
     slots = attn_slots = 0
     row4 = (0,) * 6
     if plan.attn is None:  # row 4's kernel takes the attention backward
-        zero_bias = qkv.new_zeros(3 * hd)  # row 4's kernel adds a bias
         # long rows: q, k, v of the per-row kernel and row 4's operands
         # staged in global memory, one slot per block
         stage, slots = kernels.scratch("fused_tail_bwd",
@@ -426,6 +425,8 @@ def fused_tail_bwd(qkv, key_mask, w1, b1, w2, b2, seed, g, n_heads: int,
         # cores, or its tiled kernel's global slots
         attn = fa.bwd_launch_plan(n, t, n_heads, d, qkv.dtype,
                                   blockwise._sms(dev))
+        if attn.regime != "resident":  # its other kernels add a bias
+            zero_bias = qkv.new_zeros(3 * hd)
         _, attn_stats, attn_stage, attn_slots = fa.bwd_work(
             "fused_tail_bwd", "fused_tail_bwd_attn_stage_floats", attn, qkv,
             n, t, n_heads, d, biased=True)

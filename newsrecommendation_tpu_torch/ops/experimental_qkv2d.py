@@ -7,12 +7,12 @@ Replaces, in ``newsrecommendation_tpu/ops/pallas/experimental_qkv2d.py``:
     ``qkv_fwd_probs``) on the (N, T, 3HD) view, kernel "qkv2d_fwd"
     (row 11);
   - ``_bwd2d_call`` (``_bwd2d_probs_kernel``): the backward from those
-    probs -> ``csrc/qkv2d.cu``, kernel "qkv2d_bwd" (row 12).
+    probs -> row 3's launch (``csrc/qkv_bwd_probs.cu``) on the same view,
+    kernel "qkv2d_bwd" (row 12).
 On the TPU the 2-D and 3-D forms tile differently, and these kernels
 regroup the rows in VMEM. On the card a contiguous (N*T, 3HD) tensor and
-its (N, T, 3HD) view are the same bytes, so rows 11-12 run the kernels
-of rows 2-3 (row 2's entry point; ``csrc/qkv_bwd.cuh`` in ``qkv2d.cu``)
-and give their results bit for bit. The JAX package's contract stays: unmasked
+its (N, T, 3HD) view are the same bytes, so rows 11-12 are the launches
+of rows 2-3, in their plans, and give their results bit for bit. The JAX package's contract stays: unmasked
 only (a mask raises), the forward always writes probs and the backward
 always reads them, whatever ``bwd_residuals`` says, and d(bias) is the sum
 of dqkv over its rows.
@@ -76,8 +76,9 @@ def qkv2d_bwd(qkv2d, bias, probs, g, n_heads: int, t: int):
     fa._check_bwd(qkv2d.view(n, t, -1), bias, probs, g, n_heads)
     _check_launch(qkv2d, bias, probs, g)
     dqkv = torch.empty_like(qkv2d)
-    fa._bwd_call("bwd2d", "qkv2d", "qkv2d_bwd", qkv2d, bias, probs, g, dqkv,
-                 n, t, n_heads, d, rows=n * t)
+    # row 3's launch on the (N, T, 3HD) views: its regime, plan and bits
+    fa._bwd_call("bwd2d", "qkv_bwd_probs", "qkv_bwd_probs",
+                 qkv2d.view(n, t, -1), bias, probs, g, dqkv, n, t, n_heads, d)
     return dqkv
 
 

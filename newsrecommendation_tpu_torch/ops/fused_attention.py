@@ -249,14 +249,53 @@ def fwd_launch_plan(n: int, t: int, heads: int, d: int, dtype,
 _SMEM_FLOATS = kernels.MAX_SMEM // 4
 _RESIDENT_WARPS, _TILED_WARPS = 4, 8
 REGIMES = ("resident", "mma", "tiled", "tiled_global")
+# The short resident kernel (csrc/qkv_bwd.cuh qb::): T and D it takes,
+# its threads, and the blocks an SM holds by its registers
+# (__launch_bounds__, qb::blocks_per_sm): row 3's, row 4's.
+RES_SHORT_T, RES_SHORT_D = 64, 32
+RES_THREADS = 256
+RES_PER_SM = {True: 3, False: 2}
 
 
 def resident(t: int, d: int) -> bool:
-    """Whether the resident kernel holds (T, D): q, k, v, g (T x (D|1)),
-    the T x (T|1) block of a and a row per warp, in f32
-    (``csrc/qkv_bwd.cuh`` qkv_bwd_resident)."""
+    """Whether the resident regime takes (T, D): where the first design's
+    kernel holds q, k, v, g (T x (D|1)), the T x (T|1) block of a and a row
+    per warp, in f32 (``csrc/qkv_bwd.cuh`` qkv_bwd_resident); T <= 201 at
+    D = 20."""
     return (4 * t * (d | 1) + t * (t | 1) + _RESIDENT_WARPS * t
             <= _SMEM_FLOATS)
+
+
+def short_resident(t: int, d: int) -> bool:
+    """Whether the resident regime takes (T, D) on the short kernel (T <=
+    64, heads of up to 32: the news and L = 50 user encoders); its other
+    shapes keep the first design's kernel."""
+    return t <= RES_SHORT_T and d <= RES_SHORT_D
+
+
+def _odd_units(nbytes: int) -> int:
+    """16-byte units of ``nbytes``, made odd (``qb::odd_units``)."""
+    u = -(-nbytes // 16)
+    return u if u % 2 else u + 1
+
+
+def resident_smem(t: int, d: int, itemsize: int, heads: int, nbuf: int,
+                  probs: bool) -> int:
+    """Shared bytes of a short-kernel block (``qb::shape_of``): ``nbuf``
+    stage buffers of q, k, v, g rows in the input dtype (f32: each head at
+    core_dm(D) floats; bf16: one run of the item's heads), rows an odd
+    number of 16-byte units apart, row 3's probs rows (``probs``) and
+    three runs of the item's bias; bf16 the f32 rows of q, k, v, g; then
+    round(a), ds and ds^T, each (heads, T, T to 4) f32."""
+    dm = blockwise._core_width(d)
+    rsf = _odd_units(heads * dm * 4) * 4
+    rsr = rsf if itemsize == 4 else (_odd_units(heads * d * itemsize) * 16
+                                     // itemsize)
+    stage = (4 * t * rsr * itemsize
+             + (t * -(-heads * t // 4) * 4 * 4 if probs else 0)
+             + 3 * -(-heads * d * itemsize // 16) * 16)
+    work = 4 * t * rsf * 4 if itemsize == 2 else 0
+    return nbuf * stage + work + 3 * heads * t * -(-t // 4) * 4 * 4
 
 
 def _tiled_in_smem(t: int, d: int) -> bool:
@@ -266,42 +305,92 @@ def _tiled_in_smem(t: int, d: int) -> bool:
             <= _SMEM_FLOATS)
 
 
+class ResidentPlan(NamedTuple):
+    """The resident regime's launch: ``items`` work items of one batch row
+    and ``heads`` heads (the short kernel) or of one (row, head) (the
+    first design's, heads 1), ``nbuf`` stage buffers, ``blocks`` blocks of
+    ``threads`` walking the items, ``smem`` bytes each."""
+    heads: int
+    nbuf: int
+    items: int
+    blocks: int
+    threads: int
+    smem: int
+
+
+def resident_plan(n: int, t: int, heads: int, d: int, itemsize: int,
+                  sms: int, probs: bool) -> ResidentPlan:
+    """The resident regime's launch at (N, T, H, D). The short kernel: the
+    first of four heads an item (H where it is smaller), then two, then
+    one, with two stage buffers, then one, whose block leaves room for
+    RES_PER_SM[probs] blocks on an SM (three for row 3, two for row 4, as
+    their registers allow), else the first that fits a block; as many
+    blocks as the SMs hold, at most one per item. The first design's
+    kernel: a block of 128 threads per (row, head)."""
+    if not short_resident(t, d):
+        smem = 4 * (4 * t * (d | 1) + t * (t | 1) + _RESIDENT_WARPS * t)
+        return ResidentPlan(1, 1, n * heads, n * heads, 32 * _RESIDENT_WARPS,
+                            smem)
+    most = RES_PER_SM[probs]
+    fits = []
+    for g in dict.fromkeys(min(heads, x) for x in (4, 2, 1)):
+        for nbuf in (2, 1):
+            smem = resident_smem(t, d, itemsize, g, nbuf, probs)
+            if smem <= kernels.MAX_SMEM:
+                fits.append((min(most, blockwise.SM_SMEM // (smem + 1024)),
+                             g, nbuf, smem))
+    per_sm, g, nbuf, smem = next((f for f in fits if f[0] >= most), fits[0])
+    items = n * -(-heads // g)
+    return ResidentPlan(g, nbuf, items, min(items, sms * per_sm),
+                        RES_THREADS, smem)
+
+
 class BwdPlan(NamedTuple):
-    """The regime of rows 3-4 (``REGIMES``) and, on tensor cores, the
-    launches of the query side (first) and the key side
-    (``blockwise.Launch``: tile, chunk, buffers, shared bytes, grid,
-    threads)."""
+    """The regime of rows 3-4 (``REGIMES``) and its launches: on tensor
+    cores the query side (first) and the key side (``blockwise.Launch``:
+    tile, chunk, buffers, shared bytes, grid, threads); resident
+    ``ResidentPlan``."""
     regime: str
     query: blockwise.Launch | None = None
     key: blockwise.Launch | None = None
+    resident: ResidentPlan | None = None
 
     def args(self) -> tuple:
-        """The six ints the C entry points take: (tile, chunk, nbuf) of
-        the query side, then of the key side; zeros off tensor cores."""
+        """The six ints the C entry points take: resident (heads, nbuf,
+        blocks, threads, shared bytes, 0); on tensor cores (tile, chunk,
+        nbuf) of the query side, then of the key side; zeros tiled."""
+        if self.resident is not None:
+            r = self.resident
+            return (r.heads, r.nbuf, r.blocks, r.threads, r.smem, 0)
         if self.regime != "mma":
             return (0,) * 6
         return tuple(x for p in (self.query, self.key)
                      for x in (p.tile, p.chunk, p.nbuf))
 
 
+# Cached, as fwd_launch_plan is: the resident plan's search takes tens of
+# microseconds in Python, about as long as the (128, 50) kernel runs.
+@functools.lru_cache(maxsize=256)
 def bwd_launch_plan(n: int, t: int, heads: int, d: int, dtype,
                     sms: int = 132, probs: bool = False) -> BwdPlan:
     """The regime and launches of rows 3-4 (and 12, and row 14's attention
     part) at (N, T, H, D) in ``dtype``; ``probs`` for row 3 (and 12),
-    which reads the f32 probs. The resident kernel where it holds (T, D)
-    (T <= 201 at D = 20, both dtypes); past it, bf16 heads of up to 64 on
-    tensor cores, each side a block per (row, head) and tile of 128 own
-    rows (64 when that leaves fewer than two blocks per SM), the other side
-    staged in chunks (``blockwise.mma_launch``), with row 3's probs tile;
-    f32 and wider heads on the tiled CUDA-core kernel, in shared memory
-    while it fits and in one global slot per block past it. Every T and D
-    has a plan; a dtype other than float32 and bfloat16 raises
-    TypeError."""
+    which reads the f32 probs. Resident where the first design's kernel
+    holds (T, D) (T <= 201 at D = 20, both dtypes; ``resident_plan``:
+    the short kernel at T <= 64 and heads of up to 32); past it, bf16 heads
+    of up to 64 on tensor cores, each side a block per (row, head) and tile
+    of 128 own rows (64 when that leaves fewer than two blocks per SM), the
+    other side staged in chunks (``blockwise.mma_launch``), with row 3's
+    probs tile; f32 and wider heads on the tiled CUDA-core kernel, in
+    shared memory while it fits and in one global slot per block past it.
+    Every T and D has a plan; a dtype other than float32 and bfloat16
+    raises TypeError."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"dtype {dtype} not supported (float32, bfloat16)")
     itemsize = 2 if dtype == torch.bfloat16 else 4
     if resident(t, d):
-        return BwdPlan("resident")
+        return BwdPlan("resident", resident=resident_plan(
+            n, t, heads, d, itemsize, sms, probs))
     if blockwise.uses_mma(d, itemsize):
         return BwdPlan("mma", *_mma_sides(n, t, heads, d, itemsize, sms,
                                            "_probs" if probs else ""))
@@ -341,21 +430,24 @@ def bwd_work(lib: str, fn: str, plan: BwdPlan, qkv, n: int, t: int,
     return work, stats, stage, slots
 
 
-def _bwd_call(variant, lib, fn, qkv, bias, third, g, dqkv, n, t, n_heads, d,
-              rows=None):
-    """Launch row 3 (third: probs), 4 (lib "qkv_bwd"; third: the mask or
-    None) or 12 (``rows`` = N*T) in the regime of its plan."""
+def _bwd_call(variant, lib, fn, qkv, bias, third, g, dqkv, n, t, n_heads,
+              d):
+    """Launch row 3 (third: probs; also row 12, on its 3-D view), 4 (lib
+    "qkv_bwd"; third: the mask or None) in the regime of its plan. A bias
+    of None: qkv carries its bias (rows 14 and 16 past their own kernels);
+    the resident regime then adds none, the others a zero bias."""
     plan = bwd_launch_plan(n, t, n_heads, d, qkv.dtype,
                            blockwise._sms(qkv.device),
                            probs=lib != "qkv_bwd")
+    if bias is None and plan.regime != "resident":
+        bias = qkv.new_zeros(qkv.shape[-1])
     biased, stats, stage, slots = bwd_work(lib, f"{fn}_slot_floats", plan,
                                            qkv, n, t, n_heads, d)
     kernels.call(variant, kernels.entry(lib, fn, qkv.dtype), qkv.device,
-                 qkv.data_ptr(), bias.data_ptr(), kernels.ptr(third),
+                 qkv.data_ptr(), kernels.ptr(bias), kernels.ptr(third),
                  g.data_ptr(), dqkv.data_ptr(),
                  *map(kernels.ptr, (biased, stats, stage)),
-                 n if rows is None else rows, t, n_heads, d, *plan.args(),
-                 slots, regime=plan.regime)
+                 n, t, n_heads, d, *plan.args(), slots, regime=plan.regime)
 
 
 def qkv_fwd_probs(qkv, bias, key_mask, n_heads: int):

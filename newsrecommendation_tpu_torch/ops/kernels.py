@@ -47,7 +47,6 @@ _ENTRY_POINTS = {
     "qkv_bwd": {"qkv_bwd": "p" * 8 + "i" * 11},
     "flash_fwd": {"flash_fwd": "p" * 7 + "i" * 9},
     "flash_bwd": {"flash_bwd": "p" * 11 + "i" * 11},
-    "qkv2d": {"qkv2d_bwd": "p" * 8 + "i" * 11},
     "fused_tail_fwd": {"fused_tail_fwd": "p" * 9 + "i" * 11 + "uf"},
     "fused_tail_bwd": {"fused_tail_bwd": "p" * 23 + "i" * 22 + "uf"},
     "blanes": {"blanes_fwd": "p" * 3 + "i" * 8,
@@ -68,9 +67,9 @@ _SIZE_FUNCTIONS = {
                 "qkv_fwd_smem_bytes": 8},
     "qkv_bwd_probs": {"qkv_bwd_probs_slot_floats": 3},
     "qkv_bwd": {"qkv_bwd_slot_floats": 3, "qkv_bwd_regime": 3,
+                "qkv_bwd_resident_smem_bytes": 6,
                 "qkv_bwd_mma_smem_bytes": 5},
     "flash_fwd": {"flash_smem_bytes": 6, "flash_walk_task_count": 3},
-    "qkv2d": {"qkv2d_bwd_slot_floats": 3},
     "fused_tail_fwd": {"fused_tail_fwd_scratch_floats": 4,
                        "fused_tail_fwd_regime": 5,
                        "fused_tail_fwd_smem_bytes": 7},

@@ -27,6 +27,16 @@ the loops. It prints one line,
 ``MISMATCH {json}``: per case the repeats, the failing ones, the repeats
 whose bits differ from the first, the largest error of the output and of
 the projection, and the card. Exits 1 without CUDA.
+
+    python3 scripts/mismatch_repeat.py --fresh=N[:P]
+
+runs chip_smoke.unequal_run (both masks, in the smoke's order) once in
+each of N new processes, P at a time (default 4), since a failure has
+only been seen as the first run of its process: it prints
+``FRESH {json}``, the processes that failed with their diagnoses, the
+CPU reference votes that took a third run (chip_smoke.cpu_reference),
+the distinct ctx errors of those that passed, and the range of each
+diagnosis number over all of them.
 """
 
 import json
@@ -106,6 +116,75 @@ def _case(name, params, x, mask, g, heads, layout, io, reps, out_dir,
             "proj_max_err": worst_proj}
 
 
+def _child() -> dict:
+    """One process's chip_smoke.unequal_run for each mask, in order."""
+    import torch
+
+    import chip_smoke as cs
+
+    out = {}
+    for masked in (False, True):
+        try:
+            r = cs.unequal_run(masked)
+            out[str(masked)] = {"passed": True,
+                                "ctx_err": r["ctx"]["max_abs_err"],
+                                "dx_err": r["dx"]["max_abs_err"],
+                                "diagnosis": r["diagnosis"],
+                                "cpu_reference": r["cpu_reference"]}
+        except RuntimeError as e:
+            out[str(masked)] = {"passed": False, "error": str(e)}
+    out["card"] = torch.cuda.get_device_name(0)
+    return out
+
+
+def _fresh(spec: str) -> dict:
+    """--fresh=N[:P]: _child in N new processes, P at a time."""
+    import subprocess
+
+    from newsrecommendation_tpu_torch.ops import kernels
+
+    n, _, p = spec.partition(":")
+    n, p = int(n), int(p or 4)
+    kernels.build(["mhsa_sep"])  # the children load it
+    cmd = [sys.executable, os.path.abspath(__file__), "--child"]
+    runs, todo, live = [], list(range(n)), []
+    t0 = time.perf_counter()
+    while todo or live:
+        while todo and len(live) < p:
+            todo.pop()
+            live.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.PIPE, text=True))
+        proc = live.pop(0)
+        stdout, stderr = proc.communicate()
+        line = next((ln for ln in stdout.splitlines()
+                     if ln.startswith("CHILD ")), None)
+        runs.append(json.loads(line[6:]) if line else
+                    {"rc": proc.returncode, "stderr": stderr[-2000:]})
+    failed = [r for r in runs if any(
+        not r.get(m, {}).get("passed", False) for m in ("False", "True"))]
+    spans = {}
+    for r in runs:
+        for m in ("False", "True"):
+            for key, val in r.get(m, {}).get("diagnosis", {}).items():
+                if isinstance(val, (int, float)) and not isinstance(val,
+                                                                    bool):
+                    lo, hi = spans.get(f"{m}:{key}", (val, val))
+                    spans[f"{m}:{key}"] = (min(lo, val), max(hi, val))
+    votes = [r[m]["cpu_reference"] for r in runs for m in ("False", "True")
+             if r.get(m, {}).get("passed")
+             and r[m]["cpu_reference"]["runs"] > 2]
+    return {"processes": n, "parallel": p,
+            "seconds": time.perf_counter() - t0, "n_failed": len(failed),
+            "failed": failed, "cpu_votes": votes,
+            "ctx_errs": sorted({r[m]["ctx_err"] for r in runs
+                                for m in ("False", "True")
+                                if r.get(m, {}).get("passed")}),
+            "host": next((r[m]["diagnosis"]["host"] for r in runs
+                          for m in ("False", "True")
+                          if r.get(m, {}).get("passed")), None),
+            "spans": spans}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -113,6 +192,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 1
+    if "--child" in sys.argv:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print("CHILD " + json.dumps(_child()), flush=True)
+        return 0
+    fresh = next((a.partition("=")[2] for a in sys.argv[1:]
+                  if a.startswith("--fresh")), None)
+    if fresh:
+        print("FRESH " + json.dumps(_fresh(fresh)), flush=True)
+        return 0
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     poison = next((float(a.partition("=")[2] or "nan")
                    for a in sys.argv[1:] if a.startswith("--poison")), None)

@@ -7,11 +7,15 @@ change, change, parent) and compare the lines it prints.
     python3 scripts/qkv_bwd_ab.py LABEL [--limits] [--plans] [--save DIR]
 
 It prints one line, ``AB {json}``, with:
-  - rows 3 (qkv_bwd_probs) and 4 (qkv_bwd, unmasked and key-masked) at
-    (N, T) = (64, 511), (128, 300) and (7040, 20), 20 heads of 20, in
-    bf16 (and (7040, 20), (128, 50) in f32 too): a hash of each output on
-    fixed inputs, so two checkouts can be held equal bit for bit, and its
-    ms (CUDA events over 10 calls);
+  - rows 3 (qkv_bwd_probs, from the probs row 2 writes) and 4 (qkv_bwd),
+    unmasked and key-masked, at (N, T) = (64, 511), (128, 300), (7040,
+    20) and (128, 50), 20 heads of 20, in bf16 (and (7040, 20), (128, 50)
+    in f32 too), and row 12 (qkv2d_bwd) unmasked at (7040, 20) and
+    (128, 50): a hash of each output on fixed inputs, so two checkouts
+    can be held equal bit for bit, and its ms (CUDA events over 10
+    calls); at (7040, 20) and (128, 50) also the plain versions' ms and
+    scaled_dot_product_attention's backward alone (``sdpa``, the forward
+    outside the timed window) on the same q, k, v;
   - rows 1 (qkv_fwd) and 2 (qkv_fwd_probs: context and probs) at every
     shape of FWD_CASES, hashes, ms and launches per regime (empty where
     the checkout counts none), and there the count of elements of dqkv in
@@ -462,21 +466,35 @@ def main() -> int:
     kernels.build()
     out = {"label": args[0], "card": torch.cuda.get_device_name(0)}
     bf16, f32 = torch.bfloat16, torch.float32
+    from newsrecommendation_tpu_torch.ops import experimental_qkv2d as q2
+
     for n, t, dtype in [(64, 511, bf16), (128, 300, bf16), (7040, 20, bf16),
                         (7040, 20, f32), (128, 50, bf16), (128, 50, f32)]:
         name = f"{str(dtype).split('.')[1]} {n}x{t}"
+        resident = t <= 64
         for masked in (False, True):
             qkv, bias, g, mask = _inputs(n, t, dtype, masked, 5)
             _, probs = fa.qkv_fwd_probs(qkv, bias, mask, 20)
             rows = {"row4": lambda: fa.qkv_bwd(qkv, bias, mask, g, 20)}
-            if not masked:
+            if not masked or resident:
                 rows["row3"] = lambda: fa.qkv_bwd_probs(qkv, bias, probs, g,
                                                         20)
+            if not masked and resident:
+                rows["row12"] = lambda: q2.qkv2d_bwd(
+                    qkv.view(n * t, -1), bias, probs, g, 20, t)
             for row, fn in rows.items():
                 with torch.inference_mode():
                     h = _hash(fn())
                 out[f"{row} {name}{'m' if masked else ''}"] = [
                     h, cs.time_ms(fn, 10)]
+            if resident:
+                out[f"plain {name}{'m' if masked else ''}"] = {
+                    "row3": cs.time_ms(lambda: fa.qkv_bwd_probs_reference(
+                        qkv, bias, probs, g, 20), 5),
+                    "row4": cs.time_ms(lambda: fa.qkv_bwd_reference(
+                        qkv, bias, mask, g, 20), 5),
+                    "sdpa": cs.time_ms(cs.sdpa_bwd_of_qkv(qkv, bias, mask,
+                                                          g, 20), 5)}
     _rows_1_2(cs, out)
     _tail(cs, out, args[0], save)
     _tail_precision(out)

@@ -1,9 +1,9 @@
 """The CUDA kernels (csrc/qkv_fwd.cu, rows 1 and 2; csrc/qkv_bwd_probs.cu,
 row 3; csrc/qkv_bwd.cu, row 4; csrc/mhsa_sep.cu, rows 5-8;
-csrc/flash_fwd.cu and csrc/flash_bwd.cu, rows 9 and 10; csrc/qkv2d.cu,
-rows 11 and 12; csrc/fused_tail_fwd.cu and csrc/fused_tail_bwd.cu, rows 13
-and 14; csrc/blanes.cu, rows 15 and 16) against their plain PyTorch
-versions, on the card. Imports
+csrc/flash_fwd.cu and csrc/flash_bwd.cu, rows 9 and 10; rows 11 and 12 on
+rows 2 and 3's entry points; csrc/fused_tail_fwd.cu and
+csrc/fused_tail_bwd.cu, rows 13 and 14; csrc/blanes.cu, rows 15 and 16)
+against their plain PyTorch versions, on the card. Imports
 no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernel_gpu.py
@@ -2095,6 +2095,192 @@ def test_bwd_launch_plan_matches_the_kernels():
     finally:
         fa.bwd_launch_plan = real
     assert not any(fa.launch_counts("qkv_bwd").values())
+
+
+# ---- rows 3-4's resident regime: the short kernel ---------------------------
+
+# Rows 3, 4 and 12 before the short kernel (the first design's resident
+# kernel), on an H100, at 20 heads of 20 on scripts/qkv_bwd_ab.py's inputs
+# (_ab_inputs, seed 5): the hash of dqkv, by (dtype, N, T, masked). Row 3
+# reads the probs row 2 writes on the same inputs, so rows 3, 4 (and 12,
+# unmasked only) give the same bits.
+QKV_BWD_PINNED = {
+    ("bfloat16", 7040, 20, False): "0e0347ea1c129878",
+    ("bfloat16", 7040, 20, True): "165f8deda9c46b6e",
+    ("float32", 7040, 20, False): "0fb5c351d9b8de6e",
+    ("float32", 7040, 20, True): "67b6602529ca21b4",
+    ("bfloat16", 128, 50, False): "47a0aab28749665a",
+    ("bfloat16", 128, 50, True): "b9d4d35794ed9faa",
+    ("float32", 128, 50, False): "5294e39fd3c8f542",
+    ("float32", 128, 50, True): "5f821d6175671c0d",
+}
+
+
+def _ab_inputs(n, t, dtype, masked, seed=5):
+    """scripts/qkv_bwd_ab.py's inputs: qkv, bias, g and the key mask (or
+    None), 20 heads of 20, from a CUDA generator."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tdt = getattr(torch, dtype)
+    qkv = torch.randn((n, t, 1200), generator=gen, device="cuda").to(tdt)
+    bias = (0.5 * torch.randn((1200,), generator=gen, device="cuda")).to(tdt)
+    g = torch.randn((n, t, 400), generator=gen, device="cuda").to(tdt)
+    mask = None
+    if masked:
+        mask = (torch.rand((n, t), generator=gen, device="cuda") > 0.3).float()
+        mask[:, -1] = 1.0
+        mask[::7] = 0.0
+    return qkv, bias, g, mask
+
+
+@pytest.mark.parametrize("key", list(QKV_BWD_PINNED))
+def test_rows_3_4_12_keep_their_pinned_bits(key):
+    """Rows 3, 4 and 12 on the short kernel give the first design's bits
+    in both dtypes: every sum in its order, every rounding in its place.
+    Each launch in the resident regime."""
+    dtype, n, t, masked = key
+    qkv, bias, g, mask = _ab_inputs(n, t, dtype, masked)
+    _, probs = fa.qkv_fwd_probs(qkv, bias, mask, 20)
+    fa.reset_launch_counts()
+    got = {"row3": _hash(fa.qkv_bwd_probs(qkv, bias, probs, g, 20)),
+           "row4": _hash(fa.qkv_bwd(qkv, bias, mask, g, 20))}
+    if not masked:
+        got["row12"] = _hash(q2.qkv2d_bwd(qkv.view(n * t, -1), bias, probs,
+                                          g, 20, t))
+    assert got == {k: QKV_BWD_PINNED[key] for k in got}
+    for k in ("qkv_bwd_probs", "qkv_bwd", "qkv2d_bwd"):
+        assert set(fa.regime_counts(k)) <= {"resident"}
+    assert fa.bwd_launch_plan(n, t, 20, 20, getattr(torch, dtype),
+                              probs=True).resident.threads == fa.RES_THREADS
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n, t, heads, d", [
+    (9, 64, 4, 20), (9, 65, 4, 20), (11, 20, 3, 32), (11, 20, 3, 33),
+    (3, 201, 2, 20), (3, 202, 2, 20), (6, 33, 2, 32), (6, 64, 2, 33)])
+def test_rows_3_4_both_sides_of_the_resident_edges(dtype, n, t, heads, d):
+    """Both sides of each edge of the resident regime (the short kernel to
+    T = 64 and heads of 32, the first design's to T = 201 at D = 20, past
+    it tensor cores or the tiled kernel) against the plain versions, both
+    masks, each launch in its plan's regime; row 4 equal to row 3 fed row
+    2's probs wherever both keep one order (row 2 resident, row 4 not on
+    tensor cores)."""
+    qkv, bias, mask = _inputs(n, t, heads, d, dtype, seed=41)
+    g = _grad(n, t, heads * d, dtype, 42)
+    tdt = getattr(torch, dtype)
+    for km in (None, mask):
+        _, probs = fa.qkv_fwd_probs(qkv, bias, km, heads)
+        fa.reset_launch_counts()
+        row3 = fa.qkv_bwd_probs(qkv, bias, probs, g, heads)
+        row4 = fa.qkv_bwd(qkv, bias, km, g, heads)
+        ref = fa.qkv_bwd_probs_reference(qkv, bias, probs, g, heads)
+        torch.cuda.synchronize()
+        for got in (row3, row4):
+            np.testing.assert_allclose(got.float().cpu().numpy(),
+                                       ref.float().cpu().numpy(),
+                                       **BWD_TOL[dtype])
+        for k, probs_plan in (("qkv_bwd_probs", True), ("qkv_bwd", False)):
+            want = fa.bwd_launch_plan(n, t, heads, d, tdt,
+                                      probs=probs_plan).regime
+            assert fa.regime_counts(k) == {want: 1}
+        if (fa.fwd_launch_plan(n, t, heads, d, tdt).regime == "resident"
+                and fa.bwd_launch_plan(n, t, heads, d, tdt).regime
+                != "mma"):
+            assert torch.equal(row3, row4)
+        if km is not None:
+            assert (row4[::3] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n, t, heads, d", [
+    (9, 20, 5, 8), (9, 20, 3, 20), (6, 20, 3, 33), (4, 20, 2, 64),
+    (7, 13, 3, 5), (5, 17, 7, 7), (3, 31, 1, 3), (4, 50, 5, 9)])
+def test_rows_3_4_at_every_head_width_and_odd_strides(dtype, n, t, heads, d):
+    """Rows 3 and 4 at heads of 8, 20, 33 and 64 lanes and at odd widths
+    (bf16 rows of an odd count of elements: element copies, no 8-byte
+    loads, the pads zero), against the plain versions; row 4 equal to row
+    3 there (both resident)."""
+    qkv, bias, mask = _inputs(n, t, heads, d, dtype, seed=43)
+    g = _grad(n, t, heads * d, dtype, 44)
+    for km in (None, mask):
+        _, probs = fa.qkv_fwd_probs(qkv, bias, km, heads)
+        row3 = fa.qkv_bwd_probs(qkv, bias, probs, g, heads)
+        row4 = fa.qkv_bwd(qkv, bias, km, g, heads)
+        ref = fa.qkv_bwd_probs_reference(qkv, bias, probs, g, heads)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(row3.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(),
+                                   **BWD_TOL[dtype])
+        assert torch.equal(row3, row4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t, d", [(20, 20), (50, 20), (90, 20), (20, 80)])
+def test_resident_regime_takes_a_null_bias(dtype, t, d):
+    """A null bias (qkv carrying it, rows 14 and 16 past their own
+    kernels) gives row 4's dqkv on the biased qkv bit for bit, on the
+    short kernel and on the first design's; other regimes refuse it."""
+    n, heads = 6, 3
+    qkv, bias, mask = _inputs(n, t, heads, d, dtype, seed=45)
+    g = _grad(n, t, heads * d, dtype, 46)
+    biased = qkv + bias
+    want = fa.qkv_bwd(biased, torch.zeros_like(bias), mask, g, heads)
+    got = torch.empty_like(qkv)
+    fa._bwd_call("bwd_masked", "qkv_bwd", "qkv_bwd", biased, None, mask, g,
+                 got, n, t, heads, d)
+    assert torch.equal(got, want)
+    plan = fa.bwd_launch_plan(2, 300, 1, 20, torch.bfloat16)
+    x = torch.zeros((2, 300, 60), device="cuda", dtype=torch.bfloat16)
+    fn = kernels.entry("qkv_bwd", "qkv_bwd", torch.bfloat16)
+    stats = torch.empty((3, 2, 300), device="cuda")
+    err = fn(x.data_ptr(), None, None, x.data_ptr(), x.data_ptr(),
+             x.data_ptr(), stats.data_ptr(), None, 2, 300, 1, 20,
+             *plan.args(), 0, torch.cuda.current_stream().cuda_stream)
+    assert plan.regime == "mma" and err != 0
+
+
+def test_resident_plan_matches_the_kernels():
+    """The short kernel's shared bytes in Python (resident_smem) equal the C
+    side's (qkv_bwd_resident_smem_bytes), which is 0 past the short
+    shapes; a plan the C side does not take (shared bytes, heads, buffers
+    or threads not its own; the first design's plan not one block of 128
+    threads per (row, head)) raises in the wrapper and counts nothing."""
+    for t in (1, 5, 20, 33, 50, 64, 65):
+        for d in (1, 4, 5, 8, 17, 20, 24, 32, 33):
+            for esize in (2, 4):
+                for heads in (1, 2, 3, 4):
+                    for nbuf in (1, 2):
+                        for probs in (False, True):
+                            c = kernels.size_of(
+                                "qkv_bwd", "qkv_bwd_resident_smem_bytes", t,
+                                d, esize, heads, nbuf, int(probs))
+                            assert c == (fa.resident_smem(
+                                t, d, esize, heads, nbuf, probs)
+                                if fa.short_resident(t, d) else 0)
+    qkv, bias, mask = _inputs(4, 20, 20, 20, "float32")
+    g = _grad(4, 20, 400, "float32", 47)
+    good = fa.bwd_launch_plan(4, 20, 20, 20, torch.float32)
+    first = fa.bwd_launch_plan(4, 90, 20, 20, torch.float32)
+    q90, b90, m90 = _inputs(4, 90, 20, 20, "float32")
+    g90 = _grad(4, 90, 400, "float32", 48)
+    r, f = good.resident, first.resident
+    bad = [(good, r._replace(smem=r.smem + 16), qkv, bias, mask, g),
+           (good, r._replace(heads=0), qkv, bias, mask, g),
+           (good, r._replace(heads=9), qkv, bias, mask, g),
+           (good, r._replace(nbuf=3), qkv, bias, mask, g),
+           (good, r._replace(threads=128), qkv, bias, mask, g),
+           (first, f._replace(heads=2), q90, b90, m90, g90),
+           (first, f._replace(blocks=f.blocks - 1), q90, b90, m90, g90),
+           (first, f._replace(threads=256), q90, b90, m90, g90)]
+    real = fa.bwd_launch_plan
+    for plan, res, x, b, m, gg in bad:
+        fa.reset_launch_counts()
+        fa.bwd_launch_plan = lambda *a, _p=plan._replace(resident=res), **k: _p
+        try:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                fa.qkv_bwd(x, b, m, gg, 20)
+        finally:
+            fa.bwd_launch_plan = real
+        assert not any(fa.launch_counts("qkv_bwd").values())
 
 
 # ---- the command-line path on the card: checkpoints, eval, /reload -------

@@ -17,6 +17,7 @@ import torch
 from newsrecommendation_tpu.ops.pallas import fused_attention as jfa
 from newsrecommendation_tpu.ops.pallas import set_fused_tail, set_pallas_mode
 from newsrecommendation_tpu_torch.ops import blockwise as bw
+from newsrecommendation_tpu_torch.ops import experimental_qkv2d as q2
 from newsrecommendation_tpu_torch.ops import fused_attention as fa
 from newsrecommendation_tpu_torch.ops import kernels
 
@@ -311,3 +312,223 @@ def test_smoke_expects_each_encoders_regime(overrides, want):
 
     cfg = Config(compute_dtype="bfloat16").replace(**overrides)
     assert chip_smoke.expected_regimes(12, cfg) == want
+
+
+# ---- the resident regime's plan (csrc/qkv_bwd.cuh, namespace qb) ------------
+
+F32, BF16 = torch.float32, torch.bfloat16
+# Every shape the smoke and the card tests give the short kernel, and some
+# it must take: (N, T, H, D).
+SHORT_SHAPES = [(7040, 20, 20, 20), (128, 50, 20, 20), (1024, 20, 20, 20),
+                (64, 50, 20, 20), (7, 5, 3, 4), (6, 40, 3, 5), (4, 17, 5, 8),
+                (5, 64, 4, 20), (3, 33, 2, 32), (2, 64, 2, 32), (9, 31, 6, 24),
+                (300, 20, 7, 20), (1, 1, 1, 1), (64, 20, 4, 8)]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("probs", [False, True])
+def test_resident_plan_fits_a_block_at_every_shape(dtype, probs):
+    """Every (T, D) of the resident regime (T up to 201 at D = 20, heads up
+    to 64 at T = 20) has a plan within a block's 232,448 bytes: the short
+    kernel's (T <= 64, D <= 32; 256 threads, its layout's bytes) or the
+    first design's (one block of 128 threads per (row, head))."""
+    itemsize = 2 if dtype == BF16 else 4
+    shapes = [(t, 20) for t in range(1, 202)]
+    shapes += [(t, d) for t in (1, 7, 20, 32, 33, 50, 64, 65)
+               for d in range(1, 65)]
+    for t, d in shapes:
+        plan = fa.bwd_launch_plan(16, t, 20, d, dtype, SMS, probs=probs)
+        assert plan.regime == "resident", (t, d)
+        r = plan.resident
+        assert r.smem <= kernels.MAX_SMEM == 232448
+        if fa.short_resident(t, d):
+            assert r.threads == fa.RES_THREADS == 256
+            assert r.smem == fa.resident_smem(t, d, itemsize, r.heads,
+                                              r.nbuf, probs)
+        else:
+            assert (r.heads, r.nbuf, r.threads) == (1, 1, 128)
+            assert r.items == r.blocks == 16 * 20
+        assert plan.args() == (r.heads, r.nbuf, r.blocks, r.threads, r.smem,
+                               0)
+
+
+@pytest.mark.parametrize("n, t, heads, d", SHORT_SHAPES)
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_resident_items_cover_every_row_and_head_once(n, t, heads, d, dtype):
+    """The short kernel's items (batch row n, heads h0 .. h0 + gn - 1 of
+    group item % groups) cover each (row, head) exactly once, and the grid's
+    walk (block b takes items b, b + blocks, ...) each item exactly once."""
+    for probs in (False, True):
+        r = fa.bwd_launch_plan(n, t, heads, d, dtype, SMS,
+                               probs=probs).resident
+        groups = -(-heads // r.heads)
+        assert r.items == n * groups and 1 <= r.heads <= min(4, heads)
+        seen = np.zeros((n, heads), dtype=int)
+        for item in range(r.items):
+            row, grp = divmod(item, groups)
+            h0 = grp * r.heads
+            seen[row, h0:h0 + min(r.heads, heads - h0)] += 1
+        assert (seen == 1).all()
+        walked = sorted(i for b in range(r.blocks)
+                        for i in range(b, r.items, r.blocks))
+        assert walked == list(range(r.items))
+
+
+def _batches(gn, t, warp, rb, warps=8):
+    """qb::for_batches: warp ``warp``'s batches (head, first row, rows)."""
+    rows = gn * t
+    lo, hi = warp * rows // warps, (warp + 1) * rows // warps
+    out = []
+    while lo < hi:
+        h, i = divmod(lo, t)
+        k = min(rb, hi - lo, t - i)
+        out.append((h, i, k))
+        lo += k
+    return out
+
+
+@pytest.mark.parametrize("t", [1, 5, 17, 20, 32, 33, 50, 64])
+@pytest.mark.parametrize("gn", [1, 2, 3, 4])
+def test_resident_phases_cover_every_row_and_output_once(t, gn):
+    """Inside an item of gn heads: phase A's batches (at most 5 rows of one
+    head where a lane holds one key, 3 where it holds two) take each (head,
+    row) once, every warp within one row of an even share; phase B's
+    tasks (product, head, four rows, four lanes) take each output once."""
+    rb = 5 if t <= 32 else 3
+    seen = np.zeros((gn, t), dtype=int)
+    shares = []
+    for warp in range(8):
+        batches = _batches(gn, t, warp, rb)
+        shares.append(sum(k for _, _, k in batches))
+        for h, i, k in batches:
+            assert 1 <= k <= rb and i + k <= t
+            seen[h, i:i + k] += 1
+    assert (seen == 1).all()
+    assert max(shares) - min(shares) <= 1
+    for d in (1, 4, 5, 20, 32):
+        nrt, ndt = -(-t // 4), -(-d // 4)
+        per_head = nrt * ndt
+        per_prod = gn * per_head
+        out = np.zeros((3, gn, t, d), dtype=int)
+        for task in range(3 * per_prod):
+            prod, rest = divmod(task, per_prod)
+            hl, rest = divmod(rest, per_head)
+            rt, dt = divmod(rest, ndt)
+            out[prod, hl, 4 * rt:4 * rt + 4, 4 * dt:4 * dt + 4] += 1
+        assert (out == 1).all()
+
+
+@pytest.mark.parametrize("n, t", [(7040, 20), (128, 50)])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_resident_plan_fills_the_card(n, t, dtype):
+    """At the news encoder's (7040, 20) and the L = 50 user encoder's
+    (128, 50) the short kernel puts on every SM the blocks its registers
+    allow (RES_PER_SM: three for row 3, two for row 4), each block's shared
+    bytes leaving room for them."""
+    for probs, per_sm in ((True, 3), (False, 2)):
+        r = fa.bwd_launch_plan(n, t, 20, 20, dtype, SMS, probs=probs).resident
+        assert fa.RES_PER_SM[probs] == per_sm
+        assert r.blocks == min(r.items, SMS * per_sm) == SMS * per_sm
+        assert per_sm * (r.smem + 1024) <= bw.SM_SMEM
+
+
+@pytest.mark.parametrize("t, d, kind", [
+    (64, 20, "short"), (65, 20, "first"), (20, 32, "short"),
+    (20, 33, "first"), (201, 20, "first"), (202, 20, None),
+    (64, 32, "short"), (64, 33, "first")])
+def test_resident_regime_edges(t, d, kind):
+    """The short kernel takes T <= 64 at heads of up to 32, the first
+    design the rest of the resident range (T <= 201 at D = 20); past it
+    another regime, in both dtypes."""
+    for dtype in (F32, BF16):
+        plan = fa.bwd_launch_plan(8, t, 4, d, dtype, SMS)
+        if kind is None:
+            assert plan.regime != "resident" and plan.resident is None
+            continue
+        assert plan.regime == "resident"
+        assert fa.short_resident(t, d) == (kind == "short")
+        assert plan.resident.threads == (256 if kind == "short" else 128)
+
+
+@pytest.mark.parametrize("t, d, dtype", [
+    (20, 20, BF16), (50, 20, F32), (65, 20, BF16), (300, 20, BF16),
+    (300, 20, F32)])
+def test_rows_3_4_12_hand_the_c_side_the_plan(fake_args, t, d, dtype):
+    """Rows 3, 4 (both masks) and 12 (on row 3's entry point, its (N, T,
+    3HD) view) hand the C entry points qkv, the bias, probs or the mask,
+    g, dqkv, the scratch of the regime, the shape and the plan's six ints,
+    then the slots; each counts under its variant and the plan's regime."""
+    n, heads = 3, 5
+    hd = heads * d
+    qkv = torch.zeros((n, t, 3 * hd), dtype=dtype)
+    bias = torch.zeros(3 * hd, dtype=dtype)
+    g = torch.zeros((n, t, hd), dtype=dtype)
+    probs = torch.zeros((n, t, heads * t))
+    mask = torch.ones((n, t))
+    fa.qkv_bwd_probs(qkv, bias, probs, g, heads)
+    fa.qkv_bwd(qkv, bias, None, g, heads)
+    fa.qkv_bwd(qkv, bias, mask, g, heads)
+    q2.qkv2d_bwd(qkv.view(n * t, -1), bias, probs, g, heads, t)
+    plans = [fa.bwd_launch_plan(n, t, heads, d, dtype, SMS, probs=p)
+             for p in (True, False, False, True)]
+    for (lib, fn, args), plan, third in zip(fake_args, plans,
+                                            (probs, None, mask, probs)):
+        assert (lib, fn) == (("qkv_bwd", "qkv_bwd") if third is not probs
+                             else ("qkv_bwd_probs", "qkv_bwd_probs"))
+        assert args[:5] == (qkv.data_ptr(), bias.data_ptr(),
+                            kernels.ptr(third), g.data_ptr(), args[4])
+        assert (args[5] is not None) == (plan.regime == "mma")  # biased
+        assert (args[6] is not None) == (plan.regime == "mma")  # stats
+        assert args[8:12] == (n, t, heads, d)
+        assert args[12:18] == plan.args()
+    regime = plans[0].regime
+    assert kernels.launch_counts("qkv_bwd_probs") == {"bwd_probs": 1}
+    assert kernels.launch_counts("qkv_bwd") == {"bwd": 1, "bwd_masked": 1}
+    assert kernels.launch_counts("qkv2d_bwd") == {"bwd2d": 1}
+    for k, count in (("qkv_bwd_probs", 1), ("qkv_bwd", 2), ("qkv2d_bwd", 1)):
+        assert kernels.regime_counts(k) == {regime: count}
+
+
+@pytest.mark.parametrize("t, d, dtype, regime", [
+    (20, 20, F32, "resident"), (20, 80, BF16, "resident"),
+    (300, 20, BF16, "mma"), (300, 20, F32, "tiled")])
+def test_no_bias_takes_no_zeros_in_the_resident_regime(fake_args, t, d,
+                                                       dtype, regime):
+    """A launch on qkv that carries its bias (rows 14 and 16 past their own
+    kernels) hands a null bias to the resident regime, whose kernels add
+    none, and a zero bias (3HD zeros) to the others."""
+    n, heads = 2, 3
+    hd = heads * d
+    qkv = torch.zeros((n, t, 3 * hd), dtype=dtype)
+    g = torch.zeros((n, t, hd), dtype=dtype)
+    fa._bwd_call("bwd", "qkv_bwd", "qkv_bwd", qkv, None, None, g,
+                 torch.empty_like(qkv), n, t, heads, d)
+    ((_, _, args),) = fake_args
+    assert fa.bwd_launch_plan(n, t, heads, d, dtype, SMS).regime == regime
+    assert (args[1] is None) == (regime == "resident")
+    assert kernels.regime_counts("qkv_bwd") == {regime: 1}
+
+
+@pytest.fixture
+def fake_args(monkeypatch):
+    """kernels.call without a card, each entry point recording (source,
+    entry, arguments) and returning 0; a global scratch of one slot."""
+    import contextlib
+    import types
+
+    calls = []
+    monkeypatch.setattr(kernels, "check_operands", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(
+        kernels, "entry",
+        lambda lib, fn, dtype: (lambda *args: calls.append((lib, fn, args))
+                                or 0))
+    monkeypatch.setattr(kernels, "scratch",
+                        lambda *a: (torch.zeros((1, 1)), 1))
+    monkeypatch.setattr(bw, "_sms", lambda device: SMS)
+    kernels.reset_launch_counts()
+    yield calls
+    kernels.reset_launch_counts()

@@ -17,6 +17,7 @@ from newsrecommendation_tpu_torch.ops import experimental_blanes as bl
 from newsrecommendation_tpu_torch.ops import (
     experimental_fused_encoder as fe,
 )
+from newsrecommendation_tpu_torch.ops import fused_attention as fa
 from newsrecommendation_tpu_torch.ops import kernels
 from tests.test_torch_mhsa_sep_plan import fake_launch  # noqa: F401
 
@@ -180,8 +181,9 @@ def test_wrappers_launch_the_plan_and_count_its_regime(fake_launch,
     resident plan (zeros past it); row 13 a global scratch only in the
     global regime; row 14,
     resident in bf16, row 16's plan and no zero bias, no stage and no row 4
-    plan; in f32 and past it, row 4's zero bias and plan. Each launch
-    counts under its variant and its regime."""
+    plan; in f32 and past it, row 4's plan, and a zero bias only where
+    row 4's regime is not "resident" (whose kernels take no bias). Each
+    launch counts under its variant and its regime."""
     monkeypatch.setattr(fe, "_n_splits", lambda *a: 3)
     n, heads, d, q = 2, 2, 4, 5
     hd = heads * d
@@ -212,9 +214,10 @@ def test_wrappers_launch_the_plan_and_count_its_regime(fake_launch,
         assert ints[14:18] == bwd.args()
         assert ints[18:21] == bwd.attn_args()
         row16 = regime == "resident" and dtype == BF16
-        assert (args[9] is None) == row16  # the zero bias of row 4
-        assert (ints[8:14] == (0,) * 6) == (regime == "resident"
-                                            or dtype == F32)
+        row4 = fa.bwd_launch_plan(n, t, heads, d, dtype, SMS)
+        # the zero bias of row 4
+        assert (args[9] is None) == (row16 or row4.regime == "resident")
+        assert ints[8:14] == ((0,) * 6 if row16 else row4.args())
         assert (ints[18:21] != (0, 0, 0)) == row16
     assert kernels.launch_counts("fused_tail_fwd") == {"tail": 1,
                                                        "tail_masked": 1}
