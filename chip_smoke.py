@@ -78,7 +78,7 @@ Phases, each printing one line with its elapsed seconds:
   kernel-fused-tail  rows 13-14 (the fused encoder tail) vs their plain
            versions at TAIL_SHAPES: 7040 x 20 and 128 x 50 (masked and
            not), 1024 x 20 in f32, 128 x 64 (the resident regime's
-           longest row) and 128 x 65 (the per-row kernels), masked, f32
+           longest row) and 128 x 65 (the tiled regime), masked, f32
            and bf16, dropout off and 0.2; each launch in its plan's regime;
            the pooling gradients held to a share of their largest element
            and equal bit for bit over two runs; the count of elements of
@@ -87,9 +87,15 @@ Phases, each printing one line with its elapsed seconds:
            index, dropout scale left out, alpha without the key mask, and
            in bf16 dw1 from the rounded ctx and d_z unrounded before w1^T)
   kernel-fused-tail-long  rows 13-14, masked, at 128 x 87, 128 x 512 (with
-           dropout) and 32 x 1000, f32 and bf16: rows past what shared
-           memory holds, kept in a global scratch; also the control of a
-           scratch slot shared between two rows
+           dropout), 32 x 1000 and 64 x 512 (serving: f32, dropout off),
+           f32 and bf16, in the tiled regime: a row's work spread over
+           blocks, its context in a global scratch; also the control of a
+           scratch shared between two rows, and in bf16 those of
+           kernel-fused-tail (d_z unrounded before w1^T held where row 4
+           does not run on tensor cores); a "[tail-long]" line per case
+           with its regimes, its counts of differing out and dqkv
+           elements, and each row's ms beside its plain version's and its
+           bound
   kernel-sep  rows 5-8 (separate q, k, v; 7-8 with the key mask) vs their
            plain versions at 7040 x 20 with d_v = 20 and d_v = 32, and at
            128 x 300 and 64 x 511 with d_v = 32, f32 and bf16, on q, k, v
@@ -334,17 +340,20 @@ MID_STEPS = 12  # train steps at MID_L
 # A long user history: flash_min_seq keys, so MHSA takes rows 9-10.
 LONG_L = 512
 LONG_STEPS = 12  # train steps at LONG_L
-# Rows 13-14 past the row the kernels keep in shared memory (T <= 86 / 85
-# at the NRMS width), masked: (N, T, dropout, dtypes) one position past
-# it, the user encoder at LONG_L, and the flash cases' 1000 (past row 4's
+# Rows 13-14 past the resident regime, in the tiled one (the per-row
+# kernels once kept a row in shared memory up to T = 86 / 85 at the NRMS
+# width), masked: (N, T, dropout, dtypes) one position past that, the
+# user encoder at LONG_L in training, the flash cases' 1000 (past row 4's
 # 599, so row 14's attention part stages its operands in global memory
-# too). At 1000, 32 rows lie within one block of the planted per-block
-# keep mask, so dropout is off; and in bf16 the pooled output of 1000
-# positions moves by less than the 2^-8 atol when alpha loses the key
-# mask, so only f32 there.
+# too; the tiled attention's sub-tile of 16 queries), and the served user
+# encoder at LONG_L (64 users, f32, dropout off). At 1000, 32 rows lie
+# within one block of the planted per-block keep mask, so dropout is off;
+# and in bf16 the pooled output of 1000 positions moves by less than the
+# 2^-8 atol when alpha loses the key mask, so only f32 there.
 TAIL_LONG = ((128, 87, True, ("float32", "bfloat16")),
              (128, LONG_L, True, ("float32", "bfloat16")),
-             (32, 1000, False, ("float32",)))
+             (32, 1000, False, ("float32",)),
+             (64, LONG_L, False, ("float32",)))
 FUSED_LONG_STEPS = 6  # train steps with the fused tail at LONG_L
 # train steps of the headline step in f32 with bwd_residuals "recompute":
 # row 4's f32 launches on its main path
@@ -1219,10 +1228,14 @@ def tail_kernel_case(fe, masked, n, t, heads, d, q, dtype, dropout, seed):
                              or grads[0][::7].abs().max().item() != 0.0):
         fail(f"{where}: fully masked rows have out or dqkv not 0")
     caught = {}
-    long_rows = fe.kernels.size_of("fused_tail_fwd",
-                                   "fused_tail_fwd_scratch_floats", t, heads,
-                                   d, q) > 0
+    # the context lives in a global scratch: plant a slot shared by two rows
+    long_rows = want["fwd"].keys() & {"tiled", "global"} != set()
     case["long_rows"] = long_rows
+    # row 4 on tensor cores (bf16 past T = 201 at D = 20) sums dqkv in
+    # another order than the plain version, which leaves a count of sub-ulp
+    # dqkv elements like the d_z fault's; everywhere else that fault is held
+    row4 = fe.fa.bwd_launch_plan(n, t, heads, d, tdt).regime
+    case["row4_regime"] = row4
     for name, attrs in tail_faults(fe, dropout, masked, long_rows).items():
         with mock.patch.multiple(fe, **attrs):
             caught[name] = n_outside(out, fe.fused_tail_fwd_reference(*args),
@@ -1242,15 +1255,13 @@ def tail_kernel_case(fe, masked, n, t, heads, d, q, dtype, dropout, seed):
                 d_z, w1.float().t())):
             fault = fe.fused_tail_bwd_reference(*bargs)[0]
         name = "d_z not rounded before w1^T (differing elements)"
-        if not long_rows:
+        if row4 != "mma":
             caught[name] = rounding_fault(grads[0], fault,
                                           case["dqkv"]["n_differ"], b_rtol,
                                           b_atol)
         else:
-            # long rows round d_z in the same code as the rows above, which
-            # hold this fault; here its count is recorded, not held: the
-            # kernel and its plain version already differ in a similar count
-            # of sub-ulp dqkv elements
+            # the same rounding code as the shorter tiled rows, which hold
+            # this fault: here its count is recorded, not held
             case["d_z_fault_differ"] = [n_differ(grads[0], fault),
                                         case["dqkv"]["n_differ"]]
     check_caught(where, caught)
@@ -3685,7 +3696,7 @@ def kernel_phases(fa, bw, bl, fe, q2) -> dict:
                 print("  kernel-fused-tail " + json.dumps(c), flush=True)
     phase("kernel-fused-tail", t, cases=len(tail_cases))
 
-    # ---- kernel rows 13-14 past the rows shared memory holds ----------------
+    # ---- kernel rows 13-14 past the resident regime ------------------------
     t = time.perf_counter()
     tail_long_cases = []
     for i, (n, tl, dropout, dtypes) in enumerate(TAIL_LONG):
@@ -3694,6 +3705,12 @@ def kernel_phases(fa, bw, bl, fe, q2) -> dict:
                                  dropout, seed=10 + i)
             tail_long_cases.append(c)
             print("  kernel-fused-tail-long " + json.dumps(c), flush=True)
+            print("  [tail-long] " + json.dumps({
+                "shape": [n, tl], "dtype": dtype, "dropout": c["dropout"],
+                "regimes": c["regimes"],
+                "n_differ": {k: c[k]["n_differ"] for k in ("out", "dqkv")},
+                **{f"{k}_{x}": c[k][x] for k in ("fwd", "bwd")
+                   for x in ("ms", "plain_ms", "bound_ms")}}), flush=True)
     phase("kernel-fused-tail-long", t, cases=len(tail_long_cases))
 
     # ---- kernel rows 5-8 vs plain -------------------------------------------

@@ -1,7 +1,7 @@
 // The fused NRMS encoder tail, shared by its forward (fused_tail_fwd.cu,
 // row 13) and backward (fused_tail_bwd.cu, row 14): exp-MHSA over a biased
 // fused [q|k|v] row -> dropout -> additive attention pooling, with the
-// row's f32 context kept in shared memory.
+// row's f32 context kept in shared memory in the resident regime.
 //
 // Contract (the TPU kernels' of newsrecommendation_tpu/ops/pallas/
 // experimental_fused_encoder.py, _fwd_kernel / _bwd_kernel):
@@ -28,29 +28,35 @@
 //   resident (T <= 64, heads of up to 64): items of batch rows walked as
 //     row 15's sub-items, its attention pass reused; fc1 in k order on
 //     CUDA cores, the backward's d_z w1^T on tensor cores in bf16. The
-//     last section of this file.
-//   shared, global (past it): one block per row, below. The heads run one
-//     after another, each head's q, k, v staged in shared memory (odd row
-//     stride) and one warp per query; the row's f32 context (T x HD), the
-//     pooling's e (T x Q) and the scores stay in shared memory. The
+//     section "the resident regime" below.
+//   tiled (past it while a head's K, V and 16 queries' probs fit a block:
+//     T up to 1024 at D = 20): the work of a row spread over many blocks,
+//     each phase its own launch with the f32 context, the scores and the
+//     pooling's row vectors in global scratch. The last section of this
+//     file.
+//   global (heads wider than 64, or rows longer than the tiled regime
+//     takes): one block per row, below. The heads run one after another,
+//     each head's q, k, v staged (odd row stride) and one warp per query,
+//     into the row's f32 context (T x HD) and the pooling's e (T x Q). The
 //     pooling's products with w1 (T x HD by HD x Q, and the backward's
 //     d_z w1^T) run as register tiles of 4 x 4 f32 FMAs per thread on the
 //     CUDA cores, w1 read from global memory (L2/L1 resident: 160 KB in
-//     bf16). A row needs (T*HD + T*Q + 3*T*(D|1) + ...) * 4 bytes of shared
-//     memory: at H = D = 20, Q = 200 that fits up to T = 86 in the forward
-//     and T = 85 in the backward.
+//     bf16).
 //
-// Longer rows (the user encoder over a long history) run the same phases
-// with the big buffers in global memory: the forward keeps ctx, e and the
-// staged q, k, v in a per-slot scratch of T*(HD + Q + 3*(D|1)) floats, the
-// backward keeps ctx and d_z in the scratch it writes anyway for dw1 and
-// q, k, v in a per-slot scratch of 3*T*(D|1) floats. A grid of `slots`
-// blocks walks the rows, so the scratch is bounded by the slots, not by N.
-// The row buffers and the small vectors stay in shared memory up to
-// T = 6456 in the forward and 5771 in the backward at those widths; past
-// that they move into the slot too (the *_small_global functions), so any
-// T runs. Which variant runs is decided before the launch (the *_global
-// functions below); the wrapper allocates the scratch.
+// The big buffers of the global regime live in global memory: the forward
+// keeps ctx, e and the staged q, k, v in a per-slot scratch of
+// T*(HD + Q + 3*(D|1)) floats, the backward keeps ctx and d_z in the
+// scratch it writes anyway for dw1 and q, k, v in a per-slot scratch of
+// 3*T*(D|1) floats. A grid of `slots` blocks walks the rows, so the
+// scratch is bounded by the slots, not by N. The row buffers and the small
+// vectors stay in shared memory up to T = 6456 in the forward and 5771 in
+// the backward at those widths; past that they move into the slot too
+// (the *_small_global functions), so any T runs. The wrapper allocates the
+// scratch.
+//
+// Every regime computes each element with the per-row kernels' arithmetic
+// (the same f32 FMA chains, in the same order, rounded at the same
+// points), so the tiled regime gives their bits in both dtypes.
 #pragma once
 
 #include "blanes_resident.cuh"  // row 15's resident design, row 16's kernel
@@ -266,14 +272,6 @@ __host__ __device__ inline size_t tail_fwd_small_floats(int t_len,
   return (size_t)(warps + 1) * t_len;
 }
 
-// whether the forward keeps its big buffers in global memory
-inline bool tail_fwd_global(int t_len, int n_heads, int d_head, int q_dim,
-                            int warps) {
-  return tail_big_floats(t_len, n_heads, d_head, q_dim) +
-             tail_fwd_small_floats(t_len, warps) >
-         (size_t)kMaxSmemFloats;
-}
-
 // The backward's per-row block: big buffers as the forward's (ctx, e then
 // d_z, the q/k/v of a head); small ones one row per warp, alpha, d_alpha,
 // g and 1 - sum(alpha).
@@ -282,13 +280,6 @@ __host__ __device__ inline size_t tail_bwd_small_floats(int t_len,
                                                         int d_head,
                                                         int warps) {
   return (size_t)(warps + 2) * t_len + (size_t)n_heads * d_head + 1;
-}
-
-inline bool tail_bwd_global(int t_len, int n_heads, int d_head, int q_dim,
-                            int warps) {
-  return tail_big_floats(t_len, n_heads, d_head, q_dim) +
-             tail_bwd_small_floats(t_len, n_heads, d_head, warps) >
-         (size_t)kMaxSmemFloats;
 }
 
 // Past these (T > 6456 in the forward, T > 5771 in the backward at the
@@ -327,7 +318,7 @@ inline bool tail_bwd_small_global(int t_len, int n_heads, int d_head,
 // f32 in the backward, e then d_z), ctx (T rows, cs floats a row), then
 // alpha (T) and, in the backward, d_alpha (T), g (HD) and 1 - sum(alpha).
 
-enum TailRegime { kTailResident = 0, kTailShared = 1, kTailGlobal = 2 };
+enum TailRegime { kTailResident = 0, kTailGlobal = 1, kTailTiled = 2 };
 
 // Row strides of ctx and e: whole 32-element rows, then 16 more, so the
 // fragments' 16-byte loads of two rows (16 mod 32 words apart) hit every
@@ -368,20 +359,76 @@ inline TailRes tail_res(int bwd, int t_len, int n_heads, int d_head,
   return r;
 }
 
+// The tiled regime's layout (its kernels: the last section of this file).
+// An attention block takes one (row, head): that head's K^T (D rows of
+// ks floats, keys zero-padded to kw, a whole number of 64-key blocks) and
+// V (t4 rows of vs floats, T rounded up to 4) stay in shared memory while
+// the row's queries go by in sub-tiles of m, each with its Q^T (D rows of
+// m), its scores then probs (m rows of ps floats, ps 4 mod 32 so that the
+// PV loads of eight rows hit 32 banks) and its rows' maxima per 64-key
+// block. m is 64, 32 or 16: the largest that fits.
+// 32 warps: at m = 64 one score tile and two rows of probs each
+constexpr int kTileThreads = 1024;
+constexpr int kTileWarps = kTileThreads / 32;
+constexpr int kTileMaxHead = 64;
+// positions of a pooling block: at H*D = 400, Q = 200 fc1's 4 x 4 tiles
+// over 40 rows are 500, two rounds of a block's 256 threads
+constexpr int kPoolRows = 40;
+constexpr int kOutCols = 128;   // pooled columns of an output block
+constexpr int kPvRows = 2;      // queries of a thread's p V tile, 32 apart
+
+struct TileLay {
+  int m, t4, kw, ks, vs, ps;
+  size_t v_off, q_off, p_off, x_off, bytes;  // floats from the start; bytes
+};
+
+__host__ __device__ inline TileLay tile_lay(int t_len, int d_head, int m) {
+  TileLay l;
+  l.m = m;
+  l.t4 = (t_len + 3) / 4 * 4;
+  l.kw = (l.t4 + 63) / 64 * 64;
+  l.ks = l.kw + 4;
+  l.vs = (d_head + 3) / 4 * 4;
+  l.ps = l.kw + 4;
+  l.v_off = (size_t)d_head * l.ks;
+  l.q_off = l.v_off + (size_t)l.t4 * l.vs;
+  l.p_off = l.q_off + (size_t)d_head * m;
+  l.x_off = l.p_off + (size_t)m * l.ps;
+  l.bytes = 4 * (l.x_off + (size_t)(l.kw / 64) * m);
+  return l;
+}
+
+// The sub-tile of the tiled attention at (T, D): the largest of 64, 32, 16
+// whose block fits; 0 where none does.
+inline int tail_tile_m(int t_len, int d_head) {
+  for (int m = 64; m >= 16; m /= 2)
+    if (tile_lay(t_len, d_head, m).bytes <= (size_t)bl::kMaxSmem) return m;
+  return 0;
+}
+
+// Shared bytes of a pooling block: kPoolRows rows of the f32 context and
+// of e (the backward's d_ctx block takes less: d_z's rows and alpha).
+inline size_t tail_pool_bytes(int hd, int q_dim) {
+  return 4 * (size_t)kPoolRows * (tail_cs(hd) + tail_es(q_dim));
+}
+
+inline bool tail_tiled_fits(int t_len, int n_heads, int d_head, int q_dim) {
+  return d_head <= kTileMaxHead && tail_tile_m(t_len, d_head) > 0 &&
+         tail_pool_bytes(n_heads * d_head, q_dim) <= (size_t)bl::kMaxSmem;
+}
+
 // The regime of the forward (bwd 0) or backward (bwd 1) at (T, H, D, Q) in
 // a dtype of esize bytes: resident where T <= 64, D <= 64 and one row with
-// one head and one buffer fit a block; else the per-row kernel, in shared
-// memory or with its working set in global memory.
+// one head and one buffer fit a block; else tiled where its blocks fit;
+// else global, the per-row kernel with its working set in global memory.
 inline int tail_regime(int bwd, int t_len, int n_heads, int d_head, int q_dim,
                        int esize) {
   if (t_len <= bl::kShortT && d_head <= 64 &&
       tail_res(bwd, t_len, n_heads, d_head, q_dim, esize, 1, 1).bytes <=
           (size_t)bl::kMaxSmem)
     return kTailResident;
-  const bool global =
-      bwd ? tail_bwd_global(t_len, n_heads, d_head, q_dim, bl::kWarps)
-          : tail_fwd_global(t_len, n_heads, d_head, q_dim, bl::kWarps);
-  return global ? kTailGlobal : kTailShared;
+  if (tail_tiled_fits(t_len, n_heads, d_head, q_dim)) return kTailTiled;
+  return kTailGlobal;
 }
 
 // Whether (heads, nbuf, blocks) is a resident plan the kernels take.
@@ -891,6 +938,290 @@ tail_resident_bwd_kernel(const T* __restrict__ qkv,
       tail_fma<T>(p.t, hd, q_dim, e, r.es, w1t, hd, store);
     }
   });
+}
+
+// ---- the tiled regime: the rows past T = 64 -------------------------------
+//
+// The per-row kernels ran one block of 8 warps per batch row (128 of the
+// 132 SMs at N = 128, 64 at serving's 64 users), the heads one after
+// another, a warp per query whose lanes walked the keys, then the d_head
+// outputs of p V with 12 of 32 lanes idle. Here a row's work is spread
+// over blocks, one launch per phase, with what a phase hands the next in
+// global scratch (at (128, 512): the f32 context, 105 MB, written once and
+// read once, about 0.06 ms at 3.35 TB/s):
+//   attention  one block per (row, head), 32 warps: the head's K^T and V
+//              staged once, then the row's queries in sub-tiles of m: the
+//              scores as 4 x 8 register tiles over d (a warp takes 16
+//              queries by 64 keys, so a k-step loads one 16-byte vector of
+//              Q^T and two of K^T for 32 FMAs a lane), the exp-normalise
+//              one warp a query as recompute_a_row orders it, then p V as
+//              2 x 4 register tiles over the keys in order (a warp's lanes
+//              32 queries of one column group: 5 warps at m = 64, D = 20),
+//              times keep, to the f32 context;
+//   pooling    kPoolRows positions a block (flat over N*T): fc1 by tail_fma
+//              from their staged f32 context, then the scores (and, in the
+//              backward, e to the d_z scratch and d_alpha = ctx . g);
+//   per row    alpha over the whole row; the forward's out = sum alpha ctx
+//              (kOutCols columns a block), the backward's d_a, db2 and,
+//              one thread a column of e, the sums of db1 and dw2 with d_z;
+//   d_ctx      (backward) kPoolRows positions a block: round(d_z) w1^T by
+//              tail_fma, plus alpha g, times keep.
+// Each element keeps the per-row kernels' FMA chain (scores over d from 0,
+// p V over the keys from 0, fc1 and d_z w1^T in k order, out and the row
+// sums over the positions from 0) and their reductions (tail_scores,
+// tail_alpha, the exp-normalise's lane order and tree), so f32 keeps their
+// bits, and bf16 too.
+
+// One (row, head) of the attention: the f32 context after dropout, for
+// every query of the row, into ctx (N, T, HD).
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads)
+tail_tiled_attn_kernel(const T* __restrict__ qkv,
+                       const float* __restrict__ mask,
+                       const int* __restrict__ seed,
+                       float* __restrict__ ctx, int n_heads, int t_len,
+                       int d_head, float inv, TileLay l, int use_dropout,
+                       uint32_t thr, float scale) {
+  extern __shared__ __align__(16) float tile_smem[];
+  const TailDropout drop{use_dropout != 0,
+                         use_dropout ? (uint32_t)seed[0] : 0u, thr, scale};
+  const int h = blockIdx.x % n_heads;
+  const int64_t row = blockIdx.x / n_heads;
+  const int hd = n_heads * d_head;
+  const int w3 = 3 * hd;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  float* kt = tile_smem;
+  float* vv = tile_smem + l.v_off;
+  float* qt = tile_smem + l.q_off;
+  float* pr = tile_smem + l.p_off;
+  const T* src = qkv + row * t_len * w3 + h * d_head;
+  const float* mrow = mask ? mask + row * t_len : nullptr;
+
+  // K^T and V of the head, keys past T and columns past D zero
+  for (int idx = threadIdx.x; idx < l.kw * l.vs; idx += kTileThreads) {
+    const int j = idx / l.vs;
+    const int d = idx - j * l.vs;
+    float kx = 0.f, vx = 0.f;
+    if (j < t_len && d < d_head) {
+      const T* e = src + (int64_t)j * w3 + d;
+      kx = to_f32(e[hd]);
+      vx = to_f32(e[2 * hd]);
+    }
+    if (d < d_head) kt[d * l.ks + j] = kx;
+    if (j < l.t4) vv[idx] = vx;
+  }
+  float* rmax = tile_smem + l.x_off;  // (kw / 64, m) the rows' maxima
+  const int col_blocks = l.kw / 64;
+  const int groups = (d_head + 3) / 4;
+  for (int i0 = 0; i0 < t_len; i0 += l.m) {
+    const int rows = min(l.m, t_len - i0);
+    __syncthreads();  // the staging, or the last sub-tile's readers, done
+    for (int idx = threadIdx.x; idx < d_head * l.m; idx += kTileThreads) {
+      const int d = idx / l.m;
+      const int i = idx - d * l.m;
+      qt[idx] = i < rows ? to_f32(src[(int64_t)(i0 + i) * w3 + d]) : 0.f;
+    }
+    __syncthreads();
+    // the scores s = (q . k) / sqrt(D), recompute_a_row's sums: a warp
+    // takes 16 queries by 64 keys, a lane 4 queries by keys jb .. jb + 3
+    // and jb + 32 .. jb + 35, so a step over d loads one vector of Q^T and
+    // two of K^T for 32 FMAs; then each row's maximum over the block's
+    // keys (those before T), exact in any order
+    for (int wb = warp; wb < l.m / 16 * col_blocks; wb += kTileWarps) {
+      const int wc = wb % col_blocks;
+      const int ib = (wb / col_blocks) * 16 + (lane / 8) * 4;
+      const int jb = wc * 64 + (lane % 8) * 4;
+      float acc[4][8];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < d_head; ++d) {
+        const float4 a = *reinterpret_cast<const float4*>(qt + d * l.m + ib);
+        const float4 b0 = *reinterpret_cast<const float4*>(kt + d * l.ks + jb);
+        const float4 b1 =
+            *reinterpret_cast<const float4*>(kt + d * l.ks + jb + 32);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float sv[8];
+        float mx = -INFINITY;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          sv[c] = __fmul_rn(acc[r][c], inv);
+          if (jb + c % 4 + c / 4 * 32 < t_len) mx = fmaxf(mx, sv[c]);
+        }
+        float* dst = pr + (ib + r) * l.ps + jb;
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(sv[0], sv[1], sv[2], sv[3]);
+        *reinterpret_cast<float4*>(dst + 32) =
+            make_float4(sv[4], sv[5], sv[6], sv[7]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        if (lane % 8 == 0) rmax[wc * l.m + ib + r] = mx;
+      }
+    }
+    __syncthreads();
+    // the probs, rounded to v's dtype: recompute_a_row's exp-normalise,
+    // its quotients e / den as 0 where e is 0 (a masked key: IEEE's
+    // division takes its slow path there) and else by div_by where e,
+    // e / den and den lie in the normal range it holds for (in practice
+    // all of them): IEEE's quotient in 3 instructions, not a dozen
+    for (int i = warp; i < rows; i += kTileWarps) {
+      float* a = pr + i * l.ps;
+      float mx = -INFINITY;
+      for (int c = lane; c < col_blocks; c += 32)
+        mx = fmaxf(mx, rmax[c * l.m + i]);
+      const float m = warp_max(mx);
+      float sum = 0.f;
+#pragma unroll 4
+      for (int j = lane; j < t_len; j += 32) {
+        float e = expf(a[j] - m);
+        if (mrow) e *= mrow[j];
+        a[j] = e;
+        sum += e;
+      }
+      const float den = warp_sum(sum) + kEps * expf(-m);
+      const float rcp = rcp_or_zero(den);
+      const bool normal = den >= 0x1p-100f && den <= 0x1p100f;
+#pragma unroll 4
+      for (int j = lane; j < t_len; j += 32) {
+        const float x = a[j];
+        float p = 0.f;
+        if (den > 0.f && x != 0.f) {
+          const float q = __fmul_rn(x, rcp);
+          p = normal && x >= 0x1p-100f && q >= 0x1p-100f ? div_by(x, den, rcp)
+                                                         : x / den;
+        }
+        a[j] = round_to<T>(p);
+      }
+      for (int j = t_len + lane; j < l.t4; j += 32) a[j] = 0.f;
+    }
+    __syncthreads();
+    // ctx = p V over the keys in order, times keep: a thread takes
+    // kPvRows queries (32 apart) by 4 columns, a warp's lanes 32 queries of
+    // one column group, so the warp's V loads are one address
+    const int tiles =
+        (rows + 32 * kPvRows - 1) / (32 * kPvRows) * 32 * groups;
+    for (int tile = threadIdx.x; tile < tiles; tile += kTileThreads) {
+      const int wg = tile / 32;
+      const int i = wg / groups * 32 * kPvRows + tile % 32;
+      const int d0 = wg % groups * 4;
+      const float* a[kPvRows];
+#pragma unroll
+      for (int r = 0; r < kPvRows; ++r)
+        a[r] = pr + min(i + 32 * r, rows - 1) * l.ps;
+      const float* v = vv + d0;
+      float acc[kPvRows][4];
+#pragma unroll
+      for (int r = 0; r < kPvRows; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+#pragma unroll 4
+      for (int j = 0; j < l.t4; j += 4) {
+        float pj[kPvRows][4];
+#pragma unroll
+        for (int r = 0; r < kPvRows; ++r) {
+          const float4 p4 = *reinterpret_cast<const float4*>(a[r] + j);
+          pj[r][0] = p4.x;
+          pj[r][1] = p4.y;
+          pj[r][2] = p4.z;
+          pj[r][3] = p4.w;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float4 x = *reinterpret_cast<const float4*>(v + (j + u) * l.vs);
+#pragma unroll
+          for (int r = 0; r < kPvRows; ++r) {
+            acc[r][0] = fmaf(pj[r][u], x.x, acc[r][0]);
+            acc[r][1] = fmaf(pj[r][u], x.y, acc[r][1]);
+            acc[r][2] = fmaf(pj[r][u], x.z, acc[r][2]);
+            acc[r][3] = fmaf(pj[r][u], x.w, acc[r][3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kPvRows; ++r) {
+        const int ir = i + 32 * r;
+        if (ir >= rows) break;
+        float* dst = ctx + (row * t_len + i0 + ir) * hd + h * d_head;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int d = d0 + u;
+          if (d >= d_head) break;
+          float x = acc[r][u];
+          if (drop.on)
+            x *= drop.keep(row, i0 + ir, h * d_head + d, t_len, hd);
+          dst[d] = x;
+        }
+      }
+    }
+  }
+}
+
+// fc1 and the scores of kPoolRows positions (flat over the N*T of ctx):
+// e = tanh(round(ctx) w1 + b1) in k order (tail_fma), s = round(e) w2 + b2
+// (tail_scores) to s. kBwd: also e (f32) to e_out (N*T, Q) and d_alpha =
+// ctx . g (the per-row kernel's lane order and tree) to dal.
+template <typename T, bool kBwd>
+__global__ void __launch_bounds__(bl::kThreads)
+tail_tiled_pool_kernel(const float* __restrict__ ctx,
+                       const T* __restrict__ w1, const float* __restrict__ b1,
+                       const T* __restrict__ w2, const float* __restrict__ b2,
+                       const T* __restrict__ g, float* __restrict__ s,
+                       float* __restrict__ e_out, float* __restrict__ dal,
+                       int64_t n_pos, int t_len, int hd, int q_dim) {
+  extern __shared__ __align__(16) float pool_smem[];
+  const int cs = tail_cs(hd);
+  const int es = tail_es(q_dim);
+  float* cb = pool_smem;                 // (kPoolRows, cs) the f32 context
+  float* e = pool_smem + kPoolRows * cs;  // (kPoolRows, es) e
+  const int64_t p0 = (int64_t)blockIdx.x * kPoolRows;
+  const int rows = (int)min((int64_t)kPoolRows, n_pos - p0);
+  const float* src = ctx + p0 * hd;
+  if (hd % 4 == 0) {
+    const int h4 = hd / 4;
+    for (int idx = threadIdx.x; idx < rows * h4; idx += bl::kThreads) {
+      const int i = idx / h4;
+      const int c = (idx - i * h4) * 4;
+      *reinterpret_cast<float4*>(cb + i * cs + c) =
+          *reinterpret_cast<const float4*>(src + (int64_t)i * hd + c);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * hd; idx += bl::kThreads) {
+      const int i = idx / hd;
+      cb[i * cs + idx - i * hd] = src[idx];
+    }
+  }
+  __syncthreads();
+  tail_fc1<T>(e, es, cb, cs, rows, hd, q_dim, w1, b1);
+  __syncthreads();
+  tail_scores<T, bl::kThreads>(s + p0, e, es, rows, q_dim, w2, b2);
+  if constexpr (kBwd) {
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    for (int idx = threadIdx.x; idx < rows * q_dim; idx += bl::kThreads) {
+      const int i = idx / q_dim;
+      e_out[p0 * q_dim + idx] = e[i * es + idx - i * q_dim];
+    }
+    for (int i = warp; i < rows; i += bl::kWarps) {
+      const T* gr = g + (p0 + i) / t_len * hd;
+      float acc = 0.f;
+      for (int c = lane; c < hd; c += 32)
+        acc = fmaf(cb[i * cs + c], to_f32(gr[c]), acc);
+      acc = warp_sum(acc);
+      if (lane == 0) dal[p0 + i] = acc;
+    }
+  }
 }
 
 }  // namespace nrk

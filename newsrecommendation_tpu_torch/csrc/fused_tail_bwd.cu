@@ -38,11 +38,17 @@
 //      db2 (N, 2Q + 1), and, for dw1, the row's f32 ctx (T, HD) and d_z
 //      (T, Q) to scratch. Resident (T <= 64, heads of up to 64):
 //      fused_tail.cuh's tail_resident_bwd_kernel, row 13's resident code,
-//      with d_z w1^T on tensor cores in bf16. Past it one block of 8 warps
-//      per row (fused_tail.cuh's per-row phases; a row too long for shared
-//      memory keeps ctx and d_z in their scratch below and q/k/v in its
-//      block slot's part of `stage`, and past T = 5771 its row buffers
-//      there too, `slots` blocks walking the rows);
+//      with d_z w1^T on tensor cores in bf16. Tiled (past it, T up to 1024
+//      at D = 20; fused_tail.cuh's tiled regime): four launches, the
+//      attention per (row, head) into ctx's scratch, the pooling per 40
+//      positions (e into d_z's scratch, the scores and d_alpha into
+//      `stage`), the per-row phase (tail_tiled_row_kernel: alpha, d_a, the
+//      row sums, d_z over e), then d_ctx per 40 positions
+//      (tail_tiled_dctx_kernel). Global (heads wider than 64, or longer
+//      rows): one block of 8 warps per row (fused_tail.cuh's per-row
+//      phases), ctx and d_z in their scratch below and q/k/v in its block
+//      slot's part of `stage`, and past T = 5771 its row buffers there
+//      too, `slots` blocks walking the rows;
 //   2. the attention backward on the biased qkv with d_ctx as its g, the
 //      probs recomputed as rows 1 and 15 compute them: resident, in bf16
 //      row 16's resident kernel (blanes_resident.cuh) under row 16's plan,
@@ -88,10 +94,10 @@ constexpr int kDw1Threads = 128;  // 125 of them own outputs
 constexpr int kDw1Rows = 32;   // the splits are whole multiples of these
 constexpr int kDw1Stage = 16;  // positions staged at a time
 
-// kGlobal: ctx and d_z in their scratch rows, q/k/v in this block's slot
-// of stage; kSmallGlobal (past the small buffers' limit): the row buffers,
-// alpha, d_alpha and g in that slot too
-template <typename T, bool kGlobal, bool kSmallGlobal>
+// ctx and d_z in their scratch rows, q/k/v in this block's slot of stage;
+// kSmallGlobal (past the small buffers' limit): the row buffers, alpha,
+// d_alpha and g in that slot too
+template <typename T, bool kSmallGlobal>
 __global__ void __launch_bounds__(kThreads)
 fused_tail_bwd_kernel(const T* __restrict__ qkv,
                       const float* __restrict__ mask,
@@ -108,21 +114,15 @@ fused_tail_bwd_kernel(const T* __restrict__ qkv,
   const int hd = n_heads * d_head;
   const int w3 = 3 * hd;
   const int stride = d_head | 1;  // odd row stride: no bank conflicts
-  constexpr bool global = kGlobal;
-  // in shared memory: ctx (T, HD), e then d_z (T, Q), q, k, v (3, T,
-  // stride); in global memory, ctx and d_z in their scratch rows and q, k,
-  // v in this block's slot of stage
+  // ctx and d_z (e, then d_z) in their scratch rows, q, k, v (3, T,
+  // stride) in this block's slot of stage
   const size_t qkv_floats = 3 * (size_t)t_len * stride;
   const size_t slot =
       qkv_floats + (kSmallGlobal ? tail_bwd_small_floats(t_len, n_heads,
                                                          d_head, kWarps)
                                  : 0);
-  float* qs = global ? stage + (size_t)blockIdx.x * slot
-                     : smem + t_len * (hd + q_dim);
-  float* small = kSmallGlobal ? qs + qkv_floats
-                 : global     ? smem
-                              : smem + tail_big_floats(t_len, n_heads,
-                                                       d_head, q_dim);
+  float* qs = stage + (size_t)blockIdx.x * slot;
+  float* small = kSmallGlobal ? qs + qkv_floats : smem;
   float* rows = small;                    // (kWarps, T) row buffers
   float* alpha = rows + kWarps * t_len;   // (T)
   float* dal = alpha + t_len;             // (T) d_alpha, then d_a
@@ -134,10 +134,8 @@ fused_tail_bwd_kernel(const T* __restrict__ qkv,
   const TailDropout drop{use_dropout != 0,
                          use_dropout ? (uint32_t)seed[0] : 0u, thr, scale};
   auto body = [&](int64_t row) {
-    float* ctx_out = ctxs + row * t_len * hd;
-    float* dz_out = dzs + row * t_len * q_dim;
-    float* ctx = global ? ctx_out : smem;
-    float* e = global ? dz_out : smem + t_len * hd;
+    float* ctx = ctxs + row * t_len * hd;
+    float* e = dzs + row * t_len * q_dim;  // e, then d_z
     const T* src = qkv + row * t_len * w3;
     const float* mrow = mask ? mask + row * t_len : nullptr;
     for (int c = threadIdx.x; c < hd; c += kThreads)
@@ -150,9 +148,6 @@ fused_tail_bwd_kernel(const T* __restrict__ qkv,
                                   hd, q_dim, rest);
 
     // ---- pooling backward --------------------------------------------------
-    if (!global)
-      for (int idx = threadIdx.x; idx < t_len * hd; idx += kThreads)
-        ctx_out[idx] = ctx[idx];
     for (int i = warp; i < t_len; i += kWarps) {
       float s = 0.f;
       for (int c = lane; c < hd; c += 32) s = fmaf(ctx[i * hd + c], gv[c], s);
@@ -187,9 +182,6 @@ fused_tail_bwd_kernel(const T* __restrict__ qkv,
       part[q_dim + q] = s2;
     }
     __syncthreads();
-    if (!global)
-      for (int idx = threadIdx.x; idx < t_len * q_dim; idx += kThreads)
-        dz_out[idx] = e[idx];
     // d_ctx = (alpha g + round(d_z) w1^T) * keep, rounded to T, for row 4
     T* dctx_out = dctx + row * t_len * hd;
     tile_product<kThreads>(
@@ -202,13 +194,9 @@ fused_tail_bwd_kernel(const T* __restrict__ qkv,
           dctx_out[i * hd + c] = from_f32<T>(d);
         });
   };
-  if constexpr (kGlobal) {
-    for (int64_t row = blockIdx.x; row < n; row += gridDim.x) {
-      body(row);
-      __syncthreads();  // the next row overwrites the buffers
-    }
-  } else {
-    body(blockIdx.x);  // one row per block
+  for (int64_t row = blockIdx.x; row < n; row += gridDim.x) {
+    body(row);
+    __syncthreads();  // the next row overwrites the buffers
   }
 }
 
@@ -348,14 +336,157 @@ fused_tail_sum_rows_kernel(const float* __restrict__ rowpart, int n,
   }
 }
 
-// shared bytes of the per-row kernel
-size_t row_smem_bytes(int t_len, int n_heads, int d_head, int q_dim) {
+// The tiled regime's per-row phase (fused_tail.cuh): alpha and 1 -
+// sum(alpha) from the row's scores (sa, overwritten by alpha), d_a from
+// d_alpha (dal), this row's db2, then one thread a column q: the sums of
+// db1 and dw2 over the positions in order, and d_z over e (e_dz, (N, T,
+// Q): e in, d_z out) -- the per-row kernel's arithmetic. Shared: alpha,
+// d_a (T each) and 1 - sum(alpha).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+tail_tiled_row_kernel(float* __restrict__ sa, const float* __restrict__ dal,
+                      const float* __restrict__ mask,
+                      const T* __restrict__ w2, float* __restrict__ e_dz,
+                      float* __restrict__ rowpart, int t_len, int q_dim) {
+  extern __shared__ float row_smem[];
+  float* alpha = row_smem;
+  float* da = alpha + t_len;
+  float* rest = da + t_len;
+  const int64_t row = blockIdx.x;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int i = threadIdx.x; i < t_len; i += kThreads) {
+    alpha[i] = sa[row * t_len + i];
+    da[i] = dal[row * t_len + i];
+  }
+  __syncthreads();
+  float* part = rowpart + row * (2 * q_dim + 1);
+  if (warp == 0) {
+    tail_alpha(alpha, mask ? mask + row * t_len : nullptr, t_len, lane, rest);
+    __syncwarp();
+    float s = 0.f;
+    for (int i = lane; i < t_len; i += 32) s = fmaf(da[i], alpha[i], s);
+    const float r = warp_sum(s);
+    for (int i = lane; i < t_len; i += 32) da[i] = (da[i] - r) * alpha[i];
+    if (lane == 0) part[2 * q_dim] = r * *rest;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < t_len; i += kThreads)
+    sa[row * t_len + i] = alpha[i];
+  float* e = e_dz + row * t_len * q_dim;
+  for (int q = threadIdx.x; q < q_dim; q += kThreads) {
+    const float w2q = to_f32(w2[q]);
+    float s2 = 0.f, s1 = 0.f;
+#pragma unroll 4
+    for (int i = 0; i < t_len; ++i) {
+      const float ei = e[(int64_t)i * q_dim + q];
+      s2 = fmaf(ei, da[i], s2);
+      const float dz = __fmul_rn(__fmul_rn(da[i], w2q),
+                                 __fsub_rn(1.f, __fmul_rn(ei, ei)));
+      e[(int64_t)i * q_dim + q] = dz;
+      s1 += dz;
+    }
+    part[q] = s1;
+    part[q_dim + q] = s2;
+  }
+}
+
+// The tiled regime's d_ctx for kPoolRows positions (flat over N*T):
+// (alpha g + round(d_z) w1^T) * keep, rounded to T, d_z w1^T in k order
+// (tail_fma: the per-row kernel's tile_product sums). Shared: the
+// positions' d_z rows (tail_es(Q) floats each) and alpha.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+tail_tiled_dctx_kernel(const float* __restrict__ dzs,
+                       const float* __restrict__ alpha,
+                       const T* __restrict__ g, const T* __restrict__ w1t,
+                       const int* __restrict__ seed, T* __restrict__ dctx,
+                       int64_t n_pos, int t_len, int hd, int q_dim,
+                       int use_dropout, uint32_t thr, float scale) {
+  extern __shared__ __align__(16) float dctx_smem[];
+  const int es = tail_es(q_dim);
+  float* zb = dctx_smem;
+  float* al = zb + kPoolRows * es;
+  const TailDropout drop{use_dropout != 0,
+                         use_dropout ? (uint32_t)seed[0] : 0u, thr, scale};
+  const int64_t p0 = (int64_t)blockIdx.x * kPoolRows;
+  const int rows = (int)min((int64_t)kPoolRows, n_pos - p0);
+  for (int idx = threadIdx.x; idx < rows * q_dim; idx += kThreads) {
+    const int i = idx / q_dim;
+    zb[i * es + idx - i * q_dim] = dzs[p0 * q_dim + idx];
+  }
+  for (int i = threadIdx.x; i < rows; i += kThreads) al[i] = alpha[p0 + i];
+  __syncthreads();
+  tail_fma<T>(rows, hd, q_dim, zb, es, w1t, hd, [&](int i, int c, float x) {
+    const int64_t p = p0 + i;
+    const int64_t row = p / t_len;
+    const int t = (int)(p - row * t_len);
+    float d = __fadd_rn(__fmul_rn(al[i], to_f32(g[row * hd + c])), x);
+    if (drop.on) d *= drop.keep(row, t, c, t_len, hd);
+    dctx[p * hd + c] = from_f32<T>(d);
+  });
+}
+
+// Row 14's first launches in the tiled regime: the attention into ctxs,
+// the pooling blocks (e into dzs, the scores and d_alpha into rows), the
+// per-row phase, the d_ctx blocks. rows: 2*N*T floats, the scores (then
+// alpha) and d_alpha.
+template <typename T>
+int tiled_first(const T* qkv, const float* mask, const T* w1, const T* w1t,
+                const float* b1, const T* w2, const float* b2,
+                const int* seed, const T* g, T* dctx, float* ctxs,
+                float* dzs, float* rowpart, float* rows, int n, int t_len,
+                int n_heads, int d_head, int q_dim, int tile, int use_dropout,
+                uint32_t thr, float scale, cudaStream_t stream) {
+  const TileLay l = tile_lay(t_len, d_head, tile);
+  if ((tile != 16 && tile != 32 && tile != 64) ||
+      l.bytes > (size_t)bl::kMaxSmem || rows == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int hd = n_heads * d_head;
+  const int64_t n_pos = (int64_t)n * t_len;
+  const unsigned pool_grid = (unsigned)((n_pos + kPoolRows - 1) / kPoolRows);
+  float* sa = rows;
+  float* dal = rows + n_pos;
+  auto* attn = tail_tiled_attn_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      attn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.bytes);
+  if (err != cudaSuccess) return (int)err;
+  attn<<<(unsigned)(n * n_heads), kTileThreads, l.bytes, stream>>>(
+      qkv, mask, seed, ctxs, n_heads, t_len, d_head,
+      (float)(1.0 / sqrt((double)d_head)), l, use_dropout, thr, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  auto* pool = tail_tiled_pool_kernel<T, true>;
+  const size_t pool_bytes = tail_pool_bytes(hd, q_dim);
+  err = cudaFuncSetAttribute(
+      pool, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pool_bytes);
+  if (err != cudaSuccess) return (int)err;
+  pool<<<pool_grid, bl::kThreads, pool_bytes, stream>>>(
+      ctxs, w1, b1, w2, b2, g, sa, dzs, dal, n_pos, t_len, hd, q_dim);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  tail_tiled_row_kernel<T><<<(unsigned)n, kThreads,
+                             4 * (2 * (size_t)t_len + 1), stream>>>(
+      sa, dal, mask, w2, dzs, rowpart, t_len, q_dim);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  auto* dk = tail_tiled_dctx_kernel<T>;
+  const size_t dctx_bytes = 4 * (size_t)kPoolRows * (tail_es(q_dim) + 1);
+  err = cudaFuncSetAttribute(
+      dk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dctx_bytes);
+  if (err != cudaSuccess) return (int)err;
+  dk<<<pool_grid, kThreads, dctx_bytes, stream>>>(
+      dzs, sa, g, w1t, seed, dctx, n_pos, t_len, hd, q_dim, use_dropout, thr,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+// shared bytes of the per-row kernel: its small buffers, 0 past their
+// limit
+size_t row_smem_bytes(int t_len, int n_heads, int d_head) {
   if (tail_bwd_small_global(t_len, n_heads, d_head, kWarps)) return 0;
-  const size_t small = tail_bwd_small_floats(t_len, n_heads, d_head, kWarps);
   return sizeof(float) *
-         (tail_bwd_global(t_len, n_heads, d_head, q_dim, kWarps)
-              ? small
-              : small + tail_big_floats(t_len, n_heads, d_head, q_dim));
+         tail_bwd_small_floats(t_len, n_heads, d_head, kWarps);
 }
 
 // Row 14's first kernel at T <= 64 under the resident plan.
@@ -405,8 +536,8 @@ int per_row_and_attention(
     void* dzs, void* rowpart, void* stage, void* attn_stage, void* attn_stats,
     int n, int t_len, int n_heads, int d_head, int q_dim, int slots,
     int attn_slots, const int* attn_plan, int regime, int heads, int nbuf,
-    int blocks, int a_heads, int a_nbuf, int a_blocks, int use_dropout,
-    unsigned thr, float scale, void* stream) {
+    int blocks, int tile, int a_heads, int a_nbuf, int a_blocks,
+    int use_dropout, unsigned thr, float scale, void* stream) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   const int esize = (int)sizeof(T);
   auto* cs = (cudaStream_t)stream;
@@ -451,15 +582,26 @@ int per_row_and_attention(
   }
   if (heads || nbuf || blocks || a_heads || a_nbuf || a_blocks)
     return (int)cudaErrorInvalidValue;
-  const bool global = regime == kTailGlobal;
-  if (global && (stage == nullptr || slots <= 0))
-    return (int)cudaErrorInvalidValue;
-  const int row_grid = global && slots < n ? slots : n;
-  const size_t smem = row_smem_bytes(t_len, n_heads, d_head, q_dim);
+  if (regime == kTailTiled) {
+    if (slots) return (int)cudaErrorInvalidValue;
+    const int err = tiled_first<T>(
+        static_cast<const T*>(qkv), static_cast<const float*>(mask),
+        static_cast<const T*>(w1), static_cast<const T*>(w1t),
+        static_cast<const float*>(b1), static_cast<const T*>(w2),
+        static_cast<const float*>(b2), static_cast<const int*>(seed),
+        static_cast<const T*>(g), static_cast<T*>(dctx),
+        static_cast<float*>(ctxs), static_cast<float*>(dzs),
+        static_cast<float*>(rowpart), static_cast<float*>(stage), n, t_len,
+        n_heads, d_head, q_dim, tile, use_dropout, thr, scale, cs);
+    if (err != (int)cudaSuccess) return err;
+    return row4();
+  }
+  if (stage == nullptr || slots <= 0) return (int)cudaErrorInvalidValue;
+  const int row_grid = slots < n ? slots : n;
+  const size_t smem = row_smem_bytes(t_len, n_heads, d_head);
   auto* kernel = tail_bwd_small_global(t_len, n_heads, d_head, kWarps)
-                     ? fused_tail_bwd_kernel<T, true, true>
-                 : global ? fused_tail_bwd_kernel<T, true, false>
-                          : fused_tail_bwd_kernel<T, false, false>;
+                     ? fused_tail_bwd_kernel<T, true>
+                     : fused_tail_bwd_kernel<T, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -487,15 +629,16 @@ int launch(const void* qkv, const void* mask, const void* w1, const void* w1t,
            void* attn_stats, int n, int t_len, int n_heads, int d_head,
            int q_dim, int n_splits, int slots, int attn_slots,
            const int* attn_plan, int regime, int heads, int nbuf, int blocks,
-           int a_heads, int a_nbuf, int a_blocks, int use_dropout,
+           int tile, int a_heads, int a_nbuf, int a_blocks, int use_dropout,
            unsigned thr, float scale, void* stream) {
   if (n <= 0 || n_splits <= 0 ||
-      regime != tail_regime(1, t_len, n_heads, d_head, q_dim, (int)sizeof(T)))
+      regime != tail_regime(1, t_len, n_heads, d_head, q_dim, (int)sizeof(T)) ||
+      (tile != 0) != (regime == kTailTiled))
     return (int)cudaErrorInvalidValue;
   const int first = per_row_and_attention<T>(
       qkv, mask, w1, w1t, b1, w2, b2, seed, g, zero_bias, dqkv, dctx, ctxs,
       dzs, rowpart, stage, attn_stage, attn_stats, n, t_len, n_heads, d_head,
-      q_dim, slots, attn_slots, attn_plan, regime, heads, nbuf, blocks,
+      q_dim, slots, attn_slots, attn_plan, regime, heads, nbuf, blocks, tile,
       a_heads, a_nbuf, a_blocks, use_dropout, thr, scale, stream);
   if (first != (int)cudaSuccess) return first;
 
@@ -532,16 +675,17 @@ extern "C" {
 // w1t: w1 transposed, (Q, HD) contiguous. Scratch: dctx (N, T, HD) in
 // qkv's dtype, ctxs (N, T, HD) f32, dzs (N, T, Q) f32, rowpart (N, 2Q + 1)
 // f32, part (n_splits, HD, Q) f32. regime: the shape's
-// (fused_tail_bwd_regime: 0 resident, 1 the per-row kernel in shared
-// memory, 2 with its working set in global memory). Resident: the plan
+// (fused_tail_bwd_regime: 0 resident, 1 global, the per-row kernel with
+// its working set in global memory, 2 tiled, whose sub-tile `tile` is the
+// plan's; 0 in the other regimes). Resident: the plan
 // (heads, nbuf, blocks) of ops/experimental_fused_encoder.py:
 // tail_launch_plan; in bf16 row 16's (a_heads, a_nbuf, a_blocks), and
 // zero_bias, stage, attn_stage, attn_stats and row 4's plan are not read;
 // in f32 row 16's plan is zeros and row 4 takes its resident plan and a
 // null zero_bias. Past it the resident plans are zeros; row 4 takes
 // zero_bias (null in row 4's resident regime, else 3HD zeros in qkv's
-// dtype); stage
-// (`slots` slots of fused_tail_bwd_stage_floats) and attn_stage
+// dtype); stage (tiled: N rows of fused_tail_bwd_row_floats, slots 0;
+// global: `slots` slots of fused_tail_bwd_stage_floats) and attn_stage
 // (`attn_slots` slots of fused_tail_bwd_attn_stage_floats) are read only
 // when those are not 0; attn_stats (3, N*H, T) f32 and the tensor-core plan
 // of row 4's two sides (q_tile, q_chunk, q_nbuf, k_tile, k_chunk, k_nbuf)
@@ -559,16 +703,16 @@ extern "C" {
       void* attn_stats, int n, int t_len, int n_heads, int d_head,           \
       int q_dim, int n_splits, int slots, int attn_slots, int q_tile,        \
       int q_chunk, int q_nbuf, int k_tile, int k_chunk, int k_nbuf,          \
-      int regime, int heads, int nbuf, int blocks, int a_heads, int a_nbuf,  \
-      int a_blocks, int use_dropout, unsigned thr, float scale,              \
+      int regime, int heads, int nbuf, int blocks, int tile, int a_heads,    \
+      int a_nbuf, int a_blocks, int use_dropout, unsigned thr, float scale,  \
       void* stream) {                                                        \
     const int plan[6] = {q_tile, q_chunk, q_nbuf, k_tile, k_chunk, k_nbuf};  \
     return launch<T>(qkv, mask, w1, w1t, b1, w2, b2, seed, g, zero_bias,     \
                      dqkv, dctx, ctxs, dzs, rowpart, part, dw1, db1, dw2,    \
                      db2, stage, attn_stage, attn_stats, n, t_len, n_heads,  \
                      d_head, q_dim, n_splits, slots, attn_slots, plan,       \
-                     regime, heads, nbuf, blocks, a_heads, a_nbuf, a_blocks, \
-                     use_dropout, thr, scale, stream);                       \
+                     regime, heads, nbuf, blocks, tile, a_heads, a_nbuf,     \
+                     a_blocks, use_dropout, thr, scale, stream);             \
   }
 NRK_TAIL_BWD(f32, float)
 NRK_TAIL_BWD(bf16, __nv_bfloat16)
@@ -588,10 +732,19 @@ int fused_tail_bwd_smem_bytes(int t_len, int n_heads, int d_head, int q_dim,
       .bytes;
 }
 
-// Floats of one slot of `stage`: 0 when the row fits in shared memory.
+// Floats of `stage` a batch row takes in the tiled regime (its scores,
+// then alpha, and d_alpha; 0 in the other regimes).
+int fused_tail_bwd_row_floats(int t_len, int n_heads, int d_head, int q_dim,
+                              int esize) {
+  if (tail_regime(1, t_len, n_heads, d_head, q_dim, esize) != kTailTiled)
+    return 0;
+  return 2 * t_len;
+}
+
+// Floats of one slot of `stage` for the per-row kernel (the global
+// regime).
 int fused_tail_bwd_stage_floats(int t_len, int n_heads, int d_head,
                                 int q_dim) {
-  if (!tail_bwd_global(t_len, n_heads, d_head, q_dim, kWarps)) return 0;
   return (int)(3 * (size_t)t_len * (d_head | 1) +
                (tail_bwd_small_global(t_len, n_heads, d_head, kWarps)
                     ? tail_bwd_small_floats(t_len, n_heads, d_head, kWarps)

@@ -18,12 +18,17 @@ scratch for its dw1 product over all positions (``csrc/fused_tail_bwd.cu``).
 Three regimes (``tail_launch_plan``): at T <= 64 with heads of up to 64
 "resident", items of batch rows on row 15's resident attention, fc1 in k
 order on CUDA cores, the bf16 d_z w1^T product on tensor cores and row
-16's resident kernel for the bf16 attention backward; past it the per-row kernels, "shared" while a row fits
-a block's shared memory (at the NRMS width T <= 86 in the forward, 85 in
-the backward), then "global", the working set in a global scratch of one
-slot per block, which the wrappers allocate (``csrc/fused_tail.cuh``), and
-past T = 6456 (5771 in the backward) its row buffers too: the tail takes
-any history length, as the JAX package's does.
+16's resident kernel for the bf16 attention backward; past it "tiled"
+while its blocks fit (T up to 1024 at the NRMS width): a row's work
+spread over blocks of (row, head) for the attention and of 40 positions
+for the pooling, one launch per phase, the f32 context and the rows'
+vectors in a scratch the wrappers allocate; past that, and for heads
+wider than 64, "global": the per-row kernels, one block a row with its
+working set in a global scratch of one slot per block
+(``csrc/fused_tail.cuh``), and past T = 6456 (5771 in the backward) its
+row buffers too: the tail takes any history length, as the JAX
+package's does. Every regime keeps the per-row kernels' sums, so the
+tiled regime gives their bits.
 
 The rounding points are the TPU kernels': qkv arrives biased in the input
 dtype; per-head contexts are concatenated in f32, unrounded; dropout
@@ -236,14 +241,19 @@ def _check_launch(qkv, key_mask, w1, b1, w2, b2, seed, *more):
 
 # ---- the launch plan ------------------------------------------------------
 
-TAIL_REGIMES = ("resident", "shared", "global")
+TAIL_REGIMES = ("resident", "global", "tiled")
 # Blocks an SM holds of the resident kernels by itemsize: their registers
 # allow three in bf16 and two in f32 at heads of up to 24 lanes
 # (csrc/fused_tail.cuh tail_blocks), so a plan gains nothing from shared
 # memory for more.
 RESIDENT_BLOCKS = {2: 3, 4: 2}
-_WARPS = 8  # warps of a per-row block (csrc/fused_tail.cuh)
-_SMEM_FLOATS = kernels.MAX_SMEM // 4
+# The tiled regime (csrc/fused_tail.cuh): an attention block takes one
+# (row, head) and the row's queries in sub-tiles of the first of TILE_MS
+# whose block fits; heads of up to TILE_MAX_HEAD; a pooling or d_ctx block
+# takes POOL_ROWS positions.
+TILE_MS = (64, 32, 16)
+TILE_MAX_HEAD = 64
+POOL_ROWS = 40
 
 
 class TailPlan(NamedTuple):
@@ -251,19 +261,22 @@ class TailPlan(NamedTuple):
     launch: an item of one batch row walked as sub-items of ``heads``
     heads, ``nbuf`` stage buffers, ``blocks`` blocks of ``smem`` bytes; in
     the bf16 backward also row 16's plan (``attn``) for the attention
-    part."""
+    part. Tiled: the queries of an attention sub-tile (``tile``) and that
+    block's ``smem`` bytes."""
     regime: str
     heads: int = 0
     nbuf: int = 0
     blocks: int = 0
     smem: int = 0
     attn: bl.Plan | None = None
+    tile: int = 0
 
     def args(self) -> tuple:
-        """The regime's code and the resident plan, as the C entry points
-        take them (zeros past the resident regime)."""
+        """The regime's code, the resident plan and the tiled regime's
+        sub-tile, as the C entry points take them (zeros outside their
+        regimes)."""
         return (TAIL_REGIMES.index(self.regime), self.heads, self.nbuf,
-                self.blocks)
+                self.blocks, self.tile)
 
     def attn_args(self) -> tuple:
         """Row 16's (heads, nbuf, blocks), zeros where row 4 takes the
@@ -295,32 +308,53 @@ def resident_smem(kind: str, t: int, n_heads: int, d: int, q: int,
             + t * cs * 4 + _round16(4 * small))
 
 
-def _per_row_global(kind: str, t: int, n_heads: int, d: int, q: int) -> bool:
-    """Whether the per-row kernel keeps its working set in global memory
-    (csrc/fused_tail.cuh ``tail_fwd_global``, ``tail_bwd_global``)."""
-    big = t * n_heads * d + t * q + 3 * t * (d | 1)
-    small = ((_WARPS + 1) * t if kind == "fwd"
-             else (_WARPS + 2) * t + n_heads * d + 1)
-    return big + small > _SMEM_FLOATS
+def tiled_smem(t: int, d: int, m: int) -> int:
+    """Shared bytes of a tiled attention block (csrc/fused_tail.cuh
+    ``tile_lay``): the head's K^T (D rows of kw + 4 floats, kw = T rounded
+    up to 64) and V (t4 rows of D rounded up to 4, t4 = T rounded up to 4),
+    then a sub-tile's Q^T (D rows of m), scores (m rows of kw + 4 floats)
+    and its rows' maxima per 64 keys (kw / 64 by m)."""
+    t4 = -(-t // 4) * 4
+    kw = -(-t4 // 64) * 64
+    vs = -(-d // 4) * 4
+    return 4 * (d * (kw + 4) + t4 * vs + d * m + m * (kw + 4) + kw // 64 * m)
+
+
+def tile_m(t: int, d: int) -> int:
+    """The tiled attention's sub-tile at (T, D): the first of TILE_MS whose
+    block fits, 0 where none does."""
+    return next((m for m in TILE_MS if tiled_smem(t, d, m)
+                 <= kernels.MAX_SMEM), 0)
+
+
+def pool_smem(hd: int, q: int) -> int:
+    """Shared bytes of a tiled pooling block: POOL_ROWS rows of the f32
+    context and of e, at the resident layout's row strides."""
+    return 4 * POOL_ROWS * (-(-hd // 32) * 32 + 16 + -(-q // 32) * 32 + 16)
 
 
 def tail_regime(kind: str, t: int, n_heads: int, d: int, q: int,
                 itemsize: int) -> str:
     """"resident" at T <= 64 with heads of up to 64 where one row, one head
-    and one buffer fit a block; else the per-row kernel, "shared" while its
-    row fits a block's shared memory (T <= 86 in the forward, 85 in the
-    backward at 20 heads of 20, Q = 200), then "global"."""
+    and one buffer fit a block; else "tiled" with heads of up to 64 while
+    a head's K and V and 16 queries' probs fit an attention block (T up to
+    1024 at D = 20) and 40 positions' context and e a pooling block; else
+    "global", the per-row kernel with its working set in global memory."""
     if (t <= bl.SHORT_T and d <= bl.MAX_HEAD and resident_smem(
             kind, t, n_heads, d, q, itemsize, 1, 1) <= kernels.MAX_SMEM):
         return "resident"
-    return "global" if _per_row_global(kind, t, n_heads, d, q) else "shared"
+    if (d <= TILE_MAX_HEAD and tile_m(t, d)
+            and pool_smem(n_heads * d, q) <= kernels.MAX_SMEM):
+        return "tiled"
+    return "global"
 
 
 @functools.lru_cache(maxsize=256)
 def tail_launch_plan(kind: str, n: int, t: int, n_heads: int, d: int, q: int,
                      dtype, sms: int = 132) -> TailPlan:
     """The regime and launch of row 13 (``kind`` "fwd") or row 14 ("bwd")
-    at (N, T, H, D, Q) in ``dtype``. Resident: items of one batch row; the
+    at (N, T, H, D, Q) in ``dtype``. Tiled: the sub-tile and block bytes of
+    its attention (``tile_m``). Resident: items of one batch row; the
     first of four heads a sub-item (then two, one) and two stage buffers
     (then one) that puts on an SM as many blocks as the rows fill, up to
     the most that fit (at most RESIDENT_BLOCKS); the grid the rows, at
@@ -331,6 +365,9 @@ def tail_launch_plan(kind: str, n: int, t: int, n_heads: int, d: int, q: int,
         raise TypeError(f"dtype {dtype} not supported (float32, bfloat16)")
     itemsize = 2 if dtype == torch.bfloat16 else 4
     regime = tail_regime(kind, t, n_heads, d, q, itemsize)
+    if regime == "tiled":
+        m = tile_m(t, d)
+        return TailPlan(regime, smem=tiled_smem(t, d, m), tile=m)
     if regime != "resident":
         return TailPlan(regime)
     fits = []
@@ -367,6 +404,11 @@ def fused_tail_fwd(qkv, key_mask, w1, b1, w2, b2, seed, n_heads: int,
         scratch, slots = kernels.scratch("fused_tail_fwd",
                                          "fused_tail_fwd_scratch_floats", n,
                                          qkv.device, t, n_heads, d, q)
+    elif plan.regime == "tiled":  # the f32 context and the scores
+        scratch = kernels.rows_scratch("fused_tail_fwd",
+                                       "fused_tail_fwd_row_floats", n,
+                                       qkv.device, t, n_heads, d, q,
+                                       qkv.element_size())
     kernels.call("tail" if key_mask is None else "tail_masked",
                  kernels.entry("fused_tail_fwd", "fused_tail_fwd",
                                qkv.dtype),
@@ -416,11 +458,17 @@ def fused_tail_bwd(qkv, key_mask, w1, b1, w2, b2, seed, g, n_heads: int,
     slots = attn_slots = 0
     row4 = (0,) * 6
     if plan.attn is None:  # row 4's kernel takes the attention backward
-        # long rows: q, k, v of the per-row kernel and row 4's operands
-        # staged in global memory, one slot per block
-        stage, slots = kernels.scratch("fused_tail_bwd",
-                                       "fused_tail_bwd_stage_floats", n, dev,
-                                       t, n_heads, d, q)
+        if plan.regime == "tiled":  # the rows' scores and d_alpha
+            stage = kernels.rows_scratch("fused_tail_bwd",
+                                         "fused_tail_bwd_row_floats", n, dev,
+                                         t, n_heads, d, q,
+                                         qkv.element_size())
+        elif plan.regime == "global":
+            # q, k, v of the per-row kernel staged in global memory, one
+            # slot per block
+            stage, slots = kernels.scratch("fused_tail_bwd",
+                                           "fused_tail_bwd_stage_floats", n,
+                                           dev, t, n_heads, d, q)
         # row 4's part in its regime: the plan and row stats on tensor
         # cores, or its tiled kernel's global slots
         attn = fa.bwd_launch_plan(n, t, n_heads, d, qkv.dtype,

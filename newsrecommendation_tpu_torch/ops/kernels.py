@@ -12,8 +12,8 @@ show which kernels its path went through; a wrapper whose launch takes one
 of several regimes (rows 1-2 and 11: resident, tensor-core, tiled or
 row-wise kernels; rows 3-4 and 12: resident, tensor-core or tiled;
 rows 5 and 7: row-wise, tensor-core or tiled; rows 6 and 8: resident,
-tensor-core or wide; rows 13-14: resident, shared or global) also counts
-it per regime. A CPU tensor
+tensor-core or wide; rows 13-14: resident, tiled or global) also
+counts it per regime. A CPU tensor
 takes a kernel's plain PyTorch version and counts nothing; a CUDA tensor
 launches the kernel or raises; any other device raises ``NoKernelError``.
 """
@@ -47,8 +47,8 @@ _ENTRY_POINTS = {
     "qkv_bwd": {"qkv_bwd": "p" * 8 + "i" * 11},
     "flash_fwd": {"flash_fwd": "p" * 7 + "i" * 9},
     "flash_bwd": {"flash_bwd": "p" * 11 + "i" * 11},
-    "fused_tail_fwd": {"fused_tail_fwd": "p" * 9 + "i" * 11 + "uf"},
-    "fused_tail_bwd": {"fused_tail_bwd": "p" * 23 + "i" * 22 + "uf"},
+    "fused_tail_fwd": {"fused_tail_fwd": "p" * 9 + "i" * 12 + "uf"},
+    "fused_tail_bwd": {"fused_tail_bwd": "p" * 23 + "i" * 23 + "uf"},
     "blanes": {"blanes_fwd": "p" * 3 + "i" * 8,
                "blanes_bwd": "p" * 5 + "i" * 11},
     "mhsa_sep": {"mhsa_sep_fwd": "p" * 6 + "i" * 13,
@@ -72,8 +72,11 @@ _SIZE_FUNCTIONS = {
     "flash_fwd": {"flash_smem_bytes": 6, "flash_walk_task_count": 3},
     "fused_tail_fwd": {"fused_tail_fwd_scratch_floats": 4,
                        "fused_tail_fwd_regime": 5,
-                       "fused_tail_fwd_smem_bytes": 7},
+                       "fused_tail_fwd_smem_bytes": 7,
+                       "fused_tail_fwd_row_floats": 5,
+                       "fused_tail_tiled_smem_bytes": 3},
     "fused_tail_bwd": {"fused_tail_bwd_stage_floats": 4,
+                       "fused_tail_bwd_row_floats": 5,
                        "fused_tail_bwd_attn_stage_floats": 3,
                        "fused_tail_bwd_regime": 5,
                        "fused_tail_bwd_smem_bytes": 7},
@@ -280,6 +283,16 @@ def scratch(name: str, fn: str, n_items: int, device, *dims):
     slots = max(1, min(n_items, 2 * sms))
     return torch.empty((slots, floats), dtype=torch.float32,
                        device=device), slots
+
+
+def rows_scratch(name: str, fn: str, n_rows: int, device, *dims):
+    """An (n_rows, floats) f32 scratch for a kernel that hands a batch
+    row's vectors from one launch to the next: ``fn`` of source ``name``
+    gives the floats a row takes at ``dims``; None where it takes none."""
+    floats = size_of(name, fn, *dims)
+    if not floats:
+        return None
+    return torch.empty((n_rows, floats), dtype=torch.float32, device=device)
 
 
 def call(variant: str, fn, device, *args, regime: str | None = None) -> None:

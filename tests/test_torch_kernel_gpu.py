@@ -884,11 +884,12 @@ def _summed_tol(refs, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n, t, heads, d, q", [
     (16, 20, 20, 20, 200), (33, 50, 20, 20, 200), (7, 5, 3, 4, 7),
-    (5, 13, 2, 33, 9)])
+    (5, 13, 2, 33, 9), (6, 30, 2, 72, 16)])
 def test_fused_tail_kernels_match_plain(n, t, heads, d, q, dtype, masked,
                                         dropout):
     """Rows 13-14 against their plain versions, dropout off and at 0.2;
-    row 14's outputs equal bit for bit over two runs."""
+    row 14's outputs equal bit for bit over two runs. Heads of 72 take the
+    global regime at any T."""
     qkv, mask, pool, g = _tail_inputs(n, t, heads, d, q, dtype, seed=9)
     km = mask if masked else None
     seed = torch.tensor([2 ** 31 - 7], dtype=torch.int32, device="cuda")
@@ -917,25 +918,26 @@ def test_fused_tail_kernels_match_plain(n, t, heads, d, q, dtype, masked,
     variant = "_masked" if masked else ""
     assert kernels.launch_counts("fused_tail_fwd")["tail" + variant] == 1
     assert kernels.launch_counts("fused_tail_bwd")["tail_bwd" + variant] == 2
+    regime = "global" if d > 64 else "resident"
+    assert kernels.regime_counts("fused_tail_fwd") == {regime: 1}
+    assert kernels.regime_counts("fused_tail_bwd") == {regime: 2}
 
 
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
 def test_fused_tail_takes_t_up_to_its_smem_limit(which):
-    """At H = D = 20, Q = 200 the longest row that fits in shared memory,
-    one position more (the kernels then keep the row in a global scratch)
-    and T = 512 (the user encoder over a long history) all agree with the
-    plain version."""
+    """At H = D = 20, Q = 200 the longest row the per-row kernel once held
+    in shared memory (T = 86 in the forward, 85 in the backward), one
+    position more (where it kept the row in a global scratch) and T = 512
+    (the user encoder over a long history) all agree with the plain
+    version, and all run in the tiled regime now."""
     src = f"fused_tail_{which}"
-    fn = (f"{src}_scratch_floats" if which == "fwd"
-          else "fused_tail_bwd_stage_floats")
-    t_max = max(t for t in range(1, 200)
-                if kernels.size_of(src, fn, t, 20, 20, 200) == 0)
-    assert t_max == (86 if which == "fwd" else 85)
+    t_max = 86 if which == "fwd" else 85
     seed = torch.zeros(1, dtype=torch.int32, device="cuda")
     for t in (t_max, t_max + 1, 512):
         qkv, mask, pool, g = _tail_inputs(3, t, 20, 20, 200, "float32",
                                           seed=10)
         args = (qkv, mask, *pool, seed, 20, 0.0, True)
+        kernels.reset_launch_counts()
         if which == "fwd":
             got = fe.fused_tail_fwd(*args)
             want = fe.fused_tail_fwd_reference(*args)
@@ -944,19 +946,22 @@ def test_fused_tail_takes_t_up_to_its_smem_limit(which):
             want = fe.fused_tail_bwd_reference(*args[:7], g, *args[7:])[0]
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    **BWD_TOL["float32"], err_msg=f"T={t}")
+        assert kernels.regime_counts(src) == {"tiled": 1}, t
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("t", [512, 1000])
 def test_fused_tail_takes_long_rows(t, dtype):
     """Rows 13-14 at T = 512 and 1000 with dropout on, masked, against
-    their plain versions; row 14's attention part runs on tensor cores in
+    their plain versions, in the tiled regime (at 1000 its sub-tile of 16
+    queries); row 14's attention part runs on tensor cores in
     bf16 and, past T = 599 in f32, in global slots. The pooling gradients
     are held as in test_fused_tail_kernels_match_plain, and two runs give
     the same bits."""
     qkv, mask, pool, g = _tail_inputs(4, t, 20, 20, 200, dtype, seed=11)
     seed = torch.tensor([77], dtype=torch.int32, device="cuda")
     args = (qkv, mask, *pool, seed, 20, 0.2, False)
+    kernels.reset_launch_counts()
     out = fe.fused_tail_fwd(*args)
     grads = fe.fused_tail_bwd(*args[:7], g, *args[7:])
     again = fe.fused_tail_bwd(*args[:7], g, *args[7:])
@@ -974,6 +979,8 @@ def test_fused_tail_takes_long_rows(t, dtype):
                                    **tol)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
     assert (out[::3] == 0).all() and (grads[0][::3] == 0).all()
+    assert kernels.regime_counts("fused_tail_fwd") == {"tiled": 1}
+    assert kernels.regime_counts("fused_tail_bwd") == {"tiled": 2}
 
 
 def test_fused_tail_raises_on_what_it_does_not_take():
@@ -1151,11 +1158,76 @@ def test_fused_tail_f32_keeps_its_bits(key):
     assert kernels.regime_counts("fused_tail_bwd") == {"resident": 1}
 
 
+# Rows 13-14 in f32 past T = 64 before the tiled regime (the per-row
+# kernels, "global" at these T), on an H100 80GB HBM3: hashes of (out,
+# dqkv, dw1, db1, dw2, db2) on _tail_inputs(N, T, 20, 20, 200, "float32",
+# seed=11) with the dropout seed 77, by (N, T, masked, dropout).
+TAIL_TILED_PINNED = {
+    (4, 512, True, True): (
+        'dcf2f1b2d4e8138f', '88937b6a7a77d999', '229982d8db17c09b',
+        'ad0fb76b8ef5e397', '9283b01778deb856', '17042b76c512b7df'),
+    (3, 87, False, False): (
+        'fd986ce9eef473e5', '5933d2399ed29f27', 'e463c1fc9caf98ae',
+        '6c06b38c2b8e4261', '8c4962a3f0889aa1', '22a372ac110e7e47'),
+    (32, 1000, False, False): (
+        'ea90a28f4936c74b', '16fc263f1589dd87', 'e4ee258e23446d09',
+        'd05bc271855380ce', '9d7e7a6164d9f62b', '1d1b9fc04f79e497'),
+}
+
+
+@pytest.mark.parametrize("key", list(TAIL_TILED_PINNED))
+def test_fused_tail_tiled_keeps_its_bits(key):
+    """In f32 the tiled regime sums every product in the per-row kernels'
+    order (the scores over d, p V over the keys, fc1 and d_z w1^T in k
+    order, out and the row sums over the positions) and reduces as they
+    do: out, dqkv and the pooling gradients equal the pinned run of the
+    per-row kernels bit for bit, each launch in the tiled regime."""
+    n, t, masked, dropout = key
+    qkv, mask, pool, g = _tail_inputs(n, t, 20, 20, 200, "float32", seed=11)
+    seed = torch.tensor([77], dtype=torch.int32, device="cuda")
+    args = (qkv, mask if masked else None, *pool, seed, 20, 0.2,
+            not dropout)
+    kernels.reset_launch_counts()
+    got = [fe.fused_tail_fwd(*args)]
+    got += fe.fused_tail_bwd(*args[:7], g, *args[7:])
+    assert tuple(_hash(x) for x in got) == TAIL_TILED_PINNED[key]
+    assert kernels.regime_counts("fused_tail_fwd") == {"tiled": 1}
+    assert kernels.regime_counts("fused_tail_bwd") == {"tiled": 1}
+
+
+# The per-row kernels' counts of bf16 elements of (out, dqkv) that differ
+# from the plain versions, on chip_smoke.py's kernel-fused-tail-long inputs
+# (masked, dropout 0.2; the phase's seeds 10 and 11), on an H100 80GB HBM3.
+TAIL_LONG_BF16_DIFFER = {(128, 87, 10): (2, 12828),
+                         (128, 512, 11): (154, 1961657)}
+
+
+@pytest.mark.parametrize("key", list(TAIL_LONG_BF16_DIFFER))
+def test_fused_tail_tiled_bf16_differs_no_more(key):
+    """In bf16 the tiled regime's out and dqkv differ from the plain
+    versions in no more elements than the per-row kernels' did on the
+    smoke's long cases."""
+    import chip_smoke
+
+    n, t, seed = key
+    qkv, mask, pool, g = chip_smoke.tail_inputs(n, t, 20, 20, 200,
+                                                "bfloat16", True, seed)
+    sd = torch.tensor([1234567 + seed], dtype=torch.int32, device="cuda")
+    args = (qkv, mask, *pool, sd, 20, 0.2, False)
+    bargs = (*args[:7], g, *args[7:])
+    out, dqkv = fe.fused_tail_fwd(*args), fe.fused_tail_bwd(*bargs)[0]
+    ref, ref_d = (fe.fused_tail_fwd_reference(*args),
+                  fe.fused_tail_bwd_reference(*bargs)[0])
+    counts = (int((out != ref).sum()), int((dqkv != ref_d).sum()))
+    assert all(c <= w for c, w in zip(counts, TAIL_LONG_BF16_DIFFER[key])), (
+        counts)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("t", [64, 65])
 def test_fused_tail_both_sides_of_the_resident_regime(dtype, t):
     """Rows 13-14 at (128, 64), the resident regime's longest row, and
-    (128, 65), the per-row kernels in shared memory, masked, dropout on,
+    (128, 65), the tiled regime's shortest, masked, dropout on,
     against their plain versions, each launch counted in its regime."""
     qkv, mask, pool, g = _tail_inputs(128, t, 20, 20, 200, dtype, seed=12)
     seed = torch.tensor([991], dtype=torch.int32, device="cuda")
@@ -1178,20 +1250,24 @@ def test_fused_tail_both_sides_of_the_resident_regime(dtype, t):
                                    **tol)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
     assert (out[::3] == 0).all() and (grads[0][::3] == 0).all()
-    regime = "resident" if t <= 64 else "shared"
+    regime = "resident" if t <= 64 else "tiled"
     assert kernels.regime_counts("fused_tail_fwd") == {regime: 1}
     assert kernels.regime_counts("fused_tail_bwd") == {regime: 2}
 
 
 def test_tail_launch_plan_matches_the_kernels():
-    """tail_launch_plan's regime and resident shared bytes are the C
-    side's (fused_tail_*_regime, fused_tail_*_smem_bytes) at T up to 90
-    in both dtypes, and a launch in another regime than the shape's is
-    refused."""
+    """tail_launch_plan's regime, resident shared bytes, tiled attention
+    block bytes and tiled row scratch are the C side's
+    (fused_tail_*_regime, fused_tail_*_smem_bytes,
+    fused_tail_tiled_smem_bytes, fused_tail_*_row_floats) at T up to 90
+    and across the tiled sub-tiles' and regime's ends in both dtypes, and
+    a launch in another regime than the shape's, or with a sub-tile that
+    does not fit or is not 16, 32 or 64, is refused."""
     for kind in ("fwd", "bwd"):
         src = f"fused_tail_{kind}"
         for dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
-            for t in (1, 5, 20, 50, 63, 64, 65, 85, 86, 87, 90):
+            for t in (1, 5, 20, 50, 63, 64, 65, 85, 86, 87, 90, 512, 513,
+                      1024, 1025):
                 for heads, d in ((20, 20), (2, 33), (3, 64), (1, 65)):
                     want = kernels.size_of(src, f"{src}_regime", t, heads,
                                            d, 200, size)
@@ -1202,17 +1278,43 @@ def test_tail_launch_plan_matches_the_kernels():
                         assert plan.smem == kernels.size_of(
                             src, f"{src}_smem_bytes", t, heads, d, 200,
                             size, plan.heads, plan.nbuf)
+                    floats = kernels.size_of(src, f"{src}_row_floats", t,
+                                             heads, d, 200, size)
+                    if plan.regime == "tiled":
+                        assert plan.smem == kernels.size_of(
+                            "fused_tail_fwd", "fused_tail_tiled_smem_bytes",
+                            t, d, plan.tile)
+                        # the f32 context and the scores; the scores (then
+                        # alpha) and d_alpha
+                        assert floats == (t * (heads * d + 1)
+                                          if kind == "fwd" else 2 * t)
+                    else:
+                        assert floats == 0
     qkv, mask, pool, g = _tail_inputs(4, 20, 2, 4, 5, "float32")
     seed = torch.zeros(1, dtype=torch.int32, device="cuda")
     args = (qkv, None, *pool, seed, 2, 0.0, True)
-    shared = fe.TailPlan("shared")
     real = fe.tail_launch_plan
-    fe.tail_launch_plan = lambda *a, **k: shared
     try:
-        with pytest.raises(RuntimeError, match="launch failed"):
-            fe.fused_tail_fwd(*args)
-        with pytest.raises(RuntimeError, match="launch failed"):
-            fe.fused_tail_bwd(*args[:7], g, *args[7:])
+        for plan in (fe.TailPlan("global"), fe.TailPlan("tiled", tile=64)):
+            fe.tail_launch_plan = lambda *a, **k: plan
+            with pytest.raises(RuntimeError, match="launch failed"):
+                fe.fused_tail_fwd(*args)
+            with pytest.raises(RuntimeError, match="launch failed"):
+                fe.fused_tail_bwd(*args[:7], g, *args[7:])
+        qkv, mask, pool, g = _tail_inputs(4, 600, 2, 20, 5, "float32")
+        args = (qkv, None, *pool, seed, 2, 0.0, True)
+        assert real("fwd", 4, 600, 2, 20, 5, torch.float32).tile == 32
+        # 48 fits the block at T = 600 (fe.tiled_smem) but is not a
+        # sub-tile the kernels take
+        assert fe.tiled_smem(600, 20, 48) <= kernels.MAX_SMEM
+        for plan in (fe.TailPlan("tiled", tile=64),
+                     fe.TailPlan("tiled", tile=24),
+                     fe.TailPlan("tiled", tile=48)):
+            fe.tail_launch_plan = lambda *a, **k: plan
+            with pytest.raises(RuntimeError, match="launch failed"):
+                fe.fused_tail_fwd(*args)
+            with pytest.raises(RuntimeError, match="launch failed"):
+                fe.fused_tail_bwd(*args[:7], g, *args[7:])
     finally:
         fe.tail_launch_plan = real
 
@@ -1960,7 +2062,8 @@ def _tail_f64(qkv, mask, w1, b1, w2, b2, g, heads):
 def test_fused_tail_takes_t_5000_and_7000(dtype, t, heads, scaled):
     """Rows 13-14 at T = 5000 (past the 4470 row 4's tiled kernel once
     held) and at T = 7000 (past the rows the tail kept in shared memory,
-    6456 forward and 5771 backward; 4 heads keep the plain version small):
+    6456 forward and 5771 backward; 4 heads keep the plain version small),
+    both past the tiled regime, so in the global one:
     row 14's attention part on tensor cores in bf16, in global slots in
     f32; masked, dropout off; the pooled output, dqkv and the pooling
     gradients against the plain versions. Averaged over thousands of
@@ -1980,6 +2083,7 @@ def test_fused_tail_takes_t_5000_and_7000(dtype, t, heads, scaled):
         qkv = x.to(qkv.dtype)
     seed = torch.zeros(1, dtype=torch.int32, device="cuda")
     args = (qkv, mask, *pool, seed, heads, 0.0, True)
+    kernels.reset_launch_counts()
     out = fe.fused_tail_fwd(*args)
     grads = fe.fused_tail_bwd(*args[:7], g, *args[7:])
     ref = fe.fused_tail_fwd_reference(*args)
@@ -2004,6 +2108,10 @@ def test_fused_tail_takes_t_5000_and_7000(dtype, t, heads, scaled):
     for got, want in zip(grads[1:], wants):
         np.testing.assert_allclose(got.double().cpu().numpy(),
                                    want.double().cpu().numpy(), **tol)
+    # past the T (1024 at 20 wide heads) whose K, V and probs fit a tiled
+    # block, the per-row kernel with its rows in global memory
+    assert kernels.regime_counts("fused_tail_fwd") == {"global": 1}
+    assert kernels.regime_counts("fused_tail_bwd") == {"global": 1}
 
 
 @pytest.mark.parametrize("masked", [False, True])

@@ -290,8 +290,8 @@ def test_launches_are_counted_per_regime(fake_launch, t, dtype, regime):
      {"qkv_fwd_probs": {"resident": 12}, "qkv_bwd_probs": {"resident": 12},
       "flash_fwd": {"cuda_core": 12}, "flash_bwd": {"cuda_core": 12}}),
     ({"user_log_length": 512, "fused_tail": "on"},
-     {"fused_tail_fwd": {"resident": 12, "global": 12},
-      "fused_tail_bwd": {"resident": 12, "global": 12}}),
+     {"fused_tail_fwd": {"resident": 12, "tiled": 12},
+      "fused_tail_bwd": {"resident": 12, "tiled": 12}}),
     ({"user_log_length": 300, "compute_dtype": "float32"},
      {"qkv_fwd_probs": {"resident": 12, "tiled": 12},
       "qkv_bwd_probs": {"resident": 12, "tiled": 12}}),
@@ -304,7 +304,7 @@ def test_smoke_expects_each_encoders_regime(overrides, want):
     encoder on the flash route (512 news), where rows 9-10 take it in
     blockwise.launch_plan's regime (tensor cores in bf16, CUDA cores in
     f32), none where rows 15-16 take both; with the fused tail rows 13-14
-    in their tail_launch_plan's regimes (resident at 20 words, global at
+    in their tail_launch_plan's regimes (resident at 20 words, tiled at
     512 news)."""
     import chip_smoke
 

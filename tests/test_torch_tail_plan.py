@@ -1,8 +1,9 @@
 """Rows 13-14 (the fused encoder tail) on the CPU: the launch plan
 (``experimental_fused_encoder.tail_launch_plan``: the regime by T, D and
 the dtype; the resident plan's heads, rows, buffers, blocks and shared
-bytes; the walk of items over rows), and what the wrappers hand the C
-entry points and how they count the launch, in each regime.
+bytes; the walk of items over rows; the tiled regime's sub-tile and block
+bytes), and what the wrappers hand the C entry points and how they count
+the launch, in each regime.
 
 The kernels themselves run on the card: tests/test_torch_kernel_gpu.py and
 chip_smoke.py hold them to the plain versions there, and hold the plan's
@@ -39,34 +40,35 @@ def _itemsize(dtype):
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("t, fwd, bwd", [
     (1, "resident", "resident"), (20, "resident", "resident"),
-    (64, "resident", "resident"), (65, "shared", "shared"),
-    (85, "shared", "shared"), (86, "shared", "global"),
-    (87, "global", "global"), (512, "global", "global")])
+    (64, "resident", "resident"), (65, "tiled", "tiled"),
+    (85, "tiled", "tiled"), (86, "tiled", "tiled"),
+    (87, "tiled", "tiled"), (512, "tiled", "tiled")])
 def test_regime_by_t_and_dtype(t, fwd, bwd, dtype):
     """At 20 heads of 20, Q = 200: resident up to T = 64 in both dtypes;
-    past it the per-row kernels, in shared memory up to T = 86 in the
-    forward and 85 in the backward, then with their rows in global
-    memory. The plan carries a resident launch only in that regime, and
-    four ints for the C entry points (the regime's index, then zeros past
-    the resident regime)."""
+    past it tiled in both directions, across the T = 86 / 85 where the
+    per-row kernels once left shared memory. The plan carries a resident
+    launch only in that regime and a sub-tile only in the tiled one, and
+    five ints for the C entry points (the regime's index, the resident
+    plan, the sub-tile; zeros outside their regimes)."""
     for kind, regime in (("fwd", fwd), ("bwd", bwd)):
         plan = fe.tail_launch_plan(kind, 64, t, 20, 20, 200, dtype, SMS)
         assert plan.regime == regime == fe.tail_regime(
             kind, t, 20, 20, 200, _itemsize(dtype))
         args = plan.args()
-        assert len(args) == 4 and args[0] == fe.TAIL_REGIMES.index(regime)
-        assert (args[1:] == (0,) * 3) == (regime != "resident")
+        assert len(args) == 5 and args[0] == fe.TAIL_REGIMES.index(regime)
+        assert (args[1:4] == (0,) * 3) == (regime != "resident")
+        assert (args[4] != 0) == (regime == "tiled")
         assert (plan.attn is not None) == (regime == "resident"
                                            and kind == "bwd" and dtype == BF16)
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("heads, d, regime", [
-    (20, 64, "resident"), (3, 64, "resident"), (2, 65, "shared"),
-    (1, 200, "shared")])
+    (20, 64, "resident"), (3, 64, "resident"), (2, 65, "global"),
+    (1, 200, "global")])
 def test_heads_past_64_leave_the_resident_regime(heads, d, regime, dtype):
     """Row 15's per-query pass holds heads of up to 64; wider heads take
-    the per-row kernels at any T."""
+    the per-row kernels ("global") at any T."""
     for kind in ("fwd", "bwd"):
         assert fe.tail_launch_plan(kind, 8, 20, heads, d, 200, dtype,
                                    SMS).regime == regime
@@ -165,6 +167,52 @@ def test_plan_is_a_function_of_the_shapes_and_the_card():
     assert other.blocks < first.blocks
 
 
+# The tiled regime's sub-tile by T at 20 heads of 20: the largest of 64,
+# 32, 16 whose attention block fits 232,448 bytes; past T = 1024 none does
+# and the per-row kernel takes the rows from global memory.
+TILED_M = {65: 64, 512: 64, 1000: 16, 7000: 0}
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("n", [1, 128])
+@pytest.mark.parametrize("t", [65, 512, 1000, 7000])
+def test_tiled_grid_and_scratch(t, n, dtype):
+    """The tiled plan at T = 65, 512, 1000 (the sub-tile falls as the
+    head's K and V fill the block) and 7000 (global: no sub-tile, the
+    per-row kernel's slots). Tiled: the attention block's bytes are the
+    layout's, within a block, and a larger sub-tile would not fit; the
+    pooling block fits; the C entry points get the sub-tile. The grids and
+    the row scratch are the C side's (tests/test_torch_kernel_gpu.py holds
+    the scratch sizes there)."""
+    heads, d, q = 20, 20, 200
+    hd = heads * d
+    for kind in ("fwd", "bwd"):
+        plan = fe.tail_launch_plan(kind, n, t, heads, d, q, dtype, SMS)
+        m = TILED_M[t]
+        assert plan.tile == m == fe.tile_m(t, d)
+        if not m:
+            assert plan.regime == "global" and plan.args()[4] == 0
+            continue
+        assert plan.regime == "tiled"
+        assert plan.smem == fe.tiled_smem(t, d, m) <= kernels.MAX_SMEM
+        assert m == 64 or fe.tiled_smem(t, d, 2 * m) > kernels.MAX_SMEM
+        assert fe.pool_smem(hd, q) <= kernels.MAX_SMEM
+        assert plan.args() == (fe.TAIL_REGIMES.index("tiled"), 0, 0, 0, m)
+
+
+@pytest.mark.parametrize("t", [65, 300, 512, 541, 1000])
+def test_tiled_plan_is_a_function_of_the_shapes(t):
+    """The tiled plan depends on T and the head width alone: the same at
+    any N, SM count and dtype, computed afresh or cached."""
+    first = fe.tail_launch_plan("bwd", 128, t, 20, 20, 200, BF16, SMS)
+    fe.tail_launch_plan.cache_clear()
+    for kind in ("fwd", "bwd"):
+        for n, sms, dtype in ((128, SMS, BF16), (1, SMS, F32),
+                              (7040, 66, BF16), (64, 132, F32)):
+            assert fe.tail_launch_plan(kind, n, t, 20, 20, 200, dtype,
+                                       sms) == first
+
+
 @pytest.mark.parametrize("t", [20])
 def test_plan_raises_on_other_dtypes(t):
     with pytest.raises(TypeError, match="not supported"):
@@ -172,20 +220,25 @@ def test_plan_raises_on_other_dtypes(t):
 
 
 @pytest.mark.parametrize("t, dtype, regime", [
-    (20, BF16, "resident"), (20, F32, "resident"), (65, F32, "shared"),
+    (20, BF16, "resident"), (20, F32, "resident"), (65, F32, "tiled"),
     (1600, BF16, "global")])
 def test_wrappers_launch_the_plan_and_count_its_regime(fake_launch,
                                                        monkeypatch, t, dtype,
                                                        regime):
-    """Rows 13 and 14 hand the C entry points the regime's index and the
-    resident plan (zeros past it); row 13 a global scratch only in the
-    global regime; row 14,
-    resident in bf16, row 16's plan and no zero bias, no stage and no row 4
-    plan; in f32 and past it, row 4's plan, and a zero bias only where
-    row 4's regime is not "resident" (whose kernels take no bias). Each
-    launch counts under its variant and its regime."""
+    """Rows 13 and 14 hand the C entry points the regime's index, the
+    resident plan and the tiled sub-tile (zeros outside their regimes);
+    row 13 a scratch only in the global regime (its slots) and the tiled
+    one (a row's context and scores each); row 14, resident in bf16, row
+    16's plan and no zero bias, no stage and no row 4 plan; in f32 and
+    past it, row 4's plan, and a zero bias only where row 4's regime is
+    not "resident" (whose kernels take no bias); tiled, a stage of a row's
+    scores and d_alpha each. The row scratch's sizes come from the C size
+    functions. Each launch counts under its variant and its regime."""
     monkeypatch.setattr(fe, "_n_splits", lambda *a: 3)
-    n, heads, d, q = 2, 2, 4, 5
+    sized = []
+    monkeypatch.setattr(kernels, "rows_scratch",
+                        lambda *a: sized.append(a) or torch.zeros((a[2], 1)))
+    n, heads, d, q = 2, 2, 20, 5  # heads of 20: T = 1600 is past "tiled"
     hd = heads * d
     qkv = torch.zeros((n, t, 3 * hd), dtype=dtype)
     mask = torch.ones((n, t))
@@ -203,22 +256,31 @@ def test_wrappers_launch_the_plan_and_count_its_regime(fake_launch,
     assert fwd.regime == bwd.regime == regime
     calls = list(fake_launch)
     assert len(calls) == 4
-    for args in calls[0::2]:  # row 13: 9 pointers, then 11 ints
+    for args in calls[0::2]:  # row 13: 9 pointers, then 12 ints
         assert args[9:14] == (n, t, heads, d, q)
-        assert args[14:18] == fwd.args()
-        assert (args[8] is None) == (regime != "global")
-        assert args[18] == (1 if regime == "global" else 0)
-    for args in calls[1::2]:  # row 14: 23 pointers, then 22 ints
+        assert args[14:19] == fwd.args()
+        assert (args[8] is None) == (regime not in ("global", "tiled"))
+        assert args[19] == (1 if regime == "global" else 0)
+    for args in calls[1::2]:  # row 14: 23 pointers, then 23 ints
         ints = args[23:]
         assert ints[:6] == (n, t, heads, d, q, 3)
-        assert ints[14:18] == bwd.args()
-        assert ints[18:21] == bwd.attn_args()
+        assert ints[14:19] == bwd.args()
+        assert ints[19:22] == bwd.attn_args()
         row16 = regime == "resident" and dtype == BF16
         row4 = fa.bwd_launch_plan(n, t, heads, d, dtype, SMS)
         # the zero bias of row 4
         assert (args[9] is None) == (row16 or row4.regime == "resident")
         assert ints[8:14] == ((0,) * 6 if row16 else row4.args())
-        assert (ints[18:21] != (0, 0, 0)) == row16
+        assert (ints[19:22] != (0, 0, 0)) == row16
+        if regime == "tiled":  # the rows' scores and d_alpha, no slots
+            assert args[20] is not None and ints[6] == 0
+    itemsize = _itemsize(dtype)
+    want = ([("fused_tail_fwd", "fused_tail_fwd_row_floats"),
+             ("fused_tail_bwd", "fused_tail_bwd_row_floats")] * 2
+            if regime == "tiled" else [])
+    assert [a[:2] for a in sized] == want
+    assert all(a[2] == n and a[4:] == (t, heads, d, q, itemsize)
+               for a in sized)
     assert kernels.launch_counts("fused_tail_fwd") == {"tail": 1,
                                                        "tail_masked": 1}
     assert kernels.launch_counts("fused_tail_bwd") == {"tail_bwd": 1,
